@@ -1,0 +1,37 @@
+"""Public entry points for the port's shuffle kernels.
+
+``use_kernel=True`` (the default) goes through the wrappers, which dispatch
+by the tensor's device: a CUDA tensor launches the hand-written kernel, a
+CPU tensor takes the plain PyTorch version.  ``use_kernel=False`` calls the
+plain version directly on any device (the yardstick the kernels are held
+against on the card).
+"""
+from __future__ import annotations
+
+from . import ref
+from .combine import segment_combine
+from .fold import segmented_fold as segmented_fold_kernel
+from .partition import partition_permute
+
+
+def part(slots, vals, *, num_out, unique_slots=False, use_kernel=True):
+    if use_kernel:
+        return partition_permute(slots, vals, num_out=num_out,
+                                 unique_slots=unique_slots)
+    return ref.partition_permute_ref(slots, vals, num_out=num_out)
+
+
+def combine(seg_ids, vals, *, num_segments, use_kernel=True):
+    if use_kernel:
+        return segment_combine(seg_ids, vals, num_segments=num_segments)
+    return ref.segment_combine_ref(seg_ids, vals, num_segments=num_segments)
+
+
+def segmented_fold(op, is_start, vals, *, use_kernel=True):
+    if use_kernel:
+        return segmented_fold_kernel(op, is_start, vals)
+    return ref.segmented_fold_ref(op, is_start, vals)
+
+
+__all__ = ["part", "combine", "segmented_fold", "partition_permute",
+           "segment_combine"]

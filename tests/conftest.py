@@ -3,6 +3,11 @@ the real (single) CPU device; only launch/dryrun.py forces 512 placeholders."""
 import numpy as np
 import pytest
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips on a host without one")
+
 from repro.core import (HASH_PART, SUM, Msgs, TeShuService, datacenter)
 
 
