@@ -2,28 +2,45 @@
 """Drive the PyTorch/CUDA port of TeShu on one NVIDIA card.
 
     python3 chip_smoke.py                    # the smoke run (one card)
-    python3 chip_smoke.py --profile DIR      # also trace one hit per template
+    python3 chip_smoke.py --profile DIR      # also trace one hit per template,
+                                             # the prefill and 4 decode steps
 
 Run from the root of a checkout.  It needs a CUDA device: without one it
 exits non-zero and prints no result.  In order it
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the three CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+2. builds the five CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together) and prints the build seconds;
-3. holds each kernel against its plain PyTorch version on the card at the
-   replay's shapes, and times kernel, plain version and the one-call library
-   yardstick (``index_add_``) with CUDA events (median of several launches);
-4. drives the port's main path, the cached-plan replay of the shuffle
+3. holds each kernel against its plain PyTorch version on the card at its
+   main path's shapes (and the attention kernels at their edge cases and at
+   one ``decode_32k`` layer, each element within its own bound of the plain
+   value; two planted faults, a dropped kv tile and a dropped decode split,
+   must fall outside it), and times kernel, plain version and the
+   one-call library yardstick (``index_add_``, or
+   ``scaled_dot_product_attention`` for the attention kernels) with CUDA
+   events (median of several launches);
+4. drives the shuffle's main path, the cached-plan replay of the shuffle
    service, at the paper-shaped 40-worker deployment: Zipf(0.9) keys over
    1M keys, 200k rows of width 8 per worker (8M rows, 576 MB), SUM on
-   ``network_aware`` and ``vanilla_push``: one miss, then hits.  The kernel
-   launch counters are zeroed just before the hits and read just after;
-   outputs are held against the port's own vectorized replay;
-5. prints the ``kernels`` JSON line, then the ``ok`` line last.
+   ``network_aware`` and ``vanilla_push``: one miss, then hits.  The shuffle
+   kernels' launch counters are zeroed just before the hits and read just
+   after; outputs are held against the port's own vectorized replay;
+5. drives the LM's serving path, ``repro_torch.launch.serve.serve`` on
+   Qwen2.5-14B at full width and depth (48 layers, bf16, random weights made
+   on the card from a seeded ``torch.Generator``): batch 4, 1,024-token
+   prompts, 32 greedy tokens.  Every launch counter is zeroed just before
+   and read just after: the prefill must launch the flash kernel once per
+   layer and every decode step the decode kernel once per layer.  The same
+   run with the plain versions, teacher-forced on the kernel run's tokens,
+   is the yardstick for its logits, and two control runs with faulty plain
+   attention (S and P rounded to bf16; the decode dropping its newest 32
+   positions, which must fail the logit check) show how far a wrong
+   attention moves them;
+6. prints the ``kernels`` JSON line, then the ``ok`` line last.
 
 The card's peaks used for the bounds are NVIDIA's H100 SXM data-sheet
-numbers: 3.35 TB/s of HBM3, 67 TFLOP/s float32 and 34 TFLOP/s float64
-outside the tensor cores.
+numbers: 3.35 TB/s of HBM3, 989 TFLOP/s bf16 on the tensor cores, 67
+TFLOP/s float32 and 34 TFLOP/s float64 outside them.
 """
 from __future__ import annotations
 
@@ -39,6 +56,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12
 U32 = 2.0 ** -24                     # float32 unit roundoff
@@ -52,6 +70,34 @@ HITS = 3
 TEMPLATES = ("network_aware", "vanilla_push")
 FOLD_MAX_SEG = 64                    # longest fold segment in the kernel phase
 
+SERVE_ARCH = "qwen2.5-14b"           # the serving slice: full width and depth
+SERVE = dict(batch=4, prompt_len=1024, gen_len=32, max_len=2048, seed=0)
+L2_BYTES = 50 * 2 ** 20
+HEAD_DIM = 128
+# the attention kernels against their plain versions: the serving shapes
+# (Qwen2.5-14B: 40 q heads over 8 kv heads, batch 4, the prefill's 1,024
+# tokens, the last decode step's 1,056 valid positions), edge cases, and
+# one layer at the repo's decode_32k shape (batch 128, T = 32,768)
+# "sharp scores" multiplies q by 4: scores of std 4, where rounding S to
+# bf16 moves the output far more than the flash kernel's rounding of P
+FLASH_CASES = [  # name, BHq, BHkv, Sq, Skv, causal, q dtype (k, v: bf16)
+    ("serving prefill", 160, 32, 1024, 1024, True, "bfloat16"),
+    ("Sq off the 64 tile", 40, 8, 1000, 1000, True, "bfloat16"),
+    ("Sq < Skv", 40, 8, 300, 1024, True, "bfloat16"),
+    ("non-causal", 40, 8, 512, 1024, False, "bfloat16"),
+    ("MQA (group = H)", 48, 1, 512, 512, True, "bfloat16"),
+    ("sharp scores", 40, 8, 1024, 1024, True, "bfloat16"),
+    ("float32 q, bf16 k/v", 40, 8, 256, 256, True, "float32")]
+DECODE_CASES = [  # name, B, H, KVH, T, valid_len, q dtype (cache: bf16)
+    ("serving decode", 4, 40, 8, 2048, 1056, "bfloat16"),
+    ("valid_len 1", 4, 40, 8, 2048, 1, "bfloat16"),
+    ("valid_len T", 4, 40, 8, 2048, 2048, "bfloat16"),
+    ("MQA (group = H)", 4, 48, 1, 2048, 1056, "bfloat16"),
+    ("sharp scores", 4, 40, 8, 2048, 1056, "bfloat16"),
+    ("float32 q, bf16 cache", 4, 40, 8, 2048, 1056, "float32"),
+    ("decode_32k layer", 128, 40, 8, 32768, 32768, "bfloat16")]
+SHARP = 4.0
+
 
 def log(*a) -> None:
     print(*a, flush=True)
@@ -61,15 +107,25 @@ def log(*a) -> None:
 # timing and bounds
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+def time_ms(fn, reps: int = 10, warmup: int = 2, flush=None,
+            spin: bool = False) -> float:
     """Median device time of ``fn`` in ms, one pair of CUDA events around
-    each call (inputs are hundreds of MB, past the 50 MB L2)."""
+    each call.  ``flush`` (outside the events) evicts the 50 MB L2 before
+    each call, for inputs that would otherwise stay cached between calls.
+    With ``spin`` the card first spins for about 2 ms, so that the host has
+    queued the call before the first event fires: a kernel of tens of
+    microseconds is otherwise timed with the host's launch latency in it
+    (the attention timings use it; the shuffle kernels' do not)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
+        if spin:
+            torch.cuda._sleep(2_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -276,6 +332,316 @@ def kernel_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 3b. attention kernels
+# ---------------------------------------------------------------------------
+
+ATTN_TOL = ("per element: 2^-7 |plain| + 2^-14 A (+ 2^-8 A where P is "
+            "rounded to bf16), A = the plain attention of |v|; float32 "
+            "out: 1e-5 (1 + |plain|)")
+
+
+def _held(got, plain, tol) -> tuple[float, float]:
+    """(largest |got - plain|, largest share of the bound it uses)."""
+    diff = (got.float() - plain.float()).abs()
+    return float(diff.max()), float((diff / tol).max())
+
+
+def _flash_work(q, k, causal: bool) -> tuple[float, float]:
+    """(bytes, operations) of one flash call on these shapes: every input
+    read once, the output written once; 4 * D operations (QK^T and PV)
+    for each query-key pair that the causal mask keeps."""
+    bhq, sq, d = q.shape
+    skv = k.shape[1]
+    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    if causal:
+        off = skv - sq
+        pairs = sum(min(skv, i + off + 1) for i in range(sq))
+    else:
+        pairs = sq * skv
+    return nbytes, 4.0 * d * pairs * bhq
+
+
+def _decode_work(q, k, valid: int) -> tuple[float, float]:
+    """(bytes, operations) of one decode call: q read and out written once,
+    and the cache's valid positions of K and V read once."""
+    b, h, d = q.shape
+    kvh = k.shape[2]
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * b * valid * kvh * d * k.element_size())
+    return nbytes, 4.0 * d * b * h * valid
+
+
+def attention_phase(dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(2)
+    scratch = torch.ones(2 * L2_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def flush():            # read, not write: no dirty lines to write back
+        scratch.sum()
+
+    def randn(shape, dtype=bf16):
+        return torch.randn(shape, dtype=dtype, device=dev, generator=gen)
+
+    rows = {}
+
+    # ---- flash: the serving prefill, then edge cases ----------------------
+    b, d = SERVE["batch"], HEAD_DIM
+    for name, bhq, bhkv, sq, skv, causal, qdt in FLASH_CASES:
+        q = randn((bhq, sq, d), getattr(torch, qdt))
+        if name == "sharp scores":
+            q = q * SHARP
+        k, v = randn((bhkv, skv, d)), randn((bhkv, skv, d))
+        got = flash_attention(q, k, v, causal=causal)
+        plain = ref.flash_attention_ref(q, k, v, causal=causal)
+        tol = ref.flash_attention_tolerance(q, k, v, plain, causal=causal)
+        err, share = _held(got, plain, tol)
+        assert got.dtype == q.dtype and bool(torch.isfinite(got).all())
+        assert share <= 1.0, f"flash {name}: {share} of the bound"
+        log(f"kernel flash {name} q={tuple(q.shape)} kv={tuple(k.shape)} "
+            f"causal={causal}: max_abs_err={err!r}, bound share {share!r}")
+        if name == "non-causal":
+            # planted fault: the same call with the last kv tile skipped
+            cut = flash_attention(q, k[:, :-64].contiguous(),
+                                  v[:, :-64].contiguous(), causal=False)
+            _, fshare = _held(cut, plain, tol)
+            log(f"kernel flash planted fault (last kv tile dropped): "
+                f"bound share {fshare!r}")
+            assert fshare > 1.0, "the flash check passes a dropped tile"
+        if name != "serving prefill":
+            continue
+        nbytes, ops = _flash_work(q, k, causal)
+        tb = bound(nbytes, ops, BF16_OPS_PER_S)
+        q4, k4, v4 = (x.view(b, -1, sq, d) for x in (q, k, v))
+        lib = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                             enable_gqa=True)
+        rows["flash_attention"] = dict(
+            max_abs_err=err, tolerance=ATTN_TOL, bound_share=share,
+            ms=time_ms(lambda: flash_attention(q, k, v, causal=True),
+                       spin=True),
+            plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                             causal=True),
+                             spin=True),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True, enable_gqa=True), spin=True),
+            bound_ms=tb[0], bound_by=tb[1],
+            sdpa_max_abs_diff=float((lib.reshape(q.shape).float()
+                                     - got.float()).abs().max()))
+        log(f"kernel flash serving prefill: {json.dumps(rows['flash_attention'])}")
+        del q4, k4, v4, lib
+    del q, k, v, got, plain, tol
+
+    # ---- decode: the serving step, edge cases, one decode_32k layer -------
+    for name, bb, hh, kk, tt, valid, qdt in DECODE_CASES:
+        q = randn((bb, hh, d), getattr(torch, qdt))
+        if name == "sharp scores":
+            q = q * SHARP
+        kc, vc = randn((bb, tt, kk, d)), randn((bb, tt, kk, d))
+        got = decode_attention(q, kc, vc, valid)
+        # the plain version on 16 sequences at most (at decode_32k its
+        # float32 copies of the whole cache would not fit beside it)
+        n = min(bb, 16)
+        kv = (kc[:n, :valid], vc[:n, :valid])
+        plain = ref.decode_attention_ref(q[:n], *kv, valid)
+        tol = ref.decode_attention_tolerance(q[:n], *kv, valid, plain)
+        err, share = _held(got[:n], plain, tol)
+        assert got.dtype == q.dtype and bool(torch.isfinite(got).all())
+        assert share <= 1.0, f"decode {name}: {share} of the bound"
+        log(f"kernel decode {name} q={tuple(q.shape)} cache={tuple(kc.shape)} "
+            f"valid_len={valid}: max_abs_err={err!r}, bound share {share!r}")
+        if name == "serving decode":
+            # planted fault: the last split (positions 1024..1055) dropped
+            cut = decode_attention(q, kc, vc, valid - 32)
+            _, fshare = _held(cut, plain, tol)
+            log(f"kernel decode planted fault (last split dropped): "
+                f"bound share {fshare!r}")
+            assert fshare > 1.0, "the decode check passes a dropped split"
+        if name in ("serving decode", "decode_32k layer"):
+            nbytes, ops = _decode_work(q, kc, valid)
+            tb = bound(nbytes, ops, BF16_OPS_PER_S)
+            row = dict(
+                max_abs_err=err, tolerance=ATTN_TOL, bound_share=share,
+                ms=time_ms(lambda: decode_attention(q, kc, vc, valid),
+                           flush=flush, spin=True),
+                bound_ms=tb[0], bound_by=tb[1], plain_ms=None, library_ms=None)
+            if name == "serving decode":
+                # not at decode_32k: the plain version's float32 copies of
+                # the cache, and SDPA's, may not fit beside it
+                q4 = q.view(bb, hh, 1, d)
+                k4 = kc[:, :valid].transpose(1, 2)
+                v4 = vc[:, :valid].transpose(1, 2)
+                row["plain_ms"] = time_ms(
+                    lambda: ref.decode_attention_ref(q, kc, vc, valid),
+                    flush=flush, spin=True)
+                row["library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, enable_gqa=True), flush=flush,
+                    spin=True)
+                rows["decode_attention"] = row
+            else:
+                rows["decode_attention_32k"] = row
+            log(f"kernel decode {name}: {json.dumps(row)}")
+        del q, kc, vc, got, plain, tol, kv
+    del scratch
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# 5. serve phase
+# ---------------------------------------------------------------------------
+
+# Logit tolerance of the serve phase, in bf16 steps at the largest logit.
+# The kernel run and the plain run are one bf16 network on one input; only
+# the attention differs, each output within about one bf16 step of the
+# other (the kernel phase's bound), and 48 layers carry those steps on.
+# On the H100 the correct runs read at most 5.5 steps (0.172 at a largest
+# logit of 7.5); the control whose decode drops its newest 32 positions
+# read 1.20 at its smallest nonzero step and 3.37 at its largest.  10 steps
+# (0.3125 there) lies between.  The control with S and P in bf16 read 0.1875,
+# within the correct runs' spread: the logits cannot tell that fault from a
+# correct kernel, so the kernel phase's sharp-score cases must.
+LOGIT_TOL_STEPS = 10
+MUST_FAIL_CONTROL = "decode drops its newest 32 positions"
+
+
+def _bf16_flash(q, k, v, *, causal=True, scale=None):
+    """A faulty plain flash for the control run: S and P rounded to bf16."""
+    import torch
+    bhq, sq, d = q.shape
+    g = bhq // k.shape[0]
+    k, v = (x.repeat_interleave(g, dim=0).bfloat16() for x in (k, v))
+    s = torch.einsum("bqd,bkd->bqk", q.bfloat16(), k) * (scale or d ** -0.5)
+    if causal:
+        mask = torch.ones((sq, k.shape[1]), dtype=torch.bool,
+                          device=q.device).tril(k.shape[1] - sq)
+        s = torch.where(mask[None], s, -1e30)
+    p = torch.softmax(s.float(), dim=-1).bfloat16()
+    return torch.einsum("bqk,bkd->bqd", p, v).to(q.dtype)
+
+
+def _bf16_decode(q, k, v, valid_len, *, scale=None):
+    """A faulty plain decode for the control run: S and P rounded to bf16."""
+    import torch
+    b, h, d = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, d).bfloat16()
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k.bfloat16()) * (scale or d ** -0.5)
+    s = torch.where(torch.arange(k.shape[1], device=q.device) < valid_len,
+                    s, -1e30)
+    p = torch.softmax(s.float(), dim=-1).bfloat16()
+    out = torch.einsum("bkgt,btkd->bkgd", p, v.bfloat16())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def _control_diffs(serve, kw, gen, plain_logits, flash, decode) -> list:
+    """Largest logit difference per step of a teacher-forced run on faulty
+    plain attention (``flash``, ``decode`` stand in for the plain versions)
+    against the plain run's logits."""
+    import torch
+
+    from repro_torch.kernels import ref
+    saved = ref.flash_attention_ref, ref.decode_attention_ref
+    ref.flash_attention_ref, ref.decode_attention_ref = flash, decode
+    try:
+        _, run = serve(SERVE_ARCH, use_kernel=False, forced=gen, **kw)
+    finally:
+        ref.flash_attention_ref, ref.decode_attention_ref = saved
+    logits = torch.stack(run.logits).float()
+    return (logits - plain_logits).abs().amax(dim=(1, 2)).tolist()
+
+
+def serve_phase(dev, profile_dir: Path | None) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS, ref
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=SERVE["seed"], device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"serve weights: {SERVE_ARCH} {cfg.n_layers} layers, {n_params} "
+        f"parameters ({cfg.num_params()} in its matrices; {w_bytes / 1e9:.2f} "
+        f"GB {cfg.dtype}), made on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    kw = dict(smoke=False, device=dev, params=params, **SERVE)
+    # warm cuBLAS and the kernels at the run's shapes (not counted)
+    serve(SERVE_ARCH, **dict(kw, gen_len=2))
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:                     # the serving path, counted alone
+        k.launches = 0
+    gen, stats = serve(SERVE_ARCH, **kw)
+    counts = {k.__name__: k.launches for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    want = {k.__name__: 0 for k in KERNELS}
+    want["flash_attention"] = cfg.n_layers                      # the prefill
+    want["decode_attention"] = cfg.n_layers * SERVE["gen_len"]   # the steps
+    assert counts == want, counts
+    logits = torch.stack(stats.logits).float()
+    assert gen.shape == (SERVE["batch"], SERVE["gen_len"])
+    assert logits.shape == (SERVE["gen_len"] + 1, SERVE["batch"], cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    assert ((gen >= 0) & (gen < cfg.vocab)).all()
+
+    # the yardstick: the plain versions, fed the kernel run's tokens
+    for k in KERNELS:
+        k.launches = 0
+    plain_gen, plain = serve(SERVE_ARCH, use_kernel=False, forced=gen, **kw)
+    assert all(k.launches == 0 for k in KERNELS)
+    plain_logits = torch.stack(plain.logits).float()
+    diffs = (logits - plain_logits).abs().amax(dim=(1, 2)).tolist()
+    top = float(logits.abs().max())
+    step = 2.0 ** (np.floor(np.log2(top)) - 7)         # bf16 step at |top|
+    tol = LOGIT_TOL_STEPS * step
+    first_agree = np.asarray(plain_gen[:, 0] == gen[:, 0]).tolist()
+    # the controls: how far a wrong attention moves the same logits
+    plain_decode = ref.decode_attention_ref
+    controls = {
+        "S and P in bf16": _control_diffs(serve, kw, gen, plain_logits,
+                                          _bf16_flash, _bf16_decode),
+        MUST_FAIL_CONTROL: _control_diffs(
+            serve, kw, gen, plain_logits, ref.flash_attention_ref,
+            lambda q, k, v, n, scale=None: plain_decode(q, k, v, n - 32))}
+    out = dict(
+        prefill_s=stats.prefill_s, decode_s=stats.decode_s,
+        decode_tokens_per_s=stats.tokens_per_s,
+        decode_step_ms=stats.decode_s / SERVE["gen_len"] * 1e3,
+        plain_prefill_s=plain.prefill_s,
+        plain_decode_tokens_per_s=plain.tokens_per_s,
+        peak_device_bytes=peak, launches=counts,
+        max_logit_diff_per_step=diffs, max_abs_logit=top,
+        logit_tol=tol, first_token_agrees=first_agree,
+        first_tokens=gen[:, 0].tolist(),
+        control_max_logit_diff={c: max(d) for c, d in controls.items()},
+        control_diff_per_step=controls)
+    log(f"serve {SERVE_ARCH} batch={SERVE['batch']} prompt={SERVE['prompt_len']} "
+        f"gen={SERVE['gen_len']}: {json.dumps(out)}")
+    assert all(first_agree), "first generated token differs from plain"
+    assert max(diffs) <= tol, f"logits differ from plain by {max(diffs)} > {tol}"
+    assert max(controls[MUST_FAIL_CONTROL]) > tol, \
+        f"control {MUST_FAIL_CONTROL!r} passes the logit check"
+    if profile_dir is not None:
+        _profile_serve(params, cfg, dev, profile_dir)
+    del params, stats, plain, logits, plain_logits
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 4. slice phase
 # ---------------------------------------------------------------------------
 
@@ -309,7 +675,7 @@ def slice_phase(dev, profile_dir: Path | None) -> dict:
 
     import repro_torch.core as port
     from repro_torch.core import torchplan
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import SHUFFLE_KERNELS
 
     topo = port.datacenter(4, 5, 2, intra_server_bw=12.5e9,
                            intra_rack_bw=1.25e9, oversubscription=10.0)
@@ -321,7 +687,7 @@ def slice_phase(dev, profile_dir: Path | None) -> dict:
         f"f64 ({sum(m.nbytes for m in bufs.values()) / 1e6:.0f} MB wire), "
         f"made in {time.perf_counter() - t0:.2f} s")
     rows_per_key, absum = _sum_bound(bufs, ws)
-    launches = {k.__name__: 0 for k in KERNELS}
+    launches = {k.__name__: 0 for k in SHUFFLE_KERNELS}
     out = {}
     for template in TEMPLATES:
         cl = port.TeShuCluster(topo, device=dev)       # executor="torch"
@@ -334,7 +700,7 @@ def slice_phase(dev, profile_dir: Path | None) -> dict:
         inputs = [copy_bufs(bufs) for _ in range(HITS)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for k in KERNELS:                 # the main path, counted alone
+        for k in SHUFFLE_KERNELS:         # the main path, counted alone
             k.launches = 0
         walls, hits = [], []
         for b in inputs:
@@ -342,7 +708,7 @@ def slice_phase(dev, profile_dir: Path | None) -> dict:
             hits.append(client.shuffle(template, b, ws, ws, comb_fn=port.SUM))
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        counts = {k.__name__: k.launches for k in KERNELS}
+        counts = {k.__name__: k.launches for k in SHUFFLE_KERNELS}
         peak = torch.cuda.max_memory_allocated()
         for k, c in counts.items():
             launches[k] += c
@@ -392,6 +758,67 @@ def slice_phase(dev, profile_dir: Path | None) -> dict:
     return out
 
 
+def _kernel_class(name: str) -> str:
+    if "flash_fwd" in name or "flash_mma" in name:
+        return "flash_attention"
+    if "decode_split" in name or "decode_combine" in name:
+        return "decode_attention"
+    if any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass", "gemv",
+                               "splitKreduce")):
+        return "matmul"
+    return "other"
+
+
+def _profile_serve(params, cfg, dev, profile_dir: Path) -> None:
+    """The prefill and four decode steps under torch.profiler: device time
+    by kernel class (attention kernels, matmuls, the rest) against wall."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+    b, s = SERVE["batch"], SERVE["prompt_len"]
+    prompts = np.random.default_rng(SERVE["seed"]).integers(0, cfg.vocab, (b, s))
+    tokens = torch.from_numpy(prompts.astype(np.int32)).to(dev)
+    cache = lm.init_cache(cfg, b, SERVE["max_len"], device=dev)
+    profile_dir.mkdir(parents=True, exist_ok=True)
+
+    def traced(tag, fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        (profile_dir / f"profile_serve_{tag}.txt").write_text(
+            prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
+        busy: dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and e.name not in (
+                    "Activity Buffer Request", "Command Buffer Full"):
+                c = _kernel_class(e.name)
+                busy[c] = busy.get(c, 0.0) + e.device_time_total / 1e3
+        log(f"profile serve {tag}: wall_ms={wall * 1e3!r} device_ms_by_class="
+            f"{json.dumps(busy)} idle_share="
+            f"{1 - sum(busy.values()) / (wall * 1e3)!r}")
+        return out
+
+    logits, _, _ = traced("prefill", lambda: lm.forward(params, tokens=tokens,
+                                                        cache=cache))
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    del logits
+
+    def steps():
+        t = tok
+        for _ in range(4):
+            out, _ = lm.serve_step(params, cache, tokens=t)
+            t = out[:, -1].argmax(-1).to(torch.int32)[:, None]
+        return t
+    traced("decode_4_steps", steps)
+
+
 def _profile_hit(client, template, bufs, ws, profile_dir: Path) -> None:
     """One more hit under torch.profiler: device time by kernel and host
     time by replay phase (the ``teshu.*`` ranges of torchplan)."""
@@ -433,6 +860,11 @@ def main() -> int:
     ap.add_argument("--profile", type=Path, default=None,
                     help="trace one hit per template into this directory")
     args = ap.parse_args()
+    t_start = time.perf_counter()
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}: "
+              f"run it from a checkout of the repo", file=sys.stderr)
+        return 2
     if not __debug__:
         sys.exit("chip_smoke.py checks its results with assert: run it "
                  "without -O")
@@ -459,16 +891,27 @@ def main() -> int:
 
     t0 = time.perf_counter()
     krows = kernel_phase(dev)
+    krows.update(attention_phase(dev))
     log(f"kernel phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     sl = slice_phase(dev, args.profile)
     log(f"slice phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    sv = serve_phase(dev, args.profile)
+    log(f"serve phase: {time.perf_counter() - t0:.2f} s")
+    launches = {**sl["launches"], "flash_attention":
+                sv["launches"]["flash_attention"], "decode_attention":
+                sv["launches"]["decode_attention"]}
 
     sources = {"partition_permute": ("partition.cu",
                                      "src/repro/kernels/partition.py:102"),
                "segment_combine": ("combine.cu",
                                    "src/repro/kernels/combine.py:93"),
-               "segmented_fold": ("fold.cu", "src/repro/core/jaxplan.py:326")}
+               "segmented_fold": ("fold.cu", "src/repro/core/jaxplan.py:326"),
+               "flash_attention": ("flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:80"),
+               "decode_attention": ("decode_attention.cu",
+                                    "src/repro/kernels/decode_attention.py:67")}
     line = []
     for k in KERNELS:
         r = krows[k.__name__]
@@ -476,11 +919,12 @@ def main() -> int:
         line.append({
             "name": k.__name__, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": replaces, "launches": sl["launches"][k.__name__],
+            "replaces": replaces, "launches": launches[k.__name__],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     assert all(e["launches"] > 0 for e in line)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.2f} s in all")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,33 @@
+"""qwen2.5-14b [dense] — GQA with QKV bias.
+
+48L d_model=5120 40H (GQA kv=8) d_ff=13824 vocab=152064 [hf:Qwen/Qwen2.5; hf]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-14b",
+    family="dense",
+    n_layers=48,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    d_head=128,
+    d_ff=13824,
+    vocab=152064,
+    qkv_bias=True,
+    rope_theta=1e6,
+)
+
+SMOKE = ModelConfig(
+    name="qwen2.5-14b-smoke",
+    family="dense",
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=2,
+    d_head=16,
+    d_ff=128,
+    vocab=256,
+    qkv_bias=True,     # keeps the bias path exercised
+    dtype="float32",
+    remat=False,
+)

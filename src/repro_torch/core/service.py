@@ -95,6 +95,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..device import check_device as _check_device
 from . import torchplan
 from .coscheduler import POLICIES, CoflowRequest, CoflowScheduler
 from .elastic import (BacklogPolicy, ElasticCoordinator, LoadMonitor,
@@ -154,19 +155,6 @@ def dst_load_imbalance(stats: dict, dsts) -> float | None:
     if len(loads) < 2 or sum(loads) <= 0:
         return None
     return imbalance(loads)
-
-
-def _check_device(device) -> torch.device:
-    """The torch executor's device; a CUDA device must exist (the port never
-    moves to the CPU unless the caller asks for it)."""
-    dev = torch.device(device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be a cuda or cpu device: {device}")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} but torch finds no CUDA device; pass "
-            "device='cpu' to run the port on the CPU")
-    return dev
 
 
 def _check_mode(name: str, value: str, allowed: tuple) -> str:

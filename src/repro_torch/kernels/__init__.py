@@ -1,11 +1,21 @@
 """Hand-written CUDA kernels of the port (sources in ``csrc/``), each with
-its plain PyTorch version in :mod:`.ref` and a launch counter on its wrapper:
-PART (:func:`partition_permute`), COMB for + (:func:`segment_combine`) and
-the ordered float64 segmented fold (:func:`segmented_fold`)."""
+its plain PyTorch version in :mod:`.ref` and a launch counter on its wrapper.
+
+The shuffle's replay runs PART (:func:`partition_permute`), COMB for +
+(:func:`segment_combine`) and the ordered float64 segmented fold
+(:func:`segmented_fold`); the LM's serving path runs prefill attention
+(:func:`flash_attention`) and decode attention (:func:`decode_attention`).
+"""
 from .combine import segment_combine
+from .decode_attention import decode_attention
+from .flash_attention import flash_attention
 from .fold import segmented_fold
 from .partition import partition_permute
 
-KERNELS = (partition_permute, segment_combine, segmented_fold)
+SHUFFLE_KERNELS = (partition_permute, segment_combine, segmented_fold)
+LM_KERNELS = (flash_attention, decode_attention)
+KERNELS = SHUFFLE_KERNELS + LM_KERNELS
 
-__all__ = ["KERNELS", "partition_permute", "segment_combine", "segmented_fold"]
+__all__ = ["KERNELS", "LM_KERNELS", "SHUFFLE_KERNELS", "decode_attention",
+           "flash_attention", "partition_permute", "segment_combine",
+           "segmented_fold"]

@@ -1,0 +1,596 @@
+// Prefill attention: out[BHq, Sq, D] = softmax(q k^T * scale) v, with an
+// online softmax over kv tiles.
+//
+// Replaces src/repro/kernels/flash_attention.py::flash_attention
+// (_flash_kernel): causal or not, GQA by reading kv row bh // group (no
+// replication), queries end-aligned with the keys (q_offset = Skv - Sq),
+// kv tiles strictly above the causal diagonal skipped, columns >= Skv masked
+// with -1e30 (not -inf, as the reference), and the final divide guarded
+// against l == 0.  q and k/v may each be float32 or bfloat16; scores, the
+// running (m, l) and the accumulator are float32; the output has q's dtype.
+//
+// What bounds it on an H100: operations.  At the serving prefill (batch 4,
+// 1,024 tokens, 40 q heads over 8 kv heads, D = 128, causal) one layer is
+// 43 GFLOP against 101 MB, so the card's bf16 tensor-core rate (989 TFLOP/s)
+// bounds it at about 43 us, above the 30 us its bytes take.
+//
+// Design: one block per (64-row query tile, bh), launched longest causal
+// rows first so that the short ones fill the tail; kv tiles of 64 rows.
+//
+// - bf16 q, k and v (the serving path): flash_mma, 4 warps of 16 query rows
+//   each, on the tensor cores with mma.sync m16n8k16 (bf16 in, float32
+//   accumulate).  K and V tiles arrive by cp.async in two stages (the next
+//   in flight while this one is used), rows padded by 16 bytes so that
+//   ldmatrix reads hit distinct banks.  S = Q K^T stays in registers; the
+//   online softmax runs on the accumulator fragments (row max and sum over
+//   the 4 lanes that share a row), and P, rounded to bf16, is fed straight
+//   back as the A operand of P V (the accumulator layout of two n-tiles is
+//   the A layout of one k-step).  The rounding of P is the one place this
+//   path departs from float32 math: at most 2^-9 of max|v| in the output.
+// - any float32 operand: flash_fwd, float32 FMAs on the CUDA cores.  256
+//   threads, the tiles staged in shared memory as float32 with rows padded
+//   to D + 4 floats; thread (ty, tx) of a 16 x 16 grid owns score rows
+//   ty + 16 i and columns tx + 16 j, P goes through shared memory for P V.
+//
+// wgmma and TMA are a later change.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kBQ = 64;          // query rows per block
+constexpr int kBK = 64;          // kv rows per tile
+constexpr int kThreads = 256;    // a 16 x 16 grid of (ty, tx)
+constexpr float kMasked = -1e30f;
+constexpr size_t kMaxSmem = 232448;   // what one H100 block may opt in to
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// 16 bytes of a row as float32: 4 float32 values or 8 bfloat16 values
+__device__ __forceinline__ void load16(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// rows [row0, row0 + 64) of a row-major [n, D] matrix into shared memory as
+// float32 with row stride D + 4; rows >= n become zeros
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, int n,
+                                          int row0, float* __restrict__ dst) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kChunks = D / kVec;
+  constexpr int kLd = D + 4;
+  for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads) {
+    const int r = idx / kChunks;
+    const int c = (idx % kChunks) * kVec;
+    const int row = row0 + r;
+    float vals[kVec];
+    if (row < n) {
+      load16(src + static_cast<int64_t>(row) * D + c, vals);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) vals[i] = 0.0f;
+    }
+    float* out = dst + r * kLd + c;
+#pragma unroll
+    for (int i = 0; i < kVec; i += 4)
+      *reinterpret_cast<float4*>(out + i) =
+          make_float4(vals[i], vals[i + 1], vals[i + 2], vals[i + 3]);
+  }
+}
+
+template <int D>
+__host__ __device__ constexpr int kp_floats() {      // the K tile, or P once the scores are in
+  return kBK * (D + 4) > kBQ * (kBK + 4) ? kBK * (D + 4) : kBQ * (kBK + 4);
+}
+
+template <int D>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(float) * (kBQ * (D + 4) + kp_floats<D>() + kBK * (D + 4));
+}
+
+template <typename TQ, typename TKV, int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k,
+          const TKV* __restrict__ v, TQ* __restrict__ out, int sq, int skv,
+          int group, float scale, int causal) {
+  constexpr int kLd = D + 4;
+  constexpr int kPLd = kBK + 4;
+  constexpr int kDC = D / 16;                 // output columns per thread
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);    // [kBQ][kLd]
+  float* ks = qs + kBQ * kLd;                     // [kBK][kLd]
+  float* ps = ks;                                 // [kBQ][kPLd], after S
+  float* vs = ks + kp_floats<D>();                // [kBK][kLd]
+
+  const int nq = (sq + kBQ - 1) / kBQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kBQ;
+  const int bh = blockIdx.y;
+  const int64_t kvh = bh / group;
+  const int q_offset = skv - sq;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+
+  const TQ* qb = q + static_cast<int64_t>(bh) * sq * D;
+  const TKV* kb = k + kvh * skv * D;
+  const TKV* vb = v + kvh * skv * D;
+  load_tile<TQ, D>(qb, sq, q0, qs);
+
+  int n_tiles = (skv + kBK - 1) / kBK;
+  if (causal) {   // the block's last real row sees columns <= last
+    const int last = min(q0 + kBQ, sq) - 1 + q_offset;
+    n_tiles = min(n_tiles, last / kBK + 1);
+  }
+
+  float m[4], l[4], acc[4][kDC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kMasked;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kDC; ++c) acc[i][c] = 0.0f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBK;
+    __syncthreads();                 // the last tile's P and V are consumed
+    load_tile<TKV, D>(kb, skv, k0, ks);
+    load_tile<TKV, D>(vb, skv, k0, vs);
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * kLd + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * kLd + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float a = s[i][j];
+          a = fmaf(qv[i].x, kv[j].x, a);
+          a = fmaf(qv[i].y, kv[j].y, a);
+          a = fmaf(qv[i].z, kv[j].z, a);
+          a = fmaf(qv[i].w, kv[j].w, a);
+          s[i][j] = a;
+        }
+    }
+
+    // mask, then the online-softmax update of each of the thread's 4 rows
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty + 16 * i + q_offset;    // absolute causal row
+      float mx = kMasked;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        float x = s[i][j] * scale;
+        if (col >= skv || (causal && col > row)) x = kMasked;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        sum += s[i][j];
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[i] = alpha * l[i] + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < kDC; ++c) acc[i][c] *= alpha;
+    }
+
+    __syncthreads();                 // every thread is done reading K
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        ps[(ty + 16 * i) * kPLd + tx + 16 * j] = s[i][j];
+    __syncthreads();
+
+#pragma unroll 2
+    for (int j = 0; j < kBK; j += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * kPLd + j);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float* vrow = vs + (j + jj) * kLd + tx * kDC;
+        float vv[kDC];
+        if constexpr (kDC % 4 == 0) {
+#pragma unroll
+          for (int c = 0; c < kDC; c += 4) {
+            const float4 f = *reinterpret_cast<const float4*>(vrow + c);
+            vv[c] = f.x; vv[c + 1] = f.y; vv[c + 2] = f.z; vv[c + 3] = f.w;
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < kDC; ++c) vv[c] = vrow[c];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = jj == 0 ? pv[i].x : jj == 1 ? pv[i].y
+                        : jj == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+          for (int c = 0; c < kDC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+        }
+      }
+    }
+  }
+
+  TQ* ob = out + static_cast<int64_t>(bh) * sq * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= sq) continue;
+    const float den = l[i] == 0.0f ? 1.0f : l[i];
+#pragma unroll
+    for (int c = 0; c < kDC; ++c)
+      store(ob + static_cast<int64_t>(row) * D + tx * kDC + c, acc[i][c] / den);
+  }
+}
+
+template <typename TQ, typename TKV, int D>
+int launch(const void* q, const void* k, const void* v, void* out,
+           int64_t bhq, int64_t sq, int64_t skv, int64_t group, float scale,
+           int causal, cudaStream_t st) {
+  static_assert(smem_bytes<D>() <= kMaxSmem, "tile too large");
+  auto kern = flash_fwd<TQ, TKV, D>;
+  static bool ready = false;   // per instantiation: allow > 48 KB once
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem_bytes<D>()));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready = true;
+  }
+  const dim3 grid(static_cast<unsigned>((sq + kBQ - 1) / kBQ),
+                  static_cast<unsigned>(bhq));
+  kern<<<grid, kThreads, smem_bytes<D>(), st>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), static_cast<TQ*>(out),
+      static_cast<int>(sq), static_cast<int>(skv), static_cast<int>(group),
+      scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// ---------------------------------------------------------------------------
+// bf16 tensor-core path
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 128;      // 4 warps x 16 query rows
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c (16 x 8, float32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+template <int D>
+__host__ __device__ constexpr size_t mma_smem_bytes() {   // Q, 2 x (K, V)
+  return sizeof(__nv_bfloat16) * 5 * 64 * (D + 8);
+}
+
+// rows [row0, row0 + 64) of a row-major bf16 [n, D] matrix into shared
+// memory (row stride D + 8) by cp.async; rows >= n become zeros
+template <int D>
+__device__ __forceinline__ void fetch_tile(const __nv_bfloat16* src, int n,
+                                           int row0, __nv_bfloat16* dst) {
+  constexpr int kUnits = D / 8;
+  for (int i = threadIdx.x; i < 64 * kUnits; i += kMmaThreads) {
+    const int r = i / kUnits;
+    const int c = (i % kUnits) * 8;
+    const bool ok = row0 + r < n;
+    cp_async16(dst + r * (D + 8) + c,
+               src + static_cast<int64_t>(ok ? row0 + r : 0) * D + c,
+               ok ? 16 : 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_mma(const __nv_bfloat16* __restrict__ q,
+          const __nv_bfloat16* __restrict__ k,
+          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+          int sq, int skv, int group, float scale, int causal) {
+  constexpr int kLd = D + 8;          // bf16 per shared row: an odd count
+                                      // of 16-byte units, no bank conflicts
+  constexpr int kKs = D / 16;         // k-steps of Q K^T
+  constexpr int kDt = D / 8;          // n-tiles of the output
+  extern __shared__ uint4 smem_u4[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_u4);  // [64][kLd]
+  __nv_bfloat16* kvs = qs + 64 * kLd;          // [2 stages][K, V][64][kLd]
+
+  const int nq = (sq + kBQ - 1) / kBQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kBQ;
+  const int bh = blockIdx.y;
+  const int64_t kvh = bh / group;
+  const int q_offset = skv - sq;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;           // the fragment row of this lane
+  const int tc = lane & 3;            // its column pair
+  const int lr = lane & 7;            // ldmatrix: row within a matrix
+  const int lm = lane >> 3;           // ldmatrix: which of the 4 matrices
+
+  const __nv_bfloat16* kb = k + kvh * skv * D;
+  const __nv_bfloat16* vb = v + kvh * skv * D;
+  int n_tiles = (skv + kBK - 1) / kBK;
+  if (causal) {
+    const int last = min(q0 + kBQ, sq) - 1 + q_offset;
+    n_tiles = min(n_tiles, last / kBK + 1);
+  }
+
+  fetch_tile<D>(q + static_cast<int64_t>(bh) * sq * D, sq, q0, qs);
+  fetch_tile<D>(kb, skv, 0, kvs);
+  fetch_tile<D>(vb, skv, 0, kvs + 64 * kLd);
+  cp_async_commit();
+
+  unsigned qf[kKs][4];
+  float o[kDt][4];
+#pragma unroll
+  for (int i = 0; i < kDt; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.0f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.0f, 0.0f};
+  const int row0 = q0 + warp * 16 + gr + q_offset;     // absolute causal rows
+  const int row1 = row0 + 8;                           // of this lane's two
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {     // its stage was released at the end of t - 1
+      __nv_bfloat16* nxt = kvs + (st ^ 1) * 2 * 64 * kLd;
+      fetch_tile<D>(kb, skv, (t + 1) * kBK, nxt);
+      fetch_tile<D>(vb, skv, (t + 1) * kBK, nxt + 64 * kLd);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kKs; ++kk)
+        ldsm_x4(qf[kk], qs + (warp * 16 + lr + 8 * (lm & 1)) * kLd
+                            + kk * 16 + 8 * (lm >> 1));
+    }
+    const __nv_bfloat16* ks = kvs + st * 2 * 64 * kLd;
+    const __nv_bfloat16* vs = ks + 64 * kLd;
+    const int k0 = t * kBK;
+
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kKs; ++kk) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned b[4];
+        ldsm_x4(b, ks + (16 * np + lr + 8 * (lm >> 1)) * kLd + kk * 16
+                       + 8 * (lm & 1));
+        mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    // mask, then the online softmax of the lane's two rows (e < 2: row0)
+    float mx[2] = {kMasked, kMasked};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + nt * 8 + 2 * tc + (e & 1);
+        const int row = e < 2 ? row0 : row1;
+        float x = s[nt][e] * scale;
+        if (col >= skv || (causal && col > row)) x = kMasked;
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      alpha[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+    }
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = expf(s[nt][e] - m[e >> 1]);
+        sum[e >> 1] += s[nt][e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l[h] = alpha[h] * l[h] + sum[h];
+    }
+#pragma unroll
+    for (int i = 0; i < kDt; ++i) {
+      o[i][0] *= alpha[0]; o[i][1] *= alpha[0];
+      o[i][2] *= alpha[1]; o[i][3] *= alpha[1];
+    }
+
+    // O += P V: two n-tiles of P are one k-step of the A operand
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned a[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                             pack_bf16(s[2 * j][2], s[2 * j][3]),
+                             pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                             pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < kDt / 2; ++dp) {
+        unsigned b[4];
+        ldsm_x4_trans(b, vs + (16 * j + lr + 8 * (lm & 1)) * kLd + 16 * dp
+                             + 8 * (lm >> 1));
+        mma_bf16(o[2 * dp], a, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();                  // stage st is free again
+  }
+
+  __nv_bfloat16* ob = out + static_cast<int64_t>(bh) * sq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + warp * 16 + gr + 8 * h;
+    if (row >= sq) continue;
+    const float den = l[h] == 0.0f ? 1.0f : l[h];
+#pragma unroll
+    for (int i = 0; i < kDt; ++i) {
+      const __nv_bfloat162 pair = __floats2bfloat162_rn(o[i][2 * h] / den,
+                                                        o[i][2 * h + 1] / den);
+      *reinterpret_cast<__nv_bfloat162*>(
+          ob + static_cast<int64_t>(row) * D + i * 8 + 2 * tc) = pair;
+    }
+  }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               int64_t bhq, int64_t sq, int64_t skv, int64_t group,
+               float scale, int causal, cudaStream_t st) {
+  static_assert(mma_smem_bytes<D>() <= kMaxSmem, "tile too large");
+  auto kern = flash_mma<D>;
+  static bool ready = false;   // per instantiation: allow > 48 KB once
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(mma_smem_bytes<D>()));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready = true;
+  }
+  const dim3 grid(static_cast<unsigned>((sq + kBQ - 1) / kBQ),
+                  static_cast<unsigned>(bhq));
+  kern<<<grid, kMmaThreads, mma_smem_bytes<D>(), st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<int>(sq), static_cast<int>(skv), static_cast<int>(group),
+      scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TQ, typename TKV>
+int by_dim(int64_t d, const void* q, const void* k, const void* v, void* out,
+           int64_t bhq, int64_t sq, int64_t skv, int64_t group, float scale,
+           int causal, cudaStream_t st) {
+  switch (d) {
+    case 16: return launch<TQ, TKV, 16>(q, k, v, out, bhq, sq, skv, group, scale, causal, st);
+    case 32: return launch<TQ, TKV, 32>(q, k, v, out, bhq, sq, skv, group, scale, causal, st);
+    case 64: return launch<TQ, TKV, 64>(q, k, v, out, bhq, sq, skv, group, scale, causal, st);
+    case 128: return launch<TQ, TKV, 128>(q, k, v, out, bhq, sq, skv, group, scale, causal, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// q [bhq, sq, d], k and v [bhkv, skv, d], out [bhq, sq, d], all contiguous
+// and 16-byte aligned; d in {16, 32, 64, 128}; dtypes 0 = float32,
+// 1 = bfloat16 (q_dtype is also the output's).  Returns a cudaError_t.
+extern "C" int teshu_flash_attention(const void* q, const void* k,
+                                     const void* v, void* out, int64_t bhq,
+                                     int64_t bhkv, int64_t sq, int64_t skv,
+                                     int64_t d, int q_dtype, int kv_dtype,
+                                     float scale, int causal, void* stream) {
+  if (bhkv <= 0 || bhq % bhkv != 0 || bhq > 65535 || sq <= 0 || skv <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int64_t group = bhq / bhkv;
+  if (q_dtype == 0 && kv_dtype == 0)
+    return by_dim<float, float>(d, q, k, v, out, bhq, sq, skv, group, scale, causal, st);
+  if (q_dtype == 0 && kv_dtype == 1)
+    return by_dim<float, __nv_bfloat16>(d, q, k, v, out, bhq, sq, skv, group, scale, causal, st);
+  if (q_dtype == 1 && kv_dtype == 0)
+    return by_dim<__nv_bfloat16, float>(d, q, k, v, out, bhq, sq, skv, group, scale, causal, st);
+  if (q_dtype == 1 && kv_dtype == 1) {     // all bf16: the tensor cores
+    switch (d) {
+      case 16: return launch_mma<16>(q, k, v, out, bhq, sq, skv, group, scale, causal, st);
+      case 32: return launch_mma<32>(q, k, v, out, bhq, sq, skv, group, scale, causal, st);
+      case 64: return launch_mma<64>(q, k, v, out, bhq, sq, skv, group, scale, causal, st);
+      case 128: return launch_mma<128>(q, k, v, out, bhq, sq, skv, group, scale, causal, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,4 +1,4 @@
-"""Public entry points for the port's shuffle kernels.
+"""Public entry points for the port's kernels.
 
 ``use_kernel=True`` (the default) goes through the wrappers, which dispatch
 by the tensor's device: a CUDA tensor launches the hand-written kernel, a
@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from . import ref
 from .combine import segment_combine
+from .decode_attention import decode_attention as decode_attention_kernel
+from .flash_attention import flash_attention
 from .fold import segmented_fold as segmented_fold_kernel
 from .partition import partition_permute
 
@@ -33,5 +35,18 @@ def segmented_fold(op, is_start, vals, *, use_kernel=True):
     return ref.segmented_fold_ref(op, is_start, vals)
 
 
-__all__ = ["part", "combine", "segmented_fold", "partition_permute",
-           "segment_combine"]
+def attention(q, k, v, *, causal=True, scale=None, use_kernel=True):
+    if use_kernel:
+        return flash_attention(q, k, v, causal=causal, scale=scale)
+    return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+
+
+def decode_attention(q, k, v, valid_len, *, use_kernel=True):
+    if use_kernel:
+        return decode_attention_kernel(q, k, v, valid_len)
+    return ref.decode_attention_ref(q, k, v, valid_len)
+
+
+__all__ = ["part", "combine", "segmented_fold", "attention",
+           "decode_attention", "partition_permute", "segment_combine",
+           "flash_attention"]

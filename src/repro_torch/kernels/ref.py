@@ -1,15 +1,17 @@
 """Plain PyTorch versions of the port's kernels (the correctness contract).
 
 Each function computes exactly what its CUDA kernel computes, with stock
-tensor operations.  The wrappers in :mod:`.partition`, :mod:`.combine` and
-:mod:`.fold` run these only for tensors that lie on the CPU; on the card the
-kernels run and ``chip_smoke.py`` holds them against these on the same inputs.
+tensor operations.  The wrappers in :mod:`.partition`, :mod:`.combine`,
+:mod:`.fold`, :mod:`.flash_attention` and :mod:`.decode_attention` run these
+only for tensors that lie on the CPU; on the card the kernels run and
+``chip_smoke.py`` holds them against these on the same inputs.
 """
 from __future__ import annotations
 
 import torch
 
 FOLD_OPS = ("sum", "min", "max")
+MASKED = -1e30          # the attention kernels' mask value (not -inf)
 
 
 def partition_permute_ref(slots: torch.Tensor, vals: torch.Tensor, *,
@@ -74,3 +76,90 @@ def segmented_fold_ref(op: str, is_start: torch.Tensor,
         rows = order[bounds[p - 1]:bounds[p]]
         out[rows] = fold_step(op, out[rows - 1], vals[rows])
     return out
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        scale: float | None = None,
+                        causal: bool = True) -> torch.Tensor:
+    """``[BHq, Sq, D] x [BHkv, Skv, D] -> [BHq, Sq, D]``; GQA by head
+    repetition (q head ``bh`` reads kv head ``bh // group``), queries
+    end-aligned with the keys (row ``i`` sees columns ``<= i + Skv - Sq``
+    when causal).  float32 math, the result in q's dtype."""
+    bhq, sq, d = q.shape
+    bhkv, skv, _ = k.shape
+    group = bhq // bhkv
+    k = k.repeat_interleave(group, dim=0)
+    v = v.repeat_interleave(group, dim=0)
+    scale = (d ** -0.5) if scale is None else scale
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if causal:
+        mask = torch.ones((sq, skv), dtype=torch.bool,
+                          device=q.device).tril(skv - sq)
+        s = torch.where(mask[None], s, MASKED)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         valid_len, *,
+                         scale: float | None = None) -> torch.Tensor:
+    """``[B, H, d] x [B, T, KVH, d] -> [B, H, d]``: one new token per
+    sequence against a cache whose positions ``>= valid_len`` are masked.
+    q head ``h`` reads kv head ``h // (H / KVH)``.  float32 math, the result
+    in q's dtype."""
+    b, h, d = q.shape
+    _, t, kvh, _ = k.shape
+    g = h // kvh
+    scale = (d ** -0.5) if scale is None else scale
+    qg = q.reshape(b, kvh, g, d)
+    s = torch.einsum("bkgd,btkd->bkgt", qg.float(), k.float()) * scale
+    mask = torch.arange(t, device=q.device) < valid_len
+    s = torch.where(mask[None, None, None], s, MASKED)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# how far a kernel may sit from the plain attention
+# ---------------------------------------------------------------------------
+
+def attention_tolerance(plain: torch.Tensor, abs_weighted: torch.Tensor, *,
+                        rounds_p: bool = False) -> torch.Tensor:
+    """Per-element bound on ``|kernel - plain|`` for an attention kernel
+    whose math is float32 like the plain version's.
+
+    ``abs_weighted`` is the plain attention of ``|v|`` (float32): row by
+    row ``A = sum_j p_j |v_j|``, which bounds ``|out|``.  A bfloat16 output
+    is one float32 value rounded once on each side (at most ``2^-8``
+    relative each), so the two may sit ``2^-7 |plain|`` apart; a kernel
+    that rounds its probabilities to bfloat16 for ``P V`` (``rounds_p``,
+    the flash kernel's tensor-core path) moves the output by at most
+    ``2^-8 A`` more; ``2^-14 A`` covers the float32 math's other order.
+    A float32 output: ``1e-5 (1 + |plain|)``."""
+    a = abs_weighted.float()
+    if plain.dtype == torch.float32:
+        return 1e-5 * (1.0 + plain.abs())
+    tol = 2.0 ** -7 * plain.float().abs() + 2.0 ** -14 * a
+    if rounds_p:
+        tol = tol + 2.0 ** -8 * (1 + 2.0 ** -8) * a
+    return tol
+
+
+def flash_attention_tolerance(q, k, v, plain, *, causal: bool = True,
+                              scale: float | None = None) -> torch.Tensor:
+    """:func:`attention_tolerance` for ``flash_attention(q, k, v)`` against
+    ``plain = flash_attention_ref(q, k, v)``; bfloat16 q, k and v take the
+    kernel's tensor-core path, which rounds P to bfloat16."""
+    a = flash_attention_ref(q.float(), k, v.abs(), causal=causal, scale=scale)
+    bf16 = torch.bfloat16
+    return attention_tolerance(plain, a, rounds_p=q.dtype == k.dtype == bf16)
+
+
+def decode_attention_tolerance(q, k, v, valid_len, plain, *,
+                               scale: float | None = None) -> torch.Tensor:
+    """:func:`attention_tolerance` for ``decode_attention(q, k, v,
+    valid_len)`` against ``plain = decode_attention_ref(...)``: float32
+    throughout, nothing rounded before the output."""
+    a = decode_attention_ref(q.float(), k, v.abs(), valid_len, scale=scale)
+    return attention_tolerance(plain, a)

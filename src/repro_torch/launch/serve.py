@@ -1,0 +1,114 @@
+"""Serving entry point of the port: prefill a fresh KV cache, then greedy-decode.
+
+Counterpart of ``repro.launch.serve`` on one device, without the mesh.  The
+prompts are the reference's (``np.random.default_rng(seed)`` integers), so
+the same weights give the same tokens in both packages.  On the card the
+prefill's attention runs the flash kernel and every decode step the decode
+kernel (:mod:`repro_torch.kernels`); ``use_kernel=False`` runs their plain
+versions, the yardstick the kernels are held against.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b --smoke --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.device import check_device
+from repro_torch.models import lm
+
+
+@dataclasses.dataclass
+class ServeStats:
+    prefill_s: float
+    decode_s: float
+    tokens: int
+    # last-position logits [batch, vocab] on the device: the prefill's, then
+    # every decode step's
+    logits: list = dataclasses.field(default_factory=list, repr=False)
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.tokens / self.decode_s if self.decode_s else 0.0
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(arch: str, *, smoke: bool = True, batch: int = 4,
+          prompt_len: int = 32, gen_len: int = 16, max_len: int = 128,
+          device="cuda", seed: int = 0, params: lm.LM | None = None,
+          use_kernel: bool = True, forced: np.ndarray | None = None):
+    """Serve ``batch`` random prompts greedily: returns ``(tokens [batch,
+    gen_len] int32, ServeStats)``.  ``params`` defaults to
+    :func:`lm.init_lm` with ``seed`` on ``device``.  ``forced [batch,
+    gen_len]`` feeds those tokens to the decode steps instead of the greedy
+    ones (teacher forcing, for holding one run's logits against
+    another's)."""
+    if prompt_len + gen_len > max_len:
+        raise ValueError(f"prompt_len + gen_len = {prompt_len + gen_len} "
+                         f"exceeds max_len = {max_len}")
+    cfg = get_config(arch, smoke=smoke)
+    dev = check_device(device)
+    if params is None:
+        params = lm.init_lm(cfg, seed=seed, device=dev)
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
+    stats = ServeStats(0.0, 0.0, batch * gen_len)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    cache = lm.init_cache(cfg, batch, max_len, device=dev)
+    logits, cache, _ = lm.forward(params, tokens=torch.from_numpy(prompts).to(dev),
+                                  cache=cache, use_kernel=use_kernel)
+    stats.logits.append(logits[:, -1].clone())
+    del logits
+    _sync(dev)
+    stats.prefill_s = time.perf_counter() - t0
+
+    out = []
+    tok = stats.logits[-1].argmax(-1).to(torch.int32)[:, None]
+    t0 = time.perf_counter()
+    for i in range(gen_len):
+        out.append(tok)
+        step_in = tok if forced is None else \
+            torch.from_numpy(np.asarray(forced[:, i:i + 1], np.int32)).to(dev)
+        logits, cache = lm.serve_step(params, cache, tokens=step_in,
+                                      use_kernel=use_kernel)
+        stats.logits.append(logits[:, -1].clone())
+        tok = stats.logits[-1].argmax(-1).to(torch.int32)[:, None]
+    _sync(dev)
+    stats.decode_s = time.perf_counter() - t0
+    gen = torch.cat(out, dim=1).cpu().numpy() if out else \
+        np.zeros((batch, 0), np.int32)
+    return gen, stats
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", choices=ARCHS, default="qwen2.5-14b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's reduced SMOKE config")
+    args = ap.parse_args()
+    gen, stats = serve(args.arch, smoke=args.smoke, batch=args.batch,
+                       prompt_len=args.prompt_len, gen_len=args.gen_len,
+                       device=args.device)
+    print(f"[serve] generated {gen.shape} tokens on {args.device}; prefill "
+          f"{stats.prefill_s:.2f}s decode {stats.tokens_per_s:.1f} tok/s")
+    print("[serve] first row:", gen[0][:16].tolist())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,138 @@
+"""The port's decoder LM: the dense family with token input.
+
+Counterpart of ``repro.models.lm`` for ``family == "dense"``: the same
+parameters (``embed``, ``final_norm``, ``unembed`` and per block ``ln1``,
+``attn``, ``ln2``, ``mlp``), the same forward, cache and ``serve_step``.
+The reference's ``lax.scan`` over stacked blocks is an ``nn.ModuleList``
+walked in order, and the embedding is a plain lookup (one device, no mesh).
+Logits are computed for every position, as the reference does.
+
+MoE (the gmm slice), SSM and hybrid blocks, MLA and embedding input
+(vision / audio frontends) come with later slices of the port and raise
+``NotImplementedError`` here.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.device import check_device
+
+from .config import ModelConfig
+from .layers import (MLP, Attention, RMSNorm, dtype_of, embed_init,
+                     init_attention_cache, param)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what this slice of the port does not run yet."""
+    if cfg.family == "moe":
+        raise NotImplementedError(f"{cfg.name}: MoE blocks come with the "
+                                  "MoE serving slice of the port (gmm)")
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(f"{cfg.name}: {cfg.family} blocks come "
+                                  "with the SSM/hybrid slice of the port")
+    if cfg.family != "dense":
+        raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.mla is not None:
+        raise NotImplementedError(f"{cfg.name}: MLA comes with the "
+                                  "DeepSeek-V2 slice of the port")
+
+
+class Block(nn.Module):
+    """One dense transformer block: pre-norm attention, pre-norm MLP."""
+
+    def __init__(self, cfg: ModelConfig, *, device, gen=None):
+        super().__init__()
+        dt = dtype_of(cfg)
+        self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
+        self.attn = Attention(cfg, device=device, gen=gen)
+        self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
+        self.mlp = MLP(cfg, device=device, gen=gen)
+
+    def forward(self, x, positions, *, cache=None, use_kernel=True):
+        out, _ = self.attn(self.ln1(x), positions, cache=cache,
+                           use_kernel=use_kernel)
+        x = x + out
+        return x + self.mlp(self.ln2(x))
+
+
+class LM(nn.Module):
+    """Made from ``gen`` with the reference's distributions, or empty (for
+    :func:`repro_torch.models.convert.lm_params_from_reference` to fill)."""
+
+    def __init__(self, cfg: ModelConfig, *, device="cuda", gen=None):
+        super().__init__()
+        check_supported(cfg)
+        dev = check_device(device)
+        dt = dtype_of(cfg)
+        self.cfg = cfg
+        self.embed = param(embed_init(gen, cfg.vocab, cfg.d_model, dt, dev))
+        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dt, dev)
+        # [d_model, vocab] as in the reference (a transposed view)
+        unembed = None if cfg.tie_embeddings else param(
+            embed_init(gen, cfg.vocab, cfg.d_model, dt, dev).t())
+        self.register_parameter("unembed", unembed)
+        self.blocks = nn.ModuleList(Block(cfg, device=dev, gen=gen)
+                                    for _ in range(cfg.n_layers))
+
+    def forward(self, tokens: torch.Tensor, *, positions=None, cache=None,
+                use_kernel: bool = True):
+        """``tokens [B, S]`` -> ``(logits [B, S, vocab], cache, aux)``.
+        A given cache is updated in place (every layer's rows
+        ``[pos, pos + S)`` and ``pos``), not copied; ``aux`` is 0 (dense
+        blocks have no router loss)."""
+        b, s = tokens.shape
+        x = F.embedding(tokens, self.embed)
+        if positions is None:
+            base = cache["pos"] if cache is not None else 0
+            positions = (base + torch.arange(s, device=tokens.device)
+                         ).expand(b, s)
+        for i, block in enumerate(self.blocks):
+            x = block(x, positions, use_kernel=use_kernel,
+                      cache=None if cache is None else cache["layers"][i])
+        x = self.final_norm(x)
+        unembed = self.embed.t() if self.unembed is None else self.unembed
+        logits = x @ unembed
+        if cache is not None:
+            cache["pos"] += s
+        return logits, cache, 0.0
+
+
+def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> LM:
+    """Random weights from a ``torch.Generator`` seeded with ``seed`` on
+    ``device`` (normal draws scaled as ``dense_init`` / ``embed_init``;
+    norms ones, biases zeros)."""
+    dev = check_device(device)
+    return LM(cfg, device=dev,
+              gen=torch.Generator(device=dev).manual_seed(seed))
+
+
+def forward(model: LM, *, tokens=None, embeds=None, positions=None,
+            cache=None, use_kernel: bool = True):
+    """Returns ``(logits, cache, aux)`` as the reference's ``forward``."""
+    if embeds is not None or tokens is None:
+        raise NotImplementedError("embedding input comes with the "
+                                  "vision/audio frontends slice of the port")
+    return model(tokens, positions=positions, cache=cache,
+                 use_kernel=use_kernel)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device="cuda") -> dict:
+    """``{"pos": 0, "layers": [{"k", "v", "len"}, ...]}``; keys and values
+    are bfloat16 whatever the model's dtype, as in the reference."""
+    check_supported(cfg)
+    dev = check_device(device)
+    return {"pos": 0, "layers": [
+        init_attention_cache(cfg, batch, max_len, device=dev)
+        for _ in range(cfg.n_layers)]}
+
+
+def serve_step(model: LM, cache: dict, tokens=None, embeds=None, *,
+               use_kernel: bool = True):
+    """Decode one token per sequence: ``(logits [B, 1, V], cache)``, the
+    cache updated in place."""
+    logits, cache, _ = forward(model, tokens=tokens, embeds=embeds,
+                               cache=cache, use_kernel=use_kernel)
+    return logits, cache

@@ -1,0 +1,304 @@
+"""The port's attention on the CPU, held against the JAX package.
+
+On a CPU tensor the flash and decode wrappers of :mod:`repro_torch.kernels`
+take their plain PyTorch versions, so these tests pin the function each CUDA
+kernel must compute: against the Pallas kernels (interpret mode, as
+``test_kernels.py`` runs them) and the jnp oracles of ``repro.kernels.ref``,
+on the same numpy-made inputs.  The sweep covers the GQA group (1, 2, 4 and
+MQA), lengths off the tile, ``Sq < Skv``, causal and not, float32 and
+bfloat16 (and float32 queries over a bfloat16 cache), and ``valid_len`` 1,
+mid-cache and ``T``.  The kernels themselves are held against these plain
+versions on the card by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as pallas_decode
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import LM_KERNELS, ops, ref  # noqa: E402
+from repro_torch.kernels.decode_attention import (decode_attention,  # noqa: E402
+                                                  split_plan)
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# float32: both sides are float32 softmaxes in other orders (tiled online
+# softmax against a whole-row one).  bfloat16: both round a float32 result
+# to bfloat16 once, so they may differ by one bfloat16 step (2^-8 relative)
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _both(x: np.ndarray, dtype: str):
+    """The same values in both frameworks (identical bits in bfloat16)."""
+    return (jnp.asarray(x, jnp.float32).astype(JNP[dtype]),
+            torch.from_numpy(x).to(TORCH[dtype]))
+
+
+def _f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a.astype(jnp.float32))
+
+
+# ---------------------------------------------------------------------------
+# flash attention (prefill)
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # bhq, bhkv, sq, skv, d, causal
+    (2, 2, 64, 64, 16, True),         # group 1
+    (4, 2, 100, 100, 32, True),       # group 2, off the 128 tile
+    (8, 2, 37, 150, 16, True),        # group 4, Sq < Skv (end-aligned)
+    (6, 1, 130, 130, 16, True),       # MQA, one row past the tile
+    (4, 2, 77, 200, 32, False),       # non-causal, Sq < Skv
+    (3, 1, 1, 65, 16, True),          # one query row at the end
+]
+
+
+@pytest.mark.parametrize("qdt,kvdt", [("float32", "float32"),
+                                      ("bfloat16", "bfloat16"),
+                                      ("float32", "bfloat16")])
+@pytest.mark.parametrize("bhq,bhkv,sq,skv,d,causal", FLASH_CASES)
+def test_flash_plain_matches_pallas_and_ref(bhq, bhkv, sq, skv, d, causal,
+                                            qdt, kvdt):
+    rng = np.random.default_rng(bhq * 1000 + sq + skv)
+    jq, tq = _both(rng.standard_normal((bhq, sq, d)).astype(np.float32), qdt)
+    jk, tk = _both(rng.standard_normal((bhkv, skv, d)).astype(np.float32), kvdt)
+    jv, tv = _both(rng.standard_normal((bhkv, skv, d)).astype(np.float32), kvdt)
+    before = flash_attention.launches
+    got = flash_attention(tq, tk, tv, causal=causal)
+    assert flash_attention.launches == before       # the plain version ran
+    assert got.dtype == TORCH[qdt] and got.shape == (bhq, sq, d)
+    pallas = pallas_flash(jq, jk, jv, causal=causal, interpret=True)
+    oracle = jref.flash_attention_ref(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(_f32(got), _f32(pallas), **TOL[qdt])
+    np.testing.assert_allclose(_f32(got), _f32(oracle), **TOL[qdt])
+    np.testing.assert_array_equal(
+        _f32(ops.attention(tq, tk, tv, causal=causal, use_kernel=False)),
+        _f32(got))
+
+
+def test_flash_scale_is_passed_through():
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((4, 20, 16)).astype(np.float32)
+    jx, tx = _both(x, "float32")
+    got = flash_attention(tx, tx[:2], tx[:2], scale=0.3)
+    want = jref.flash_attention_ref(jx, jx[:2], jx[:2], scale=0.3)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL["float32"])
+
+
+def test_flash_refuses_bad_shapes():
+    q = torch.zeros((4, 8, 16))
+    with pytest.raises(ValueError):                  # causal needs Sq <= Skv
+        flash_attention(q, q[:2, :4], q[:2, :4])
+    with pytest.raises(ValueError):                  # 4 q heads over 3 kv
+        flash_attention(q, q[:3], q[:3])
+    with pytest.raises(ValueError):                  # no keys
+        flash_attention(q, q[:2, :0], q[:2, :0], causal=False)
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+
+DECODE_CASES = [
+    # b, h, kvh, t, d, valid
+    (2, 4, 4, 64, 16, 1),             # group 1, only the newest position
+    (2, 4, 2, 100, 16, 37),           # group 2, mid-cache, T off the tile
+    (1, 8, 2, 600, 32, 513),          # group 4, past one 512 tile
+    (2, 6, 1, 130, 16, 130),          # MQA, the whole cache
+]
+
+
+@pytest.mark.parametrize("qdt,kvdt", [("float32", "float32"),
+                                      ("bfloat16", "bfloat16"),
+                                      ("float32", "bfloat16")])
+@pytest.mark.parametrize("b,h,kvh,t,d,valid", DECODE_CASES)
+def test_decode_plain_matches_pallas_and_ref(b, h, kvh, t, d, valid, qdt,
+                                             kvdt):
+    rng = np.random.default_rng(b * 100 + t + valid)
+    jq, tq = _both(rng.standard_normal((b, h, d)).astype(np.float32), qdt)
+    jk, tk = _both(rng.standard_normal((b, t, kvh, d)).astype(np.float32), kvdt)
+    jv, tv = _both(rng.standard_normal((b, t, kvh, d)).astype(np.float32), kvdt)
+    before = decode_attention.launches
+    got = decode_attention(tq, tk, tv, valid)
+    assert decode_attention.launches == before
+    assert got.dtype == TORCH[qdt] and got.shape == (b, h, d)
+    pallas = pallas_decode(jq, jk, jv, jnp.int32(valid), interpret=True)
+    oracle = jref.decode_attention_ref(jq, jk, jv, valid)
+    np.testing.assert_allclose(_f32(got), _f32(pallas), **TOL[qdt])
+    np.testing.assert_allclose(_f32(got), _f32(oracle), **TOL[qdt])
+    np.testing.assert_array_equal(
+        _f32(ops.decode_attention(tq, tk, tv, valid, use_kernel=False)),
+        _f32(got))
+
+
+def test_decode_ignores_the_cache_tail():
+    """Finite junk past ``valid_len`` never reaches the output (the kernel
+    also keeps a NaN tail out, ``tests/test_torch_cuda.py``; the plain
+    version, like the reference, multiplies it by a zero weight)."""
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 40, 2, 16)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, 40, 2, 16)).astype(np.float32))
+    clean = decode_attention(q, k, v, 25)
+    k[:, 25:], v[:, 25:] = 1e4, -3e4
+    torch.testing.assert_close(decode_attention(q, k, v, 25), clean)
+
+
+def test_decode_refuses_bad_lengths():
+    q, c = torch.zeros((2, 4, 16)), torch.zeros((2, 8, 2, 16))
+    for bad in (0, 9):
+        with pytest.raises(ValueError):
+            decode_attention(q, c, c, bad)
+    with pytest.raises(ValueError):                  # 4 q heads over 3 kv
+        c3 = torch.zeros((2, 8, 3, 16))
+        decode_attention(q, c3, c3, 2)
+
+
+@pytest.mark.parametrize("pairs,valid,sms,want", [
+    (32, 1056, 132, (2, 9)),          # the serving decode: 288 blocks
+    (1024, 32768, 132, (512, 1)),     # decode_32k: the pairs fill the card
+    (32, 1, 132, (1, 1)),
+    (4, 100, 132, (1, 2)),            # never a split that starts past valid
+])
+def test_decode_split_plan(pairs, valid, sms, want):
+    per, splits = split_plan(pairs, valid, sms)
+    assert (per, splits) == want
+    assert (splits - 1) * per * 64 < valid <= splits * per * 64
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' dispatch
+# ---------------------------------------------------------------------------
+
+def test_lm_kernels_are_the_attention_wrappers():
+    assert LM_KERNELS == (flash_attention, decode_attention)
+
+
+def test_wrappers_refuse_other_devices():
+    q = torch.zeros((2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention(q, q, q)
+    c = torch.zeros((2, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        decode_attention(torch.zeros((2, 4, 16), device="meta"), c, c, 3)
+    with pytest.raises(ValueError):                  # devices disagree
+        flash_attention(torch.zeros((2, 8, 16)), q, q)
+
+
+def test_plain_versions_match_on_mixed_inputs():
+    """ops.attention / ops.decode_attention with and without use_kernel are
+    one function on the CPU."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((4, 12, 32)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 12, 32)).astype(np.float32))
+    assert torch.equal(ops.attention(q, k, k), ref.flash_attention_ref(q, k, k))
+    qd = q[:, 0].reshape(2, 2, 32).contiguous()
+    kc = k.reshape(2, 12, 1, 32).to(torch.bfloat16)
+    assert torch.equal(ops.decode_attention(qd, kc, kc, 7),
+                       ref.decode_attention_ref(qd, kc, kc, 7))
+
+
+# ---------------------------------------------------------------------------
+# the bound the card holds the kernels to (ref.*_tolerance)
+# ---------------------------------------------------------------------------
+
+def _emulated_flash(q, k, v, *, causal=True, rounds="p", acc_tile=None,
+                    drop=None):
+    """Plain flash in float64 with one departure of a kernel: ``rounds``
+    "p" (P to bf16 for P V, as the tensor-core path does) or "s" (S and P
+    to bf16); ``acc_tile`` keys per step of an output accumulator kept in
+    bf16; ``drop`` "last" (the last 64 keys) or "diagonal" (the diagonal
+    64-tile of every q tile past the first)."""
+    bhq, sq, d = q.shape
+    g, skv = bhq // k.shape[0], k.shape[1]
+    kk, vv = (x.repeat_interleave(g, 0).double() for x in (k, v))
+    s = torch.einsum("bqd,bkd->bqk", q.double(), kk) * d ** -0.5
+    if rounds == "s":
+        s = s.to(torch.bfloat16).double()
+    rows = torch.arange(sq)[:, None] + (skv - sq)
+    cols = torch.arange(skv)[None]
+    keep = cols <= rows if causal else torch.ones(sq, skv, dtype=torch.bool)
+    if drop == "last":
+        keep = keep & (cols < skv - 64)
+    elif drop == "diagonal":
+        keep = keep & ((cols // 64 < rows // 64) | (rows < 64))
+    s = torch.where(keep[None], s, ref.MASKED)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    p = p.to(torch.bfloat16).double()
+    if acc_tile is None:
+        o = torch.einsum("bqk,bkd->bqd", p, vv)
+    else:
+        o = torch.zeros(bhq, sq, d, dtype=torch.float64)
+        for t in range(0, skv, acc_tile):
+            o = (o + torch.einsum("bqk,bkd->bqd", p[..., t:t + acc_tile],
+                                  vv[:, t:t + acc_tile])
+                 ).to(torch.bfloat16).double()
+    return (o / l).to(q.dtype)
+
+
+def _share(got, plain, tol) -> float:
+    return float(((got.float() - plain.float()).abs() / tol).max())
+
+
+def _flash_inputs(scale, causal=True):
+    rng = np.random.default_rng(int(scale) + 2 * causal)
+    bf16 = torch.bfloat16
+    q = torch.from_numpy(rng.standard_normal((8, 512, 128)).astype(
+        np.float32) * scale).to(bf16)
+    k, v = (torch.from_numpy(rng.standard_normal((2, 512, 128)).astype(
+        np.float32)).to(bf16) for _ in range(2))
+    plain = ref.flash_attention_ref(q, k, v, causal=causal)
+    return q, k, v, plain, ref.flash_attention_tolerance(q, k, v, plain,
+                                                          causal=causal)
+
+
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+def test_flash_bound_admits_the_tensor_core_rounding(scale):
+    """float64 math with P rounded to bf16, as the tensor-core kernel
+    computes, stays inside the bound the card holds it to."""
+    q, k, v, plain, tol = _flash_inputs(scale)
+    assert _share(_emulated_flash(q, k, v), plain, tol) <= 1.0
+
+
+@pytest.mark.parametrize("fault,scale,kw", [
+    ("last kv tile dropped", 1.0, dict(causal=False, drop="last")),
+    ("diagonal tile dropped", 1.0, dict(drop="diagonal")),
+    ("S rounded to bf16", 4.0, dict(rounds="s")),
+    ("P V accumulated in bf16", 4.0, dict(acc_tile=16)),
+])
+def test_flash_bound_rejects_planted_faults(fault, scale, kw):
+    q, k, v, plain, tol = _flash_inputs(scale, kw.get("causal", True))
+    assert _share(_emulated_flash(q, k, v, **kw), plain, tol) > 1.0, fault
+
+
+@pytest.mark.parametrize("fault,cut,round_s", [
+    ("no fault: float64 math", 0, False),
+    ("last split dropped", 32, False),
+    ("newest position dropped", 1, False),
+    ("S rounded to bf16", 0, True),
+])
+def test_decode_bound_separates_faults(fault, cut, round_s):
+    rng = np.random.default_rng(29)
+    bf16 = torch.bfloat16
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(bf16) for shape in ((4, 40, 128), (4, 1100, 8, 128),
+                                            (4, 1100, 8, 128)))
+    plain = ref.decode_attention_ref(q, k, v, 1056)
+    tol = ref.decode_attention_tolerance(q, k, v, 1056, plain)
+    n = 1056 - cut
+    s = torch.einsum("bkgd,btkd->bkgt", q.double().reshape(4, 8, 5, 128),
+                     k[:, :n].double()) * 128 ** -0.5
+    if round_s:
+        s = s.to(bf16).double()
+    got = torch.einsum("bkgt,btkd->bkgd", torch.softmax(s, -1),
+                       v[:, :n].double()).reshape(4, 40, 128).to(bf16)
+    assert (_share(got, plain, tol) <= 1.0) == (fault.startswith("no")), fault

@@ -1,5 +1,6 @@
-"""The port on the card: each kernel against its plain version, and the
-service's replay through the kernels.  Every test here is marked ``cuda`` and
+"""The port on the card: each kernel against its plain version, the
+service's replay through the shuffle kernels, and the LM's serving path
+through the attention kernels.  Every test here is marked ``cuda`` and
 skips on a host without a CUDA device; on the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -18,8 +19,10 @@ torch = pytest.importorskip("torch")
 
 import repro_torch.core as port  # noqa: E402
 from repro_torch.core import torchplan  # noqa: E402
-from repro_torch.kernels import KERNELS, ref  # noqa: E402
+from repro_torch.kernels import SHUFFLE_KERNELS, ref  # noqa: E402
 from repro_torch.kernels.combine import segment_combine  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fold import segmented_fold  # noqa: E402
 from repro_torch.kernels.partition import partition_permute  # noqa: E402
 
@@ -166,12 +169,165 @@ def test_card_kernel_plane_is_on_by_default(cuda):
     sv = _port_service(device="cuda")
     sv.shuffle("network_aware", port.msgs_from_reference(bufs), ws, ws,
                comb_fn=port.SUM)
-    before = [k.launches for k in KERNELS]
+    before = [k.launches for k in SHUFFLE_KERNELS]
     hit = sv.shuffle("network_aware", port.msgs_from_reference(bufs), ws, ws,
                      comb_fn=port.SUM)
-    assert all(k.launches > b for k, b in zip(KERNELS, before))
+    assert all(k.launches > b for k, b in zip(SHUFFLE_KERNELS, before))
     assert hit.engine == "torch"
     for d in ref.bufs:
         np.testing.assert_array_equal(hit.bufs[d].keys, ref.bufs[d].keys)
         np.testing.assert_allclose(hit.bufs[d].vals, ref.bufs[d].vals,
                                    rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# attention kernels
+# ---------------------------------------------------------------------------
+
+def _attn_close(got, plain, tol):
+    """float32 math on both sides, in other orders: float32 outputs agree
+    to rounding; a bfloat16 output holds each element within its own bound
+    of the plain value (``ref.attention_tolerance``: one bf16 rounding on
+    each side, plus the flash kernel's rounding of P to bf16 where it takes
+    the tensor cores)."""
+    g, p = got.float().cpu(), plain.float().cpu()
+    if got.dtype == torch.float32:
+        np.testing.assert_allclose(g.numpy(), p.numpy(), rtol=1e-5, atol=1e-5)
+    else:
+        share = ((g - p).abs() / tol.float().cpu()).max()
+        assert float(share) <= 1.0, f"{float(share)} of the bound"
+
+
+def _randn(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(dtype).to(dev)
+
+
+# q_scale 4 gives scores of std 4 (a sharp softmax), where S rounded to
+# bf16 would move the output far past the bound
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_scale", [1.0, 4.0])
+@pytest.mark.parametrize("qdt,kvdt", [("float32", "float32"),
+                                      ("bfloat16", "bfloat16"),
+                                      ("float32", "bfloat16")])
+@pytest.mark.parametrize("bhq,bhkv,sq,skv,d,causal", [
+    (4, 4, 64, 64, 16, True), (8, 4, 100, 100, 32, True),
+    (8, 2, 37, 150, 64, True), (6, 1, 130, 130, 128, True),
+    (4, 2, 77, 200, 128, False), (2, 2, 1, 65, 64, True)])
+def test_flash_kernel_matches_plain(cuda, bhq, bhkv, sq, skv, d, causal,
+                                    qdt, kvdt, q_scale):
+    rng = np.random.default_rng(bhq * sq + skv + d)
+    q = _randn(rng, (bhq, sq, d), TORCH[qdt], cuda) * q_scale
+    k = _randn(rng, (bhkv, skv, d), TORCH[kvdt], cuda)
+    v = _randn(rng, (bhkv, skv, d), TORCH[kvdt], cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    plain = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _attn_close(got, plain, ref.flash_attention_tolerance(q, k, v, plain,
+                                                          causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_scale", [1.0, 4.0])
+@pytest.mark.parametrize("qdt,kvdt", [("float32", "float32"),
+                                      ("bfloat16", "bfloat16"),
+                                      ("float32", "bfloat16")])
+@pytest.mark.parametrize("b,h,kvh,t,d,valid", [
+    (2, 4, 4, 64, 16, 1), (2, 8, 2, 300, 32, 150), (3, 5, 1, 129, 64, 129),
+    (4, 40, 8, 2048, 128, 1056), (1, 48, 1, 700, 128, 513),
+    (2, 4, 2, 5000, 128, 4999)])
+def test_decode_kernel_matches_plain(cuda, b, h, kvh, t, d, valid, qdt, kvdt,
+                                     q_scale):
+    rng = np.random.default_rng(b * h + t + valid)
+    q = _randn(rng, (b, h, d), TORCH[qdt], cuda) * q_scale
+    k = _randn(rng, (b, t, kvh, d), TORCH[kvdt], cuda)
+    v = _randn(rng, (b, t, kvh, d), TORCH[kvdt], cuda)
+    k[:, valid:] = float("nan")          # an unwritten tail must not leak
+    v[:, valid:] = float("nan")
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, valid)
+    assert decode_attention.launches == before + 1
+    plain = ref.decode_attention_ref(q, k[:, :valid], v[:, :valid], valid)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    kv = (k[:, :valid], v[:, :valid])
+    _attn_close(got, plain,
+                ref.decode_attention_tolerance(q, *kv, valid, plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["flash: last kv tile dropped",
+                                   "decode: last split dropped"])
+def test_attention_check_rejects_planted_faults(cuda, fault):
+    """The bound of ``_attn_close`` fails a kernel that skips work: the
+    kernel itself, called on the inputs without their last tile (flash) or
+    last split (decode: positions 1024..1055 of the serving shape)."""
+    rng = np.random.default_rng(23)
+    bf16 = torch.bfloat16
+    if fault.startswith("flash"):
+        q = _randn(rng, (8, 200, 128), bf16, cuda)
+        k, v = (_randn(rng, (2, 256, 128), bf16, cuda) for _ in range(2))
+        plain = ref.flash_attention_ref(q, k, v, causal=False)
+        tol = ref.flash_attention_tolerance(q, k, v, plain, causal=False)
+        got = flash_attention(q, k[:, :-64].contiguous(),
+                              v[:, :-64].contiguous(), causal=False)
+    else:
+        q = _randn(rng, (4, 40, 128), bf16, cuda)
+        k, v = (_randn(rng, (4, 2048, 8, 128), bf16, cuda) for _ in range(2))
+        plain = ref.decode_attention_ref(q, k, v, 1056)
+        tol = ref.decode_attention_tolerance(q, k, v, 1056, plain)
+        got = decode_attention(q, k, v, 1024)
+    with pytest.raises(AssertionError, match="of the bound"):
+        _attn_close(got, plain, tol)
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_refuse_what_they_do_not_take(cuda):
+    q = torch.ones((2, 8, 24), device=cuda)
+    with pytest.raises(ValueError):            # head width not compiled
+        flash_attention(q, q, q)
+    with pytest.raises(TypeError):
+        flash_attention(q.half()[..., :16].contiguous(),
+                        q[..., :16].contiguous(), q[..., :16].contiguous())
+    with pytest.raises(ValueError):            # not contiguous
+        flash_attention(q[..., :16], q[..., :16], q[..., :16])
+    c = torch.ones((2, 8, 1, 16), device=cuda)
+    with pytest.raises(ValueError):            # valid_len past the cache
+        decode_attention(torch.ones((2, 2, 16), device=cuda), c, c, 9)
+    with pytest.raises(TypeError):
+        decode_attention(torch.ones((2, 2, 16), device=cuda), c.double(),
+                         c.double(), 3)
+
+
+@pytest.mark.cuda
+def test_card_smoke_serve_matches_plain(cuda):
+    """The qwen2.5-14b smoke config served on the card through the kernels,
+    against the same run on their plain versions (teacher-forced on the
+    kernel run's tokens): exact launch counts, the same first tokens, and
+    logits within float32 rounding (the smoke config computes in float32
+    over a bfloat16 cache)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+
+    cfg = get_config("qwen2.5-14b", smoke=True)
+    params = lm.init_lm(cfg, seed=0, device=cuda)
+    kw = dict(batch=3, prompt_len=70, gen_len=6, max_len=128, device=cuda,
+              params=params)
+    for k in KERNELS:
+        k.launches = 0
+    gen, stats = serve("qwen2.5-14b", **kw)
+    counts = {k.__name__: k.launches for k in KERNELS}
+    assert counts == {"partition_permute": 0, "segment_combine": 0,
+                      "segmented_fold": 0, "flash_attention": cfg.n_layers,
+                      "decode_attention": cfg.n_layers * 6}
+    plain_gen, plain = serve("qwen2.5-14b", use_kernel=False, forced=gen, **kw)
+    assert all(k.launches == counts[k.__name__] for k in KERNELS)
+    np.testing.assert_array_equal(plain_gen[:, 0], gen[:, 0])
+    for a, b in zip(stats.logits, plain.logits):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)

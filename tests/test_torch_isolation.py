@@ -3,7 +3,8 @@ never moves to the CPU unless the caller asks.
 
 Later slices must keep both: a module of ``repro_torch`` (or ``chip_smoke.py``)
 that imports ``jax`` or anything of ``repro`` fails here, and so does a
-cluster that quietly runs on the CPU when no card is present.
+cluster, a model or a server that quietly runs on the CPU when no card is
+present.
 """
 import os
 import pathlib
@@ -72,3 +73,25 @@ def test_cluster_defaults_to_the_card():
         port.TeShuCluster(topo, device="meta")
     assert port.TeShuCluster(topo, device="cpu").device == torch.device("cpu")
     assert port.TeShuCluster(topo, device="cpu").executor == "torch"
+
+
+def test_serving_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+    from repro_torch.models.convert import lm_params_from_reference
+    cfg = get_config("qwen2.5-14b", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve("qwen2.5-14b", batch=1, prompt_len=2, gen_len=1)
+    for make in (lambda: lm.init_lm(cfg), lambda: lm.LM(cfg),
+                 lambda: lm.init_cache(cfg, 1, 4),
+                 lambda: lm_params_from_reference(cfg, {})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(ValueError):
+        lm.init_lm(cfg, device="meta")
+    gen, _ = serve("qwen2.5-14b", batch=1, prompt_len=2, gen_len=1,
+                   device="cpu")
+    assert gen.shape == (1, 1)
