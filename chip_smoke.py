@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py                    # the smoke run (one card)
     python3 chip_smoke.py --profile DIR      # also trace one hit per template,
-                                             # the prefill and 4 decode steps
+                                             # and the prefill and 4 decode
+                                             # steps of each served model
 
 Run from the root of a checkout.  It needs a CUDA device: without one it
 exits non-zero and prints no result.  In order it
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the five CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+2. builds the six CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together) and prints the build seconds;
 3. holds each kernel against its plain PyTorch version on the card at its
    main path's shapes (and the attention kernels at their edge cases and at
@@ -19,13 +20,22 @@ exits non-zero and prints no result.  In order it
    one-call library yardstick (``index_add_``, or
    ``scaled_dot_product_attention`` for the attention kernels) with CUDA
    events (median of several launches);
-4. drives the shuffle's main path, the cached-plan replay of the shuffle
+4. holds the grouped-matmul kernel (``gmm``) against its plain version at
+   the MoE serving shapes (Qwen3-MoE: 128 experts of d 4096 x f 1536, the
+   prefill's buffers padded to 384 rows per expert, a decode step's to 16)
+   and at edge cases (shuffled and repeated group ids, groups with no
+   tile, block_n 16 / 64 / 128, float32 operands), each element within
+   ``ref.gmm_tolerance``; two planted faults (one tile reading the next
+   expert's weights, the reduction without its last 512 columns of d) must
+   fall outside it by more than 10x.  Times kernel, plain version and
+   ``torch.bmm`` on the capacity layout;
+5. drives the shuffle's main path, the cached-plan replay of the shuffle
    service, at the paper-shaped 40-worker deployment: Zipf(0.9) keys over
    1M keys, 200k rows of width 8 per worker (8M rows, 576 MB), SUM on
    ``network_aware`` and ``vanilla_push``: one miss, then hits.  The shuffle
    kernels' launch counters are zeroed just before the hits and read just
    after; outputs are held against the port's own vectorized replay;
-5. drives the LM's serving path, ``repro_torch.launch.serve.serve`` on
+6. drives the LM's serving path, ``repro_torch.launch.serve.serve`` on
    Qwen2.5-14B at full width and depth (48 layers, bf16, random weights made
    on the card from a seeded ``torch.Generator``): batch 4, 1,024-token
    prompts, 32 greedy tokens.  Every launch counter is zeroed just before
@@ -36,7 +46,18 @@ exits non-zero and prints no result.  In order it
    attention (S and P rounded to bf16; the decode dropping its newest 32
    positions, which must fail the logit check) show how far a wrong
    attention moves them;
-6. prints the ``kernels`` JSON line, then the ``ok`` line last.
+7. drives the MoE serving path, ``serve`` on Qwen3-MoE-235B-A22B at full
+   width with its depth cut to 12 of 94 layers (62.2 GB of bf16 weights,
+   every expert drawn on its own from a seeded generator on the card), at
+   the dense serve's batch, prompts and length.  The counters are zeroed
+   just before and read just after: gmm three times per layer in the
+   prefill and in every decode step, flash and decode attention once per
+   layer.  The plain versions' run, teacher-forced on the kernel run's
+   tokens and routing (each router call's top-8 ids and weights are
+   recorded and replayed), is the yardstick for its logits; a control
+   whose plain gmm drops the last 512 columns of its reduction must fail
+   that check;
+8. prints the ``kernels`` JSON line, then the ``ok`` line last.
 
 The card's peaks used for the bounds are NVIDIA's H100 SXM data-sheet
 numbers: 3.35 TB/s of HBM3, 989 TFLOP/s bf16 on the tensor cores, 67
@@ -97,6 +118,28 @@ DECODE_CASES = [  # name, B, H, KVH, T, valid_len, q dtype (cache: bf16)
     ("float32 q, bf16 cache", 4, 40, 8, 2048, 1056, "float32"),
     ("decode_32k layer", 128, 40, 8, 32768, 32768, "bfloat16")]
 SHARP = 4.0
+
+MOE_ARCH = "qwen3-moe-235b-a22b"     # the MoE slice: full width, depth cut
+MOE_LAYERS = 12                      # of 94: 62.2 GB of bf16 weights
+GMM_DROP = 512                       # columns of d the planted fault drops
+GMM_TOL = ("per element: (2^-7 |plain| + 2 d 2^-24 (|x| @ |w|)) (1 + 2^-7) "
+           "(bf16 out); 2 d 2^-24 (|x| @ |w|) (float32 out)")
+# name, groups, tiles, d, f, block_n, ids, dtype.  The serving shapes are
+# Qwen3-MoE's: 128 experts, d_model 4096, d_ff_expert 1536; the prefill's
+# capacity 328 (4,096 tokens x top-8 / 128 x 1.25) padded to 384 rows per
+# expert (block_n 64), a decode step's 8 padded to 16 (block_n 16)
+GMM_CASES = [
+    ("prefill gate/up", 128, 128 * 6, 4096, 1536, 64, "capacity", "bfloat16"),
+    ("prefill down", 128, 128 * 6, 1536, 4096, 64, "capacity", "bfloat16"),
+    ("decode gate/up", 128, 128, 4096, 1536, 16, "capacity", "bfloat16"),
+    ("decode down", 128, 128, 1536, 4096, 16, "capacity", "bfloat16"),
+    ("shuffled, repeated ids", 128, 300, 4096, 1536, 16, "shuffled",
+     "bfloat16"),
+    ("groups with no tile", 128, 200, 1536, 4096, 64, "gaps", "bfloat16"),
+    ("block_n 128", 32, 96, 4096, 1536, 128, "shuffled", "bfloat16"),
+    ("ragged f (f % 128 = 8)", 16, 48, 1024, 1416, 32, "shuffled",
+     "bfloat16"),
+    ("float32 operands", 16, 64, 1024, 512, 64, "shuffled", "float32")]
 
 
 def log(*a) -> None:
@@ -494,7 +537,106 @@ def attention_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 5. serve phase
+# 4. the grouped matmul
+# ---------------------------------------------------------------------------
+
+def _gmm_share(got, plain, tol) -> float:
+    """Largest share of ``ref.gmm_tolerance`` used; where the bound is 0
+    (a zero row of x) the kernel must give exactly 0."""
+    diff = (got.float() - plain.float()).abs()
+    assert bool((diff[tol == 0] == 0).all()), "gmm: nonzero out of a zero row"
+    return float((diff / tol.clamp_min(1e-38)).max())
+
+
+def _gmm_work(x, w, ids) -> tuple[float, float]:
+    """(bytes, operations) of one gmm call: x read and the output written
+    once, and each group's weights that some tile uses read once; 2 d
+    operations per output element."""
+    n, d = x.shape
+    f = w.shape[2]
+    used = int(ids.unique().numel())
+    nbytes = (x.numel() + n * f) * x.element_size() \
+        + used * d * f * w.element_size()
+    return nbytes, 2.0 * n * d * f
+
+
+def _gmm_ids(kind: str, groups: int, tiles: int, gen, dev):
+    import torch
+    if kind == "capacity":         # the MoE buffers: each expert's tiles
+        return torch.arange(tiles, device=dev, dtype=torch.int32) \
+            // (tiles // groups)
+    if kind == "shuffled":         # every group, some repeated, shuffled
+        ids = torch.cat([torch.arange(groups, device=dev), torch.randint(
+            0, groups, (tiles - groups,), device=dev, generator=gen)])
+        return ids[torch.randperm(tiles, device=dev, generator=gen)].int()
+    # only the odd groups have tiles
+    return (2 * torch.randint(0, groups // 2, (tiles,), device=dev,
+                              generator=gen) + 1).int()
+
+
+def gmm_phase(dev) -> dict:
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gmm import gmm
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = {}
+    for name, groups, tiles, d, f, bn, kind, dt in GMM_CASES:
+        dtype = getattr(torch, dt)
+        x = torch.randn((tiles * bn, d), device=dev, generator=gen).to(dtype)
+        # every expert drawn on its own: a tile reading the wrong one shows
+        w = (torch.randn((groups, d, f), device=dev, generator=gen)
+             / d ** 0.5).to(dtype)
+        ids = _gmm_ids(kind, groups, tiles, gen, dev)
+        got = gmm(x, w, ids, block_n=bn)
+        plain = ref.gmm_ref(x, w, ids, block_n=bn)
+        tol = ref.gmm_tolerance(x, w, ids, plain, block_n=bn)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        share = _gmm_share(got, plain, tol)
+        err = float((got.float() - plain.float()).abs().max())
+        assert share <= 1.0, f"gmm {name}: {share} of the bound"
+        log(f"kernel gmm {name} x={tuple(x.shape)} w={tuple(w.shape)} "
+            f"block_n={bn} {dt}: max_abs_err={err!r}, bound share {share!r}")
+        if name == "decode gate/up":
+            # planted faults, made by the kernel itself: one tile given the
+            # next expert's id; the reduction without its last 512 of d
+            bad = ids.clone()
+            bad[tiles // 2] = (bad[tiles // 2] + 1) % groups
+            faults = {"one tile reads the next expert": gmm(
+                x, w, bad, block_n=bn), f"reduction drops its last "
+                f"{GMM_DROP} of d": gmm(x[:, :-GMM_DROP].contiguous(),
+                                        w[:, :-GMM_DROP].contiguous(), ids,
+                                        block_n=bn)}
+            for fault, cut in faults.items():
+                fshare = _gmm_share(cut, plain, tol)
+                log(f"kernel gmm planted fault ({fault}): bound share "
+                    f"{fshare!r}")
+                assert fshare > 10.0, f"the gmm check passes: {fault}"
+            del faults, cut, bad
+        if kind == "capacity":
+            nbytes, ops = _gmm_work(x, w, ids)
+            tb = bound(nbytes, ops, BF16_OPS_PER_S)
+            x3 = x.view(groups, -1, d)     # the reference einsum's layout
+            row = dict(
+                max_abs_err=err, tolerance=GMM_TOL, bound_share=share,
+                ms=time_ms(lambda: gmm(x, w, ids, block_n=bn), spin=True),
+                plain_ms=time_ms(lambda: ref.gmm_ref(x, w, ids, block_n=bn),
+                                 reps=3, warmup=1),
+                library_ms=time_ms(lambda: torch.bmm(x3, w), spin=True),
+                bound_ms=tb[0], bound_by=tb[1], block_n=bn,
+                rows_per_expert=tiles // groups * bn)
+            rows[name] = row
+            log(f"kernel gmm {name}: {json.dumps(row)}")
+            del x3
+        del x, w, ids, got, plain, tol
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# 6-7. serve phases
 # ---------------------------------------------------------------------------
 
 # Logit tolerance of the serve phase, in bf16 steps at the largest logit.
@@ -641,8 +783,195 @@ def serve_phase(dev, profile_dir: Path | None) -> dict:
     return out
 
 
+# Logit tolerance of the MoE serve phase, in bf16 steps at the largest logit:
+# the kernel run against the plain versions' run, forced on the same tokens
+# and the same routing, so that only the kernels' roundings differ.
+MOE_LOGIT_TOL_STEPS = 10
+MOE_CONTROL = f"plain gmm drops the last {GMM_DROP} columns of its reduction"
+
+
+class _Routing:
+    """Wraps the port's router (``moe._route``): ``record`` keeps each
+    call's ``(eids, weights)``; ``replay`` hands a later run the recorded
+    ones in order and counts the tokens whose own top-k set differs."""
+
+    def __init__(self):
+        import torch
+
+        from repro_torch.models import moe
+        self.moe, self.real = moe, moe._route
+        self.calls: list = []
+        self.flips = torch.zeros((), dtype=torch.int64)
+        self.checked = 0
+
+    def record(self):
+        def route(router_w, x_flat, m):
+            eids, weights, aux = self.real(router_w, x_flat, m)
+            self.calls.append((eids, weights))
+            return eids, weights, aux
+        return self._wrapped(route)
+
+    def replay(self):
+        it = iter(self.calls)
+        self.flips = self.flips.to(self.calls[0][0].device).zero_()
+        self.checked = 0
+
+        def route(router_w, x_flat, m):
+            own, _, aux = self.real(router_w, x_flat, m)
+            eids, weights = next(it)
+            self.flips += (own.sort(-1).values != eids.sort(-1).values
+                           ).any(-1).sum()
+            self.checked += own.shape[0]
+            return eids, weights, aux
+        return self._wrapped(route)
+
+    def _wrapped(self, route):
+        import contextlib
+
+        @contextlib.contextmanager
+        def cm():
+            self.moe._route = route
+            try:
+                yield
+            finally:
+                self.moe._route = self.real
+        return cm()
+
+    def dropped(self, m) -> tuple[int, int]:
+        """(token-expert assignments over capacity, all assignments) in the
+        recorded calls."""
+        import torch
+
+        from repro_torch.models.moe import _capacity
+        over = 0
+        for eids, _ in self.calls:
+            cap = _capacity(eids.shape[0], m)
+            load = torch.bincount(eids.reshape(-1).long(),
+                                  minlength=m.num_experts)
+            over += int((load - cap).clamp_min(0).sum())
+        return over, sum(e.numel() for e, _ in self.calls)
+
+
+def moe_serve_phase(dev, profile_dir: Path | None) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS, ref
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+    from repro_torch.models.layers import dense_init
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    m = cfg.moe
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=SERVE["seed"], device=dev)
+    # the reference's init repeats one expert: draw each on its own
+    gen = torch.Generator(device=dev).manual_seed(SERVE["seed"] + 1)
+    with torch.no_grad():
+        for block in params.blocks:
+            for w in (block.moe.experts.w_gate, block.moe.experts.w_up,
+                      block.moe.experts.w_down):
+                for e in range(m.num_experts):
+                    w[e].copy_(dense_init(gen, w.shape[1], w.shape[2],
+                                          w.dtype, dev))
+    torch.cuda.synchronize()
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"moe weights: {MOE_ARCH} {cfg.n_layers} of "
+        f"{get_config(MOE_ARCH).n_layers} layers, "
+        f"{sum(p.numel() for p in params.parameters())} parameters "
+        f"({w_bytes / 1e9:.2f} GB {cfg.dtype}), made on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    kw = dict(smoke=False, device=dev, params=params, **SERVE)
+    serve(MOE_ARCH, **dict(kw, gen_len=2))     # warm (not counted)
+    torch.cuda.synchronize()
+
+    routing = _Routing()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:                     # the MoE serving path, alone
+        k.launches = 0
+    with routing.record():
+        gen_tok, stats = serve(MOE_ARCH, **kw)
+    counts = {k.__name__: k.launches for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    want = {k.__name__: 0 for k in KERNELS}
+    want["flash_attention"] = cfg.n_layers
+    want["decode_attention"] = cfg.n_layers * SERVE["gen_len"]
+    want["gmm"] = 3 * cfg.n_layers * (1 + SERVE["gen_len"])
+    assert counts == want, counts
+    logits = torch.stack(stats.logits).float()
+    assert gen_tok.shape == (SERVE["batch"], SERVE["gen_len"])
+    assert logits.shape == (SERVE["gen_len"] + 1, SERVE["batch"], cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    assert ((gen_tok >= 0) & (gen_tok < cfg.vocab)).all()
+    assert len(routing.calls) == cfg.n_layers * (1 + SERVE["gen_len"])
+    dropped, assigned = routing.dropped(m)
+
+    # the yardstick: the plain versions, forced on the tokens and routing
+    for k in KERNELS:
+        k.launches = 0
+    with routing.replay():
+        plain_gen, plain = serve(MOE_ARCH, use_kernel=False, forced=gen_tok,
+                                 **kw)
+    flips, checked = int(routing.flips), routing.checked
+    assert all(k.launches == 0 for k in KERNELS)
+    plain_logits = torch.stack(plain.logits).float()
+    diffs = (logits - plain_logits).abs().amax(dim=(1, 2)).tolist()
+    top = float(logits.abs().max())
+    step = 2.0 ** (np.floor(np.log2(top)) - 7)         # bf16 step at |top|
+    tol = MOE_LOGIT_TOL_STEPS * step
+    first_agree = np.asarray(plain_gen[:, 0] == gen_tok[:, 0]).tolist()
+    del plain
+
+    # the control: the same forced run with a plain gmm that drops the last
+    # GMM_DROP columns of its reduction
+    plain_gmm = ref.gmm_ref
+
+    def dropping(x, w, tile_group_ids, *, block_n):
+        return plain_gmm(x[:, :-GMM_DROP].contiguous(),
+                         w[:, :-GMM_DROP].contiguous(), tile_group_ids,
+                         block_n=block_n)
+    ref.gmm_ref = dropping
+    try:
+        with routing.replay():
+            _, control = serve(MOE_ARCH, use_kernel=False, forced=gen_tok,
+                               **kw)
+    finally:
+        ref.gmm_ref = plain_gmm
+    control_diffs = (torch.stack(control.logits).float() - plain_logits
+                     ).abs().amax(dim=(1, 2)).tolist()
+    del control
+    out = dict(
+        layers=cfg.n_layers, weight_bytes=w_bytes,
+        prefill_s=stats.prefill_s, decode_s=stats.decode_s,
+        decode_tokens_per_s=stats.tokens_per_s,
+        decode_step_ms=stats.decode_s / SERVE["gen_len"] * 1e3,
+        peak_device_bytes=peak, launches=counts,
+        routing_flips=flips, routed_tokens_checked=checked,
+        assignments_dropped_over_capacity=dropped, assignments=assigned,
+        max_logit_diff_per_step=diffs, max_abs_logit=top, logit_tol=tol,
+        first_token_agrees=first_agree, first_tokens=gen_tok[:, 0].tolist(),
+        control=MOE_CONTROL, control_max_logit_diff=max(control_diffs),
+        control_min_step_diff=min(control_diffs),
+        control_diff_per_step=control_diffs)
+    log(f"moe serve {MOE_ARCH} layers={cfg.n_layers} batch={SERVE['batch']} "
+        f"prompt={SERVE['prompt_len']} gen={SERVE['gen_len']}: "
+        f"{json.dumps(out)}")
+    assert all(first_agree), "first generated token differs from plain"
+    assert max(diffs) <= tol, f"logits differ from plain by {max(diffs)} > {tol}"
+    assert max(control_diffs) > tol, \
+        f"control {MOE_CONTROL!r} passes the logit check"
+    if profile_dir is not None:
+        _profile_serve(params, cfg, dev, profile_dir, tag="moe_")
+    del params, stats, logits, plain_logits, routing
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
-# 4. slice phase
+# 5. slice phase
 # ---------------------------------------------------------------------------
 
 def _stats_identical(a: dict, b: dict) -> None:
@@ -763,15 +1092,18 @@ def _kernel_class(name: str) -> str:
         return "flash_attention"
     if "decode_split" in name or "decode_combine" in name:
         return "decode_attention"
+    if "gmm_mma" in name or "gmm_f32" in name:
+        return "gmm"
     if any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass", "gemv",
                                "splitKreduce")):
         return "matmul"
     return "other"
 
 
-def _profile_serve(params, cfg, dev, profile_dir: Path) -> None:
+def _profile_serve(params, cfg, dev, profile_dir: Path, tag: str = "") -> None:
     """The prefill and four decode steps under torch.profiler: device time
-    by kernel class (attention kernels, matmuls, the rest) against wall."""
+    by kernel class (attention kernels, gmm, matmuls, the rest) against
+    wall; ``tag`` prefixes the names of the files and lines."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -784,7 +1116,7 @@ def _profile_serve(params, cfg, dev, profile_dir: Path) -> None:
     cache = lm.init_cache(cfg, b, SERVE["max_len"], device=dev)
     profile_dir.mkdir(parents=True, exist_ok=True)
 
-    def traced(tag, fn):
+    def traced(name, fn):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -792,7 +1124,7 @@ def _profile_serve(params, cfg, dev, profile_dir: Path) -> None:
             out = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        (profile_dir / f"profile_serve_{tag}.txt").write_text(
+        (profile_dir / f"profile_serve_{tag}{name}.txt").write_text(
             prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
         busy: dict[str, float] = {}
         for e in prof.events():
@@ -800,7 +1132,7 @@ def _profile_serve(params, cfg, dev, profile_dir: Path) -> None:
                     "Activity Buffer Request", "Command Buffer Full"):
                 c = _kernel_class(e.name)
                 busy[c] = busy.get(c, 0.0) + e.device_time_total / 1e3
-        log(f"profile serve {tag}: wall_ms={wall * 1e3!r} device_ms_by_class="
+        log(f"profile serve {tag}{name}: wall_ms={wall * 1e3!r} device_ms_by_class="
             f"{json.dumps(busy)} idle_share="
             f"{1 - sum(busy.values()) / (wall * 1e3)!r}")
         return out
@@ -892,6 +1224,7 @@ def main() -> int:
     t0 = time.perf_counter()
     krows = kernel_phase(dev)
     krows.update(attention_phase(dev))
+    krows.update(gmm_phase(dev))
     log(f"kernel phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     sl = slice_phase(dev, args.profile)
@@ -899,9 +1232,16 @@ def main() -> int:
     t0 = time.perf_counter()
     sv = serve_phase(dev, args.profile)
     log(f"serve phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    mv = moe_serve_phase(dev, args.profile)
+    log(f"moe serve phase: {time.perf_counter() - t0:.2f} s")
     launches = {**sl["launches"], "flash_attention":
                 sv["launches"]["flash_attention"], "decode_attention":
-                sv["launches"]["decode_attention"]}
+                sv["launches"]["decode_attention"],
+                "gmm": mv["launches"]["gmm"]}
+    # the gmm row of the line: a decode step's gate/up launch, the shape of
+    # 1,152 of the serve's 1,188 launches (all four shapes are logged)
+    krows["gmm"] = krows["decode gate/up"]
 
     sources = {"partition_permute": ("partition.cu",
                                      "src/repro/kernels/partition.py:102"),
@@ -911,7 +1251,8 @@ def main() -> int:
                "flash_attention": ("flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:80"),
                "decode_attention": ("decode_attention.cu",
-                                    "src/repro/kernels/decode_attention.py:67")}
+                                    "src/repro/kernels/decode_attention.py:67"),
+               "gmm": ("gmm.cu", "src/repro/kernels/gmm.py:49")}
     line = []
     for k in KERNELS:
         r = krows[k.__name__]

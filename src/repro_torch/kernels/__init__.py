@@ -4,18 +4,21 @@ its plain PyTorch version in :mod:`.ref` and a launch counter on its wrapper.
 The shuffle's replay runs PART (:func:`partition_permute`), COMB for +
 (:func:`segment_combine`) and the ordered float64 segmented fold
 (:func:`segmented_fold`); the LM's serving path runs prefill attention
-(:func:`flash_attention`) and decode attention (:func:`decode_attention`).
+(:func:`flash_attention`) and decode attention (:func:`decode_attention`),
+and its MoE blocks the grouped matmul of the expert FFN (:func:`gmm`).
 """
 from .combine import segment_combine
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention
 from .fold import segmented_fold
+from .gmm import gmm
 from .partition import partition_permute
 
 SHUFFLE_KERNELS = (partition_permute, segment_combine, segmented_fold)
 LM_KERNELS = (flash_attention, decode_attention)
-KERNELS = SHUFFLE_KERNELS + LM_KERNELS
+MOE_KERNELS = (gmm,)
+KERNELS = SHUFFLE_KERNELS + LM_KERNELS + MOE_KERNELS
 
-__all__ = ["KERNELS", "LM_KERNELS", "SHUFFLE_KERNELS", "decode_attention",
-           "flash_attention", "partition_permute", "segment_combine",
-           "segmented_fold"]
+__all__ = ["KERNELS", "LM_KERNELS", "MOE_KERNELS", "SHUFFLE_KERNELS",
+           "decode_attention", "flash_attention", "gmm", "partition_permute",
+           "segment_combine", "segmented_fold"]

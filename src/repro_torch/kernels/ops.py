@@ -13,6 +13,7 @@ from .combine import segment_combine
 from .decode_attention import decode_attention as decode_attention_kernel
 from .flash_attention import flash_attention
 from .fold import segmented_fold as segmented_fold_kernel
+from .gmm import gmm, route_and_pad
 from .partition import partition_permute
 
 
@@ -47,6 +48,12 @@ def decode_attention(q, k, v, valid_len, *, use_kernel=True):
     return ref.decode_attention_ref(q, k, v, valid_len)
 
 
+def grouped_matmul(x, w, tile_group_ids, *, block_n=128, use_kernel=True):
+    if use_kernel:
+        return gmm(x, w, tile_group_ids, block_n=block_n)
+    return ref.gmm_ref(x, w, tile_group_ids, block_n=block_n)
+
+
 __all__ = ["part", "combine", "segmented_fold", "attention",
-           "decode_attention", "partition_permute", "segment_combine",
-           "flash_attention"]
+           "decode_attention", "grouped_matmul", "route_and_pad",
+           "partition_permute", "segment_combine", "flash_attention", "gmm"]

@@ -4,7 +4,8 @@ Each function computes exactly what its CUDA kernel computes, with stock
 tensor operations.  The wrappers in :mod:`.partition`, :mod:`.combine`,
 :mod:`.fold`, :mod:`.flash_attention` and :mod:`.decode_attention` run these
 only for tensors that lie on the CPU; on the card the kernels run and
-``chip_smoke.py`` holds them against these on the same inputs.
+``chip_smoke.py`` holds them against these on the same inputs.  The grouped
+matmul's (:mod:`.gmm`) is :func:`gmm_ref`.
 """
 from __future__ import annotations
 
@@ -120,6 +121,36 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, h, d).to(q.dtype)
 
 
+def gmm_ref(x: torch.Tensor, w: torch.Tensor, tile_group_ids, *,
+            block_n: int) -> torch.Tensor:
+    """Grouped matmul: row tile ``i`` (rows ``[i * block_n, (i + 1) *
+    block_n)``) of ``x [n, d]`` times ``w[tile_group_ids[i]]``, ``w [G, d,
+    f]``.  float32 math, the result in x's dtype.
+
+    Unlike the reference's oracle it never gathers ``w[tile_group_ids]``
+    (at the MoE prefill that is a float32 copy of the experts' weights for
+    every tile): it walks the runs of equal group id and does one float32
+    matmul per run.  The ids are read on the host (one copy)."""
+    n, d = x.shape
+    g, dw, f = w.shape
+    ids = torch.as_tensor(tile_group_ids).tolist()
+    if dw != d or block_n <= 0 or n != len(ids) * block_n:
+        raise ValueError(f"gmm wants x [n, d], w [G, d, f] and one group id "
+                         f"per {block_n}-row tile: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, {len(ids)} ids")
+    if ids and not 0 <= min(ids) <= max(ids) < g:
+        raise ValueError(f"group ids must lie in [0, {g}): "
+                         f"{min(ids)}..{max(ids)}")
+    out = torch.empty((n, f), dtype=x.dtype, device=x.device)
+    start = 0
+    for i in range(1, len(ids) + 1):
+        if i == len(ids) or ids[i] != ids[start]:
+            rows = slice(start * block_n, i * block_n)
+            out[rows] = (x[rows].float() @ w[ids[start]].float()).to(x.dtype)
+            start = i
+    return out
+
+
 # ---------------------------------------------------------------------------
 # how far a kernel may sit from the plain attention
 # ---------------------------------------------------------------------------
@@ -163,3 +194,31 @@ def decode_attention_tolerance(q, k, v, valid_len, plain, *,
     throughout, nothing rounded before the output."""
     a = decode_attention_ref(q.float(), k, v.abs(), valid_len, scale=scale)
     return attention_tolerance(plain, a)
+
+
+# ---------------------------------------------------------------------------
+# how far the gmm kernel may sit from the plain grouped matmul
+# ---------------------------------------------------------------------------
+
+def gmm_tolerance(x, w, tile_group_ids, plain: torch.Tensor, *,
+                  block_n: int) -> torch.Tensor:
+    """Per-element bound on ``|gmm(x, w, ids) - plain|``, ``plain =
+    gmm_ref(x, w, ids)``: ``c 2^-24 A`` for a float32 output and ``(2^-7
+    |plain| + c 2^-24 A) (1 + 2^-7)`` for a bfloat16 one, with ``A = |x| @
+    |w|`` (per tile, in float32) and ``c = 2 d``.
+
+    Both sides sum the same ``d`` products, each exact in float32 (two
+    bfloat16 factors, or float32 rounding), in their own orders.  Any order
+    of ``d - 1`` float32 additions lies within ``(d - 1) 2^-24 A`` of the
+    exact sum, so the kernel's tile-by-tile sum and the plain matmul's lie
+    within ``2 (d - 1) 2^-24 A <= c 2^-24 A`` of each other.  A bfloat16
+    output then rounds each float32 value once, by at most ``2^-8`` of the
+    rounded value: the two outputs ``k`` and ``p`` differ by ``D <= 2^-8
+    (|k| + |p|) + c 2^-24 A``, and ``|k| <= |p| + D`` gives ``D <= (2^-7
+    |p| + c 2^-24 A) / (1 - 2^-8)``.  An element whose row of ``x`` is zero
+    (a padding slot) is held to exactly 0."""
+    a = gmm_ref(x.abs().float(), w.abs(), tile_group_ids, block_n=block_n)
+    tol = 2.0 * x.shape[1] * 2.0 ** -24 * a
+    if plain.dtype != torch.float32:
+        tol = (tol + 2.0 ** -7 * plain.float().abs()) * (1 + 2.0 ** -7)
+    return tol

@@ -4,10 +4,12 @@ Counterpart of ``repro.launch.serve`` on one device, without the mesh.  The
 prompts are the reference's (``np.random.default_rng(seed)`` integers), so
 the same weights give the same tokens in both packages.  On the card the
 prefill's attention runs the flash kernel and every decode step the decode
-kernel (:mod:`repro_torch.kernels`); ``use_kernel=False`` runs their plain
+kernel (:mod:`repro_torch.kernels`), and a MoE model's expert FFN the
+grouped-matmul kernel in both; ``use_kernel=False`` runs their plain
 versions, the yardstick the kernels are held against.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -48,17 +50,22 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
           use_kernel: bool = True, forced: np.ndarray | None = None):
     """Serve ``batch`` random prompts greedily: returns ``(tokens [batch,
     gen_len] int32, ServeStats)``.  ``params`` defaults to
-    :func:`lm.init_lm` with ``seed`` on ``device``.  ``forced [batch,
-    gen_len]`` feeds those tokens to the decode steps instead of the greedy
-    ones (teacher forcing, for holding one run's logits against
-    another's)."""
+    :func:`lm.init_lm` of ``arch``'s config (``smoke`` picks SMOKE) with
+    ``seed`` on ``device``; given ``params`` bring their own config (a model
+    cut in depth gets a cache of its own depth), which must be ``arch``'s.
+    ``forced [batch, gen_len]`` feeds those tokens to the decode steps
+    instead of the greedy ones (teacher forcing, for holding one run's
+    logits against another's)."""
     if prompt_len + gen_len > max_len:
         raise ValueError(f"prompt_len + gen_len = {prompt_len + gen_len} "
                          f"exceeds max_len = {max_len}")
-    cfg = get_config(arch, smoke=smoke)
     dev = check_device(device)
     if params is None:
-        params = lm.init_lm(cfg, seed=seed, device=dev)
+        params = lm.init_lm(get_config(arch, smoke=smoke), seed=seed,
+                            device=dev)
+    cfg = params.cfg
+    if cfg.name.removesuffix("-smoke") != arch:
+        raise ValueError(f"params are a {cfg.name!r} model, not {arch!r}")
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
     stats = ServeStats(0.0, 0.0, batch * gen_len)

@@ -27,15 +27,19 @@ def to_tensor(a, device) -> torch.Tensor:
 
 
 def _layer_trees(tree: dict, n_layers: int) -> list[dict]:
-    """Per-layer subtrees: unstack the ``blocks`` leading layer axis of a
-    scanned stack, or take the ``layers`` list as it is."""
+    """Per-layer subtrees: ``block0`` (a MoE model's dense layer 0) if
+    present, then the ``blocks`` of a scanned stack unstacked along their
+    leading layer axis; or the ``layers`` list as it is.  Every expert of a
+    stacked ``[E, ...]`` weight stays at its own index."""
     if "layers" in tree:
         return list(tree["layers"])
 
     def pick(t, i):
         return {k: pick(v, i) for k, v in t.items()} if isinstance(t, dict) \
             else np.asarray(t)[i]
-    return [pick(tree["blocks"], i) for i in range(n_layers)]
+    first = [tree["block0"]] if "block0" in tree else []
+    return first + [pick(tree["blocks"], i)
+                    for i in range(n_layers - len(first))]
 
 
 def _copy_into(module: nn.Module, tree: dict, done: set, where: str) -> None:
@@ -64,7 +68,8 @@ def lm_params_from_reference(cfg: ModelConfig, params: dict, *,
     dev = check_device(device)
     model = LM(cfg, device=dev)              # empty: every tensor is copied
     done: set = set()
-    top = {k: v for k, v in params.items() if k not in ("blocks", "layers")}
+    top = {k: v for k, v in params.items()
+           if k not in ("blocks", "block0", "layers")}
     with torch.no_grad():
         _copy_into(model, top, done, "")
         for i, tree in enumerate(_layer_trees(params, cfg.n_layers)):

@@ -1,15 +1,16 @@
-"""The port's decoder LM: the dense family with token input.
+"""The port's decoder LM: the dense and MoE families with token input.
 
-Counterpart of ``repro.models.lm`` for ``family == "dense"``: the same
-parameters (``embed``, ``final_norm``, ``unembed`` and per block ``ln1``,
-``attn``, ``ln2``, ``mlp``), the same forward, cache and ``serve_step``.
-The reference's ``lax.scan`` over stacked blocks is an ``nn.ModuleList``
-walked in order, and the embedding is a plain lookup (one device, no mesh).
+Counterpart of ``repro.models.lm`` for ``family`` ``"dense"`` and ``"moe"``
+(without MLA): the same parameters (``embed``, ``final_norm``, ``unembed``
+and per block ``ln1``, ``attn``, ``ln2`` and ``mlp`` or ``moe``), the same
+forward, cache and ``serve_step``.  As in the reference, a MoE model with
+shared experts keeps a dense FFN in layer 0 (its ``block0``).  The
+reference's ``lax.scan`` over stacked blocks is an ``nn.ModuleList`` walked
+in order, and the embedding is a plain lookup (one device, no mesh).
 Logits are computed for every position, as the reference does.
 
-MoE (the gmm slice), SSM and hybrid blocks, MLA and embedding input
-(vision / audio frontends) come with later slices of the port and raise
-``NotImplementedError`` here.
+SSM and hybrid blocks, MLA and embedding input (vision / audio frontends)
+come with later slices of the port and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -22,39 +23,50 @@ from repro_torch.device import check_device
 from .config import ModelConfig
 from .layers import (MLP, Attention, RMSNorm, dtype_of, embed_init,
                      init_attention_cache, param)
+from .moe import MoE
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run yet."""
-    if cfg.family == "moe":
-        raise NotImplementedError(f"{cfg.name}: MoE blocks come with the "
-                                  "MoE serving slice of the port (gmm)")
     if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(f"{cfg.name}: {cfg.family} blocks come "
                                   "with the SSM/hybrid slice of the port")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.mla is not None:
         raise NotImplementedError(f"{cfg.name}: MLA comes with the "
                                   "DeepSeek-V2 slice of the port")
 
 
-class Block(nn.Module):
-    """One dense transformer block: pre-norm attention, pre-norm MLP."""
+def is_dense_layer(cfg: ModelConfig, layer: int) -> bool:
+    """DeepSeek-style: with shared experts, layer 0 keeps a dense FFN."""
+    return cfg.family == "moe" and cfg.moe.num_shared > 0 and layer == 0
 
-    def __init__(self, cfg: ModelConfig, *, device, gen=None):
+
+class Block(nn.Module):
+    """One transformer block: pre-norm attention, then a pre-norm MLP, or
+    MoE FFN (``moe``) in a MoE model's routed layers."""
+
+    def __init__(self, cfg: ModelConfig, layer: int, *, device, gen=None):
         super().__init__()
         dt = dtype_of(cfg)
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
         self.attn = Attention(cfg, device=device, gen=gen)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
-        self.mlp = MLP(cfg, device=device, gen=gen)
+        if cfg.family == "moe" and not is_dense_layer(cfg, layer):
+            self.moe = MoE(cfg, device=device, gen=gen)
+        else:
+            self.mlp = MLP(cfg, device=device, gen=gen)
 
     def forward(self, x, positions, *, cache=None, use_kernel=True):
+        """``(x, aux)``: ``aux`` the router's load-balance loss, or None."""
         out, _ = self.attn(self.ln1(x), positions, cache=cache,
                            use_kernel=use_kernel)
         x = x + out
-        return x + self.mlp(self.ln2(x))
+        if hasattr(self, "moe"):
+            y, aux = self.moe(self.ln2(x), use_kernel=use_kernel)
+            return x + y, aux
+        return x + self.mlp(self.ln2(x)), None
 
 
 class LM(nn.Module):
@@ -73,30 +85,33 @@ class LM(nn.Module):
         unembed = None if cfg.tie_embeddings else param(
             embed_init(gen, cfg.vocab, cfg.d_model, dt, dev).t())
         self.register_parameter("unembed", unembed)
-        self.blocks = nn.ModuleList(Block(cfg, device=dev, gen=gen)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, i, device=dev, gen=gen)
+                                    for i in range(cfg.n_layers))
 
     def forward(self, tokens: torch.Tensor, *, positions=None, cache=None,
                 use_kernel: bool = True):
         """``tokens [B, S]`` -> ``(logits [B, S, vocab], cache, aux)``.
         A given cache is updated in place (every layer's rows
-        ``[pos, pos + S)`` and ``pos``), not copied; ``aux`` is 0 (dense
-        blocks have no router loss)."""
+        ``[pos, pos + S)`` and ``pos``), not copied; ``aux`` is the float32
+        sum of the MoE layers' router losses (0 for a dense model)."""
         b, s = tokens.shape
         x = F.embedding(tokens, self.embed)
         if positions is None:
             base = cache["pos"] if cache is not None else 0
             positions = (base + torch.arange(s, device=tokens.device)
                          ).expand(b, s)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, block in enumerate(self.blocks):
-            x = block(x, positions, use_kernel=use_kernel,
-                      cache=None if cache is None else cache["layers"][i])
+            x, aux = block(x, positions, use_kernel=use_kernel,
+                           cache=None if cache is None else cache["layers"][i])
+            if aux is not None:
+                aux_total = aux_total + aux
         x = self.final_norm(x)
         unembed = self.embed.t() if self.unembed is None else self.unembed
         logits = x @ unembed
         if cache is not None:
             cache["pos"] += s
-        return logits, cache, 0.0
+        return logits, cache, aux_total
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> LM:

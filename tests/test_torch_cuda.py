@@ -1,6 +1,6 @@
 """The port on the card: each kernel against its plain version, the
 service's replay through the shuffle kernels, and the LM's serving path
-through the attention kernels.  Every test here is marked ``cuda`` and
+through the attention kernels and, for a MoE model, the grouped matmul.  Every test here is marked ``cuda`` and
 skips on a host without a CUDA device; on the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -24,6 +24,7 @@ from repro_torch.kernels.combine import segment_combine  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fold import segmented_fold  # noqa: E402
+from repro_torch.kernels.gmm import gmm  # noqa: E402
 from repro_torch.kernels.partition import partition_permute  # noqa: E402
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -324,10 +325,138 @@ def test_card_smoke_serve_matches_plain(cuda):
     counts = {k.__name__: k.launches for k in KERNELS}
     assert counts == {"partition_permute": 0, "segment_combine": 0,
                       "segmented_fold": 0, "flash_attention": cfg.n_layers,
-                      "decode_attention": cfg.n_layers * 6}
+                      "decode_attention": cfg.n_layers * 6, "gmm": 0}
     plain_gen, plain = serve("qwen2.5-14b", use_kernel=False, forced=gen, **kw)
     assert all(k.launches == counts[k.__name__] for k in KERNELS)
     np.testing.assert_array_equal(plain_gen[:, 0], gen[:, 0])
+    for a, b in zip(stats.logits, plain.logits):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the grouped matmul
+# ---------------------------------------------------------------------------
+
+def _gmm_share(got, plain, tol) -> float:
+    """Largest share of ``ref.gmm_tolerance`` used; where the bound is 0
+    (a zero row of x) the kernel must give exactly 0."""
+    diff = (got.float() - plain.float()).abs()
+    assert bool((diff[tol == 0] == 0).all())
+    return float((diff / tol.clamp_min(1e-38)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("groups,tiles,d,f,block_n,kind", [
+    (4, 8, 128, 256, 128, "random"), (5, 12, 64, 48, 16, "shuffled"),
+    (6, 9, 96, 40, 32, "gaps"), (3, 5, 1024, 136, 64, "shuffled"),
+    (8, 16, 256, 1536, 16, "capacity layout")])
+def test_gmm_kernel_matches_plain(cuda, groups, tiles, d, f, block_n, kind,
+                                  dtype):
+    rng = np.random.default_rng(groups * tiles + d + f)
+    x = _randn(rng, (tiles * block_n, d), TORCH[dtype], cuda)
+    w = _randn(rng, (groups, d, f), TORCH[dtype], cuda) / d ** 0.5
+    if kind == "capacity layout":      # the MoE path: experts in order
+        ids = np.repeat(np.arange(groups), tiles // groups)
+        x[block_n // 2:block_n] = 0    # a half-empty tile, as padding
+    elif kind == "shuffled":
+        ids = rng.permutation(np.concatenate([
+            np.arange(groups), rng.integers(0, groups, tiles - groups)]))
+    elif kind == "gaps":               # only the odd groups
+        ids = 2 * rng.integers(0, groups // 2, tiles) + 1
+    else:
+        ids = rng.integers(0, groups, tiles)
+    ids = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    before = gmm.launches
+    got = gmm(x, w, ids, block_n=block_n)
+    assert gmm.launches == before + 1
+    plain = ref.gmm_ref(x, w, ids, block_n=block_n)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == (tiles * block_n, f)
+    tol = ref.gmm_tolerance(x, w, ids, plain, block_n=block_n)
+    assert _gmm_share(got, plain, tol) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["one tile reads the next expert",
+                                   "reduction drops its last 512 of d"])
+def test_gmm_check_rejects_planted_faults(cuda, fault):
+    """The kernel itself, given the next expert's id for one tile or the
+    inputs without their last 512 columns of d, falls outside the bound
+    by more than 10x."""
+    rng = np.random.default_rng(29)
+    bf16 = torch.bfloat16
+    g, tiles, d, f, bn = 4, 8, 2048, 256, 64
+    x = _randn(rng, (tiles * bn, d), bf16, cuda)
+    w = _randn(rng, (g, d, f), bf16, cuda) / d ** 0.5
+    ids = torch.arange(tiles, dtype=torch.int32, device=cuda) % g
+    plain = ref.gmm_ref(x, w, ids, block_n=bn)
+    tol = ref.gmm_tolerance(x, w, ids, plain, block_n=bn)
+    if fault.startswith("one tile"):
+        bad = ids.clone()
+        bad[3] = (bad[3] + 1) % g
+        got = gmm(x, w, bad, block_n=bn)
+    else:
+        got = gmm(x[:, :-512].contiguous(), w[:, :-512].contiguous(), ids,
+                  block_n=bn)
+    torch.cuda.synchronize()
+    assert _gmm_share(got, plain, tol) > 10.0
+
+
+@pytest.mark.cuda
+def test_gmm_wrapper_refuses_what_it_does_not_take(cuda):
+    x = torch.ones((32, 12), dtype=torch.bfloat16, device=cuda)
+    ids = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gmm(x, torch.ones((1, 12, 8), dtype=torch.bfloat16, device=cuda),
+            ids, block_n=16)
+    with pytest.raises(TypeError):
+        gmm(x, torch.ones((1, 12, 8), device=cuda), ids, block_n=16)
+    with pytest.raises(ValueError):                 # not contiguous
+        gmm(torch.ones((32, 16), device=cuda)[:, :8],
+            torch.ones((1, 8, 8), device=cuda), ids, block_n=16)
+    # an id out of range: NaN rows, not a read past w
+    got = gmm(torch.ones((32, 8), device=cuda),
+              torch.ones((1, 8, 8), device=cuda),
+              torch.tensor([0, 1], dtype=torch.int32, device=cuda), block_n=16)
+    assert bool(got[:16].eq(8).all()) and bool(got[16:].isnan().all())
+
+
+@pytest.mark.cuda
+def test_card_smoke_moe_serve_matches_plain(cuda):
+    """The qwen3-moe-235b-a22b smoke config served on the card, its experts
+    made distinct: every layer launches gmm three times in the prefill and
+    in each decode step, and the run agrees with the plain versions'
+    (teacher-forced) to float32 rounding."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+
+    cfg = get_config("qwen3-moe-235b-a22b", smoke=True)
+    params = lm.init_lm(cfg, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    with torch.no_grad():
+        for block in params.blocks:
+            for w in (block.moe.experts.w_gate, block.moe.experts.w_up,
+                      block.moe.experts.w_down):
+                w.copy_(torch.randn(w.shape, generator=gen, device=cuda)
+                        / w.shape[1] ** 0.5)
+    kw = dict(batch=3, prompt_len=70, gen_len=6, max_len=128, device=cuda,
+              params=params)
+    for k in KERNELS:
+        k.launches = 0
+    got, stats = serve("qwen3-moe-235b-a22b", **kw)
+    counts = {k.__name__: k.launches for k in KERNELS}
+    assert counts == {"partition_permute": 0, "segment_combine": 0,
+                      "segmented_fold": 0, "flash_attention": cfg.n_layers,
+                      "decode_attention": cfg.n_layers * 6,
+                      "gmm": 3 * cfg.n_layers * 7}
+    plain_gen, plain = serve("qwen3-moe-235b-a22b", use_kernel=False,
+                             forced=got, **kw)
+    assert all(k.launches == counts[k.__name__] for k in KERNELS)
+    np.testing.assert_array_equal(plain_gen[:, 0], got[:, 0])
     for a, b in zip(stats.logits, plain.logits):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=1e-4, atol=1e-4)

@@ -82,16 +82,16 @@ def test_serving_defaults_to_the_card():
     from repro_torch.launch.serve import serve
     from repro_torch.models import lm
     from repro_torch.models.convert import lm_params_from_reference
-    cfg = get_config("qwen2.5-14b", smoke=True)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        serve("qwen2.5-14b", batch=1, prompt_len=2, gen_len=1)
-    for make in (lambda: lm.init_lm(cfg), lambda: lm.LM(cfg),
-                 lambda: lm.init_cache(cfg, 1, 4),
-                 lambda: lm_params_from_reference(cfg, {})):
+    for arch in ("qwen2.5-14b", "qwen3-moe-235b-a22b"):    # dense, MoE
+        cfg = get_config(arch, smoke=True)
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            make()
-    with pytest.raises(ValueError):
-        lm.init_lm(cfg, device="meta")
-    gen, _ = serve("qwen2.5-14b", batch=1, prompt_len=2, gen_len=1,
-                   device="cpu")
-    assert gen.shape == (1, 1)
+            serve(arch, batch=1, prompt_len=2, gen_len=1)
+        for make in (lambda: lm.init_lm(cfg), lambda: lm.LM(cfg),
+                     lambda: lm.init_cache(cfg, 1, 4),
+                     lambda: lm_params_from_reference(cfg, {})):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+        with pytest.raises(ValueError):
+            lm.init_lm(cfg, device="meta")
+        gen, _ = serve(arch, batch=1, prompt_len=2, gen_len=1, device="cpu")
+        assert gen.shape == (1, 1)

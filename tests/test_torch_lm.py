@@ -269,11 +269,28 @@ def test_cache_overflow_raises():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("qwen3-moe-235b-a22b", "MoE"), ("deepseek-v2-236b", "MoE"),
-    ("xlstm-350m", "ssm"), ("hymba-1.5b", "hybrid")])
+    ("deepseek-v2-236b", "MLA"), ("xlstm-350m", "ssm"),
+    ("hymba-1.5b", "hybrid")])
 def test_later_slices_raise(arch, what):
     with pytest.raises(NotImplementedError, match=what):
         lm.LM(get_config(arch, smoke=True), device="cpu")
+
+
+def test_moe_model_builds():
+    """qwen3-moe-235b-a22b (MoE without MLA) builds: every layer routed,
+    128 experts stacked per projection at full width (checked on the SMOKE
+    config's 8)."""
+    cfg = get_config("qwen3-moe-235b-a22b", smoke=True)
+    model = lm.LM(cfg, device="cpu")
+    assert len(model.blocks) == cfg.n_layers
+    for block in model.blocks:
+        assert not hasattr(block, "mlp")
+        assert block.moe.experts.w_gate.shape == (
+            cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert)
+        assert block.moe.router.shape == (cfg.d_model, cfg.moe.num_experts)
+    assert sum(p.numel() for p in model.parameters()) == cfg.num_params() \
+        + cfg.n_layers * (2 * cfg.d_model + cfg.d_model * cfg.moe.num_experts) \
+        + cfg.d_model
 
 
 def test_embeds_input_raises():
