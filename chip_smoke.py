@@ -20,15 +20,21 @@ exits non-zero and prints no result.  In order it
    one-call library yardstick (``index_add_``, or
    ``scaled_dot_product_attention`` for the attention kernels) with CUDA
    events (median of several launches);
-4. holds the grouped-matmul kernel (``gmm``) against its plain version at
-   the MoE serving shapes (Qwen3-MoE: 128 experts of d 4096 x f 1536, the
-   prefill's buffers padded to 384 rows per expert, a decode step's to 16)
-   and at edge cases (shuffled and repeated group ids, groups with no
-   tile, block_n 16 / 64 / 128, float32 operands), each element within
-   ``ref.gmm_tolerance``; two planted faults (one tile reading the next
-   expert's weights, the reduction without its last 512 columns of d) must
-   fall outside it by more than 10x.  Times kernel, plain version and
-   ``torch.bmm`` on the capacity layout;
+4. counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions
+   that ``cuobjdump --dump-sass`` finds in the built gmm library (both must
+   be there), then holds the grouped-matmul kernel (``gmm``) against its
+   plain version at the MoE serving shapes (Qwen3-MoE: 128 experts of d
+   4096 x f 1536, the prefill's buffers padded to 384 rows per expert at
+   block_n 128, the MoE block's layout, and at block_n 64; a decode
+   step's padded to 16) and at edge cases (shuffled and repeated group
+   ids on both of the kernel's paths, groups with no tile, block_n 16 /
+   32 / 64 / 128 / 256, d and f off the 64 and 128 tiles, float32
+   operands), each element within ``ref.gmm_tolerance``; two planted
+   faults (one tile reading the next expert's weights, the reduction
+   without its last 512 columns of d) must fall outside it by more than
+   10x at the prefill and at the decode shape.  Times kernel, plain
+   version and ``torch.bmm`` on the capacity layout, with the kernel's
+   TFLOP/s and TB/s;
 5. drives the shuffle's main path, the cached-plan replay of the shuffle
    service, at the paper-shaped 40-worker deployment: Zipf(0.9) keys over
    1M keys, 200k rows of width 8 per worker (8M rows, 576 MB), SUM on
@@ -127,19 +133,34 @@ GMM_TOL = ("per element: (2^-7 |plain| + 2 d 2^-24 (|x| @ |w|)) (1 + 2^-7) "
 # name, groups, tiles, d, f, block_n, ids, dtype.  The serving shapes are
 # Qwen3-MoE's: 128 experts, d_model 4096, d_ff_expert 1536; the prefill's
 # capacity 328 (4,096 tokens x top-8 / 128 x 1.25) padded to 384 rows per
-# expert (block_n 64), a decode step's 8 padded to 16 (block_n 16)
+# expert (block_n 128: 3 tiles an expert, the kernel's compute path), a
+# decode step's 8 padded to 16 (block_n 16: the swapped path).  block_n a
+# multiple of 128 takes the compute path, any other the swapped one.
 GMM_CASES = [
-    ("prefill gate/up", 128, 128 * 6, 4096, 1536, 64, "capacity", "bfloat16"),
-    ("prefill down", 128, 128 * 6, 1536, 4096, 64, "capacity", "bfloat16"),
+    ("prefill gate/up", 128, 128 * 3, 4096, 1536, 128, "capacity",
+     "bfloat16"),
+    ("prefill down", 128, 128 * 3, 1536, 4096, 128, "capacity", "bfloat16"),
     ("decode gate/up", 128, 128, 4096, 1536, 16, "capacity", "bfloat16"),
     ("decode down", 128, 128, 1536, 4096, 16, "capacity", "bfloat16"),
+    ("prefill gate/up at block_n 64", 128, 128 * 6, 4096, 1536, 64,
+     "capacity", "bfloat16"),
     ("shuffled, repeated ids", 128, 300, 4096, 1536, 16, "shuffled",
      "bfloat16"),
     ("groups with no tile", 128, 200, 1536, 4096, 64, "gaps", "bfloat16"),
     ("block_n 128", 32, 96, 4096, 1536, 128, "shuffled", "bfloat16"),
+    ("block_n 256, repeated ids", 16, 40, 2048, 1536, 256, "shuffled",
+     "bfloat16"),
+    ("d % 64 = 8, compute path", 16, 48, 1416, 1536, 128, "shuffled",
+     "bfloat16"),
+    ("d % 64 = 8, swapped path", 16, 48, 1416, 1536, 16, "shuffled",
+     "bfloat16"),
     ("ragged f (f % 128 = 8)", 16, 48, 1024, 1416, 32, "shuffled",
      "bfloat16"),
+    ("ragged f (f % 256 = 136), compute path", 16, 24, 1024, 1416, 128,
+     "shuffled", "bfloat16"),
     ("float32 operands", 16, 64, 1024, 512, 64, "shuffled", "float32")]
+# the shapes at which the planted faults must fail the check
+GMM_FAULT_CASES = ("prefill gate/up", "decode gate/up")
 
 
 def log(*a) -> None:
@@ -574,12 +595,30 @@ def _gmm_ids(kind: str, groups: int, tiles: int, gen, dev):
                               generator=gen) + 1).int()
 
 
+def sass_counts(name: str) -> dict:
+    """Counts of the tensor-core and TMA instructions in the SASS of the
+    built library of ``csrc/<name>.cu``: ``HGMMA`` (wgmma), ``UTMALDG``
+    (TMA tile loads) and ``HMMA`` (mma.sync)."""
+    import re
+
+    from repro_torch.kernels import _build
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass",
+                           str(_build._target(name))], check=True,
+                          capture_output=True, text=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HGMMA", "UTMALDG", "HMMA")}
+
+
 def gmm_phase(dev) -> dict:
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.gmm import gmm
 
+    sass = sass_counts("gmm")
+    log(f"kernel gmm SASS instructions: {json.dumps(sass)}")
+    assert sass["HGMMA"] > 0 and sass["UTMALDG"] > 0, sass
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = {}
     for name, groups, tiles, d, f, bn, kind, dt in GMM_CASES:
@@ -599,7 +638,7 @@ def gmm_phase(dev) -> dict:
         assert share <= 1.0, f"gmm {name}: {share} of the bound"
         log(f"kernel gmm {name} x={tuple(x.shape)} w={tuple(w.shape)} "
             f"block_n={bn} {dt}: max_abs_err={err!r}, bound share {share!r}")
-        if name == "decode gate/up":
+        if name in GMM_FAULT_CASES:
             # planted faults, made by the kernel itself: one tile given the
             # next expert's id; the reduction without its last 512 of d
             bad = ids.clone()
@@ -611,20 +650,22 @@ def gmm_phase(dev) -> dict:
                                         block_n=bn)}
             for fault, cut in faults.items():
                 fshare = _gmm_share(cut, plain, tol)
-                log(f"kernel gmm planted fault ({fault}): bound share "
-                    f"{fshare!r}")
+                log(f"kernel gmm {name} planted fault ({fault}): bound "
+                    f"share {fshare!r}")
                 assert fshare > 10.0, f"the gmm check passes: {fault}"
             del faults, cut, bad
         if kind == "capacity":
             nbytes, ops = _gmm_work(x, w, ids)
             tb = bound(nbytes, ops, BF16_OPS_PER_S)
             x3 = x.view(groups, -1, d)     # the reference einsum's layout
+            ms = time_ms(lambda: gmm(x, w, ids, block_n=bn), spin=True)
+            lib_ms = time_ms(lambda: torch.bmm(x3, w), spin=True)
             row = dict(
                 max_abs_err=err, tolerance=GMM_TOL, bound_share=share,
-                ms=time_ms(lambda: gmm(x, w, ids, block_n=bn), spin=True),
+                ms=ms, tflop_per_s=ops / ms / 1e9, tb_per_s=nbytes / ms / 1e9,
                 plain_ms=time_ms(lambda: ref.gmm_ref(x, w, ids, block_n=bn),
                                  reps=3, warmup=1),
-                library_ms=time_ms(lambda: torch.bmm(x3, w), spin=True),
+                library_ms=lib_ms, library_tflop_per_s=ops / lib_ms / 1e9,
                 bound_ms=tb[0], bound_by=tb[1], block_n=bn,
                 rows_per_expert=tiles // groups * bn)
             rows[name] = row
@@ -1092,7 +1133,7 @@ def _kernel_class(name: str) -> str:
         return "flash_attention"
     if "decode_split" in name or "decode_combine" in name:
         return "decode_attention"
-    if "gmm_mma" in name or "gmm_f32" in name:
+    if "gmm_wgmma" in name or "gmm_f32" in name:
         return "gmm"
     if any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass", "gemv",
                                "splitKreduce")):

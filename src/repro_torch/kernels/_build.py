@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, ``build/repro_torch_kernels/<name>-<hash>.so`` under the checkout
-(the hash covers the source and the flags, so an edited source rebuilds).
+(the hash covers the source, every ``csrc/*.cuh`` header it may include and
+the flags, so an edited source or header rebuilds).
 The first call to :func:`library` builds every missing library at once, one
 ``nvcc`` process per source, all started together, and loads them.  Nothing
 is built when the module is imported.
@@ -40,9 +41,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> None:

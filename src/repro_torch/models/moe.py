@@ -112,10 +112,12 @@ def _capacity(tokens: int, m) -> int:
 
 
 def buffer_layout(cap: int) -> tuple[int, int]:
-    """``(block_n, cap_pad)`` for capacity ``cap``: the gmm's row tile (16
-    or 32 where it covers ``cap``, else 64, the kernel's largest row block)
-    and ``cap`` rounded up to it."""
-    block_n = 16 if cap <= 16 else 32 if cap <= 32 else 64
+    """``(block_n, cap_pad)`` for capacity ``cap``: the gmm's row tile and
+    ``cap`` rounded up to it.  16, 32 or 64 where that covers ``cap`` (the
+    kernel's swapped path, which streams the experts); else 128, so that a
+    128-row block of the kernel's compute path owns one expert."""
+    block_n = 16 if cap <= 16 else 32 if cap <= 32 else 64 if cap <= 64 \
+        else 128
     return block_n, -(-cap // block_n) * block_n
 
 

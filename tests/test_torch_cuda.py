@@ -349,11 +349,19 @@ def _gmm_share(got, plain, tol) -> float:
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("groups,tiles,d,f,block_n,kind", [
-    (4, 8, 128, 256, 128, "random"), (5, 12, 64, 48, 16, "shuffled"),
-    (6, 9, 96, 40, 32, "gaps"), (3, 5, 1024, 136, 64, "shuffled"),
+    # block_n a multiple of 128: the bf16 kernel's compute path
+    (4, 8, 128, 256, 128, "random"), (4, 12, 640, 384, 128, "capacity layout"),
+    (4, 6, 1416, 1536, 128, "shuffled"), (3, 8, 520, 1416, 256, "shuffled"),
+    # any other: the swapped path, 16, 32 or 64 tokens a block
+    (5, 12, 64, 48, 16, "shuffled"), (6, 9, 96, 40, 32, "gaps"),
+    (3, 5, 1024, 136, 64, "shuffled"), (5, 10, 1416, 264, 48, "shuffled"),
     (8, 16, 256, 1536, 16, "capacity layout")])
 def test_gmm_kernel_matches_plain(cuda, groups, tiles, d, f, block_n, kind,
                                   dtype):
+    """Both bf16 paths (and the float32 kernel) against the plain version:
+    repeated and shuffled ids, groups with no tile, d off the 64-deep
+    stage (1416, 520) and f off the 128- and 256-column blocks, each
+    element within ``ref.gmm_tolerance``."""
     rng = np.random.default_rng(groups * tiles + d + f)
     x = _randn(rng, (tiles * block_n, d), TORCH[dtype], cuda)
     w = _randn(rng, (groups, d, f), TORCH[dtype], cuda) / d ** 0.5
@@ -379,18 +387,25 @@ def test_gmm_kernel_matches_plain(cuda, groups, tiles, d, f, block_n, kind,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["prefill (block_n 128)",
+                                   "decode (block_n 16)",
+                                   "block_n 64"])
 @pytest.mark.parametrize("fault", ["one tile reads the next expert",
                                    "reduction drops its last 512 of d"])
-def test_gmm_check_rejects_planted_faults(cuda, fault):
+def test_gmm_check_rejects_planted_faults(cuda, fault, shape):
     """The kernel itself, given the next expert's id for one tile or the
     inputs without their last 512 columns of d, falls outside the bound
-    by more than 10x."""
+    by more than 10x, on the compute path (the prefill's layout: 3 tiles
+    an expert) and on the swapped one."""
     rng = np.random.default_rng(29)
     bf16 = torch.bfloat16
-    g, tiles, d, f, bn = 4, 8, 2048, 256, 64
+    g, d = 4, 2048
+    tiles, f, bn = {"prefill (block_n 128)": (12, 512, 128),
+                    "decode (block_n 16)": (4, 1536, 16),
+                    "block_n 64": (8, 256, 64)}[shape]
     x = _randn(rng, (tiles * bn, d), bf16, cuda)
     w = _randn(rng, (g, d, f), bf16, cuda) / d ** 0.5
-    ids = torch.arange(tiles, dtype=torch.int32, device=cuda) % g
+    ids = torch.arange(tiles, dtype=torch.int32, device=cuda) * g // tiles
     plain = ref.gmm_ref(x, w, ids, block_n=bn)
     tol = ref.gmm_tolerance(x, w, ids, plain, block_n=bn)
     if fault.startswith("one tile"):

@@ -9,6 +9,8 @@ slots against ``PartFn.assign``.  Inputs are made from numpy seeds and handed
 to both frameworks.  The kernels themselves are held against these plain
 versions on the card by ``chip_smoke.py`` and by the ``cuda``-marked tests.
 """
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -307,3 +309,26 @@ def test_range_slot_is_identical(key_space, ndst):
     np.testing.assert_array_equal(got.numpy(),
                                   range_part(key_space).assign(keys, ndst))
 
+
+
+def test_an_edited_header_rebuilds(tmp_path, monkeypatch):
+    """A library's name hashes its source and every ``csrc/*.cuh`` header,
+    so an edited or added header gives every kernel a new library, and an
+    edit to another source does not."""
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    first = {n: _build._target(n) for n in _build.SOURCES}
+    assert all(p.parent == _build.BUILD_DIR for p in first.values())
+    assert _build._target("gmm") == first["gmm"]
+    other = csrc / "fold.cu"
+    other.write_text(other.read_text() + "// an edit\n")
+    assert _build._target("gmm") == first["gmm"]
+    assert _build._target("fold") != first["fold"]
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "// an edit\n")
+    edited = {n: _build._target(n) for n in _build.SOURCES}
+    assert all(edited[n] != first[n] for n in ("gmm", "partition"))
+    (csrc / "more.cuh").write_text("#pragma once\n")
+    assert _build._target("gmm") not in (first["gmm"], edited["gmm"])

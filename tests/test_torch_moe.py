@@ -357,6 +357,51 @@ def test_moe_ffn_matches(dtype, num_shared, capacity_factor):
     assert bool((load > cap).any()) == (capacity_factor < 1)
 
 
+def test_buffer_layout_covers_every_capacity():
+    """Every capacity the block can ask for: the pad stays under one tile,
+    and past 64 the tile is the kernel's 128-row compute block."""
+    for cap in range(8, 2049):
+        block_n, cap_pad = moe.buffer_layout(cap)
+        assert block_n % 16 == 0 and cap_pad % block_n == 0, cap
+        assert 0 <= cap_pad - cap < block_n, cap
+        assert (block_n == 128) == (cap > 64), cap
+
+
+def _layout_upto_64(cap: int) -> tuple[int, int]:
+    """The buffer layout before the 128-row tile: block_n 64 at most."""
+    block_n = 16 if cap <= 16 else 32 if cap <= 32 else 64
+    return block_n, -(-cap // block_n) * block_n
+
+
+@pytest.mark.parametrize("num_shared", [0, 1])
+def test_moe_ffn_output_does_not_depend_on_the_padding(monkeypatch,
+                                                       num_shared):
+    """bf16, capacity 152: padded to 192 (block_n 64) or to 256 (block_n
+    128), the block's output is the same bits, and the reference's bits
+    without shared experts (Qwen3-MoE's layout).  A shared expert runs
+    one float32 matmul over all 300 tokens, where XLA's and torch's CPU
+    matmuls sum in other orders (a third of the float32 products differ
+    in their last bits), so a few bf16 outputs round one step apart:
+    held to the bf16 tolerance of ``test_torch_cuda.py`` there."""
+    rcfg, pcfg, params, block = _moe_pair("bfloat16", num_shared)
+    rng = np.random.default_rng(8)
+    b, s = 4, 75
+    cap = moe._capacity(b * s, pcfg.moe)
+    assert cap == 152 and moe.buffer_layout(cap) == (128, 256)
+    assert _layout_upto_64(cap) == (64, 192)
+    x = jnp.asarray(rng.standard_normal((b, s, rcfg.d_model)), jnp.bfloat16)
+    want, _ = jmoe.moe_ffn(params, rcfg, x)
+    got, _ = moe.moe_ffn(block, pcfg, _t(x))
+    monkeypatch.setattr(moe, "buffer_layout", _layout_upto_64)
+    old, _ = moe.moe_ffn(block, pcfg, _t(x))
+    assert got.dtype == old.dtype == torch.bfloat16
+    assert torch.equal(got, old)
+    if num_shared:
+        np.testing.assert_allclose(_np(got), _np(want), rtol=2e-2, atol=2e-2)
+    else:
+        np.testing.assert_array_equal(_np(got), _np(want))
+
+
 # ---------------------------------------------------------------------------
 # the LM: conversion, forward, prefill and decode, serve()
 # ---------------------------------------------------------------------------
