@@ -98,3 +98,31 @@ def check(err: int, what: str) -> None:
 def stream_of(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_kernel_ran(fn, attempts: int = 3) -> str:
+    """Which of the three flash kernels one call of ``fn`` launched, read
+    from the kernel names in a torch.profiler trace of that call.  A trace
+    that holds no device kernel at all (the profiler may drop a session's
+    device events) is taken again, up to ``attempts`` calls in all."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    ran = {m.group(0) for n in names
+           for m in [re.search(r"flash_(wgmma|mma|fwd)", n)] if m}
+    if len(ran) != 1:
+        raise RuntimeError(f"one flash kernel per call, traced {ran} "
+                           f"among {len(names)} device events")
+    return ran.pop()

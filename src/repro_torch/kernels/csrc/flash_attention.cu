@@ -14,33 +14,54 @@
 // 43 GFLOP against 101 MB, so the card's bf16 tensor-core rate (989 TFLOP/s)
 // bounds it at about 43 us, above the 30 us its bytes take.
 //
-// Design: one block per (64-row query tile, bh), launched longest causal
-// rows first so that the short ones fill the tail; kv tiles of 64 rows.
+// Three kernels, chosen by dtype and head width only:
 //
-// - bf16 q, k and v (the serving path): flash_mma, 4 warps of 16 query rows
-//   each, on the tensor cores with mma.sync m16n8k16 (bf16 in, float32
-//   accumulate).  K and V tiles arrive by cp.async in two stages (the next
-//   in flight while this one is used), rows padded by 16 bytes so that
-//   ldmatrix reads hit distinct banks.  S = Q K^T stays in registers; the
-//   online softmax runs on the accumulator fragments (row max and sum over
-//   the 4 lanes that share a row), and P, rounded to bf16, is fed straight
-//   back as the A operand of P V (the accumulator layout of two n-tiles is
-//   the A layout of one k-step).  The rounding of P is the one place this
-//   path departs from float32 math: at most 2^-9 of max|v| in the output.
+// - bf16 q, k and v at D 64 or 128 (every served model): flash_wgmma, on
+//   Hopper's TMA and wgmma (FlashAttention-3's shape; csrc/hopper.cuh).  A
+//   block owns 128 query rows of one bh: a producer warpgroup (one thread
+//   issues the TMA loads; the warpgroup gives its registers up with
+//   setmaxnreg) and two consumer warpgroups of 64 rows each.  q, k and v
+//   are 3-D maps [BH, S, D] in 64-wide boxes with the 128-byte swizzle, so
+//   no box crosses a head and rows past Sq or Skv read zeros (their
+//   columns are still masked: a zero key scores 0, not -1e30).  Q is
+//   loaded once; K and V tiles of 128 kv rows come through a ring of 2
+//   stages with their own full and empty mbarriers, so S = Q K^T can start
+//   while V is still landing.  S is one m64n128 wgmma per k16 step, both
+//   operands K-major from shared memory; the online softmax runs on the
+//   accumulator fragments (a thread holds 2 rows; max and sum over the 4
+//   lanes of a row; scale * log2(e) folded into exp2); P, rounded to bf16,
+//   is the register A operand of O += P V (m64nD k16, V MN-major by its
+//   transpose bit): an m64n128 accumulator's fragments are the A fragments
+//   of its k16 steps.  A stage's K is released once S's wgmma is waited
+//   for, its V once PV's is.  The two consumers take turns to issue their
+//   products (named barriers), and within a turn S of tile t goes out
+//   before PV of tile t - 1, so that the softmax of tile t runs under the
+//   tensor cores' work.  Grid (ceil(Sq / 128), BHq), longest causal rows
+//   first; one block a SM (160 KB of shared memory at D 128).
+// - bf16 at D 16 or 32 (the smoke configs): flash_mma, 4 warps of 16 query
+//   rows each, 64-row tiles, mma.sync m16n8k16 (bf16 in, float32
+//   accumulate).  K and V tiles arrive by cp.async in two stages, rows
+//   padded by 16 bytes so that ldmatrix reads hit distinct banks.  The
+//   online softmax runs on the accumulator fragments and P goes straight
+//   back as the A operand of P V, as above.
 // - any float32 operand: flash_fwd, float32 FMAs on the CUDA cores.  256
-//   threads, the tiles staged in shared memory as float32 with rows padded
-//   to D + 4 floats; thread (ty, tx) of a 16 x 16 grid owns score rows
-//   ty + 16 i and columns tx + 16 j, P goes through shared memory for P V.
+//   threads, 64-row tiles staged in shared memory as float32 with rows
+//   padded to D + 4 floats; thread (ty, tx) of a 16 x 16 grid owns score
+//   rows ty + 16 i and columns tx + 16 j, P goes through shared memory for
+//   P V.
 //
-// wgmma and TMA are a later change.
+// The rounding of P to bf16 is the one place the two tensor-core kernels
+// depart from float32 math: at most 2^-9 of max|v| in the output.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kBQ = 64;          // query rows per block
+constexpr int kBQ = 64;          // query rows per block (flash_fwd, flash_mma)
 constexpr int kBK = 64;          // kv rows per tile
 constexpr int kThreads = 256;    // a 16 x 16 grid of (ty, tx)
 constexpr float kMasked = -1e30f;
@@ -550,6 +571,313 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16, D 64 or 128: TMA and wgmma
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWBQ = 128;            // query rows per block (2 x 64)
+constexpr int kWBK = 128;            // kv rows per tile
+constexpr int kWStages = 2;          // K / V tiles in flight
+constexpr int kWThreads = 384;       // producer + 2 consumer warpgroups
+constexpr int kWBox = 64;            // bf16 along a box's 128-byte row
+constexpr int kWBoxBytes = 128 * kWBox * 2;   // a box of 128 rows: 16 KB
+// descriptor byte offsets (hopper.cuh): Q and K K-major; V MN-major, its
+// two 64-column boxes (D 128) one box apart
+constexpr uint32_t kKLbo = 16, kKSbo = 1024;
+constexpr uint32_t kVLbo = kWBoxBytes, kVSbo = 1024;
+constexpr int kKStep = 32;           // bytes a k16 step moves, K-major
+constexpr int kVStep = 16 * 128;     // ... and MN-major (16 kv rows)
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct WTile {
+  static constexpr int kBoxes = D / kWBox;
+  static constexpr int kBytes = kBoxes * kWBoxBytes;   // a Q, K or V tile
+  static constexpr int kKOff = kBytes;                 // after Q
+  static constexpr int kVOff = kKOff + kWStages * kBytes;
+  static constexpr int kBarOff = kVOff + kWStages * kBytes;
+  static constexpr size_t kSmem = 1024 + kBarOff
+                                  + (1 + 4 * kWStages) * sizeof(uint64_t);
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t{1023});
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_wgmma(const __grid_constant__ CUtensorMap tq,
+            const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+            int sq, int skv, int group, float scale_log2, int causal) {
+  using T = WTile<D>;
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* ks = smem + T::kKOff;
+  uint8_t* vs = smem + T::kVOff;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + T::kBarOff);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = k_full + kWStages;
+  uint64_t* v_full = k_empty + kWStages;
+  uint64_t* v_empty = v_full + kWStages;
+
+  const int nq = (sq + kWBQ - 1) / kWBQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kWBQ;
+  const int bh = blockIdx.y;
+  const int kvh = bh / group;
+  const int q_offset = skv - sq;
+  int n_tiles = (skv + kWBK - 1) / kWBK;
+  if (causal) {   // the block's last real row sees columns <= last
+    const int last = min(q0 + kWBQ, sq) - 1 + q_offset;
+    n_tiles = min(n_tiles, last / kWBK + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    tma_prefetch(&tq);
+    tma_prefetch(&tk);
+    tma_prefetch(&tv);
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 2);        // one arrival per consumer warpgroup
+      mbar_init(&v_empty[s], 2);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {                        // producer: one thread issues
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, T::kBytes);
+#pragma unroll
+      for (int b = 0; b < T::kBoxes; ++b)
+        tma_load_3d(smem + b * kWBoxBytes, &tq, q_full, b * kWBox, q0, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kWStages;
+        const uint32_t ph = (t / kWStages - 1) & 1;
+        if (t >= kWStages) mbar_wait(&k_empty[s], ph);
+        mbar_arrive_expect_tx(&k_full[s], T::kBytes);
+#pragma unroll
+        for (int b = 0; b < T::kBoxes; ++b)
+          tma_load_3d(ks + s * T::kBytes + b * kWBoxBytes, &tk, &k_full[s],
+                      b * kWBox, t * kWBK, kvh);
+        if (t >= kWStages) mbar_wait(&v_empty[s], ph);
+        mbar_arrive_expect_tx(&v_full[s], T::kBytes);
+#pragma unroll
+        for (int b = 0; b < T::kBoxes; ++b)
+          tma_load_3d(vs + s * T::kBytes + b * kWBoxBytes, &tv, &v_full[s],
+                      b * kWBox, t * kWBK, kvh);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();                // consumers: rows 64 (wg - 1) ..
+  const int cw = wg - 1;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int row_lo = q0 + 64 * cw + 16 * (tid / 32) + lane / 4;  // and + 8
+  const int arow_lo = row_lo + q_offset;    // absolute causal rows
+  const int arow_hi = arow_lo + 8;
+  const int first_arow = q0 + 64 * cw + q_offset;
+  const int c_lane = 2 * (lane % 4);
+  const uint8_t* qw = smem + cw * 64 * 128;   // this warpgroup's 64 rows
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float sc[kWBK / 2];                   // S, then P, of one tile
+#pragma unroll
+  for (int i = 0; i < kWBK / 2; ++i) sc[i] = 0.0f;
+  uint32_t pk[kWBK / 4];                // P as bf16 pairs: PV's A operand
+  float m[2] = {kMasked, kMasked};      // running max, log2 domain
+  float l[2] = {0.0f, 0.0f};            // this thread's share of the sum
+
+  auto issue_s = [&](int t) {           // sc = Q K_t^T
+    const uint8_t* kt = ks + (t % kWStages) * T::kBytes;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk / 4) * kWBoxBytes + (kk % 4) * kKStep;
+      wgmma_m64n128<0, 0>(sc, desc_sw128(qw + off, kKLbo, kKSbo),
+                          desc_sw128(kt + off, kKLbo, kKSbo), kk > 0);
+    }
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int t) {          // o += P V_t
+    const uint8_t* vt = vs + (t % kWStages) * T::kBytes;
+    fence_regs(o);
+    fence_regs(pk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWBK / 16; ++kk) {
+      const uint64_t dv = desc_sw128(vt + kk * kVStep, kVLbo, kVSbo);
+      if constexpr (D == 64)
+        wgmma_m64n64_rs<1>(o, pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
+                           pk[4 * kk + 3], dv);
+      else
+        wgmma_m64n128_rs<1>(o, pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
+                            pk[4 * kk + 3], dv);
+    }
+    wgmma_commit();
+  };
+  // the online softmax of tile t on sc: masks, the running max, P = 2^(s -
+  // m) in place, the running sums; alpha rescales what came before
+  auto softmax = [&](int t, float (&alpha)[2]) {
+    const int k0 = t * kWBK;
+#pragma unroll
+    for (int i = 0; i < kWBK / 2; ++i) sc[i] *= scale_log2;
+    if (k0 + kWBK > skv || (causal && k0 + kWBK - 1 > first_arow)) {
+#pragma unroll
+      for (int i = 0; i < kWBK / 2; ++i) {
+        const int col = k0 + 8 * (i / 4) + c_lane + (i % 2);
+        const int arow = (i / 2) % 2 ? arow_hi : arow_lo;
+        if (col >= skv || (causal && col > arow)) sc[i] = kMasked;
+      }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < kWBK / 2; ++i)
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      alpha[h] = ex2(m[h] - mx[h]);
+      m[h] = mx[h];
+    }
+#pragma unroll
+    for (int i = 0; i < kWBK / 2; ++i) {
+      sc[i] = ex2(sc[i] - m[(i / 2) % 2]);
+      sum[(i / 2) % 2] += sc[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + sum[h];
+  };
+  auto rescale = [&](const float (&alpha)[2]) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+  };
+  auto pack = [&] {
+#pragma unroll
+    for (int j = 0; j < kWBK / 4; ++j) pk[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
+  };
+  // the two warpgroups take turns to issue their products (named barriers
+  // 1 and 2, one per warpgroup's turn), so that one's softmax runs under
+  // the other's tensor-core work; consumer 0 goes first.  Each turn but
+  // the first and last issues S of tile t and then PV of tile t - 1, and
+  // the softmax of tile t runs under that PV.  Consumer 1 skips its last
+  // hand-over, which no turn would take.
+  auto turn_begin = [&] { named_barrier(1 + cw, 256); };
+  auto turn_end = [&](bool last) {
+    if (!(last && cw == 1)) named_barrier_arrive(2 - cw, 256);
+  };
+  if (cw == 1) named_barrier_arrive(1, 256);
+
+  mbar_wait(q_full, 0);
+  float alpha[2];
+  mbar_wait(&k_full[0], 0);
+  turn_begin();
+  issue_s(0);
+  turn_end(false);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  if (tid == 0) mbar_arrive(&k_empty[0]);
+  softmax(0, alpha);                    // o is 0: nothing to rescale
+  pack();
+  for (int t = 1; t < n_tiles; ++t) {
+    const int s = t % kWStages, sp = (t - 1) % kWStages;
+    mbar_wait(&k_full[s], (t / kWStages) & 1);
+    mbar_wait(&v_full[sp], ((t - 1) / kWStages) & 1);
+    turn_begin();
+    issue_s(t);
+    issue_pv(t - 1);
+    turn_end(false);
+    wgmma_wait<1>();                    // S of tile t is in
+    fence_regs(sc);
+    if (tid == 0) mbar_arrive(&k_empty[s]);
+    softmax(t, alpha);                  // under PV of tile t - 1
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pk);
+    if (tid == 0) mbar_arrive(&v_empty[sp]);
+    rescale(alpha);
+    pack();
+  }
+  const int sl = (n_tiles - 1) % kWStages;
+  mbar_wait(&v_full[sl], ((n_tiles - 1) / kWStages) & 1);
+  turn_begin();
+  issue_pv(n_tiles - 1);
+  turn_end(true);
+  wgmma_wait<0>();
+  fence_regs(o);
+  if (tid == 0) mbar_arrive(&v_empty[sl]);
+
+  bf16* ob = out + static_cast<int64_t>(bh) * sq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int row = row_lo + 8 * h;
+    if (row >= sq) continue;
+    const float den = l[h] == 0.0f ? 1.0f : l[h];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(
+          ob + static_cast<int64_t>(row) * D + 8 * j + c_lane) =
+          __floats2bfloat162_rn(o[4 * j + 2 * h] / den,
+                                o[4 * j + 2 * h + 1] / den);
+  }
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int64_t bhq, int64_t bhkv, int64_t sq, int64_t skv,
+                 int64_t group, float scale, int causal, cudaStream_t st) {
+  static_assert(WTile<D>::kSmem <= kMaxSmem, "tile too large");
+  // q [bhq, sq, D], k and v [bhkv, skv, D]: 3-D maps, so that a box never
+  // crosses a head and rows past sq or skv read zeros
+  const cuuint32_t box[3] = {kWBox, kWBQ, 1};
+  const cuuint64_t qd[3] = {D, static_cast<cuuint64_t>(sq),
+                            static_cast<cuuint64_t>(bhq)};
+  const cuuint64_t qst[2] = {D * 2, static_cast<cuuint64_t>(sq) * D * 2};
+  const cuuint64_t kd[3] = {D, static_cast<cuuint64_t>(skv),
+                            static_cast<cuuint64_t>(bhkv)};
+  const cuuint64_t kst[2] = {D * 2, static_cast<cuuint64_t>(skv) * D * 2};
+  CUtensorMap mq, mk, mv;
+  if (!hopper::bf16_map(&mq, q, 3, qd, qst, box) ||
+      !hopper::bf16_map(&mk, k, 3, kd, kst, box) ||
+      !hopper::bf16_map(&mv, v, 3, kd, kst, box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_wgmma<D>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(WTile<D>::kSmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>((sq + kWBQ - 1) / kWBQ),
+                  static_cast<unsigned>(bhq));
+  kern<<<grid, kWThreads, WTile<D>::kSmem, st>>>(
+      mq, mk, mv, static_cast<bf16*>(out), static_cast<int>(sq),
+      static_cast<int>(skv), static_cast<int>(group), scale * kLog2e, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename TQ, typename TKV>
 int by_dim(int64_t d, const void* q, const void* k, const void* v, void* out,
            int64_t bhq, int64_t sq, int64_t skv, int64_t group, float scale,
@@ -587,8 +915,8 @@ extern "C" int teshu_flash_attention(const void* q, const void* k,
     switch (d) {
       case 16: return launch_mma<16>(q, k, v, out, bhq, sq, skv, group, scale, causal, st);
       case 32: return launch_mma<32>(q, k, v, out, bhq, sq, skv, group, scale, causal, st);
-      case 64: return launch_mma<64>(q, k, v, out, bhq, sq, skv, group, scale, causal, st);
-      case 128: return launch_mma<128>(q, k, v, out, bhq, sq, skv, group, scale, causal, st);
+      case 64: return launch_wgmma<64>(q, k, v, out, bhq, bhkv, sq, skv, group, scale, causal, st);
+      case 128: return launch_wgmma<128>(q, k, v, out, bhq, bhkv, sq, skv, group, scale, causal, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

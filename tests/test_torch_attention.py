@@ -58,6 +58,12 @@ FLASH_CASES = [
     (6, 1, 130, 130, 16, True),       # MQA, one row past the tile
     (4, 2, 77, 200, 32, False),       # non-causal, Sq < Skv
     (3, 1, 1, 65, 16, True),          # one query row at the end
+    # D 64, the card's wgmma kernel's width, at its 128-row tiles' edges
+    (4, 2, 130, 200, 64, True),       # Sq, Skv off the tile, q_offset 70
+    (5, 1, 40, 104, 64, True),        # group 5, q_offset 64
+    (16, 1, 1, 129, 64, True),        # group 16, one row, Skv one past
+    (5, 1, 70, 150, 64, False),       # non-causal, Skv > Sq
+    (3, 1, 140, 70, 128, False),      # D 128, non-causal, Sq > Skv
 ]
 
 

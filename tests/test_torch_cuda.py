@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 import repro_torch.core as port  # noqa: E402
 from repro_torch.core import torchplan  # noqa: E402
+from repro_torch.kernels._build import flash_kernel_ran  # noqa: E402
 from repro_torch.kernels import SHUFFLE_KERNELS, ref  # noqa: E402
 from repro_torch.kernels.combine import segment_combine  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
@@ -214,7 +215,15 @@ def _randn(rng, shape, dtype, dev):
 @pytest.mark.parametrize("bhq,bhkv,sq,skv,d,causal", [
     (4, 4, 64, 64, 16, True), (8, 4, 100, 100, 32, True),
     (8, 2, 37, 150, 64, True), (6, 1, 130, 130, 128, True),
-    (4, 2, 77, 200, 128, False), (2, 2, 1, 65, 64, True)])
+    (4, 2, 77, 200, 128, False), (2, 2, 1, 65, 64, True),
+    # the wgmma kernel's edges (bf16 at D 64 and 128; 128-row tiles):
+    (3, 3, 192, 192, 64, True),       # group 1, on the 64 tile, off 128
+    (10, 2, 200, 333, 128, True),     # group 5, off both, q_offset 133
+    (32, 2, 100, 300, 64, True),      # group 16, q_offset 200
+    (32, 2, 256, 320, 128, True),     # group 16, q_offset 64
+    (5, 1, 1, 300, 128, True),        # one query row
+    (5, 1, 130, 260, 64, False),      # non-causal, Skv > Sq
+    (4, 2, 300, 130, 128, False)])    # non-causal, Sq > Skv
 def test_flash_kernel_matches_plain(cuda, bhq, bhkv, sq, skv, d, causal,
                                     qdt, kvdt, q_scale):
     rng = np.random.default_rng(bhq * sq + skv + d)
@@ -283,6 +292,41 @@ def test_attention_check_rejects_planted_faults(cuda, fault):
         got = decode_attention(q, k, v, 1024)
     with pytest.raises(AssertionError, match="of the bound"):
         _attn_close(got, plain, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,qdt,kvdt,kernel", [
+    (128, "bfloat16", "bfloat16", "flash_wgmma"),
+    (64, "bfloat16", "bfloat16", "flash_wgmma"),
+    (32, "bfloat16", "bfloat16", "flash_mma"),
+    (16, "bfloat16", "bfloat16", "flash_mma"),
+    (128, "float32", "bfloat16", "flash_fwd"),
+    (64, "bfloat16", "float32", "flash_fwd")])
+def test_flash_kernel_is_chosen_by_dtype_and_width(cuda, d, qdt, kvdt,
+                                                   kernel):
+    rng = np.random.default_rng(d)
+    q = _randn(rng, (4, 130, d), TORCH[qdt], cuda)
+    k, v = (_randn(rng, (2, 200, d), TORCH[kvdt], cuda) for _ in range(2))
+    assert flash_kernel_ran(lambda: flash_attention(q, k, v)) == kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_wgmma_check_rejects_dropped_tile(cuda, d):
+    """On the wgmma kernel: the right call holds the bound, and the same
+    call on k and v without their last 64 rows (half its last 128-row
+    tile) fails it."""
+    rng = np.random.default_rng(29 + d)
+    bf16 = torch.bfloat16
+    q = _randn(rng, (10, 300, d), bf16, cuda)
+    k, v = (_randn(rng, (2, 512, d), bf16, cuda) for _ in range(2))
+    plain = ref.flash_attention_ref(q, k, v, causal=False)
+    tol = ref.flash_attention_tolerance(q, k, v, plain, causal=False)
+    _attn_close(flash_attention(q, k, v, causal=False), plain, tol)
+    cut = flash_attention(q, k[:, :-64].contiguous(), v[:, :-64].contiguous(),
+                          causal=False)
+    with pytest.raises(AssertionError, match="of the bound"):
+        _attn_close(cut, plain, tol)
 
 
 @pytest.mark.cuda
