@@ -24,7 +24,13 @@ exits non-zero and prints no result.  In order it
    which of the library's three kernels it ran (read from a torch.profiler
    trace of the call; bf16 at head width 64 or 128 must run
    ``flash_wgmma``); the Qwen2.5-14B and the Qwen3-MoE prefill shapes are
-   timed beside SDPA;
+   timed beside SDPA.  The decode library's SASS must hold ``UTMALDG``;
+   each decode case logs the device kernels one call launched (bf16 at
+   head width 64 or 128 must launch ``decode_tma`` alone), a ``valid_len``
+   passed as a device tensor must give the int's output bit for bit, and
+   the Qwen2.5-14B and Qwen3-MoE decode steps and one ``decode_32k`` layer
+   are timed (beside SDPA where it fits), with the host's microseconds per
+   call;
 4. counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions
    that ``cuobjdump --dump-sass`` finds in the built gmm library (both must
    be there), then holds the grouped-matmul kernel (``gmm``) against its
@@ -132,14 +138,28 @@ FLASH_CASES = [  # name, BHq, BHkv, Sq, Skv, D, causal, q dtype (k, v: bf16)
 FLASH_TIMED = {"serving prefill": "flash_attention",
                "MoE prefill (Qwen3-MoE: 64 q / 4 kv heads)":
                "flash_attention_moe"}
-DECODE_CASES = [  # name, B, H, KVH, T, valid_len, q dtype (cache: bf16)
-    ("serving decode", 4, 40, 8, 2048, 1056, "bfloat16"),
-    ("valid_len 1", 4, 40, 8, 2048, 1, "bfloat16"),
-    ("valid_len T", 4, 40, 8, 2048, 2048, "bfloat16"),
-    ("MQA (group = H)", 4, 48, 1, 2048, 1056, "bfloat16"),
-    ("sharp scores", 4, 40, 8, 2048, 1056, "bfloat16"),
-    ("float32 q, bf16 cache", 4, 40, 8, 2048, 1056, "float32"),
-    ("decode_32k layer", 128, 40, 8, 32768, 32768, "bfloat16")]
+# bf16 q and cache at d 64 or 128 run decode_tma (one launch, valid_len
+# read on the device where it is a tensor), anything else decode_split and
+# decode_combine
+DECODE_CASES = [  # name, B, H, KVH, T, d, valid_len, q dtype (cache: bf16)
+    ("serving decode", 4, 40, 8, 2048, 128, 1056, "bfloat16"),
+    ("serving decode, valid_len on the device", 4, 40, 8, 2048, 128, 1056,
+     "bfloat16"),
+    ("valid_len 1", 4, 40, 8, 2048, 128, 1, "bfloat16"),
+    ("valid_len T", 4, 40, 8, 2048, 128, 2048, "bfloat16"),
+    ("MQA (group = H)", 4, 48, 1, 2048, 128, 1056, "bfloat16"),
+    ("sharp scores", 4, 40, 8, 2048, 128, 1056, "bfloat16"),
+    ("float32 q, bf16 cache", 4, 40, 8, 2048, 128, 1056, "float32"),
+    ("MoE decode (Qwen3-MoE: 64 q / 4 kv heads)", 4, 64, 4, 2048, 128, 1056,
+     "bfloat16"),
+    ("d 64, MHA (MusicGen-large: 32 / 32 heads)", 4, 32, 32, 2048, 64, 1056,
+     "bfloat16"),
+    ("decode_32k layer", 128, 40, 8, 32768, 128, 32768, "bfloat16")]
+# the decode cases timed, and the key of each one's row
+DECODE_TIMED = {"serving decode": "decode_attention",
+                "MoE decode (Qwen3-MoE: 64 q / 4 kv heads)":
+                "decode_attention_moe",
+                "decode_32k layer": "decode_attention_32k"}
 SHARP = 4.0
 
 MOE_ARCH = "qwen3-moe-235b-a22b"     # the MoE slice: full width, depth cut
@@ -222,6 +242,18 @@ def bound(nbytes: float, ops: float, ops_rate: float) -> tuple[float, str]:
     ``ops`` operations at ``ops_rate``."""
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_rate * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _host_us(calls) -> float:
+    """Host microseconds per call to enqueue ``calls`` one after another."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in calls:
+        c()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / len(calls) * 1e6
 
 
 def nvidia_smi_line() -> str:
@@ -457,7 +489,7 @@ def attention_phase(dev) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels._build import flash_kernel_ran
+    from repro_torch.kernels._build import decode_kernel_ran, flash_kernel_ran
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
 
@@ -529,13 +561,30 @@ def attention_phase(dev) -> dict:
     del q, k, v, got, plain, tol
 
     # ---- decode: the serving step, edge cases, one decode_32k layer -------
-    d = HEAD_DIM
-    for name, bb, hh, kk, tt, valid, qdt in DECODE_CASES:
-        q = randn((bb, hh, d), getattr(torch, qdt))
-        if name == "sharp scores":
-            q = q * SHARP
-        kc, vc = randn((bb, tt, kk, d)), randn((bb, tt, kk, d))
-        got = decode_attention(q, kc, vc, valid)
+    sass = sass_counts("decode_attention")
+    log(f"kernel decode SASS instructions: {json.dumps(sass)}")
+    assert sass["UTMALDG"] > 0, sass
+    serving_out = None
+    for name, bb, hh, kk, tt, d, valid, qdt in DECODE_CASES:
+        on_device = name.endswith("on the device")
+        if on_device:           # the serving case's inputs, valid_len read
+            q, kc, vc, want = serving_out     # on the card
+            vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+        else:
+            q = randn((bb, hh, d), getattr(torch, qdt))
+            if name == "sharp scores":
+                q = q * SHARP
+            kc, vc = randn((bb, tt, kk, d)), randn((bb, tt, kk, d))
+            vl = valid
+        got = decode_attention(q, kc, vc, vl)   # (and the counters exist)
+        path = decode_kernel_ran(lambda: decode_attention(q, kc, vc, vl))
+        if qdt == "bfloat16":
+            assert path == ("decode_tma",), (name, path)
+        if name == "serving decode":
+            serving_out = (q, kc, vc, got)
+        elif on_device:         # bit for bit the int path's output
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+            del want
         # the plain version on 16 sequences at most (at decode_32k its
         # float32 copies of the whole cache would not fit beside it)
         n = min(bb, 16)
@@ -546,23 +595,40 @@ def attention_phase(dev) -> dict:
         assert got.dtype == q.dtype and bool(torch.isfinite(got).all())
         assert share <= 1.0, f"decode {name}: {share} of the bound"
         log(f"kernel decode {name} q={tuple(q.shape)} cache={tuple(kc.shape)} "
-            f"valid_len={valid}: max_abs_err={err!r}, bound share {share!r}")
+            f"valid_len={valid} ran {'+'.join(path)}: max_abs_err={err!r}, "
+            f"bound share {share!r}")
         if name == "serving decode":
-            # planted fault: the last split (positions 1024..1055) dropped
+            # planted fault: the last 32 positions (1024..1055) dropped
             cut = decode_attention(q, kc, vc, valid - 32)
             _, fshare = _held(cut, plain, tol)
             log(f"kernel decode planted fault (last split dropped): "
                 f"bound share {fshare!r}")
             assert fshare > 1.0, "the decode check passes a dropped split"
-        if name in ("serving decode", "decode_32k layer"):
+            # the host's cost of a call: enqueue time on one cache, and on
+            # caches at 200 other addresses (tensor maps encoded anew)
+            numel = kc.numel()
+            buf = torch.empty(numel + 200 * 16, dtype=kc.dtype, device=dev)
+            views = [buf[16 * i:16 * i + numel].view(kc.shape)
+                     for i in range(200)]
+            host = dict(
+                same_cache=_host_us([lambda: decode_attention(q, kc, vc,
+                                                              valid)] * 200),
+                new_cache=_host_us([lambda x=x: decode_attention(q, x, x,
+                                                                 valid)
+                                    for x in views]))
+            log(f"kernel decode host us per call: {json.dumps(host)}")
+            del buf, views
+        if name in DECODE_TIMED:
             nbytes, ops = _decode_work(q, kc, valid)
             tb = bound(nbytes, ops, BF16_OPS_PER_S)
             row = dict(
                 max_abs_err=err, tolerance=ATTN_TOL, bound_share=share,
+                path=path[0] if len(path) == 1 else "+".join(path),
                 ms=time_ms(lambda: decode_attention(q, kc, vc, valid),
                            flush=flush, spin=True),
                 bound_ms=tb[0], bound_by=tb[1], plain_ms=None, library_ms=None)
-            if name == "serving decode":
+            row["tb_per_s"] = nbytes / row["ms"] / 1e9
+            if name != "decode_32k layer":
                 # not at decode_32k: the plain version's float32 copies of
                 # the cache, and SDPA's, may not fit beside it
                 q4 = q.view(bb, hh, 1, d)
@@ -575,11 +641,11 @@ def attention_phase(dev) -> dict:
                     lambda: F.scaled_dot_product_attention(
                         q4, k4, v4, enable_gqa=True), flush=flush,
                     spin=True)
-                rows["decode_attention"] = row
-            else:
-                rows["decode_attention_32k"] = row
+                del q4, k4, v4
+            rows[DECODE_TIMED[name]] = row
             log(f"kernel decode {name}: {json.dumps(row)}")
         del q, kc, vc, got, plain, tol, kv
+    del serving_out
     del scratch
     torch.cuda.empty_cache()
     return rows
@@ -1205,7 +1271,8 @@ def slice_phase(dev, profile_dir: Path | None) -> dict:
 def _kernel_class(name: str) -> str:
     if "flash_fwd" in name or "flash_mma" in name or "flash_wgmma" in name:
         return "flash_attention"
-    if "decode_split" in name or "decode_combine" in name:
+    if "decode_tma" in name or "decode_split" in name \
+            or "decode_combine" in name:
         return "decode_attention"
     if "gmm_wgmma" in name or "gmm_f32" in name:
         return "gmm"
@@ -1379,7 +1446,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-        if "path" in r:       # the kernel of the row's shape (flash's three)
+        if "path" in r:       # the kernel of the row's shape (flash, decode)
             line[-1]["path"] = r["path"]
     assert all(e["launches"] > 0 for e in line)
     log(f"chip_smoke: {time.perf_counter() - t_start:.2f} s in all")

@@ -100,13 +100,11 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def flash_kernel_ran(fn, attempts: int = 3) -> str:
-    """Which of the three flash kernels one call of ``fn`` launched, read
-    from the kernel names in a torch.profiler trace of that call.  A trace
-    that holds no device kernel at all (the profiler may drop a session's
-    device events) is taken again, up to ``attempts`` calls in all."""
-    import re
-
+def _traced_kernels(fn, attempts: int) -> list[str]:
+    """The names of the device kernels one call of ``fn`` launched, read
+    from a torch.profiler trace of that call.  A trace that holds no device
+    kernel at all (the profiler may drop a session's device events) is
+    taken again, up to ``attempts`` calls in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -117,12 +115,33 @@ def flash_kernel_ran(fn, attempts: int = 3) -> str:
             fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
+                 if e.device_type == DeviceType.CUDA and e.name not in (
+                     "Activity Buffer Request", "Command Buffer Full")]
         if names:
-            break
+            return names
+    return []
+
+
+def flash_kernel_ran(fn, attempts: int = 3) -> str:
+    """Which of the three flash kernels one call of ``fn`` launched."""
+    import re
+    names = _traced_kernels(fn, attempts)
     ran = {m.group(0) for n in names
            for m in [re.search(r"flash_(wgmma|mma|fwd)", n)] if m}
     if len(ran) != 1:
         raise RuntimeError(f"one flash kernel per call, traced {ran} "
                            f"among {len(names)} device events")
     return ran.pop()
+
+
+def decode_kernel_ran(fn, attempts: int = 3) -> tuple[str, ...]:
+    """The device kernels one call of ``fn`` launched, in order, each named
+    by its decode kernel (``decode_tma``, ``decode_split``,
+    ``decode_combine``) or else by its full name: ``("decode_tma",)`` for
+    the one-launch kernel."""
+    import re
+    names = _traced_kernels(fn, attempts)
+    if not names:
+        raise RuntimeError("the trace holds no device kernel")
+    return tuple(m.group(0) if m else n for n in names
+                 for m in [re.search(r"decode_(tma|split|combine)", n)])

@@ -4,13 +4,25 @@
 ``decode_attention(q, k, v, valid_len)`` attends one new token per sequence,
 ``q [B, H, d]``, over a cache ``k, v [B, T, KVH, d]`` whose positions
 ``>= valid_len`` are masked; q head ``h`` reads kv head ``h // (H / KVH)``.
-The math is float32; the result has q's dtype.  The wrapper splits the
-valid positions over enough blocks to fill the card and the kernel merges
-the splits.
+The math is float32; the result has q's dtype.
 
-A CUDA tensor launches the kernel; a CPU tensor takes the plain version
+The kernel is chosen by dtype and head width only.  bf16 q and cache at
+head width 64 or 128, with at most 48 q heads per kv head, take
+``decode_tma``: one launch whose grid depends on the shapes and the SM
+count only, each block working out its share of the valid positions from
+``valid_len`` on the device and the last block of each (batch, kv head)
+merging the splits (:func:`split_plan` mirrors its rule).  ``valid_len`` is
+a Python int (passed by value) or a 0-dim int32 tensor on q's device, which
+the kernel reads: with a tensor the wrapper checks nothing on the host, and
+a value outside ``[1, T]`` gives NaN rows.  Anything else takes
+``decode_split`` (and ``decode_combine``), whose split plan is made on the
+host from ``int(valid_len)``.
+
+A CUDA tensor launches a kernel; a CPU tensor takes the plain version
 (:func:`repro_torch.kernels.ref.decode_attention_ref`).  Any other device,
-dtype or layout raises.
+dtype or layout raises.  The per-pair counters of ``decode_tma`` live in one
+zeroed buffer per device, which each launch leaves zeroed: launches that
+share a device run in one stream's order.
 """
 from __future__ import annotations
 
@@ -23,8 +35,9 @@ from . import _build
 from .ref import decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 64                    # cache positions per tile (kTile in the source)
-BLOCKS_PER_SM = 2            # the split aims at this many blocks per SM
+TILE = 64                    # cache positions per tile (kTTile, kTile)
+BLOCKS_PER_SM = 1            # decode_tma's grid: one block an SM holds
+SPLIT_BLOCKS_PER_SM = 2      # decode_split's plan aims at this many
 
 
 def _lib():
@@ -37,6 +50,12 @@ def _lib():
         f.restype = ctypes.c_int
         lib.teshu_decode_attention_fits.argtypes = [i64, i64, i32]
         lib.teshu_decode_attention_fits.restype = i32
+        lib.teshu_decode_attention_tma.argtypes = [
+            p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64,
+            ctypes.c_float, p]
+        lib.teshu_decode_attention_tma.restype = ctypes.c_int
+        lib.teshu_decode_attention_tma_fits.argtypes = [i64, i64]
+        lib.teshu_decode_attention_tma_fits.restype = i32
     return lib
 
 
@@ -45,14 +64,49 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_plan(pairs: int, valid: int, sms: int) -> tuple[int, int]:
-    """(tiles per split, splits) for ``pairs`` (batch, kv head) pairs over
-    ``valid`` positions: enough splits to give the card about
-    ``BLOCKS_PER_SM`` blocks per SM, every split starting below ``valid``."""
+def grid_splits(pairs: int, t_len: int, sms: int) -> int:
+    """Blocks per (batch, kv head) pair in ``decode_tma``'s grid: enough
+    for the ``pairs`` to give the card about ``BLOCKS_PER_SM`` blocks an
+    SM, and no more than the ``T``-position cache has tiles."""
+    return max(1, min(-(-t_len // TILE), int(BLOCKS_PER_SM * sms) // pairs))
+
+
+def split_plan(pairs: int, valid: int, t_len: int, sms: int
+               ) -> tuple[int, list[tuple[int, int]]]:
+    """The Python mirror of ``decode_tma``'s in-kernel rule: (the grid's
+    blocks per pair, the ``[first, end)`` positions of each working split).
+    The ``ceil(valid / 64)`` valid tiles are cut into ``n = min(tiles,
+    grid)`` runs, split ``s`` taking tiles ``[s tiles / n, (s + 1) tiles /
+    n)``; blocks ``n ..`` of a pair have no work."""
+    grid = grid_splits(pairs, t_len, sms)
     tiles = -(-valid // TILE)
-    want = max(1, -(-BLOCKS_PER_SM * sms // pairs))
+    n = min(tiles, grid)
+    return grid, [(s * tiles // n * TILE, min(valid, (s + 1) * tiles // n * TILE))
+                  for s in range(n)]
+
+
+def _split_plan_host(pairs: int, valid: int, sms: int) -> tuple[int, int]:
+    """``decode_split``'s plan: (tiles per split, splits), enough splits to
+    give the card about ``SPLIT_BLOCKS_PER_SM`` blocks per SM, every split
+    starting below ``valid``."""
+    tiles = -(-valid // TILE)
+    want = max(1, -(-SPLIT_BLOCKS_PER_SM * sms // pairs))
     per = -(-tiles // min(tiles, want))
     return per, -(-tiles // per)
+
+
+_COUNTERS: dict[int, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, pairs: int) -> torch.Tensor:
+    """The per-pair counters of ``decode_tma`` on ``device``: one zeroed
+    int32 buffer, grown (zeroed again) when a launch has more pairs."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    buf = _COUNTERS.get(index)
+    if buf is None or buf.numel() < pairs:
+        buf = torch.zeros(max(pairs, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[index] = buf
+    return buf
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -67,11 +121,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kb != b or dk != d or kvh == 0 or h % kvh:
         raise ValueError(f"q and the cache disagree: {tuple(q.shape)} "
                          f"{tuple(k.shape)}")
-    valid = int(valid_len)
-    if not 1 <= valid <= t:
-        raise ValueError(f"valid_len must lie in [1, T={t}]: {valid}")
     if not q.device == k.device == v.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    on_device = isinstance(valid_len, torch.Tensor) and valid_len.is_cuda
+    if on_device:
+        if valid_len.dim() != 0 or valid_len.dtype != torch.int32 \
+                or valid_len.device != q.device:
+            raise ValueError(f"a valid_len tensor must be 0-dim int32 on "
+                             f"{q.device}: {valid_len.dtype} "
+                             f"{tuple(valid_len.shape)} {valid_len.device}")
+        valid = None
+    else:
+        valid = int(valid_len)
+        if not 1 <= valid <= t:
+            raise ValueError(f"valid_len must lie in [1, T={t}]: {valid}")
     scale = (d ** -0.5) if scale is None else float(scale)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, valid, scale=scale)
@@ -83,7 +146,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"of one such dtype: {q.dtype} {k.dtype} {v.dtype}")
     g = h // kvh
     lib = _lib()
-    if not lib.teshu_decode_attention_fits(g, d, _DTYPES[k.dtype]):
+    bf16 = torch.bfloat16
+    tma = (q.dtype == k.dtype == bf16
+           and bool(lib.teshu_decode_attention_tma_fits(g, d)))
+    if not tma and not lib.teshu_decode_attention_fits(g, d, _DTYPES[k.dtype]):
         raise ValueError(f"head width {d} (a multiple of 8 is needed) with "
                          f"{g} q heads per kv head exceeds one block")
     if b * kvh > 65535:
@@ -95,12 +161,37 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    per, splits = split_plan(b * kvh, valid, _sm_count(q.device.index or 0))
+    pairs = b * kvh
+    sms = _sm_count(q.device.index or 0)
+    if tma:
+        grid = grid_splits(pairs, t, sms)
+        part_acc = part_ml = counters = None
+        if grid > 1:
+            part_acc = torch.empty((pairs, grid, g, d), dtype=torch.float32,
+                                   device=q.device)
+            part_ml = torch.empty((pairs, grid, g, 2), dtype=torch.float32,
+                                  device=q.device)
+            counters = _counters(q.device, pairs)
+        _build.check(lib.teshu_decode_attention_tma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if part_acc is None else part_acc.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            valid_len.data_ptr() if on_device else None,
+            0 if on_device else valid, b, t, kvh, g, d, grid, scale,
+            _build.stream_of(q)), "decode_attention")
+        decode_attention.launches += 1
+        return out
+    if valid is None:                    # decode_split plans on the host
+        valid = int(valid_len)
+        if not 1 <= valid <= t:
+            raise ValueError(f"valid_len must lie in [1, T={t}]: {valid}")
+    per, splits = _split_plan_host(pairs, valid, sms)
     part_acc = part_ml = None
     if splits > 1:
-        part_acc = torch.empty((b * kvh, splits, g, d), dtype=torch.float32,
+        part_acc = torch.empty((pairs, splits, g, d), dtype=torch.float32,
                                device=q.device)
-        part_ml = torch.empty((b * kvh, splits, g, 2), dtype=torch.float32,
+        part_ml = torch.empty((pairs, splits, g, 2), dtype=torch.float32,
                               device=q.device)
     _build.check(lib.teshu_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -20,6 +20,7 @@ from repro.kernels.flash_attention import flash_attention as pallas_flash
 
 torch = pytest.importorskip("torch")
 
+from hypothesis_compat import given, settings, st  # noqa: E402
 from repro_torch.kernels import LM_KERNELS, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (decode_attention,  # noqa: E402
                                                   split_plan)
@@ -168,16 +169,55 @@ def test_decode_refuses_bad_lengths():
         decode_attention(q, c3, c3, 2)
 
 
-@pytest.mark.parametrize("pairs,valid,sms,want", [
-    (32, 1056, 132, (2, 9)),          # the serving decode: 288 blocks
-    (1024, 32768, 132, (512, 1)),     # decode_32k: the pairs fill the card
-    (32, 1, 132, (1, 1)),
-    (4, 100, 132, (1, 2)),            # never a split that starts past valid
+@pytest.mark.parametrize("pairs,valid,t,sms,want", [
+    # the serving decode (Qwen2.5-14B, 32 pairs): 4 splits, 128 blocks
+    (32, 1056, 2048, 132, (4, [0, 256, 512, 768, 1056])),
+    # decode_32k: the 1,024 pairs fill the card, one split each
+    (1024, 32768, 32768, 132, (1, [0, 32768])),
+    (32, 1, 2048, 132, (4, [0, 1])),
+    # few pairs: never a split that starts past valid
+    (4, 100, 2048, 132, (32, [0, 64, 100])),
+    # the MoE decode (Qwen3-MoE, 16 pairs): 7 splits of 2 tiles, one of 3
+    (16, 1056, 2048, 132, (8, [0, 128, 256, 384, 512, 640, 768, 896, 1056])),
+    # MQA at batch 4: 17 splits of one tile
+    (4, 1056, 2048, 132, (32, [64 * i for i in range(17)] + [1056])),
 ])
-def test_decode_split_plan(pairs, valid, sms, want):
-    per, splits = split_plan(pairs, valid, sms)
-    assert (per, splits) == want
-    assert (splits - 1) * per * 64 < valid <= splits * per * 64
+def test_decode_split_plan(pairs, valid, t, sms, want):
+    grid, runs = split_plan(pairs, valid, t, sms)
+    assert (grid, [a for a, _ in runs] + [runs[-1][1]]) == want
+    assert all(runs[i][1] == runs[i + 1][0] for i in range(len(runs) - 1))
+
+
+@settings(max_examples=300, deadline=None)
+@given(pairs=st.integers(1, 65535), t=st.integers(1, 1 << 20),
+       frac=st.floats(0.0, 1.0), sms=st.integers(1, 528))
+def test_decode_split_plan_covers_valid_once(pairs, t, frac, sms):
+    """Over any shape and SM count the working splits of the in-kernel rule
+    cover ``[0, valid)`` exactly once, in order, each starting on a tile
+    below ``valid``, and are no more than the grid holds."""
+    valid = max(1, min(t, round(frac * t)))
+    grid, runs = split_plan(pairs, valid, t, sms)
+    assert 1 <= grid <= max(1, -(-t // 64)) and 1 <= len(runs) <= grid
+    assert runs[0][0] == 0 and runs[-1][1] == valid
+    for (a, b), (c, _) in zip(runs, runs[1:]):
+        assert b == c
+    for a, b in runs:
+        assert a % 64 == 0 and a < b <= valid
+
+
+def test_decode_takes_a_valid_len_tensor_on_the_cpu():
+    """A 0-dim int32 valid_len gives the int path's result, and is checked
+    as an int is."""
+    rng = np.random.default_rng(31)
+    q = torch.from_numpy(rng.standard_normal((2, 6, 32)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 90, 2, 32)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2))
+    for valid in (1, 45, 90):
+        assert torch.equal(
+            decode_attention(q, k, v, torch.tensor(valid, dtype=torch.int32)),
+            decode_attention(q, k, v, valid))
+    with pytest.raises(ValueError):
+        decode_attention(q, k, v, torch.tensor(91, dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------

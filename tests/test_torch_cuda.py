@@ -19,7 +19,8 @@ torch = pytest.importorskip("torch")
 
 import repro_torch.core as port  # noqa: E402
 from repro_torch.core import torchplan  # noqa: E402
-from repro_torch.kernels._build import flash_kernel_ran  # noqa: E402
+from repro_torch.kernels._build import (decode_kernel_ran,  # noqa: E402
+                                        flash_kernel_ran)
 from repro_torch.kernels import SHUFFLE_KERNELS, ref  # noqa: E402
 from repro_torch.kernels.combine import segment_combine  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
@@ -248,7 +249,14 @@ def test_flash_kernel_matches_plain(cuda, bhq, bhkv, sq, skv, d, causal,
 @pytest.mark.parametrize("b,h,kvh,t,d,valid", [
     (2, 4, 4, 64, 16, 1), (2, 8, 2, 300, 32, 150), (3, 5, 1, 129, 64, 129),
     (4, 40, 8, 2048, 128, 1056), (1, 48, 1, 700, 128, 513),
-    (2, 4, 2, 5000, 128, 4999)])
+    (2, 4, 2, 5000, 128, 4999),
+    # decode_tma's shapes (bf16): MoE (g 16), MQA (g 48), d 64 MHA (g 1),
+    # g 24 at d 64 (two row groups), a tail inside the last tile
+    (4, 64, 4, 2048, 128, 1056), (3, 48, 1, 300, 128, 300),
+    (4, 32, 32, 2048, 64, 1056), (2, 24, 1, 1000, 64, 999),
+    (1, 8, 1, 4100, 128, 4097),
+    # 132 pairs fill the card: one split each, 60-64 tiles a block
+    (33, 20, 4, 4096, 128, 3900), (33, 64, 4, 4096, 64, 4096)])
 def test_decode_kernel_matches_plain(cuda, b, h, kvh, t, d, valid, qdt, kvdt,
                                      q_scale):
     rng = np.random.default_rng(b * h + t + valid)
@@ -266,6 +274,91 @@ def test_decode_kernel_matches_plain(cuda, b, h, kvh, t, d, valid, qdt, kvdt,
     kv = (k[:, :valid], v[:, :valid])
     _attn_close(got, plain,
                 ref.decode_attention_tolerance(q, *kv, valid, plain))
+
+
+def _decode_case(rng, b, h, kvh, t, d, valid, dev):
+    """bf16 q and cache with a NaN tail past ``valid``, and the plain
+    version's output and tolerance on the valid positions."""
+    bf16 = torch.bfloat16
+    q = _randn(rng, (b, h, d), bf16, dev)
+    k, v = (_randn(rng, (b, t, kvh, d), bf16, dev) for _ in range(2))
+    k[:, valid:] = float("nan")
+    v[:, valid:] = float("nan")
+    kv = (k[:, :valid], v[:, :valid])
+    plain = ref.decode_attention_ref(q, *kv, valid)
+    return q, k, v, plain, ref.decode_attention_tolerance(q, *kv, valid, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kvh,t,d,valid", [
+    (4, 40, 8, 2048, 128, 1056), (4, 64, 4, 2048, 128, 1056),
+    (4, 32, 32, 2048, 64, 1056), (3, 48, 1, 300, 128, 1)])
+def test_decode_valid_len_on_the_device(cuda, b, h, kvh, t, d, valid):
+    """A 0-dim int32 valid_len on the card gives the int path's output bit
+    for bit, and one launch."""
+    rng = np.random.default_rng(41 + d + valid)
+    q, k, v, plain, tol = _decode_case(rng, b, h, kvh, t, d, valid, cuda)
+    got = decode_attention(q, k, v, valid)
+    before = decode_attention.launches
+    dev = decode_attention(q, k, v, torch.tensor(valid, dtype=torch.int32,
+                                                 device=cuda))
+    assert decode_attention.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(dev.view(torch.int16), got.view(torch.int16))
+    _attn_close(got, plain, tol)
+
+
+@pytest.mark.cuda
+def test_decode_back_to_back_launches_reset_the_counters(cuda):
+    """Launches on one cache with other lengths, one after another: each
+    merges its own splits (the last block of a pair resets its counter)."""
+    rng = np.random.default_rng(43)
+    bf16 = torch.bfloat16
+    q = _randn(rng, (4, 40, 128), bf16, cuda)
+    k, v = (_randn(rng, (4, 2048, 8, 128), bf16, cuda) for _ in range(2))
+    outs = {}
+    for valid in (1056, 700, 2048, 1056, 65, 700):
+        outs.setdefault(valid, []).append(decode_attention(q, k, v, valid))
+    torch.cuda.synchronize()
+    for valid, got in outs.items():
+        kv = (k[:, :valid], v[:, :valid])
+        plain = ref.decode_attention_ref(q, *kv, valid)
+        _attn_close(got[0], plain,
+                    ref.decode_attention_tolerance(q, *kv, valid, plain))
+        for again in got[1:]:
+            assert torch.equal(again.view(torch.int16), got[0].view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [0, -3, 2049])
+def test_decode_valid_len_outside_the_cache_gives_nan(cuda, bad):
+    """A device valid_len outside [1, T] is not clamped: every row is NaN,
+    and the next launch is right."""
+    rng = np.random.default_rng(47)
+    q, k, v, plain, tol = _decode_case(rng, 4, 40, 8, 2048, 128, 1056, cuda)
+    got = decode_attention(q, k, v, torch.tensor(bad, dtype=torch.int32,
+                                                 device=cuda))
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got).all())
+    _attn_close(decode_attention(q, k, v, 1056), plain, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,qdt,kvdt,h,kvh,kernels", [
+    (128, "bfloat16", "bfloat16", 40, 8, ("decode_tma",)),
+    (64, "bfloat16", "bfloat16", 8, 8, ("decode_tma",)),
+    (128, "bfloat16", "bfloat16", 48, 1, ("decode_tma",)),
+    (128, "float32", "bfloat16", 40, 8, ("decode_split", "decode_combine")),
+    (32, "bfloat16", "bfloat16", 40, 8, ("decode_split", "decode_combine"))])
+def test_decode_kernel_is_chosen_by_dtype_and_width(cuda, d, qdt, kvdt, h,
+                                                    kvh, kernels):
+    """bf16 at d 64 and 128 runs decode_tma, one device kernel a call;
+    anything else decode_split and decode_combine (with several splits)."""
+    rng = np.random.default_rng(d + h)
+    q = _randn(rng, (4, h, d), TORCH[qdt], cuda)
+    k, v = (_randn(rng, (4, 2048, kvh, d), TORCH[kvdt], cuda) for _ in range(2))
+    decode_attention(q, k, v, 1056)      # the buffers exist before the trace
+    assert decode_kernel_ran(lambda: decode_attention(q, k, v, 1056)) == kernels
 
 
 @pytest.mark.cuda

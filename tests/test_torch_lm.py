@@ -1,7 +1,8 @@
 """The port's LM serving path on the CPU, held against the JAX package.
 
-For the SMOKE configs of the four dense text archs (qwen2.5-14b with QKV
-bias, granite-34b with MQA and a GELU MLP, llama3-405b, qwen1.5-110b), the
+For the SMOKE configs of the six dense archs (qwen2.5-14b with QKV bias,
+granite-34b with MQA and a GELU MLP, llama3-405b, qwen1.5-110b, and the
+backbones of pixtral-12b and musicgen-large, served from tokens), the
 reference's ``lm.init_lm`` weights, with nonzero biases and norm weights
 set from numpy, are carried into the port by
 :mod:`repro_torch.models.convert`.  Each ported piece is compared with its
@@ -34,7 +35,8 @@ from repro_torch.models import layers, lm  # noqa: E402
 from repro_torch.models.convert import (cache_from_reference,  # noqa: E402
                                         lm_params_from_reference)
 
-DENSE = ["qwen2.5-14b", "granite-34b", "llama3-405b", "qwen1.5-110b"]
+DENSE = ["qwen2.5-14b", "granite-34b", "llama3-405b", "qwen1.5-110b",
+         "pixtral-12b", "musicgen-large"]
 LAYER = dict(rtol=2e-5, atol=2e-5)
 CACHED = dict(rtol=2e-3, atol=2e-3)
 
@@ -315,7 +317,8 @@ def test_init_lm_is_seeded():
 # serve() end to end
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen2.5-14b", "granite-34b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "granite-34b",
+                                  "pixtral-12b", "musicgen-large"])
 def test_serve_emits_the_reference_tokens(arch):
     rcfg, pcfg, params, model = _pair(arch)
     kw = dict(batch=2, prompt_len=8, gen_len=5, max_len=32, seed=0)
