@@ -30,7 +30,13 @@ exits non-zero and prints no result.  In order it
    passed as a device tensor must give the int's output bit for bit, and
    the Qwen2.5-14B and Qwen3-MoE decode steps and one ``decode_32k`` layer
    are timed (beside SDPA where it fits), with the host's microseconds per
-   call;
+   call.  The ordered fold is held bit for bit (NaN = NaN) to its plain
+   version for sum, min and max on segments of 1..64 rows, and for sum on
+   the global stage's own Zipf layout (one segment of 263,532 rows; the
+   plain version runs on a CPU copy); two adjacent rows of that segment
+   swapped must fail the check; the fold library's SASS must hold
+   ``UBLKCP.S.G`` (bulk copies) and a profiler trace of a call one device
+   kernel; both layouts are timed;
 4. counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions
    that ``cuobjdump --dump-sass`` finds in the built gmm library (both must
    be there), then holds the grouped-matmul kernel (``gmm``) against its
@@ -300,6 +306,14 @@ def copy_bufs(bufs):
 # 3. kernel phase
 # ---------------------------------------------------------------------------
 
+def fold_same(got, plain) -> bool:
+    """Bit-identical, except that a NaN matches any NaN: IEEE leaves an
+    arithmetic NaN's payload unspecified."""
+    import torch
+    return bool(((got.view(torch.int64) == plain.view(torch.int64))
+                 | (got.isnan() & plain.isnan())).all())
+
+
 def _segment_layout(keys, ndst: int):
     """The global stage's layout: rows sorted destination-major, key
     ascending, with compacted (destination, key) segment ids -- exactly what
@@ -319,7 +333,7 @@ def _segment_layout(keys, ndst: int):
 def kernel_phase(dev) -> dict:
     import torch
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels.combine import segment_combine
     from repro_torch.kernels.fold import segmented_fold
     from repro_torch.kernels.partition import partition_permute
@@ -419,11 +433,7 @@ def kernel_phase(dev) -> dict:
     for op in ("sum", "min", "max"):
         got = segmented_fold(op, is_start, v64)
         plain = ref.segmented_fold_ref(op, is_start, v64)
-        # bit-identical, except that a NaN matches any NaN: IEEE leaves an
-        # arithmetic NaN's payload unspecified
-        same = (got.view(torch.int64) == plain.view(torch.int64)) \
-            | (got.isnan() & plain.isnan())
-        assert bool(same.all()), f"fold {op} differs from the plain version"
+        assert fold_same(got, plain), f"fold {op} differs from the plain version"
     tb = bound(n + 8 * n * d + 8 * n * d, n * d, F64_OPS_PER_S)
     rows["segmented_fold"] = dict(
         max_abs_err=0.0, tolerance="bit-identical (sum, min, max; NaN=NaN)",
@@ -432,15 +442,39 @@ def kernel_phase(dev) -> dict:
                          reps=3, warmup=1),
         library_ms=None, bound_ms=tb[0], bound_by=tb[1],
         longest_segment=FOLD_MAX_SEG)
-    log(f"kernel fold n={n} d={d} f64 segments 1..{FOLD_MAX_SEG}: "
-        f"{json.dumps(rows['segmented_fold'])}")
 
     # the fold on the global stage's own layout: one hot Zipf key is one
-    # long segment walked in order (latency, not bytes, bounds this one)
+    # long segment, a chain of dependent adds in row order.  Its SUM is held
+    # bit for bit against the plain version on a CPU copy (the plain loop
+    # takes a step per row of the longest segment: far longer on the card)
     zs, zv = head.contiguous(), routed.double()
-    longest = int(torch.bincount(seg).max())
-    log(f"kernel fold on the Zipf global layout n={n} longest={longest}: "
-        f"ms={time_ms(lambda: segmented_fold('sum', zs, zv), reps=5)!r}")
+    lens = torch.bincount(seg)
+    longest = int(lens.max())
+    got = segmented_fold("sum", zs, zv).cpu()
+    t0 = time.perf_counter()
+    plain = ref.segmented_fold_ref("sum", zs.cpu(), zv.cpu())
+    check_s = time.perf_counter() - t0
+    assert fold_same(got, plain), "fold (Zipf layout) differs from the plain version"
+    # control: two adjacent rows of the hot segment swapped must fail it
+    hot = int(torch.cumsum(lens, 0)[int(lens.argmax())]) - longest
+    swapped = zv.clone()
+    swapped[[hot + 1000, hot + 1001]] = zv[[hot + 1001, hot + 1000]]
+    assert not fold_same(segmented_fold("sum", zs, swapped).cpu(), plain), \
+        "the swapped-rows control passed the fold's bit check"
+    del swapped
+    # the fold library's SASS holds the bulk copies, and a call is one kernel
+    sass = sass_counts("fold")
+    assert sass["UBLKCP.S.G"] > 0, f"no bulk copy in the fold's SASS: {sass}"
+    traced = _build._traced_kernels(lambda: segmented_fold("sum", zs, zv), 3)
+    assert len(traced) == 1 and "segmented_fold" in traced[0], traced
+    rows["segmented_fold"].update(
+        zipf_ms=time_ms(lambda: segmented_fold("sum", zs, zv), reps=5),
+        zipf_longest_segment=longest, zipf_bound_ms=tb[0])
+    log(f"kernel fold n={n} d={d} f64, segments 1..{FOLD_MAX_SEG} and the Zipf "
+        f"global layout (longest {longest}; its plain check took "
+        f"{check_s:.1f} s on the CPU; the swapped-rows control failed it; "
+        f"SASS {json.dumps(sass)}; one device kernel a call: {traced[0][:60]}): "
+        f"{json.dumps(rows['segmented_fold'])}")
     return rows
 
 
@@ -692,7 +726,8 @@ def _gmm_ids(kind: str, groups: int, tiles: int, gen, dev):
 def sass_counts(name: str) -> dict:
     """Counts of the tensor-core and TMA instructions in the SASS of the
     built library of ``csrc/<name>.cu``: ``HGMMA`` (wgmma), ``UTMALDG``
-    (TMA tile loads) and ``HMMA`` (mma.sync)."""
+    (TMA tile loads), ``HMMA`` (mma.sync) and ``UBLKCP.S.G`` (1-D bulk
+    copies from global to shared memory)."""
     import re
 
     from repro_torch.kernels import _build
@@ -700,8 +735,8 @@ def sass_counts(name: str) -> dict:
     sass = subprocess.run([str(cuobjdump), "--dump-sass",
                            str(_build._target(name))], check=True,
                           capture_output=True, text=True).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass))
-            for op in ("HGMMA", "UTMALDG", "HMMA")}
+    return {op: len(re.findall(rf"\b{re.escape(op)}\b", sass))
+            for op in ("HGMMA", "UTMALDG", "HMMA", "UBLKCP.S.G")}
 
 
 def gmm_phase(dev) -> dict:
@@ -1448,6 +1483,9 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         if "path" in r:       # the kernel of the row's shape (flash, decode)
             line[-1]["path"] = r["path"]
+        for key in ("zipf_ms", "zipf_longest_segment", "zipf_bound_ms"):
+            if key in r:      # the fold on the shuffle's own layout
+                line[-1][key] = r[key]
     assert all(e["launches"] > 0 for e in line)
     log(f"chip_smoke: {time.perf_counter() - t_start:.2f} s in all")
     print(json.dumps({"kernels": line}))

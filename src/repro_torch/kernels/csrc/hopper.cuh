@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's hand-written kernels: TMA
 // tensor maps (encoded on the host through the CUDA driver's entry point, so
-// nothing links -lcuda) and tile loads, mbarriers, warpgroup register
-// hand-over, and wgmma shared-memory descriptors and bf16 products (both
-// operands from shared memory, or A from registers).
+// nothing links -lcuda) and tile loads, 1-D bulk copies, mbarriers,
+// warpgroup register hand-over, and wgmma shared-memory descriptors and bf16
+// products (both operands from shared memory, or A from registers).
 //
 // Every tile here uses the 128-byte swizzle.  A TMA box whose inner extent
 // is 64 bf16 (128 bytes) lands in shared memory as rows of 128 bytes, each
@@ -71,6 +71,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // ---------------------------------------------------------------------------
 // TMA: one thread asks for a box; the bytes complete on an mbarrier
 // ---------------------------------------------------------------------------
+
+// a 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory, no tensor map
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
 
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(

@@ -11,6 +11,17 @@ is bit-identical to :class:`repro_torch.core.messages.Combiner`.
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 (:func:`repro_torch.kernels.ref.segmented_fold_ref`).  Any other device,
 dtype or layout raises.
+
+The kernel (``csrc/fold.cu``) is one launch of persistent blocks that take
+tiles of rows in row order from a counter on the device: a producer warp
+stages each tile's values in a ring of shared memory by bulk copies, the
+consumer warps fold the segments that start in the tile in place, and the
+producer stores the folded rows by bulk copies.  A segment that runs past
+its tile is walked on by the block that owns its start while the producer
+streams the next tiles ahead of its adds.  The counter (two ``int64`` per
+device, zeroed once here) is left zeroed by every launch, so concurrent
+calls on two streams of one device are not supported.  ``out`` is placed at
+``vals``' address modulo 16, the layout both share in shared memory.
 """
 from __future__ import annotations
 
@@ -25,10 +36,26 @@ from .ref import FOLD_OPS, segmented_fold_ref
 def _fn():
     f = _build.library("fold").teshu_segmented_fold
     if f.argtypes is None:
-        p, i64 = ctypes.c_void_p, ctypes.c_int64
-        f.argtypes = [p, p, p, i64, i64, ctypes.c_int, p]
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        f.argtypes = [p, p, p, p, i64, i64, i32, i32, p]
         f.restype = ctypes.c_int
     return f
+
+
+_COUNTERS: dict[int, torch.Tensor] = {}
+_SMS: dict[int, int] = {}
+
+
+def _device_state(device: torch.device) -> tuple[torch.Tensor, int]:
+    """The tile counter of ``device`` (zeroed once; every launch leaves it
+    zeroed) and its multiprocessor count."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _COUNTERS:
+        _COUNTERS[index] = torch.zeros(2, dtype=torch.int64, device=device)
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _COUNTERS[index], _SMS[index]
 
 
 def segmented_fold(op: str, is_start: torch.Tensor,
@@ -51,10 +78,20 @@ def segmented_fold(op: str, is_start: torch.Tensor,
         raise ValueError(f"fold runs on cuda or cpu tensors, not {vals.device}")
     if not (is_start.is_contiguous() and vals.is_contiguous()):
         raise ValueError("fold wants contiguous is_start and vals")
+    if vals.data_ptr() % 8:
+        raise ValueError("fold wants float64 vals on an 8-byte boundary")
     n, d = vals.shape
-    out = torch.empty_like(vals)
+    # the kernel stages rows of vals and of out in one layout, so out sits
+    # at vals' address modulo 16
+    if vals.data_ptr() % 16:
+        out = torch.empty(n * d + 1, dtype=vals.dtype,
+                          device=vals.device)[1:].view(n, d)
+    else:
+        out = torch.empty_like(vals)
+    counter, sms = _device_state(vals.device)
     _build.check(_fn()(is_start.data_ptr(), vals.data_ptr(), out.data_ptr(),
-                       n, d, FOLD_OPS.index(op), _build.stream_of(vals)),
+                       counter.data_ptr(), n, d, FOLD_OPS.index(op), sms,
+                       _build.stream_of(vals)),
                  "segmented_fold")
     segmented_fold.launches += 1
     return out

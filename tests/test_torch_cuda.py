@@ -102,27 +102,105 @@ def test_comb_kernel_matches_plain(cuda, n, d, segs, layout, dtype):
     np.testing.assert_allclose(_f32(got), _f32(plain), **tol)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("comb", ["sum", "min", "max"])
-def test_fold_kernel_is_bit_identical(cuda, comb):
+# the fold's layouts: (n, d, the start rows, the share of random starts,
+# long segments [a, b) with no start inside).  At d 8 a tile is 512 rows, at
+# d 5 800, at d 1 1,024, at d 33 96; a width above 256 is cut into chunks
+FOLD_CASES = {
+    "random starts, d 5": (50_000, 5, [], 0.05, []),
+    "a segment across one tile boundary": (3000, 8, [400, 700, 1500], 0.0,
+                                           []),
+    # a tile's last segment that ends at most 64 rows into the next tile is
+    # folded in the tile's own stage; one row more takes a stage of its own
+    "a segment that ends 64 rows into the next tile": (
+        3000, 8, [100, 576, 1200], 0.0, []),
+    "a segment that ends 65 rows into the next tile": (
+        3000, 8, [100, 577, 1200], 0.0, []),
+    "one segment over many tiles and stages": (
+        260_000, 8, [1000], 0.02, [(1000, 201_000)]),
+    "starts at a tile's first and last rows": (
+        2048, 8, [100, 511, 512, 1023, 1024, 1535, 1536, 2047], 0.0, []),
+    "n off the tile": (512 * 7 + 37, 8, [3000], 0.01, [(3000, 3621)]),
+    "n = 1": (1, 8, [], 0.0, []),
+    "d 1": (20_000, 1, [5000], 0.02, [(5000, 12_000)]),
+    "d 5": (20_000, 5, [5000], 0.02, [(5000, 12_000)]),
+    "d 8": (20_000, 8, [5000], 0.02, [(5000, 12_000)]),
+    "d 33": (20_000, 33, [5000], 0.02, [(5000, 12_000)]),
+    "d 300 (column chunks)": (3000, 300, [500], 0.02, [(500, 2200)]),
+    "every row a start": (5000, 8, [], 1.0, []),
+    "no start but row 0": (30_000, 5, [], 0.0, []),
+    "vals and is_start 8 and 1 bytes off their allocations": (
+        10_001, 5, [4000], 0.03, [(4000, 9000)]),
+}
+
+
+def _fold_case(name):
+    n, d, starts, share, long = FOLD_CASES[name]
     rng = np.random.default_rng(17)
-    n, d = 50_000, 5
     vals = rng.standard_normal((n, d))
     mask = rng.random((n, d)) < 0.05
+    is_start = rng.random(n) < share
+    for a, b in long:       # specials only near the end of a long segment,
+        is_start[a:b] = False           # so that most of it stays finite
+        mask[a:max(a, b - 2000)] = False
+    is_start[starts] = True
     vals[mask] = rng.choice(SPECIALS, int(mask.sum()))
-    is_start = rng.random(n) < 0.05
-    v, s = torch.from_numpy(vals).to(cuda), torch.from_numpy(is_start).to(cuda)
+    return is_start, vals
+
+
+def _same_bits(got, plain):
+    """Bit-identical; a NaN matches any NaN (IEEE leaves the payload of an
+    arithmetic NaN unspecified, and torch's elementwise kernels and this
+    one may produce different ones)."""
+    return (got.view(torch.int64) == plain.view(torch.int64)) \
+        | (got.isnan() & plain.isnan())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FOLD_CASES))
+@pytest.mark.parametrize("comb", ["sum", "min", "max"])
+def test_fold_kernel_is_bit_identical(cuda, comb, case):
+    is_start, vals = _fold_case(case)
+    n, d = vals.shape
+    if case.startswith("vals and is_start"):
+        vbuf = torch.empty(n * d + 1, dtype=torch.float64, device=cuda)
+        sbuf = torch.empty(n + 1, dtype=torch.bool, device=cuda)
+        v = vbuf[1:].view(n, d)
+        s = sbuf[1:]
+        v.copy_(torch.from_numpy(vals))
+        s.copy_(torch.from_numpy(is_start))
+        assert v.data_ptr() % 16 == 8 and v.is_contiguous()
+    else:
+        v = torch.from_numpy(vals).to(cuda)
+        s = torch.from_numpy(is_start).to(cuda)
     before = segmented_fold.launches
     got = segmented_fold(comb, s, v)
     assert segmented_fold.launches == before + 1
-    plain = ref.segmented_fold_ref(comb, s, v)
+    # the plain version on a CPU copy: its loop takes one step per row of
+    # the longest segment, which the card would take far longer over
+    plain = ref.segmented_fold_ref(comb, s.cpu(), v.cpu())
     torch.cuda.synchronize()
-    # bit-identical; a NaN matches any NaN (IEEE leaves the payload of an
-    # arithmetic NaN unspecified, and torch's elementwise kernels and this
-    # one may produce different ones)
-    same = (got.view(torch.int64) == plain.view(torch.int64)) \
-        | (got.isnan() & plain.isnan())
+    same = _same_bits(got.cpu(), plain)
     assert bool(same.all()), int((~same).sum())
+
+
+@pytest.mark.cuda
+def test_fold_kernel_leaves_its_tile_counter_zeroed(cuda):
+    """Every launch hands the next one a zeroed tile counter: launches back
+    to back on one stream give the plain version's bits each time.  (That a
+    call is one device kernel is read from a profiler trace by
+    chip_smoke.py.)"""
+    from repro_torch.kernels import fold as fold_mod
+    is_start, vals = _fold_case("one segment over many tiles and stages")
+    v = torch.from_numpy(vals).to(cuda)
+    s = torch.from_numpy(is_start).to(cuda)
+    counter, _ = fold_mod._device_state(v.device)
+    got = [segmented_fold(op, s, v) for op in ("max", "sum", "max")]
+    torch.cuda.synchronize()
+    assert counter.tolist() == [0, 0]
+    plain = {op: ref.segmented_fold_ref(op, s.cpu(), v.cpu())
+             for op in ("max", "sum")}
+    for op, g in zip(("max", "sum", "max"), got):
+        assert bool(_same_bits(g.cpu(), plain[op]).all()), op
 
 
 @pytest.mark.cuda

@@ -232,6 +232,34 @@ def test_fold_plain_is_a_left_fold():
         np.testing.assert_array_equal(out[r], acc)
 
 
+@pytest.mark.parametrize("comb,ufunc", [("sum", np.add), ("min", np.minimum),
+                                        ("max", np.maximum)])
+def test_fold_plain_long_segments_match_numpy(comb, ufunc):
+    """The plain fold over segments tens of thousands of rows long: at every
+    row bit for bit numpy's sequential ``ufunc.accumulate`` of its segment,
+    and at the segment ends both packages' Combiner.  This is the contract
+    the card tests hold the kernel to on long segments."""
+    rng = np.random.default_rng(23)
+    lens = np.array([30_000, 1, 45_000, 7, 20_000])
+    n = int(lens.sum())
+    # magnitudes over six decades: a reordered sum would round differently
+    vals = rng.standard_normal((n, 3)) * 10.0 ** rng.integers(-3, 4, (n, 1))
+    starts = np.r_[0, np.cumsum(lens)[:-1]]
+    is_start = np.zeros(n, dtype=bool)
+    is_start[starts] = True
+    out = ref.segmented_fold_ref(comb, torch.from_numpy(is_start),
+                                 torch.from_numpy(vals)).numpy()
+    for a, ln in zip(starts, lens):
+        np.testing.assert_array_equal(
+            _bits(out[a:a + ln]), _bits(ufunc.accumulate(vals[a:a + ln], axis=0)))
+    keys = np.repeat(np.arange(len(lens)), lens)
+    for combiner in ({"sum": SUM, "min": MIN, "max": MAX}[comb],
+                     PORT_COMBINERS[comb]):
+        expect = combiner(Msgs(keys, vals))
+        np.testing.assert_array_equal(_bits(out[starts + lens - 1]),
+                                      _bits(expect.vals))
+
+
 # ---------------------------------------------------------------------------
 # wrapper contract
 # ---------------------------------------------------------------------------
