@@ -469,7 +469,7 @@ def kernel_phase(dev) -> dict:
     assert len(traced) == 1 and "segmented_fold" in traced[0], traced
     rows["segmented_fold"].update(
         zipf_ms=time_ms(lambda: segmented_fold("sum", zs, zv), reps=5),
-        zipf_longest_segment=longest, zipf_bound_ms=tb[0])
+        zipf_longest_segment=longest, zipf_byte_bound_ms=tb[0])
     log(f"kernel fold n={n} d={d} f64, segments 1..{FOLD_MAX_SEG} and the Zipf "
         f"global layout (longest {longest}; its plain check took "
         f"{check_s:.1f} s on the CPU; the swapped-rows control failed it; "
@@ -1483,7 +1483,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         if "path" in r:       # the kernel of the row's shape (flash, decode)
             line[-1]["path"] = r["path"]
-        for key in ("zipf_ms", "zipf_longest_segment", "zipf_bound_ms"):
+        for key in ("zipf_ms", "zipf_longest_segment", "zipf_byte_bound_ms"):
             if key in r:      # the fold on the shuffle's own layout
                 line[-1][key] = r[key]
     assert all(e["launches"] > 0 for e in line)

@@ -25,8 +25,9 @@ version on a CPU copy, then timed in rounds, each a median of 10 CUDA-event
 pairs.  ``--tdadd`` times one thread's chain of 2^22 dependent DADDs with
 CUDA events and ``clock64``: the latency that bounds a long segment's
 fold.  ``--variants`` rebuilds ``csrc/fold.cu`` with other tile sizes,
-stages, blocks per SM and consumer warps (``-D`` flags) or with one text
-replaced (``VARIANTS``; ``--only "name;name"`` picks some) and times each
+stages, blocks per SM or consumer warps, or another text replaced
+(``VARIANTS``, each a list of replacements; ``--only "name;name"`` picks
+some) and times each
 on the uniform, Zipf and chain layouts beside the shipped build; a
 "probe" variant changes what the kernel computes (it is timed, not
 checked), and the clock64 probe prints the cycles the busiest blocks'
@@ -102,22 +103,31 @@ CLOCK_SUBS = [
      "blockIdx.x, c_wait, c_work);\n"),
 ]
 
-# name: (-D flags over the shipped defaults, source replacements).  A
-# "probe" changes what the kernel computes and is timed but not checked.
+# the shipped design's constants, as csrc/fold.cu spells them
+SHIPPED = {"kTileElems": "4096;  // doubles a stage holds: 32 KB",
+           "kStages": "2;", "kBlocksPerSm": "2;", "kConsumerWarps": "8;"}
+
+
+def _set(**values) -> list:
+    """Replacements that give the shipped constants other values."""
+    return [(f"constexpr int {k} = {SHIPPED[k]}", f"constexpr int {k} = {v};")
+            for k, v in values.items()]
+
+
+# name: replacements of texts of the shipped source.  A "probe" changes
+# what the kernel computes and is timed but not checked.
 VARIANTS = {
-    "tile 2048": ({"FOLD_TILE_ELEMS": 2048}, []),
-    "tile 8192, 1 block/SM": ({"FOLD_TILE_ELEMS": 8192,
-                               "FOLD_BLOCKS_PER_SM": 1}, []),
-    "3 stages": ({"FOLD_STAGES": 3}, []),
-    "tile 8192, 3 stages, 1 block/SM": ({"FOLD_TILE_ELEMS": 8192,
-                                         "FOLD_STAGES": 3,
-                                         "FOLD_BLOCKS_PER_SM": 1}, []),
-    "3 blocks/SM": ({"FOLD_BLOCKS_PER_SM": 3}, []),
-    "4 stages, 1 block/SM": ({"FOLD_STAGES": 4, "FOLD_BLOCKS_PER_SM": 1}, []),
-    "4 consumer warps": ({"FOLD_CONSUMER_WARPS": 4}, []),
-    "rows read 8 ahead": ({}, [("constexpr int kBatch = 16;",
-                                "constexpr int kBatch = 8;")]),
-    "consumer warps 2.. sleep while they wait": ({}, [
+    "tile 2048": _set(kTileElems=2048),
+    "tile 8192, 1 block/SM": _set(kTileElems=8192, kBlocksPerSm=1),
+    "3 stages": _set(kStages=3),
+    "tile 8192, 3 stages, 1 block/SM": _set(kTileElems=8192, kStages=3,
+                                            kBlocksPerSm=1),
+    "3 blocks/SM": _set(kBlocksPerSm=3),
+    "4 stages, 1 block/SM": _set(kStages=4, kBlocksPerSm=1),
+    "4 consumer warps": _set(kConsumerWarps=4),
+    "rows read 8 ahead": [("constexpr int kBatch = 16;",
+                           "constexpr int kBatch = 8;")],
+    "consumer warps 2.. sleep while they wait": [
         ("      mbar_wait(&full[s], static_cast<uint32_t>((uses / kStages) & 1));\n",
          "      if (warp == 1) {\n"
          "        mbar_wait(&full[s], static_cast<uint32_t>((uses / kStages) & 1));\n"
@@ -132,19 +142,19 @@ VARIANTS = {
          "          if (ok) break;\n"
          "          __nanosleep(256);\n"
          "        }\n"
-         "      }\n")]),
-    "register cap of one block an SM": ({}, [
-        ("__launch_bounds__(kThreads, FOLD_BLOCKS_PER_SM)",
-         "__launch_bounds__(kThreads, 1)")]),
-    "probe: no stores of out": ({}, [
-        ("        store_run(a.out + e, sv + i, len);\n", "")]),
-    "probe: the carry's walks do nothing": ({}, [
+         "      }\n")],
+    "register cap of one block an SM": [
+        ("__launch_bounds__(kThreads, kBlocksPerSm)",
+         "__launch_bounds__(kThreads, 1)")],
+    "probe: no stores of out": [
+        ("        store_run(a.out + e, sv + i, len);\n", "")],
+    "probe: the carry's walks do nothing": [
         ("    if (ct < dcur) carry = walk<OP, PITCH>(carry, sv + ct, pitch, 0, "
-         "m.rb);\n", "")]),
-    "probe: a long segment's tiles are not scanned (right for chain only)": (
-        {}, [("        scan(u, had, cur, umine, ufirst);\n",
-              "        ufirst = uvalid;\n")]),
-    "probe: clock64 spans, printed": ({}, CLOCK_SUBS),
+         "m.rb);\n", "")],
+    "probe: a long segment's tiles are not scanned (right for chain only)": [
+        ("        scan(u, had, cur, umine, ufirst);\n",
+         "        ufirst = uvalid;\n")],
+    "probe: clock64 spans, printed": CLOCK_SUBS,
 }
 
 TDADD_SRC = r"""
@@ -277,12 +287,11 @@ def _describe(is_start) -> dict:
 # t_dadd and variants
 # ---------------------------------------------------------------------------
 
-def _nvcc_lib(name: str, src: Path, defines: dict) -> ctypes.CDLL:
+def _nvcc_lib(name: str, src: Path) -> ctypes.CDLL:
     outdir = _build.BUILD_DIR.parent / "fold_dev"
     outdir.mkdir(parents=True, exist_ok=True)
     so = outdir / f"{name}.so"
-    flags = [f"-D{k}={v}" for k, v in defines.items()]
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *flags,
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
                     f"-I{_build.CSRC}", "-o", str(so), str(src)], check=True,
                    capture_output=True, text=True)
     return ctypes.CDLL(str(so))
@@ -293,7 +302,7 @@ def tdadd(dev) -> list[dict]:
     outdir.mkdir(parents=True, exist_ok=True)
     src = outdir / "chain.cu"
     src.write_text(TDADD_SRC)
-    lib = _nvcc_lib("chain", src, {})
+    lib = _nvcc_lib("chain", src)
     f = lib.chain_run
     f.argtypes = [ctypes.c_void_p, ctypes.c_double, ctypes.c_double,
                   ctypes.c_int64, ctypes.c_void_p]
@@ -310,7 +319,7 @@ def tdadd(dev) -> list[dict]:
 
 def variant_fns(dev, only=None) -> dict:
     """A launcher per variant, each built from ``csrc/fold.cu`` with its
-    flags and replacements (every replaced text must be in the source)."""
+    replacements (every replaced text must be in the source)."""
     fns = {}
     wanted = None if only is None else set(only)
     counter = torch.zeros(2, dtype=torch.int64, device=dev)
@@ -320,7 +329,7 @@ def variant_fns(dev, only=None) -> dict:
     outdir = _build.BUILD_DIR.parent / "fold_dev"
     outdir.mkdir(parents=True, exist_ok=True)
     procs = []
-    for i, (name, (defs, subs)) in enumerate(VARIANTS.items()):
+    for i, (name, subs) in enumerate(VARIANTS.items()):
         if wanted is not None and name not in wanted:
             continue
         text = shipped
@@ -330,9 +339,8 @@ def variant_fns(dev, only=None) -> dict:
             text = text.replace(old, new)
         src, so = outdir / f"variant{i}.cu", outdir / f"variant{i}.so"
         src.write_text(text)
-        flags = [f"-D{k}={v}" for k, v in defs.items()]
         procs.append((name, so, subprocess.Popen(     # all nvcc at once
-            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, f"-I{_build.CSRC}",
+            [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}",
              "-o", str(so), str(src)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
     for name, so, p in procs:

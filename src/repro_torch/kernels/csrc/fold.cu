@@ -53,20 +53,6 @@
 
 #include "hopper.cuh"
 
-// tunables (dev/fold_timing.py builds variants with -D)
-#ifndef FOLD_TILE_ELEMS
-#define FOLD_TILE_ELEMS 4096   // doubles a stage holds: 32 KB
-#endif
-#ifndef FOLD_STAGES
-#define FOLD_STAGES 2
-#endif
-#ifndef FOLD_BLOCKS_PER_SM
-#define FOLD_BLOCKS_PER_SM 2
-#endif
-#ifndef FOLD_CONSUMER_WARPS
-#define FOLD_CONSUMER_WARPS 8
-#endif
-
 namespace {
 
 using hopper::bulk_load;
@@ -76,9 +62,10 @@ using hopper::mbar_init;
 using hopper::mbar_wait;
 using hopper::smem_u32;
 
-constexpr int kTileElems = FOLD_TILE_ELEMS;
-constexpr int kStages = FOLD_STAGES;
-constexpr int kConsumerWarps = FOLD_CONSUMER_WARPS;
+constexpr int kTileElems = 4096;  // doubles a stage holds: 32 KB
+constexpr int kStages = 2;
+constexpr int kBlocksPerSm = 2;
+constexpr int kConsumerWarps = 8;
 constexpr int kConsumers = 32 * kConsumerWarps;  // also the widest chunk
 constexpr int kThreads = 32 + kConsumers;
 constexpr int kMaxRows = 1024;                   // 32 words of start bits
@@ -361,7 +348,7 @@ __device__ __forceinline__ void store_run(double* g, const double* sh,
 }
 
 template <int OP>
-__global__ void __launch_bounds__(kThreads, FOLD_BLOCKS_PER_SM)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     segmented_fold(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[kStages];
@@ -589,7 +576,8 @@ int launch(const Args& a, unsigned grid, cudaStream_t st) {
 }  // namespace
 
 // op: 0 = sum, 1 = min, 2 = max.  is_start is a bool [n] (one byte each);
-// counter two zeroed uint64 on the device, left zeroed by every launch;
+// counter two zeroed uint64 on the device, left zeroed by every launch and
+// used by one stream only (launches that overlap may not share it);
 // sms the device's multiprocessor count.
 extern "C" int teshu_segmented_fold(const void* is_start, const void* vals,
                                     void* out, void* counter, int64_t n,
@@ -619,7 +607,7 @@ extern "C" int teshu_segmented_fold(const void* is_start, const void* vals,
   a.nchunks = static_cast<int>((d + a.dc - 1) / a.dc);
   a.row_tiles = (n + rows - 1) / rows;
   a.items = a.row_tiles * a.nchunks;
-  const int64_t most = static_cast<int64_t>(sms) * FOLD_BLOCKS_PER_SM;
+  const int64_t most = static_cast<int64_t>(sms) * kBlocksPerSm;
   const unsigned grid = static_cast<unsigned>(a.items < most ? a.items : most);
   auto st = static_cast<cudaStream_t>(stream);
   if (op == 0) return launch<0>(a, grid, st);

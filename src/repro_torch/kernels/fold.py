@@ -18,14 +18,16 @@ stages each tile's values in a ring of shared memory by bulk copies, the
 consumer warps fold the segments that start in the tile in place, and the
 producer stores the folded rows by bulk copies.  A segment that runs past
 its tile is walked on by the block that owns its start while the producer
-streams the next tiles ahead of its adds.  The counter (two ``int64`` per
-device, zeroed once here) is left zeroed by every launch, so concurrent
-calls on two streams of one device are not supported.  ``out`` is placed at
-``vals``' address modulo 16, the layout both share in shared memory.
+streams the next tiles ahead of its adds.  Every launch leaves the counter
+zeroed for the next; each stream of a device has its own (two ``int64``,
+zeroed once here), since launches on one stream never overlap and those on
+two streams may.  ``out`` is placed at ``vals``' address modulo 16, the
+layout both share in shared memory.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -42,20 +44,26 @@ def _fn():
     return f
 
 
-_COUNTERS: dict[int, torch.Tensor] = {}
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 _SMS: dict[int, int] = {}
+_LOCK = threading.Lock()
 
 
-def _device_state(device: torch.device) -> tuple[torch.Tensor, int]:
-    """The tile counter of ``device`` (zeroed once; every launch leaves it
-    zeroed) and its multiprocessor count."""
+def _stream_state(device: torch.device,
+                  stream: int) -> tuple[torch.Tensor, int]:
+    """The tile counter of ``stream``, the current stream of ``device``
+    (zeroed once; every launch leaves it zeroed), and the device's
+    multiprocessor count."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    if index not in _COUNTERS:
-        _COUNTERS[index] = torch.zeros(2, dtype=torch.int64, device=device)
-        _SMS[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return _COUNTERS[index], _SMS[index]
+    with _LOCK:
+        if (index, stream) not in _COUNTERS:   # zeroed on that stream
+            _COUNTERS[index, stream] = torch.zeros(
+                2, dtype=torch.int64, device=torch.device("cuda", index))
+        if index not in _SMS:
+            _SMS[index] = torch.cuda.get_device_properties(
+                index).multi_processor_count
+        return _COUNTERS[index, stream], _SMS[index]
 
 
 def segmented_fold(op: str, is_start: torch.Tensor,
@@ -88,10 +96,11 @@ def segmented_fold(op: str, is_start: torch.Tensor,
                           device=vals.device)[1:].view(n, d)
     else:
         out = torch.empty_like(vals)
-    counter, sms = _device_state(vals.device)
+    stream = _build.stream_of(vals)
+    counter, sms = _stream_state(vals.device, stream)
     _build.check(_fn()(is_start.data_ptr(), vals.data_ptr(), out.data_ptr(),
                        counter.data_ptr(), n, d, FOLD_OPS.index(op), sms,
-                       _build.stream_of(vals)),
+                       stream),
                  "segmented_fold")
     segmented_fold.launches += 1
     return out

@@ -193,7 +193,8 @@ def test_fold_kernel_leaves_its_tile_counter_zeroed(cuda):
     is_start, vals = _fold_case("one segment over many tiles and stages")
     v = torch.from_numpy(vals).to(cuda)
     s = torch.from_numpy(is_start).to(cuda)
-    counter, _ = fold_mod._device_state(v.device)
+    counter, _ = fold_mod._stream_state(
+        v.device, torch.cuda.current_stream(v.device).cuda_stream)
     got = [segmented_fold(op, s, v) for op in ("max", "sum", "max")]
     torch.cuda.synchronize()
     assert counter.tolist() == [0, 0]
@@ -201,6 +202,35 @@ def test_fold_kernel_leaves_its_tile_counter_zeroed(cuda):
              for op in ("max", "sum")}
     for op, g in zip(("max", "sum", "max"), got):
         assert bool(_same_bits(g.cpu(), plain[op]).all()), op
+
+
+@pytest.mark.cuda
+def test_fold_kernel_on_two_streams_at_once(cuda):
+    """Folds launched on two streams of one device run at the same time,
+    each with its stream's own tile counter: every result keeps the plain
+    version's bits, and both counters are left zeroed."""
+    from repro_torch.kernels import fold as fold_mod
+    is_start, vals = _fold_case("one segment over many tiles and stages")
+    v = torch.from_numpy(vals).to(cuda)
+    s = torch.from_numpy(is_start).to(cuda)
+    plain = {op: ref.segmented_fold_ref(op, s.cpu(), v.cpu())
+             for op in ("sum", "max")}
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(cuda))
+    got = []
+    for _ in range(4):      # each launch takes about a millisecond
+        for st, op in zip(streams, ("sum", "max")):
+            with torch.cuda.stream(st):
+                got.append((op, segmented_fold(op, s, v)))
+    torch.cuda.synchronize()
+    for i, (op, g) in enumerate(got):
+        same = _same_bits(g.cpu(), plain[op])
+        assert bool(same.all()), (i, op, int((~same).sum()))
+    counters = [fold_mod._stream_state(cuda, st.cuda_stream)[0]
+                for st in streams]
+    assert counters[0].data_ptr() != counters[1].data_ptr()
+    assert [c.tolist() for c in counters] == [[0, 0], [0, 0]]
 
 
 @pytest.mark.cuda
