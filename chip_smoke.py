@@ -36,7 +36,15 @@ exits non-zero and prints no result.  In order it
    plain version runs on a CPU copy); two adjacent rows of that segment
    swapped must fail the check; the fold library's SASS must hold
    ``UBLKCP.S.G`` (bulk copies) and a profiler trace of a call one device
-   kernel; both layouts are timed;
+   kernel; both layouts are timed.  PART's permutation is held bit for bit
+   (a control whose one output row gathers its source row's neighbour must
+   fail) and timed beside ``index_copy_`` and ``index_add_``; COMB on the
+   global stage's sorted ids and on the same ids in a random row order is
+   held within the float32 summation bound (a control that drops the
+   partial sum of a segment crossing a tile boundary must fail), and its
+   library's SASS must hold ``UBLKCP.S.G`` and ``REDG.E.ADD.F32x4`` (a
+   vector reduction); the fold's profiler trace also holds a call each of
+   PART and COMB, and must name PART's two kernels and COMB's one;
 4. counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions
    that ``cuobjdump --dump-sass`` finds in the built gmm library (both must
    be there), then holds the grouped-matmul kernel (``gmm``) against its
@@ -222,7 +230,8 @@ def time_ms(fn, reps: int = 10, warmup: int = 2, flush=None,
     With ``spin`` the card first spins for about 2 ms, so that the host has
     queued the call before the first event fires: a kernel of tens of
     microseconds is otherwise timed with the host's launch latency in it
-    (the attention timings use it; the shuffle kernels' do not)."""
+    (the attention timings, PART's and COMB's use it; the fold's and
+    gmm's do not)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -335,6 +344,7 @@ def kernel_phase(dev) -> dict:
 
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.combine import segment_combine
+    from repro_torch.kernels.combine import tile_rows as combine_tile_rows
     from repro_torch.kernels.fold import segmented_fold
     from repro_torch.kernels.partition import partition_permute
 
@@ -350,18 +360,30 @@ def kernel_phase(dev) -> dict:
     torch.cuda.synchronize()
     err = float((got - plain).abs().max())
     assert torch.equal(got, plain), "PART (permutation) differs from plain"
-    lib_out, perm64 = torch.zeros_like(vals), perm.long()
+    # control: one output row gathers its source row's neighbour
+    src = int(torch.nonzero(perm == n // 3)[0])
+    bad = vals.clone()
+    bad[src] = vals[src + 1]
+    assert not torch.equal(partition_permute(perm, bad, num_out=n,
+                                             unique_slots=True), plain), \
+        "the neighbour-row control passed PART's check"
+    del bad
+    lib_out, perm64 = torch.empty_like(vals), perm.long()
     tb = bound(4 * n + 4 * n * d + 4 * n * d, 0, F32_OPS_PER_S)
     rows["partition_permute"] = dict(
         max_abs_err=err, tolerance="exact",
         ms=time_ms(lambda: partition_permute(perm, vals, num_out=n,
-                                             unique_slots=True)),
+                                             unique_slots=True), spin=True),
         plain_ms=time_ms(lambda: ref.partition_permute_ref(perm, vals,
                                                            num_out=n)),
-        library_ms=time_ms(lambda: lib_out.index_add_(0, perm64, vals)),
+        library_ms=time_ms(lambda: lib_out.index_copy_(0, perm64, vals),
+                           spin=True),
+        library_call="index_copy_",
+        index_add_ms=time_ms(lambda: lib_out.index_add_(0, perm64, vals),
+                             spin=True),
         bound_ms=tb[0], bound_by=tb[1])
-    log(f"kernel PART permutation n={n} d={d} f32: exact, "
-        f"{json.dumps(rows['partition_permute'])}")
+    log(f"kernel PART permutation n={n} d={d} f32: exact (the neighbour-row "
+        f"control failed it), {json.dumps(rows['partition_permute'])}")
 
     # ---- PART with collisions (-1 and >= num_out dropped) -----------------
     m = n // 8
@@ -381,7 +403,7 @@ def kernel_phase(dev) -> dict:
     tb = bound(4 * n + 4 * n * d + 4 * m * d, n * d, F32_OPS_PER_S)
     log(f"kernel PART collisions n={n} num_out={m} d={d} f32: "
         f"max_abs_err={float(diff.max())!r} (bound 2*len*2^-24*sum|v|), "
-        f"ms={time_ms(lambda: partition_permute(slots, vals, num_out=m))!r}, "
+        f"ms={time_ms(lambda: partition_permute(slots, vals, num_out=m), spin=True)!r}, "
         f"plain_ms={time_ms(lambda: ref.partition_permute_ref(slots, vals, num_out=m))!r}, "
         f"bound_ms={tb[0]!r}")
 
@@ -399,21 +421,53 @@ def kernel_phase(dev) -> dict:
     # positive inputs: sum|v| is the exact sum.  f32 summation bound:
     # |fl(sum) - sum| <= len_seg * 2^-24 * sum|v| per segment and column
     tol = lens * U32 * exact
-    kerr = (got.double() - exact).abs()
-    assert bool((kerr <= tol).all()), "COMB outside the f32 summation bound"
+
+    def comb_held(out) -> bool:
+        return bool(((out.double() - exact).abs() <= tol).all())
+    assert comb_held(got), "COMB outside the f32 summation bound"
     err = float((got.double() - plain.double()).abs().max())
     assert bool(((got.double() - plain.double()).abs() <= 2 * tol).all())
+    # control: a segment of 20..1,000 rows that crosses a tile boundary
+    # loses the partial sum of its rows past the boundary
+    tile = combine_tile_rows(d, torch.float32)
+    starts = torch.nonzero(head).flatten()
+    ends = torch.cat([starts[1:], starts.new_full((1,), n)])
+    crossing = ((starts // tile < (ends - 1) // tile)
+                & (ends - starts >= 20) & (ends - starts <= 1000))
+    a, b = (int(x) for x in (starts[crossing][0], ends[crossing][0]))
+    bad = routed.clone()
+    bad[(a // tile + 1) * tile:b] = 0
+    assert not comb_held(segment_combine(ids, bad, num_segments=s_count)), \
+        "the dropped-partial control passed COMB's check"
+    del bad
+    # the same ids and rows in a random row order: the same exact sums
+    shuffle = torch.randperm(n, device=dev, generator=gen)
+    u_ids, u_vals = ids[shuffle].contiguous(), routed[shuffle].contiguous()
+    got = segment_combine(u_ids, u_vals, num_segments=s_count)
+    assert comb_held(got), "COMB (unsorted ids) outside the f32 bound"
+    u_err = float((got.double() - exact).abs().max())
+    sass = sass_counts("combine")
+    assert sass["UBLKCP.S.G"] > 0 and sass["REDG.E.ADD.F32x4"] > 0, \
+        f"no bulk copy or no vector reduction in COMB's SASS: {sass}"
     lib_out = torch.zeros((s_count, d), dtype=torch.float32, device=dev)
     tb = bound(4 * n + 4 * n * d + 4 * s_count * d, n * d, F32_OPS_PER_S)
     rows["segment_combine"] = dict(
         max_abs_err=err, tolerance="len_seg*2^-24*sum|v| against the exact sum",
         ms=time_ms(lambda: segment_combine(ids, routed,
-                                           num_segments=s_count)),
+                                           num_segments=s_count), spin=True),
         plain_ms=time_ms(lambda: ref.segment_combine_ref(
             ids, routed, num_segments=s_count)),
-        library_ms=time_ms(lambda: lib_out.index_add_(0, seg, routed)),
-        bound_ms=tb[0], bound_by=tb[1], segments=s_count)
-    log(f"kernel COMB sorted ids n={n} S={s_count} d={d} f32: "
+        library_ms=time_ms(lambda: lib_out.index_add_(0, seg, routed),
+                           spin=True),
+        bound_ms=tb[0], bound_by=tb[1], segments=s_count,
+        unsorted_ms=time_ms(lambda: segment_combine(u_ids, u_vals,
+                                                    num_segments=s_count),
+                            spin=True),
+        unsorted_max_abs_err_vs_exact=u_err)
+    del u_ids, u_vals
+    log(f"kernel COMB sorted ids n={n} S={s_count} d={d} f32 (tiles of "
+        f"{tile} rows; the dropped-partial control, rows {a}..{b}, failed "
+        f"the check; unsorted ids held; SASS {json.dumps(sass)}): "
         f"{json.dumps(rows['segment_combine'])}")
 
     # ---- the ordered fold: bit-identical for sum / min / max --------------
@@ -465,8 +519,18 @@ def kernel_phase(dev) -> dict:
     # the fold library's SASS holds the bulk copies, and a call is one kernel
     sass = sass_counts("fold")
     assert sass["UBLKCP.S.G"] > 0, f"no bulk copy in the fold's SASS: {sass}"
-    traced = _build._traced_kernels(lambda: segmented_fold("sum", zs, zv), 3)
-    assert len(traced) == 1 and "segmented_fold" in traced[0], traced
+    # one profiler session (the process's first: a session long after it
+    # may hold no device event) traces a call each of the fold, PART and
+    # COMB: the fold is one kernel, PART a memset of its inverse and two
+    # kernels, COMB a memset of its output and one kernel
+    traced = _build._traced_kernels(lambda: (
+        segmented_fold("sum", zs, zv),
+        partition_permute(perm, vals, num_out=n, unique_slots=True),
+        segment_combine(ids, routed, num_segments=s_count)), 3)
+    want = ("segmented_fold", "Memset", "build_inverse", "gather_rows",
+            "Memset", "segment_sum")
+    assert len(traced) == len(want) and all(
+        w in t for w, t in zip(want, traced)), traced
     rows["segmented_fold"].update(
         zipf_ms=time_ms(lambda: segmented_fold("sum", zs, zv), reps=5),
         zipf_longest_segment=longest, zipf_byte_bound_ms=tb[0])
@@ -475,6 +539,8 @@ def kernel_phase(dev) -> dict:
         f"{check_s:.1f} s on the CPU; the swapped-rows control failed it; "
         f"SASS {json.dumps(sass)}; one device kernel a call: {traced[0][:60]}): "
         f"{json.dumps(rows['segmented_fold'])}")
+    log(f"kernel PART and COMB, the device work of one call each: "
+        f"{json.dumps([x[:50] for x in traced[1:]])}")
     return rows
 
 
@@ -724,10 +790,11 @@ def _gmm_ids(kind: str, groups: int, tiles: int, gen, dev):
 
 
 def sass_counts(name: str) -> dict:
-    """Counts of the tensor-core and TMA instructions in the SASS of the
-    built library of ``csrc/<name>.cu``: ``HGMMA`` (wgmma), ``UTMALDG``
-    (TMA tile loads), ``HMMA`` (mma.sync) and ``UBLKCP.S.G`` (1-D bulk
-    copies from global to shared memory)."""
+    """Counts of the tensor-core, TMA and reduction instructions in the
+    SASS of the built library of ``csrc/<name>.cu``: ``HGMMA`` (wgmma),
+    ``UTMALDG`` (TMA tile loads), ``HMMA`` (mma.sync), ``UBLKCP.S.G`` (1-D
+    bulk copies from global to shared memory) and ``REDG.E.ADD.F32x4``
+    (``red.global.add.v4.f32``: four float32 adds in one reduction)."""
     import re
 
     from repro_torch.kernels import _build
@@ -736,7 +803,8 @@ def sass_counts(name: str) -> dict:
                            str(_build._target(name))], check=True,
                           capture_output=True, text=True).stdout
     return {op: len(re.findall(rf"\b{re.escape(op)}\b", sass))
-            for op in ("HGMMA", "UTMALDG", "HMMA", "UBLKCP.S.G")}
+            for op in ("HGMMA", "UTMALDG", "HMMA", "UBLKCP.S.G",
+                       "REDG.E.ADD.F32x4")}
 
 
 def gmm_phase(dev) -> dict:
@@ -1398,8 +1466,18 @@ def _profile_hit(client, template, bufs, ws, profile_dir: Path) -> None:
                if e.device_type == DeviceType.CUDA
                and not e.name.startswith("teshu.")
                and e.name != "Activity Buffer Request") / 1e3
+    # the shuffle kernels' device time (their memsets not counted)
+    kernels = {"partition_permute": ("build_inverse", "gather_rows"),
+               "segment_combine": ("segment_sum",),
+               "segmented_fold": ("segmented_fold",)}
+    shuffle_ms = {k: sum(getattr(e, "device_time_total", 0.0)
+                         for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and any(x in e.name for x in names)) / 1e3
+                  for k, names in kernels.items()}
     log(f"profile {template}: wall_ms={wall * 1e3!r} device_busy_ms={busy!r} "
-        f"phases_host_ms={json.dumps(phases)}")
+        f"phases_host_ms={json.dumps(phases)} "
+        f"shuffle_kernels_device_ms={json.dumps(shuffle_ms)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1483,9 +1561,10 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         if "path" in r:       # the kernel of the row's shape (flash, decode)
             line[-1]["path"] = r["path"]
-        for key in ("zipf_ms", "zipf_longest_segment", "zipf_byte_bound_ms"):
-            if key in r:      # the fold on the shuffle's own layout
-                line[-1][key] = r[key]
+        for key in ("zipf_ms", "zipf_longest_segment", "zipf_byte_bound_ms",
+                    "library_call", "index_add_ms", "unsorted_ms"):
+            if key in r:      # the fold on the shuffle's own layout; PART's
+                line[-1][key] = r[key]   # and COMB's other yardsticks
     assert all(e["launches"] > 0 for e in line)
     log(f"chip_smoke: {time.perf_counter() - t_start:.2f} s in all")
     print(json.dumps({"kernels": line}))

@@ -3,8 +3,12 @@
 Scatters the rows of ``vals [n, d]`` into ``[num_out, d]`` by ``slots [n]``:
 slots outside ``[0, num_out)`` are dropped, colliding slots sum in float32,
 and the result has the input dtype.  ``unique_slots=True`` is the caller's
-promise that no two rows share a slot (a permutation), which takes the path
-with no atomics and no scratch.
+promise that no two rows share a slot (a permutation): the kernel then
+builds the inverse of the slots in an int32 ``[num_out]`` scratch buffer
+and gathers every output row from its source (zeros where no row lands),
+with no memset of the output.  If two rows do share a slot despite the
+promise, the output row holds one of them (the kernel keeps the one of the
+largest row index; callers may not rely on which).
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 (:func:`repro_torch.kernels.ref.partition_permute_ref`).  Any other device,
@@ -53,7 +57,13 @@ def partition_permute(slots: torch.Tensor, vals: torch.Tensor, *,
         raise ValueError("PART wants contiguous slots and vals")
     n, d = vals.shape
     out = torch.empty((num_out, d), dtype=vals.dtype, device=vals.device)
-    if unique_slots or vals.dtype == torch.float32:
+    if unique_slots:          # the inverse of the slots: row i sits in int32
+        if n > 2 ** 31 - 1:
+            raise ValueError(f"PART with unique slots takes at most 2^31 - 1 "
+                             f"rows: {n}")
+        scratch = torch.empty((num_out,), dtype=torch.int32,
+                              device=vals.device)
+    elif vals.dtype == torch.float32:
         scratch = out
     else:
         scratch = torch.empty((num_out, d), dtype=torch.float32,

@@ -102,6 +102,206 @@ def test_comb_kernel_matches_plain(cuda, n, d, segs, layout, dtype):
     np.testing.assert_allclose(_f32(got), _f32(plain), **tol)
 
 
+# PART with unique slots builds the inverse of the slots and gathers every
+# output row; a row that receives nothing is written as zeros.  Before each
+# call a freed buffer of NaN lies where the caching allocator places out,
+# so a row the kernel skips shows (out gets no memset).  kind: "perm" a
+# permutation into num_out >= n slots; "partial" unique slots with -1 and
+# >= num_out dropped (every 7th row -1)
+PART_GATHER_CASES = {
+    "a permutation, n off the gather's 1,024-unit blocks": (100_003, 8,
+                                                            100_003, "perm"),
+    "partial: num_out > n": (5000, 8, 9000, "partial"),
+    "partial: num_out < n": (9000, 8, 5000, "partial"),
+    "partial, d 1": (4000, 1, 6000, "partial"),
+    "partial, d 5": (4000, 5, 3000, "partial"),
+    "partial, d 33": (4000, 33, 6000, "partial"),
+    "partial, d 300": (1000, 300, 1500, "partial"),
+    "partial, vals one element off 16 bytes": (5000, 8, 9000, "offset"),
+}
+
+
+def _unique_slots(rng, n, num_out, kind):
+    if kind == "perm":
+        return rng.permutation(n).astype(np.int32)
+    s = rng.choice(max(num_out, n) + n // 4, size=n,
+                   replace=False).astype(np.int32)
+    s[::7] = -1
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(PART_GATHER_CASES))
+def test_part_gather_is_exact(cuda, case, dtype):
+    n, d, num_out, kind = PART_GATHER_CASES[case]
+    rng = np.random.default_rng(n + d)
+    slots = torch.from_numpy(_unique_slots(rng, n, num_out, kind)).to(cuda)
+    host = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)
+                            ).to(TORCH[dtype])
+    if kind == "offset":       # the vector path is off
+        buf = torch.empty(n * d + 1, dtype=TORCH[dtype], device=cuda)
+        vals = buf[1:].view(n, d)
+        vals.copy_(host)
+        assert vals.data_ptr() % 16 != 0 and vals.is_contiguous()
+    else:
+        vals = host.to(cuda)
+    junk = torch.full((num_out, d), float("nan"), dtype=TORCH[dtype],
+                      device=cuda)
+    del junk
+    got = partition_permute(slots, vals, num_out=num_out, unique_slots=True)
+    plain = ref.partition_permute_ref(slots, vals, num_out=num_out)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+    hit = torch.zeros(num_out, dtype=torch.bool, device=cuda)
+    ok = (slots >= 0) & (slots < num_out)
+    hit[slots[ok].long()] = True
+    if kind != "perm":
+        assert bool((~hit).any()) and int((~ok).sum()) > n // 7
+    assert bool((got[~hit] == 0).all())
+
+
+U32 = 2.0 ** -24
+
+
+def _comb_bound(ids, vals, segs, dtype):
+    """The exact float64 sums and, per element, how far a float32 sum in
+    any order may lie from them (len_seg * 2^-24 * sum|v|), plus one bf16
+    rounding of the result (2^-8) for a bfloat16 output."""
+    v = vals.astype(np.float64)
+    ok = (ids >= 0) & (ids < segs)
+    i, v = ids[ok], v[ok]
+    lens = np.bincount(i, minlength=segs)[:, None]
+    cols = range(v.shape[1])
+    exact = np.stack([np.bincount(i, v[:, c], minlength=segs) for c in cols],
+                     1).reshape(segs, v.shape[1])
+    absum = np.stack([np.bincount(i, np.abs(v[:, c]), minlength=segs)
+                      for c in cols], 1).reshape(segs, v.shape[1])
+    tol = lens * U32 * absum
+    if dtype == "bfloat16":
+        tol = tol + 2.0 ** -8 * (np.abs(exact) + tol)
+    return exact, tol
+
+
+def _comb_ids(rng, n, share, long):
+    """Sorted, compacted ids: a segment starts at each row with probability
+    ``share``; no start inside each ``[a, b)`` of ``long``, one at a and
+    at b."""
+    start = rng.random(n) < share
+    for a, b in long:
+        start[a:b] = False
+        start[a] = True
+        start[b:b + 1] = True
+    start[:1] = True
+    return (np.cumsum(start) - 1).astype(np.int32)
+
+
+# COMB's layouts: (n, d, the share of random segment starts, long segments
+# [a, b) as multiples of the kernel's tile rows R plus rows, the layout).
+# "sorted" is the replay's; "unsorted" shuffles the rows and sets every
+# 11th id to -1 and every 13th past the last segment (both dropped)
+COMB_CASES = {
+    "a segment across one tile boundary": (
+        3000, 8, 0.1, [((1, -100), (1, 50))], "sorted"),
+    "a segment across several tile boundaries": (
+        (6, 17), 8, 0.1, [((2, -10), (5, 3))], "sorted"),
+    "a 200,000-row segment": (260_000, 8, 0.1, [((0, 1000), (0, 201_000))],
+                              "sorted"),
+    "unsorted ids with drops": (50_000, 8, 0.1, [], "unsorted"),
+    "d 1": (50_000, 1, 0.1, [((1, -30), (3, 30))], "sorted"),
+    "d 3": (50_000, 3, 0.1, [((1, -30), (3, 30))], "sorted"),
+    "d 4": (50_000, 4, 0.1, [((1, -30), (3, 30))], "sorted"),
+    "d 5": (50_000, 5, 0.1, [((1, -30), (3, 30))], "sorted"),
+    "d 300": (5000, 300, 0.1, [((2, -5), (5, 3))], "sorted"),
+    "d 300, unsorted": (5000, 300, 0.1, [], "unsorted"),
+    "vals one element off 16 bytes, d 8": (50_000, 8, 0.1,
+                                           [((1, -30), (3, 30))], "offset"),
+    "vals one element off 16 bytes, d 5": (50_000, 5, 0.1,
+                                           [((1, -30), (3, 30))], "offset"),
+    "n = 0": (0, 8, 0.1, [], "sorted"),
+    "S = 0 (every id dropped)": (3000, 8, 0.1, [], "none"),
+}
+
+
+def _comb_case(name, dtype, cuda):
+    from repro_torch.kernels.combine import tile_rows
+    n, d, share, long, layout = COMB_CASES[name]
+    rows = tile_rows(d, TORCH[dtype])
+    at = (lambda x: x if isinstance(x, int) else x[0] * rows + x[1])
+    n = at(n)
+    long = [(at(a), at(b)) for a, b in long]
+    rng = np.random.default_rng(n + d)
+    ids = _comb_ids(rng, n, share, long) if n else np.zeros(0, np.int32)
+    segs = int(ids.max()) + 1 if n else 0
+    vals = rng.standard_normal((n, d)).astype(np.float32)
+    if layout == "unsorted":
+        perm = rng.permutation(n)
+        ids, vals = ids[perm], vals[perm]
+        ids[::11] = -1
+        ids[5::13] = segs + 3
+    if layout == "none":
+        segs = 0
+    vals = torch.from_numpy(vals).to(TORCH[dtype])
+    vals_np = vals.float().numpy()
+    if layout == "offset":
+        buf = torch.empty(n * d + 1, dtype=TORCH[dtype], device=cuda)
+        v = buf[1:].view(n, d)
+        v.copy_(vals)
+        assert v.data_ptr() % 16 != 0 and v.is_contiguous()
+    else:
+        v = vals.to(cuda)
+    return torch.from_numpy(ids).to(cuda), v, segs, ids, vals_np, rows, long
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(COMB_CASES))
+def test_comb_kernel_within_the_summation_bound(cuda, case, dtype):
+    """COMB against the exact float64 sums, each element within the
+    float32 summation bound; the long segments cross the tile boundaries
+    they are named for."""
+    ids, v, segs, ids_np, vals_np, rows, long = _comb_case(case, dtype, cuda)
+    for a, b in long:
+        assert a // rows < (b - 1) // rows, (a, b, rows)
+    if "several" in case:
+        assert (long[0][1] - 1) // rows - long[0][0] // rows >= 3
+    before = segment_combine.launches
+    got = segment_combine(ids, v, num_segments=segs)
+    assert segment_combine.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.shape == (segs, v.shape[1]) and got.dtype == TORCH[dtype]
+    exact, tol = _comb_bound(ids_np, vals_np, segs, dtype)
+    err = np.abs(got.double().cpu().numpy() - exact)
+    assert (err <= tol).all(), float((err / np.maximum(tol, 1e-30)).max())
+
+
+@pytest.mark.cuda
+def test_comb_kernel_on_two_streams_at_once(cuda):
+    """COMB launched on two streams of one device at once, each with its
+    stream's own tile counter: every result within the bound, both
+    counters left zeroed."""
+    from repro_torch.kernels import fold as fold_mod
+    cases = ["a 200,000-row segment", "unsorted ids with drops"]
+    inputs = [_comb_case(c, "float32", cuda) for c in cases]
+    bounds = [_comb_bound(x[3], x[4], x[2], "float32") for x in inputs]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(cuda))
+    got = []
+    for _ in range(4):
+        for i, st in enumerate(streams):
+            ids, v, segs = inputs[i][:3]
+            with torch.cuda.stream(st):
+                got.append((i, segment_combine(ids, v, num_segments=segs)))
+    torch.cuda.synchronize()
+    for i, g in got:
+        exact, tol = bounds[i]
+        assert (np.abs(g.double().cpu().numpy() - exact) <= tol).all(), i
+    counters = [fold_mod._stream_state(cuda, st.cuda_stream)[0]
+                for st in streams]
+    assert [c.tolist() for c in counters] == [[0, 0], [0, 0]]
+
+
 # the fold's layouts: (n, d, the start rows, the share of random starts,
 # long segments [a, b) with no start inside).  At d 8 a tile is 512 rows, at
 # d 5 800, at d 1 1,024, at d 33 96; a width above 256 is cut into chunks
@@ -242,6 +442,9 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
         segment_combine(torch.zeros(4, dtype=torch.int32, device=cuda),
                         torch.ones((4, 2), dtype=torch.float64, device=cuda),
                         num_segments=1)
+    with pytest.raises(ValueError):     # a row wider than COMB's stage
+        segment_combine(torch.zeros(4, dtype=torch.int32, device=cuda),
+                        torch.ones((4, 20_000), device=cuda), num_segments=1)
     with pytest.raises(ValueError):
         segmented_fold("sum", torch.ones(4, dtype=torch.bool, device=cuda),
                        torch.ones((2, 4), dtype=torch.float64,

@@ -58,6 +58,10 @@ def _f32(a) -> np.ndarray:
 def _slots(rng, n, num_out, kind):
     if kind == "perm":                      # a permutation into num_out >= n
         return rng.choice(num_out, size=n, replace=False).astype(np.int32)
+    if kind == "partial":     # unique slots, -1 and >= num_out dropped
+        s = rng.choice(num_out + n // 4, size=n, replace=False).astype(np.int32)
+        s[::7] = -1
+        return s
     # collisions, the -1 drop id and ids >= num_out (dropped too)
     return rng.integers(-1, num_out + 3, n).astype(np.int32)
 
@@ -68,6 +72,7 @@ def _slots(rng, n, num_out, kind):
     (128, 100, 520, "perm"),                # ragged d, sparse output rows
     (700, 37, 64, "collide"),               # ragged d, heavy collisions
     (5, 3, 9, "collide"),
+    (200, 8, 500, "partial"),               # unique slots with drops
 ])
 def test_part_plain_matches_pallas(n, d, num_out, kind, dtype):
     rng = np.random.default_rng(n + d)
@@ -75,7 +80,7 @@ def test_part_plain_matches_pallas(n, d, num_out, kind, dtype):
     vals = rng.standard_normal((n, d)).astype(np.float32)
     jv, tv = _both(vals, dtype)
     got = ops.part(torch.from_numpy(slots), tv, num_out=num_out,
-                   unique_slots=kind == "perm")
+                   unique_slots=kind != "collide")
     assert got.dtype == TORCH[dtype] and got.shape == (num_out, d)
     pallas = pallas_part(jnp.asarray(slots), jv, num_out=num_out,
                          interpret=True)
