@@ -11,7 +11,11 @@ exits non-zero and prints no result.  In order it
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the six CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, all started together) and prints the build seconds;
+   ``nvcc`` per source, all started together) and prints the build seconds,
+   then takes every torch.profiler trace that the checks below read, back
+   to back before anything else, each session open 50 ms before and after
+   its call (a session long after the one before it may hold no device
+   event);
 3. holds each kernel against its plain PyTorch version on the card at its
    main path's shapes (and the attention kernels at their edge cases and at
    one ``decode_32k`` layer, each element within its own bound of the plain
@@ -339,10 +343,83 @@ def _segment_layout(keys, ndst: int):
     return order, head, torch.cumsum(head, 0) - 1
 
 
+def trace_phase(dev) -> dict:
+    """Which device kernels one call launches, read from torch.profiler
+    traces, for every traced check of this script: a call each of the
+    fold, PART and COMB on the global stage's layout at the main path's
+    shapes, and one call of each flash and decode case on inputs of the
+    case's shapes and dtypes.  All sessions run here, back to back, before
+    anything else: a session long after the one before it may hold no
+    device event (``dev/profiler_sessions.py``).  Returns the flash and
+    decode kernels by case name; the fold, PART and COMB are checked here."""
+    import torch
+
+    from repro_torch.kernels._build import (_traced_kernels, decode_kernel_ran,
+                                            flash_kernel_ran)
+    from repro_torch.kernels.combine import segment_combine
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fold import segmented_fold
+    from repro_torch.kernels.partition import partition_permute
+
+    n, d = WORKERS * ROWS_PER_WORKER, WIDTH
+    gen = torch.Generator(device=dev).manual_seed(3)
+    vals = torch.rand((n, d), dtype=torch.float32, device=dev, generator=gen)
+    perm = torch.randperm(n, device=dev, generator=gen).to(torch.int32)
+    order, head, seg = _segment_layout(
+        zipf_keys(n, KEYS, ALPHA, gen, dev), WORKERS)
+    ids, s_count = seg.to(torch.int32), int(seg[-1]) + 1
+    routed = vals[order].contiguous()
+    zv = routed.double()
+    # the fold is one kernel, PART a memset of its inverse and two kernels,
+    # COMB a memset of its output and one kernel.  Each wrapper is called
+    # once first, outside the trace: a first call also zeroes the tile
+    # counters and the like that later calls share
+    def calls():
+        segmented_fold("sum", head, zv)
+        partition_permute(perm, vals, num_out=n, unique_slots=True)
+        segment_combine(ids, routed, num_segments=s_count)
+    calls()
+    traced = _traced_kernels(calls, 3)
+    want = ("segmented_fold", "Memset", "build_inverse", "gather_rows",
+            "Memset", "segment_sum")
+    assert len(traced) == len(want) and all(
+        w in t for w, t in zip(want, traced)), traced
+    log(f"trace fold, PART and COMB, the device work of one call each: "
+        f"{json.dumps([x[:50] for x in traced])}")
+    del vals, perm, order, head, seg, ids, routed, zv
+
+    def randn(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, dtype=dtype, device=dev, generator=gen)
+
+    paths = {"flash": {}, "decode": {}}
+    for name, bhq, bhkv, sq, skv, dd, causal, qdt in FLASH_CASES:
+        q = randn((bhq, sq, dd), getattr(torch, qdt))
+        k, v = randn((bhkv, skv, dd)), randn((bhkv, skv, dd))
+        flash_attention(q, k, v, causal=causal)
+        paths["flash"][name] = flash_kernel_ran(
+            lambda: flash_attention(q, k, v, causal=causal))
+    del q, k, v
+    for name, bb, hh, kk, tt, dd, valid, qdt in DECODE_CASES:
+        if name.endswith("on the device"):   # the serving case's inputs
+            vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+        else:
+            q = randn((bb, hh, dd), getattr(torch, qdt))
+            kc, vc = randn((bb, tt, kk, dd)), randn((bb, tt, kk, dd))
+            vl = valid
+        decode_attention(q, kc, vc, vl)
+        paths["decode"][name] = decode_kernel_ran(
+            lambda: decode_attention(q, kc, vc, vl))
+    del q, kc, vc
+    torch.cuda.empty_cache()
+    log(f"trace flash and decode cases: {json.dumps(paths)}")
+    return paths
+
+
 def kernel_phase(dev) -> dict:
     import torch
 
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import ref
     from repro_torch.kernels.combine import segment_combine
     from repro_torch.kernels.combine import tile_rows as combine_tile_rows
     from repro_torch.kernels.fold import segmented_fold
@@ -516,31 +593,17 @@ def kernel_phase(dev) -> dict:
     assert not fold_same(segmented_fold("sum", zs, swapped).cpu(), plain), \
         "the swapped-rows control passed the fold's bit check"
     del swapped
-    # the fold library's SASS holds the bulk copies, and a call is one kernel
+    # the fold library's SASS holds the bulk copies (the trace phase shows
+    # that a call is one kernel)
     sass = sass_counts("fold")
     assert sass["UBLKCP.S.G"] > 0, f"no bulk copy in the fold's SASS: {sass}"
-    # one profiler session (the process's first: a session long after it
-    # may hold no device event) traces a call each of the fold, PART and
-    # COMB: the fold is one kernel, PART a memset of its inverse and two
-    # kernels, COMB a memset of its output and one kernel
-    traced = _build._traced_kernels(lambda: (
-        segmented_fold("sum", zs, zv),
-        partition_permute(perm, vals, num_out=n, unique_slots=True),
-        segment_combine(ids, routed, num_segments=s_count)), 3)
-    want = ("segmented_fold", "Memset", "build_inverse", "gather_rows",
-            "Memset", "segment_sum")
-    assert len(traced) == len(want) and all(
-        w in t for w, t in zip(want, traced)), traced
     rows["segmented_fold"].update(
         zipf_ms=time_ms(lambda: segmented_fold("sum", zs, zv), reps=5),
         zipf_longest_segment=longest, zipf_byte_bound_ms=tb[0])
     log(f"kernel fold n={n} d={d} f64, segments 1..{FOLD_MAX_SEG} and the Zipf "
         f"global layout (longest {longest}; its plain check took "
         f"{check_s:.1f} s on the CPU; the swapped-rows control failed it; "
-        f"SASS {json.dumps(sass)}; one device kernel a call: {traced[0][:60]}): "
-        f"{json.dumps(rows['segmented_fold'])}")
-    log(f"kernel PART and COMB, the device work of one call each: "
-        f"{json.dumps([x[:50] for x in traced[1:]])}")
+        f"SASS {json.dumps(sass)}): {json.dumps(rows['segmented_fold'])}")
     return rows
 
 
@@ -584,12 +647,13 @@ def _decode_work(q, k, valid: int) -> tuple[float, float]:
     return nbytes, 4.0 * d * b * h * valid
 
 
-def attention_phase(dev) -> dict:
+def attention_phase(dev, paths: dict) -> dict:
+    """The attention kernels' checks and times; ``paths`` holds the kernels
+    each case launched, as the trace phase read them."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels._build import decode_kernel_ran, flash_kernel_ran
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
 
@@ -615,8 +679,7 @@ def attention_phase(dev) -> dict:
         if name == "sharp scores":
             q = q * SHARP
         k, v = randn((bhkv, skv, d)), randn((bhkv, skv, d))
-        path = flash_kernel_ran(lambda: flash_attention(q, k, v,
-                                                        causal=causal))
+        path = paths["flash"][name]       # read by the trace phase
         got = flash_attention(q, k, v, causal=causal)
         plain = ref.flash_attention_ref(q, k, v, causal=causal)
         tol = ref.flash_attention_tolerance(q, k, v, plain, causal=causal)
@@ -676,8 +739,8 @@ def attention_phase(dev) -> dict:
                 q = q * SHARP
             kc, vc = randn((bb, tt, kk, d)), randn((bb, tt, kk, d))
             vl = valid
-        got = decode_attention(q, kc, vc, vl)   # (and the counters exist)
-        path = decode_kernel_ran(lambda: decode_attention(q, kc, vc, vl))
+        got = decode_attention(q, kc, vc, vl)
+        path = paths["decode"][name]      # read by the trace phase
         if qdt == "bfloat16":
             assert path == ("decode_tma",), (name, path)
         if name == "serving decode":
@@ -1517,8 +1580,11 @@ def main() -> int:
                 log(f"ptxas {name}: {line.strip()}")
 
     t0 = time.perf_counter()
+    paths = trace_phase(dev)
+    log(f"trace phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     krows = kernel_phase(dev)
-    krows.update(attention_phase(dev))
+    krows.update(attention_phase(dev, paths))
     krows.update(gmm_phase(dev))
     log(f"kernel phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()

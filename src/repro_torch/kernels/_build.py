@@ -100,11 +100,16 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _traced_kernels(fn, attempts: int) -> list[str]:
+def _traced_kernels(fn, attempts: int, pad: float = 0.05) -> list[str]:
     """The names of the device kernels one call of ``fn`` launched, read
-    from a torch.profiler trace of that call.  A trace that holds no device
-    kernel at all (the profiler may drop a session's device events) is
-    taken again, up to ``attempts`` calls in all."""
+    from a torch.profiler trace of that call.  The session stays open
+    ``pad`` seconds before the call and after it ends: the profiler drops a
+    device event whose time, mapped onto the host's clock, falls outside
+    the session, and that mapping is off by up to a millisecond or more
+    (``dev/profiler_sessions.py``).  A trace that holds no device kernel at
+    all is taken again, up to ``attempts`` calls in all."""
+    import time
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -112,8 +117,10 @@ def _traced_kernels(fn, attempts: int) -> list[str]:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             fn()
             torch.cuda.synchronize()
+            time.sleep(pad)
         names = [e.name for e in prof.events()
                  if e.device_type == DeviceType.CUDA and e.name not in (
                      "Activity Buffer Request", "Command Buffer Full")]
