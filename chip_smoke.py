@@ -69,7 +69,41 @@ exits non-zero and prints no result.  In order it
    1M keys, 200k rows of width 8 per worker (8M rows, 576 MB), SUM on
    ``network_aware`` and ``vanilla_push``: one miss, then hits.  The shuffle
    kernels' launch counters are zeroed just before the hits and read just
-   after; outputs are held against the port's own vectorized replay;
+   after; outputs are held against the port's own vectorized replay; each
+   later path's counters are zeroed just before it and read just after,
+   and the ``kernels`` line sums them.  After each path (both slice
+   templates, the skewed hits, the batched pass, PageRank, SSSP and
+   ``shuffle_cache``) every kernel it launched is called again on the
+   inputs of its last call there, so at the path's own shapes (d = 1 in
+   PageRank, one member's 2M x 8 slice in the batch), and held against its
+   plain version, each with a planted fault that must fail the check;
+5a. skew phase: the same deployment with Zipf(1.2) keys (the top key about
+   a fifth of the rows) and ``balance="auto"`` on ``vanilla_push``: one
+   miss, then 3 hits that must replay on the card with the rebalance
+   triggered (the frozen hot-key scatter, the fold, the owner merge), the
+   vectorized replay's bytes and charges; the largest per-destination
+   received bytes must fall below the same data's with ``balance="off"``;
+   ``network_aware`` under the rebalance must replay on the card or decline
+   with its plan's skew code;
+5b. batch phase: four tenants on one cluster, each with its own Zipf(0.9)
+   data (50k rows a worker, 2M a member), warm a plan each, then submit one
+   shuffle each into one admission pass: one batch of 4, each member on the
+   card with no fallback; one program's folds for the batch (one serial
+   replay's); per-tenant byte lanes equal to four serial hits', cost lanes
+   to 1e-9, the batch's modelled time strictly below; members within the
+   float32 bound of the vectorized replay, and with the kernel plane off
+   byte-identical to the serial replays.  The pass's wall is logged beside
+   the same pass with each member solo, and each pass's planner, batch
+   probe, batched program and plan-key signatures timed apart;
+5c. graph phase: ``repro_torch.apps.graph`` on an R-MAT graph at Graph500
+   scale 20, edge factor 16 (2^20 vertices, 2^24 edges drawn, self loops
+   dropped) over the 40 workers: PageRank, 10 supersteps on
+   ``network_aware`` (every cached superstep on the card), within the
+   float32 bound carried through the supersteps of a float64 power
+   iteration (a control dropping a top vertex's messages of superstep 1
+   must fall outside it); SSSP from vertex 0, 8 supersteps, equal to the
+   BFS levels cut at 8; then ``repro_torch.launch.shuffle_cache.run`` must
+   count 9 hits of 10, every cached replay on the card with no fallback;
 6. drives the LM's serving path, ``repro_torch.launch.serve.serve`` on
    Qwen2.5-14B at full width and depth (48 layers, bf16, random weights made
    on the card from a seeded ``torch.Generator``): batch 4, 1,024-token
@@ -101,6 +135,7 @@ TFLOP/s float32 and 34 TFLOP/s float64 outside them.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -124,6 +159,13 @@ ALPHA = 0.9
 WIDTH = 8
 HITS = 3
 TEMPLATES = ("network_aware", "vanilla_push")
+SKEW_ALPHA = 1.2                     # the skew phase: the top key ~19% of rows
+BATCH_TENANTS = 4                    # the batch phase: 4 members of 2M rows
+BATCH_ROWS_PER_WORKER = 50_000
+GRAPH_SCALE = 20                     # the graph phase: Graph500 scale 20,
+GRAPH_EDGE_FACTOR = 16               # edge factor 16 (2^24 edges)
+PAGERANK_STEPS = 10
+SSSP_STEPS = 8
 FOLD_MAX_SEG = 64                    # longest fold segment in the kernel phase
 
 SERVE_ARCH = "qwen2.5-14b"           # the serving slice: full width and depth
@@ -296,18 +338,20 @@ def zipf_keys(n: int, keys: int, alpha: float, gen, device):
     return torch.searchsorted(cdf, u).clamp_(max=keys - 1)
 
 
-def zipf_shards(seed: int):
+def zipf_shards(seed: int, alpha: float = ALPHA, rows: int | None = None):
     """Per-worker Msgs for the slice: the generator of the JAX package's
-    benchmarks (``benchmarks/common.py:zipf_shards``), here at width 8."""
+    benchmarks (``benchmarks/common.py:zipf_shards``), here at width 8;
+    ``rows`` a worker (``ROWS_PER_WORKER`` unless given)."""
     import numpy as np
 
     from repro_torch.core import Msgs
+    rows = ROWS_PER_WORKER if rows is None else rows
     rng = np.random.default_rng(seed)
     ranks = np.arange(1, KEYS + 1, dtype=np.float64)
-    cdf = np.cumsum(ranks ** -ALPHA)
+    cdf = np.cumsum(ranks ** -alpha)
     cdf /= cdf[-1]
-    return {w: Msgs(np.searchsorted(cdf, rng.random(ROWS_PER_WORKER))
-                    .astype(np.int64), rng.random((ROWS_PER_WORKER, WIDTH)))
+    return {w: Msgs(np.searchsorted(cdf, rng.random(rows))
+                    .astype(np.int64), rng.random((rows, WIDTH)))
             for w in range(WORKERS)}
 
 
@@ -1333,6 +1377,54 @@ def _stats_identical(a: dict, b: dict) -> None:
                             rel_tol=1e-9, abs_tol=1e-18)
 
 
+def _paper_topology():
+    import repro_torch.core as port
+    topo = port.datacenter(4, 5, 2, intra_server_bw=12.5e9,
+                           intra_rack_bw=1.25e9, oversubscription=10.0)
+    assert topo.num_workers == WORKERS
+    return topo
+
+
+def _zero_counts() -> None:
+    from repro_torch.kernels import SHUFFLE_KERNELS
+    for k in SHUFFLE_KERNELS:
+        k.launches = 0
+
+
+def _read_counts() -> dict:
+    from repro_torch.kernels import SHUFFLE_KERNELS
+    return {k.__name__: k.launches for k in SHUFFLE_KERNELS}
+
+
+def _same_bytes(got: dict, want: dict, ws) -> None:
+    """Per destination: the same int64 keys and bit-identical float64 rows."""
+    import numpy as np
+    for w in ws:
+        a, b = got[w], want[w]
+        assert a.keys.dtype == np.int64 and a.vals.dtype == np.float64
+        assert np.array_equal(a.keys, b.keys), w
+        assert np.array_equal(a.vals.view(np.int64), b.vals.view(np.int64)), w
+
+
+def _within_sum_bound(got: dict, want: dict, ws, rows_per_key, absum) -> float:
+    """The kernel plane's float32 SUM against an exact replay: the same keys,
+    each value within ``(rows + 1) 2^-24 sum|v|`` of its key (each input
+    rounds to float32, 2^-24 |v|, and the summation adds at most
+    len 2^-24 sum|v|); returns the largest difference."""
+    import numpy as np
+    worst = 0.0
+    for w in ws:
+        a, b = got[w], want[w]
+        assert a.keys.dtype == np.int64 and a.vals.dtype == np.float64
+        assert np.array_equal(a.keys, b.keys), w
+        assert np.isfinite(a.vals).all() and a.vals.shape == b.vals.shape
+        tol = (rows_per_key[a.keys, None] + 1) * U32 * absum[a.keys]
+        diff = np.abs(a.vals - b.vals)
+        assert (diff <= tol).all(), f"dst {w} outside the float32 bound"
+        worst = max(worst, float(diff.max(initial=0.0)))
+    return worst
+
+
 def _sum_bound(bufs, ws):
     """Per key: rows and sum of |v| over the whole input (every key lands
     at exactly one destination)."""
@@ -1345,17 +1437,158 @@ def _sum_bound(bufs, ws):
     return rows, absum
 
 
+class _Capture:
+    """Keeps the inputs of the last PART, COMB and fold call that a path
+    makes through the kernel entry points (``repro_torch.kernels.ops``,
+    where ``torchplan`` calls them), so that :func:`_hold_path` can hold
+    each kernel against its plain version at the path's own shapes once the
+    path has run.  The wrappers count their launches as ever."""
+
+    OPS = {"part": "partition_permute", "combine": "segment_combine",
+           "segmented_fold": "segmented_fold"}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.calls, self._ops, self._orig = {}, ops, {}
+        for attr, name in self.OPS.items():
+            fn = self._orig[attr] = getattr(ops, attr)
+
+            def record(*a, _fn=fn, _name=name, **kw):
+                self.calls[_name] = (a, kw)
+                return _fn(*a, **kw)
+            setattr(ops, attr, record)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        for attr, fn in self._orig.items():
+            setattr(self._ops, attr, fn)
+        return False
+
+
+def _hold_path(tag: str, calls: dict, counts: dict) -> dict:
+    """Each kernel that a path launched (``counts``), called again on the inputs of its
+    last call there and held against its plain version, and a planted fault
+    on the same inputs that must fail the same check:
+
+    * PART (the global stage's permutation): exact.  Fault: one row takes
+      the value of the next row that differs from it.
+    * COMB (the global stage's sorted, compacted ids): within
+      ``len_seg 2^-24 sum|v|`` of the exact float64 sum, and within twice
+      that of the plain version.  Fault: the rows of one segment past its
+      first tile boundary zeroed (the segment whose dropped sum exceeds
+      twice its bound the most).
+    * the ordered fold: bit-identical to the plain version on a CPU copy
+      (the plain loop takes a step per row of the longest segment).  Fault:
+      the first two rows of a segment swapped, whose seed row then holds
+      the other's value.
+
+    A path that measures its peak device memory leaves out the run that
+    keeps the inputs (they outlive their call).
+
+    Returns per kernel the shape it ran at and its largest difference."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.combine import segment_combine
+    from repro_torch.kernels.combine import tile_rows as combine_tile_rows
+    from repro_torch.kernels.fold import segmented_fold
+    from repro_torch.kernels.partition import partition_permute
+
+    assert set(calls) == {k for k, c in counts.items() if c}, (tag, counts)
+    out = {}
+    if "partition_permute" in calls:
+        (slots, vals), kw = calls["partition_permute"]
+        n, d = vals.shape
+        assert kw["unique_slots"] and kw["num_out"] == n == slots.shape[0]
+        got = partition_permute(slots, vals, num_out=n, unique_slots=True)
+        plain = ref.partition_permute_ref(slots, vals, num_out=n)
+        assert torch.equal(got, plain), f"{tag}: PART differs from plain"
+        i = int(torch.nonzero((vals[1:] != vals[:-1]).any(1))[0])
+        bad = vals.clone()
+        bad[i] = vals[i + 1]
+        assert not torch.equal(partition_permute(slots, bad, num_out=n,
+                                                 unique_slots=True), plain), \
+            f"{tag}: the neighbour-row control passed PART's check"
+        out["partition_permute"] = dict(
+            rows=n, width=d, tolerance="exact",
+            max_abs_err=float((got - plain).abs().max()))
+        del bad, got, plain
+    if "segment_combine" in calls:
+        (ids, vals), kw = calls["segment_combine"]
+        n, d = vals.shape
+        s = kw["num_segments"]
+        seg = ids.long()
+        assert bool((seg[1:] >= seg[:-1]).all()) and int(seg[-1]) == s - 1
+        got = segment_combine(ids, vals, num_segments=s)
+        plain = ref.segment_combine_ref(ids, vals, num_segments=s)
+        v64 = vals.double()
+        exact = torch.zeros((s, d), dtype=torch.float64, device=vals.device)
+        exact.index_add_(0, seg, v64)
+        absum = torch.zeros_like(exact).index_add_(0, seg, v64.abs())
+        tol = torch.bincount(seg, minlength=s).double()[:, None] * U32 * absum
+
+        def held(o) -> bool:
+            return bool(((o.double() - exact).abs() <= tol).all())
+        assert held(got), f"{tag}: COMB outside the f32 summation bound"
+        err = (got.double() - plain.double()).abs()
+        assert bool((err <= 2 * tol).all()), f"{tag}: COMB against plain"
+        tile = combine_tile_rows(d, vals.dtype)
+        idx = torch.arange(n, device=vals.device)
+        head = torch.ones(n, dtype=torch.bool, device=vals.device)
+        head[1:] = seg[1:] != seg[:-1]
+        first = torch.cummax(torch.where(head, idx, 0), 0).values
+        past = idx >= (first // tile + 1) * tile
+        dropped = torch.zeros_like(exact).index_add_(0, seg[past], v64[past])
+        margin = (dropped.abs() - 2 * tol).amax(1)
+        j = int(margin.argmax())
+        assert float(margin[j]) > 0, f"{tag}: no segment for COMB's control"
+        bad = vals.clone()
+        bad[past & (seg == j)] = 0
+        assert not held(segment_combine(ids, bad, num_segments=s)), \
+            f"{tag}: the dropped-partial control passed COMB's check"
+        out["segment_combine"] = dict(
+            rows=n, width=d, segments=s, tile_rows=tile,
+            tolerance="len_seg*2^-24*sum|v| against the exact sum",
+            max_abs_err=float(err.max()))
+        del bad, got, plain, exact, absum, tol, dropped
+    if "segmented_fold" in calls:
+        (op, is_start, vals), _ = calls["segmented_fold"]
+        n, d = vals.shape
+        got = segmented_fold(op, is_start, vals).cpu()
+        cs, cv = is_start.cpu(), vals.cpu()
+        t0 = time.perf_counter()
+        plain = ref.segmented_fold_ref(op, cs, cv)
+        check_s = time.perf_counter() - t0
+        assert fold_same(got, plain), f"{tag}: fold {op} differs from plain"
+        st = cs.clone()
+        st[0] = True
+        bits = cv.view(torch.int64)
+        differ = ((bits[1:] != bits[:-1])
+                  & ~(cv[1:].isnan() & cv[:-1].isnan())).any(1)
+        i = int(torch.nonzero(st[:-1] & ~st[1:] & differ)[0])
+        bad = vals.clone()
+        bad[[i, i + 1]] = vals[[i + 1, i]]
+        assert not fold_same(segmented_fold(op, is_start, bad).cpu(), plain), \
+            f"{tag}: the swapped-seed control passed the fold's bit check"
+        lens = torch.diff(torch.nonzero(st).flatten(),
+                          append=torch.tensor([n]))
+        out["segmented_fold"] = dict(
+            op=op, rows=n, width=d, longest_segment=int(lens.max()),
+            tolerance="bit-identical (NaN=NaN)", max_abs_err=0.0,
+            plain_check_cpu_s=check_s)
+        del bad
+    log(f"{tag} kernels against their plain versions on the path's last "
+        f"inputs (each control failed its check): {json.dumps(out)}")
+    return out
+
+
 def slice_phase(dev, profile_dir: Path | None) -> dict:
-    import numpy as np
     import torch
 
     import repro_torch.core as port
     from repro_torch.core import torchplan
-    from repro_torch.kernels import SHUFFLE_KERNELS
 
-    topo = port.datacenter(4, 5, 2, intra_server_bw=12.5e9,
-                           intra_rack_bw=1.25e9, oversubscription=10.0)
-    assert topo.num_workers == WORKERS
+    topo = _paper_topology()
     ws = list(range(WORKERS))
     t0 = time.perf_counter()
     bufs = zipf_shards(seed=0)
@@ -1363,7 +1596,7 @@ def slice_phase(dev, profile_dir: Path | None) -> dict:
         f"f64 ({sum(m.nbytes for m in bufs.values()) / 1e6:.0f} MB wire), "
         f"made in {time.perf_counter() - t0:.2f} s")
     rows_per_key, absum = _sum_bound(bufs, ws)
-    launches = {k.__name__: 0 for k in SHUFFLE_KERNELS}
+    launches = dict.fromkeys(_read_counts(), 0)
     out = {}
     for template in TEMPLATES:
         cl = port.TeShuCluster(topo, device=dev)       # executor="torch"
@@ -1375,17 +1608,23 @@ def slice_phase(dev, profile_dir: Path | None) -> dict:
         assert miss.engine == "threaded" and not miss.cached
         inputs = [copy_bufs(bufs) for _ in range(HITS)]
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for k in SHUFFLE_KERNELS:         # the main path, counted alone
-            k.launches = 0
-        walls, hits = [], []
-        for b in inputs:
-            t0 = time.perf_counter()
-            hits.append(client.shuffle(template, b, ws, ws, comb_fn=port.SUM))
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        counts = {k.__name__: k.launches for k in SHUFFLE_KERNELS}
-        peak = torch.cuda.max_memory_allocated()
+        _zero_counts()                    # the main path, counted alone
+        walls, hits, peaks, cap = [], [], [], _Capture()
+        for i, b in enumerate(inputs):
+            torch.cuda.reset_peak_memory_stats()
+            last = i == len(inputs) - 1   # keeps its kernels' inputs
+            with cap if last else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                hits.append(client.shuffle(template, b, ws, ws,
+                                           comb_fn=port.SUM))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            if not last:
+                peaks.append(torch.cuda.max_memory_allocated())
+        counts = _read_counts()
+        peak = max(peaks)
+        held = _hold_path(f"slice {template}", cap.calls, counts)
+        del cap
         for k, c in counts.items():
             launches[k] += c
         for h in hits:
@@ -1398,18 +1637,7 @@ def slice_phase(dev, profile_dir: Path | None) -> dict:
         vec = client.shuffle(template, copy_bufs(bufs), ws, ws,
                              comb_fn=port.SUM, executor="vectorized")
         assert vec.engine == "vectorized"
-        worst = 0.0
-        for w in ws:
-            a, b = hit.bufs[w], vec.bufs[w]
-            assert a.keys.dtype == np.int64 and a.vals.dtype == np.float64
-            assert np.array_equal(a.keys, b.keys)
-            assert np.isfinite(a.vals).all() and a.vals.shape == b.vals.shape
-            # SUM per key on float32: each input rounds to f32 (2^-24 |v|)
-            # and the summation adds at most len * 2^-24 * sum|v|
-            tol = (rows_per_key[a.keys, None] + 1) * U32 * absum[a.keys]
-            diff = np.abs(a.vals - b.vals)
-            assert (diff <= tol).all(), f"{template}: dst {w} outside bound"
-            worst = max(worst, float(diff.max(initial=0.0)))
+        worst = _within_sum_bound(hit.bufs, vec.bufs, ws, rows_per_key, absum)
         _stats_identical(hit.stats, vec.stats)
         # the exact plane: byte-identical with the kernel plane off
         prev = torchplan.set_kernel_plane(False)
@@ -1417,20 +1645,482 @@ def slice_phase(dev, profile_dir: Path | None) -> dict:
                                comb_fn=port.SUM)
         torchplan.set_kernel_plane(prev)
         assert exact.engine == "torch"
-        for w in ws:
-            assert np.array_equal(exact.bufs[w].keys, vec.bufs[w].keys)
-            assert np.array_equal(exact.bufs[w].vals.view(np.int64),
-                                  vec.bufs[w].vals.view(np.int64))
+        _same_bytes(exact.bufs, vec.bufs, ws)
         _stats_identical(exact.stats, vec.stats)
         nrows = sum(m.n for m in hit.bufs.values())
         out[template] = dict(
             miss_s=miss_s, hit_s=statistics.median(walls), hit_walls=walls,
             peak_device_bytes=peak, launches=counts, out_rows=nrows,
-            max_abs_err_vs_vectorized=worst)
+            max_abs_err_vs_vectorized=worst, kernels_held=held)
         log(f"slice {template}: {json.dumps(out[template])}")
         if profile_dir is not None:
             _profile_hit(client, template, bufs, ws, profile_dir)
     out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 6. skew phase
+# ---------------------------------------------------------------------------
+
+def _max_recv(res) -> int:
+    """The largest per-destination received bytes of one shuffle."""
+    return max(res.stats["recv_bytes_per_worker"].values())
+
+
+def skew_phase(dev, profile_dir: Path | None) -> dict:
+    """paper-40 with Zipf(1.2) keys and ``balance="auto"``: the frozen
+    hot-key scatter, the fold and the owner merge on the card."""
+    import numpy as np
+    import torch
+
+    import repro_torch.core as port
+    from repro_torch.core import torchplan
+
+    topo = _paper_topology()
+    ws = list(range(WORKERS))
+    t0 = time.perf_counter()
+    bufs = zipf_shards(seed=1, alpha=SKEW_ALPHA)
+    top_rows = int(np.bincount(np.concatenate([bufs[w].keys for w in ws]),
+                               minlength=KEYS).max())
+    log(f"skew data: Zipf({SKEW_ALPHA}) over {KEYS} keys, {WORKERS} workers "
+        f"x {ROWS_PER_WORKER} rows x {WIDTH} f64, top key {top_rows} rows "
+        f"({top_rows / (WORKERS * ROWS_PER_WORKER):.4f} of all), made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cl = port.TeShuCluster(topo, device=dev)       # executor="torch"
+    client = cl.tenant()
+    kw = dict(comb_fn=port.SUM, balance="auto")
+    t0 = time.perf_counter()
+    miss = client.shuffle("vanilla_push", copy_bufs(bufs), ws, ws, **kw)
+    miss_s = time.perf_counter() - t0
+    assert miss.engine == "threaded" and not miss.cached
+    inputs = [copy_bufs(bufs) for _ in range(HITS)]
+    torch.cuda.synchronize()
+    _zero_counts()                        # the skewed hits, counted alone
+    walls, hits, peaks, cap = [], [], [], _Capture()
+    for i, b in enumerate(inputs):
+        torch.cuda.reset_peak_memory_stats()
+        last = i == len(inputs) - 1       # keeps its kernels' inputs
+        with cap if last else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            hits.append(client.shuffle("vanilla_push", b, ws, ws, **kw))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        if not last:
+            peaks.append(torch.cuda.max_memory_allocated())
+    counts = _read_counts()
+    peak = max(peaks)
+    held = _hold_path("skew vanilla_push", cap.calls, counts)
+    del cap
+    for h in hits:
+        assert h.cached and h.engine == "torch" and h.fallback_reason is None, \
+            (h.engine, h.fallback_reason)
+        assert dict(h.decisions)["rebalance"].triggered
+    assert counts["segmented_fold"] > 0, counts
+    # the port's own vectorized replay: the same bytes and charges
+    vec = client.shuffle("vanilla_push", copy_bufs(bufs), ws, ws,
+                         executor="vectorized", **kw)
+    assert vec.engine == "vectorized"
+    for h in hits:
+        _same_bytes(h.bufs, vec.bufs, ws)
+        _stats_identical(h.stats, vec.stats)
+    # the same data with the rebalance off: the hot key's owner takes it all
+    client.shuffle("vanilla_push", copy_bufs(bufs), ws, ws, comb_fn=port.SUM)
+    off = client.shuffle("vanilla_push", copy_bufs(bufs), ws, ws,
+                         comb_fn=port.SUM)
+    assert off.engine == "torch" and "rebalance" not in dict(off.decisions)
+    recv, recv_off = _max_recv(hits[-1]), _max_recv(off)
+    assert recv < recv_off, (recv, recv_off)
+    # network_aware under the rebalance: replays on torch, or declines with
+    # the port's (the reference's) plan code
+    client.shuffle("network_aware", copy_bufs(bufs), ws, ws, **kw)
+    t0 = time.perf_counter()
+    na = client.shuffle("network_aware", copy_bufs(bufs), ws, ws, **kw)
+    torch.cuda.synchronize()
+    na_s = time.perf_counter() - t0
+    (plan,) = [p for _, p in cl.plan_cache.scan(port.DEFAULT_TENANT)
+               if p.template_id == "network_aware"]
+    assert plan.skew is not None and plan.skew.triggered
+    code = torchplan.plan_decline(plan)
+    if code is None:
+        assert na.engine == "torch" and na.fallback_reason is None
+        na_vec = client.shuffle("network_aware", copy_bufs(bufs), ws, ws,
+                                executor="vectorized", **kw)
+        _same_bytes(na.bufs, na_vec.bufs, ws)
+        _stats_identical(na.stats, na_vec.stats)
+    else:
+        assert code in ("skew_group_collision", "skew_shape_mismatch"), code
+        assert na.engine == "vectorized" and na.fallback_reason == code
+    out = dict(miss_s=miss_s, hit_s=statistics.median(walls), hit_walls=walls,
+               peak_device_bytes=peak, launches=counts, kernels_held=held,
+               top_key_rows=top_rows,
+               max_recv_bytes=recv, max_recv_bytes_balance_off=recv_off,
+               recv_ratio_off_to_auto=recv_off / recv,
+               network_aware=dict(engine=na.engine,
+                                  fallback_reason=na.fallback_reason,
+                                  plan_decline=code, hit_s=na_s))
+    log(f"skew vanilla_push: {json.dumps(out)}")
+    if profile_dir is not None:
+        _profile_hit(client, "vanilla_push", bufs, ws, profile_dir,
+                     tag="skew_", balance="auto")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 7. batch phase
+# ---------------------------------------------------------------------------
+
+class _PassClock:
+    """Host seconds of the pieces of one ``run_pending()`` pass, each piece
+    synchronised with the card before its clock stops: the coflow planner
+    (``CoflowScheduler.plan``), the batch probe (``_prepare_batches``, the
+    batched program's ``prepare_batch`` inside it), ``finish_batches``, and
+    every plan-key statistics signature (``stats_signature``: the probe's
+    and each member's own).  What is left of the wall is the members'
+    replays outside their signatures."""
+
+    def __init__(self, cl):
+        from repro_torch.core import coscheduler, service, torchplan
+        self.targets = [(coscheduler.CoflowScheduler, "plan", "planner"),
+                        (cl, "_prepare_batches", "batch_probe"),
+                        (torchplan, "prepare_batch", "prepare_batch"),
+                        (torchplan, "finish_batches", "finish_batches"),
+                        (service, "stats_signature", "stats_signature")]
+        self.s = {name: 0.0 for _, _, name in self.targets}
+        self.calls = dict.fromkeys(self.s, 0)
+
+    def __enter__(self):
+        import torch
+        self._saved = []
+        for obj, attr, name in self.targets:
+            fn = getattr(obj, attr)
+            self._saved.append((obj, attr, obj.__dict__.get(attr)))
+
+            def timed(*a, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    torch.cuda.synchronize()
+                    self.s[_name] += time.perf_counter() - t0
+                    self.calls[_name] += 1
+            setattr(obj, attr, timed)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        for obj, attr, fn in reversed(self._saved):
+            if fn is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, fn)
+        return False
+
+    def report(self, wall: float) -> dict:
+        rest = wall - sum(self.s[k] for k in ("planner", "batch_probe",
+                                              "finish_batches"))
+        return dict(wall=wall, **self.s, calls=self.calls,
+                    members_outside_probe=rest)
+
+
+def batch_phase(dev, profile_dir: Path | None) -> dict:
+    """Four tenants' same-signature SUM shuffles on paper-40 (Zipf(0.9),
+    50k rows a worker, 2M rows a member): one batched program, against
+    four serial hits."""
+    import math
+
+    import torch
+
+    import repro_torch.core as port
+    from repro_torch.core import torchplan
+
+    topo = _paper_topology()
+    ws = list(range(WORKERS))
+    t0 = time.perf_counter()
+    data = [zipf_shards(seed=10 + i, rows=BATCH_ROWS_PER_WORKER)
+            for i in range(BATCH_TENANTS)]
+    bounds = [_sum_bound(b, ws) for b in data]
+    log(f"batch data: {BATCH_TENANTS} tenants x {WORKERS} workers x "
+        f"{BATCH_ROWS_PER_WORKER} rows x {WIDTH} f64, made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cl = port.TeShuCluster(topo, device=dev)
+    tenants = [cl.tenant(f"t{i}") for i in range(BATCH_TENANTS)]
+    ledger = cl.cluster.ledger
+    kw = dict(comb_fn=port.SUM)
+    for t, b in zip(tenants, data):       # warm: a plan per tenant
+        for _ in range(2):
+            r = t.shuffle("vanilla_push", copy_bufs(b), ws, ws, **kw)
+        assert r.engine == "torch" and r.cached
+
+    def serial():
+        ins = [copy_bufs(b) for b in data]
+        torch.cuda.synchronize()
+        s0 = ledger.snapshot()
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = [t.shuffle("vanilla_push", b, ws, ws, **kw)
+               for t, b in zip(tenants, ins)]
+        torch.cuda.synchronize()
+        return (res, time.perf_counter() - t0, _read_counts(), s0,
+                ledger.snapshot())
+
+    def batched(solo=False, clock=None, cap=None):
+        """The four submissions through one run_pending() pass: one batch,
+        or with ``solo`` each member replaying alone in the same pass (the
+        batch probe forms no group), so the two differ only in batching."""
+        ins = [copy_bufs(b) for b in data]
+        if solo:
+            cl._prepare_batches = lambda subs: ([], [])
+        torch.cuda.synchronize()
+        s0 = ledger.snapshot()
+        _zero_counts()
+        try:
+            with clock or contextlib.nullcontext(), \
+                    cap or contextlib.nullcontext():
+                t0 = time.perf_counter()
+                tickets = [t.submit("vanilla_push", b, ws, ws, **kw)
+                           for t, b in zip(tenants, ins)]
+                results = cl.run_pending()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            cl.__dict__.pop("_prepare_batches", None)
+        counts = _read_counts()
+        entries = cl.last_schedule()["batches"]
+        assert [e["size"] for e in entries] == ([] if solo else
+                                                [BATCH_TENANTS]), entries
+        res = [results[tk] for tk in tickets]
+        for r in res:
+            assert r.engine == "torch" and r.batched != solo and r.cached, \
+                r.engine
+            assert r.fallback_reason is None, r.fallback_reason
+        assert not torchplan._BATCH_SLOTS
+        return res, wall, counts, s0, ledger.snapshot()
+
+    ser, ser_wall, ser_counts, s0, s1 = serial()
+    cap = _Capture()
+    bat, bat_wall, bat_counts, b0, b1 = batched(cap=cap)   # the main path
+    held = _hold_path(f"batch vanilla_push x {BATCH_TENANTS}", cap.calls,
+                      bat_counts)
+    del cap
+    # the wall of the same pass with each member solo, and where the time
+    # of each pass goes (its pieces timed with a sync after each)
+    solo_wall = batched(solo=True)[1]
+    pieces = {}
+    for name, solo in (("batched", False), ("solo", True)):
+        clock = _PassClock(cl)
+        wall = batched(solo=solo, clock=clock)[1]
+        pieces[name] = clock.report(wall)
+    for r in ser:
+        assert r.engine == "torch" and not r.batched
+    # one program for the batch: one serial replay's folds, not four times
+    assert ser_counts["segmented_fold"] % BATCH_TENANTS == 0
+    assert bat_counts["segmented_fold"] == \
+        ser_counts["segmented_fold"] // BATCH_TENANTS > 0, (bat_counts,
+                                                            ser_counts)
+    assert all(c > 0 for c in bat_counts.values()), bat_counts
+    for lane in ("bytes_per_tenant", "cost_per_tenant"):
+        ds = {k: s1[lane][k] - s0[lane].get(k, 0) for k in s1[lane]}
+        db = {k: b1[lane][k] - b0[lane].get(k, 0) for k in b1[lane]}
+        assert set(ds) == set(db), (lane, ds, db)
+        for k in ds:
+            if lane == "bytes_per_tenant":
+                assert ds[k] == db[k], (lane, k, ds[k], db[k])
+            else:
+                assert math.isclose(ds[k], db[k], rel_tol=1e-9,
+                                    abs_tol=1e-18), (lane, k, ds[k], db[k])
+    ser_model = s1["modelled_time_s"] - s0["modelled_time_s"]
+    bat_model = b1["modelled_time_s"] - b0["modelled_time_s"]
+    assert bat_model < ser_model, (bat_model, ser_model)
+    # the kernel plane (on): each member within the float32 bound of its
+    # tenant's vectorized replay
+    worst = 0.0
+    for t, b, r, (rows_per_key, absum) in zip(tenants, data, bat, bounds):
+        vec = t.shuffle("vanilla_push", copy_bufs(b), ws, ws,
+                        executor="vectorized", **kw)
+        assert vec.engine == "vectorized"
+        worst = max(worst, _within_sum_bound(r.bufs, vec.bufs, ws,
+                                             rows_per_key, absum))
+    # the exact plane: each member's bytes are its tenant's serial replay's
+    prev = torchplan.set_kernel_plane(False)
+    try:
+        ser_off = serial()[0]
+        bat_off = batched()[0]
+    finally:
+        torchplan.set_kernel_plane(prev)
+    for a, b in zip(bat_off, ser_off):
+        _same_bytes(a.bufs, b.bufs, ws)
+    out = dict(batch_wall_s=bat_wall, solo_pass_wall_s=solo_wall,
+               serial_4_direct_hits_wall_s=ser_wall, pass_pieces_s=pieces,
+               launches=bat_counts, serial_launches=ser_counts,
+               modelled_time_s=bat_model, serial_modelled_time_s=ser_model,
+               max_abs_err_vs_vectorized=worst, kernels_held=held)
+    log(f"batch vanilla_push x {BATCH_TENANTS}: {json.dumps(out)}")
+    if profile_dir is not None:
+        def one_pass():
+            ins = [copy_bufs(b) for b in data]
+            tickets = [t.submit("vanilla_push", b, ws, ws, **kw)
+                       for t, b in zip(tenants, ins)]
+            return cl.run_pending(), tickets
+        _profiled("batch_pass", one_pass, profile_dir)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 8. graph phase
+# ---------------------------------------------------------------------------
+
+class _Recording:
+    """The service as the Pregel engine sees it, keeping every superstep's
+    result and wall (the engine keeps only its decisions)."""
+
+    def __init__(self, svc):
+        self.svc, self.topology, self.results, self.walls = \
+            svc, svc.topology, [], []
+
+    def shuffle(self, *a, **kw):
+        t0 = time.perf_counter()
+        self.results.append(self.svc.shuffle(*a, **kw))
+        self.walls.append(time.perf_counter() - t0)
+        return self.results[-1]
+
+
+def _pagerank_oracle(g, steps: int, drop=None):
+    """PageRank by float64 power iteration (numpy's bincount per edge) and
+    the bound of the kernel plane's float32 sums carried through the
+    supersteps: each adds ``(len_v + 1) 2^-24 sum|c_e|`` at vertex v (with
+    len_v its in-messages), and earlier errors reach v through the same
+    bincount and the 0.85 damping.  ``drop`` leaves out one vertex's
+    in-messages of superstep 1 (the control)."""
+    import numpy as np
+    n = g.num_vertices
+    src, dst = g.src, g.dst
+    outdeg = np.maximum(1, g.out_degree()).astype(np.float64)
+    indeg = np.bincount(dst, minlength=n).astype(np.float64)
+    r = np.full(n, 1.0 / n)
+    err = np.zeros(n)
+    for s in range(steps):
+        c = r[src] / outdeg[src]
+        e = err[src] / outdeg[src]
+        inbox = np.bincount(dst, weights=c, minlength=n)
+        if drop is not None and s == 0:
+            inbox[drop] = 0.0
+        prop = np.bincount(dst, weights=e, minlength=n)
+        cabs = np.bincount(dst, weights=np.abs(c) + e, minlength=n)
+        err = 0.85 * (prop + (indeg + 1) * U32 * cabs)
+        r = (1.0 - 0.85) / n + 0.85 * inbox     # the program's own apply
+    return r, err
+
+
+def _bfs_levels(g, source: int, levels: int, inf: float):
+    """Hop distances from ``source`` up to ``levels``; ``inf`` beyond."""
+    import numpy as np
+    n = g.num_vertices
+    dist = np.full(n, inf)
+    dist[source] = 0.0
+    frontier = np.zeros(n, bool)
+    frontier[source] = True
+    for k in range(1, levels + 1):
+        nxt = np.zeros(n, bool)
+        nxt[g.dst[frontier[g.src]]] = True
+        nxt &= dist == inf
+        dist[nxt] = float(k)
+        frontier = nxt
+    return dist
+
+
+def graph_phase(dev, profile_dir: Path | None) -> dict:
+    """The paper's workload: PageRank and SSSP on an R-MAT graph at Graph500
+    scale 20 (edge factor 16) through the port's Pregel engine on the card,
+    then `shuffle_cache.run` on the plan cache."""
+    import numpy as np
+    import torch
+
+    import repro_torch.core as port
+    from repro_torch.apps.graph import SSSP, PageRank, PregelEngine, rmat_graph
+    from repro_torch.launch import shuffle_cache
+
+    nv = 1 << GRAPH_SCALE
+    t0 = time.perf_counter()
+    g = rmat_graph(nv, GRAPH_EDGE_FACTOR * nv, seed=0)
+    log(f"graph: R-MAT scale {GRAPH_SCALE}, edge factor {GRAPH_EDGE_FACTOR}: "
+        f"{nv} vertices, {g.num_edges} edges without self loops, made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    svc = _Recording(port.TeShuService(_paper_topology(), device=dev))
+    t0 = time.perf_counter()
+    engine = PregelEngine(g, svc, template_id="network_aware")
+    setup_s = time.perf_counter() - t0
+    out = {"engine_setup_s": setup_s, "launches": {}}
+
+    def run(name, program):
+        svc.results.clear()
+        svc.walls.clear()
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with _Capture() as cap:
+            if profile_dir is None:
+                state = engine.run(program)
+            else:
+                state = _profiled(f"graph_{name}",
+                                  lambda: engine.run(program), profile_dir)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        held = _hold_path(f"graph {name}", cap.calls, counts)
+        del cap
+        hits = [r for r in svc.results if r.cached]
+        for r in hits:                    # every cached superstep on torch
+            assert r.engine == "torch" and r.fallback_reason is None, \
+                (name, r.engine, r.fallback_reason)
+        assert hits, name
+        assert counts["segmented_fold"] > 0, counts
+        for k, c in counts.items():
+            out["launches"][k] = out["launches"].get(k, 0) + c
+        out[name] = dict(wall_s=wall, supersteps=len(svc.results),
+                         hits=len(hits), launches=counts, kernels_held=held,
+                         shuffle_walls_s=svc.walls[:],
+                         cached=[r.cached for r in svc.results],
+                         wire_bytes=[r.stats["total_bytes"]
+                                     for r in svc.results])
+        return state, hits
+
+    pr, _ = run("pagerank", PageRank(supersteps=PAGERANK_STEPS))
+    assert out["pagerank"]["launches"]["partition_permute"] > 0
+    want, err = _pagerank_oracle(g, PAGERANK_STEPS)
+    assert pr.shape == want.shape and np.isfinite(pr).all()
+    diff = np.abs(pr - want)
+    assert (diff <= err).all(), f"PageRank: {int((diff > err).sum())} " \
+        f"vertices outside the bound"
+    top = int(np.argmax(np.bincount(g.dst, minlength=nv)))
+    faulty, _ = _pagerank_oracle(g, PAGERANK_STEPS, drop=top)
+    assert not (np.abs(pr - faulty) <= err).all(), \
+        "control: PageRank without a top vertex's messages passed"
+    share = np.divide(diff, err, out=np.zeros_like(diff), where=err > 0)
+    out["pagerank"].update(max_abs_err=float(diff.max()),
+                           worst_share_of_bound=float(share.max()))
+    sssp_program = SSSP(source=0, supersteps=SSSP_STEPS)
+    dist, _ = run("sssp", sssp_program)
+    bfs = _bfs_levels(g, 0, SSSP_STEPS, sssp_program.inbox_default)
+    assert np.array_equal(dist, bfs), "SSSP differs from the BFS levels"
+    out["sssp"]["reached"] = int((bfs < sssp_program.inbox_default).sum())
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with _Capture() as cap:
+        sc = shuffle_cache.run("datacenter", "network_aware", 10, "auto")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    assert sc["cache_hits"] == 9 and sc["cache_misses"] == 1, sc
+    assert sc["replay_engines"] == ["torch"] and not sc["replay_fallbacks"], sc
+    assert counts["segmented_fold"] > 0, counts
+    held = _hold_path("graph shuffle_cache", cap.calls, counts)
+    del cap
+    for k, c in counts.items():
+        out["launches"][k] += c
+    out["shuffle_cache"] = dict(sc, wall_s=wall, launches=counts,
+                                kernels_held=held)
+    log(f"graph: {json.dumps(out, default=str)}")
     return out
 
 
@@ -1499,25 +2189,36 @@ def _profile_serve(params, cfg, dev, profile_dir: Path, tag: str = "") -> None:
     traced("decode_4_steps", steps)
 
 
-def _profile_hit(client, template, bufs, ws, profile_dir: Path) -> None:
-    """One more hit under torch.profiler: device time by kernel and host
-    time by replay phase (the ``teshu.*`` ranges of torchplan)."""
+def _profile_hit(client, template, bufs, ws, profile_dir: Path, tag: str = "",
+                 **kw) -> None:
+    """One more hit under torch.profiler (see :func:`_profiled`)."""
+    import repro_torch.core as port
+    b = copy_bufs(bufs)
+    _profiled(f"{tag}{template}", lambda: client.shuffle(
+        template, b, ws, ws, comb_fn=port.SUM, **kw), profile_dir)
+
+
+def _profiled(name: str, fn, profile_dir: Path):
+    """``fn()`` once under torch.profiler: device time by kernel and host
+    time by replay phase (the ``teshu.*`` ranges of torchplan); returns what
+    ``fn`` returns.  The session stays open 50 ms before and after the
+    call (a session may otherwise lose device events at its edges)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    import repro_torch.core as port
-    b = copy_bufs(bufs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
         t0 = time.perf_counter()
-        client.shuffle(template, b, ws, ws, comb_fn=port.SUM)
+        result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(0.05)
     profile_dir.mkdir(parents=True, exist_ok=True)
     ka = prof.key_averages()
-    (profile_dir / f"profile_{template}.txt").write_text(
+    (profile_dir / f"profile_{name}.txt").write_text(
         ka.table(sort_by="cuda_time_total", row_limit=40))
     # each teshu.* range appears twice: once on the host (CPU time) and
     # once as a device annotation spanning the range's device work
@@ -1538,9 +2239,10 @@ def _profile_hit(client, template, bufs, ws, profile_dir: Path) -> None:
                          if e.device_type == DeviceType.CUDA
                          and any(x in e.name for x in names)) / 1e3
                   for k, names in kernels.items()}
-    log(f"profile {template}: wall_ms={wall * 1e3!r} device_busy_ms={busy!r} "
+    log(f"profile {name}: wall_ms={wall * 1e3!r} device_busy_ms={busy!r} "
         f"phases_host_ms={json.dumps(phases)} "
         f"shuffle_kernels_device_ms={json.dumps(shuffle_ms)}")
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1591,15 +2293,27 @@ def main() -> int:
     sl = slice_phase(dev, args.profile)
     log(f"slice phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    sk = skew_phase(dev, args.profile)
+    log(f"skew phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    bt = batch_phase(dev, args.profile)
+    log(f"batch phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    gr = graph_phase(dev, args.profile)
+    log(f"graph phase: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()              # the served models want the card
+    t0 = time.perf_counter()
     sv = serve_phase(dev, args.profile)
     log(f"serve phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     mv = moe_serve_phase(dev, args.profile)
     log(f"moe serve phase: {time.perf_counter() - t0:.2f} s")
-    launches = {**sl["launches"], "flash_attention":
-                sv["launches"]["flash_attention"], "decode_attention":
-                sv["launches"]["decode_attention"],
-                "gmm": mv["launches"]["gmm"]}
+    # each path's launches, counted from zero just before it ran
+    launches = {k: sum(p["launches"][k] for p in (sl, sk, bt, gr))
+                for k in sl["launches"]}
+    launches.update(flash_attention=sv["launches"]["flash_attention"],
+                    decode_attention=sv["launches"]["decode_attention"],
+                    gmm=mv["launches"]["gmm"])
     # the gmm row of the line: a decode step's gate/up launch, the shape of
     # 1,152 of the serve's 1,188 launches (all four shapes are logged)
     krows["gmm"] = krows["decode gate/up"]

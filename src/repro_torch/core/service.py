@@ -131,9 +131,9 @@ STREAMING_MODES = ("off", "auto")
 # Which replay data plane "auto" execution prefers on a cache hit:
 # "vectorized" = batched numpy; "torch" = the whole-tensor replay of
 # :mod:`repro_torch.core.torchplan` on the cluster's device, falling back to
-# vectorized for plans it declines (triggered skew and batched dispatch, not
-# ported yet; streaming, fault state, exotic part/comb fns).  The
-# fresh/instantiation path is always threaded.
+# vectorized for plans it declines (streaming, fault state, exotic part/comb
+# fns, unfreezable skew scatters).  The fresh/instantiation path is always
+# threaded.
 EXECUTORS = ("vectorized", "torch")
 
 # The per-call / per-tenant / cluster-default knob stack.  Every knob here may
@@ -755,8 +755,10 @@ class TeShuCluster:
                     failures[s.ticket] = f"{type(exc).__name__}: {exc}"
             ccts[e.coflow_id] = self.cluster.ledger.modelled_time() - t0
         if batch_handles:
-            # release the pass's batch marks (see _prepare_batches)
-            torchplan.finish_batches(batch_handles)
+            # close out any batch slice whose member ended up declining
+            # solo (re-planned / invalidated mid-pass) so the shared epoch
+            # barrier still settles
+            torchplan.finish_batches(batch_handles, self.cluster.ledger)
         if el is not None:
             # close the pass with a realized-CCT sample, then the pass-end
             # idle point (TTL expiry + policy scale-in hysteresis tick)
@@ -839,14 +841,15 @@ class TeShuCluster:
 
     def _prepare_batches(self, subs) -> tuple[list, list[dict]]:
         """Group drained submissions that will replay on the torch executor
-        with one program signature AND identical routing tables: the groups
-        the reference stacks into ONE batched dispatch.  Batched dispatch is
-        not ported yet, so no batch is formed: each group of >= 2 is marked
-        (:func:`repro_torch.core.torchplan.mark_batched`) and its members
-        decline the torch replay with ``"not_ported"``, replaying one by one
-        on the vectorized executor.  The probe itself is side-effect-free
-        (``plan_cache.peek``, no counters).  A submission that fails the
-        probe simply runs solo and reports its own fallback reason."""
+        with one program signature AND identical routing tables, and run each
+        group of >= 2 as ONE batched run up front
+        (:func:`repro_torch.core.torchplan.prepare_batch`).  Members then
+        consume their output slice when the scheduled pass reaches them,
+        charging their own tenant's ledger lanes exactly as a serial replay
+        would; the probe itself is side-effect-free (``plan_cache.peek``, no
+        counters), so per-member metrics/journal records are written only by
+        the real execution path.  A submission that fails the probe simply
+        runs solo and reports its own fallback reason."""
         candidates = []
         for s in subs:
             client = self._clients.get(s.tenant)
@@ -899,9 +902,24 @@ class TeShuCluster:
             sig = torchplan.batch_signature(self.cluster, probe, s.bufs)
             if sig is not None:
                 groups.setdefault(sig, []).append((probe, s))
-        handles = [torchplan.mark_batched([s.bufs for _, s in members])
-                   for members in groups.values() if len(members) >= 2]
-        return handles, []
+        handles, batches = [], []
+        for members in groups.values():
+            if len(members) < 2:
+                continue
+            handle = torchplan.prepare_batch(
+                self.cluster, [(p, s.bufs) for p, s in members],
+                device=self.device)
+            if handle is None:
+                continue
+            handles.append(handle)
+            batches.append({
+                "template": members[0][0].template_id,
+                "size": len(members),
+                "tickets": [s.ticket for _, s in members],
+                "tenants": sorted({s.tenant for _, s in members}),
+            })
+            self._m_batched.inc(template=members[0][0].template_id)
+        return handles, batches
 
     def last_schedule(self) -> dict | None:
         """The most recent ``run_pending`` pass: policy, effective weights,

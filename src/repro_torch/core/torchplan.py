@@ -43,18 +43,33 @@ levels here.  The reference's trace cache (an LRU of jit instances) has no
 counterpart: torch runs eagerly and traces nothing, so there is nothing to
 cache or evict.
 
+Skew-rebalanced plans freeze the hot-key scatter into the replay as static
+tables (:func:`repro_torch.core.skew.scatter_tables`): :func:`_skew_slot`
+gives each hot row its share slot from its occurrence index among
+same-(owner, key) rows, the positional cycle of
+:func:`~repro_torch.core.skew.scatter_part_fn`, and the final owner merge
+replays Python-side, as in the vectorized executor.
+
+Batched dispatch (:func:`prepare_batch`): same-signature submissions (same
+spec, shapes and routing tables; the admission batcher groups them) run as
+ONE program over the members' rows laid end to end.  A member index is the
+most significant part of every sort key, so each member's rows stay in their
+own block and come out in the order its solo run gives; the flow counts get
+a leading member axis.  Each member's replay then consumes its slice and
+charges its own tenant's ledger lanes exactly as a serial run would, with
+the epoch barrier deferred until the whole batch settles.
+
 The kernel plane: a SUM replay on the card re-folds its payloads with the
 PART and COMB kernels (:func:`kernel_global_stage`, float32 accumulation);
 routing, key sets and ledger charges always come from the exact program.
 :func:`set_kernel_plane` overrides the default (on when the replay's device
-is CUDA).
+is CUDA).  Skew-scattered replays keep exact payloads: the plane routes by
+the base partFunc and would undo the scatter.
 
 Decline conditions (the service falls back to the vectorized executor,
 which may fall back to threaded) are the reference's call-time and
-plan-shape codes, plus ``"not_ported"`` for what this slice does not carry
-yet: a triggered skew rebalance (the reference freezes the hot-key scatter
-into its trace) and batched multi-tenant dispatch (declined by the service
-for members the reference would stack into one dispatch).
+plan-shape codes, the skew ones included (``skew_shape_mismatch``,
+``skew_group_collision``).
 """
 from __future__ import annotations
 
@@ -70,8 +85,9 @@ from ..kernels import ops as kernel_ops
 from .messages import Msgs
 from .plancache import CompiledPlan, attach_lowering, get_lowering
 from .primitives import LocalCluster, ShuffleArgs
+from .skew import scatter_tables
 from .templates import ShuffleResult, aggregate_observed
-from .vectorized import VECTORIZABLE
+from .vectorized import VECTORIZABLE, owner_merge
 
 # Every built-in template lowers: the four regular replays share the level
 # loop of _replay_impl; bruck rides the same program behind a lower-time
@@ -80,9 +96,6 @@ TORCH_TEMPLATES = frozenset(VECTORIZABLE | {"bruck", "two_level"})
 
 _RANGE_NAME = re.compile(r"^range\[(\d+)\]$")
 _TORCH_COMBINERS = ("sum", "min", "max")
-
-# The code for plan shapes and calls this slice of the port does not carry.
-NOT_PORTED = "not_ported"
 
 # Sentinel attached to a plan whose lowering was attempted and refused, so
 # repeated calls don't re-derive the refusal.
@@ -98,6 +111,7 @@ class _PlanSpec(NamedTuple):
     initial_comb: bool        # network_aware combines locally before stage 0
     ns: int                   # len(srcs)
     ndst: int                 # len(dsts)
+    skew: bool                # frozen hot-key scatter at the global stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +130,9 @@ class TorchLowering:
     bruck_flows: tuple | None = None
     # ^ per src position: per round (peer wid, ((origin pos, dst pos), ...)) --
     #   the symbolic piece simulation's wire flows, replayed by the ledger
+    skew_hot: np.ndarray | None = None    # [H] int64 sorted hot keys
+    skew_share: np.ndarray | None = None  # [H, S] int32 padded share slots
+    skew_len: np.ndarray | None = None    # [H] int32 share counts
 
 
 def _part_spec(part_fn) -> tuple | None:
@@ -168,8 +185,8 @@ def _is_square(ns: int) -> bool:
 
 def lower_plan(plan: CompiledPlan) -> TorchLowering | None:
     """Extract the dense routing tables; None when the plan shape is not
-    lowerable (unsupported template, ring/grid mismatch, a shape this slice
-    does not carry)."""
+    lowerable (unsupported template, ring/grid mismatch, unfreezable
+    scatter)."""
     if plan_decline(plan) is not None:
         return None
     srcs, dsts = list(plan.srcs), list(plan.dsts)
@@ -228,10 +245,14 @@ def lower_plan(plan: CompiledPlan) -> TorchLowering | None:
         # push / pull / network_aware / two_level fold arrivals in srcs order
         # (two_level's fold orders live inside its own program)
         global_rank[:] = np.arange(ns, dtype=np.int32)[:, None]
+    skew_hot = skew_share = skew_len = None
+    if plan.skew is not None and plan.skew.triggered:
+        skew_hot, skew_share, skew_len = scatter_tables(plan.skew)
     return TorchLowering(
         src_pos=src_pos, dst_pos=dst_pos, gsize=gsize, slot_map=slot_map,
         rank_map=rank_map, active=active, global_rank=global_rank,
-        levels_staged=tuple(levels_staged), bruck_flows=bruck_flows)
+        levels_staged=tuple(levels_staged), bruck_flows=bruck_flows,
+        skew_hot=skew_hot, skew_share=skew_share, skew_len=skew_len)
 
 
 # ---------------------------------------------------------------------------
@@ -283,51 +304,95 @@ def _sort_perm(ck: torch.Tensor) -> torch.Tensor:
     return torch.sort(ck, stable=True).indices
 
 
-def _combine(comb: str, keys, vals, owner, alive, participate, sentinel: int):
+def _major(member, key: torch.Tensor, span: int) -> torch.Tensor:
+    """``key`` (each value below ``span``) under the batch's member index as
+    the most significant part; ``member`` None (a solo run) leaves it."""
+    return key if member is None else member * span + key
+
+
+def _count(index: torch.Tensor, weight: torch.Tensor, size: int,
+           member=None, nb: int = 1) -> torch.Tensor:
+    """Integer histogram ``out[member[i], index[i]] += weight[i]`` (a
+    flattened count matrix per member, ``[nb, size]``).  ``scatter_add_``:
+    integer sums are exact in any order, and on CUDA it is one atomic pass,
+    where an accumulating ``index_put_`` sorts its indices first."""
+    out = torch.zeros(nb * size, dtype=torch.int64, device=index.device)
+    out.scatter_add_(0, _major(member, index, size), weight.to(torch.int64))
+    return out.view(nb, size)
+
+
+def _skew_slot(keys, owner, alive, base_slot, ns: int, hot_keys, share_slots,
+               share_len, member=None):
+    """The frozen hot-key scatter: scatter_part_fn's occurrence cycle as a
+    whole-tensor op.  The cycle position of a hot row is its occurrence
+    index among same-(owner, key) alive rows in tensor order -- tensor order
+    per owner IS that worker's buffer order, the byte-order invariant the
+    sorts maintain -- computed with one stable (member, owner, key) sort
+    (dead rows keyed (ns, 0)) and a segment-relative position."""
+    n = keys.shape[0]
+    pos = torch.arange(n, device=keys.device)
+    so = _major(member, torch.where(alive, torch.clamp(owner, max=ns - 1), ns),
+                ns + 1)
+    perm = _sort_perm(torch.where(alive, keys, 0))
+    perm = perm[_sort_perm(so[perm])]
+    sk, sso = keys[perm], so[perm]
+    prev_same = (sso == torch.roll(sso, 1)) & (sk == torch.roll(sk, 1))
+    prev_same[:1] = False
+    seg_start = torch.cummax(torch.where(prev_same, 0, pos), 0).values
+    occ = torch.empty_like(pos)
+    occ[perm] = pos - seg_start
+    hp = torch.searchsorted(hot_keys, keys)
+    hpc = torch.clamp(hp, max=hot_keys.shape[0] - 1)
+    is_hot = (hot_keys[hpc] == keys) & alive
+    share = share_slots[hpc, occ % torch.clamp(share_len[hpc], min=1)]
+    return torch.where(is_hot, share, base_slot)
+
+
+def _combine(comb: str, keys, vals, owner, alive, participate, sentinel: int,
+             member=None):
     """Per-owner equal-key fold, bit-identical to messages.Combiner.
 
-    Stable lexsort by (owner, key) -- non-participating rows keep their
-    relative order (their sort key is constant and owners never mix
+    Stable lexsort by (member, owner, key) -- non-participating rows keep
+    their relative order (their sort key is constant and owners never mix
     participation) -- then the ordered segmented fold over rows: each
     segment is seeded with its first row and the rest fold in element order,
     which is numpy's ``ufunc.at`` contract exactly.  Non-segment-end rows
-    die (every later sort sends dead rows to the end via the alive mask).
+    die (every later sort sends dead rows to the end of their member's
+    block via the alive mask).
     """
     folds = participate & alive
     ckey = torch.where(folds, keys, 0)
     perm = _sort_perm(ckey)
-    so = torch.where(alive, owner, sentinel)
+    so = _major(member, torch.where(alive, owner, sentinel), sentinel + 1)
     perm = perm[_sort_perm(so[perm])]
-    keys, vals, owner, alive, folds = (
-        keys[perm], vals[perm], owner[perm], alive[perm], folds[perm])
-    prev_same = (owner == torch.roll(owner, 1)) & (keys == torch.roll(keys, 1))
-    prev_same[0] = False
+    keys, vals, owner, alive, folds, so = (
+        keys[perm], vals[perm], owner[perm], alive[perm], folds[perm],
+        so[perm])
+    # so tells apart owners and members; it differs from owner only on dead
+    # rows, which never fold and never precede an alive row of their member
+    prev_same = (so == torch.roll(so, 1)) & (keys == torch.roll(keys, 1))
+    prev_same[:1] = False
     is_start = ~(prev_same & folds)
     folded = kernel_ops.segmented_fold(comb, is_start, vals)
     seg_end = torch.cat([is_start[1:], is_start.new_ones(1)])
     return keys, folded, owner, alive & seg_end
 
 
-def _count(index: torch.Tensor, weight: torch.Tensor, size: int) -> torch.Tensor:
-    """Integer histogram ``out[index[i]] += weight[i]`` (a flattened count
-    matrix).  ``scatter_add_``: integer sums are exact in any order, and on
-    CUDA it is one atomic pass, where an accumulating ``index_put_`` sorts
-    its indices first."""
-    out = torch.zeros(size, dtype=torch.int64, device=index.device)
-    return out.scatter_add_(0, index, weight.to(torch.int64))
-
-
 def _replay_impl(spec: _PlanSpec, keys, vals, owner,
-                 gsize, slot_map, rank_map, active, global_rank):
+                 gsize, slot_map, rank_map, active, global_rank,
+                 hot_keys=None, share_slots=None, share_len=None, *,
+                 member=None, nb: int = 1):
     """The level-loop replay shared by the four regular templates and (with
     zero levels plus a simulated global_rank) bruck.  ``active`` is host
-    data (one bool per level); the other tables are tensors on the device."""
+    data (one bool per level); the other tables are tensors on the device.
+    ``member [N]`` (sorted) lays ``nb`` members' runs end to end; the flow
+    counts then carry a leading ``[nb]`` axis."""
     ns, ndst = spec.ns, spec.ndst
     n = keys.shape[0]
     alive = torch.ones((n,), dtype=torch.bool, device=keys.device)
     if spec.initial_comb:
         keys, vals, owner, alive = _combine(
-            spec.comb, keys, vals, owner, alive, alive, ns)
+            spec.comb, keys, vals, owner, alive, alive, ns, member)
 
     lvl_moved, lvl_pre, lvl_post = [], [], []
     for li in range(len(active)):
@@ -340,50 +405,60 @@ def _replay_impl(spec: _PlanSpec, keys, vals, owner,
         new_owner = torch.where(part_row, slot_l[oc, slot], owner)
         noc = torch.clamp(new_owner, max=ns - 1)
         rank = torch.where(part_row, rank_l[oc, noc], 0)
-        moved = _count(oc * ns + noc, part_row, ns * ns).view(ns, ns)
-        # the exchange: one stable sort by (receiver, fold rank); within
-        # a (sender -> receiver) flow rows keep buffer order = the stable
-        # argsort inside messages.partition
+        moved = _count(oc * ns + noc, part_row, ns * ns, member,
+                       nb).view(nb, ns, ns)
+        # the exchange: one stable sort by (member, receiver, fold rank);
+        # within a (sender -> receiver) flow rows keep buffer order = the
+        # stable argsort inside messages.partition
         sort_owner = torch.where(alive, new_owner, ns)
-        perm = _sort_perm(sort_owner * (ns + 1) + rank)
+        perm = _sort_perm(_major(member, sort_owner * (ns + 1) + rank,
+                                 (ns + 1) ** 2))
         keys2, vals2 = keys[perm], vals[perm]
         owner2, alive2 = new_owner[perm], alive[perm]
         staged_owner = (g_l[torch.clamp(owner2, max=ns - 1)] > 1) & act
         if spec.comb is not None:
             keys2, vals2, owner2, alive2 = _combine(
                 spec.comb, keys2, vals2, owner2, alive2,
-                staged_owner & alive2, ns)
+                staged_owner & alive2, ns, member)
         post_row = alive2 & (g_l[torch.clamp(owner2, max=ns - 1)] > 1) & act
-        post = _count(torch.clamp(owner2, max=ns - 1), post_row, ns)
+        post = _count(torch.clamp(owner2, max=ns - 1), post_row, ns, member,
+                      nb)
         keys, vals, owner, alive = keys2, vals2, owner2, alive2
         lvl_moved.append(moved)
-        lvl_pre.append(moved.sum(0))
+        lvl_pre.append(moved.sum(1))
         lvl_post.append(post)
 
     # ---- global exchange: every alive row repartitions over the dsts ----
     oc = torch.clamp(owner, max=ns - 1)
     slot = _slot_of(spec.part, keys, ndst)
+    if spec.skew:
+        slot = _skew_slot(keys, owner, alive, slot, ns, hot_keys,
+                          share_slots, share_len, member)
     new_owner = torch.where(alive, slot, ndst)
     sc = torch.clamp(slot, max=ndst - 1)
-    gmoved = _count(oc * ndst + sc, alive, ns * ndst).view(ns, ndst)
+    gmoved = _count(oc * ndst + sc, alive, ns * ndst, member,
+                    nb).view(nb, ns, ndst)
     rank = torch.where(alive, global_rank[oc, sc], 0)
-    perm = _sort_perm(new_owner * (ns + 1) + rank)
+    perm = _sort_perm(_major(member, new_owner * (ns + 1) + rank,
+                             (ndst + 1) * (ns + 1)))
     keys, vals = keys[perm], vals[perm]
     owner, alive = new_owner[perm], alive[perm]
     if spec.comb is not None:
         keys, vals, owner, alive = _combine(
-            spec.comb, keys, vals, owner, alive, alive, ndst)
+            spec.comb, keys, vals, owner, alive, alive, ndst, member)
 
-    def stack(mats, shape):
+    def stack(mats, shape):         # per level [nb, ...] -> [nb, L, ...]
         if mats:
-            return torch.stack(mats)
-        return torch.zeros((0, *shape), dtype=torch.int64, device=keys.device)
+            return torch.stack(mats, 1)
+        return torch.zeros((nb, 0, *shape), dtype=torch.int64,
+                           device=keys.device)
 
     return (keys, vals, owner, alive, stack(lvl_moved, (ns, ns)),
             stack(lvl_pre, (ns,)), stack(lvl_post, (ns,)), gmoved)
 
 
-def _two_level_impl(spec: _PlanSpec, keys, vals, owner):
+def _two_level_impl(spec: _PlanSpec, keys, vals, owner, *, member=None,
+                    nb: int = 1):
     """two_level's three-phase replay on a square src==dst grid.
 
     Every row's final slot ``d`` (a pure function of its key) determines all
@@ -393,7 +468,8 @@ def _two_level_impl(spec: _PlanSpec, keys, vals, owner):
     keys, so the threaded re-COMB is an order-preserving identity) -- and
     phase 3 delivers within the destination group.  Each exchange is one
     stable sort on the grid's exact mailbox concat order: (receiver, sender
-    member index, slot).  Returns the phase flow counts the ledger replays.
+    member index, slot), under the batch's member index.  Returns the phase
+    flow counts the ledger replays, each with a leading ``[nb]`` axis.
     """
     ns = spec.ns
     q = int(round(ns ** 0.5))
@@ -404,13 +480,14 @@ def _two_level_impl(spec: _PlanSpec, keys, vals, owner):
     d = _slot_of(spec.part, keys, ns)
     w1 = (owner // q) * q + d // q
     rank1 = (owner % q) * ns + d
-    gmoved_init = _count(owner * ns + d, alive, ns * ns).view(ns, ns)
-    perm = _sort_perm(w1 * (q * ns) + rank1)
+    gmoved_init = _count(owner * ns + d, alive, ns * ns, member,
+                         nb).view(nb, ns, ns)
+    perm = _sort_perm(_major(member, w1 * (q * ns) + rank1, ns * q * ns))
     keys, vals, owner, alive = keys[perm], vals[perm], w1[perm], alive[perm]
     if spec.comb is not None:
         keys, vals, owner, alive = _combine(
-            spec.comb, keys, vals, owner, alive, alive, ns)
-    post1 = _count(torch.clamp(owner, max=ns - 1), alive, ns)
+            spec.comb, keys, vals, owner, alive, alive, ns, member)
+    post1 = _count(torch.clamp(owner, max=ns - 1), alive, ns, member, nb)
 
     # phase 2: (g, i) hands its whole block to the transpose partner (i, g)
     owner = (owner % q) * q + owner // q
@@ -419,29 +496,36 @@ def _two_level_impl(spec: _PlanSpec, keys, vals, owner):
     d = _slot_of(spec.part, keys, ns)
     rank3 = owner % q
     p3moved = _count(torch.clamp(owner, max=ns - 1) * ns + d, alive,
-                     ns * ns).view(ns, ns)
+                     ns * ns, member, nb).view(nb, ns, ns)
     so = torch.where(alive, d, ns)
-    perm = _sort_perm(so * q + rank3)
+    perm = _sort_perm(_major(member, so * q + rank3, (ns + 1) * q))
     keys, vals, alive = keys[perm], vals[perm], alive[perm]
     owner = d[perm]
     if spec.comb is not None:
         keys, vals, owner, alive = _combine(
-            spec.comb, keys, vals, owner, alive, alive, ns)
+            spec.comb, keys, vals, owner, alive, alive, ns, member)
     return keys, vals, owner, alive, gmoved_init, post1, p3moved
 
 
 def _run_program(spec: _PlanSpec, low: TorchLowering, keys, vals, owner,
-                 device: torch.device):
-    """Run the plan's program on ``device``; tensors in, tensors out."""
+                 device: torch.device, member=None, nb: int = 1):
+    """Run the plan's program on ``device``; tensors in, tensors out.  A
+    solo run (``member`` None) returns its flow counts without the member
+    axis; a batched one keeps it."""
     if spec.template == "two_level":
-        return _two_level_impl(spec, keys, vals, owner)
+        out = _two_level_impl(spec, keys, vals, owner, member=member, nb=nb)
+    else:
+        def dev(a):
+            return torch.as_tensor(a, dtype=torch.int64, device=device)
 
-    def dev(a):
-        return torch.as_tensor(a, dtype=torch.int64, device=device)
-
-    return _replay_impl(spec, keys, vals, owner, dev(low.gsize),
-                        dev(low.slot_map), dev(low.rank_map), low.active,
-                        dev(low.global_rank))
+        skew = (dev(low.skew_hot), dev(low.skew_share),
+                dev(low.skew_len)) if spec.skew else ()
+        out = _replay_impl(spec, keys, vals, owner, dev(low.gsize),
+                           dev(low.slot_map), dev(low.rank_map), low.active,
+                           dev(low.global_rank), *skew, member=member, nb=nb)
+    if member is None:
+        out = (*out[:4], *(c[0] for c in out[4:]))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -557,8 +641,6 @@ def _call_decline(cluster: LocalCluster, args: ShuffleArgs,
         return "mixed_widths"
     if sum(m.n for m in bufs.values()) == 0:
         return "empty_workload"
-    if id(bufs) in _BATCHED:
-        return NOT_PORTED                   # a member of a batched dispatch
     return None
 
 
@@ -576,7 +658,21 @@ def plan_decline(plan: CompiledPlan) -> str | None:
             tuple(srcs) != tuple(dsts) or not _is_square(len(srcs))):
         return "grid_mismatch"              # needs a square src==dst grid
     if plan.skew is not None and plan.skew.triggered:
-        return NOT_PORTED                   # the frozen hot-key scatter
+        if plan.template_id == "two_level":
+            # phase-3 re-partition would need fresh occurrence indices; the
+            # registry marks two_level non-rebalanceable, so only a
+            # hand-built plan can get here
+            return "skew_shape_mismatch"
+        if plan.skew.ndst != len(dsts):
+            return "skew_shape_mismatch"    # scatter aimed at another width
+        for ld in plan.levels:
+            if not ld.eff_cost.beneficial:
+                continue
+            for w in srcs:
+                if len(ld.nbrs.get(w, (w,))) == plan.skew.ndst:
+                    # a level-local exchange the scattered partFunc would
+                    # also rewrite -- occurrence state the replay can't freeze
+                    return "skew_group_collision"
     src_set = set(srcs)
     if plan.template_id not in ("bruck", "two_level"):
         for ld in plan.levels:
@@ -598,13 +694,16 @@ def decline_reason(cluster: LocalCluster, args: ShuffleArgs,
 
 
 def _spec_of(args: ShuffleArgs) -> _PlanSpec:
+    plan = args.plan
     return _PlanSpec(
         template=args.template_id,
         comb=args.comb_fn.name if args.comb_fn is not None else None,
         part=_part_spec(args.part_fn),
         initial_comb=(args.template_id == "network_aware"
                       and args.comb_fn is not None),
-        ns=len(args.srcs), ndst=len(args.dsts))
+        ns=len(args.srcs), ndst=len(args.dsts),
+        skew=bool(plan is not None and plan.skew is not None
+                  and plan.skew.triggered))
 
 
 def _attached_lowering(cluster, args) -> "TorchLowering | None":
@@ -625,12 +724,84 @@ def _attached_lowering(cluster, args) -> "TorchLowering | None":
     return None if low is _DECLINED else low
 
 
+def try_run_torch(cluster: LocalCluster, args: ShuffleArgs,
+                  bufs: dict[int, Msgs], manager=None, *,
+                  device) -> ShuffleResult | None:
+    """Replay ``args.plan`` with tensors on ``device``; None = declined (the
+    service falls back to the vectorized executor).  A member of a batched
+    dispatch consumes its slice of the batch's run instead."""
+    if _call_decline(cluster, args, bufs) is not None:
+        return None
+    low = _attached_lowering(cluster, args)
+    if low is None:
+        return None
+    slot = _BATCH_SLOTS.get(id(bufs))
+    if slot is not None and slot.plan is not args.plan:
+        slot = None                       # re-planned since the batch probe
+    if slot is not None:
+        _BATCH_SLOTS.pop(id(bufs), None)
+    device = torch.device(device)
+    tracer = cluster.obs.tracer
+    if not tracer.enabled:
+        return _run_lowered(cluster, args, bufs, low, manager, device,
+                            batch_slot=slot)
+    with tracer.span("exec", shuffle_id=args.shuffle_id, tenant=args.tenant,
+                     engine="torch", template=args.template_id,
+                     device=str(device)):
+        return _run_lowered(cluster, args, bufs, low, manager, device,
+                            batch_slot=slot)
+
+
+# ---------------------------------------------------------------------------
+# Batched dispatch: one program over same-signature submissions
+# ---------------------------------------------------------------------------
+
+class _BatchHandle:
+    """One batched run covering ``size`` same-signature submissions.  The
+    shared epoch barrier closes once every member has either consumed its
+    slice or been abandoned (declined solo / invalidated mid-batch)."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.pending = size
+        self.consumed = 0
+        self.closed = False
+
+    def member_done(self, ledger) -> None:
+        self.consumed += 1
+        self._settle(ledger)
+
+    def abandon(self, ledger) -> None:
+        self._settle(ledger)
+
+    def _settle(self, ledger) -> None:
+        self.pending -= 1
+        if self.pending <= 0 and not self.closed:
+            self.closed = True
+            if self.consumed:
+                ledger.advance_epoch()
+
+
+@dataclasses.dataclass
+class _BatchSlot:
+    handle: _BatchHandle
+    plan: object                     # the probed CompiledPlan (identity check)
+    outputs: tuple                   # (keys per dst, vals per dst, counts)
+    inputs: tuple                    # the member's (keys, vals) on the device
+
+
+# Pending batch slices, keyed by id() of the submission's buffer dict -- the
+# one object that flows unchanged from admission through client.shuffle to
+# try_run_torch, so a member is matched without widening any call signature.
+_BATCH_SLOTS: dict[int, _BatchSlot] = {}
+
+
 def batch_signature(cluster: LocalCluster, args: ShuffleArgs,
                     bufs: dict[int, Msgs]):
-    """Hashable grouping key of the submissions the reference would stack
-    into one batched dispatch (same spec, shapes and routing tables), or
-    None when this submission would not replay here.  Batched dispatch is
-    not ported: the service declines such groups with ``"not_ported"``."""
+    """Hashable grouping key for batched dispatch, or None when this
+    submission would not replay here.  Submissions agreeing on the key
+    share one program AND identical routing tables, so one batched run
+    replays all of them."""
     if decline_reason(cluster, args, bufs) is not None:
         return None
     low = _attached_lowering(cluster, args)
@@ -638,50 +809,73 @@ def batch_signature(cluster: LocalCluster, args: ShuffleArgs,
         return None
     width = next((m.width for m in bufs.values() if m.n), 1)
     nrows = sum(bufs.get(w, Msgs.empty(width)).n for w in args.srcs)
+    skew_sig = None if low.skew_hot is None else (
+        low.skew_hot.tobytes(), low.skew_share.tobytes(),
+        low.skew_len.tobytes())
     return (_spec_of(args), tuple(args.srcs), tuple(args.dsts), nrows, width,
             low.gsize.tobytes(), low.slot_map.tobytes(),
             low.rank_map.tobytes(), low.active.tobytes(),
-            low.global_rank.tobytes(), low.bruck_flows)
+            low.global_rank.tobytes(), low.bruck_flows, skew_sig)
 
 
-# Submissions the reference would stack into one batched dispatch, keyed by
-# id() of the submission's buffer dict (the one object that flows unchanged
-# from admission to try_run_torch).  Marked for one admission pass.
-_BATCHED: set[int] = set()
+def _stacked(members, low: TorchLowering, width: int):
+    """The sources of ``members`` (``(args, bufs)`` pairs) stacked end to
+    end in one copy: (keys, vals, owner) as numpy."""
+    per_w = [(w, b.get(w, Msgs.empty(width))) for a, b in members
+             for w in a.srcs]
+    keys = np.concatenate([m.keys for _, m in per_w])
+    vals = np.concatenate([np.ascontiguousarray(m.vals) for _, m in per_w])
+    owner = np.concatenate([np.full(m.n, low.src_pos[w], np.int64)
+                            for w, m in per_w])
+    return keys, vals, owner
 
 
-def mark_batched(members: list[dict]) -> frozenset[int]:
-    """Mark one batch group's buffer dicts so their replays decline with
-    ``"not_ported"``; returns the handle :func:`finish_batches` releases."""
-    handle = frozenset(id(b) for b in members)
-    _BATCHED.update(handle)
+def prepare_batch(cluster: LocalCluster, members, *,
+                  device) -> "_BatchHandle | None":
+    """Run ONE program for ``members`` -- a list of ``(args, bufs)`` sharing
+    :func:`batch_signature` -- with their rows laid end to end on
+    ``device``, and register each member's output slice for consumption by
+    its own replay, which charges its own tenant's ledger lanes exactly as a
+    serial run would."""
+    if len(members) < 2:
+        return None
+    args0, bufs0 = members[0]
+    low = get_lowering(args0.plan)
+    if low is None or low is _DECLINED:
+        return None
+    device = torch.device(device)
+    spec = _spec_of(args0)
+    nb = len(members)
+    width = next((m.width for m in bufs0.values() if m.n), 1)
+    with record_function("teshu.h2d"):
+        keys, vals, owner = (torch.from_numpy(a).to(device)
+                             for a in _stacked(members, low, width))
+        n = keys.shape[0] // nb              # the signature fixes the rows
+        member = torch.arange(nb, device=device).repeat_interleave(n)
+    with record_function("teshu.program"):
+        out = _run_program(spec, low, keys, vals, owner, device, member, nb)
+        counts = [c.cpu().numpy() for c in out[4:]]
+    with record_function("teshu.d2h"):
+        out_keys, out_vals = _split_by_owner(*out[:4], spec.ndst, member, nb)
+    handle = _BatchHandle(nb)
+    ndst = spec.ndst
+    for i, (a, b) in enumerate(members):
+        _BATCH_SLOTS[id(b)] = _BatchSlot(
+            handle=handle, plan=a.plan,
+            outputs=(out_keys[i * ndst:(i + 1) * ndst],
+                     out_vals[i * ndst:(i + 1) * ndst],
+                     [c[i] for c in counts]),
+            inputs=(keys[i * n:(i + 1) * n], vals[i * n:(i + 1) * n]))
     return handle
 
 
-def finish_batches(handles) -> None:
-    """Release the marks of an admission pass's batch groups."""
-    for h in handles:
-        _BATCHED.difference_update(h)
-
-
-def try_run_torch(cluster: LocalCluster, args: ShuffleArgs,
-                  bufs: dict[int, Msgs], manager=None, *,
-                  device) -> ShuffleResult | None:
-    """Replay ``args.plan`` with tensors on ``device``; None = declined (the
-    service falls back to the vectorized executor)."""
-    if _call_decline(cluster, args, bufs) is not None:
-        return None
-    low = _attached_lowering(cluster, args)
-    if low is None:
-        return None
-    device = torch.device(device)
-    tracer = cluster.obs.tracer
-    if not tracer.enabled:
-        return _run_lowered(cluster, args, bufs, low, manager, device)
-    with tracer.span("exec", shuffle_id=args.shuffle_id, tenant=args.tenant,
-                     engine="torch", template=args.template_id,
-                     device=str(device)):
-        return _run_lowered(cluster, args, bufs, low, manager, device)
+def finish_batches(handles, ledger) -> None:
+    """Abandon any slice left unconsumed (its member declined solo or was
+    re-planned mid-batch) so the shared epoch barrier still closes."""
+    live = {id(h) for h in handles}
+    stale = [k for k, slot in _BATCH_SLOTS.items() if id(slot.handle) in live]
+    for k in stale:
+        _BATCH_SLOTS.pop(k).handle.abandon(ledger)
 
 
 # ---------------------------------------------------------------------------
@@ -762,20 +956,22 @@ def _charge_two_level(ledger, topo, args, low, gmoved_init, post1, p3moved,
                                   tenant=args.tenant)
 
 
-def _split_by_owner(keys, vals, owner, alive, ndst: int):
-    """Alive rows per destination position, in physical order, as numpy."""
+def _split_by_owner(keys, vals, owner, alive, ndst: int, member=None,
+                    nb: int = 1):
+    """Alive rows per (member, destination position), in physical order, as
+    numpy: ``nb * ndst`` arrays each of keys and of vals, member-major."""
     idx = torch.nonzero(alive).squeeze(1)
-    own = owner[idx]
+    own = _major(None if member is None else member[idx], owner[idx], ndst)
     idx = idx[_sort_perm(own)]
-    counts = torch.bincount(own, minlength=ndst).cpu().numpy()
+    counts = torch.bincount(own, minlength=nb * ndst).cpu().numpy()
     bounds = np.cumsum(counts)[:-1]
     return (np.split(keys[idx].cpu().numpy(), bounds),
             np.split(vals[idx].cpu().numpy(), bounds))
 
 
 def _run_lowered(cluster, args: ShuffleArgs, bufs: dict[int, Msgs],
-                 low: TorchLowering, manager,
-                 device: torch.device) -> ShuffleResult:
+                 low: TorchLowering, manager, device: torch.device,
+                 batch_slot: "_BatchSlot | None" = None) -> ShuffleResult:
     plan = args.plan
     topo = cluster.topology
     ledger = cluster.ledger
@@ -796,25 +992,26 @@ def _run_lowered(cluster, args: ShuffleArgs, bufs: dict[int, Msgs],
     # ---- the device data plane --------------------------------------------
     # (record_function ranges name the phases in a torch.profiler trace)
     per_w = [bufs.get(w, Msgs.empty(width)) for w in srcs]
-    with record_function("teshu.h2d"):
-        keys = torch.from_numpy(
-            np.concatenate([m.keys for m in per_w])).to(device)
-        vals = torch.from_numpy(np.concatenate(
-            [np.ascontiguousarray(m.vals) for m in per_w])).to(device)
-        owner = torch.from_numpy(np.concatenate(
-            [np.full(m.n, low.src_pos[w], np.int64)
-             for w, m in zip(srcs, per_w)])).to(device)
-    tracer = cluster.obs.tracer
-    replay_sp = tracer.span(
-        "device_replay", shuffle_id=args.shuffle_id, tenant=args.tenant,
-        rows=int(keys.shape[0]), device=str(device),
-    ) if tracer.enabled else None
-    with record_function("teshu.program"):
-        out = _run_program(spec, low, keys, vals, owner, device)
-        f_keys, f_vals, f_owner, f_alive = out[:4]
-        counts = [a.cpu().numpy() for a in out[4:]]
-    if replay_sp is not None:
-        replay_sp.end()
+    if batch_slot is not None:
+        # this member's slice of the batch's run
+        out_keys, out_vals, counts = batch_slot.outputs
+        keys, vals = batch_slot.inputs
+    else:
+        with record_function("teshu.h2d"):
+            keys, vals, owner = (torch.from_numpy(a).to(device)
+                                 for a in _stacked([(args, bufs)], low, width))
+        tracer = cluster.obs.tracer
+        replay_sp = tracer.span(
+            "device_replay", shuffle_id=args.shuffle_id, tenant=args.tenant,
+            rows=int(keys.shape[0]), device=str(device),
+        ) if tracer.enabled else None
+        with record_function("teshu.program"):
+            out = _run_program(spec, low, keys, vals, owner, device)
+            counts = [a.cpu().numpy() for a in out[4:]]
+        if replay_sp is not None:
+            replay_sp.end()
+        with record_function("teshu.d2h"):
+            out_keys, out_vals = _split_by_owner(*out[:4], len(dsts))
 
     # ---- ledger replay: the reference executors' exact charge sequence ----
     if spec.template == "two_level":
@@ -829,7 +1026,8 @@ def _run_lowered(cluster, args: ShuffleArgs, bufs: dict[int, Msgs],
         for li, ld in enumerate(plan.levels if spec.template != "bruck" else ()):
             if not ld.eff_cost.beneficial:
                 continue
-            ledger.advance_epoch()        # the stage barrier (PLAN_STAGE)
+            if batch_slot is None:
+                ledger.advance_epoch()    # the stage barrier (PLAN_STAGE)
             staged = low.levels_staged[li]
             for w, peers in staged:
                 wp = low.src_pos[w]
@@ -888,13 +1086,10 @@ def _run_lowered(cluster, args: ShuffleArgs, bufs: dict[int, Msgs],
                     ledger.charge_combine(d, int(gmoved[:, dp].sum()) * rowb,
                                           tenant=args.tenant)
 
-    with record_function("teshu.d2h"):
-        out_keys, out_vals = _split_by_owner(f_keys, f_vals, f_owner,
-                                             f_alive, len(dsts))
     out_bufs: dict[int, Msgs] = {
         d: Msgs(out_keys[low.dst_pos[d]],
                 out_vals[low.dst_pos[d]].reshape(-1, width)) for d in dsts}
-    if (kernel_plane_enabled(device) and spec.comb == "sum"
+    if (kernel_plane_enabled(device) and spec.comb == "sum" and not spec.skew
             and spec.template not in ("bruck", "two_level")):
         # the kernel plane (default-on on CUDA): same routing and key sets,
         # payloads re-folded on the PART/COMB kernels (float32 accumulation
@@ -903,7 +1098,15 @@ def _run_lowered(cluster, args: ShuffleArgs, bufs: dict[int, Msgs],
             per_dst = kernel_global_stage(args.part_fn, keys, vals, len(dsts))
         for d, (kk, vv) in zip(dsts, per_dst):
             out_bufs[d] = Msgs(kk, vv.reshape(-1, width))
-    ledger.advance_epoch()                # shuffle completion is a barrier
+    if spec.skew:
+        # the owner-merge stage: scattered hot rows travel back to their base
+        # destination -- Python-side, mirroring the vectorized replay exactly
+        with record_function("teshu.owner_merge"):
+            owner_merge(ledger, topo, args, plan.skew, out_bufs)
+    if batch_slot is None:
+        ledger.advance_epoch()            # shuffle completion is a barrier
+    else:
+        batch_slot.handle.member_done(ledger)   # the batch settles as one
     after = ledger.snapshot()
     if manager is not None:
         for w in participants:
@@ -917,4 +1120,5 @@ def _run_lowered(cluster, args: ShuffleArgs, bufs: dict[int, Msgs],
         cached=True,
         vectorized=False,
         engine="torch",
+        batched=batch_slot is not None,
     )

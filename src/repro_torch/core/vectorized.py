@@ -127,6 +127,33 @@ def _comb(args: ShuffleArgs, ledger, wid: int, batches) -> Msgs:
     return combine_msgs(args.comb_fn, batch)
 
 
+def owner_merge(ledger, topo, args: ShuffleArgs, skew,
+                out: dict[int, Msgs]) -> None:
+    """Batched replay of templates.owner_merge, in place on ``out``: every
+    sharer's forwarded rows come from its post-receiver buffer (removals
+    across owners are disjoint key sets), then each owner combines [kept] +
+    sharer rows in sorted-sharer order — row for row what the threaded stage
+    does, and charged as it charges them: every sharer's transfer first,
+    then one combine per owner.  The vectorized and the torch executors
+    both run it."""
+    merge = owner_merge_plan(skew, args.part_fn, tuple(args.dsts))
+    inbox: dict[int, list[Msgs]] = {}
+    for owner, (owned_keys, sharers) in merge.items():
+        got = []
+        for s in sharers:
+            mask = np.isin(out[s].keys, owned_keys)
+            rows = out[s].take(np.nonzero(mask)[0])
+            out[s] = out[s].take(np.nonzero(~mask)[0])
+            ledger.charge_transfer(s, topo.crossing_level(s, owner),
+                                   rows.nbytes, dst=owner,
+                                   tenant=args.tenant)
+            got.append(rows)
+        inbox[owner] = got
+    for owner, got in inbox.items():
+        out[owner] = _comb(args, ledger, owner,
+                           Msgs.concat([out[owner]] + got))
+
+
 def run_shuffle_vectorized(
     cluster: LocalCluster,
     args: ShuffleArgs,
@@ -352,26 +379,7 @@ def _run_vectorized_impl(
 
     # ---- owner merge (rebalanced plans) ------------------------------------
     if skew is not None:
-        # batched replay of templates.owner_merge: every sharer's forwarded
-        # rows come from its post-receiver buffer (removals across owners are
-        # disjoint key sets), then each owner combines [kept] + sharer rows in
-        # sorted-sharer order — row for row what the threaded stage does
-        merge = owner_merge_plan(skew, args.part_fn, args.dsts)
-        inbox: dict[int, list[Msgs]] = {}
-        for owner, (owned_keys, sharers) in merge.items():
-            got = []
-            for s in sharers:
-                mask = np.isin(out[s].keys, owned_keys)
-                rows = out[s].take(np.nonzero(mask)[0])
-                out[s] = out[s].take(np.nonzero(~mask)[0])
-                ledger.charge_transfer(s, topo.crossing_level(s, owner),
-                                       rows.nbytes, dst=owner,
-                                       tenant=args.tenant)
-                got.append(rows)
-            inbox[owner] = got
-        for owner, got in inbox.items():
-            out[owner] = _comb(args, ledger, owner,
-                               Msgs.concat([out[owner]] + got))
+        owner_merge(ledger, topo, args, skew, out)
 
     if persist:
         # write-behind barrier: spill charges land before the after-snapshot

@@ -8,9 +8,10 @@ run of the same kind (fresh against fresh, hit against the reference's cached
 replay).  The grid is the six templates x {uniform, zipf} x {fresh, hit},
 plus a combiner sweep over {sum, min, max, concat} x {hash, range}, all with
 the kernel plane off (its default on the CPU).  One SUM cell runs with the
-kernel plane forced on, at rtol 1e-5.  Triggered skew plans and batched
-dispatch are not ported: they decline with ``"not_ported"`` and still give
-the vectorized result.
+kernel plane forced on, at rtol 1e-5.  A triggered skew plan replays on the
+torch executor with the reference's bytes and charges, and same-signature
+submissions run as one batched dispatch with each member's serial bytes
+(``tests/test_torch_batch.py`` holds both across templates).
 """
 import numpy as np
 import pytest
@@ -136,27 +137,33 @@ def test_kernel_plane_is_off_on_the_cpu_by_default():
 
 
 def test_skew_plan_declines_not_ported():
-    """A triggered hot-key rebalance: the torch rung declines with the
-    explicit code and the vectorized rung gives the reference bytes."""
+    """A triggered hot-key rebalance, which earlier slices declined with
+    ``"not_ported"``: the torch rung now replays it, with the threaded
+    reference's bytes and the vectorized replay's charges."""
     ws = list(range(8))
     bufs = make_bufs(ws, "zipf", n=8000, key_space=500, width=1)
     vec_sv = service_for("vectorized", topo=datacenter(4, 2, 1))
     ref = [vec_sv.shuffle("vanilla_push", copy_bufs(bufs), ws, ws,
                           comb_fn=SUM, balance="auto") for _ in range(2)][1]
+    th_sv = service_for("threaded", topo=datacenter(4, 2, 1))
+    th = [th_sv.shuffle("vanilla_push", copy_bufs(bufs), ws, ws,
+                        comb_fn=SUM, balance="auto") for _ in range(2)][1]
     sv = port.TeShuService(port.datacenter(4, 2, 1), device="cpu")
     hit = [sv.shuffle("vanilla_push", port.msgs_from_reference(bufs), ws, ws,
                       comb_fn=port.SUM, balance="auto") for _ in range(2)][1]
     assert dict(hit.decisions)["rebalance"].triggered
-    assert hit.cached and hit.engine == "vectorized"
-    assert hit.fallback_reason == torchplan.NOT_PORTED
+    assert hit.cached and hit.engine == "torch"
+    assert hit.fallback_reason is None
+    assert_identical(hit.bufs, th.bufs)
     assert_identical(hit.bufs, ref.bufs)
     assert_stats_identical(hit.stats, ref.stats)
 
 
 def test_batched_submissions_decline_not_ported():
-    """Same-signature submissions the reference stacks into one dispatch
-    replay one by one on the vectorized rung, each with ``"not_ported"``;
-    a lone submission in the same pass still replays on torch."""
+    """Same-signature submissions, which earlier slices declined with
+    ``"not_ported"``: they now run as ONE batched dispatch, each member
+    with its serial bytes; a lone submission in the same pass replays solo,
+    and every slice is consumed."""
     ws = workers_for("vanilla_push")
     bufs = make_bufs(ws, "zipf")
     cl = port.TeShuCluster(port.datacenter(2, 2, 2, oversubscription=4.0),
@@ -177,18 +184,20 @@ def test_batched_submissions_decline_not_ported():
     lone = tenants[3].submit("vanilla_pull", port.msgs_from_reference(bufs),
                              ws, ws, comb_fn=port.SUM)
     results = cl.run_pending()
-    assert cl.last_schedule()["batches"] == []
+    (entry,) = cl.last_schedule()["batches"]
+    assert entry["size"] == 3 and entry["template"] == "vanilla_push"
+    assert entry["tenants"] == ["t0", "t1", "t2"]
     for tk, ref in zip(tickets, serial):
         r = results[tk]
-        assert r.engine == "vectorized" and not r.batched
-        assert r.fallback_reason == torchplan.NOT_PORTED
+        assert r.engine == "torch" and r.batched
+        assert r.fallback_reason is None
         assert_identical(r.bufs, ref.bufs)
-    assert results[lone].engine == "torch"
+    assert results[lone].engine == "torch" and not results[lone].batched
     assert results[lone].fallback_reason is None
-    assert not torchplan._BATCHED                   # marks released
+    assert not torchplan._BATCH_SLOTS               # every slice consumed
     again = tenants[0].shuffle("vanilla_push", port.msgs_from_reference(bufs),
                                ws, ws, comb_fn=port.SUM)
-    assert again.engine == "torch" and again.fallback_reason is None
+    assert again.engine == "torch" and not again.batched
 
 
 def test_cuda_comb_backend_on_cpu_tensors():

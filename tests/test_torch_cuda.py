@@ -494,6 +494,69 @@ def test_card_kernel_plane_is_on_by_default(cuda):
                                    rtol=1e-5, atol=1e-5)
 
 
+def _skewed_hit(device):
+    ws = list(range(8))
+    bufs = make_bufs(ws, "zipf", n=8000, key_space=500, width=1)
+    sv = port.TeShuService(port.datacenter(4, 2, 1), device=device)
+    return [sv.shuffle("vanilla_push", port.msgs_from_reference(bufs), ws, ws,
+                       comb_fn=port.SUM, balance="auto") for _ in range(2)][1]
+
+
+@pytest.mark.cuda
+def test_card_skewed_hit_matches_the_cpu(cuda):
+    """A triggered hot-key rebalance on the card (the frozen scatter, the
+    fold kernel, the owner merge): the CPU replay's bytes and charges."""
+    prev = torchplan.set_kernel_plane(False)
+    try:
+        before = segmented_fold.launches
+        hit = _skewed_hit("cuda")
+        assert segmented_fold.launches > before
+        cpu = _skewed_hit("cpu")
+    finally:
+        torchplan.set_kernel_plane(prev)
+    assert dict(hit.decisions)["rebalance"].triggered
+    assert hit.engine == "torch" and hit.fallback_reason is None
+    assert_identical(hit.bufs, cpu.bufs)
+    assert_stats_identical(hit.stats, cpu.stats)
+
+
+def _batched_pass(device):
+    ws = workers_for("network_aware")
+    bufs = make_bufs(ws, "zipf")
+    cl = port.TeShuCluster(port.datacenter(2, 2, 2, oversubscription=4.0),
+                           device=device)
+    tenants = [cl.tenant(f"t{i}") for i in range(4)]
+    for t in tenants:
+        for _ in range(2):
+            t.shuffle("network_aware", port.msgs_from_reference(bufs), ws, ws,
+                      comb_fn=port.SUM)
+    tickets = [t.submit("network_aware", port.msgs_from_reference(bufs), ws,
+                        ws, comb_fn=port.SUM) for t in tenants]
+    results = cl.run_pending()
+    return cl, [results[tk] for tk in tickets]
+
+
+@pytest.mark.cuda
+def test_card_batched_pass_matches_the_cpu(cuda):
+    """Four tenants' same-signature submissions as one batched program on
+    the card: each member's bytes and charges as on the CPU."""
+    prev = torchplan.set_kernel_plane(False)
+    try:
+        before = segmented_fold.launches
+        cl, got = _batched_pass("cuda")
+        assert segmented_fold.launches > before
+        _, cpu = _batched_pass("cpu")
+    finally:
+        torchplan.set_kernel_plane(prev)
+    (entry,) = cl.last_schedule()["batches"]
+    assert entry["size"] == 4
+    for r, c in zip(got, cpu):
+        assert r.engine == "torch" and r.batched and r.fallback_reason is None
+        assert_identical(r.bufs, c.bufs)
+        assert_stats_identical(r.stats, c.stats)
+    assert not torchplan._BATCH_SLOTS
+
+
 # ---------------------------------------------------------------------------
 # attention kernels
 # ---------------------------------------------------------------------------
