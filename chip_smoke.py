@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile DIR      # also trace one hit per template,
                                              # and the prefill and 4 decode
                                              # steps of each served model
+                                             # (Hymba's Mamba heads apart)
 
 Run from the root of a checkout.  It needs a CUDA device: without one it
 exits non-zero and prints no result.  In order it
@@ -28,13 +29,25 @@ exits non-zero and prints no result.  In order it
    which of the library's three kernels it ran (read from a torch.profiler
    trace of the call; bf16 at head width 64 or 128 must run
    ``flash_wgmma``); the Qwen2.5-14B and the Qwen3-MoE prefill shapes are
-   timed beside SDPA.  The decode library's SASS must hold ``UTMALDG``;
+   timed beside SDPA.  Sliding windows (Hymba-1.5B's 1,024 at its prefill
+   of 4,096 tokens, an appended prefill of 2,048 on 2,048, windows of 1 and
+   off the tiles, ``flash_mma`` at D 32) are held the same way; a window of
+   Skv or more must give the unwindowed output bit for bit, and the kernel
+   run with its window one 128-row tile wider must fail the check; the
+   Hymba prefill is timed windowed, unwindowed on the same inputs, and
+   beside SDPA with the window's boolean mask.  The decode library's SASS
+   must hold ``UTMALDG``;
    each decode case logs the device kernels one call launched (bf16 at
    head width 64 or 128 must launch ``decode_tma`` alone), a ``valid_len``
    passed as a device tensor must give the int's output bit for bit, and
    the Qwen2.5-14B and Qwen3-MoE decode steps and one ``decode_32k`` layer
    are timed (beside SDPA where it fits), with the host's microseconds per
-   call.  The ordered fold is held bit for bit (NaN = NaN) to its plain
+   call.  Hymba's decode step (25 q / 5 kv heads of 64, 4,128 valid
+   positions, window 1,024) is held on ``decode_tma`` (with ``valid_len``
+   on the device too), with a window past ``valid_len``, and on
+   ``decode_split``; the window one 64-position tile wider must fail, and
+   the step is timed windowed, unwindowed and beside SDPA on the window's
+   slice of the cache.  The ordered fold is held bit for bit (NaN = NaN) to its plain
    version for sum, min and max on segments of 1..64 rows, and for sum on
    the global stage's own Zipf layout (one segment of 263,532 rows; the
    plain version runs on a CPU copy); two adjacent rows of that segment
@@ -115,6 +128,19 @@ exits non-zero and prints no result.  In order it
    attention (S and P rounded to bf16; the decode dropping its newest 32
    positions, which must fail the logit check) show how far a wrong
    attention moves them;
+6a. drives ``serve`` on Hymba-1.5B at full width and depth (32 layers, 29
+   with a sliding window of 1,024, every layer's attention beside a Mamba
+   head whose scan runs as torch ops): batch 4, 4,096-token prompts, 32
+   greedy tokens in a cache of 4,160.  The counters are zeroed just before
+   and read just after: flash once a layer in the prefill, decode once a
+   layer a step.  The plain versions' run, teacher-forced on the kernel
+   run's tokens, is the yardstick (10 bf16 steps, the first-token tie
+   rule); the same plain run with the window off in the 29 windowed layers
+   must fail it.  The prompts are then prefilled again in two chunks of
+   2,048 on one cache: each chunk launches flash once a layer and none
+   reaches the fused plain attention, and the last logits are held to the
+   plain versions' same two chunks.  With ``--profile``, the prefill and 4
+   decode steps are traced, with the Mamba heads' ``hymba.mamba`` ranges;
 7. drives the MoE serving path, ``serve`` on Qwen3-MoE-235B-A22B at full
    width with its depth cut to 12 of 94 layers (62.2 GB of bf16 weights,
    every expert drawn on its own from a seeded generator on the card), at
@@ -180,46 +206,75 @@ HEAD_DIM = 128
 # bf16 moves the output far more than the flash kernel's rounding of P.
 # bf16 q, k and v at D 64 or 128 run flash_wgmma, at D 16 or 32 flash_mma,
 # any float32 operand flash_fwd
-FLASH_CASES = [  # name, BHq, BHkv, Sq, Skv, D, causal, q dtype (k, v: bf16)
-    ("serving prefill", 160, 32, 1024, 1024, 128, True, "bfloat16"),
-    ("Sq off the 64 tile", 40, 8, 1000, 1000, 128, True, "bfloat16"),
-    ("Sq < Skv", 40, 8, 300, 1024, 128, True, "bfloat16"),
-    ("non-causal", 40, 8, 512, 1024, 128, False, "bfloat16"),
-    ("MQA (group = H)", 48, 1, 512, 512, 128, True, "bfloat16"),
-    ("sharp scores", 40, 8, 1024, 1024, 128, True, "bfloat16"),
-    ("float32 q, bf16 k/v", 40, 8, 256, 256, 128, True, "float32"),
+# The windowed cases (the last column: the sliding window, 0 none) are
+# Hymba-1.5B's: 25 q over 5 kv heads of 64, batch 4, window 1,024
+FLASH_CASES = [  # name, BHq, BHkv, Sq, Skv, D, causal, q dtype (k, v: bf16), window
+    ("serving prefill", 160, 32, 1024, 1024, 128, True, "bfloat16", 0),
+    ("Sq off the 64 tile", 40, 8, 1000, 1000, 128, True, "bfloat16", 0),
+    ("Sq < Skv", 40, 8, 300, 1024, 128, True, "bfloat16", 0),
+    ("non-causal", 40, 8, 512, 1024, 128, False, "bfloat16", 0),
+    ("MQA (group = H)", 48, 1, 512, 512, 128, True, "bfloat16", 0),
+    ("sharp scores", 40, 8, 1024, 1024, 128, True, "bfloat16", 0),
+    ("float32 q, bf16 k/v", 40, 8, 256, 256, 128, True, "float32", 0),
     ("D 64 (Hymba-like: 25 q / 5 kv heads)", 100, 20, 1024, 1024, 64, True,
-     "bfloat16"),
+     "bfloat16", 0),
     ("Sq = Skv = 1,088 (on the 64 tile, off the 128)", 40, 8, 1088, 1088,
-     128, True, "bfloat16"),
+     128, True, "bfloat16", 0),
     ("MoE prefill (Qwen3-MoE: 64 q / 4 kv heads)", 256, 16, 1024, 1024, 128,
-     True, "bfloat16")]
+     True, "bfloat16", 0),
+    ("Hymba prefill, window 1,024", 100, 20, 4096, 4096, 64, True,
+     "bfloat16", 1024),
+    ("appended prefill (2,048 on 2,048), window 1,024", 100, 20, 2048, 4096,
+     64, True, "bfloat16", 1024),
+    ("window 1", 100, 20, 1000, 1000, 64, True, "bfloat16", 1),
+    ("window 1,000 (off the tiles)", 100, 20, 2048, 2048, 64, True,
+     "bfloat16", 1000),
+    ("window >= Skv", 100, 20, 1000, 1000, 64, True, "bfloat16", 1000),
+    ("flash_mma at D 32, window 100", 40, 8, 1024, 1024, 32, True,
+     "bfloat16", 100)]
 # the flash cases timed beside SDPA, and the key of each one's row
 FLASH_TIMED = {"serving prefill": "flash_attention",
                "MoE prefill (Qwen3-MoE: 64 q / 4 kv heads)":
-               "flash_attention_moe"}
+               "flash_attention_moe",
+               "Hymba prefill, window 1,024": "flash_attention_hymba"}
+# the case whose planted fault (the kernel's window one 128-row tile wider
+# than the plain version's) must fail, and the case that must equal the
+# unwindowed call bit for bit
+FLASH_WINDOW_FAULT = "Hymba prefill, window 1,024"
+FLASH_WINDOW_NONE = "window >= Skv"
 # bf16 q and cache at d 64 or 128 run decode_tma (one launch, valid_len
 # read on the device where it is a tensor), anything else decode_split and
 # decode_combine
-DECODE_CASES = [  # name, B, H, KVH, T, d, valid_len, q dtype (cache: bf16)
-    ("serving decode", 4, 40, 8, 2048, 128, 1056, "bfloat16"),
+# a case named "..., valid_len on the device" takes the inputs of the case
+# before it and must give its output bit for bit
+DECODE_CASES = [  # name, B, H, KVH, T, d, valid_len, q dtype (cache: bf16), window
+    ("serving decode", 4, 40, 8, 2048, 128, 1056, "bfloat16", 0),
     ("serving decode, valid_len on the device", 4, 40, 8, 2048, 128, 1056,
-     "bfloat16"),
-    ("valid_len 1", 4, 40, 8, 2048, 128, 1, "bfloat16"),
-    ("valid_len T", 4, 40, 8, 2048, 128, 2048, "bfloat16"),
-    ("MQA (group = H)", 4, 48, 1, 2048, 128, 1056, "bfloat16"),
-    ("sharp scores", 4, 40, 8, 2048, 128, 1056, "bfloat16"),
-    ("float32 q, bf16 cache", 4, 40, 8, 2048, 128, 1056, "float32"),
+     "bfloat16", 0),
+    ("valid_len 1", 4, 40, 8, 2048, 128, 1, "bfloat16", 0),
+    ("valid_len T", 4, 40, 8, 2048, 128, 2048, "bfloat16", 0),
+    ("MQA (group = H)", 4, 48, 1, 2048, 128, 1056, "bfloat16", 0),
+    ("sharp scores", 4, 40, 8, 2048, 128, 1056, "bfloat16", 0),
+    ("float32 q, bf16 cache", 4, 40, 8, 2048, 128, 1056, "float32", 0),
     ("MoE decode (Qwen3-MoE: 64 q / 4 kv heads)", 4, 64, 4, 2048, 128, 1056,
-     "bfloat16"),
+     "bfloat16", 0),
     ("d 64, MHA (MusicGen-large: 32 / 32 heads)", 4, 32, 32, 2048, 64, 1056,
-     "bfloat16"),
-    ("decode_32k layer", 128, 40, 8, 32768, 128, 32768, "bfloat16")]
+     "bfloat16", 0),
+    ("decode_32k layer", 128, 40, 8, 32768, 128, 32768, "bfloat16", 0),
+    ("Hymba step, window 1,024", 4, 25, 5, 4160, 64, 4128, "bfloat16", 1024),
+    ("Hymba step, window 1,024, valid_len on the device", 4, 25, 5, 4160,
+     64, 4128, "bfloat16", 1024),
+    ("Hymba step, window > valid_len", 4, 25, 5, 4160, 64, 1000, "bfloat16",
+     2000),
+    ("Hymba step, window 1,024, decode_split (float32 q)", 4, 25, 5, 4160,
+     64, 4128, "float32", 1024)]
 # the decode cases timed, and the key of each one's row
 DECODE_TIMED = {"serving decode": "decode_attention",
                 "MoE decode (Qwen3-MoE: 64 q / 4 kv heads)":
                 "decode_attention_moe",
-                "decode_32k layer": "decode_attention_32k"}
+                "decode_32k layer": "decode_attention_32k",
+                "Hymba step, window 1,024": "decode_attention_hymba"}
+DECODE_WINDOW_FAULT = "Hymba step, window 1,024"   # one 64-position tile wider
 SHARP = 4.0
 
 MOE_ARCH = "qwen3-moe-235b-a22b"     # the MoE slice: full width, depth cut
@@ -437,23 +492,23 @@ def trace_phase(dev) -> dict:
         return torch.randn(shape, dtype=dtype, device=dev, generator=gen)
 
     paths = {"flash": {}, "decode": {}}
-    for name, bhq, bhkv, sq, skv, dd, causal, qdt in FLASH_CASES:
+    for name, bhq, bhkv, sq, skv, dd, causal, qdt, win in FLASH_CASES:
         q = randn((bhq, sq, dd), getattr(torch, qdt))
         k, v = randn((bhkv, skv, dd)), randn((bhkv, skv, dd))
-        flash_attention(q, k, v, causal=causal)
+        flash_attention(q, k, v, causal=causal, window=win)
         paths["flash"][name] = flash_kernel_ran(
-            lambda: flash_attention(q, k, v, causal=causal))
+            lambda: flash_attention(q, k, v, causal=causal, window=win))
     del q, k, v
-    for name, bb, hh, kk, tt, dd, valid, qdt in DECODE_CASES:
-        if name.endswith("on the device"):   # the serving case's inputs
+    for name, bb, hh, kk, tt, dd, valid, qdt, win in DECODE_CASES:
+        if name.endswith("on the device"):   # the case before's inputs
             vl = torch.tensor(valid, dtype=torch.int32, device=dev)
         else:
             q = randn((bb, hh, dd), getattr(torch, qdt))
             kc, vc = randn((bb, tt, kk, dd)), randn((bb, tt, kk, dd))
             vl = valid
-        decode_attention(q, kc, vc, vl)
+        decode_attention(q, kc, vc, vl, window=win)
         paths["decode"][name] = decode_kernel_ran(
-            lambda: decode_attention(q, kc, vc, vl))
+            lambda: decode_attention(q, kc, vc, vl, window=win))
     del q, kc, vc
     torch.cuda.empty_cache()
     log(f"trace flash and decode cases: {json.dumps(paths)}")
@@ -666,29 +721,40 @@ def _held(got, plain, tol) -> tuple[float, float]:
     return float(diff.max()), float((diff / tol).max())
 
 
-def _flash_work(q, k, causal: bool) -> tuple[float, float]:
+def _flash_work(q, k, causal: bool, window: int = 0) -> tuple[float, float]:
     """(bytes, operations) of one flash call on these shapes: every input
     read once, the output written once; 4 * D operations (QK^T and PV)
-    for each query-key pair that the causal mask keeps."""
+    for each query-key pair that the causal mask and the window keep."""
     bhq, sq, d = q.shape
     skv = k.shape[1]
     nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
-    if causal:
-        off = skv - sq
-        pairs = sum(min(skv, i + off + 1) for i in range(sq))
-    else:
-        pairs = sq * skv
+    off = skv - sq
+    pairs = 0
+    for i in range(sq):
+        hi = min(skv, i + off + 1) if causal else skv
+        lo = max(0, i + off - window + 1) if window else 0
+        pairs += max(0, hi - lo)
     return nbytes, 4.0 * d * pairs * bhq
 
 
-def _decode_work(q, k, valid: int) -> tuple[float, float]:
+def _decode_work(q, k, valid: int, window: int = 0) -> tuple[float, float]:
     """(bytes, operations) of one decode call: q read and out written once,
-    and the cache's valid positions of K and V read once."""
+    and the cache's attended positions of K and V read once."""
     b, h, d = q.shape
     kvh = k.shape[2]
+    n = min(valid, window) if window else valid
     nbytes = (2 * q.numel() * q.element_size()
-              + 2 * b * valid * kvh * d * k.element_size())
-    return nbytes, 4.0 * d * b * h * valid
+              + 2 * b * n * kvh * d * k.element_size())
+    return nbytes, 4.0 * d * b * h * n
+
+
+def _window_mask(sq: int, skv: int, window: int, device):
+    """The boolean ``[Sq, Skv]`` mask SDPA takes for end-aligned causal
+    rows with a sliding window (True: attend)."""
+    import torch
+    rows = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    cols = torch.arange(skv, device=device)[None]
+    return (cols <= rows) & (rows - cols < window)
 
 
 def attention_phase(dev, paths: dict) -> dict:
@@ -713,28 +779,29 @@ def attention_phase(dev, paths: dict) -> dict:
 
     rows = {}
 
-    # ---- flash: the serving prefill, then edge cases ----------------------
+    # ---- flash: the serving prefill, then edge cases and windows ----------
     sass = sass_counts("flash_attention")
     log(f"kernel flash SASS instructions: {json.dumps(sass)}")
     assert sass["HGMMA"] > 0 and sass["UTMALDG"] > 0, sass
     b = SERVE["batch"]
-    for name, bhq, bhkv, sq, skv, d, causal, qdt in FLASH_CASES:
+    for name, bhq, bhkv, sq, skv, d, causal, qdt, win in FLASH_CASES:
         q = randn((bhq, sq, d), getattr(torch, qdt))
         if name == "sharp scores":
             q = q * SHARP
         k, v = randn((bhkv, skv, d)), randn((bhkv, skv, d))
         path = paths["flash"][name]       # read by the trace phase
-        got = flash_attention(q, k, v, causal=causal)
-        plain = ref.flash_attention_ref(q, k, v, causal=causal)
-        tol = ref.flash_attention_tolerance(q, k, v, plain, causal=causal)
+        got = flash_attention(q, k, v, causal=causal, window=win)
+        plain = ref.flash_attention_ref(q, k, v, causal=causal, window=win)
+        tol = ref.flash_attention_tolerance(q, k, v, plain, causal=causal,
+                                            window=win)
         err, share = _held(got, plain, tol)
         assert got.dtype == q.dtype and bool(torch.isfinite(got).all())
         assert share <= 1.0, f"flash {name}: {share} of the bound"
         if qdt == "bfloat16" and d in (64, 128):
             assert path == "flash_wgmma", (name, path)
         log(f"kernel flash {name} q={tuple(q.shape)} kv={tuple(k.shape)} "
-            f"causal={causal} ran {path}: max_abs_err={err!r}, bound share "
-            f"{share!r}")
+            f"causal={causal} window={win} ran {path}: max_abs_err={err!r}, "
+            f"bound share {share!r}")
         if name == "non-causal":
             # planted fault: the same call with the last kv tile skipped
             cut = flash_attention(q, k[:, :-64].contiguous(),
@@ -743,39 +810,64 @@ def attention_phase(dev, paths: dict) -> dict:
             log(f"kernel flash planted fault (last kv tile dropped): "
                 f"bound share {fshare!r}")
             assert fshare > 1.0, "the flash check passes a dropped tile"
+        if name == FLASH_WINDOW_FAULT:
+            # planted fault: the kernel's window one 128-row tile wider
+            wide = flash_attention(q, k, v, causal=causal, window=win + 128)
+            _, fshare = _held(wide, plain, tol)
+            log(f"kernel flash planted fault (window {win} + 128): bound "
+                f"share {fshare!r}")
+            assert fshare > 1.0, "the flash check passes a wider window"
+        if name == FLASH_WINDOW_NONE:
+            assert skv <= win and torch.equal(
+                got, flash_attention(q, k, v, causal=causal)), \
+                "a window of Skv or more differs from no window"
         if name not in FLASH_TIMED:
             continue
-        nbytes, ops = _flash_work(q, k, causal)
+        nbytes, ops = _flash_work(q, k, causal, win)
         tb = bound(nbytes, ops, BF16_OPS_PER_S)
         q4, k4, v4 = (x.view(b, -1, x.shape[1], d) for x in (q, k, v))
-        lib = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
-                                             enable_gqa=True)
-        ms = time_ms(lambda: flash_attention(q, k, v, causal=True), spin=True)
+        sdpa = dict(is_causal=True) if not win else \
+            dict(attn_mask=_window_mask(sq, skv, win, dev))
+
+        def library(sdpa=sdpa):
+            return F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True,
+                                                  **sdpa)
+        lib = library()
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                             window=win), spin=True)
         row = dict(
             max_abs_err=err, tolerance=ATTN_TOL, bound_share=share, path=path,
-            ms=ms, tflop_per_s=ops / ms / 1e9,
-            plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v,
-                                                             causal=True),
-                             spin=True),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True, enable_gqa=True), spin=True),
+            window=win, ms=ms, tflop_per_s=ops / ms / 1e9,
+            plain_ms=time_ms(lambda: ref.flash_attention_ref(
+                q, k, v, causal=True, window=win), spin=True),
+            library_ms=time_ms(library, spin=True),
+            library_call="scaled_dot_product_attention" + (
+                " with the window's boolean mask" if win else ", is_causal"),
             bound_ms=tb[0], bound_by=tb[1],
             sdpa_max_abs_diff=float((lib.reshape(q.shape).float()
                                      - got.float()).abs().max()))
+        if win:     # the same kernel and inputs with no window, and its bound
+            row["unwindowed_ms"] = time_ms(
+                lambda: flash_attention(q, k, v, causal=True), spin=True)
+            row["unwindowed_bound_ms"] = bound(
+                *_flash_work(q, k, True), BF16_OPS_PER_S)[0]
+            row["windowed_over_unwindowed"] = ms / row["unwindowed_ms"]
         rows[FLASH_TIMED[name]] = row
         log(f"kernel flash {name}: {json.dumps(row)}")
         del q4, k4, v4, lib
     del q, k, v, got, plain, tol
+    torch.cuda.empty_cache()
 
-    # ---- decode: the serving step, edge cases, one decode_32k layer -------
+    # ---- decode: the serving step, edge cases, one decode_32k layer, the
+    # Hymba step with its window
     sass = sass_counts("decode_attention")
     log(f"kernel decode SASS instructions: {json.dumps(sass)}")
     assert sass["UTMALDG"] > 0, sass
-    serving_out = None
-    for name, bb, hh, kk, tt, d, valid, qdt in DECODE_CASES:
+    prev = None
+    for name, bb, hh, kk, tt, d, valid, qdt, win in DECODE_CASES:
         on_device = name.endswith("on the device")
-        if on_device:           # the serving case's inputs, valid_len read
-            q, kc, vc, want = serving_out     # on the card
+        if on_device:           # the case before's inputs, valid_len read
+            q, kc, vc, want = prev            # on the card
             vl = torch.tensor(valid, dtype=torch.int32, device=dev)
         else:
             q = randn((bb, hh, d), getattr(torch, qdt))
@@ -783,27 +875,28 @@ def attention_phase(dev, paths: dict) -> dict:
                 q = q * SHARP
             kc, vc = randn((bb, tt, kk, d)), randn((bb, tt, kk, d))
             vl = valid
-        got = decode_attention(q, kc, vc, vl)
+        got = decode_attention(q, kc, vc, vl, window=win)
         path = paths["decode"][name]      # read by the trace phase
         if qdt == "bfloat16":
             assert path == ("decode_tma",), (name, path)
-        if name == "serving decode":
-            serving_out = (q, kc, vc, got)
-        elif on_device:         # bit for bit the int path's output
+        else:
+            assert path[0] == "decode_split", (name, path)
+        if on_device:           # bit for bit the int path's output
             assert torch.equal(got.view(torch.int16), want.view(torch.int16))
-            del want
+        prev = (q, kc, vc, got)
         # the plain version on 16 sequences at most (at decode_32k its
         # float32 copies of the whole cache would not fit beside it)
         n = min(bb, 16)
         kv = (kc[:n, :valid], vc[:n, :valid])
-        plain = ref.decode_attention_ref(q[:n], *kv, valid)
-        tol = ref.decode_attention_tolerance(q[:n], *kv, valid, plain)
+        plain = ref.decode_attention_ref(q[:n], *kv, valid, window=win)
+        tol = ref.decode_attention_tolerance(q[:n], *kv, valid, plain,
+                                             window=win)
         err, share = _held(got[:n], plain, tol)
         assert got.dtype == q.dtype and bool(torch.isfinite(got).all())
         assert share <= 1.0, f"decode {name}: {share} of the bound"
         log(f"kernel decode {name} q={tuple(q.shape)} cache={tuple(kc.shape)} "
-            f"valid_len={valid} ran {'+'.join(path)}: max_abs_err={err!r}, "
-            f"bound share {share!r}")
+            f"valid_len={valid} window={win} ran {'+'.join(path)}: "
+            f"max_abs_err={err!r}, bound share {share!r}")
         if name == "serving decode":
             # planted fault: the last 32 positions (1024..1055) dropped
             cut = decode_attention(q, kc, vc, valid - 32)
@@ -825,34 +918,54 @@ def attention_phase(dev, paths: dict) -> dict:
                                     for x in views]))
             log(f"kernel decode host us per call: {json.dumps(host)}")
             del buf, views
+        if name == DECODE_WINDOW_FAULT:
+            # planted fault: the kernel's window one 64-position tile wider
+            wide = decode_attention(q, kc, vc, valid, window=win + 64)
+            _, fshare = _held(wide, plain, tol)
+            log(f"kernel decode planted fault (window {win} + 64): bound "
+                f"share {fshare!r}")
+            assert fshare > 1.0, "the decode check passes a wider window"
         if name in DECODE_TIMED:
-            nbytes, ops = _decode_work(q, kc, valid)
+            nbytes, ops = _decode_work(q, kc, valid, win)
             tb = bound(nbytes, ops, BF16_OPS_PER_S)
             row = dict(
                 max_abs_err=err, tolerance=ATTN_TOL, bound_share=share,
                 path=path[0] if len(path) == 1 else "+".join(path),
-                ms=time_ms(lambda: decode_attention(q, kc, vc, valid),
+                window=win,
+                ms=time_ms(lambda: decode_attention(q, kc, vc, valid,
+                                                    window=win),
                            flush=flush, spin=True),
                 bound_ms=tb[0], bound_by=tb[1], plain_ms=None, library_ms=None)
             row["tb_per_s"] = nbytes / row["ms"] / 1e9
             if name != "decode_32k layer":
                 # not at decode_32k: the plain version's float32 copies of
-                # the cache, and SDPA's, may not fit beside it
+                # the cache, and SDPA's, may not fit beside it.  SDPA reads
+                # the attended positions only: the window's slice
+                lo = max(0, valid - win) if win else 0
                 q4 = q.view(bb, hh, 1, d)
-                k4 = kc[:, :valid].transpose(1, 2)
-                v4 = vc[:, :valid].transpose(1, 2)
+                k4 = kc[:, lo:valid].transpose(1, 2)
+                v4 = vc[:, lo:valid].transpose(1, 2)
                 row["plain_ms"] = time_ms(
-                    lambda: ref.decode_attention_ref(q, kc, vc, valid),
+                    lambda: ref.decode_attention_ref(q, kc, vc, valid,
+                                                     window=win),
                     flush=flush, spin=True)
                 row["library_ms"] = time_ms(
                     lambda: F.scaled_dot_product_attention(
                         q4, k4, v4, enable_gqa=True), flush=flush,
                     spin=True)
+                row["library_call"] = "scaled_dot_product_attention" + (
+                    " on the window's slice of the cache" if win else "")
                 del q4, k4, v4
+            if win:     # the same kernel and inputs with no window
+                row["unwindowed_ms"] = time_ms(
+                    lambda: decode_attention(q, kc, vc, valid), flush=flush,
+                    spin=True)
+                row["unwindowed_bound_ms"] = bound(
+                    *_decode_work(q, kc, valid), BF16_OPS_PER_S)[0]
             rows[DECODE_TIMED[name]] = row
             log(f"kernel decode {name}: {json.dumps(row)}")
-        del q, kc, vc, got, plain, tol, kv
-    del serving_out
+        del got, plain, tol, kv
+    del prev, q, kc, vc
     del scratch
     torch.cuda.empty_cache()
     return rows
@@ -998,7 +1111,7 @@ LOGIT_TOL_STEPS = 10
 MUST_FAIL_CONTROL = "decode drops its newest 32 positions"
 
 
-def _bf16_flash(q, k, v, *, causal=True, scale=None):
+def _bf16_flash(q, k, v, *, causal=True, scale=None, window=0):
     """A faulty plain flash for the control run: S and P rounded to bf16."""
     import torch
     bhq, sq, d = q.shape
@@ -1006,21 +1119,21 @@ def _bf16_flash(q, k, v, *, causal=True, scale=None):
     k, v = (x.repeat_interleave(g, dim=0).bfloat16() for x in (k, v))
     s = torch.einsum("bqd,bkd->bqk", q.bfloat16(), k) * (scale or d ** -0.5)
     if causal:
-        mask = torch.ones((sq, k.shape[1]), dtype=torch.bool,
-                          device=q.device).tril(k.shape[1] - sq)
+        mask = _window_mask(sq, k.shape[1], window or k.shape[1], q.device)
         s = torch.where(mask[None], s, -1e30)
     p = torch.softmax(s.float(), dim=-1).bfloat16()
     return torch.einsum("bqk,bkd->bqd", p, v).to(q.dtype)
 
 
-def _bf16_decode(q, k, v, valid_len, *, scale=None):
+def _bf16_decode(q, k, v, valid_len, *, scale=None, window=0):
     """A faulty plain decode for the control run: S and P rounded to bf16."""
     import torch
     b, h, d = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, kvh, h // kvh, d).bfloat16()
     s = torch.einsum("bkgd,btkd->bkgt", qg, k.bfloat16()) * (scale or d ** -0.5)
-    s = torch.where(torch.arange(k.shape[1], device=q.device) < valid_len,
+    pos = torch.arange(k.shape[1], device=q.device)
+    s = torch.where((pos < valid_len) & (pos >= valid_len - (window or valid_len)),
                     s, -1e30)
     p = torch.softmax(s.float(), dim=-1).bfloat16()
     out = torch.einsum("bkgt,btkd->bkgd", p, v.bfloat16())
@@ -1145,7 +1258,8 @@ def serve_phase(dev, profile_dir: Path | None) -> dict:
                                           _bf16_flash, _bf16_decode),
         MUST_FAIL_CONTROL: _control_diffs(
             serve, kw, gen, plain_logits, ref.flash_attention_ref,
-            lambda q, k, v, n, scale=None: plain_decode(q, k, v, n - 32))}
+            lambda q, k, v, n, scale=None, window=0: plain_decode(
+                q, k, v, n - 32, window=window))}
     out = dict(
         prefill_s=stats.prefill_s, decode_s=stats.decode_s,
         decode_tokens_per_s=stats.tokens_per_s,
@@ -1166,6 +1280,171 @@ def serve_phase(dev, profile_dir: Path | None) -> dict:
         f"control {MUST_FAIL_CONTROL!r} passes the logit check"
     if profile_dir is not None:
         _profile_serve(params, cfg, dev, profile_dir)
+    del params, stats, plain, logits, plain_logits
+    torch.cuda.empty_cache()
+    return out
+
+
+# The sliding-window slice: Hymba-1.5B at full width and depth (32 layers,
+# 29 with a window of 1,024, 0 / 15 / 31 global), prompts long enough for
+# the window to bite
+HYMBA_ARCH = "hymba-1.5b"
+HYMBA = dict(batch=4, prompt_len=4096, gen_len=32, max_len=4160, seed=0)
+HYMBA_CHUNK = 2048                   # the appended prefill: two chunks
+HYMBA_CONTROL = "plain attention with the window off in the 29 SWA layers"
+
+
+def _logit_step(logits) -> float:
+    """The bf16 step at the largest |logit|."""
+    import numpy as np
+    return float(2.0 ** (np.floor(np.log2(float(logits.abs().max()))) - 7))
+
+
+def hymba_serve_phase(dev, profile_dir: Path | None) -> dict:
+    """``serve`` on Hymba-1.5B: the windowed flash and decode kernels and
+    the Mamba mixer's torch ops, held against the plain versions' run; a
+    control with the window off must fail that check; a prefill appended
+    to the cache in two chunks runs on the flash kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import layers, lm
+
+    cfg = get_config(HYMBA_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=HYMBA["seed"], device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    windows = [blk.mixer.attn.window for blk in params.blocks]
+    swa = [i for i, w in enumerate(windows) if w]
+    assert len(swa) == cfg.n_layers - len(cfg.global_attn_layers) and \
+        {windows[i] for i in swa} == {cfg.sliding_window}, windows
+    log(f"hymba weights: {HYMBA_ARCH} {cfg.n_layers} layers ({len(swa)} with "
+        f"window {cfg.sliding_window}), {n_params} parameters "
+        f"({w_bytes / 1e9:.2f} GB {cfg.dtype}), made on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    kw = dict(smoke=False, device=dev, params=params, **HYMBA)
+    serve(HYMBA_ARCH, **dict(kw, prompt_len=256, gen_len=2))   # warm
+    torch.cuda.synchronize()
+
+    def zero():
+        for k in KERNELS:
+            k.launches = 0
+
+    def counted():
+        return {k.__name__: k.launches for k in KERNELS}
+
+    torch.cuda.reset_peak_memory_stats()
+    zero()                                # the serving path, counted alone
+    gen, stats = serve(HYMBA_ARCH, **kw)
+    counts = counted()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k.__name__: 0 for k in KERNELS}
+    want["flash_attention"] = cfg.n_layers                      # the prefill
+    want["decode_attention"] = cfg.n_layers * HYMBA["gen_len"]   # the steps
+    assert counts == want, counts
+    logits = torch.stack(stats.logits).float()
+    assert gen.shape == (HYMBA["batch"], HYMBA["gen_len"])
+    assert logits.shape == (HYMBA["gen_len"] + 1, HYMBA["batch"], cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    assert ((gen >= 0) & (gen < cfg.vocab)).all()
+
+    # the yardstick: the plain versions, fed the kernel run's tokens (the
+    # plain flash works through query blocks at 4,096 tokens)
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    plain_gen, plain = serve(HYMBA_ARCH, use_kernel=False, forced=gen, **kw)
+    plain_peak = torch.cuda.max_memory_allocated()
+    assert all(k.launches == 0 for k in KERNELS)
+    plain_logits = torch.stack(plain.logits).float()
+    diffs = (logits - plain_logits).abs().amax(dim=(1, 2)).tolist()
+    step = _logit_step(logits)
+    tol = LOGIT_TOL_STEPS * step
+    first_agree = np.asarray(plain_gen[:, 0] == gen[:, 0]).tolist()
+    margins = _first_token_margins(plain_logits[0], logits[0],
+                                   plain_gen[:, 0], gen[:, 0])
+    # the control: the same plain run with the window off in the SWA layers
+    for i in swa:
+        params.blocks[i].mixer.attn.window = 0
+    try:
+        _, ctrl = serve(HYMBA_ARCH, use_kernel=False, forced=gen, **kw)
+    finally:
+        for i in swa:
+            params.blocks[i].mixer.attn.window = cfg.sliding_window
+    control = (torch.stack(ctrl.logits).float() - plain_logits
+               ).abs().amax(dim=(1, 2)).tolist()
+    del ctrl
+
+    # the appended prefill: the prompts in two chunks on one cache, with
+    # the kernels (flash once a layer a chunk) and with the plain versions
+    b, s = HYMBA["batch"], HYMBA["prompt_len"]
+    prompts = np.random.default_rng(HYMBA["seed"]).integers(
+        0, cfg.vocab, (b, s)).astype(np.int32)        # serve()'s prompts
+    tokens = torch.from_numpy(prompts).to(dev)
+    fused, fused_calls = layers._sdpa_fused, []
+    layers._sdpa_fused = lambda *a, **k: fused_calls.append(1) or fused(*a, **k)
+
+    def two_chunks(use_kernel: bool):
+        cache = lm.init_cache(cfg, b, HYMBA["max_len"], device=dev)
+        per = []
+        for c in range(0, s, HYMBA_CHUNK):
+            zero()
+            out, cache, _ = lm.forward(params, tokens=tokens[:, c:c + HYMBA_CHUNK],
+                                       cache=cache, use_kernel=use_kernel)
+            per.append(counted())
+            last = out[:, -1].float()
+            del out
+        return last, per
+    try:
+        torch.cuda.synchronize()
+        t_app = time.perf_counter()
+        app_last, app_counts = two_chunks(True)
+        torch.cuda.synchronize()
+        t_app = time.perf_counter() - t_app
+        app_plain, plain_counts = two_chunks(False)
+    finally:
+        layers._sdpa_fused = fused
+    assert not fused_calls, "the appended prefill reached _sdpa_fused"
+    want_chunk = {k.__name__: 0 for k in KERNELS}
+    want_chunk["flash_attention"] = cfg.n_layers
+    assert app_counts == [want_chunk] * (s // HYMBA_CHUNK), app_counts
+    assert all(not any(c.values()) for c in plain_counts), plain_counts
+    app_diff = float((app_last - app_plain).abs().max())
+    app_tol = LOGIT_TOL_STEPS * _logit_step(app_last)
+    app_vs_one = float((app_last - logits[0]).abs().max())
+
+    out = dict(
+        prefill_s=stats.prefill_s, decode_s=stats.decode_s,
+        decode_tokens_per_s=stats.tokens_per_s,
+        decode_step_ms=stats.decode_s / HYMBA["gen_len"] * 1e3,
+        plain_prefill_s=plain.prefill_s,
+        plain_decode_tokens_per_s=plain.tokens_per_s,
+        peak_device_bytes=peak, plain_peak_device_bytes=plain_peak,
+        launches=counts,
+        max_logit_diff_per_step=diffs, max_abs_logit=float(logits.abs().max()),
+        logit_tol=tol, first_token_agrees=first_agree,
+        first_tokens=gen[:, 0].tolist(), first_token_margins=margins,
+        control=HYMBA_CONTROL, control_max_logit_diff=max(control),
+        control_diff_per_step=control,
+        appended_prefill=dict(
+            chunks=s // HYMBA_CHUNK, launches_per_chunk=app_counts,
+            sdpa_fused_calls=len(fused_calls), seconds=t_app,
+            max_last_logit_diff_vs_plain=app_diff, logit_tol=app_tol,
+            max_last_logit_diff_vs_one_prefill=app_vs_one))
+    log(f"serve {HYMBA_ARCH} batch={b} prompt={s} gen={HYMBA['gen_len']}: "
+        f"{json.dumps(out)}")
+    _check_first_tokens(first_agree, margins, step)
+    assert max(diffs) <= tol, f"logits differ from plain by {max(diffs)} > {tol}"
+    assert max(control) > tol, f"control {HYMBA_CONTROL!r} passes the check"
+    assert app_diff <= app_tol, \
+        f"appended prefill differs from plain by {app_diff} > {app_tol}"
+    if profile_dir is not None:
+        _profile_serve(params, cfg, dev, profile_dir, tag="hymba_",
+                       shape=HYMBA)
     del params, stats, plain, logits, plain_logits
     torch.cuda.empty_cache()
     return out
@@ -2138,20 +2417,23 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def _profile_serve(params, cfg, dev, profile_dir: Path, tag: str = "") -> None:
+def _profile_serve(params, cfg, dev, profile_dir: Path, tag: str = "",
+                   shape: dict = SERVE) -> None:
     """The prefill and four decode steps under torch.profiler: device time
     by kernel class (attention kernels, gmm, matmuls, the rest) against
-    wall; ``tag`` prefixes the names of the files and lines."""
+    wall, and a hybrid model's Mamba mixer (its ``hymba.mamba`` ranges:
+    host ms, and the device ms the ranges span); ``tag`` prefixes the
+    names of the files and lines, ``shape`` gives batch and lengths."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import lm
-    b, s = SERVE["batch"], SERVE["prompt_len"]
-    prompts = np.random.default_rng(SERVE["seed"]).integers(0, cfg.vocab, (b, s))
+    b, s = shape["batch"], shape["prompt_len"]
+    prompts = np.random.default_rng(shape["seed"]).integers(0, cfg.vocab, (b, s))
     tokens = torch.from_numpy(prompts.astype(np.int32)).to(dev)
-    cache = lm.init_cache(cfg, b, SERVE["max_len"], device=dev)
+    cache = lm.init_cache(cfg, b, shape["max_len"], device=dev)
     profile_dir.mkdir(parents=True, exist_ok=True)
 
     def traced(name, fn):
@@ -2167,12 +2449,17 @@ def _profile_serve(params, cfg, dev, profile_dir: Path, tag: str = "") -> None:
         busy: dict[str, float] = {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA and e.name not in (
-                    "Activity Buffer Request", "Command Buffer Full"):
+                    "Activity Buffer Request", "Command Buffer Full") \
+                    and not e.name.startswith("hymba."):   # a range, no kernel
                 c = _kernel_class(e.name)
                 busy[c] = busy.get(c, 0.0) + e.device_time_total / 1e3
+        mamba = {f"hymba.mamba_{k}_ms": getattr(e, f"{k}_time_total", 0.0)
+                 / 1e3 for e in prof.key_averages() if e.key == "hymba.mamba"
+                 for k in ("cpu", "device")}
         log(f"profile serve {tag}{name}: wall_ms={wall * 1e3!r} device_ms_by_class="
             f"{json.dumps(busy)} idle_share="
-            f"{1 - sum(busy.values()) / (wall * 1e3)!r}")
+            f"{1 - sum(busy.values()) / (wall * 1e3)!r}"
+            + (f" mamba_ranges={json.dumps(mamba)}" if mamba else ""))
         return out
 
     logits, _, _ = traced("prefill", lambda: lm.forward(params, tokens=tokens,
@@ -2306,14 +2593,19 @@ def main() -> int:
     sv = serve_phase(dev, args.profile)
     log(f"serve phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    hv = hymba_serve_phase(dev, args.profile)
+    log(f"hymba serve phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     mv = moe_serve_phase(dev, args.profile)
     log(f"moe serve phase: {time.perf_counter() - t0:.2f} s")
     # each path's launches, counted from zero just before it ran
     launches = {k: sum(p["launches"][k] for p in (sl, sk, bt, gr))
                 for k in sl["launches"]}
-    launches.update(flash_attention=sv["launches"]["flash_attention"],
-                    decode_attention=sv["launches"]["decode_attention"],
-                    gmm=mv["launches"]["gmm"])
+    launches.update(
+        flash_attention=sum(p["launches"]["flash_attention"] for p in (sv, hv)),
+        decode_attention=sum(p["launches"]["decode_attention"]
+                             for p in (sv, hv)),
+        gmm=mv["launches"]["gmm"])
     # the gmm row of the line: a decode step's gate/up launch, the shape of
     # 1,152 of the serve's 1,188 launches (all four shapes are logged)
     krows["gmm"] = krows["decode gate/up"]
@@ -2341,6 +2633,14 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         if "path" in r:       # the kernel of the row's shape (flash, decode)
             line[-1]["path"] = r["path"]
+        w = krows.get(f"{k.__name__}_hymba")
+        if w is not None:     # flash and decode with Hymba's window
+            line[-1]["window"] = {
+                "launches": hv["launches"][k.__name__],
+                **{x: w[x] for x in ("window", "max_abs_err", "ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "library_call",
+                                     "unwindowed_ms", "unwindowed_bound_ms")}}
         for key in ("zipf_ms", "zipf_longest_segment", "zipf_byte_bound_ms",
                     "library_call", "index_add_ms", "unsorted_ms"):
             if key in r:      # the fold on the shuffle's own layout; PART's

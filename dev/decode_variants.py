@@ -73,8 +73,8 @@ VARIANTS = {
     "probe: no merge": [("  float* my_ml = ml_s + warp * kRows * 2;\n",
                          "  if (splits > 0) return;\n"
                          "  float* my_ml = ml_s + warp * kRows * 2;\n")],
-    "probe: no P V": [("      for (int p = 0; p < nv; ++p) {\n",
-                       "      for (int p = 0; p < nv * 0; ++p) {\n")],
+    "probe: no P V": [("      for (int p = nlo; p < nv; ++p) {\n",
+                       "      for (int p = nlo; p < nv * 0; ++p) {\n")],
     "fenced counter": [
         ("  named_barrier(1, cthreads);\n  if (ctid == 0) {\n    int done;\n"
          "    asm volatile(\"atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\\n\"\n"
@@ -126,7 +126,7 @@ def build_variants() -> dict:
         f = ctypes.CDLL(str(so)).teshu_decode_attention_tma
         p, i64 = ctypes.c_void_p, ctypes.c_int64
         f.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64,
-                      i64, ctypes.c_float, p]
+                      i64, i64, ctypes.c_float, p]
         f.restype = ctypes.c_int
         libs[name] = f
     return libs
@@ -144,7 +144,7 @@ def _launch(f, q, k, v, valid):
     cnt = mod._counters(q.device, pairs)
     _build.check(f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    acc.data_ptr(), ml.data_ptr(), cnt.data_ptr(), None, valid,
-                   b, t, kvh, g, d, grid, d ** -0.5, _build.stream_of(q)),
+                   b, t, kvh, g, d, 0, grid, d ** -0.5, _build.stream_of(q)),
                  "decode variant")
     return out
 

@@ -182,7 +182,7 @@ def build_variants() -> dict:
         f = ctypes.CDLL(str(so)).teshu_flash_attention
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         f.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i32, i32,
-                      ctypes.c_float, i32, p]
+                      ctypes.c_float, i32, i64, p]
         f.restype = ctypes.c_int
         libs[name] = f
     return libs
@@ -233,7 +233,7 @@ def main() -> int:
         def run(f):
             _build.check(f(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            out.data_ptr(), bhq, bhkv, s, s, d, 1, 1,
-                           d ** -0.5, int(causal), st), "flash variant")
+                           d ** -0.5, int(causal), 0, st), "flash variant")
         plain = ref.flash_attention_ref(q, k, v, causal=causal)
         tol = ref.flash_attention_tolerance(q, k, v, plain, causal=causal)
         share = {}

@@ -9,6 +9,12 @@
 // tiles past valid_len are skipped.  The math is float32 and the output has
 // q's dtype.
 //
+// A sliding window (window > 0) keeps positions [valid_len - window,
+// valid_len), the reference's mask (rows - cols) < window for the row
+// valid_len - 1 (repro/models/layers.py::_sdpa_fused).  Both kernels then
+// plan their splits over the window's tiles only, from the tile of its
+// first position on, and mask the positions left of it in that tile.
+//
 // What bounds it on an H100: bytes.  Every valid cache position is read
 // once (K and V, KVH * d values each) and the work per byte is g FMAs, far
 // below the card's balance point.  At the serving decode (batch 4, 8 kv
@@ -66,7 +72,8 @@
 //   One thread per (row, position) forms a score from 16-byte reads, one
 //   warp per row does the softmax update, and one thread per (row, 8
 //   columns) keeps its accumulator in registers across tiles.  Positions
-//   past valid_len are copied as zeros and masked.
+//   past valid_len, and left of a window, are copied as zeros and masked;
+//   decode_combine merges whatever positions the splits covered.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -150,7 +157,7 @@ __global__ void __launch_bounds__(kThreads)
 decode_split(const TQ* __restrict__ q, const TKV* __restrict__ k,
              const TKV* __restrict__ v, TQ* __restrict__ out,
              float* __restrict__ part_acc, float* __restrict__ part_ml,
-             int t_len, int kvh_count, int g, int d, int valid,
+             int t_len, int kvh_count, int g, int d, int valid, int first,
              int tiles_per_split, float scale) {
   constexpr int kVec = 16 / sizeof(TKV);          // cache values per unit
   const int chunks = d / kVec;                    // 16-byte units per row
@@ -185,7 +192,9 @@ decode_split(const TQ* __restrict__ q, const TKV* __restrict__ k,
   const int64_t head0 = (static_cast<int64_t>(b) * t_len * kvh_count + kvh) * d;
   const TKV* kb = k + head0;
   const TKV* vb = v + head0;
-  const int t_begin = split * tiles_per_split * kTile;
+  // positions [first, valid) are attended; the splits run over the tiles
+  // from first's on
+  const int t_begin = (first / kTile + split * tiles_per_split) * kTile;
   const int t_end = min(valid, t_begin + tiles_per_split * kTile);
   const int n_tiles = (t_end - t_begin + kTile - 1) / kTile;
 
@@ -197,7 +206,7 @@ decode_split(const TQ* __restrict__ q, const TKV* __restrict__ k,
       const int rem = i - which * kTile * chunks;
       const int p = rem / chunks;
       const int c = rem - p * chunks;
-      const bool ok = t0 + p < t_end;
+      const bool ok = t0 + p < t_end && t0 + p >= first;   // else zeros
       const TKV* src = (which ? vb : kb)
           + static_cast<int64_t>(ok ? t0 + p : t_begin) * pos_stride + c * kVec;
       cp_async16(stages + ((st * 2 + which) * kTile + p) * rs + c, src,
@@ -245,7 +254,7 @@ decode_split(const TQ* __restrict__ q, const TKV* __restrict__ k,
           s1 = fmaf(qx[e + 1], kx[e + 1], s1);
         }
       }
-      ss[i] = t0 + p < t_end ? (s0 + s1) * scale : kMasked;
+      ss[i] = t0 + p < t_end && t0 + p >= first ? (s0 + s1) * scale : kMasked;
     }
     __syncthreads();
 
@@ -354,7 +363,7 @@ decode_combine(const float* __restrict__ part_acc,
 template <typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, void* out,
            void* part_acc, void* part_ml, int64_t batch, int64_t t_len,
-           int64_t kvh, int64_t g, int64_t d, int64_t valid,
+           int64_t kvh, int64_t g, int64_t d, int64_t valid, int64_t first,
            int64_t tiles_per_split, int64_t num_splits, float scale,
            cudaStream_t st) {
   auto kern = decode_split<TQ, TKV>;
@@ -373,7 +382,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
       static_cast<const TKV*>(v), static_cast<TQ*>(out),
       static_cast<float*>(part_acc), static_cast<float*>(part_ml),
       static_cast<int>(t_len), static_cast<int>(kvh), static_cast<int>(g),
-      static_cast<int>(d), static_cast<int>(valid),
+      static_cast<int>(d), static_cast<int>(valid), static_cast<int>(first),
       static_cast<int>(tiles_per_split), scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || num_splits == 1) return static_cast<int>(e);
@@ -463,7 +472,8 @@ decode_tma(const __grid_constant__ CUtensorMap tk,
            const bf16* __restrict__ q, bf16* __restrict__ out,
            float* __restrict__ part_acc, float* __restrict__ part_ml,
            int* __restrict__ counters, const int* __restrict__ valid_ptr,
-           int valid_arg, int t_len, int kvh_count, int g, float scale_log2) {
+           int valid_arg, int t_len, int kvh_count, int g, int window,
+           float scale_log2) {
   using T = TTile<D, N8>;
   using namespace hopper;
   constexpr int kRows = T::kRows;
@@ -479,11 +489,15 @@ decode_tma(const __grid_constant__ CUtensorMap tk,
         ob[i] = __float2bfloat16(__int_as_float(0x7fc00000));
     return;
   }
-  const int tiles = (valid + kTTile - 1) / kTTile;
+  // the attended positions [lo, valid): their tiles, from lo's on, are cut
+  // into the splits; every block of the pair computes the same plan
+  const int lo = window > 0 ? max(0, valid - window) : 0;
+  const int first_tile = lo / kTTile;
+  const int tiles = (valid + kTTile - 1) / kTTile - first_tile;
   const int splits = min(tiles, static_cast<int>(gridDim.x));
   if (split >= splits) return;
-  const int tile0 = split * tiles / splits;
-  const int n_tiles = (split + 1) * tiles / splits - tile0;
+  const int tile0 = first_tile + split * tiles / splits;
+  const int n_tiles = first_tile + (split + 1) * tiles / splits - tile0;
   const int b = pair / kvh_count;
   const int kvh = pair % kvh_count;
 
@@ -587,7 +601,10 @@ decode_tma(const __grid_constant__ CUtensorMap tk,
     const int s = i % kTStages;
     const uint32_t ph = (i / kTStages) & 1;
     const int pos0 = (tile0 + i) * kTTile + ps * kSlice;
-    const int nv = min(max(valid - pos0, 0), kSlice);   // valid positions
+    // the slice's attended positions are [nlo, nv); none: nv = 0
+    int nv = min(max(valid - pos0, 0), kSlice);
+    const int nlo = min(max(lo - pos0, 0), nv);
+    if (nlo == nv) nv = 0;
     float c[N8][4];
 #pragma unroll
     for (int j = 0; j < N8; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.0f;
@@ -616,7 +633,8 @@ decode_tma(const __grid_constant__ CUtensorMap tk,
     if (nv > 0) {
       // c[j]: S^T at positions lane / 4 (0, 1) and lane / 4 + 8 (2, 3) of
       // the slice, q rows 8 j + 2 (lane % 4) + (0, 1)
-      const bool ok0 = lane / 4 < nv, ok1 = lane / 4 + 8 < nv;
+      const bool ok0 = lane / 4 >= nlo && lane / 4 < nv;
+      const bool ok1 = lane / 4 + 8 >= nlo && lane / 4 + 8 < nv;
 #pragma unroll
       for (int j = 0; j < N8; ++j) {
 #pragma unroll
@@ -658,7 +676,7 @@ decode_tma(const __grid_constant__ CUtensorMap tk,
       }
       const uint8_t* vt = ring + (2 * s + 1) * T::kBytes;
 #pragma unroll 2
-      for (int p = 0; p < nv; ++p) {
+      for (int p = nlo; p < nv; ++p) {
         const int row = ps * kSlice + p;
         float vx[kCols];
         if constexpr (D == 128) {      // columns 4 lane .. 4 lane + 3
@@ -825,8 +843,8 @@ template <int D, int N8>
 int launch_tma(const void* q, const void* k, const void* v, void* out,
                void* part_acc, void* part_ml, int* counters,
                const int* valid_ptr, int64_t valid, int64_t batch,
-               int64_t t_len, int64_t kvh, int64_t g, int64_t max_splits,
-               float scale, cudaStream_t st) {
+               int64_t t_len, int64_t kvh, int64_t g, int64_t window,
+               int64_t max_splits, float scale, cudaStream_t st) {
   using T = TTile<D, N8>;
   CUtensorMap mk, mv;
   if (!cache_map(k, batch, t_len, kvh, D, &mk) ||
@@ -854,7 +872,8 @@ int launch_tma(const void* q, const void* k, const void* v, void* out,
       mk, mv, static_cast<const bf16*>(q), static_cast<bf16*>(out),
       static_cast<float*>(part_acc), static_cast<float*>(part_ml), counters,
       valid_ptr, static_cast<int>(valid), static_cast<int>(t_len),
-      static_cast<int>(kvh), static_cast<int>(g), scale * kLog2e);
+      static_cast<int>(kvh), static_cast<int>(g), static_cast<int>(window),
+      scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -871,34 +890,37 @@ extern "C" int teshu_decode_attention_fits(int64_t g, int64_t d, int kv_dtype) {
 }
 
 // q [batch, kvh * g, d], k and v [batch, t_len, kvh, d], out like q, all
-// contiguous and 16-byte aligned; 1 <= valid <= t_len.  With num_splits > 1,
+// contiguous and 16-byte aligned; 0 <= first < valid <= t_len, positions
+// [first, valid) attended (first > 0: a sliding window).  With num_splits > 1,
 // part_acc is float32 [batch * kvh, num_splits, g, d] and part_ml float32
-// [batch * kvh, num_splits, g, 2]; split s covers positions
-// [s * tiles_per_split * 64, (s + 1) * tiles_per_split * 64) of [0, valid),
-// and each split must start below valid.  dtypes 0 = float32,
-// 1 = bfloat16 (q_dtype is also the output's).  Returns a cudaError_t.
+// [batch * kvh, num_splits, g, 2]; with f = first / 64 the first tile, split
+// s covers positions [(f + s * tiles_per_split) * 64, (f + (s + 1) *
+// tiles_per_split) * 64) of [first, valid), and each split must start below
+// valid.  dtypes 0 = float32, 1 = bfloat16 (q_dtype is also the output's).
+// Returns a cudaError_t.
 extern "C" int teshu_decode_attention(
     const void* q, const void* k, const void* v, void* out, void* part_acc,
     void* part_ml, int64_t batch, int64_t t_len, int64_t kvh, int64_t g,
-    int64_t d, int64_t valid, int64_t tiles_per_split, int64_t num_splits,
-    int q_dtype, int kv_dtype, float scale, void* stream) {
-  if (valid < 1 || valid > t_len || num_splits < 1 || tiles_per_split < 1 ||
-      (num_splits - 1) * tiles_per_split * kTile >= valid ||
+    int64_t d, int64_t valid, int64_t first, int64_t tiles_per_split,
+    int64_t num_splits, int q_dtype, int kv_dtype, float scale, void* stream) {
+  if (valid < 1 || valid > t_len || first < 0 || first >= valid ||
+      num_splits < 1 || tiles_per_split < 1 ||
+      (first / kTile + (num_splits - 1) * tiles_per_split) * kTile >= valid ||
       batch * kvh > 65535 || !teshu_decode_attention_fits(g, d, kv_dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && kv_dtype == 0)
     return launch<float, float>(q, k, v, out, part_acc, part_ml, batch, t_len,
-                                kvh, g, d, valid, tiles_per_split, num_splits, scale, st);
+                                kvh, g, d, valid, first, tiles_per_split, num_splits, scale, st);
   if (q_dtype == 0 && kv_dtype == 1)
     return launch<float, __nv_bfloat16>(q, k, v, out, part_acc, part_ml, batch, t_len,
-                                        kvh, g, d, valid, tiles_per_split, num_splits, scale, st);
+                                        kvh, g, d, valid, first, tiles_per_split, num_splits, scale, st);
   if (q_dtype == 1 && kv_dtype == 0)
     return launch<__nv_bfloat16, float>(q, k, v, out, part_acc, part_ml, batch, t_len,
-                                        kvh, g, d, valid, tiles_per_split, num_splits, scale, st);
+                                        kvh, g, d, valid, first, tiles_per_split, num_splits, scale, st);
   if (q_dtype == 1 && kv_dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, out, part_acc, part_ml, batch, t_len,
-                                                kvh, g, d, valid, tiles_per_split, num_splits, scale, st);
+                                                kvh, g, d, valid, first, tiles_per_split, num_splits, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -912,7 +934,8 @@ extern "C" int teshu_decode_attention_tma_fits(int64_t g, int64_t d) {
 // out like q, all contiguous and 16-byte aligned.  valid_ptr, when not
 // null, points at an int32 on the device that the kernel reads (outside
 // [1, t_len] it writes NaN rows); otherwise valid (1 <= valid <= t_len) is
-// the length.  The grid holds max_splits blocks per (batch, kv head) pair;
+// the length; window 0 (none) or the sliding window's width.  The grid holds
+// max_splits blocks per (batch, kv head) pair;
 // with max_splits > 1, part_acc is float32 [batch * kvh, max_splits, g, d],
 // part_ml float32 [batch * kvh, max_splits, g, 2] and counters int32
 // [batch * kvh], all zero, which the kernel leaves zero.  Returns a
@@ -921,8 +944,9 @@ extern "C" int teshu_decode_attention_tma(
     const void* q, const void* k, const void* v, void* out, void* part_acc,
     void* part_ml, void* counters, const void* valid_ptr, int64_t valid,
     int64_t batch, int64_t t_len, int64_t kvh, int64_t g, int64_t d,
-    int64_t max_splits, float scale, void* stream) {
+    int64_t window, int64_t max_splits, float scale, void* stream) {
   if (batch < 1 || kvh < 1 || batch * kvh > 65535 || t_len < 1 ||
+      window < 0 || window > (int64_t{1} << 30) ||
       t_len > (int64_t{1} << 30) || max_splits < 1 || max_splits > 65535 ||
       !teshu_decode_attention_tma_fits(g, d) ||
       (valid_ptr == nullptr && (valid < 1 || valid > t_len)) ||
@@ -933,10 +957,10 @@ extern "C" int teshu_decode_attention_tma(
   auto vp = static_cast<const int*>(valid_ptr);
   auto cnt = static_cast<int*>(counters);
   if (d == 128 && g <= 8)
-    return launch_tma<128, 1>(q, k, v, out, part_acc, part_ml, cnt, vp, valid, batch, t_len, kvh, g, max_splits, scale, st);
+    return launch_tma<128, 1>(q, k, v, out, part_acc, part_ml, cnt, vp, valid, batch, t_len, kvh, g, window, max_splits, scale, st);
   if (d == 128)
-    return launch_tma<128, 2>(q, k, v, out, part_acc, part_ml, cnt, vp, valid, batch, t_len, kvh, g, max_splits, scale, st);
+    return launch_tma<128, 2>(q, k, v, out, part_acc, part_ml, cnt, vp, valid, batch, t_len, kvh, g, window, max_splits, scale, st);
   if (g <= 8)
-    return launch_tma<64, 1>(q, k, v, out, part_acc, part_ml, cnt, vp, valid, batch, t_len, kvh, g, max_splits, scale, st);
-  return launch_tma<64, 2>(q, k, v, out, part_acc, part_ml, cnt, vp, valid, batch, t_len, kvh, g, max_splits, scale, st);
+    return launch_tma<64, 1>(q, k, v, out, part_acc, part_ml, cnt, vp, valid, batch, t_len, kvh, g, window, max_splits, scale, st);
+  return launch_tma<64, 2>(q, k, v, out, part_acc, part_ml, cnt, vp, valid, batch, t_len, kvh, g, window, max_splits, scale, st);
 }

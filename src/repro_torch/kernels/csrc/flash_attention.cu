@@ -6,7 +6,14 @@
 // replication), queries end-aligned with the keys (q_offset = Skv - Sq),
 // kv tiles strictly above the causal diagonal skipped, columns >= Skv masked
 // with -1e30 (not -inf, as the reference), and the final divide guarded
-// against l == 0.  q and k/v may each be float32 or bfloat16; scores, the
+// against l == 0.  A sliding window (window > 0: absolute row r sees columns
+// c with r - c < window, the mask of repro/models/layers.py::_sdpa_fused)
+// starts each block's walk at the kv tile of its first row's first visible
+// column, so a block reads about window + its rows of keys, not all of them;
+// columns left of a row's window inside that walk are masked.  A tile that
+// is wholly masked for some row before any visible one scores -1e30
+// everywhere, and the next tile's rescale (exp(-1e30 - m) = 0) removes what
+// it added.  q and k/v may each be float32 or bfloat16; scores, the
 // running (m, l) and the accumulator are float32; the output has q's dtype.
 //
 // What bounds it on an H100: operations.  At the serving prefill (batch 4,
@@ -129,7 +136,7 @@ template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k,
           const TKV* __restrict__ v, TQ* __restrict__ out, int sq, int skv,
-          int group, float scale, int causal) {
+          int group, float scale, int causal, int window) {
   constexpr int kLd = D + 4;
   constexpr int kPLd = kBK + 4;
   constexpr int kDC = D / 16;                 // output columns per thread
@@ -157,6 +164,8 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k,
     const int last = min(q0 + kBQ, sq) - 1 + q_offset;
     n_tiles = min(n_tiles, last / kBK + 1);
   }
+  // the block's first row sees columns >= its row - window + 1
+  const int t_first = window > 0 ? max(0, q0 + q_offset - window + 1) / kBK : 0;
 
   float m[4], l[4], acc[4][kDC];
 #pragma unroll
@@ -167,7 +176,7 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k,
     for (int c = 0; c < kDC; ++c) acc[i][c] = 0.0f;
   }
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_first; t < n_tiles; ++t) {
     const int k0 = t * kBK;
     __syncthreads();                 // the last tile's P and V are consumed
     load_tile<TKV, D>(kb, skv, k0, ks);
@@ -210,7 +219,9 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
-        if (col >= skv || (causal && col > row)) x = kMasked;
+        if (col >= skv || (causal && col > row) ||
+            (window > 0 && row - col >= window))
+          x = kMasked;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -288,7 +299,7 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k,
 template <typename TQ, typename TKV, int D>
 int launch(const void* q, const void* k, const void* v, void* out,
            int64_t bhq, int64_t sq, int64_t skv, int64_t group, float scale,
-           int causal, cudaStream_t st) {
+           int causal, int window, cudaStream_t st) {
   static_assert(smem_bytes<D>() <= kMaxSmem, "tile too large");
   auto kern = flash_fwd<TQ, TKV, D>;
   static bool ready = false;   // per instantiation: allow > 48 KB once
@@ -305,7 +316,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), static_cast<TQ*>(out),
       static_cast<int>(sq), static_cast<int>(skv), static_cast<int>(group),
-      scale, causal);
+      scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -387,7 +398,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_mma(const __nv_bfloat16* __restrict__ q,
           const __nv_bfloat16* __restrict__ k,
           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-          int sq, int skv, int group, float scale, int causal) {
+          int sq, int skv, int group, float scale, int causal, int window) {
   constexpr int kLd = D + 8;          // bf16 per shared row: an odd count
                                       // of 16-byte units, no bank conflicts
   constexpr int kKs = D / 16;         // k-steps of Q K^T
@@ -415,10 +426,11 @@ flash_mma(const __nv_bfloat16* __restrict__ q,
     const int last = min(q0 + kBQ, sq) - 1 + q_offset;
     n_tiles = min(n_tiles, last / kBK + 1);
   }
+  const int t_first = window > 0 ? max(0, q0 + q_offset - window + 1) / kBK : 0;
 
   fetch_tile<D>(q + static_cast<int64_t>(bh) * sq * D, sq, q0, qs);
-  fetch_tile<D>(kb, skv, 0, kvs);
-  fetch_tile<D>(vb, skv, 0, kvs + 64 * kLd);
+  fetch_tile<D>(kb, skv, t_first * kBK, kvs);
+  fetch_tile<D>(vb, skv, t_first * kBK, kvs + 64 * kLd);
   cp_async_commit();
 
   unsigned qf[kKs][4];
@@ -431,8 +443,8 @@ flash_mma(const __nv_bfloat16* __restrict__ q,
   const int row0 = q0 + warp * 16 + gr + q_offset;     // absolute causal rows
   const int row1 = row0 + 8;                           // of this lane's two
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1;
+  for (int t = t_first; t < n_tiles; ++t) {
+    const int st = (t - t_first) & 1;
     if (t + 1 < n_tiles) {     // its stage was released at the end of t - 1
       __nv_bfloat16* nxt = kvs + (st ^ 1) * 2 * 64 * kLd;
       fetch_tile<D>(kb, skv, (t + 1) * kBK, nxt);
@@ -443,7 +455,7 @@ flash_mma(const __nv_bfloat16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (t == 0) {
+    if (t == t_first) {
 #pragma unroll
       for (int kk = 0; kk < kKs; ++kk)
         ldsm_x4(qf[kk], qs + (warp * 16 + lr + 8 * (lm & 1)) * kLd
@@ -479,7 +491,9 @@ flash_mma(const __nv_bfloat16* __restrict__ q,
         const int col = k0 + nt * 8 + 2 * tc + (e & 1);
         const int row = e < 2 ? row0 : row1;
         float x = s[nt][e] * scale;
-        if (col >= skv || (causal && col > row)) x = kMasked;
+        if (col >= skv || (causal && col > row) ||
+            (window > 0 && row - col >= window))
+          x = kMasked;
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -550,7 +564,7 @@ flash_mma(const __nv_bfloat16* __restrict__ q,
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                int64_t bhq, int64_t sq, int64_t skv, int64_t group,
-               float scale, int causal, cudaStream_t st) {
+               float scale, int causal, int window, cudaStream_t st) {
   static_assert(mma_smem_bytes<D>() <= kMaxSmem, "tile too large");
   auto kern = flash_mma<D>;
   static bool ready = false;   // per instantiation: allow > 48 KB once
@@ -567,7 +581,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
       static_cast<int>(sq), static_cast<int>(skv), static_cast<int>(group),
-      scale, causal);
+      scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -619,7 +633,8 @@ __global__ void __launch_bounds__(kWThreads, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap tq,
             const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
-            int sq, int skv, int group, float scale_log2, int causal) {
+            int sq, int skv, int group, float scale_log2, int causal,
+            int window) {
   using T = WTile<D>;
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
@@ -637,11 +652,15 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
   const int bh = blockIdx.y;
   const int kvh = bh / group;
   const int q_offset = skv - sq;
-  int n_tiles = (skv + kWBK - 1) / kWBK;
+  int t_end = (skv + kWBK - 1) / kWBK;
   if (causal) {   // the block's last real row sees columns <= last
     const int last = min(q0 + kWBQ, sq) - 1 + q_offset;
-    n_tiles = min(n_tiles, last / kWBK + 1);
+    t_end = min(t_end, last / kWBK + 1);
   }
+  // the block walks kv tiles t_first .. t_end - 1, the producer and both
+  // consumers alike: ring slot and mbarrier phase count from t_first
+  const int t_first = window > 0 ? max(0, q0 + q_offset - window + 1) / kWBK : 0;
+  const int n_tiles = t_end - t_first;
 
   if (threadIdx.x == 0) {
     tma_prefetch(&tq);
@@ -666,21 +685,22 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int b = 0; b < T::kBoxes; ++b)
         tma_load_3d(smem + b * kWBoxBytes, &tq, q_full, b * kWBox, q0, bh);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kWStages;
-        const uint32_t ph = (t / kWStages - 1) & 1;
-        if (t >= kWStages) mbar_wait(&k_empty[s], ph);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kWStages;
+        const uint32_t ph = (i / kWStages - 1) & 1;
+        const int row = (t_first + i) * kWBK;
+        if (i >= kWStages) mbar_wait(&k_empty[s], ph);
         mbar_arrive_expect_tx(&k_full[s], T::kBytes);
 #pragma unroll
         for (int b = 0; b < T::kBoxes; ++b)
           tma_load_3d(ks + s * T::kBytes + b * kWBoxBytes, &tk, &k_full[s],
-                      b * kWBox, t * kWBK, kvh);
-        if (t >= kWStages) mbar_wait(&v_empty[s], ph);
+                      b * kWBox, row, kvh);
+        if (i >= kWStages) mbar_wait(&v_empty[s], ph);
         mbar_arrive_expect_tx(&v_full[s], T::kBytes);
 #pragma unroll
         for (int b = 0; b < T::kBoxes; ++b)
           tma_load_3d(vs + s * T::kBytes + b * kWBoxBytes, &tv, &v_full[s],
-                      b * kWBox, t * kWBK, kvh);
+                      b * kWBox, row, kvh);
       }
     }
     return;
@@ -707,8 +727,9 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
   float m[2] = {kMasked, kMasked};      // running max, log2 domain
   float l[2] = {0.0f, 0.0f};            // this thread's share of the sum
 
-  auto issue_s = [&](int t) {           // sc = Q K_t^T
-    const uint8_t* kt = ks + (t % kWStages) * T::kBytes;
+  // i counts the block's tiles from t_first: ring slot i % kWStages
+  auto issue_s = [&](int i) {           // sc = Q K_i^T
+    const uint8_t* kt = ks + (i % kWStages) * T::kBytes;
     fence_regs(sc);
     wgmma_fence();
 #pragma unroll
@@ -719,8 +740,8 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
     }
     wgmma_commit();
   };
-  auto issue_pv = [&](int t) {          // o += P V_t
-    const uint8_t* vt = vs + (t % kWStages) * T::kBytes;
+  auto issue_pv = [&](int i) {          // o += P V_i
+    const uint8_t* vt = vs + (i % kWStages) * T::kBytes;
     fence_regs(o);
     fence_regs(pk);
     wgmma_fence();
@@ -736,18 +757,23 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
     }
     wgmma_commit();
   };
-  // the online softmax of tile t on sc: masks, the running max, P = 2^(s -
-  // m) in place, the running sums; alpha rescales what came before
-  auto softmax = [&](int t, float (&alpha)[2]) {
-    const int k0 = t * kWBK;
+  // the online softmax of the block's tile i on sc: masks, the running
+  // max, P = 2^(s - m) in place, the running sums; alpha rescales what came
+  // before.  A tile needs the mask where it reaches past Skv, above the
+  // warpgroup's first row's diagonal, or left of its last row's window
+  auto softmax = [&](int i_tile, float (&alpha)[2]) {
+    const int k0 = (t_first + i_tile) * kWBK;
 #pragma unroll
     for (int i = 0; i < kWBK / 2; ++i) sc[i] *= scale_log2;
-    if (k0 + kWBK > skv || (causal && k0 + kWBK - 1 > first_arow)) {
+    if (k0 + kWBK > skv || (causal && k0 + kWBK - 1 > first_arow) ||
+        (window > 0 && k0 <= first_arow + 63 - window)) {
 #pragma unroll
       for (int i = 0; i < kWBK / 2; ++i) {
         const int col = k0 + 8 * (i / 4) + c_lane + (i % 2);
         const int arow = (i / 2) % 2 ? arow_hi : arow_lo;
-        if (col >= skv || (causal && col > arow)) sc[i] = kMasked;
+        if (col >= skv || (causal && col > arow) ||
+            (window > 0 && arow - col >= window))
+          sc[i] = kMasked;
       }
     }
     float mx[2] = {m[0], m[1]};
@@ -849,7 +875,8 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  int64_t bhq, int64_t bhkv, int64_t sq, int64_t skv,
-                 int64_t group, float scale, int causal, cudaStream_t st) {
+                 int64_t group, float scale, int causal, int window,
+                 cudaStream_t st) {
   static_assert(WTile<D>::kSmem <= kMaxSmem, "tile too large");
   // q [bhq, sq, D], k and v [bhkv, skv, D]: 3-D maps, so that a box never
   // crosses a head and rows past sq or skv read zeros
@@ -874,19 +901,20 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                   static_cast<unsigned>(bhq));
   kern<<<grid, kWThreads, WTile<D>::kSmem, st>>>(
       mq, mk, mv, static_cast<bf16*>(out), static_cast<int>(sq),
-      static_cast<int>(skv), static_cast<int>(group), scale * kLog2e, causal);
+      static_cast<int>(skv), static_cast<int>(group), scale * kLog2e, causal,
+      window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TQ, typename TKV>
 int by_dim(int64_t d, const void* q, const void* k, const void* v, void* out,
            int64_t bhq, int64_t sq, int64_t skv, int64_t group, float scale,
-           int causal, cudaStream_t st) {
+           int causal, int window, cudaStream_t st) {
   switch (d) {
-    case 16: return launch<TQ, TKV, 16>(q, k, v, out, bhq, sq, skv, group, scale, causal, st);
-    case 32: return launch<TQ, TKV, 32>(q, k, v, out, bhq, sq, skv, group, scale, causal, st);
-    case 64: return launch<TQ, TKV, 64>(q, k, v, out, bhq, sq, skv, group, scale, causal, st);
-    case 128: return launch<TQ, TKV, 128>(q, k, v, out, bhq, sq, skv, group, scale, causal, st);
+    case 16: return launch<TQ, TKV, 16>(q, k, v, out, bhq, sq, skv, group, scale, causal, window, st);
+    case 32: return launch<TQ, TKV, 32>(q, k, v, out, bhq, sq, skv, group, scale, causal, window, st);
+    case 64: return launch<TQ, TKV, 64>(q, k, v, out, bhq, sq, skv, group, scale, causal, window, st);
+    case 128: return launch<TQ, TKV, 128>(q, k, v, out, bhq, sq, skv, group, scale, causal, window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -895,28 +923,32 @@ int by_dim(int64_t d, const void* q, const void* k, const void* v, void* out,
 
 // q [bhq, sq, d], k and v [bhkv, skv, d], out [bhq, sq, d], all contiguous
 // and 16-byte aligned; d in {16, 32, 64, 128}; dtypes 0 = float32,
-// 1 = bfloat16 (q_dtype is also the output's).  Returns a cudaError_t.
+// 1 = bfloat16 (q_dtype is also the output's); window 0 (none) or the
+// sliding window's width.  Returns a cudaError_t.
 extern "C" int teshu_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int64_t bhq,
                                      int64_t bhkv, int64_t sq, int64_t skv,
                                      int64_t d, int q_dtype, int kv_dtype,
-                                     float scale, int causal, void* stream) {
-  if (bhkv <= 0 || bhq % bhkv != 0 || bhq > 65535 || sq <= 0 || skv <= 0)
+                                     float scale, int causal, int64_t window,
+                                     void* stream) {
+  if (bhkv <= 0 || bhq % bhkv != 0 || bhq > 65535 || sq <= 0 || skv <= 0 ||
+      window < 0 || window > (int64_t{1} << 30))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int win = static_cast<int>(window);
   auto st = static_cast<cudaStream_t>(stream);
   const int64_t group = bhq / bhkv;
   if (q_dtype == 0 && kv_dtype == 0)
-    return by_dim<float, float>(d, q, k, v, out, bhq, sq, skv, group, scale, causal, st);
+    return by_dim<float, float>(d, q, k, v, out, bhq, sq, skv, group, scale, causal, win, st);
   if (q_dtype == 0 && kv_dtype == 1)
-    return by_dim<float, __nv_bfloat16>(d, q, k, v, out, bhq, sq, skv, group, scale, causal, st);
+    return by_dim<float, __nv_bfloat16>(d, q, k, v, out, bhq, sq, skv, group, scale, causal, win, st);
   if (q_dtype == 1 && kv_dtype == 0)
-    return by_dim<__nv_bfloat16, float>(d, q, k, v, out, bhq, sq, skv, group, scale, causal, st);
+    return by_dim<__nv_bfloat16, float>(d, q, k, v, out, bhq, sq, skv, group, scale, causal, win, st);
   if (q_dtype == 1 && kv_dtype == 1) {     // all bf16: the tensor cores
     switch (d) {
-      case 16: return launch_mma<16>(q, k, v, out, bhq, sq, skv, group, scale, causal, st);
-      case 32: return launch_mma<32>(q, k, v, out, bhq, sq, skv, group, scale, causal, st);
-      case 64: return launch_wgmma<64>(q, k, v, out, bhq, bhkv, sq, skv, group, scale, causal, st);
-      case 128: return launch_wgmma<128>(q, k, v, out, bhq, bhkv, sq, skv, group, scale, causal, st);
+      case 16: return launch_mma<16>(q, k, v, out, bhq, sq, skv, group, scale, causal, win, st);
+      case 32: return launch_mma<32>(q, k, v, out, bhq, sq, skv, group, scale, causal, win, st);
+      case 64: return launch_wgmma<64>(q, k, v, out, bhq, bhkv, sq, skv, group, scale, causal, win, st);
+      case 128: return launch_wgmma<128>(q, k, v, out, bhq, bhkv, sq, skv, group, scale, causal, win, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

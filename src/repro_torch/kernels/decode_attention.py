@@ -4,7 +4,9 @@
 ``decode_attention(q, k, v, valid_len)`` attends one new token per sequence,
 ``q [B, H, d]``, over a cache ``k, v [B, T, KVH, d]`` whose positions
 ``>= valid_len`` are masked; q head ``h`` reads kv head ``h // (H / KVH)``.
-The math is float32; the result has q's dtype.
+With a sliding ``window`` (> 0) the positions ``< valid_len - window`` are
+masked too, and both kernels read only the window's tiles.  The math is
+float32; the result has q's dtype.
 
 The kernel is chosen by dtype and head width only.  bf16 q and cache at
 head width 64 or 128, with at most 48 q heads per kv head, take
@@ -46,12 +48,12 @@ def _lib():
     if f.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         f.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64,
-                      i64, i32, i32, ctypes.c_float, p]
+                      i64, i64, i32, i32, ctypes.c_float, p]
         f.restype = ctypes.c_int
         lib.teshu_decode_attention_fits.argtypes = [i64, i64, i32]
         lib.teshu_decode_attention_fits.restype = i32
         lib.teshu_decode_attention_tma.argtypes = [
-            p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64,
+            p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64,
             ctypes.c_float, p]
         lib.teshu_decode_attention_tma.restype = ctypes.c_int
         lib.teshu_decode_attention_tma_fits.argtypes = [i64, i64]
@@ -71,25 +73,37 @@ def grid_splits(pairs: int, t_len: int, sms: int) -> int:
     return max(1, min(-(-t_len // TILE), int(BLOCKS_PER_SM * sms) // pairs))
 
 
-def split_plan(pairs: int, valid: int, t_len: int, sms: int
+def window_start(valid: int, window: int) -> int:
+    """The first attended position: ``valid - window`` with a sliding
+    window, else 0."""
+    return max(0, valid - window) if window else 0
+
+
+def split_plan(pairs: int, valid: int, t_len: int, sms: int, window: int = 0
                ) -> tuple[int, list[tuple[int, int]]]:
     """The Python mirror of ``decode_tma``'s in-kernel rule: (the grid's
     blocks per pair, the ``[first, end)`` positions of each working split).
-    The ``ceil(valid / 64)`` valid tiles are cut into ``n = min(tiles,
-    grid)`` runs, split ``s`` taking tiles ``[s tiles / n, (s + 1) tiles /
-    n)``; blocks ``n ..`` of a pair have no work."""
+    The attended positions are ``[lo, valid)`` (``lo`` from
+    :func:`window_start`); the ``tiles`` 64-position tiles from ``lo``'s,
+    ``f = lo // 64``, up to ``ceil(valid / 64)`` are cut into ``n =
+    min(tiles, grid)`` runs, split ``s`` taking tiles ``f + [s tiles / n,
+    (s + 1) tiles / n)``; blocks ``n ..`` of a pair have no work."""
     grid = grid_splits(pairs, t_len, sms)
-    tiles = -(-valid // TILE)
+    lo = window_start(valid, window)
+    f = lo // TILE
+    tiles = -(-valid // TILE) - f
     n = min(tiles, grid)
-    return grid, [(s * tiles // n * TILE, min(valid, (s + 1) * tiles // n * TILE))
+    return grid, [(max(lo, (f + s * tiles // n) * TILE),
+                   min(valid, (f + (s + 1) * tiles // n) * TILE))
                   for s in range(n)]
 
 
-def _split_plan_host(pairs: int, valid: int, sms: int) -> tuple[int, int]:
+def _split_plan_host(pairs: int, valid: int, sms: int,
+                     window: int = 0) -> tuple[int, int]:
     """``decode_split``'s plan: (tiles per split, splits), enough splits to
     give the card about ``SPLIT_BLOCKS_PER_SM`` blocks per SM, every split
-    starting below ``valid``."""
-    tiles = -(-valid // TILE)
+    starting below ``valid``; the tiles counted from the window's first."""
+    tiles = -(-valid // TILE) - window_start(valid, window) // TILE
     want = max(1, -(-SPLIT_BLOCKS_PER_SM * sms // pairs))
     per = -(-tiles // min(tiles, want))
     return per, -(-tiles // per)
@@ -110,7 +124,8 @@ def _counters(device: torch.device, pairs: int) -> torch.Tensor:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid_len, *, scale: float | None = None) -> torch.Tensor:
+                     valid_len, *, scale: float | None = None,
+                     window: int = 0) -> torch.Tensor:
     """One-token attention of ``q [B, H, d]`` over ``k, v [B, T, KVH, d]``."""
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"decode attention wants q [B, H, d] and k, v "
@@ -123,6 +138,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)}")
     if not q.device == k.device == v.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    window = int(window)
+    if not 0 <= window <= 1 << 30:
+        raise ValueError(f"window must be 0 (none) or a width in [1, 2^30]: "
+                         f"{window}")
     on_device = isinstance(valid_len, torch.Tensor) and valid_len.is_cuda
     if on_device:
         if valid_len.dim() != 0 or valid_len.dtype != torch.int32 \
@@ -137,7 +156,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"valid_len must lie in [1, T={t}]: {valid}")
     scale = (d ** -0.5) if scale is None else float(scale)
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, valid, scale=scale)
+        return decode_attention_ref(q, k, v, valid, scale=scale, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"decode attention runs on cuda or cpu tensors, "
                          f"not {q.device}")
@@ -178,7 +197,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if part_ml is None else part_ml.data_ptr(),
             None if counters is None else counters.data_ptr(),
             valid_len.data_ptr() if on_device else None,
-            0 if on_device else valid, b, t, kvh, g, d, grid, scale,
+            0 if on_device else valid, b, t, kvh, g, d, window, grid, scale,
             _build.stream_of(q)), "decode_attention")
         decode_attention.launches += 1
         return out
@@ -186,7 +205,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         valid = int(valid_len)
         if not 1 <= valid <= t:
             raise ValueError(f"valid_len must lie in [1, T={t}]: {valid}")
-    per, splits = _split_plan_host(pairs, valid, sms)
+    per, splits = _split_plan_host(pairs, valid, sms, window)
     part_acc = part_ml = None
     if splits > 1:
         part_acc = torch.empty((pairs, splits, g, d), dtype=torch.float32,
@@ -197,7 +216,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         0 if part_acc is None else part_acc.data_ptr(),
         0 if part_ml is None else part_ml.data_ptr(),
-        b, t, kvh, g, d, valid, per, splits, _DTYPES[q.dtype],
+        b, t, kvh, g, d, valid, window_start(valid, window), per, splits,
+        _DTYPES[q.dtype],
         _DTYPES[k.dtype], scale, _build.stream_of(q)), "decode_attention")
     decode_attention.launches += 1
     return out

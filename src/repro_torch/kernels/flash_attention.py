@@ -5,7 +5,10 @@
 ``q [BHq, Sq, D]`` against ``k, v [BHkv, Skv, D]``: q head ``bh`` reads kv
 head ``bh // (BHq / BHkv)`` (GQA, no replication), and the queries are
 end-aligned with the keys, so with ``causal`` row ``i`` sees the columns
-``<= i + Skv - Sq``.  The math is float32; the result has q's dtype.
+``<= i + Skv - Sq``.  With a sliding ``window`` (> 0) row ``i`` also sees
+only the columns ``> i + Skv - Sq - window``, and the kernel reads only the
+kv tiles that meet a block's windows.  The math is float32; the result has
+q's dtype.
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`).  Any other device,
@@ -29,14 +32,14 @@ def _fn():
     if f.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         f.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i32, i32,
-                      ctypes.c_float, i32, p]
+                      ctypes.c_float, i32, i64, p]
         f.restype = ctypes.c_int
     return f
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float | None = None,
-                    causal: bool = True) -> torch.Tensor:
+                    scale: float | None = None, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
     """Attention of ``q [BHq, Sq, D]`` over ``k, v [BHkv, Skv, D]``."""
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"flash attention wants q [BHq, Sq, D] and k, v "
@@ -50,11 +53,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if skv == 0 or (causal and sq > skv):
         raise ValueError(f"need 0 < Skv, and Sq <= Skv when causal: "
                          f"Sq={sq} Skv={skv}")
+    window = int(window)
+    if not 0 <= window <= 1 << 30:
+        raise ValueError(f"window must be 0 (none) or a width in [1, 2^30]: "
+                         f"{window}")
     if not q.device == k.device == v.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
     scale = (d ** -0.5) if scale is None else float(scale)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, scale=scale, causal=causal)
+        return flash_attention_ref(q, k, v, scale=scale, causal=causal,
+                                   window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu tensors, "
                          f"not {q.device}")
@@ -74,7 +82,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     _build.check(_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), bhq, bhkv, sq, skv, d, _DTYPES[q.dtype],
-                       _DTYPES[k.dtype], scale, int(causal),
+                       _DTYPES[k.dtype], scale, int(causal), window,
                        _build.stream_of(q)),
                  "flash_attention")
     flash_attention.launches += 1

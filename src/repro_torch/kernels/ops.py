@@ -36,16 +36,18 @@ def segmented_fold(op, is_start, vals, *, use_kernel=True):
     return ref.segmented_fold_ref(op, is_start, vals)
 
 
-def attention(q, k, v, *, causal=True, scale=None, use_kernel=True):
+def attention(q, k, v, *, causal=True, scale=None, window=0, use_kernel=True):
     if use_kernel:
-        return flash_attention(q, k, v, causal=causal, scale=scale)
-    return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+        return flash_attention(q, k, v, causal=causal, scale=scale,
+                               window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                   window=window)
 
 
-def decode_attention(q, k, v, valid_len, *, use_kernel=True):
+def decode_attention(q, k, v, valid_len, *, window=0, use_kernel=True):
     if use_kernel:
-        return decode_attention_kernel(q, k, v, valid_len)
-    return ref.decode_attention_ref(q, k, v, valid_len)
+        return decode_attention_kernel(q, k, v, valid_len, window=window)
+    return ref.decode_attention_ref(q, k, v, valid_len, window=window)
 
 
 def grouped_matmul(x, w, tile_group_ids, *, block_n=128, use_kernel=True):

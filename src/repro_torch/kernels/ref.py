@@ -79,42 +79,68 @@ def segmented_fold_ref(op: str, is_start: torch.Tensor,
     return out
 
 
+# Above this many logits (1 GiB of float32) the plain flash works through
+# blocks of query rows; each row's math is the same, so smaller calls are
+# unchanged bit for bit
+FLASH_REF_LOGITS = 1 << 28
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        scale: float | None = None,
-                        causal: bool = True) -> torch.Tensor:
+                        scale: float | None = None, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
     """``[BHq, Sq, D] x [BHkv, Skv, D] -> [BHq, Sq, D]``; GQA by head
     repetition (q head ``bh`` reads kv head ``bh // group``), queries
-    end-aligned with the keys (row ``i`` sees columns ``<= i + Skv - Sq``
-    when causal).  float32 math, the result in q's dtype."""
+    end-aligned with the keys: row ``i`` is absolute row ``r = i + Skv -
+    Sq``, which sees columns ``c <= r`` when causal and ``r - c < window``
+    with a sliding window (``window`` 0: none).  float32 math, the result
+    in q's dtype; above ``FLASH_REF_LOGITS`` logits, one block of query
+    rows at a time."""
     bhq, sq, d = q.shape
     bhkv, skv, _ = k.shape
     group = bhq // bhkv
     k = k.repeat_interleave(group, dim=0)
     v = v.repeat_interleave(group, dim=0)
     scale = (d ** -0.5) if scale is None else scale
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
-    if causal:
-        mask = torch.ones((sq, skv), dtype=torch.bool,
-                          device=q.device).tril(skv - sq)
-        s = torch.where(mask[None], s, MASKED)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+    block = sq if bhq * sq * skv <= FLASH_REF_LOGITS else \
+        max(1, FLASH_REF_LOGITS // (bhq * skv))
+    cols = torch.arange(skv, device=q.device)
+    out = []
+    for i0 in range(0, sq, block):
+        qb = q[:, i0:i0 + block]
+        s = torch.einsum("bqd,bkd->bqk", qb.float(), k.float()) * scale
+        if causal or window:
+            rows = torch.arange(i0, i0 + qb.shape[1],
+                                device=q.device)[:, None] + (skv - sq)
+            mask = torch.ones((qb.shape[1], skv), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                mask &= cols[None] <= rows
+            if window:
+                mask &= rows - cols[None] < window
+            s = torch.where(mask[None], s, MASKED)
+        p = torch.softmax(s, dim=-1)
+        out.append(torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype))
+    return out[0] if len(out) == 1 else torch.cat(out, dim=1)
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         valid_len, *,
-                         scale: float | None = None) -> torch.Tensor:
+                         valid_len, *, scale: float | None = None,
+                         window: int = 0) -> torch.Tensor:
     """``[B, H, d] x [B, T, KVH, d] -> [B, H, d]``: one new token per
-    sequence against a cache whose positions ``>= valid_len`` are masked.
-    q head ``h`` reads kv head ``h // (H / KVH)``.  float32 math, the result
-    in q's dtype."""
+    sequence against a cache whose positions ``>= valid_len`` are masked,
+    and with a sliding window (``window`` > 0) those ``< valid_len -
+    window`` too.  q head ``h`` reads kv head ``h // (H / KVH)``.  float32
+    math, the result in q's dtype."""
     b, h, d = q.shape
     _, t, kvh, _ = k.shape
     g = h // kvh
     scale = (d ** -0.5) if scale is None else scale
     qg = q.reshape(b, kvh, g, d)
     s = torch.einsum("bkgd,btkd->bkgt", qg.float(), k.float()) * scale
-    mask = torch.arange(t, device=q.device) < valid_len
+    pos = torch.arange(t, device=q.device)
+    mask = pos < valid_len
+    if window:
+        mask &= pos >= valid_len - window
     s = torch.where(mask[None, None, None], s, MASKED)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", p, v.float())
@@ -178,21 +204,25 @@ def attention_tolerance(plain: torch.Tensor, abs_weighted: torch.Tensor, *,
 
 
 def flash_attention_tolerance(q, k, v, plain, *, causal: bool = True,
-                              scale: float | None = None) -> torch.Tensor:
+                              scale: float | None = None,
+                              window: int = 0) -> torch.Tensor:
     """:func:`attention_tolerance` for ``flash_attention(q, k, v)`` against
     ``plain = flash_attention_ref(q, k, v)``; bfloat16 q, k and v take the
     kernel's tensor-core path, which rounds P to bfloat16."""
-    a = flash_attention_ref(q.float(), k, v.abs(), causal=causal, scale=scale)
+    a = flash_attention_ref(q.float(), k, v.abs(), causal=causal, scale=scale,
+                            window=window)
     bf16 = torch.bfloat16
     return attention_tolerance(plain, a, rounds_p=q.dtype == k.dtype == bf16)
 
 
 def decode_attention_tolerance(q, k, v, valid_len, plain, *,
-                               scale: float | None = None) -> torch.Tensor:
+                               scale: float | None = None,
+                               window: int = 0) -> torch.Tensor:
     """:func:`attention_tolerance` for ``decode_attention(q, k, v,
     valid_len)`` against ``plain = decode_attention_ref(...)``: float32
     throughout, nothing rounded before the output."""
-    a = decode_attention_ref(q.float(), k, v.abs(), valid_len, scale=scale)
+    a = decode_attention_ref(q.float(), k, v.abs(), valid_len, scale=scale,
+                             window=window)
     return attention_tolerance(plain, a)
 
 

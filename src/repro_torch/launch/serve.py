@@ -4,12 +4,14 @@ Counterpart of ``repro.launch.serve`` on one device, without the mesh.  The
 prompts are the reference's (``np.random.default_rng(seed)`` integers), so
 the same weights give the same tokens in both packages.  On the card the
 prefill's attention runs the flash kernel and every decode step the decode
-kernel (:mod:`repro_torch.kernels`), and a MoE model's expert FFN the
-grouped-matmul kernel in both; ``use_kernel=False`` runs their plain
-versions, the yardstick the kernels are held against.
+kernel (:mod:`repro_torch.kernels`), each with the layer's sliding window
+(Hymba), and a MoE model's expert FFN the grouped-matmul kernel in both;
+``use_kernel=False`` runs their plain versions, the yardstick the kernels
+are held against.  A hybrid model's Mamba heads run as tensor ops.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu
 """
 from __future__ import annotations
 

@@ -82,10 +82,20 @@ def lm_params_from_reference(cfg: ModelConfig, params: dict, *,
 
 def cache_from_reference(cfg: ModelConfig, cache: dict, *,
                          device="cuda") -> dict:
-    """The port's cache (``{"pos", "layers": [{"k", "v", "len"}]}``) holding
-    a copy of the reference's ``lm.init_cache`` / ``forward`` cache."""
+    """The port's cache (``{"pos", "layers": [{"k", "v", "len"}]}``, a
+    hybrid model's layers ``{"attn": {"k", "v", "len"}, "ssm": {"conv",
+    "ssm"}}``) holding a copy of the reference's ``lm.init_cache`` /
+    ``forward`` cache, every leaf in its own dtype."""
     dev = check_device(device)
-    return {"pos": int(np.asarray(cache["pos"])), "layers": [
-        {"k": to_tensor(t["k"], dev), "v": to_tensor(t["v"], dev),
-         "len": int(np.asarray(t["len"]))}
-        for t in _layer_trees(cache, cfg.n_layers)]}
+
+    def attn(t):
+        return {"k": to_tensor(t["k"], dev), "v": to_tensor(t["v"], dev),
+                "len": int(np.asarray(t["len"]))}
+
+    def layer(t):
+        if "ssm" not in t:
+            return attn(t)
+        return {"attn": attn(t["attn"]),
+                "ssm": {k: to_tensor(v, dev) for k, v in t["ssm"].items()}}
+    return {"pos": int(np.asarray(cache["pos"])),
+            "layers": [layer(t) for t in _layer_trees(cache, cfg.n_layers)]}

@@ -8,10 +8,14 @@ device and are made either from a ``torch.Generator`` (the reference's
 ``dense_init`` distributions) or empty, to be filled by
 :mod:`repro_torch.models.convert`.
 
-Attention goes through :mod:`repro_torch.kernels.ops` on the serving path:
-prefill to the flash kernel's slot, single-token decode to the decode
-kernel's; ``use_kernel=False`` takes their plain versions instead.  MLA and
-sliding windows come with their models' slices and raise here.
+Attention with a KV cache goes through :mod:`repro_torch.kernels.ops`:
+a prefill, into an empty cache or appended to a filled one, to the flash
+kernel's slot over the cache's rows, single-token decode to the decode
+kernel's, each with the layer's sliding window; ``use_kernel=False`` takes
+their plain versions instead.  Without a cache, the flash slot, or with
+``use_kernel=False`` :func:`_attend`, the reference's dispatch between the
+fused and the blocked plain attention.  MLA comes with its model's slice
+and raises here.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from torch import nn
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import MASKED
 
+from .blocked_attention import blocked_attention, use_blocked
 from .config import ModelConfig
 
 
@@ -104,11 +109,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # Attention (GQA, QKV bias, KV cache)
 # ---------------------------------------------------------------------------
 
-def _sdpa_fused(q, k, v, *, causal: bool, q_offset: int, valid_len,
-                scale: float | None = None) -> torch.Tensor:
+def _sdpa_fused(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
+                valid_len=None, scale: float | None = None) -> torch.Tensor:
     """``[B,S,H,dk] x [B,T,KVH,dk/dv]`` attention in plain tensor ops, with
-    query offset and cache-length mask.  Off the serving path: only a
-    prefill appended to a non-empty cache comes here."""
+    query offset, sliding window and cache-length mask, the whole
+    ``[B, H, S, T]`` float32 logits at once (small shapes: :func:`_attend`).
+    Off the serving path."""
     b, s, h, dk = q.shape
     _, t, kvh, _ = k.shape
     dv = v.shape[-1]
@@ -121,6 +127,8 @@ def _sdpa_fused(q, k, v, *, causal: bool, q_offset: int, valid_len,
     mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
     if causal:
         mask &= rows >= cols
+    if window:
+        mask &= (rows - cols) < window
     if valid_len is not None:
         mask &= cols < valid_len
     logits = torch.where(mask, logits, MASKED)
@@ -129,30 +137,48 @@ def _sdpa_fused(q, k, v, *, causal: bool, q_offset: int, valid_len,
     return out.reshape(b, s, h, dv).to(q.dtype)
 
 
-def _flash(q, k, v, *, use_kernel: bool) -> torch.Tensor:
+def _attend(q, k, v, *, causal: bool = True, window: int = 0,
+            q_offset: int = 0, valid_len=None,
+            scale: float | None = None) -> torch.Tensor:
+    """The plain attention of the reference's ``_attend``: the blocked
+    scan for a prefill whose logits exceed the fused budget
+    (:func:`~repro_torch.models.blocked_attention.use_blocked`), the fused
+    one otherwise."""
+    b, s, h, _ = q.shape
+    t = k.shape[1]
+    if s > 1 and use_blocked(b, s, t, h):
+        return blocked_attention(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, valid_len=valid_len,
+                                 scale=scale)
+    return _sdpa_fused(q, k, v, causal=causal, window=window,
+                       q_offset=q_offset, valid_len=valid_len, scale=scale)
+
+
+def _flash(q, k, v, *, window: int, use_kernel: bool) -> torch.Tensor:
     """Causal attention of ``q [B,S,H,D]`` over ``k, v [B,T,KVH,D]`` through
-    the flash slot, in its ``[BH, S, D]`` layout."""
+    the flash slot, in its ``[BH, S, D]`` layout; the queries are the last
+    ``S`` of the ``T`` rows (end-aligned)."""
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
     qf = q.transpose(1, 2).reshape(b * h, s, d).contiguous()
     kf = k.transpose(1, 2).reshape(b * kvh, t, d).contiguous()
     vf = v.transpose(1, 2).reshape(b * kvh, t, d).contiguous()
-    of = kops.attention(qf, kf, vf, causal=True, use_kernel=use_kernel)
+    of = kops.attention(qf, kf, vf, causal=True, window=window,
+                        use_kernel=use_kernel)
     return of.reshape(b, h, s, d).transpose(1, 2)
 
 
 class Attention(nn.Module):
-    """GQA self-attention with optional QKV bias and a KV cache."""
+    """GQA self-attention with optional QKV bias, a sliding ``window`` (0:
+    global) and a KV cache."""
 
-    def __init__(self, cfg: ModelConfig, *, device, gen=None):
+    def __init__(self, cfg: ModelConfig, *, device, gen=None, window: int = 0):
         super().__init__()
         if cfg.mla is not None:
             raise NotImplementedError("MLA attention comes with the "
                                       "DeepSeek-V2 slice of the port")
-        if cfg.sliding_window:
-            raise NotImplementedError("sliding-window attention comes with "
-                                      "the blocked-attention slice of the port")
         self.cfg = cfg
+        self.window = window
         qh, kvh = cfg.attn_dims
         dt = dtype_of(cfg)
         self.wq = param(dense_init(gen, cfg.d_model, qh, dt, device))
@@ -180,7 +206,8 @@ class Attention(nn.Module):
         v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
 
         if cache is None:
-            out = _flash(q, k, v, use_kernel=use_kernel)
+            out = _flash(q, k, v, window=self.window, use_kernel=True) \
+                if use_kernel else _attend(q, k, v, window=self.window)
         else:
             kc, vc, ln = cache["k"], cache["v"], cache["len"]
             if ln + s > kc.shape[1]:
@@ -191,13 +218,12 @@ class Attention(nn.Module):
             cache["len"] = ln + s
             if s == 1:                      # the decode kernel's slot
                 out = kops.decode_attention(q[:, 0].contiguous(), kc, vc,
-                                            ln + 1, use_kernel=use_kernel)
+                                            ln + 1, window=self.window,
+                                            use_kernel=use_kernel)
                 out = out[:, None]
-            elif ln == 0:                   # prefill: flash on the cache rows
-                out = _flash(q, kc[:, :s], vc[:, :s], use_kernel=use_kernel)
-            else:                           # prefill appended to a cache
-                out = _sdpa_fused(q, kc, vc, causal=True, q_offset=ln,
-                                  valid_len=ln + s)
+            else:     # prefill, fresh or appended: flash on the cache rows,
+                out = _flash(q, kc[:, :ln + s], vc[:, :ln + s],   # end-aligned
+                             window=self.window, use_kernel=use_kernel)
         out = out.reshape(b, s, cfg.n_heads * cfg.d_head)
         return (out @ self.wo).to(x.dtype), cache
 

@@ -1,15 +1,18 @@
-"""The port's decoder LM: the dense and MoE families with token input.
+"""The port's decoder LM: the dense, MoE and hybrid families with token input.
 
-Counterpart of ``repro.models.lm`` for ``family`` ``"dense"`` and ``"moe"``
-(without MLA): the same parameters (``embed``, ``final_norm``, ``unembed``
-and per block ``ln1``, ``attn``, ``ln2`` and ``mlp`` or ``moe``), the same
-forward, cache and ``serve_step``.  As in the reference, a MoE model with
-shared experts keeps a dense FFN in layer 0 (its ``block0``).  The
-reference's ``lax.scan`` over stacked blocks is an ``nn.ModuleList`` walked
-in order, and the embedding is a plain lookup (one device, no mesh).
-Logits are computed for every position, as the reference does.
+Counterpart of ``repro.models.lm`` for ``family`` ``"dense"``, ``"moe"``
+(without MLA) and ``"hybrid"`` (Hymba): the same parameters (``embed``,
+``final_norm``, ``unembed`` and per block ``ln1``, ``attn`` or a hybrid's
+``mixer``, ``ln2`` and ``mlp`` or ``moe``), the same forward, cache and
+``serve_step``.  As in the reference, a MoE model with shared experts keeps
+a dense FFN in layer 0 (its ``block0``), and a hybrid model's attention is
+global in ``cfg.global_attn_layers`` and has ``cfg.sliding_window``
+elsewhere.  The reference's ``lax.scan`` over stacked blocks is an
+``nn.ModuleList`` walked in order, and the embedding is a plain lookup (one
+device, no mesh).  Logits are computed for every position, as the
+reference does.
 
-SSM and hybrid blocks, MLA and embedding input (vision / audio frontends)
+SSM (xLSTM) blocks, MLA and embedding input (vision / audio frontends)
 come with later slices of the port and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
@@ -21,6 +24,7 @@ from torch import nn
 from repro_torch.device import check_device
 
 from .config import ModelConfig
+from .hybrid import HymbaMixer, init_ssm_cache
 from .layers import (MLP, Attention, RMSNorm, dtype_of, embed_init,
                      init_attention_cache, param)
 from .moe import MoE
@@ -28,10 +32,10 @@ from .moe import MoE
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run yet."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(f"{cfg.name}: {cfg.family} blocks come "
-                                  "with the SSM/hybrid slice of the port")
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family == "ssm":
+        raise NotImplementedError(f"{cfg.name}: ssm blocks come with the "
+                                  "xLSTM slice of the port")
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.mla is not None:
         raise NotImplementedError(f"{cfg.name}: MLA comes with the "
@@ -43,15 +47,28 @@ def is_dense_layer(cfg: ModelConfig, layer: int) -> bool:
     return cfg.family == "moe" and cfg.moe.num_shared > 0 and layer == 0
 
 
+def layer_window(cfg: ModelConfig, layer: int) -> int:
+    """The attention window of ``layer``: a hybrid model's global layers
+    have none (0), every other layer ``cfg.sliding_window``."""
+    if cfg.family == "hybrid" and layer in tuple(cfg.global_attn_layers):
+        return 0
+    return cfg.sliding_window
+
+
 class Block(nn.Module):
-    """One transformer block: pre-norm attention, then a pre-norm MLP, or
+    """One transformer block: pre-norm attention (a hybrid model's
+    ``mixer``: attention and Mamba side by side), then a pre-norm MLP, or
     MoE FFN (``moe``) in a MoE model's routed layers."""
 
     def __init__(self, cfg: ModelConfig, layer: int, *, device, gen=None):
         super().__init__()
         dt = dtype_of(cfg)
+        window = layer_window(cfg, layer)
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
-        self.attn = Attention(cfg, device=device, gen=gen)
+        if cfg.family == "hybrid":
+            self.mixer = HymbaMixer(cfg, device=device, gen=gen, window=window)
+        else:
+            self.attn = Attention(cfg, device=device, gen=gen, window=window)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
         if cfg.family == "moe" and not is_dense_layer(cfg, layer):
             self.moe = MoE(cfg, device=device, gen=gen)
@@ -60,8 +77,8 @@ class Block(nn.Module):
 
     def forward(self, x, positions, *, cache=None, use_kernel=True):
         """``(x, aux)``: ``aux`` the router's load-balance loss, or None."""
-        out, _ = self.attn(self.ln1(x), positions, cache=cache,
-                           use_kernel=use_kernel)
+        mix = self.mixer if hasattr(self, "mixer") else self.attn
+        out, _ = mix(self.ln1(x), positions, cache=cache, use_kernel=use_kernel)
         x = x + out
         if hasattr(self, "moe"):
             y, aux = self.moe(self.ln2(x), use_kernel=use_kernel)
@@ -135,13 +152,19 @@ def forward(model: LM, *, tokens=None, embeds=None, positions=None,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> dict:
-    """``{"pos": 0, "layers": [{"k", "v", "len"}, ...]}``; keys and values
-    are bfloat16 whatever the model's dtype, as in the reference."""
+    """``{"pos": 0, "layers": [{"k", "v", "len"}, ...]}``, a hybrid model's
+    layers ``{"attn": {"k", "v", "len"}, "ssm": {"conv", "ssm"}}``; keys,
+    values and the conv tail are bfloat16 whatever the model's dtype, the
+    scan state float32, as in the reference."""
     check_supported(cfg)
     dev = check_device(device)
-    return {"pos": 0, "layers": [
-        init_attention_cache(cfg, batch, max_len, device=dev)
-        for _ in range(cfg.n_layers)]}
+
+    def one():
+        attn = init_attention_cache(cfg, batch, max_len, device=dev)
+        if cfg.family == "hybrid":
+            return {"attn": attn, "ssm": init_ssm_cache(cfg, batch, device=dev)}
+        return attn
+    return {"pos": 0, "layers": [one() for _ in range(cfg.n_layers)]}
 
 
 def serve_step(model: LM, cache: dict, tokens=None, embeds=None, *,

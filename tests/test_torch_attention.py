@@ -17,14 +17,18 @@ import pytest
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.models import blocked_attention as jblocked
+from repro.models import layers as jlayers
 
 torch = pytest.importorskip("torch")
 
 from hypothesis_compat import given, settings, st  # noqa: E402
 from repro_torch.kernels import LM_KERNELS, ops, ref  # noqa: E402
-from repro_torch.kernels.decode_attention import (decode_attention,  # noqa: E402
-                                                  split_plan)
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    _split_plan_host, decode_attention, split_plan)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.models import blocked_attention as blocked  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -218,6 +222,192 @@ def test_decode_takes_a_valid_len_tensor_on_the_cpu():
             decode_attention(q, k, v, valid))
     with pytest.raises(ValueError):
         decode_attention(q, k, v, torch.tensor(91, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# sliding windows: the plain versions, the blocked and fused attention
+# ---------------------------------------------------------------------------
+
+def _bshd(rng, b, s, h, d):
+    return rng.standard_normal((b, s, h, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("window", [1, 5, 9, 16, 33, 64, 200])
+@pytest.mark.parametrize("sq,skv,h,kvh", [(64, 64, 4, 2), (20, 70, 6, 3),
+                                          (1, 50, 4, 1), (37, 37, 5, 1)])
+def test_flash_plain_window_matches_reference_sdpa(window, sq, skv, h, kvh):
+    """``ref.flash_attention_ref`` with a window, end-aligned queries, and
+    the flash wrapper on the CPU, against the reference's ``_sdpa_fused``
+    at ``q_offset = Skv - Sq``."""
+    rng = np.random.default_rng(window + sq + skv)
+    q, k, v = _bshd(rng, 2, sq, h, 16), _bshd(rng, 2, skv, kvh, 16), \
+        _bshd(rng, 2, skv, kvh, 16)
+    want = jlayers._sdpa_fused(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=True, window=window, q_offset=skv - sq,
+                               valid_len=None)
+    flat = [torch.from_numpy(x).transpose(1, 2).reshape(-1, x.shape[1], 16)
+            .contiguous() for x in (q, k, v)]
+    for got in (ref.flash_attention_ref(*flat, window=window),
+                flash_attention(*flat, window=window)):
+        got = got.reshape(2, h, sq, 16).transpose(1, 2)
+        np.testing.assert_allclose(_f32(got), np.asarray(want), **TOL["float32"])
+
+
+@pytest.mark.parametrize("window", [1, 5, 9, 16, 33, 1000])
+@pytest.mark.parametrize("valid", [1, 37, 60])
+def test_decode_plain_window_matches_reference_sdpa(window, valid):
+    """``ref.decode_attention_ref`` with a window against the reference's
+    ``_sdpa_fused`` for one query row at ``q_offset = valid - 1``."""
+    rng = np.random.default_rng(window * 7 + valid)
+    q, k, v = _bshd(rng, 3, 1, 6, 16), _bshd(rng, 3, 60, 2, 16), \
+        _bshd(rng, 3, 60, 2, 16)
+    want = jlayers._sdpa_fused(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=True, window=window, q_offset=valid - 1,
+                               valid_len=valid)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    for got in (ref.decode_attention_ref(tq[:, 0], tk, tv, valid,
+                                         window=window),
+                decode_attention(tq[:, 0], tk, tv, valid, window=window)):
+        np.testing.assert_allclose(_f32(got), np.asarray(want)[:, 0],
+                                   **TOL["float32"])
+
+
+def test_window_zero_leaves_the_plain_versions_unchanged():
+    """``window=0`` is no window, and a window at least as long as the
+    keys masks nothing: both bit for bit today's output."""
+    rng = np.random.default_rng(71)
+    q = torch.from_numpy(rng.standard_normal((6, 40, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 50, 16)).astype(np.float32))
+    base = ref.flash_attention_ref(q, k, k)
+    assert torch.equal(ref.flash_attention_ref(q, k, k, window=0), base)
+    assert torch.equal(ref.flash_attention_ref(q, k, k, window=50), base)
+    kc = k.reshape(2, 50, 1, 16)
+    qd = q[:, 0].reshape(2, 3, 16).contiguous()
+    dbase = ref.decode_attention_ref(qd, kc, kc, 31)
+    assert torch.equal(ref.decode_attention_ref(qd, kc, kc, 31, window=31),
+                       dbase)
+
+
+def test_flash_plain_works_through_query_blocks(monkeypatch):
+    """Above ``FLASH_REF_LOGITS`` the plain flash takes query blocks: the
+    same rows as one pass, with and without a window."""
+    rng = np.random.default_rng(73)
+    q = torch.from_numpy(rng.standard_normal((4, 90, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 120, 16)).astype(np.float32))
+    whole = [ref.flash_attention_ref(q, k, k, window=w) for w in (0, 17)]
+    monkeypatch.setattr(ref, "FLASH_REF_LOGITS", 4 * 120 * 7)
+    for w, want in zip((0, 17), whole):
+        np.testing.assert_allclose(ref.flash_attention_ref(q, k, k, window=w),
+                                   want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("window,block_kv", [(5, 8), (9, 32), (16, 16),
+                                             (33, 8)])
+def test_blocked_window_matches_reference(window, block_kv):
+    """The port's blocked attention against the reference's, with the
+    window's kv-block restriction at several alignments (the cases of
+    ``test_models_math.py``), and both against the fused attention."""
+    rng = np.random.default_rng(20 + window)
+    q, k, v = _bshd(rng, 1, 64, 4, 16), _bshd(rng, 1, 64, 2, 16), \
+        _bshd(rng, 1, 64, 2, 16)
+    want = jblocked.blocked_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), causal=True,
+                                      window=window, block_q=16,
+                                      block_kv=block_kv)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = blocked.blocked_attention(tq, tk, tv, causal=True, window=window,
+                                    block_q=16, block_kv=block_kv)
+    fused = layers._sdpa_fused(tq, tk, tv, causal=True, window=window)
+    np.testing.assert_allclose(_f32(got), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(_f32(got), _f32(fused), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(causal=True),
+    dict(causal=True, q_offset=20),
+    dict(causal=True, window=9, q_offset=20),
+    dict(causal=True, q_offset=20, valid_len=60),
+    dict(causal=True, window=5, q_offset=20, valid_len=60),
+    dict(causal=False, window=16, valid_len=60),
+])
+def test_blocked_and_fused_match_reference(kw):
+    """``blocked_attention`` and ``_sdpa_fused`` with ``dk != dv`` (24 vs
+    16), query offset, window and cache length, each against the
+    reference's own."""
+    rng = np.random.default_rng(6)
+    q, k = _bshd(rng, 2, 50, 8, 16), _bshd(rng, 2, 70, 2, 16)
+    v = _bshd(rng, 2, 70, 2, 24)
+    full = {"window": 0, "q_offset": 0, "valid_len": None, **kw}
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    want_b = jblocked.blocked_attention(jq, jk, jv, block_q=16, block_kv=32,
+                                        **kw)
+    want_f = jlayers._sdpa_fused(jq, jk, jv, **full)
+    got_b = blocked.blocked_attention(tq, tk, tv, block_q=16, block_kv=32,
+                                      **kw)
+    got_f = layers._sdpa_fused(tq, tk, tv, **full)
+    np.testing.assert_allclose(_f32(got_b), np.asarray(want_b), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(_f32(got_f), np.asarray(want_f), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_attend_dispatches_as_the_reference(monkeypatch):
+    """``_attend`` takes the fused path under the logits budget and the
+    blocked one over it (a single row always fused), as the reference's
+    ``_attend``; both give its result."""
+    rng = np.random.default_rng(8)
+    q, k = _bshd(rng, 2, 30, 4, 16), _bshd(rng, 2, 30, 2, 16)
+    tq, tk = torch.from_numpy(q), torch.from_numpy(k)
+    want = jlayers._attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k),
+                           window=7)
+    seen = []
+    real = blocked.blocked_attention
+    monkeypatch.setattr(layers, "blocked_attention",
+                        lambda *a, **kw: seen.append(1) or real(*a, **kw))
+    for budget, blocked_calls in ((1 << 27, 0), (100, 1)):
+        monkeypatch.setattr(blocked, "_FUSED_LOGITS_BUDGET", budget)
+        got = layers._attend(tq, tk, tk, window=7)
+        assert len(seen) == blocked_calls
+        np.testing.assert_allclose(_f32(got), np.asarray(want), rtol=1e-5,
+                                   atol=1e-6)
+    layers._attend(tq[:, :1], tk, tk, q_offset=29)      # one row: fused
+    assert len(seen) == 1
+
+
+@pytest.mark.parametrize("pairs,valid,t,window,want", [
+    # Hymba's step (20 pairs, T 4,160): the window's 17 tiles in 6 splits
+    (20, 4128, 4160, 1024, (6, [3104, 3200, 3392, 3584, 3776, 3968, 4128])),
+    (20, 4128, 4160, 1, (6, [4127, 4128])),
+    # a window past the start: the plan of no window
+    (32, 1056, 2048, 5000, (4, [0, 256, 512, 768, 1056])),
+])
+def test_decode_split_plan_with_window(pairs, valid, t, window, want):
+    grid, runs = split_plan(pairs, valid, t, 132, window)
+    assert (grid, [a for a, _ in runs] + [runs[-1][1]]) == want
+
+
+@settings(max_examples=300, deadline=None)
+@given(pairs=st.integers(1, 65535), t=st.integers(1, 1 << 20),
+       frac=st.floats(0.0, 1.0), wfrac=st.floats(0.0, 1.2),
+       sms=st.integers(1, 528))
+def test_decode_split_plan_covers_the_window_once(pairs, t, frac, wfrac, sms):
+    """With any window the working splits cover ``[valid - window, valid)``
+    exactly once, in order, each past the first starting on a tile, and
+    ``decode_split``'s host plan starts every split below ``valid``."""
+    valid = max(1, min(t, round(frac * t)))
+    window = max(1, round(wfrac * valid))
+    grid, runs = split_plan(pairs, valid, t, sms, window)
+    assert 1 <= len(runs) <= grid
+    assert runs[0][0] == max(0, valid - window) and runs[-1][1] == valid
+    for (a, b), (c, _) in zip(runs, runs[1:]):
+        assert b == c and c % 64 == 0
+    assert all(a < b for a, b in runs)
+    per, splits = _split_plan_host(pairs, valid, sms, window)
+    first = max(0, valid - window) // 64
+    assert (first + (splits - 1) * per) * 64 < valid <= \
+        (first + splits * per) * 64
 
 
 # ---------------------------------------------------------------------------

@@ -796,6 +796,140 @@ def test_flash_wgmma_check_rejects_dropped_tile(cuda, d):
         _attn_close(cut, plain, tol)
 
 
+# sliding windows: every flash kernel (flash_fwd for a float32 operand,
+# flash_mma at D 16 / 32, flash_wgmma at D 64 / 128) at windows on and off
+# its tiles (64 rows; 128 for wgmma), of one row, and at least Skv
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kvdt", [("bfloat16", "bfloat16"),
+                                      ("float32", "bfloat16")])
+@pytest.mark.parametrize("window", [1, 63, 64, 65, 127, 128, 129, 200, 1000])
+@pytest.mark.parametrize("bhq,bhkv,sq,skv,d,causal", [
+    (10, 2, 300, 300, 64, True),      # Hymba's group 5, off the tiles
+    (10, 2, 200, 520, 64, True),      # an appended prefill (q_offset 320)
+    (4, 4, 256, 256, 128, True),      # on the 128 tile
+    (8, 4, 190, 190, 32, True),       # flash_mma
+    (4, 2, 130, 300, 16, True),       # flash_mma, q_offset 170
+    (5, 1, 130, 260, 64, False)])     # non-causal: the lower edge only
+def test_flash_window_kernel_matches_plain(cuda, bhq, bhkv, sq, skv, d,
+                                           causal, window, qdt, kvdt):
+    rng = np.random.default_rng(bhq * sq + skv + d + window)
+    q = _randn(rng, (bhq, sq, d), TORCH[qdt], cuda)
+    k = _randn(rng, (bhkv, skv, d), TORCH[kvdt], cuda)
+    v = _randn(rng, (bhkv, skv, d), TORCH[kvdt], cuda)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    _attn_close(got, plain, ref.flash_attention_tolerance(
+        q, k, v, plain, causal=causal, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,qdt", [(64, "bfloat16"), (128, "bfloat16"),
+                                   (32, "bfloat16"), (64, "float32")])
+def test_flash_window_of_skv_or_more_is_no_window(cuda, d, qdt):
+    """A window at least Skv masks nothing: the output equals the
+    unwindowed call's bit for bit, on each kernel."""
+    rng = np.random.default_rng(53 + d)
+    q = _randn(rng, (10, 333, d), TORCH[qdt], cuda)
+    k, v = (_randn(rng, (2, 400, d), torch.bfloat16, cuda) for _ in range(2))
+    want = flash_attention(q, k, v)
+    for window in (400, 401, 1 << 20):
+        assert torch.equal(flash_attention(q, k, v, window=window), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 32])
+def test_flash_window_one_tile_wider_fails_the_check(cuda, d):
+    """The kernel run with the window one tile (128 rows) wider than the
+    plain version's falls outside the bound."""
+    rng = np.random.default_rng(59 + d)
+    bf16 = torch.bfloat16
+    q = _randn(rng, (10, 1024, d), bf16, cuda)
+    k, v = (_randn(rng, (2, 1024, d), bf16, cuda) for _ in range(2))
+    plain = ref.flash_attention_ref(q, k, v, window=256)
+    tol = ref.flash_attention_tolerance(q, k, v, plain, window=256)
+    _attn_close(flash_attention(q, k, v, window=256), plain, tol)
+    with pytest.raises(AssertionError, match="of the bound"):
+        _attn_close(flash_attention(q, k, v, window=256 + 128), plain, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("window", [1, 2, 63, 64, 65, 128, 1000, 1024, 4000])
+@pytest.mark.parametrize("b,h,kvh,t,d,valid", [
+    (4, 25, 5, 4160, 64, 4128),       # Hymba's step
+    (2, 40, 8, 2048, 128, 1056),
+    (3, 8, 1, 300, 128, 300),
+    (2, 4, 2, 700, 32, 513)])         # decode_split whatever the dtype
+def test_decode_window_kernel_matches_plain(cuda, b, h, kvh, t, d, valid,
+                                            window, qdt):
+    """decode_tma (bf16 at d 64 / 128) and decode_split with a window: the
+    cache left of the window is NaN, so a position read there shows."""
+    rng = np.random.default_rng(b * h + t + valid + window)
+    bf16 = torch.bfloat16
+    q = _randn(rng, (b, h, d), TORCH[qdt], cuda)
+    k, v = (_randn(rng, (b, t, kvh, d), bf16, cuda) for _ in range(2))
+    lo = max(0, valid - window)
+    for x in (k, v):
+        x[:, valid:] = float("nan")
+        x[:, :lo] = float("nan")
+    got = decode_attention(q, k, v, valid, window=window)
+    kv = (k[:, lo:valid], v[:, lo:valid])
+    plain = ref.decode_attention_ref(q, *kv, valid - lo)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _attn_close(got, plain, ref.decode_attention_tolerance(
+        q, *kv, valid - lo, plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("valid,window", [
+    (4128, 1024), (4160, 1024), (1100, 1024), (65, 1), (4128, 4128),
+    (3000, 5000), (64, 64)])
+def test_decode_window_follows_the_split_plan(cuda, valid, window):
+    """Hymba's step shape at windows whose first tile the plan
+    (``split_plan``) cuts at other places: the mirror covers ``[valid -
+    window, valid)`` once, the kernel matches the plain version, and a
+    ``valid_len`` on the device gives the int's output bit for bit."""
+    from repro_torch.kernels.decode_attention import _sm_count, split_plan
+    b, h, kvh, t, d = 4, 25, 5, 4160, 64
+    grid, runs = split_plan(b * kvh, valid, t, _sm_count(0), window)
+    lo = max(0, valid - window)
+    assert runs[0][0] == lo and runs[-1][1] == valid
+    assert all(a[1] == c[0] and a[0] < a[1] for a, c in zip(runs, runs[1:]))
+    assert len(runs) <= grid
+    rng = np.random.default_rng(valid + window)
+    bf16 = torch.bfloat16
+    q = _randn(rng, (b, h, d), bf16, cuda)
+    k, v = (_randn(rng, (b, t, kvh, d), bf16, cuda) for _ in range(2))
+    got = decode_attention(q, k, v, valid, window=window)
+    on_dev = decode_attention(q, k, v, torch.tensor(
+        valid, dtype=torch.int32, device=cuda), window=window)
+    plain = ref.decode_attention_ref(q, k, v, valid, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(on_dev.view(torch.int16), got.view(torch.int16))
+    _attn_close(got, plain, ref.decode_attention_tolerance(
+        q, k, v, valid, plain, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 32])
+def test_decode_window_one_tile_wider_fails_the_check(cuda, d):
+    """At Hymba's step (d 64: decode_tma; d 32: decode_split), the kernel
+    with the window one 64-position tile wider than the plain version's
+    falls outside the bound."""
+    rng = np.random.default_rng(61)
+    bf16 = torch.bfloat16
+    q = _randn(rng, (4, 25, d), bf16, cuda)
+    k, v = (_randn(rng, (4, 4160, 5, d), bf16, cuda) for _ in range(2))
+    plain = ref.decode_attention_ref(q, k, v, 4128, window=1024)
+    tol = ref.decode_attention_tolerance(q, k, v, 4128, plain, window=1024)
+    _attn_close(decode_attention(q, k, v, 4128, window=1024), plain, tol)
+    with pytest.raises(AssertionError, match="of the bound"):
+        _attn_close(decode_attention(q, k, v, 4128, window=1024 + 64),
+                    plain, tol)
+
+
 @pytest.mark.cuda
 def test_attention_wrappers_refuse_what_they_do_not_take(cuda):
     q = torch.ones((2, 8, 24), device=cuda)

@@ -248,18 +248,65 @@ def test_prefill_matches_stepwise_decode(arch):
 
 
 def test_prefill_append_takes_the_fused_path():
-    """A prefill appended to a non-empty cache (off the serving path) gives
-    the logits of feeding the same tokens one by one."""
-    _, pcfg, _, model = _pair("qwen2.5-14b")
-    toks = torch.from_numpy(_tokens(pcfg, 2, 9, seed=5))
+    """A prefill appended to a non-empty cache goes to the flash slot over
+    the cache's rows (end-aligned), never to the fused plain attention,
+    and gives the logits of feeding the same tokens one by one and the
+    reference's forward with a cache over the same two chunks."""
+    rcfg, pcfg, params, model = _pair("qwen2.5-14b")
+    toks = _tokens(pcfg, 2, 9, seed=5)
     cache = lm.init_cache(pcfg, 2, 16, device="cpu")
-    lm.forward(model, tokens=toks[:, :4], cache=cache)
-    got, _, _ = lm.forward(model, tokens=toks[:, 4:], cache=cache)
+    lm.forward(model, tokens=torch.from_numpy(toks[:, :4]), cache=cache)
+    fused, flash, seen = layers._sdpa_fused, layers.kops.attention, []
+    layers._sdpa_fused = lambda *a, **k: seen.append("fused") or fused(*a, **k)
+    layers.kops.attention = lambda *a, **k: seen.append("flash") or flash(*a, **k)
+    try:
+        got, _, _ = lm.forward(model, tokens=torch.from_numpy(toks[:, 4:]),
+                               cache=cache)
+    finally:
+        layers._sdpa_fused, layers.kops.attention = fused, flash
+    assert seen == ["flash"] * pcfg.n_layers
     step = lm.init_cache(pcfg, 2, 16, device="cpu")
-    want = [lm.serve_step(model, step, tokens=toks[:, i:i + 1])[0]
+    want = [lm.serve_step(model, step, tokens=torch.from_numpy(toks[:, i:i + 1]))[0]
             for i in range(9)]
     np.testing.assert_allclose(_np(got), _np(torch.cat(want[4:], 1)),
                                rtol=2e-3, atol=2e-3)
+    jcache = jlm.init_cache(rcfg, 2, 16)
+    _, jcache, _ = jlm.forward(params, rcfg, tokens=jnp.asarray(toks[:, :4]),
+                               cache=jcache)
+    ref_logits, _, _ = jlm.forward(params, rcfg, tokens=jnp.asarray(toks[:, 4:]),
+                                   cache=jcache)
+    np.testing.assert_allclose(_np(got), _np(ref_logits), **CACHED)
+
+
+@pytest.mark.parametrize("window", [0, 5])
+def test_attention_appended_prefill_matches_reference(window):
+    """One attention layer over a cache in two chunks (7, then 6 appended)
+    and a decoded token, with and without a sliding window: each output
+    and the cache's rows against the reference's ``attention`` with the
+    same cache and ``window``."""
+    rcfg, pcfg, params, model = _pair("qwen2.5-14b")
+    attn = model.blocks[0].attn
+    b, chunks = 2, (slice(0, 7), slice(7, 13), slice(13, 14))
+    x = np.random.default_rng(9).standard_normal((b, 14, rcfg.d_model)
+                                                 ).astype(np.float32)
+    pos = np.broadcast_to(np.arange(14), (b, 14)).astype(np.int32)
+    jcache = jlayers.init_attention_cache(rcfg, b, 16)
+    pcache = layers.init_attention_cache(pcfg, b, 16, device="cpu")
+    attn.window = window
+    try:
+        for sl in chunks:
+            want, jcache = jlayers.attention(
+                _layer0(params)["attn"], rcfg, jnp.asarray(x[:, sl]),
+                jnp.asarray(pos[:, sl]), cache=jcache, window=window)
+            got, pcache = attn(torch.from_numpy(x[:, sl]),
+                               torch.from_numpy(pos[:, sl]), cache=pcache)
+            np.testing.assert_allclose(_np(got), _np(want), **CACHED)
+    finally:
+        attn.window = 0
+    assert pcache["len"] == int(jcache["len"]) == 14
+    for name in ("k", "v"):
+        np.testing.assert_allclose(_np(pcache[name]), _np(jcache[name]),
+                                   rtol=2 ** -7, atol=2 ** -7)
 
 
 def test_cache_overflow_raises():
@@ -271,8 +318,7 @@ def test_cache_overflow_raises():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("deepseek-v2-236b", "MLA"), ("xlstm-350m", "ssm"),
-    ("hymba-1.5b", "hybrid")])
+    ("deepseek-v2-236b", "MLA"), ("xlstm-350m", "ssm")])
 def test_later_slices_raise(arch, what):
     with pytest.raises(NotImplementedError, match=what):
         lm.LM(get_config(arch, smoke=True), device="cpu")
