@@ -5,13 +5,14 @@
     python3 chip_smoke.py --profile DIR      # also trace one hit per template,
                                              # and the prefill and 4 decode
                                              # steps of each served model
-                                             # (Hymba's Mamba heads apart)
+                                             # (Hymba's Mamba heads and
+                                             # xLSTM's mixers apart)
 
 Run from the root of a checkout.  It needs a CUDA device: without one it
 exits non-zero and prints no result.  In order it
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the six CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+2. builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together) and prints the build seconds,
    then takes every torch.profiler trace that the checks below read, back
    to back before anything else, each session open 50 ms before and after
@@ -62,6 +63,17 @@ exits non-zero and prints no result.  In order it
    library's SASS must hold ``UBLKCP.S.G`` and ``REDG.E.ADD.F32x4`` (a
    vector reduction); the fold's profiler trace also holds a call each of
    PART and COMB, and must name PART's two kernels and COMB's one;
+   the sLSTM recurrence (``slstm_scan``, one cooperative launch, which a
+   profiler trace must show as one device kernel) is held per element
+   within ``ref.slstm_tolerance`` (hs and the final state) at xlstm-350m's
+   served prefill (B 4, S 4,096, d 1,024, bf16, from a zero state), a
+   decode step (S 1, from a random state) and the float32 SMOKE width
+   (d 64); the plain loop without the recurrent product at step S/2, and
+   the plain loop with the product summed in bf16, must each fail the
+   check by 10x; the prefill and the decode step are timed beside
+   the plain loop, with the bytes, operations and chain bounds (the chain:
+   the kernel rebuilt with the step's product replaced by nothing) and the
+   host's microseconds per call;
 4. counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions
    that ``cuobjdump --dump-sass`` finds in the built gmm library (both must
    be there), then holds the grouped-matmul kernel (``gmm``) against its
@@ -141,6 +153,22 @@ exits non-zero and prints no result.  In order it
    reaches the fused plain attention, and the last logits are held to the
    plain versions' same two chunks.  With ``--profile``, the prefill and 4
    decode steps are traced, with the Mamba heads' ``hymba.mamba`` ranges;
+6b. drives ``serve`` on xlstm-350m at full width and depth (24 layers,
+   d_model 1,024, sLSTM in layers 7, 15 and 23, mLSTM elsewhere): batch 4,
+   4,096-token prompts, 32 greedy tokens.  The counters are zeroed just
+   before and read just after: ``slstm_scan`` once an sLSTM layer in the
+   prefill and in every decode step (99), every other kernel never.  The
+   plain versions' run, teacher-forced, is the yardstick (10 bf16 steps,
+   the first-token tie rule); the plain run with ``h @ w_rec`` dropped in
+   the three sLSTM layers must fail it.  The prompts are then prefilled
+   again in two chunks of 2,048 on one cache (the sLSTM kernel once a layer
+   a chunk), held to the plain versions' two chunks at the last logits and
+   the second chunk's first 64 positions (20 bf16 steps: the largest over
+   64 positions; the kernels' second chunk from a zero sLSTM state must
+   fail it), and the same again on weights and prompts from two more
+   seeds.  With ``--profile``, the prefill
+   and 4 decode steps are traced with the ``xlstm.mlstm`` and
+   ``xlstm.slstm`` ranges;
 7. drives the MoE serving path, ``serve`` on Qwen3-MoE-235B-A22B at full
    width with its depth cut to 12 of 94 layers (62.2 GB of bf16 weights,
    every expert drawn on its own from a seeded generator on the card), at
@@ -446,11 +474,12 @@ def trace_phase(dev) -> dict:
     """Which device kernels one call launches, read from torch.profiler
     traces, for every traced check of this script: a call each of the
     fold, PART and COMB on the global stage's layout at the main path's
-    shapes, and one call of each flash and decode case on inputs of the
-    case's shapes and dtypes.  All sessions run here, back to back, before
+    shapes, one of the sLSTM recurrence, and one call of each flash and
+    decode case on inputs of the case's shapes and dtypes.  All sessions run here, back to back, before
     anything else: a session long after the one before it may hold no
     device event (``dev/profiler_sessions.py``).  Returns the flash and
-    decode kernels by case name; the fold, PART and COMB are checked here."""
+    decode kernels by case name; the fold, PART, COMB and the sLSTM
+    recurrence are checked here."""
     import torch
 
     from repro_torch.kernels._build import (_traced_kernels, decode_kernel_ran,
@@ -460,6 +489,7 @@ def trace_phase(dev) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fold import segmented_fold
     from repro_torch.kernels.partition import partition_permute
+    from repro_torch.kernels.slstm import slstm_scan
 
     n, d = WORKERS * ROWS_PER_WORKER, WIDTH
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -487,6 +517,16 @@ def trace_phase(dev) -> dict:
     log(f"trace fold, PART and COMB, the device work of one call each: "
         f"{json.dumps([x[:50] for x in traced])}")
     del vals, perm, order, head, seg, ids, routed, zv
+
+    # the sLSTM recurrence: one cooperative launch, one device kernel
+    xw, w, bias, st = _slstm_inputs(dev, gen, 4, 64, XLSTM_D, "bfloat16",
+                                    "random")
+    slstm_scan(xw, w, bias, st)
+    traced = _traced_kernels(lambda: slstm_scan(xw, w, bias, st), 3)
+    assert len(traced) == 1 and "slstm_scan" in traced[0], traced
+    log(f"trace slstm_scan, the device work of one call (B 4, S 64, d "
+        f"{XLSTM_D}): {json.dumps([x[:50] for x in traced])}")
+    del xw, w, bias, st
 
     def randn(shape, dtype=torch.bfloat16):
         return torch.randn(shape, dtype=dtype, device=dev, generator=gen)
@@ -1093,6 +1133,139 @@ def gmm_phase(dev) -> dict:
     return rows
 
 
+# the sLSTM recurrence (xlstm-350m: d 1,024, bf16) against its plain loop:
+# the served prefill (B 4 x 4,096 tokens, from a zero state), a decode step
+# (S 1, from a random state) and the float32 SMOKE width (d 64).  xw is the
+# input product's scale (unit normal: the normed x times w_in), w_rec the
+# model's 0.02, the bias 0.3 N(0, 1) (the model's is zero: this exercises
+# the pre-activation's last rounding too)
+XLSTM_D = 1024
+SLSTM_CASES = [  # name, B, S, d, dtype, the state it starts from
+    ("served prefill", 4, 4096, XLSTM_D, "bfloat16", "zero"),
+    ("decode step", 4, 1, XLSTM_D, "bfloat16", "random"),
+    ("smoke float32", 4, 256, 64, "float32", "random"),
+]
+SLSTM_TOL = ("per element: ref.slstm_tolerance (each of z, i, f, o's "
+             "pre-activation moves by the smaller of the interval its three "
+             "roundings give the float32 product moved by its reordering "
+             "and by the runs' h apart, and a step of x's dtype at each "
+             "rounding; carried through the cell and the state to first "
+             "order, twice)")
+SLSTM_FAULT = "the plain scan without the recurrent product at step S/2"
+SLSTM_LOW_SUM = "the plain scan with the recurrent product summed in bf16"
+
+
+def _slstm_inputs(dev, gen, b, s, d, dtype, state):
+    import torch
+    t = getattr(torch, dtype)
+
+    def randn(shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(t)
+    xw, w, bias = randn((b, s, 4 * d)), randn((d, 4 * d), 0.02), \
+        randn((4 * d,), 0.3)
+    f32 = dict(dtype=torch.float32, device=dev)
+    if state == "zero":
+        st = {k: torch.zeros((b, d), **f32) for k in "cnh"}
+        st["m"] = torch.full((b, d), -1e30, **f32)
+    else:
+        st = {"c": 0.5 * torch.randn((b, d), generator=gen, **f32),
+              "n": 1 + 2 * torch.rand((b, d), generator=gen, **f32),
+              "h": 0.3 * torch.randn((b, d), generator=gen, **f32),
+              "m": torch.randn((b, d), generator=gen, **f32) - 1}
+    return xw, w, bias, st
+
+
+def _slstm_work(b, s, d, dtype) -> tuple[float, float, float]:
+    """(bytes, operations, the operations' peak rate) of one call: xw, w_rec
+    and b read once, the state read and written once, hs written once; the
+    recurrent product's 2 B S d 4d operations at the inputs' type's peak
+    (bf16 on the tensor cores, float32 outside them)."""
+    el = 2 if dtype == "bfloat16" else 4
+    nbytes = (b * s * 4 * d + d * 4 * d + 4 * d) * el + 8 * b * d * 4 \
+        + b * s * d * 4
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
+    return nbytes, 2.0 * b * s * d * 4 * d, rate
+
+
+def slstm_phase(dev) -> dict:
+    """``slstm_scan`` held against ``slstm_scan_ref`` per element within
+    ``ref.slstm_tolerance`` at ``SLSTM_CASES`` (hs and the final state),
+    with two planted faults that must fail the check by 10x (the product
+    dropped at one step, the product summed in bf16); timed at the
+    served prefill and decode shapes beside the plain loop, with the bytes,
+    operations and chain bounds (the chain: the same launch rebuilt with the
+    step's product replaced by nothing, S exchanges of h and barriers) and
+    the host's microseconds per call at S 1."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.slstm import default_units, launch, slstm_scan
+    sys.path.insert(0, str(ROOT / "dev"))
+    from slstm_timing import build_probe
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows, row = {}, {}
+    for name, b, s, d, dt, init in SLSTM_CASES:
+        xw, w, bias, st = _slstm_inputs(dev, gen, b, s, d, dt, init)
+        got, fin = slstm_scan(xw, w, bias, st)
+        plain, pfin = ref.slstm_scan_ref(xw, w, bias, st)
+        tol, tol_st = ref.slstm_tolerance(xw, w, bias, st)
+        bad, _ = ref.slstm_scan_ref(xw, w, bias, st, drop_rec_at=s // 2)
+        low, _ = ref.slstm_scan_ref(xw, w, bias, st, bf16_sum=True)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        share = float(((got - plain).abs() / tol).max())
+        state_share = {k: float(((fin[k] - pfin[k]).abs() / tol_st[k]).max())
+                       for k in fin}
+        fault = float(((got - bad).abs() / tol).max())
+        low_share = float(((got - low).abs() / tol).max())
+        case = dict(shape=[b, s, d], dtype=dt, state=init,
+                    max_abs_err=float((got - plain).abs().max()),
+                    tolerance=SLSTM_TOL, bound_share=share,
+                    state_bound_share=state_share, planted_fault=SLSTM_FAULT,
+                    fault_bound_share=fault, low_sum_control=SLSTM_LOW_SUM,
+                    low_sum_bound_share=low_share)
+        log(f"kernel slstm_scan {name}: {json.dumps(case)}")
+        assert share <= 1.0, f"slstm_scan {name}: {share} of the bound"
+        assert max(state_share.values()) <= 1.0, state_share
+        assert fault >= 10.0, f"the slstm check passes: {SLSTM_FAULT}"
+        assert low_share >= 10.0, f"the slstm check passes: {SLSTM_LOW_SUM}"
+        if name == "served prefill":
+            nbytes, ops, rate = _slstm_work(b, s, d, dt)
+            tb = bound(nbytes, ops, rate)
+            probe = build_probe()
+            units = default_units(d, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+            chain = time_ms(lambda: launch(probe, xw, w, bias, st, units),
+                            spin=True)
+            ms = time_ms(lambda: slstm_scan(xw, w, bias, st), spin=True)
+            row = dict(case, ms=ms, us_per_step=ms / s * 1e3,
+                       plain_ms=time_ms(lambda: ref.slstm_scan_ref(
+                           xw, w, bias, st), reps=3, warmup=1),
+                       bound_ms=tb[0], bound_by=tb[1],
+                       bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                       operations_bound_ms=ops / rate * 1e3,
+                       chain_bound_ms=chain, chain_us_per_step=chain / s * 1e3,
+                       blocks=d // units, library_ms=None,
+                       library_call="none: torch.nn.LSTM and cuDNN compute "
+                       "another cell (sigmoid input gate, no stabiliser m)")
+        elif name == "decode step":
+            nbytes, ops, rate = _slstm_work(b, s, d, dt)
+            row.update(
+                decode_ms=time_ms(lambda: slstm_scan(xw, w, bias, st),
+                                  spin=True),
+                decode_plain_ms=time_ms(lambda: ref.slstm_scan_ref(
+                    xw, w, bias, st), spin=True),
+                decode_bound_ms=bound(nbytes, ops, rate)[0],
+                host_us_per_call=_host_us(
+                    [lambda: slstm_scan(xw, w, bias, st)] * 200))
+        del xw, w, bias, st, got, plain, tol, bad, low
+    log(f"kernel slstm_scan: {json.dumps(row)}")
+    torch.cuda.empty_cache()
+    rows["slstm_scan"] = row
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # 6-7. serve phases
 # ---------------------------------------------------------------------------
@@ -1445,6 +1618,204 @@ def hymba_serve_phase(dev, profile_dir: Path | None) -> dict:
     if profile_dir is not None:
         _profile_serve(params, cfg, dev, profile_dir, tag="hymba_",
                        shape=HYMBA)
+    del params, stats, plain, logits, plain_logits
+    torch.cuda.empty_cache()
+    return out
+
+
+# The xLSTM slice: xlstm-350m at full width and depth (24 layers, d_model
+# 1,024; layers 7, 15 and 23 sLSTM), prompts of 4,096 tokens
+XLSTM_ARCH = "xlstm-350m"
+XLSTM = dict(batch=4, prompt_len=4096, gen_len=32, max_len=4128, seed=0)
+XLSTM_CHUNK = 2048                   # the appended prefill: two chunks
+XLSTM_APPEND_ROWS = 64               # second-chunk positions compared
+XLSTM_CONTROL = "plain run with h @ w_rec dropped in the 3 sLSTM layers"
+# The appended prefill's tolerance, in bf16 steps at the largest logit: it
+# takes the largest difference over 64 positions of 4 rows (the serve
+# check's over one position of 4 rows), and this network spreads any
+# rounding far: on the H100 the serve check read 5.0-8.9 steps a decode
+# step, the 64 second-chunk positions 12.8, and the kernels' own one
+# prefill against their own two chunks (the same kernels on the same
+# tokens: only cuBLAS's roundings differ with the shapes) 14.0; the
+# w_rec-dropped control 141.  20 lies between; the control that drops the
+# sLSTM state carried between the chunks must fail it.
+XLSTM_APPEND_TOL_STEPS = 20
+XLSTM_CARRY_CONTROL = "the kernels' second chunk from a zero sLSTM state"
+XLSTM_APPEND_SEEDS = (1, 2)          # the appended check on other draws
+
+
+def xlstm_serve_phase(dev, profile_dir: Path | None) -> dict:
+    """``serve`` on xlstm-350m: the sLSTM kernel in the prefill and every
+    decode step, the mLSTM blocks' torch ops, held against the plain
+    versions' run; a control without the recurrent product must fail that
+    check; the prompts again in two chunks on one cache, held to the plain
+    versions' two chunks at the last logits and the second chunk's first
+    positions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS, ref
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+
+    cfg = get_config(XLSTM_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=XLSTM["seed"], device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    slstm = [i for i in range(cfg.n_layers) if lm.is_slstm(cfg, i)]
+    assert slstm == [i for i, blk in enumerate(params.blocks)
+                     if hasattr(blk, "slstm")], slstm
+    log(f"xlstm weights: {XLSTM_ARCH} {cfg.n_layers} layers (sLSTM at "
+        f"{slstm}), {n_params} parameters ({cfg.num_params()} by the "
+        f"config's formula; {w_bytes / 1e9:.2f} GB {cfg.dtype}), made on the "
+        f"card in {time.perf_counter() - t0:.2f} s")
+    kw = dict(smoke=False, device=dev, params=params, **XLSTM)
+    serve(XLSTM_ARCH, **dict(kw, prompt_len=256, gen_len=2))   # warm
+    torch.cuda.synchronize()
+
+    def zero():
+        for k in KERNELS:
+            k.launches = 0
+
+    def counted():
+        return {k.__name__: k.launches for k in KERNELS}
+
+    torch.cuda.reset_peak_memory_stats()
+    zero()                                # the serving path, counted alone
+    gen, stats = serve(XLSTM_ARCH, **kw)
+    counts = counted()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k.__name__: 0 for k in KERNELS}
+    want["slstm_scan"] = len(slstm) * (1 + XLSTM["gen_len"])
+    assert counts == want, counts
+    logits = torch.stack(stats.logits).float()
+    assert gen.shape == (XLSTM["batch"], XLSTM["gen_len"])
+    assert logits.shape == (XLSTM["gen_len"] + 1, XLSTM["batch"], cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    assert ((gen >= 0) & (gen < cfg.vocab)).all()
+
+    # the yardstick: the plain versions, fed the kernel run's tokens
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    plain_gen, plain = serve(XLSTM_ARCH, use_kernel=False, forced=gen, **kw)
+    plain_peak = torch.cuda.max_memory_allocated()
+    assert all(k.launches == 0 for k in KERNELS)
+    plain_logits = torch.stack(plain.logits).float()
+    diffs = (logits - plain_logits).abs().amax(dim=(1, 2)).tolist()
+    step = _logit_step(logits)
+    tol = LOGIT_TOL_STEPS * step
+    first_agree = np.asarray(plain_gen[:, 0] == gen[:, 0]).tolist()
+    margins = _first_token_margins(plain_logits[0], logits[0],
+                                   plain_gen[:, 0], gen[:, 0])
+    # the control: the same plain run without the recurrent product
+    scan = ref.slstm_scan_ref
+    ref.slstm_scan_ref = lambda xw, w_rec, b, st, **k: scan(
+        xw, torch.zeros_like(w_rec), b, st, **k)
+    try:
+        _, ctrl = serve(XLSTM_ARCH, use_kernel=False, forced=gen, **kw)
+    finally:
+        ref.slstm_scan_ref = scan
+    control = (torch.stack(ctrl.logits).float() - plain_logits
+               ).abs().amax(dim=(1, 2)).tolist()
+    del ctrl
+
+    # the appended prefill: the prompts in two chunks on one cache, with
+    # the kernels (slstm_scan once an sLSTM layer a chunk) and the plain
+    # versions; the last logits and the second chunk's first positions,
+    # where the carried state is felt most
+    b, s = XLSTM["batch"], XLSTM["prompt_len"]
+    prompts = np.random.default_rng(XLSTM["seed"]).integers(
+        0, cfg.vocab, (b, s)).astype(np.int32)        # serve()'s prompts
+    tokens = torch.from_numpy(prompts).to(dev)
+
+    def two_chunks(use_kernel: bool, drop_carry: bool = False,
+                   params=params, tokens=tokens):
+        cache = lm.init_cache(cfg, b, XLSTM["max_len"], device=dev)
+        fresh = lm.init_cache(cfg, b, XLSTM["max_len"], device=dev)
+        per = []
+        for c in range(0, s, XLSTM_CHUNK):
+            if c and drop_carry:          # the control: nothing carried
+                for i in slstm:
+                    for k, v in cache["layers"][i]["state"].items():
+                        v.copy_(fresh["layers"][i]["state"][k])
+            zero()
+            out, cache, _ = lm.forward(params, tokens=tokens[:, c:c + XLSTM_CHUNK],
+                                       cache=cache, use_kernel=use_kernel)
+            per.append(counted())
+            head = out[:, :XLSTM_APPEND_ROWS].float()
+            last = out[:, -1].float()
+            del out
+        return head, last, per
+    torch.cuda.synchronize()
+    t_app = time.perf_counter()
+    app_head, app_last, app_counts = two_chunks(True)
+    torch.cuda.synchronize()
+    t_app = time.perf_counter() - t_app
+    plain_head, plain_last, plain_counts = two_chunks(False)
+    carry_head, carry_last, _ = two_chunks(True, drop_carry=True)
+    want_chunk = {k.__name__: 0 for k in KERNELS}
+    want_chunk["slstm_scan"] = len(slstm)
+    assert app_counts == [want_chunk] * (s // XLSTM_CHUNK), app_counts
+    assert all(not any(c.values()) for c in plain_counts), plain_counts
+    app_diff = float((app_last - plain_last).abs().max())
+    app_head_diff = float((app_head - plain_head).abs().max())
+    app_tol = XLSTM_APPEND_TOL_STEPS * _logit_step(
+        torch.cat([app_last[:, None], app_head], 1))
+    app_vs_one = float((app_last - logits[0]).abs().max())
+    carry = max(float((carry_head - plain_head).abs().max()),
+                float((carry_last - plain_last).abs().max()))
+    # the same check on weights and prompts from other seeds, in bf16 steps
+    seeds = {XLSTM["seed"]: max(app_diff, app_head_diff) / app_tol
+             * XLSTM_APPEND_TOL_STEPS}
+    for seed in XLSTM_APPEND_SEEDS:
+        other = lm.init_lm(cfg, seed=seed, device=dev)
+        toks = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+        k_head, k_last, _ = two_chunks(True, params=other, tokens=toks)
+        p_head, p_last, _ = two_chunks(False, params=other, tokens=toks)
+        seeds[seed] = max(float((k_head - p_head).abs().max()),
+                          float((k_last - p_last).abs().max())) / _logit_step(
+            torch.cat([k_last[:, None], k_head], 1))
+        del other, k_head, k_last, p_head, p_last
+
+    out = dict(
+        prefill_s=stats.prefill_s, decode_s=stats.decode_s,
+        decode_tokens_per_s=stats.tokens_per_s,
+        decode_step_ms=stats.decode_s / XLSTM["gen_len"] * 1e3,
+        plain_prefill_s=plain.prefill_s,
+        plain_decode_tokens_per_s=plain.tokens_per_s,
+        peak_device_bytes=peak, plain_peak_device_bytes=plain_peak,
+        parameters=n_params, launches=counts,
+        max_logit_diff_per_step=diffs, max_abs_logit=float(logits.abs().max()),
+        logit_tol=tol, first_token_agrees=first_agree,
+        first_tokens=gen[:, 0].tolist(), first_token_margins=margins,
+        control=XLSTM_CONTROL, control_max_logit_diff=max(control),
+        control_over_tol=max(control) / tol, control_diff_per_step=control,
+        appended_prefill=dict(
+            chunks=s // XLSTM_CHUNK, launches_per_chunk=app_counts,
+            seconds=t_app, max_last_logit_diff_vs_plain=app_diff,
+            max_head_logit_diff_vs_plain=app_head_diff,
+            head_positions=XLSTM_APPEND_ROWS, logit_tol=app_tol,
+            max_last_logit_diff_vs_one_prefill=app_vs_one,
+            control=XLSTM_CARRY_CONTROL, control_max_logit_diff=carry,
+            control_over_tol=carry / app_tol,
+            max_diff_steps_by_seed=seeds))
+    log(f"serve {XLSTM_ARCH} batch={b} prompt={s} gen={XLSTM['gen_len']}: "
+        f"{json.dumps(out)}")
+    _check_first_tokens(first_agree, margins, step)
+    assert max(diffs) <= tol, f"logits differ from plain by {max(diffs)} > {tol}"
+    assert max(control) > tol, f"control {XLSTM_CONTROL!r} passes the check"
+    assert app_diff <= app_tol and app_head_diff <= app_tol, \
+        f"appended prefill differs from plain by {app_diff} / " \
+        f"{app_head_diff} > {app_tol}"
+    assert carry > app_tol, f"control {XLSTM_CARRY_CONTROL!r} passes"
+    assert max(seeds.values()) <= XLSTM_APPEND_TOL_STEPS, seeds
+    if profile_dir is not None:
+        _profile_serve(params, cfg, dev, profile_dir, tag="xlstm_",
+                       shape=XLSTM)
     del params, stats, plain, logits, plain_logits
     torch.cuda.empty_cache()
     return out
@@ -2411,19 +2782,27 @@ def _kernel_class(name: str) -> str:
         return "decode_attention"
     if "gmm_wgmma" in name or "gmm_f32" in name:
         return "gmm"
+    if "slstm_scan" in name:
+        return "slstm_scan"
     if any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass", "gemv",
                                "splitKreduce")):
         return "matmul"
     return "other"
 
 
+# the models' profiler ranges (record_function): Hymba's Mamba heads,
+# xLSTM's mLSTM and sLSTM mixers
+RANGES = ("hymba.", "xlstm.")
+
+
 def _profile_serve(params, cfg, dev, profile_dir: Path, tag: str = "",
                    shape: dict = SERVE) -> None:
     """The prefill and four decode steps under torch.profiler: device time
-    by kernel class (attention kernels, gmm, matmuls, the rest) against
-    wall, and a hybrid model's Mamba mixer (its ``hymba.mamba`` ranges:
-    host ms, and the device ms the ranges span); ``tag`` prefixes the
-    names of the files and lines, ``shape`` gives batch and lengths."""
+    by kernel class (attention kernels, gmm, the sLSTM kernel, matmuls, the
+    rest) against wall, and the models' ``RANGES`` (Hymba's
+    ``hymba.mamba``, xLSTM's ``xlstm.mlstm`` and ``xlstm.slstm``: host ms,
+    and the device ms the ranges span); ``tag`` prefixes the names of the
+    files and lines, ``shape`` gives batch and lengths."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -2450,16 +2829,16 @@ def _profile_serve(params, cfg, dev, profile_dir: Path, tag: str = "",
         for e in prof.events():
             if e.device_type == DeviceType.CUDA and e.name not in (
                     "Activity Buffer Request", "Command Buffer Full") \
-                    and not e.name.startswith("hymba."):   # a range, no kernel
+                    and not e.name.startswith(RANGES):   # a range, no kernel
                 c = _kernel_class(e.name)
                 busy[c] = busy.get(c, 0.0) + e.device_time_total / 1e3
-        mamba = {f"hymba.mamba_{k}_ms": getattr(e, f"{k}_time_total", 0.0)
-                 / 1e3 for e in prof.key_averages() if e.key == "hymba.mamba"
-                 for k in ("cpu", "device")}
+        ranges = {f"{e.key}_{k}_ms": getattr(e, f"{k}_time_total", 0.0) / 1e3
+                  for e in prof.key_averages() if e.key.startswith(RANGES)
+                  for k in ("cpu", "device")}
         log(f"profile serve {tag}{name}: wall_ms={wall * 1e3!r} device_ms_by_class="
             f"{json.dumps(busy)} idle_share="
             f"{1 - sum(busy.values()) / (wall * 1e3)!r}"
-            + (f" mamba_ranges={json.dumps(mamba)}" if mamba else ""))
+            + (f" ranges={json.dumps(ranges)}" if ranges else ""))
         return out
 
     logits, _, _ = traced("prefill", lambda: lm.forward(params, tokens=tokens,
@@ -2575,6 +2954,7 @@ def main() -> int:
     krows = kernel_phase(dev)
     krows.update(attention_phase(dev, paths))
     krows.update(gmm_phase(dev))
+    krows.update(slstm_phase(dev))
     log(f"kernel phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     sl = slice_phase(dev, args.profile)
@@ -2596,6 +2976,9 @@ def main() -> int:
     hv = hymba_serve_phase(dev, args.profile)
     log(f"hymba serve phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    xv = xlstm_serve_phase(dev, args.profile)
+    log(f"xlstm serve phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     mv = moe_serve_phase(dev, args.profile)
     log(f"moe serve phase: {time.perf_counter() - t0:.2f} s")
     # each path's launches, counted from zero just before it ran
@@ -2605,7 +2988,7 @@ def main() -> int:
         flash_attention=sum(p["launches"]["flash_attention"] for p in (sv, hv)),
         decode_attention=sum(p["launches"]["decode_attention"]
                              for p in (sv, hv)),
-        gmm=mv["launches"]["gmm"])
+        gmm=mv["launches"]["gmm"], slstm_scan=xv["launches"]["slstm_scan"])
     # the gmm row of the line: a decode step's gate/up launch, the shape of
     # 1,152 of the serve's 1,188 launches (all four shapes are logged)
     krows["gmm"] = krows["decode gate/up"]
@@ -2619,7 +3002,8 @@ def main() -> int:
                                    "src/repro/kernels/flash_attention.py:80"),
                "decode_attention": ("decode_attention.cu",
                                     "src/repro/kernels/decode_attention.py:67"),
-               "gmm": ("gmm.cu", "src/repro/kernels/gmm.py:49")}
+               "gmm": ("gmm.cu", "src/repro/kernels/gmm.py:49"),
+               "slstm_scan": ("slstm.cu", "src/repro/models/ssm.py:239")}
     line = []
     for k in KERNELS:
         r = krows[k.__name__]
@@ -2642,9 +3026,12 @@ def main() -> int:
                                      "library_ms", "library_call",
                                      "unwindowed_ms", "unwindowed_bound_ms")}}
         for key in ("zipf_ms", "zipf_longest_segment", "zipf_byte_bound_ms",
-                    "library_call", "index_add_ms", "unsorted_ms"):
+                    "library_call", "index_add_ms", "unsorted_ms",
+                    "bytes_bound_ms", "operations_bound_ms", "chain_bound_ms",
+                    "decode_ms", "decode_plain_ms", "host_us_per_call"):
             if key in r:      # the fold on the shuffle's own layout; PART's
-                line[-1][key] = r[key]   # and COMB's other yardsticks
+                line[-1][key] = r[key]   # and COMB's other yardsticks; the
+                                         # sLSTM's bounds and decode step
     assert all(e["launches"] > 0 for e in line)
     log(f"chip_smoke: {time.perf_counter() - t_start:.2f} s in all")
     print(json.dumps({"kernels": line}))

@@ -5,7 +5,8 @@ The shuffle's replay runs PART (:func:`partition_permute`), COMB for +
 (:func:`segment_combine`) and the ordered float64 segmented fold
 (:func:`segmented_fold`); the LM's serving path runs prefill attention
 (:func:`flash_attention`) and decode attention (:func:`decode_attention`),
-and its MoE blocks the grouped matmul of the expert FFN (:func:`gmm`).
+its MoE blocks the grouped matmul of the expert FFN (:func:`gmm`), and its
+xLSTM blocks the sLSTM recurrence (:func:`slstm_scan`).
 """
 from .combine import segment_combine
 from .decode_attention import decode_attention
@@ -13,12 +14,15 @@ from .flash_attention import flash_attention
 from .fold import segmented_fold
 from .gmm import gmm
 from .partition import partition_permute
+from .slstm import slstm_scan
 
 SHUFFLE_KERNELS = (partition_permute, segment_combine, segmented_fold)
 LM_KERNELS = (flash_attention, decode_attention)
 MOE_KERNELS = (gmm,)
-KERNELS = SHUFFLE_KERNELS + LM_KERNELS + MOE_KERNELS
+SSM_KERNELS = (slstm_scan,)
+KERNELS = SHUFFLE_KERNELS + LM_KERNELS + MOE_KERNELS + SSM_KERNELS
 
 __all__ = ["KERNELS", "LM_KERNELS", "MOE_KERNELS", "SHUFFLE_KERNELS",
-           "decode_attention", "flash_attention", "gmm", "partition_permute",
-           "segment_combine", "segmented_fold"]
+           "SSM_KERNELS", "decode_attention", "flash_attention", "gmm",
+           "partition_permute", "segment_combine", "segmented_fold",
+           "slstm_scan"]

@@ -15,6 +15,7 @@ from .flash_attention import flash_attention
 from .fold import segmented_fold as segmented_fold_kernel
 from .gmm import gmm, route_and_pad
 from .partition import partition_permute
+from .slstm import slstm_scan as slstm_scan_kernel
 
 
 def part(slots, vals, *, num_out, unique_slots=False, use_kernel=True):
@@ -56,6 +57,12 @@ def grouped_matmul(x, w, tile_group_ids, *, block_n=128, use_kernel=True):
     return ref.gmm_ref(x, w, tile_group_ids, block_n=block_n)
 
 
+def slstm_scan(xw, w_rec, b, state, *, use_kernel=True):
+    if use_kernel:
+        return slstm_scan_kernel(xw, w_rec, b, state)
+    return ref.slstm_scan_ref(xw, w_rec, b, state)
+
+
 __all__ = ["part", "combine", "segmented_fold", "attention",
-           "decode_attention", "grouped_matmul", "route_and_pad",
+           "decode_attention", "grouped_matmul", "slstm_scan", "route_and_pad",
            "partition_permute", "segment_combine", "flash_attention", "gmm"]

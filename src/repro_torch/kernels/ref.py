@@ -5,7 +5,8 @@ tensor operations.  The wrappers in :mod:`.partition`, :mod:`.combine`,
 :mod:`.fold`, :mod:`.flash_attention` and :mod:`.decode_attention` run these
 only for tensors that lie on the CPU; on the card the kernels run and
 ``chip_smoke.py`` holds them against these on the same inputs.  The grouped
-matmul's (:mod:`.gmm`) is :func:`gmm_ref`.
+matmul's (:mod:`.gmm`) is :func:`gmm_ref`, the sLSTM recurrence's
+(:mod:`.slstm`) :func:`slstm_scan_ref`.
 """
 from __future__ import annotations
 
@@ -252,3 +253,210 @@ def gmm_tolerance(x, w, tile_group_ids, plain: torch.Tensor, *,
     if plain.dtype != torch.float32:
         tol = (tol + 2.0 ** -7 * plain.float().abs()) * (1 + 2.0 ** -7)
     return tol
+
+
+# ---------------------------------------------------------------------------
+# the sLSTM recurrence
+# ---------------------------------------------------------------------------
+
+SLSTM_STATE = ("c", "n", "h", "m")
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))``."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def slstm_pre(xw_t: torch.Tensor, h: torch.Tensor, w_rec: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """One step's float32 pre-activation ``[B, 4d]`` from the input product
+    ``xw_t [B, 4d]`` (x's dtype) and the state's float32 ``h``: ``h`` cast
+    to x's dtype, the product summed in float32 and rounded to x's dtype,
+    then ``xw_t + that`` rounded, then ``+ b`` rounded, then float32 (the
+    reference's ``(x_t @ w_in + h.astype(x.dtype) @ w_rec + b)`` in its
+    written order).  ``w_rec`` may be given as float32 already."""
+    dt = xw_t.dtype
+    rec = (h.to(dt).float() @ w_rec.float()).to(dt)
+    return ((xw_t + rec) + b).float()
+
+
+def slstm_cell(pre: torch.Tensor, st: dict) -> dict:
+    """The reference's ``_slstm_cell`` after its pre-activation: z, i, f, o
+    from ``pre [B, 4d]`` in float32 (tanh, the two log-sigmoids, sigmoid),
+    the stabiliser ``m``, ``n`` floored at 1e-6; returns the new state
+    ``{"c", "n", "h", "m"}`` (``h`` is the step's output)."""
+    z, i, f, o = pre.chunk(4, dim=-1)
+    z = torch.tanh(z)
+    o = torch.sigmoid(o)
+    log_i = -softplus(-i)
+    log_f = -softplus(-f)
+    m_new = torch.maximum(log_f + st["m"], log_i)
+    i_s = torch.exp(log_i - m_new)
+    f_s = torch.exp(log_f + st["m"] - m_new)
+    c = f_s * st["c"] + i_s * z
+    n = torch.clamp(f_s * st["n"] + i_s, min=1e-6)
+    return {"c": c, "n": n, "h": o * (c / n), "m": m_new}
+
+
+def _bf16_sum(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h [B, d] @ w [d, 4d]`` summed in bfloat16: float32 partial sums of
+    8 rows of k, added pairwise with each sum rounded to bfloat16 (as a
+    kernel that kept its accumulator in bfloat16 would)."""
+    part = torch.einsum("bcv,cvn->bcn", h.reshape(h.shape[0], -1, 8),
+                        w.reshape(-1, 8, w.shape[1]))
+    while part.shape[1] > 1:
+        if part.shape[1] % 2:
+            part = torch.cat([part, torch.zeros_like(part[:, :1])], 1)
+        part = (part[:, 0::2] + part[:, 1::2]).bfloat16().float()
+    return part[:, 0]
+
+
+def slstm_scan_ref(xw: torch.Tensor, w_rec: torch.Tensor, b: torch.Tensor,
+                   state: dict, *, drop_rec_at: int | None = None,
+                   bf16_sum: bool = False):
+    """The sLSTM recurrence over ``xw [B, S, 4d]`` (the input product, in
+    x's dtype, bfloat16 or float32) with ``w_rec [d, 4d]`` and ``b [4d]``
+    in that dtype, from ``state`` (``c, n, h, m [B, d]`` float32): a loop
+    of :func:`slstm_pre` and :func:`slstm_cell` over ``t``.  Returns ``(hs
+    [B, S, d] float32, the final state)``; ``state`` is not modified.
+    Two planted faults for the checks: ``drop_rec_at`` leaves the recurrent
+    product out of that one step; ``bf16_sum`` sums it in bfloat16
+    (:func:`_bf16_sum`; ``d`` a multiple of 8) instead of float32."""
+    w = w_rec.float()
+    st = {k: state[k].float() for k in SLSTM_STATE}
+    hs = []
+    for t in range(xw.shape[1]):
+        if t == drop_rec_at:
+            pre = (xw[:, t] + b).float()
+        elif bf16_sum:
+            rec = _bf16_sum(st["h"].to(xw.dtype).float(), w).to(xw.dtype)
+            pre = ((xw[:, t] + rec) + b).float()
+        else:
+            pre = slstm_pre(xw[:, t], st["h"], w, b)
+        st = slstm_cell(pre, st)
+        hs.append(st["h"])
+    return torch.stack(hs, dim=1), st
+
+
+def _dtype_step(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The spacing of ``dtype``'s values at ``|x|`` (float32 ``x``): 2^(e
+    - p) for ``|x|`` in [2^e, 2^(e+1)), p = 7 (bfloat16) or 23 (float32);
+    the smallest normal's spacing at 0."""
+    bits = 7 if dtype == torch.bfloat16 else 23
+    e = torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126)))
+    return torch.exp2(e - bits)
+
+
+# float32 roundings of the cell itself (about ten operations, tanh, exp and
+# log1p each within a few ulp of their own on either side), per step
+SLSTM_CELL_EPS = 2.0 ** -20
+
+
+def slstm_tolerance(xw: torch.Tensor, w_rec: torch.Tensor, b: torch.Tensor,
+                    state: dict, *, skipped_rounding: bool = False
+                    ) -> tuple[torch.Tensor, dict]:
+    """Per-element bounds on ``|kernel - plain|`` for ``slstm_scan`` against
+    :func:`slstm_scan_ref` on the same inputs: ``(bound on hs [B, S, d],
+    bounds on the final state)``.
+
+    The two differ only in the recurrent product's float32 sum, which the
+    kernel takes in another order, and in the cell's float32 functions.
+    Each step's pre-activation ``g`` of z, i, f, o may move by the smaller
+    of two slacks:
+
+    - the interval: the plain run's float32 product ``p`` may move by ``e
+      = 2 d 2^-24 (|h| @ |w_rec|)`` (the sum's reordering) plus ``|w_rec|``
+      times how far the two runs' ``h``, cast to x's dtype, may lie apart
+      (each ``h`` within the last step's bound, cast at both ends); the
+      three roundings after it (to x's dtype, ``+ xw``, ``+ b``) are
+      monotone, so ``g`` lies between its values at ``p - e`` and ``p +
+      e``.  Where no rounding boundary lies within ``e`` of ``p`` that
+      interval is one value: the two runs agree there exactly;
+    - one step of x's dtype at each of the three rounded values (for
+      bfloat16 about 2^-7 of each) plus the reordering ``e``: where the
+      runs' ``h`` have drifted apart in their last bits the interval's
+      worst case through ``|w_rec|`` grows without limit, but the drift
+      has random signs and ``|w_rec|`` is about 0.02, so it moves a
+      pre-activation far less than these steps.
+
+    So a kernel that sums the product in a lower precision is caught where
+    the runs start from one ``h`` (the first steps from any state), and
+    one that drops or garbles it everywhere.  ``skipped_rounding`` adds a
+    step at ``+ b``: the other run may skip that rounding, as XLA's CPU
+    compiler does inside its scan.  The slack is carried through the cell
+    to first order, at the plain run's values:
+
+    - ``z = tanh`` moves by ``(1 - z^2) u_z``, ``o`` by ``o (1 - o) u_o``,
+      the log-gates by ``sigmoid(-i) u_i`` and ``sigmoid(-f) u_f``;
+    - ``r = c / n`` is the weighted mean ``w_f r_prev + w_i z`` (``w_i =
+      i_s / n``, ``w_f = f_s n_prev / n``; the stabiliser ``m`` cancels),
+      so its error ``E_r`` carries as ``w_f E_r + w_i dz + w_f |r_prev - r|
+      (d log_i + d log_f + E_N)``, with ``E_N = w_f (E_N + d log_f) + w_i d
+      log_i`` the error of the unscaled ``log n`` (the past's weight), and
+      ``2^-20`` a step for the cell's own float32 roundings;
+    - ``h = o r`` moves by ``o E_r + do |r|``; ``m`` by its branch's
+      log-gate error (both where the branch may flip); ``n = N e^-m`` by
+      ``n (E_N + E_m)``; ``c = r n`` by ``|r| dn + n E_r``.
+
+    The bound is twice that (for the first-order terms), plus ``2^-20
+    |x|`` for a float32 result.  n's floor of 1e-6 is not modelled: after
+    the first step n >= min(1, n_0)."""
+    dt = xw.dtype
+    d = w_rec.shape[0]
+    w = w_rec.float()
+    wabs = w.abs()
+    st = {k: state[k].float() for k in SLSTM_STATE}
+    zeros = torch.zeros_like(st["c"])
+    e_r, e_n, e_m, e_h = zeros, zeros, zeros, zeros
+    tols = []
+    for t in range(xw.shape[1]):
+        hq = st["h"].to(dt).float()
+        p32 = hq @ w
+        p = p32.to(dt)
+        s1 = xw[:, t] + p
+        pre = (s1 + b).float()
+        reorder = 2 * d * 2.0 ** -24 * (hq.abs() @ wabs)
+        skip = _dtype_step(pre, dt) if skipped_rounding else 0.0
+        steps = (_dtype_step(p.float(), dt) + _dtype_step(s1.float(), dt)
+                 + _dtype_step(pre, dt) + reorder)
+        h_apart = ((st["h"] + e_h).to(dt).float()
+                   - (st["h"] - e_h).to(dt).float())
+        e = reorder + h_apart @ wabs + _dtype_step(p32, torch.float32)
+        lo, hi = (p32 - e).to(dt), (p32 + e).to(dt)
+        interval = (((xw[:, t] + hi) + b).float()
+                    - ((xw[:, t] + lo) + b).float() + skip)
+        u = torch.minimum(interval, steps)
+        u_z, u_i, u_f, u_o = u.chunk(4, dim=-1)
+        zp, ip, fp, op = pre.chunk(4, dim=-1)
+        new = slstm_cell(pre, st)
+        z, o = torch.tanh(zp), torch.sigmoid(op)
+        d_z, d_o = (1 - z * z) * u_z, o * (1 - o) * u_o
+        d_li, d_lf = torch.sigmoid(-ip) * u_i, torch.sigmoid(-fp) * u_f
+        log_i, log_f = -softplus(-ip), -softplus(-fp)
+        i_s = torch.exp(log_i - new["m"])
+        f_s = torch.exp(log_f + st["m"] - new["m"])
+        w_i = i_s / new["n"]
+        w_f = f_s * st["n"] / new["n"]
+        r = new["c"] / new["n"]
+        r_prev = torch.where(st["n"] > 0, st["c"] / st["n"].clamp(min=1e-30),
+                             zeros)
+        e_r = (w_f * e_r + w_i * d_z
+               + w_f * (r_prev - r).abs() * (d_li + d_lf + e_n)
+               + SLSTM_CELL_EPS * (1 + r.abs()))
+        e_n = w_f * (e_n + d_lf) + w_i * d_li
+        gap = (log_f + st["m"] - log_i).abs()
+        flip = gap <= d_lf + e_m + d_li
+        e_m = torch.where(flip, torch.maximum(d_lf + e_m, d_li),
+                          torch.where(log_f + st["m"] > log_i, d_lf + e_m,
+                                      d_li))
+        tols.append(2 * (o * e_r + d_o * r.abs())
+                    + SLSTM_CELL_EPS * new["h"].abs())
+        e_h = tols[-1]
+        st = new
+    e_dn = st["n"] * (e_n + e_m)
+    final = {"h": tols[-1] if tols else zeros,
+             "m": 2 * e_m + SLSTM_CELL_EPS * st["m"].abs(),
+             "n": 2 * e_dn + SLSTM_CELL_EPS * st["n"],
+             "c": 2 * ((st["c"] / st["n"]).abs() * e_dn + st["n"] * e_r)
+             + SLSTM_CELL_EPS * st["c"].abs()}
+    return torch.stack(tols, dim=1), final

@@ -7,11 +7,16 @@ prefill's attention runs the flash kernel and every decode step the decode
 kernel (:mod:`repro_torch.kernels`), each with the layer's sliding window
 (Hymba), and a MoE model's expert FFN the grouped-matmul kernel in both;
 ``use_kernel=False`` runs their plain versions, the yardstick the kernels
-are held against.  A hybrid model's Mamba heads run as tensor ops.
+are held against.  A hybrid model's Mamba heads run as tensor ops.  An
+xLSTM model (xlstm-350m) keeps a fixed-size state per layer in place of a
+KV cache: its mLSTM layers run as tensor ops (chunkwise in the prefill, the
+recurrent step in decode), its sLSTM layers' recurrence the sLSTM kernel
+(``slstm_scan``) in the prefill and in every decode step.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m --smoke --device cpu
 """
 from __future__ import annotations
 

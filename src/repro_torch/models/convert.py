@@ -64,7 +64,9 @@ def _copy_into(module: nn.Module, tree: dict, done: set, where: str) -> None:
 def lm_params_from_reference(cfg: ModelConfig, params: dict, *,
                              device="cuda") -> LM:
     """The port's :class:`~repro_torch.models.lm.LM` holding a copy of every
-    array of the reference's ``lm.init_lm`` tree ``params``."""
+    array of the reference's ``lm.init_lm`` tree ``params`` (each subtree,
+    ``attn``, ``mixer``, ``moe``, ``mlstm`` or ``slstm``, into the module
+    of its name)."""
     dev = check_device(device)
     model = LM(cfg, device=dev)              # empty: every tensor is copied
     done: set = set()
@@ -84,8 +86,9 @@ def cache_from_reference(cfg: ModelConfig, cache: dict, *,
                          device="cuda") -> dict:
     """The port's cache (``{"pos", "layers": [{"k", "v", "len"}]}``, a
     hybrid model's layers ``{"attn": {"k", "v", "len"}, "ssm": {"conv",
-    "ssm"}}``) holding a copy of the reference's ``lm.init_cache`` /
-    ``forward`` cache, every leaf in its own dtype."""
+    "ssm"}}``, an xLSTM model's ``{"state": {...}}``) holding a copy of the
+    reference's ``lm.init_cache`` / ``forward`` cache, every leaf in its
+    own dtype."""
     dev = check_device(device)
 
     def attn(t):
@@ -93,6 +96,9 @@ def cache_from_reference(cfg: ModelConfig, cache: dict, *,
                 "len": int(np.asarray(t["len"]))}
 
     def layer(t):
+        if "state" in t:                     # xLSTM: mLSTM or sLSTM state
+            return {"state": {k: to_tensor(v, dev)
+                              for k, v in t["state"].items()}}
         if "ssm" not in t:
             return attn(t)
         return {"attn": attn(t["attn"]),

@@ -1,25 +1,28 @@
-"""The port's decoder LM: the dense, MoE and hybrid families with token input.
+"""The port's decoder LM: the dense, MoE, hybrid and SSM families with token input.
 
 Counterpart of ``repro.models.lm`` for ``family`` ``"dense"``, ``"moe"``
-(without MLA) and ``"hybrid"`` (Hymba): the same parameters (``embed``,
-``final_norm``, ``unembed`` and per block ``ln1``, ``attn`` or a hybrid's
-``mixer``, ``ln2`` and ``mlp`` or ``moe``), the same forward, cache and
+(without MLA), ``"hybrid"`` (Hymba) and ``"ssm"`` (xLSTM): the same
+parameters (``embed``, ``final_norm``, ``unembed`` and per block ``ln1``,
+``attn`` or a hybrid's ``mixer``, ``ln2`` and ``mlp`` or ``moe``; an xLSTM
+block ``ln1`` and ``mlstm`` or ``slstm`` alone), the same forward, cache and
 ``serve_step``.  As in the reference, a MoE model with shared experts keeps
-a dense FFN in layer 0 (its ``block0``), and a hybrid model's attention is
+a dense FFN in layer 0 (its ``block0``), a hybrid model's attention is
 global in ``cfg.global_attn_layers`` and has ``cfg.sliding_window``
-elsewhere.  The reference's ``lax.scan`` over stacked blocks is an
+elsewhere, and an xLSTM model's every ``cfg.ssm.slstm_every``-th layer is
+sLSTM.  The reference's ``lax.scan`` over stacked blocks is an
 ``nn.ModuleList`` walked in order, and the embedding is a plain lookup (one
 device, no mesh).  Logits are computed for every position, as the
 reference does.
 
-SSM (xLSTM) blocks, MLA and embedding input (vision / audio frontends)
-come with later slices of the port and raise ``NotImplementedError`` here.
+MLA and embedding input (vision / audio frontends) come with later slices
+of the port and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from repro_torch.device import check_device
 
@@ -28,14 +31,13 @@ from .hybrid import HymbaMixer, init_ssm_cache
 from .layers import (MLP, Attention, RMSNorm, dtype_of, embed_init,
                      init_attention_cache, param)
 from .moe import MoE
+from .ssm import (MLSTM, SLSTM, init_mlstm_state, init_slstm_state,
+                  mlstm_chunked, mlstm_step, slstm_forward)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run yet."""
-    if cfg.family == "ssm":
-        raise NotImplementedError(f"{cfg.name}: ssm blocks come with the "
-                                  "xLSTM slice of the port")
-    if cfg.family not in ("dense", "moe", "hybrid"):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.mla is not None:
         raise NotImplementedError(f"{cfg.name}: MLA comes with the "
@@ -45,6 +47,13 @@ def check_supported(cfg: ModelConfig) -> None:
 def is_dense_layer(cfg: ModelConfig, layer: int) -> bool:
     """DeepSeek-style: with shared experts, layer 0 keeps a dense FFN."""
     return cfg.family == "moe" and cfg.moe.num_shared > 0 and layer == 0
+
+
+def is_slstm(cfg: ModelConfig, layer: int) -> bool:
+    """xLSTM: every ``cfg.ssm.slstm_every``-th layer (the last of each
+    group) is sLSTM, the rest mLSTM."""
+    k = cfg.ssm.slstm_every if cfg.ssm else 0
+    return bool(k) and layer % k == k - 1
 
 
 def layer_window(cfg: ModelConfig, layer: int) -> int:
@@ -58,13 +67,21 @@ def layer_window(cfg: ModelConfig, layer: int) -> int:
 class Block(nn.Module):
     """One transformer block: pre-norm attention (a hybrid model's
     ``mixer``: attention and Mamba side by side), then a pre-norm MLP, or
-    MoE FFN (``moe``) in a MoE model's routed layers."""
+    MoE FFN (``moe``) in a MoE model's routed layers.  An xLSTM block is a
+    pre-norm ``mlstm`` or ``slstm`` and its residual, with no MLP."""
 
     def __init__(self, cfg: ModelConfig, layer: int, *, device, gen=None):
         super().__init__()
         dt = dtype_of(cfg)
         window = layer_window(cfg, layer)
+        self.cfg = cfg
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
+        if cfg.family == "ssm":
+            if is_slstm(cfg, layer):
+                self.slstm = SLSTM(cfg, device=device, gen=gen)
+            else:
+                self.mlstm = MLSTM(cfg, device=device, gen=gen)
+            return
         if cfg.family == "hybrid":
             self.mixer = HymbaMixer(cfg, device=device, gen=gen, window=window)
         else:
@@ -77,6 +94,8 @@ class Block(nn.Module):
 
     def forward(self, x, positions, *, cache=None, use_kernel=True):
         """``(x, aux)``: ``aux`` the router's load-balance loss, or None."""
+        if self.cfg.family == "ssm":
+            return x + self._xlstm(self.ln1(x), cache, use_kernel), None
         mix = self.mixer if hasattr(self, "mixer") else self.attn
         out, _ = mix(self.ln1(x), positions, cache=cache, use_kernel=use_kernel)
         x = x + out
@@ -84,6 +103,27 @@ class Block(nn.Module):
             y, aux = self.moe(self.ln2(x), use_kernel=use_kernel)
             return x + y, aux
         return x + self.mlp(self.ln2(x)), None
+
+    def _xlstm(self, h, cache, use_kernel):
+        """The xLSTM mixer's output; a given cache's ``state`` is updated in
+        place.  With a cache, one token takes ``mlstm_step`` and any other
+        length ``mlstm_chunked`` from the cached state; sLSTM always runs
+        ``slstm_forward`` (from the cached state, if any)."""
+        cfg, state = self.cfg, None if cache is None else cache["state"]
+        if hasattr(self, "slstm"):
+            with record_function("xlstm.slstm"):    # names it in a profile
+                out, new = slstm_forward(self.slstm, cfg, h, state,
+                                         use_kernel=use_kernel)
+        else:
+            with record_function("xlstm.mlstm"):
+                if state is not None and h.shape[1] == 1:
+                    out, new = mlstm_step(self.mlstm, cfg, h, state)
+                else:
+                    out, new = mlstm_chunked(self.mlstm, cfg, h, state)
+        if state is not None:
+            for k, v in new.items():
+                state[k].copy_(v)
+        return out
 
 
 class LM(nn.Module):
@@ -153,18 +193,25 @@ def forward(model: LM, *, tokens=None, embeds=None, positions=None,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> dict:
     """``{"pos": 0, "layers": [{"k", "v", "len"}, ...]}``, a hybrid model's
-    layers ``{"attn": {"k", "v", "len"}, "ssm": {"conv", "ssm"}}``; keys,
-    values and the conv tail are bfloat16 whatever the model's dtype, the
-    scan state float32, as in the reference."""
+    layers ``{"attn": {"k", "v", "len"}, "ssm": {"conv", "ssm"}}``, an
+    xLSTM model's ``{"state": {"C", "n", "m"}}`` (mLSTM) or ``{"state":
+    {"c", "n", "h", "m"}}`` (sLSTM); keys, values and the conv tail are
+    bfloat16 whatever the model's dtype, the scan and xLSTM states float32,
+    as in the reference (an xLSTM cache does not grow: ``max_len`` is
+    unused)."""
     check_supported(cfg)
     dev = check_device(device)
 
-    def one():
+    def one(layer):
+        if cfg.family == "ssm":
+            init = init_slstm_state if is_slstm(cfg, layer) \
+                else init_mlstm_state
+            return {"state": init(cfg, batch, device=dev)}
         attn = init_attention_cache(cfg, batch, max_len, device=dev)
         if cfg.family == "hybrid":
             return {"attn": attn, "ssm": init_ssm_cache(cfg, batch, device=dev)}
         return attn
-    return {"pos": 0, "layers": [one() for _ in range(cfg.n_layers)]}
+    return {"pos": 0, "layers": [one(i) for i in range(cfg.n_layers)]}
 
 
 def serve_step(model: LM, cache: dict, tokens=None, embeds=None, *,

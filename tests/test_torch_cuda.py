@@ -1,6 +1,7 @@
 """The port on the card: each kernel against its plain version, the
 service's replay through the shuffle kernels, and the LM's serving path
-through the attention kernels and, for a MoE model, the grouped matmul.  Every test here is marked ``cuda`` and
+through the attention kernels and, for a MoE model, the grouped matmul, for
+an xLSTM model the sLSTM recurrence.  Every test here is marked ``cuda`` and
 skips on a host without a CUDA device; on the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -28,6 +29,8 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fold import segmented_fold  # noqa: E402
 from repro_torch.kernels.gmm import gmm  # noqa: E402
 from repro_torch.kernels.partition import partition_permute  # noqa: E402
+from repro_torch.kernels.slstm import launch as slstm_launch  # noqa: E402
+from repro_torch.kernels.slstm import slstm_scan  # noqa: E402
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -970,7 +973,8 @@ def test_card_smoke_serve_matches_plain(cuda):
     counts = {k.__name__: k.launches for k in KERNELS}
     assert counts == {"partition_permute": 0, "segment_combine": 0,
                       "segmented_fold": 0, "flash_attention": cfg.n_layers,
-                      "decode_attention": cfg.n_layers * 6, "gmm": 0}
+                      "decode_attention": cfg.n_layers * 6, "gmm": 0,
+                      "slstm_scan": 0}
     plain_gen, plain = serve("qwen2.5-14b", use_kernel=False, forced=gen, **kw)
     assert all(k.launches == counts[k.__name__] for k in KERNELS)
     np.testing.assert_array_equal(plain_gen[:, 0], gen[:, 0])
@@ -1112,11 +1116,152 @@ def test_card_smoke_moe_serve_matches_plain(cuda):
     assert counts == {"partition_permute": 0, "segment_combine": 0,
                       "segmented_fold": 0, "flash_attention": cfg.n_layers,
                       "decode_attention": cfg.n_layers * 6,
-                      "gmm": 3 * cfg.n_layers * 7}
+                      "gmm": 3 * cfg.n_layers * 7, "slstm_scan": 0}
     plain_gen, plain = serve("qwen3-moe-235b-a22b", use_kernel=False,
                              forced=got, **kw)
     assert all(k.launches == counts[k.__name__] for k in KERNELS)
     np.testing.assert_array_equal(plain_gen[:, 0], got[:, 0])
+    for a, b in zip(stats.logits, plain.logits):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the sLSTM recurrence
+# ---------------------------------------------------------------------------
+
+def _slstm_inputs(b, s, d, dtype, dev, seed=0):
+    """xw ~ N(0, 1), w_rec at the model's scale 0.02, a bias of scale 0.3
+    (so that every rounding of the pre-activation is exercised) and a
+    random state (n in [1, 3))."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = TORCH[dtype]
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(t)
+    st = {"c": 0.5 * torch.randn((b, d), generator=gen, device=dev),
+          "n": 1 + 2 * torch.rand((b, d), generator=gen, device=dev),
+          "h": 0.3 * torch.randn((b, d), generator=gen, device=dev),
+          "m": torch.randn((b, d), generator=gen, device=dev) - 1}
+    return randn(b, s, 4 * d), randn(d, 4 * d, scale=0.02), \
+        randn(4 * d, scale=0.3), st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 1024])
+@pytest.mark.parametrize("s", [1, 37, 4096])
+@pytest.mark.parametrize("b", [1, 8])
+def test_slstm_kernel_matches_plain(cuda, b, s, d, dtype):
+    """Every element of hs and of the final state within
+    ``ref.slstm_tolerance`` of the plain scan; one launch; the state given
+    is left as it was.  S up to 4,096 at B 1 and 8: a missing or misplaced
+    barrier between steps shows as a wrong h read by some block."""
+    xw, w, bias, st = _slstm_inputs(b, s, d, dtype, cuda, seed=b + s + d)
+    before = {k: v.clone() for k, v in st.items()}
+    n = slstm_scan.launches
+    hs, fin = slstm_scan(xw, w, bias, st)
+    assert slstm_scan.launches == n + 1
+    plain, pfin = ref.slstm_scan_ref(xw, w, bias, st)
+    tol, tol_st = ref.slstm_tolerance(xw, w, bias, st)
+    torch.cuda.synchronize()
+    assert hs.shape == (b, s, d) and hs.dtype == torch.float32
+    assert bool(torch.isfinite(hs).all())
+    worst = float(((hs - plain).abs() / tol).max())
+    assert worst <= 1.0, f"hs off by {worst} of the bound"
+    for k in ref.SLSTM_STATE:
+        assert bool(((fin[k] - pfin[k]).abs() <= tol_st[k]).all()), k
+        assert torch.equal(st[k], before[k])
+
+
+@pytest.mark.cuda
+def test_slstm_kernel_fails_the_check_without_its_product(cuda):
+    """The check's planted fault: the plain scan with the recurrent
+    product left out of step S/2 falls outside the bound by 10x or more
+    at the served shape (B 4, S 4,096, d 1,024, bf16)."""
+    xw, w, bias, st = _slstm_inputs(4, 4096, 1024, "bfloat16", cuda)
+    hs, _ = slstm_scan(xw, w, bias, st)
+    bad, _ = ref.slstm_scan_ref(xw, w, bias, st, drop_rec_at=2048)
+    tol, _ = ref.slstm_tolerance(xw, w, bias, st)
+    assert float(((hs - bad).abs() / tol).max()) >= 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s, state", [(1, "random"), (4096, "zero"),
+                                      (4096, "random")])
+def test_slstm_kernel_fails_the_check_with_a_bfloat16_sum(cuda, s, state):
+    """The check's lower-precision control: the plain scan with the
+    recurrent product summed in bf16 (``bf16_sum``) falls outside the bound
+    by 10x or more at the served width (B 4, d 1,024, bf16), at the
+    prefill's length and at a decode step (from a zero state step 0's
+    product is 0 in both, so a decode step starts from a random one); the
+    kernel meets it."""
+    xw, w, bias, st = _slstm_inputs(4, s, 1024, "bfloat16", cuda)
+    if state == "zero":
+        st = {k: torch.zeros_like(v) for k, v in st.items()}
+        st["m"].fill_(-1e30)
+    hs, _ = slstm_scan(xw, w, bias, st)
+    plain, _ = ref.slstm_scan_ref(xw, w, bias, st)
+    bad, _ = ref.slstm_scan_ref(xw, w, bias, st, bf16_sum=True)
+    tol, _ = ref.slstm_tolerance(xw, w, bias, st)
+    assert float(((hs - plain).abs() / tol).max()) <= 1.0
+    assert float(((hs - bad).abs() / tol).max()) >= 10
+
+
+@pytest.mark.cuda
+def test_slstm_grid_that_cannot_be_resident_raises(cuda):
+    """4,096 blocks of one unit each cannot all be resident at once: the
+    launcher raises before launching."""
+    from repro_torch.kernels import _build
+    xw, w, bias, st = _slstm_inputs(1, 2, 4096, "bfloat16", cuda)
+    with pytest.raises(RuntimeError, match="co-resident"):
+        slstm_launch(_build.library("slstm"), xw, w, bias, st, 1)
+
+
+@pytest.mark.cuda
+def test_slstm_kernel_refuses_what_it_does_not_take(cuda):
+    xw, w, bias, st = _slstm_inputs(9, 3, 64, "float32", cuda)
+    with pytest.raises(ValueError, match="B <= 8"):
+        slstm_scan(xw, w, bias, st)
+    xw, w, bias, st = _slstm_inputs(2, 3, 60, "float32", cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        slstm_scan(xw, w, bias, st)
+    xw, w, bias, st = _slstm_inputs(2, 3, 64, "float32", cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        slstm_scan(xw.transpose(0, 1).contiguous().transpose(0, 1), w, bias,
+                   st)
+    with pytest.raises(TypeError):
+        slstm_scan(xw.double(), w.double(), bias.double(), st)
+    from repro_torch.kernels import _build
+    with pytest.raises(RuntimeError, match="CUDA error"):  # 3 does not divide d
+        slstm_launch(_build.library("slstm"), xw, w, bias, st, 3)
+
+
+@pytest.mark.cuda
+def test_card_smoke_xlstm_serve_matches_plain(cuda):
+    """The xlstm-350m smoke config (an mLSTM and an sLSTM block) served on
+    the card: the sLSTM kernel launches once in the prefill and once a
+    decode step, and the run agrees with the plain versions'
+    (teacher-forced) to float32 rounding."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+
+    cfg = get_config("xlstm-350m", smoke=True)
+    params = lm.init_lm(cfg, seed=0, device=cuda)
+    kw = dict(batch=3, prompt_len=70, gen_len=6, max_len=128, device=cuda,
+              params=params)
+    for k in KERNELS:
+        k.launches = 0
+    gen, stats = serve("xlstm-350m", **kw)
+    counts = {k.__name__: k.launches for k in KERNELS}
+    n_slstm = sum(lm.is_slstm(cfg, i) for i in range(cfg.n_layers))
+    assert counts == {**{k.__name__: 0 for k in KERNELS},
+                      "slstm_scan": n_slstm * 7}
+    plain_gen, plain = serve("xlstm-350m", use_kernel=False, forced=gen, **kw)
+    assert all(k.launches == counts[k.__name__] for k in KERNELS)
+    np.testing.assert_array_equal(plain_gen[:, 0], gen[:, 0])
     for a, b in zip(stats.logits, plain.logits):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=1e-4, atol=1e-4)

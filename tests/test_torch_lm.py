@@ -247,7 +247,7 @@ def test_prefill_matches_stepwise_decode(arch):
                                atol=2e-3)
 
 
-def test_prefill_append_takes_the_fused_path():
+def test_prefill_append_takes_the_flash_slot():
     """A prefill appended to a non-empty cache goes to the flash slot over
     the cache's rows (end-aligned), never to the fused plain attention,
     and gives the logits of feeding the same tokens one by one and the
@@ -317,8 +317,7 @@ def test_cache_overflow_raises():
                    cache=cache)
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("deepseek-v2-236b", "MLA"), ("xlstm-350m", "ssm")])
+@pytest.mark.parametrize("arch,what", [("deepseek-v2-236b", "MLA")])
 def test_later_slices_raise(arch, what):
     with pytest.raises(NotImplementedError, match=what):
         lm.LM(get_config(arch, smoke=True), device="cpu")
