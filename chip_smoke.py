@@ -5,8 +5,9 @@
     python3 chip_smoke.py --profile DIR      # also trace one hit per template,
                                              # and the prefill and 4 decode
                                              # steps of each served model
-                                             # (Hymba's Mamba heads and
-                                             # xLSTM's mixers apart)
+                                             # (Hymba's Mamba heads,
+                                             # xLSTM's mixers and MLA's
+                                             # two forms apart)
 
 Run from the root of a checkout.  It needs a CUDA device: without one it
 exits non-zero and prints no result.  In order it
@@ -80,15 +81,18 @@ exits non-zero and prints no result.  In order it
    plain version at the MoE serving shapes (Qwen3-MoE: 128 experts of d
    4096 x f 1536, the prefill's buffers padded to 384 rows per expert at
    block_n 128, the MoE block's layout, and at block_n 64; a decode
-   step's padded to 16) and at edge cases (shuffled and repeated group
-   ids on both of the kernel's paths, groups with no tile, block_n 16 /
+   step's padded to 16; DeepSeek-V2's 160 experts of d 5120 x f 1536 at
+   the prefill's 256 rows an expert and a step's 16, and its 2 shared
+   experts over the prefill's 4,096 tokens) and at edge cases (shuffled
+   and repeated group ids on both of the kernel's paths, groups with no
+   tile, block_n 16 /
    32 / 64 / 128 / 256, d and f off the 64 and 128 tiles, float32
    operands), each element within ``ref.gmm_tolerance``; two planted
    faults (one tile reading the next expert's weights, the reduction
    without its last 512 columns of d) must fall outside it by more than
-   10x at the prefill and at the decode shape.  Times kernel, plain
-   version and ``torch.bmm`` on the capacity layout, with the kernel's
-   TFLOP/s and TB/s;
+   10x at the prefill and at the decode shape of each model.  Times
+   kernel, plain version and ``torch.bmm`` on the capacity layout, with
+   the kernel's TFLOP/s and TB/s;
 5. drives the shuffle's main path, the cached-plan replay of the shuffle
    service, at the paper-shaped 40-worker deployment: Zipf(0.9) keys over
    1M keys, 200k rows of width 8 per worker (8M rows, 576 MB), SUM on
@@ -180,6 +184,22 @@ exits non-zero and prints no result.  In order it
    recorded and replayed), is the yardstick for its logits; a control
    whose plain gmm drops the last 512 columns of its reduction must fail
    that check;
+7a. drives ``serve`` on DeepSeek-V2-236B the same way, through the same
+   function: full width, depth cut to 9 of 60 layers (layer 0 with its
+   dense FFN of 12,288, then 8 MoE layers of 160 routed experts top-6 and
+   2 shared experts; 33,163,494,400 parameters, 66.33 GB of bf16 weights),
+   multi-head latent attention in every layer (tensor ops: the
+   materialised form in the prefill, the absorbed form over the latent
+   cache in each decode step).  The counters: gmm six times per MoE layer
+   in the prefill and in every decode step (routed and shared, 1,584),
+   every other kernel never; the same yardstick, control and logged
+   numbers, and the card's bytes free at the peak.  Layer 1's MLA is then
+   held at full width on bf16 inputs: the absorbed decode against the
+   materialised form at the step after a 1,024-position prefill on one
+   cache, and the prompt prefilled in two chunks of 512 against one call,
+   each within its limit in bf16 steps, with a control (the absorbed
+   scores without their rope term; the first chunk's rope keys zeroed)
+   that must miss it by 10x;
 8. prints the ``kernels`` JSON line, then the ``ok`` line last.
 
 The card's peaks used for the bounds are NVIDIA's H100 SXM data-sheet
@@ -307,6 +327,8 @@ SHARP = 4.0
 
 MOE_ARCH = "qwen3-moe-235b-a22b"     # the MoE slice: full width, depth cut
 MOE_LAYERS = 12                      # of 94: 62.2 GB of bf16 weights
+DEEPSEEK_ARCH = "deepseek-v2-236b"   # the MLA slice: full width, depth cut
+DEEPSEEK_LAYERS = 9                  # of 60 (dense layer 0, 8 MoE): 66.33 GB
 GMM_DROP = 512                       # columns of d the planted fault drops
 GMM_TOL = ("per element: (2^-7 |plain| + 2 d 2^-24 (|x| @ |w|)) (1 + 2^-7) "
            "(bf16 out); 2 d 2^-24 (|x| @ |w|) (float32 out)")
@@ -322,6 +344,15 @@ GMM_CASES = [
     ("prefill down", 128, 128 * 3, 1536, 4096, 128, "capacity", "bfloat16"),
     ("decode gate/up", 128, 128, 4096, 1536, 16, "capacity", "bfloat16"),
     ("decode down", 128, 128, 1536, 4096, 16, "capacity", "bfloat16"),
+    # DeepSeek-V2: 160 routed experts of d_model 5120 x 1536, top-6: the
+    # prefill's capacity 200 padded to 256 (2 tiles an expert), a decode
+    # step's 8 padded to 16; the 2 shared experts take all 4,096 tokens
+    ("DeepSeek prefill routed gate/up", 160, 160 * 2, 5120, 1536, 128,
+     "capacity", "bfloat16"),
+    ("DeepSeek prefill shared gate/up", 2, 2 * 32, 5120, 1536, 128,
+     "capacity", "bfloat16"),
+    ("DeepSeek decode routed gate/up", 160, 160, 5120, 1536, 16, "capacity",
+     "bfloat16"),
     ("prefill gate/up at block_n 64", 128, 128 * 6, 4096, 1536, 64,
      "capacity", "bfloat16"),
     ("shuffled, repeated ids", 128, 300, 4096, 1536, 16, "shuffled",
@@ -340,7 +371,10 @@ GMM_CASES = [
      "shuffled", "bfloat16"),
     ("float32 operands", 16, 64, 1024, 512, 64, "shuffled", "float32")]
 # the shapes at which the planted faults must fail the check
-GMM_FAULT_CASES = ("prefill gate/up", "decode gate/up")
+GMM_FAULT_CASES = ("prefill gate/up", "decode gate/up",
+                   "DeepSeek prefill routed gate/up",
+                   "DeepSeek prefill shared gate/up",
+                   "DeepSeek decode routed gate/up")
 
 
 def log(*a) -> None:
@@ -1890,7 +1924,14 @@ class _Routing:
         return over, sum(e.numel() for e, _ in self.calls)
 
 
-def moe_serve_phase(dev, profile_dir: Path | None) -> dict:
+def moe_serve_phase(dev, profile_dir: Path | None, arch: str,
+                    n_layers: int, tag: str) -> dict:
+    """``serve`` on MoE model ``arch`` at full width, its depth cut to
+    ``n_layers``: every routed and shared expert drawn on its own, the
+    launch counts, the plain versions' forced and routed run as the
+    yardstick, the dropped-reduction gmm control; an MLA model's attention
+    also held at full width (:func:`_mla_checks`).  ``tag`` names the
+    profile's files."""
     import dataclasses
 
     import numpy as np
@@ -1902,28 +1943,30 @@ def moe_serve_phase(dev, profile_dir: Path | None) -> dict:
     from repro_torch.models import lm
     from repro_torch.models.layers import dense_init
 
-    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     m = cfg.moe
     t0 = time.perf_counter()
     params = lm.init_lm(cfg, seed=SERVE["seed"], device=dev)
+    moe_layers = [b.moe for b in params.blocks if hasattr(b, "moe")]
     # the reference's init repeats one expert: draw each on its own
     gen = torch.Generator(device=dev).manual_seed(SERVE["seed"] + 1)
+    stacks = [st for b in moe_layers for st in (b.experts, b.shared)
+              if st is not None]
     with torch.no_grad():
-        for block in params.blocks:
-            for w in (block.moe.experts.w_gate, block.moe.experts.w_up,
-                      block.moe.experts.w_down):
-                for e in range(m.num_experts):
+        for stack in stacks:
+            for w in (stack.w_gate, stack.w_up, stack.w_down):
+                for e in range(w.shape[0]):
                     w[e].copy_(dense_init(gen, w.shape[1], w.shape[2],
                                           w.dtype, dev))
     torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
     w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    log(f"moe weights: {MOE_ARCH} {cfg.n_layers} of "
-        f"{get_config(MOE_ARCH).n_layers} layers, "
-        f"{sum(p.numel() for p in params.parameters())} parameters "
-        f"({w_bytes / 1e9:.2f} GB {cfg.dtype}), made on the card in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"{tag.rstrip('_')} serve weights: {arch} {cfg.n_layers} of "
+        f"{get_config(arch).n_layers} layers ({len(moe_layers)} MoE), "
+        f"{n_params} parameters ({w_bytes / 1e9:.2f} GB {cfg.dtype}), made "
+        f"on the card in {time.perf_counter() - t0:.2f} s")
     kw = dict(smoke=False, device=dev, params=params, **SERVE)
-    serve(MOE_ARCH, **dict(kw, gen_len=2))     # warm (not counted)
+    serve(arch, **dict(kw, gen_len=2))     # warm (not counted)
     torch.cuda.synchronize()
 
     routing = _Routing()
@@ -1931,27 +1974,32 @@ def moe_serve_phase(dev, profile_dir: Path | None) -> dict:
     for k in KERNELS:                     # the MoE serving path, alone
         k.launches = 0
     with routing.record():
-        gen_tok, stats = serve(MOE_ARCH, **kw)
+        gen_tok, stats = serve(arch, **kw)
     counts = {k.__name__: k.launches for k in KERNELS}
     peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    card = torch.cuda.get_device_properties(dev).total_memory
+    forwards = 1 + SERVE["gen_len"]
+    gqa = 0 if cfg.mla is not None else cfg.n_layers   # MLA: no kernel
     want = {k.__name__: 0 for k in KERNELS}
-    want["flash_attention"] = cfg.n_layers
-    want["decode_attention"] = cfg.n_layers * SERVE["gen_len"]
-    want["gmm"] = 3 * cfg.n_layers * (1 + SERVE["gen_len"])
+    want["flash_attention"] = gqa
+    want["decode_attention"] = gqa * SERVE["gen_len"]
+    # routed and shared experts, three products each, in each forward
+    want["gmm"] = 3 * (1 + bool(m.num_shared)) * len(moe_layers) * forwards
     assert counts == want, counts
     logits = torch.stack(stats.logits).float()
     assert gen_tok.shape == (SERVE["batch"], SERVE["gen_len"])
     assert logits.shape == (SERVE["gen_len"] + 1, SERVE["batch"], cfg.vocab)
     assert bool(torch.isfinite(logits).all())
     assert ((gen_tok >= 0) & (gen_tok < cfg.vocab)).all()
-    assert len(routing.calls) == cfg.n_layers * (1 + SERVE["gen_len"])
+    assert len(routing.calls) == len(moe_layers) * forwards
     dropped, assigned = routing.dropped(m)
 
     # the yardstick: the plain versions, forced on the tokens and routing
     for k in KERNELS:
         k.launches = 0
     with routing.replay():
-        plain_gen, plain = serve(MOE_ARCH, use_kernel=False, forced=gen_tok,
+        plain_gen, plain = serve(arch, use_kernel=False, forced=gen_tok,
                                  **kw)
     flips, checked = int(routing.flips), routing.checked
     assert all(k.launches == 0 for k in KERNELS)
@@ -1976,19 +2024,22 @@ def moe_serve_phase(dev, profile_dir: Path | None) -> dict:
     ref.gmm_ref = dropping
     try:
         with routing.replay():
-            _, control = serve(MOE_ARCH, use_kernel=False, forced=gen_tok,
-                               **kw)
+            _, control = serve(arch, use_kernel=False, forced=gen_tok, **kw)
     finally:
         ref.gmm_ref = plain_gmm
     control_diffs = (torch.stack(control.logits).float() - plain_logits
                      ).abs().amax(dim=(1, 2)).tolist()
     del control
     out = dict(
-        layers=cfg.n_layers, weight_bytes=w_bytes,
+        layers=cfg.n_layers, moe_layers=len(moe_layers), parameters=n_params,
+        weight_bytes=w_bytes,
         prefill_s=stats.prefill_s, decode_s=stats.decode_s,
         decode_tokens_per_s=stats.tokens_per_s,
         decode_step_ms=stats.decode_s / SERVE["gen_len"] * 1e3,
-        peak_device_bytes=peak, launches=counts,
+        peak_device_bytes=peak, peak_reserved_bytes=peak_reserved,
+        card_bytes=card, free_at_peak_bytes=card - peak_reserved,
+        launches=counts,
+        router_calls=len(routing.calls),
         routing_flips=flips, routed_tokens_checked=checked,
         assignments_dropped_over_capacity=dropped, assignments=assigned,
         max_logit_diff_per_step=diffs, max_abs_logit=top, logit_tol=tol,
@@ -1997,16 +2048,108 @@ def moe_serve_phase(dev, profile_dir: Path | None) -> dict:
         control=MOE_CONTROL, control_max_logit_diff=max(control_diffs),
         control_min_step_diff=min(control_diffs),
         control_diff_per_step=control_diffs)
-    log(f"moe serve {MOE_ARCH} layers={cfg.n_layers} batch={SERVE['batch']} "
-        f"prompt={SERVE['prompt_len']} gen={SERVE['gen_len']}: "
+    log(f"{tag.rstrip('_')} serve {arch} layers={cfg.n_layers} "
+        f"batch={SERVE['batch']} prompt={SERVE['prompt_len']} "
+        f"gen={SERVE['gen_len']}: "
         f"{json.dumps(out)}")
     assert all(first_agree), "first generated token differs from plain"
     assert max(diffs) <= tol, f"logits differ from plain by {max(diffs)} > {tol}"
     assert max(control_diffs) > tol, \
         f"control {MOE_CONTROL!r} passes the logit check"
+    del stats, logits, plain_logits, routing
+    torch.cuda.empty_cache()
+    if cfg.mla is not None:
+        out["mla"] = _mla_checks(params.blocks[1].attn, cfg, dev)
     if profile_dir is not None:
-        _profile_serve(params, cfg, dev, profile_dir, tag="moe_")
-    del params, stats, logits, plain_logits, routing
+        _profile_serve(params, cfg, dev, profile_dir, tag=tag)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# MLA at full width on the card (layer 1 of the served DeepSeek-V2, bf16
+# inputs from a seed, the serve's batch and prompt length): (a) the absorbed
+# decode against the materialised form at the step after a 1,024-position
+# prefill, on the same cache; (b) the prompt prefilled in one call against
+# two chunks of 512 on one cache, at the second chunk's outputs.  Limits in
+# bf16 steps at the largest output, fixed before the first run: (a) each
+# form rounds its output to bf16 once before wo (at most a step apart at any
+# element) and wo's output rounds once more; the materialised form's bf16
+# k_nope and v move a score or an output by 2^-9 relative per term, summed
+# with random signs over 128 dims and 1,025 rows, far below a step.  (b)
+# runs the same operations on matmuls of other row counts (cuBLAS may sum
+# in other orders, a step at any rounding).  A CPU emulation at 8 of the 128
+# heads read 1.0 step for both and about 100 for both controls.
+MLA_DECODE_TOL_STEPS = 4
+MLA_APPEND_TOL_STEPS = 4
+MLA_CHUNK = 512
+MLA_DECODE_CONTROL = "the absorbed scores without their rope term"
+MLA_APPEND_CONTROL = "the first chunk's k_rope rows zeroed in the cache"
+
+
+def _mla_checks(attn, cfg, dev) -> dict:
+    """(a) and (b) above on ``attn``; each control must miss its limit by
+    10x or more."""
+    import torch
+
+    from repro_torch.models.layers import (init_mla_cache,
+                                           mla_absorbed_decode,
+                                           mla_materialized)
+    b, s = SERVE["batch"], SERVE["prompt_len"]
+    gen = torch.Generator(device=dev).manual_seed(SERVE["seed"] + 2)
+    x = torch.randn((b, s + 1, cfg.d_model), generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    pos = torch.arange(s + 1, device=dev).expand(b, s + 1)
+
+    def fresh():
+        return init_mla_cache(cfg, b, SERVE["max_len"], device=dev)
+
+    def steps(got, want, step) -> float:
+        return float((got.float() - want.float()).abs().max()) / step
+
+    out = {}
+    with torch.no_grad():
+        # (a) the step at position s on the cache of an s-position prefill
+        cache = fresh()
+        full, _ = attn(x[:, :s], pos[:, :s], cache=cache)
+        absorbed, _ = attn(x[:, s:], pos[:, s:], cache=cache)   # the decode
+        q_nope, q_rope, _, _ = attn.project(x[:, s:], pos[:, s:])
+        rows = cache["latent"][:, :s + 1], cache["k_rope"][:, :s + 1]
+        mat = mla_materialized(attn, q_nope, q_rope, *rows, q_offset=s,
+                               valid_len=s + 1).to(x.dtype) @ attn.wo
+        no_rope = mla_absorbed_decode(attn, q_nope, torch.zeros_like(q_rope),
+                                      *rows, valid_len=s + 1
+                                      ).to(x.dtype) @ attn.wo
+        step = _logit_step(mat)
+        out["absorbed_vs_materialized_steps"] = steps(absorbed, mat, step)
+        out["absorbed_control_steps"] = steps(no_rope, mat, step)
+        del cache, absorbed, mat, no_rope, rows
+        # (b) two chunks on one cache against the one prefill above
+        want = full[:, MLA_CHUNK:]
+        step = _logit_step(want)
+        for name, zero_rope in (("append_steps", False),
+                                ("append_control_steps", True)):
+            cache = fresh()
+            attn(x[:, :MLA_CHUNK], pos[:, :MLA_CHUNK], cache=cache)
+            if zero_rope:
+                cache["k_rope"][:, :MLA_CHUNK] = 0
+            got, _ = attn(x[:, MLA_CHUNK:s], pos[:, MLA_CHUNK:s], cache=cache)
+            assert bool(torch.isfinite(got).all())
+            out[name] = steps(got, want, step)
+            del cache, got
+        del full, want
+    out.update(decode_tol_steps=MLA_DECODE_TOL_STEPS,
+               append_tol_steps=MLA_APPEND_TOL_STEPS,
+               decode_control=MLA_DECODE_CONTROL,
+               append_control=MLA_APPEND_CONTROL)
+    log(f"mla checks (layer 1, B {b}, {s} positions, chunks of "
+        f"{MLA_CHUNK}): {json.dumps(out)}")
+    assert out["absorbed_vs_materialized_steps"] <= MLA_DECODE_TOL_STEPS
+    assert out["absorbed_control_steps"] >= 10 * MLA_DECODE_TOL_STEPS, \
+        f"control {MLA_DECODE_CONTROL!r} is within 10x of the limit"
+    assert out["append_steps"] <= MLA_APPEND_TOL_STEPS
+    assert out["append_control_steps"] >= 10 * MLA_APPEND_TOL_STEPS, \
+        f"control {MLA_APPEND_CONTROL!r} is within 10x of the limit"
     torch.cuda.empty_cache()
     return out
 
@@ -2791,8 +2934,8 @@ def _kernel_class(name: str) -> str:
 
 
 # the models' profiler ranges (record_function): Hymba's Mamba heads,
-# xLSTM's mLSTM and sLSTM mixers
-RANGES = ("hymba.", "xlstm.")
+# xLSTM's mLSTM and sLSTM mixers, MLA's two forms
+RANGES = ("hymba.", "xlstm.", "mla.")
 
 
 def _profile_serve(params, cfg, dev, profile_dir: Path, tag: str = "",
@@ -2800,9 +2943,10 @@ def _profile_serve(params, cfg, dev, profile_dir: Path, tag: str = "",
     """The prefill and four decode steps under torch.profiler: device time
     by kernel class (attention kernels, gmm, the sLSTM kernel, matmuls, the
     rest) against wall, and the models' ``RANGES`` (Hymba's
-    ``hymba.mamba``, xLSTM's ``xlstm.mlstm`` and ``xlstm.slstm``: host ms,
-    and the device ms the ranges span); ``tag`` prefixes the names of the
-    files and lines, ``shape`` gives batch and lengths."""
+    ``hymba.mamba``, xLSTM's ``xlstm.mlstm`` and ``xlstm.slstm``, MLA's
+    ``mla.prefill`` and ``mla.decode``: host ms, and the device ms the
+    ranges span); ``tag`` prefixes the names of the files and lines,
+    ``shape`` gives batch and lengths."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -2832,9 +2976,13 @@ def _profile_serve(params, cfg, dev, profile_dir: Path, tag: str = "",
                     and not e.name.startswith(RANGES):   # a range, no kernel
                 c = _kernel_class(e.name)
                 busy[c] = busy.get(c, 0.0) + e.device_time_total / 1e3
-        ranges = {f"{e.key}_{k}_ms": getattr(e, f"{k}_time_total", 0.0) / 1e3
-                  for e in prof.key_averages() if e.key.startswith(RANGES)
-                  for k in ("cpu", "device")}
+        # each range appears twice: on the host (its CPU time) and as a
+        # device annotation (the span of its device work, gaps included)
+        ranges: dict[str, float] = {}
+        for e in prof.key_averages():
+            if e.key.startswith(RANGES):
+                k = "cpu" if e.device_type == DeviceType.CPU else "device"
+                ranges[f"{e.key}_{k}_ms"] = getattr(e, f"{k}_time_total") / 1e3
         log(f"profile serve {tag}{name}: wall_ms={wall * 1e3!r} device_ms_by_class="
             f"{json.dumps(busy)} idle_share="
             f"{1 - sum(busy.values()) / (wall * 1e3)!r}"
@@ -2979,8 +3127,12 @@ def main() -> int:
     xv = xlstm_serve_phase(dev, args.profile)
     log(f"xlstm serve phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    mv = moe_serve_phase(dev, args.profile)
+    mv = moe_serve_phase(dev, args.profile, MOE_ARCH, MOE_LAYERS, "moe_")
     log(f"moe serve phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    dv = moe_serve_phase(dev, args.profile, DEEPSEEK_ARCH, DEEPSEEK_LAYERS,
+                         "deepseek_")
+    log(f"deepseek serve phase: {time.perf_counter() - t0:.2f} s")
     # each path's launches, counted from zero just before it ran
     launches = {k: sum(p["launches"][k] for p in (sl, sk, bt, gr))
                 for k in sl["launches"]}
@@ -2988,9 +3140,11 @@ def main() -> int:
         flash_attention=sum(p["launches"]["flash_attention"] for p in (sv, hv)),
         decode_attention=sum(p["launches"]["decode_attention"]
                              for p in (sv, hv)),
-        gmm=mv["launches"]["gmm"], slstm_scan=xv["launches"]["slstm_scan"])
-    # the gmm row of the line: a decode step's gate/up launch, the shape of
-    # 1,152 of the serve's 1,188 launches (all four shapes are logged)
+        gmm=mv["launches"]["gmm"] + dv["launches"]["gmm"],
+        slstm_scan=xv["launches"]["slstm_scan"])
+    # the gmm row of the line: Qwen3-MoE's decode gate/up launch, the shape
+    # of 1,152 of the two MoE serves' 2,772 launches (every timed shape is
+    # logged; DeepSeek-V2's decode gate/up rides along in the row)
     krows["gmm"] = krows["decode gate/up"]
 
     sources = {"partition_permute": ("partition.cu",
@@ -3017,6 +3171,12 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         if "path" in r:       # the kernel of the row's shape (flash, decode)
             line[-1]["path"] = r["path"]
+        if k.__name__ == "gmm":   # DeepSeek-V2's launches and decode shape
+            d = krows["DeepSeek decode routed gate/up"]
+            line[-1]["deepseek"] = {
+                "launches": dv["launches"]["gmm"],
+                **{x: d[x] for x in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}}
         w = krows.get(f"{k.__name__}_hymba")
         if w is not None:     # flash and decode with Hymba's window
             line[-1]["window"] = {

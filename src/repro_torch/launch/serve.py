@@ -5,9 +5,13 @@ prompts are the reference's (``np.random.default_rng(seed)`` integers), so
 the same weights give the same tokens in both packages.  On the card the
 prefill's attention runs the flash kernel and every decode step the decode
 kernel (:mod:`repro_torch.kernels`), each with the layer's sliding window
-(Hymba), and a MoE model's expert FFN the grouped-matmul kernel in both;
+(Hymba), and a MoE model's expert FFN the grouped-matmul kernel in both
+(DeepSeek-V2: the routed and the shared experts, layer 0 a dense FFN);
 ``use_kernel=False`` runs their plain versions, the yardstick the kernels
-are held against.  A hybrid model's Mamba heads run as tensor ops.  An
+are held against.  DeepSeek-V2's multi-head latent attention runs as
+tensor ops, as the reference's does on XLA: the materialised form in the
+prefill, the absorbed form over the latent cache in every decode step.  A
+hybrid model's Mamba heads run as tensor ops.  An
 xLSTM model (xlstm-350m) keeps a fixed-size state per layer in place of a
 KV cache: its mLSTM layers run as tensor ops (chunkwise in the prefill, the
 recurrent step in decode), its sLSTM layers' recurrence the sLSTM kernel
@@ -15,6 +19,7 @@ recurrent step in decode), its sLSTM layers' recurrence the sLSTM kernel
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m --smoke --device cpu
 """

@@ -65,8 +65,10 @@ def lm_params_from_reference(cfg: ModelConfig, params: dict, *,
                              device="cuda") -> LM:
     """The port's :class:`~repro_torch.models.lm.LM` holding a copy of every
     array of the reference's ``lm.init_lm`` tree ``params`` (each subtree,
-    ``attn``, ``mixer``, ``moe``, ``mlstm`` or ``slstm``, into the module
-    of its name)."""
+    ``attn`` (GQA or MLA), ``mixer``, ``mlp``, ``moe`` (with its ``shared``
+    experts), ``mlstm`` or ``slstm``, into the module of its name; a MoE
+    model's dense ``block0`` into layer 0).  Raises if the tree lacks an
+    array of the port's or holds one the port does not have."""
     dev = check_device(device)
     model = LM(cfg, device=dev)              # empty: every tensor is copied
     done: set = set()
@@ -84,11 +86,11 @@ def lm_params_from_reference(cfg: ModelConfig, params: dict, *,
 
 def cache_from_reference(cfg: ModelConfig, cache: dict, *,
                          device="cuda") -> dict:
-    """The port's cache (``{"pos", "layers": [{"k", "v", "len"}]}``, a
-    hybrid model's layers ``{"attn": {"k", "v", "len"}, "ssm": {"conv",
-    "ssm"}}``, an xLSTM model's ``{"state": {...}}``) holding a copy of the
-    reference's ``lm.init_cache`` / ``forward`` cache, every leaf in its
-    own dtype."""
+    """The port's cache (``{"pos", "layers": [{"k", "v", "len"}]}``, an MLA
+    model's layers ``{"latent", "k_rope", "len"}``, a hybrid model's layers
+    ``{"attn": {"k", "v", "len"}, "ssm": {"conv", "ssm"}}``, an xLSTM
+    model's ``{"state": {...}}``) holding a copy of the reference's
+    ``lm.init_cache`` / ``forward`` cache, every leaf in its own dtype."""
     dev = check_device(device)
 
     def attn(t):
@@ -96,6 +98,10 @@ def cache_from_reference(cfg: ModelConfig, cache: dict, *,
                 "len": int(np.asarray(t["len"]))}
 
     def layer(t):
+        if "latent" in t:                    # MLA: the latent and rope key
+            return {"latent": to_tensor(t["latent"], dev),
+                    "k_rope": to_tensor(t["k_rope"], dev),
+                    "len": int(np.asarray(t["len"]))}
         if "state" in t:                     # xLSTM: mLSTM or sLSTM state
             return {"state": {k: to_tensor(v, dev)
                               for k, v in t["state"].items()}}

@@ -1,5 +1,6 @@
 """Shared neural layers of the port's LM: RMSNorm, RoPE, GQA attention with
-a KV cache, and the SwiGLU / GELU MLP.
+a KV cache, DeepSeek-V2's multi-head latent attention (MLA) with its latent
+cache, and the SwiGLU / GELU MLP.
 
 Counterpart of ``repro.models.layers`` for the dense text path.  Weights keep
 the reference's ``[d_in, d_out]`` layout (``x @ w``), so that converted
@@ -14,8 +15,15 @@ kernel's slot over the cache's rows, single-token decode to the decode
 kernel's, each with the layer's sliding window; ``use_kernel=False`` takes
 their plain versions instead.  Without a cache, the flash slot, or with
 ``use_kernel=False`` :func:`_attend`, the reference's dispatch between the
-fused and the blocked plain attention.  MLA comes with its model's slice
-and raises here.
+fused and the blocked plain attention.
+
+MLA (:class:`MLA`) runs on tensor ops alone, as the reference's does on
+XLA: no kernel of the port takes its ``dk != dv`` heads.  Its two forms
+are plain functions: :func:`mla_materialized` (the latent up-projected to
+per-head keys and values, then :func:`_attend`) for every call but a
+single-token decode, which takes :func:`mla_absorbed_decode` (``wkv_b``
+folded into the query and the output, attention in the latent space in
+float32).
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import MASKED
@@ -174,9 +183,6 @@ class Attention(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device, gen=None, window: int = 0):
         super().__init__()
-        if cfg.mla is not None:
-            raise NotImplementedError("MLA attention comes with the "
-                                      "DeepSeek-V2 slice of the port")
         self.cfg = cfg
         self.window = window
         qh, kvh = cfg.attn_dims
@@ -233,6 +239,147 @@ def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device), "len": 0}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """Multi-head latent attention: ``wq_a [d, q_lora]``, ``q_a_norm``,
+    ``wq_b [q_lora, h (dn + dr)]``, ``wkv_a [d, r + dr]``, ``kv_a_norm``,
+    ``wkv_b [r, h (dn + dv)]`` and ``wo [h dv, d]``, the reference's
+    ``init_mla`` names and layouts (``r`` the kv latent's rank, ``dn`` /
+    ``dr`` the no-rope and rope halves of a query-key head, ``dv`` a value
+    head).  The cache holds only the normalised latent and one rope key per
+    position, shared by the heads."""
+
+    def __init__(self, cfg: ModelConfig, *, device, gen=None):
+        super().__init__()
+        m, h, d, dt = cfg.mla, cfg.n_heads, cfg.d_model, dtype_of(cfg)
+        self.cfg = cfg
+        self.wq_a = param(dense_init(gen, d, m.q_lora_rank, dt, device))
+        self.q_a_norm = RMSNorm(m.q_lora_rank, cfg.norm_eps, dt, device)
+        self.wq_b = param(dense_init(
+            gen, m.q_lora_rank, h * (m.nope_head_dim + m.rope_head_dim), dt,
+            device))
+        self.wkv_a = param(dense_init(gen, d, m.kv_lora_rank + m.rope_head_dim,
+                                      dt, device))
+        self.kv_a_norm = RMSNorm(m.kv_lora_rank, cfg.norm_eps, dt, device)
+        self.wkv_b = param(dense_init(
+            gen, m.kv_lora_rank, h * (m.nope_head_dim + m.v_head_dim), dt,
+            device))
+        self.wo = param(dense_init(gen, h * m.v_head_dim, d, dt, device))
+
+    def project(self, x: torch.Tensor, positions: torch.Tensor):
+        """``(q_nope [B,S,h,dn], q_rope [B,S,h,dr], latent [B,S,r], k_rope
+        [B,S,dr])`` of ``x [B, S, D]``: the rope halves rotated at
+        ``positions``, the latent normalised (what the cache holds)."""
+        cfg, m = self.cfg, self.cfg.mla
+        b, s, _ = x.shape
+        q = self.q_a_norm(x @ self.wq_a) @ self.wq_b
+        q = q.reshape(b, s, cfg.n_heads, m.nope_head_dim + m.rope_head_dim)
+        q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+        latent, k_rope = (x @ self.wkv_a).split(
+            [m.kv_lora_rank, m.rope_head_dim], dim=-1)
+        k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+        return q_nope, q_rope, self.kv_a_norm(latent), k_rope[:, :, 0]
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
+                cache: dict | None = None, use_kernel: bool = True):
+        """x: ``[B, S, D]``.  Returns ``(out, cache)``; a given cache is
+        updated in place (its ``latent`` / ``k_rope`` rows ``[len, len +
+        S)`` are written and ``len`` advances).  Both forms read the cache's
+        rows ``[0, len + S)`` only.  ``use_kernel`` is taken for the
+        interface's sake: no kernel runs here."""
+        b, s, _ = x.shape
+        q_nope, q_rope, latent, k_rope = self.project(x, positions)
+        if cache is None:
+            with record_function("mla.prefill"):     # names it in a profile
+                out = mla_materialized(self, q_nope, q_rope, latent, k_rope)
+        else:
+            lc, rc, ln = cache["latent"], cache["k_rope"], cache["len"]
+            if ln + s > lc.shape[1]:
+                raise ValueError(f"KV cache full: {ln} + {s} positions > "
+                                 f"{lc.shape[1]}")
+            lc[:, ln:ln + s] = latent       # cast to the cache's dtype
+            rc[:, ln:ln + s] = k_rope
+            cache["len"] = ln + s
+            rows = lc[:, :ln + s], rc[:, :ln + s]
+            if s == 1:
+                with record_function("mla.decode"):
+                    out = mla_absorbed_decode(self, q_nope, q_rope, *rows,
+                                              valid_len=ln + 1)
+            else:     # prefill, fresh or appended: queries end-aligned
+                with record_function("mla.prefill"):
+                    out = mla_materialized(self, q_nope, q_rope, *rows,
+                                           q_offset=ln, valid_len=ln + s)
+        return out.to(x.dtype) @ self.wo, cache
+
+
+def _mla_scale(m) -> float:
+    return (m.nope_head_dim + m.rope_head_dim) ** -0.5
+
+
+def mla_materialized(p: MLA, q_nope, q_rope, latent, k_rope, *,
+                     q_offset: int = 0, valid_len=None) -> torch.Tensor:
+    """MLA's materialised form: ``latent [B, T, r] @ wkv_b`` split into
+    per-head ``k_nope`` and ``v``, each head's key ``[k_nope, k_rope]`` (the
+    shared rope key broadcast over the heads), then causal :func:`_attend`
+    with head widths ``dn + dr`` and ``dv``.  Rows ``T`` are this call's or
+    the cache's (bfloat16 rows cast to the weights' dtype, which is exact);
+    the queries are rows ``[q_offset, q_offset + S)``.  ``[B, S, h dv]`` in
+    the queries' dtype."""
+    m, h = p.cfg.mla, p.cfg.n_heads
+    b, s = q_nope.shape[:2]
+    t = latent.shape[1]
+    kv = (latent.to(p.wkv_b.dtype) @ p.wkv_b).reshape(
+        b, t, h, m.nope_head_dim + m.v_head_dim)
+    k_nope, v = kv.split([m.nope_head_dim, m.v_head_dim], dim=-1)
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)
+    k_cat = torch.cat([k_nope, k_rope[:, :, None, :].to(k_nope.dtype).expand(
+        b, t, h, m.rope_head_dim)], dim=-1)
+    out = _attend(q_cat, k_cat, v, causal=True, q_offset=q_offset,
+                  valid_len=valid_len, scale=_mla_scale(m))
+    return out.reshape(b, s, h * m.v_head_dim)
+
+
+def mla_absorbed_decode(p: MLA, q_nope, q_rope, latent, k_rope, *,
+                        valid_len) -> torch.Tensor:
+    """MLA's absorbed form (DeepSeek-V2 §2.1.3): ``wkv_b``'s key half folded
+    into the query (``q_lat [B, S, h, r]``), its value half into the output,
+    so that attention runs over the latent rows ``[B, T, r]`` themselves,
+    every operand float32.  Columns ``>= valid_len`` are masked (no causal
+    mask: the decode's one query sees every valid row).  ``[B, S, h dv]``
+    float32."""
+    m, h = p.cfg.mla, p.cfg.n_heads
+    b, s = q_nope.shape[:2]
+    t = latent.shape[1]
+    w_abs = p.wkv_b.float().reshape(m.kv_lora_rank, h,
+                                    m.nope_head_dim + m.v_head_dim)
+    wk_abs, wv_abs = w_abs.split([m.nope_head_dim, m.v_head_dim], dim=-1)
+    lat = latent.float()
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope.float(), wk_abs)
+    scores = (torch.einsum("bshr,btr->bhst", q_lat, lat)
+              + torch.einsum("bshd,btd->bhst", q_rope.float(), k_rope.float())
+              ) * _mla_scale(m)
+    cols = torch.arange(t, device=latent.device)
+    scores = torch.where(cols < valid_len, scores, MASKED)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhst,btr->bshr", probs, lat)
+    out = torch.einsum("bshr,rhd->bshd", ctx, wv_abs)
+    return out.reshape(b, s, h * m.v_head_dim)
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                   device) -> dict:
+    m = cfg.mla
+    return {"latent": torch.zeros((batch, max_len, m.kv_lora_rank),
+                                  dtype=torch.bfloat16, device=device),
+            "k_rope": torch.zeros((batch, max_len, m.rope_head_dim),
+                                  dtype=torch.bfloat16, device=device),
+            "len": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,22 @@
 """The port's decoder LM: the dense, MoE, hybrid and SSM families with token input.
 
 Counterpart of ``repro.models.lm`` for ``family`` ``"dense"``, ``"moe"``
-(without MLA), ``"hybrid"`` (Hymba) and ``"ssm"`` (xLSTM): the same
-parameters (``embed``, ``final_norm``, ``unembed`` and per block ``ln1``,
-``attn`` or a hybrid's ``mixer``, ``ln2`` and ``mlp`` or ``moe``; an xLSTM
-block ``ln1`` and ``mlstm`` or ``slstm`` alone), the same forward, cache and
-``serve_step``.  As in the reference, a MoE model with shared experts keeps
-a dense FFN in layer 0 (its ``block0``), a hybrid model's attention is
-global in ``cfg.global_attn_layers`` and has ``cfg.sliding_window``
+(DeepSeek-V2's with MLA among them), ``"hybrid"`` (Hymba) and ``"ssm"``
+(xLSTM): the same parameters (``embed``, ``final_norm``, ``unembed`` and per
+block ``ln1``, ``attn`` (GQA, or MLA when ``cfg.mla`` is set) or a hybrid's
+``mixer``, ``ln2`` and ``mlp`` or ``moe``; an xLSTM block ``ln1`` and
+``mlstm`` or ``slstm`` alone), the same forward, cache and ``serve_step``.
+As in the reference, a MoE model with shared experts keeps a dense FFN of
+width ``cfg.d_ff`` in layer 0 (its ``block0``), a hybrid model's attention
+is global in ``cfg.global_attn_layers`` and has ``cfg.sliding_window``
 elsewhere, and an xLSTM model's every ``cfg.ssm.slstm_every``-th layer is
 sLSTM.  The reference's ``lax.scan`` over stacked blocks is an
 ``nn.ModuleList`` walked in order, and the embedding is a plain lookup (one
 device, no mesh).  Logits are computed for every position, as the
 reference does.
 
-MLA and embedding input (vision / audio frontends) come with later slices
-of the port and raise ``NotImplementedError`` here.
+Embedding input (vision / audio frontends) comes with a later slice of the
+port and raises ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -28,8 +29,8 @@ from repro_torch.device import check_device
 
 from .config import ModelConfig
 from .hybrid import HymbaMixer, init_ssm_cache
-from .layers import (MLP, Attention, RMSNorm, dtype_of, embed_init,
-                     init_attention_cache, param)
+from .layers import (MLA, MLP, Attention, RMSNorm, dtype_of, embed_init,
+                     init_attention_cache, init_mla_cache, param)
 from .moe import MoE
 from .ssm import (MLSTM, SLSTM, init_mlstm_state, init_slstm_state,
                   mlstm_chunked, mlstm_step, slstm_forward)
@@ -39,9 +40,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run yet."""
     if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise ValueError(f"unknown family {cfg.family!r}")
-    if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: MLA comes with the "
-                                  "DeepSeek-V2 slice of the port")
 
 
 def is_dense_layer(cfg: ModelConfig, layer: int) -> bool:
@@ -65,8 +63,9 @@ def layer_window(cfg: ModelConfig, layer: int) -> int:
 
 
 class Block(nn.Module):
-    """One transformer block: pre-norm attention (a hybrid model's
-    ``mixer``: attention and Mamba side by side), then a pre-norm MLP, or
+    """One transformer block: pre-norm attention (GQA, or MLA when
+    ``cfg.mla`` is set; a hybrid model's ``mixer``: attention and Mamba
+    side by side), then a pre-norm MLP, or
     MoE FFN (``moe``) in a MoE model's routed layers.  An xLSTM block is a
     pre-norm ``mlstm`` or ``slstm`` and its residual, with no MLP."""
 
@@ -84,6 +83,8 @@ class Block(nn.Module):
             return
         if cfg.family == "hybrid":
             self.mixer = HymbaMixer(cfg, device=device, gen=gen, window=window)
+        elif cfg.mla is not None:
+            self.attn = MLA(cfg, device=device, gen=gen)
         else:
             self.attn = Attention(cfg, device=device, gen=gen, window=window)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
@@ -192,13 +193,14 @@ def forward(model: LM, *, tokens=None, embeds=None, positions=None,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> dict:
-    """``{"pos": 0, "layers": [{"k", "v", "len"}, ...]}``, a hybrid model's
-    layers ``{"attn": {"k", "v", "len"}, "ssm": {"conv", "ssm"}}``, an
-    xLSTM model's ``{"state": {"C", "n", "m"}}`` (mLSTM) or ``{"state":
-    {"c", "n", "h", "m"}}`` (sLSTM); keys, values and the conv tail are
-    bfloat16 whatever the model's dtype, the scan and xLSTM states float32,
-    as in the reference (an xLSTM cache does not grow: ``max_len`` is
-    unused)."""
+    """``{"pos": 0, "layers": [{"k", "v", "len"}, ...]}``, an MLA model's
+    layers ``{"latent", "k_rope", "len"}``, a hybrid model's layers
+    ``{"attn": {"k", "v", "len"}, "ssm": {"conv", "ssm"}}``, an xLSTM
+    model's ``{"state": {"C", "n", "m"}}`` (mLSTM) or ``{"state": {"c",
+    "n", "h", "m"}}`` (sLSTM); keys, values, the latent, the rope key and
+    the conv tail are bfloat16 whatever the model's dtype, the scan and
+    xLSTM states float32, as in the reference (an xLSTM cache does not
+    grow: ``max_len`` is unused)."""
     check_supported(cfg)
     dev = check_device(device)
 
@@ -207,6 +209,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             init = init_slstm_state if is_slstm(cfg, layer) \
                 else init_mlstm_state
             return {"state": init(cfg, batch, device=dev)}
+        if cfg.mla is not None:
+            return init_mla_cache(cfg, batch, max_len, device=dev)
         attn = init_attention_cache(cfg, batch, max_len, device=dev)
         if cfg.family == "hybrid":
             return {"attn": attn, "ssm": init_ssm_cache(cfg, batch, device=dev)}

@@ -1,8 +1,9 @@
 """The port on the card: each kernel against its plain version, the
 service's replay through the shuffle kernels, and the LM's serving path
 through the attention kernels and, for a MoE model, the grouped matmul, for
-an xLSTM model the sLSTM recurrence.  Every test here is marked ``cuda`` and
-skips on a host without a CUDA device; on the card run
+an xLSTM model the sLSTM recurrence; DeepSeek-V2's latent attention (tensor
+ops) against the same module on the CPU.  Every test here is marked
+``cuda`` and skips on a host without a CUDA device; on the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -1088,42 +1089,86 @@ def test_gmm_wrapper_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.cuda
-def test_card_smoke_moe_serve_matches_plain(cuda):
-    """The qwen3-moe-235b-a22b smoke config served on the card, its experts
-    made distinct: every layer launches gmm three times in the prefill and
-    in each decode step, and the run agrees with the plain versions'
-    (teacher-forced) to float32 rounding."""
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v2-236b"])
+def test_card_smoke_moe_serve_matches_plain(cuda, arch):
+    """A MoE smoke config served on the card, every routed and shared expert
+    made distinct: each MoE layer launches gmm three times per expert stack
+    in the prefill and in each decode step, the attention kernels run only
+    for GQA (DeepSeek-V2's MLA and its dense layer 0 launch none), and the
+    run agrees with the plain versions' (teacher-forced) to float32
+    rounding."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import KERNELS
     from repro_torch.launch.serve import serve
     from repro_torch.models import lm
 
-    cfg = get_config("qwen3-moe-235b-a22b", smoke=True)
+    cfg = get_config(arch, smoke=True)
     params = lm.init_lm(cfg, seed=0, device=cuda)
+    moe_layers = [b.moe for b in params.blocks if hasattr(b, "moe")]
+    stacks = [st for m in moe_layers for st in (m.experts, m.shared)
+              if st is not None]
     gen = torch.Generator(device=cuda).manual_seed(1)
     with torch.no_grad():
-        for block in params.blocks:
-            for w in (block.moe.experts.w_gate, block.moe.experts.w_up,
-                      block.moe.experts.w_down):
+        for stack in stacks:
+            for w in (stack.w_gate, stack.w_up, stack.w_down):
                 w.copy_(torch.randn(w.shape, generator=gen, device=cuda)
                         / w.shape[1] ** 0.5)
     kw = dict(batch=3, prompt_len=70, gen_len=6, max_len=128, device=cuda,
               params=params)
     for k in KERNELS:
         k.launches = 0
-    got, stats = serve("qwen3-moe-235b-a22b", **kw)
+    got, stats = serve(arch, **kw)
     counts = {k.__name__: k.launches for k in KERNELS}
-    assert counts == {"partition_permute": 0, "segment_combine": 0,
-                      "segmented_fold": 0, "flash_attention": cfg.n_layers,
-                      "decode_attention": cfg.n_layers * 6,
-                      "gmm": 3 * cfg.n_layers * 7, "slstm_scan": 0}
-    plain_gen, plain = serve("qwen3-moe-235b-a22b", use_kernel=False,
-                             forced=got, **kw)
+    gqa = 0 if cfg.mla is not None else cfg.n_layers
+    assert counts == {**{k.__name__: 0 for k in KERNELS},
+                      "flash_attention": gqa, "decode_attention": gqa * 6,
+                      "gmm": 3 * len(stacks) * 7}
+    plain_gen, plain = serve(arch, use_kernel=False, forced=got, **kw)
     assert all(k.launches == counts[k.__name__] for k in KERNELS)
     np.testing.assert_array_equal(plain_gen[:, 0], got[:, 0])
     for a, b in zip(stats.logits, plain.logits):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_card_mla_matches_the_cpu(cuda, dtype):
+    """The SMOKE MLA module on the card against the same module on the CPU:
+    without a cache, a prefill into a cache and two decode steps (the
+    absorbed form).  float32 without a cache to 2e-5; through the bf16
+    cache to 2e-3 (a float32 difference in the last bit can flip one
+    rounding of the latent); bf16 to 2e-2, as the attention cases."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b", smoke=True),
+                              dtype=dtype)
+    host = layers.MLA(cfg, device="cpu",
+                      gen=torch.Generator().manual_seed(0))
+    card = layers.MLA(cfg, device=cuda)
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, 33, cfg.d_model)).astype(
+        np.float32)).to(TORCH[dtype])
+    pos = torch.arange(33).expand(2, 33)
+    tol, cached = TOL[dtype], TOL[dtype] if dtype == "bfloat16" else \
+        dict(rtol=2e-3, atol=2e-3)
+    want, _ = host(x, pos)
+    got, _ = card(x.to(cuda), pos.to(cuda))
+    np.testing.assert_allclose(_f32(got), _f32(want), **tol)
+    hc = layers.init_mla_cache(cfg, 2, 48, device="cpu")
+    cc = layers.init_mla_cache(cfg, 2, 48, device=cuda)
+    for sl in (slice(0, 31), slice(31, 32), slice(32, 33)):
+        want, _ = host(x[:, sl], pos[:, sl], cache=hc)
+        got, _ = card(x[:, sl].to(cuda), pos[:, sl].to(cuda), cache=cc)
+        np.testing.assert_allclose(_f32(got), _f32(want), **cached)
+    assert cc["len"] == hc["len"] == 33
+    for name in ("latent", "k_rope"):
+        np.testing.assert_allclose(_f32(cc[name]), _f32(hc[name]),
+                                   rtol=2 ** -7, atol=2 ** -7)
 
 
 # ---------------------------------------------------------------------------

@@ -317,12 +317,6 @@ def test_cache_overflow_raises():
                    cache=cache)
 
 
-@pytest.mark.parametrize("arch,what", [("deepseek-v2-236b", "MLA")])
-def test_later_slices_raise(arch, what):
-    with pytest.raises(NotImplementedError, match=what):
-        lm.LM(get_config(arch, smoke=True), device="cpu")
-
-
 def test_moe_model_builds():
     """qwen3-moe-235b-a22b (MoE without MLA) builds: every layer routed,
     128 experts stacked per projection at full width (checked on the SMOKE
