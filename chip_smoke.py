@@ -200,6 +200,31 @@ exits non-zero and prints no result.  In order it
    each within its limit in bf16 steps, with a control (the absorbed
    scores without their rope term; the first chunk's rope keys zeroed)
    that must miss it by 10x;
+7b. trains (the training slice): (a) the gradient check at Qwen2.5-14B's
+   full width with 2 of 48 layers: the bf16 model and its float32 copy
+   (the same weights, cast) each take one microbatch of 2 x 512 Markov
+   tokens through ``lm.train_loss`` and backward; the losses, and each
+   parameter's gradient by cosine similarity and norm ratio, are held to
+   ``GRAD_BOUND`` (set from the same check on the CPU at SMOKE width),
+   and two controls (the attention output detached, the labels shifted
+   one position) must miss it by 10x; (b) six steps of
+   ``repro_torch.launch.train.train`` on Qwen2.5-14B at full width, 8 of
+   48 layers (3,759,289,344 parameters; bf16 weights, float32 AdamW
+   moments, ``n_micro`` 2 accumulated in float32, global batch 8 x 1,024,
+   lr 3e-4, remat), the flash, decode and gmm counters zeroed just before
+   and read just after (all must be 0: a training step launches no
+   kernel of the port); every loss and gradient norm finite, every
+   parameter's moments finite and nonzero, every parameter moved (or, a
+   bf16 weight whose steps all fall under half its bf16 step, with
+   nonzero moments), then one more microbatch's gradients finite and
+   nonzero for every parameter; logged: each step, the step's seconds
+   (median of steps 2-6), tokens/s, the AdamW update's seconds timed
+   apart, the peak allocated memory and the share of the bf16 dense peak;
+   (c) the restart at SMOKE on the card: 6 steps with a checkpoint every
+   3 against a run resumed from step 3, losses and final weights within
+   ``RESTART_BOUND`` (bit for bit or not is logged); with ``--profile``,
+   one step's gradients and its update traced apart, device time by
+   kernel class;
 8. prints the ``kernels`` JSON line, then the ``ok`` line last.
 
 The card's peaks used for the bounds are NVIDIA's H100 SXM data-sheet
@@ -329,6 +354,20 @@ MOE_ARCH = "qwen3-moe-235b-a22b"     # the MoE slice: full width, depth cut
 MOE_LAYERS = 12                      # of 94: 62.2 GB of bf16 weights
 DEEPSEEK_ARCH = "deepseek-v2-236b"   # the MLA slice: full width, depth cut
 DEEPSEEK_LAYERS = 9                  # of 60 (dense layer 0, 8 MoE): 66.33 GB
+TRAIN_ARCH = "qwen2.5-14b"           # the training slice: full width, depth cut
+TRAIN_LAYERS = 8                     # of 48: 60.1 GB of weights, moments, grads
+# the reference's recipe for the arch's train shape (steps.recipe_for) sets
+# n_micro (2) and the float32 moments and accumulation
+TRAIN = dict(steps=6, global_batch=8, seq_len=1024, lr=3e-4, seed=0)
+GRAD_CHECK = dict(layers=2, batch=2, seq_len=512)
+# bf16 against float32 gradients: 1 - cosine and |norm ratio - 1| of every
+# parameter, and the loss's relative difference.  Set before the card ran
+# it, from the same check on the CPU at SMOKE width in bf16, which
+# tests/test_torch_train_loss.py holds under a third of it (at most 4.4e-4,
+# 1.1e-2 and 8.9e-6 over seeds 0-2)
+GRAD_BOUND = {"cos": 3e-3, "norm": 5e-2, "loss": 2e-4}
+RESTART_BOUND = {"loss_rel": 1e-6, "param_abs": 1e-6}
+BF16_PEAK = 989e12                   # dense bf16 tensor-core FLOP/s, H100 SXM
 GMM_DROP = 512                       # columns of d the planted fault drops
 GMM_TOL = ("per element: (2^-7 |plain| + 2 d 2^-24 (|x| @ |w|)) (1 + 2^-7) "
            "(bf16 out); 2 d 2^-24 (|x| @ |w|) (float32 out)")
@@ -2917,6 +2956,378 @@ def graph_phase(dev, profile_dir: Path | None) -> dict:
     return out
 
 
+def _dot64(a, b) -> float:
+    """The float64 dot product of two tensors' elements, in slices."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    step = 1 << 26
+    return sum(float((a[i:i + step].double() * b[i:i + step].double()).sum())
+               for i in range(0, a.numel(), step))
+
+
+def _grad_errors(lg, gg, lf, gf) -> dict:
+    """The worst of every parameter's ``1 - cos`` and ``|norm ratio - 1|``
+    of gradients ``gg`` against ``gf``, and the losses' relative
+    difference; each with its parameter."""
+    out = {"loss": (abs(lg - lf) / abs(lf), "")}
+    cos, norm = (0.0, ""), (0.0, "")
+    for n, b in gf.items():
+        a = gg[n]
+        na, nb = _dot64(a, a) ** 0.5, _dot64(b, b) ** 0.5
+        c = 1.0 if na == 0 or nb == 0 else 1 - _dot64(a, b) / (na * nb)
+        r = abs(na / nb - 1) if nb else (0.0 if na == 0 else float("inf"))
+        cos, norm = max(cos, (c, n)), max(norm, (r, n))
+    out.update(cos=cos, norm=norm)
+    return out
+
+
+def _miss(err: dict) -> float:
+    """How many times the worst quantity of ``err`` exceeds its bound."""
+    return max(err[k][0] / GRAD_BOUND[k] for k in GRAD_BOUND)
+
+
+def _grad_check(dev) -> dict:
+    """(a): the bf16 model's gradients against its float32 copy's at full
+    width, 2 layers, with the two controls."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset, make_global_batch
+    from repro_torch.models import layers, lm
+    from repro_torch.optim import microbatch_grads
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=GRAD_CHECK["layers"])
+    bf = lm.init_lm(cfg, seed=TRAIN["seed"], device=dev)
+    f32 = lm.LM(dataclasses.replace(cfg, dtype="float32"), device=dev)
+    with torch.no_grad():
+        for (_, p), (_, q) in zip(bf.named_parameters(),
+                                  f32.named_parameters()):
+            q.copy_(p)
+    ds = SyntheticLMDataset(DataConfig(
+        vocab=cfg.vocab, seq_len=GRAD_CHECK["seq_len"],
+        global_batch=GRAD_CHECK["batch"], seed=TRAIN["seed"]))
+    batch = make_global_batch(ds.batch_at(0), dev)
+
+    def grads(model, b):
+        model.requires_grad_(True)
+        loss, g = microbatch_grads(lambda p, mb: lm.train_loss(model, mb),
+                                   dict(model.named_parameters()), b, 1)
+        return float(loss), g
+
+    t0 = time.perf_counter()
+    lf, gf = grads(f32, batch)
+    del f32
+    held = _grad_errors(*grads(bf, batch), lf, gf)
+    shifted = _grad_errors(*grads(bf, dict(
+        batch, labels=torch.roll(batch["labels"], 1, dims=1))), lf, gf)
+    orig = layers.Attention.forward
+
+    def detached(self, *a, **k):
+        out, cache = orig(self, *a, **k)
+        return out.detach(), cache
+    layers.Attention.forward = detached
+    try:
+        dropped = _grad_errors(*grads(bf, batch), lf, gf)
+    finally:
+        layers.Attention.forward = orig
+    torch.cuda.synchronize()
+    res = {"held": held, "labels_shifted": shifted,
+           "attention_detached": dropped, "bound": GRAD_BOUND,
+           "seconds": time.perf_counter() - t0}
+    log(f"train grad check: {TRAIN_ARCH} full width, {cfg.n_layers} layers, "
+        f"{GRAD_CHECK['batch']} x {GRAD_CHECK['seq_len']}, bf16 against "
+        f"float32: {json.dumps(res)}")
+    assert _miss(held) <= 1.0, held
+    for name, err in (("labels shifted", shifted),
+                      ("attention detached", dropped)):
+        assert _miss(err) >= 10.0, (name, err)
+        log(f"train grad check control {name}: misses by {_miss(err):.1f}x")
+    return res
+
+
+def _restart_check(dev) -> dict:
+    """(c): at SMOKE on the card, 6 steps with a checkpoint every 3 against
+    a run resumed from step 3."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch.train import train
+
+    base = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(base, ignore_errors=True)
+    kw = dict(smoke=True, steps=6, global_batch=4, seq_len=64, n_micro=2,
+              ckpt_every=3, device=dev, seed=3, log_every=10)
+    full = train(TRAIN_ARCH, ckpt_dir=str(base / "a"), **kw)
+    (base / "b").mkdir(parents=True)
+    shutil.copytree(base / "a" / "step_00000003", base / "b" / "step_00000003")
+    resumed = train(TRAIN_ARCH, ckpt_dir=str(base / "b"), **kw)
+    want = [h["loss"] for h in full["history"][3:]]
+    got = [h["loss"] for h in resumed["history"]]
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(want, got))
+    diffs = [float((p - q).detach().abs().max()) for (_, p), (_, q) in zip(
+        full["params"].named_parameters(), resumed["params"].named_parameters())]
+    bitwise = got == want and max(diffs) == 0.0 and all(
+        torch.equal(full["opt_state"][k][n], resumed["opt_state"][k][n])
+        for k in ("m", "v") for n in full["opt_state"]["m"])
+    shutil.rmtree(base, ignore_errors=True)
+    res = {"resumed_losses": got, "uninterrupted_losses": want,
+           "loss_rel": loss_rel, "param_abs": max(diffs),
+           "bit_for_bit": bitwise, "bound": RESTART_BOUND}
+    log(f"train restart check (SMOKE, float32): {json.dumps(res)}")
+    assert len(got) == 3 and loss_rel <= RESTART_BOUND["loss_rel"], res
+    assert max(diffs) <= RESTART_BOUND["param_abs"], res
+    return res
+
+
+def _f32_matmul(name: str) -> bool:
+    """A float32 matmul kernel (``_attend``'s einsums with TF32 off), by the
+    type markers of cuBLAS's kernel names."""
+    return any(t in name for t in ("sgemm", "f32f32_f32f32", "_sss_",
+                                   "fp32", "f32_f32")) and "bf16" not in name
+
+
+MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def _matmul_flop(op: str, shapes) -> int:
+    """``2 M K N`` (times the batch) of one matmul op from its recorded
+    input shapes; 0 where they are not those of a matmul."""
+    dims = [list(t) for t in shapes if len(t) in (2, 3)]
+    if op.startswith("aten::add") or op.startswith("aten::badd"):
+        dims = dims[-2:]
+    if len(dims) != 2 or dims[0][-1] != dims[1][-2]:
+        return 0
+    (a, b) = dims
+    batch = a[0] if len(a) == 3 else 1
+    return 2 * batch * a[-2] * a[-1] * b[-1]
+
+
+def _matmul_rates(prof) -> tuple[dict, list[str]]:
+    """The traced matmul ops' FLOP (from their input shapes) and device
+    ms, by op and by shape: ``({op: {"flop", "device_ms", "calls"}}, the
+    rows by shape)``."""
+    by_op: dict[str, dict] = {}
+    rows = []
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key not in MATMUL_OPS:
+            continue
+        ms = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+        flop = _matmul_flop(e.key, e.input_shapes) * e.count
+        t = by_op.setdefault(e.key, {"flop": 0, "device_ms": 0.0, "calls": 0})
+        t["flop"] += flop
+        t["device_ms"] += ms
+        t["calls"] += e.count
+        rows.append((ms, f"{ms:10.3f} ms  {e.count:5d} x {e.key} "
+                         f"{e.input_shapes}: {flop:.4g} FLOP, "
+                         f"{flop / ms / 1e9 if ms else 0.0:.1f} TFLOP/s"))
+    return by_op, [r for _, r in sorted(rows, reverse=True)]
+
+
+def _profile_train(model, opt_state, batch, ocfg, recipe, profile_dir: Path):
+    """One training step of the 8-layer model traced, its gradients and its
+    AdamW update in two sessions: device time by kernel class (bf16
+    matmuls, float32 matmuls, the rest), every kernel by name with its
+    class, and the matmul ops' FLOP rates from their recorded shapes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_update, microbatch_grads
+
+    params = dict(model.named_parameters())
+    out: dict = {}
+
+    def traced(name, fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            time.sleep(0.05)
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(0.05)
+        busy: dict[str, float] = {}
+        names: dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA or e.name in (
+                    "Activity Buffer Request", "Command Buffer Full"):
+                continue
+            c = _kernel_class(e.name)
+            if c == "matmul":
+                c = "matmul_f32" if _f32_matmul(e.name) else "matmul_bf16"
+            elif name == "update":
+                c = "optimizer"
+            else:
+                c = "elementwise_and_other"
+            ms = e.device_time_total / 1e3
+            busy[c] = busy.get(c, 0.0) + ms
+            names[f"{c}: {e.name[:90]}"] = names.get(
+                f"{c}: {e.name[:90]}", 0.0) + ms
+        every = sorted(names.items(), key=lambda kv: -kv[1])
+        rates, shape_rows = _matmul_rates(prof)
+        (profile_dir / f"profile_train_{name}.txt").write_text(
+            prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+            + "\n\nevery kernel, by class:\n"
+            + "\n".join(f"{ms:10.3f} ms  {k}" for k, ms in every)
+            + "\n\nmatmul ops by input shape:\n" + "\n".join(shape_rows))
+        out[name] = {"wall_ms": wall * 1e3, "device_ms_by_class": busy,
+                     "matmul_ops": rates}
+        log(f"profile train {name}: wall_ms={wall * 1e3!r} device_ms_by_class="
+            f"{json.dumps(busy)} idle_share="
+            f"{1 - sum(busy.values()) / (wall * 1e3)!r} matmul_ops="
+            f"{json.dumps(rates)}")
+        return res
+
+    profile_dir.mkdir(parents=True, exist_ok=True)
+    _, grads = traced("grads", lambda: microbatch_grads(
+        lambda p, b: lm.train_loss(model, b), params, batch, recipe.n_micro,
+        accum_dtype=recipe.accum_dtype))
+    traced("update", lambda: adamw_update(ocfg, params, grads, opt_state))
+    return out
+
+
+def train_phase(dev, profile_dir: Path | None) -> dict:
+    """Phase 7b: the gradient check, six steps of ``train()`` on the
+    8-layer full-width model, the SMOKE restart, and with ``--profile`` one
+    step traced."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset, make_global_batch
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.steps import _with_recipe, recipe_for
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+    from repro_torch.models.config import SHAPES
+    from repro_torch.optim import AdamWConfig, adamw_update, microbatch_grads
+
+    res = {"grad_check": _grad_check(dev)}
+    torch.cuda.empty_cache()
+
+    recipe = recipe_for(TRAIN_ARCH, SHAPES["train_4k"])
+    # train() keeps float32 moments and accumulation, as the reference's
+    assert (recipe.moment_dtype, recipe.accum_dtype) == ("float32",
+                                                         "float32"), recipe
+    recipe = dataclasses.replace(recipe, lr=TRAIN["lr"])
+    cfg = _with_recipe(dataclasses.replace(get_config(TRAIN_ARCH),
+                                           n_layers=TRAIN_LAYERS), recipe)
+    t0 = time.perf_counter()
+    model = lm.init_lm(cfg, seed=TRAIN["seed"], device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    snap = {n: p.detach().to("cpu", copy=True)
+            for n, p in model.named_parameters()}
+    log(f"train weights: {TRAIN_ARCH} {cfg.n_layers} of "
+        f"{get_config(TRAIN_ARCH).n_layers} layers, {n_params} parameters, "
+        f"made on the card and copied to the host in "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:                     # the training path, alone
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = train(TRAIN_ARCH, smoke=False, device=dev, params=model,
+                log_every=1, n_micro=recipe.n_micro, **TRAIN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k.__name__: k.launches for k in KERNELS}
+    log(f"train launches: {json.dumps(launches)}")
+    assert all(launches[k] == 0 for k in ("flash_attention",
+                                          "decode_attention", "gmm")), launches
+    hist = out["history"]
+    assert len(hist) == TRAIN["steps"]
+    for h in hist:
+        assert math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]), h
+        log(f"train step: loss={h['loss']!r} grad_norm={h['grad_norm']!r} "
+            f"lr={h['lr']!r} seconds={h['seconds']!r}")
+    opt_state = out["opt_state"]
+    bad = [n for n in opt_state["m"] if not all(
+        bool(torch.isfinite(opt_state[k][n]).all())
+        and float(opt_state[k][n].abs().max()) > 0 for k in ("m", "v"))]
+    assert not bad, f"moments zero or not finite: {bad}"
+    # every parameter moved, or is a bf16 weight whose every step fell
+    # under half its bf16 step (|p| 2^-9 above the sum of the steps' lr:
+    # no master weights, as in the reference)
+    lr_sum = sum(h["lr"] for h in hist)
+    still = []
+    for n, p in model.named_parameters():
+        if torch.equal(p.detach().cpu(), snap[n]):
+            assert float(snap[n].float().abs().min()) * 2.0 ** -9 > lr_sum, n
+            still.append(n)
+    del snap
+    log(f"train moved: {n_params} parameters in "
+        f"{len(dict(model.named_parameters())) - len(still)} of "
+        f"{len(dict(model.named_parameters()))} tensors; unmoved (each step "
+        f"under half a bf16 step, moments nonzero): {still}")
+
+    # one more microbatch's gradients: finite and nonzero for every tensor
+    ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab,
+                                       seq_len=TRAIN["seq_len"],
+                                       global_batch=TRAIN["global_batch"]
+                                       // recipe.n_micro,
+                                       seed=TRAIN["seed"]))
+    batch = make_global_batch(ds.batch_at(TRAIN["steps"]), dev)
+    params = dict(model.named_parameters())
+    _, grads = microbatch_grads(lambda p, b: lm.train_loss(model, b), params,
+                                batch, 1)
+    zero = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())
+            or float(g.abs().max()) == 0]
+    assert not zero, f"no finite nonzero gradient: {zero}"
+    # the AdamW update timed apart, on float32 gradients (the accumulated
+    # ones' dtype) over the trained state
+    g32 = {n: g.float() for n, g in grads.items()}
+    del grads
+    ocfg = AdamWConfig(lr=TRAIN["lr"], total_steps=TRAIN["steps"],
+                       warmup_steps=max(1, TRAIN["steps"] // 10))
+    times = []
+    for _ in range(3):
+        g = {n: t.clone() for n, t in g32.items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        adamw_update(ocfg, params, g, opt_state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    del g32
+    step_s = statistics.median(h["seconds"] for h in hist[1:])
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    n_mm = sum(p.numel() for n, p in params.items()
+               if p.dim() >= 2 and n != "embed")
+    attn = 6 * TRAIN["global_batch"] * TRAIN["seq_len"] ** 2 * cfg.n_heads \
+        * cfg.d_head * cfg.n_layers          # causal, forward and backward
+    flops = 6 * n_mm * tokens + attn
+    update_s = statistics.median(times)
+    res.update(
+        steps=[{k: h[k] for k in ("loss", "grad_norm", "lr", "seconds")}
+               for h in hist],
+        step_s=step_s, tokens_per_s=tokens / step_s, update_s=update_s,
+        update_share=update_s / step_s, peak_bytes=peak,
+        matmul_params=n_mm, model_flops=flops,
+        bf16_peak_share=flops / step_s / BF16_PEAK, wall_s=wall,
+        launches=launches, unmoved=still)
+    log(f"train phase: {json.dumps({k: v for k, v in res.items() if k not in ('grad_check', 'steps')})}")
+    if profile_dir is not None:
+        full = make_global_batch(SyntheticLMDataset(DataConfig(
+            vocab=cfg.vocab, seq_len=TRAIN["seq_len"],
+            global_batch=TRAIN["global_batch"], seed=TRAIN["seed"])).batch_at(
+                TRAIN["steps"] + 1), dev)
+        res["profile"] = _profile_train(model, opt_state, full, ocfg, recipe,
+                                        profile_dir)
+    del model, out, opt_state, params
+    torch.cuda.empty_cache()
+    res["restart"] = _restart_check(dev)
+    return res
+
+
 def _kernel_class(name: str) -> str:
     if "flash_fwd" in name or "flash_mma" in name or "flash_wgmma" in name:
         return "flash_attention"
@@ -3133,6 +3544,10 @@ def main() -> int:
     dv = moe_serve_phase(dev, args.profile, DEEPSEEK_ARCH, DEEPSEEK_LAYERS,
                          "deepseek_")
     log(f"deepseek serve phase: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()              # the training state wants the card
+    t0 = time.perf_counter()
+    train_phase(dev, args.profile)
+    log(f"train phase: {time.perf_counter() - t0:.2f} s")
     # each path's launches, counted from zero just before it ran
     launches = {k: sum(p["launches"][k] for p in (sl, sk, bt, gr))
                 for k in sl["launches"]}

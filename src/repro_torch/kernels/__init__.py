@@ -7,6 +7,12 @@ The shuffle's replay runs PART (:func:`partition_permute`), COMB for +
 (:func:`flash_attention`) and decode attention (:func:`decode_attention`),
 its MoE blocks the grouped matmul of the expert FFN (:func:`gmm`), and its
 xLSTM blocks the sLSTM recurrence (:func:`slstm_scan`).
+
+No kernel has a backward.  On a CUDA tensor, each LM kernel's wrapper
+raises when autograd would record the launch (grad mode on and an input
+requiring grad), so that no gradient is ever dropped in silence; training
+takes the plain paths (``lm.train_loss``).  The shuffle kernels take no
+gradients.
 """
 from .combine import segment_combine
 from .decode_attention import decode_attention

@@ -95,6 +95,20 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise if autograd would record a launch on ``tensors``: the kernels
+    have no backward, and an output made through a raw pointer carries no
+    ``grad_fn``, so the gradient would be lost without a word.  The
+    training path (``lm.train_loss``) runs the plain versions instead."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors if isinstance(t, torch.Tensor)):
+        raise RuntimeError(
+            f"{what}: the kernel has no backward and an input requires "
+            f"grad; run under torch.no_grad(), or take the training path "
+            f"(train=True), which runs the plain version")
+
+
 def stream_of(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream

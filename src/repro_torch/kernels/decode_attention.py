@@ -160,6 +160,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"decode attention runs on cuda or cpu tensors, "
                          f"not {q.device}")
+    _build.refuse_autograd("decode_attention", q, k, v)
     if q.dtype not in _DTYPES or k.dtype not in _DTYPES or v.dtype != k.dtype:
         raise TypeError(f"decode attention wants float32/bfloat16 q and k, v "
                         f"of one such dtype: {q.dtype} {k.dtype} {v.dtype}")

@@ -66,6 +66,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu tensors, "
                          f"not {q.device}")
+    _build.refuse_autograd("flash_attention", q, k, v)
     if q.dtype not in _DTYPES or k.dtype not in _DTYPES or v.dtype != k.dtype:
         raise TypeError(f"flash attention wants float32/bfloat16 q and k, v "
                         f"of one such dtype: {q.dtype} {k.dtype} {v.dtype}")

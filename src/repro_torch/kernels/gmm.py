@@ -62,6 +62,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor, tile_group_ids: torch.Tensor, *,
         return gmm_ref(x, w, tile_group_ids, block_n=block_n)
     if x.device.type != "cuda":
         raise ValueError(f"gmm runs on cuda or cpu tensors, not {x.device}")
+    _build.refuse_autograd("gmm", x, w)
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(f"gmm wants float32 or bfloat16 x and w of one "
                         f"dtype: {x.dtype} {w.dtype}")

@@ -74,6 +74,7 @@ def slstm_scan(xw: torch.Tensor, w_rec: torch.Tensor, b: torch.Tensor,
     if xw.device.type != "cuda":
         raise ValueError(f"slstm_scan runs on cuda or cpu tensors, not "
                          f"{xw.device}")
+    _build.refuse_autograd("slstm_scan", xw, w_rec, b, *state.values())
     if not 1 <= bsz <= MAX_BATCH or d % 8:
         raise ValueError(f"slstm_scan takes 1 <= B <= {MAX_BATCH} and d a "
                          f"multiple of 8: B {bsz}, d {d}")

@@ -56,6 +56,7 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+@torch.no_grad()
 def serve(arch: str, *, smoke: bool = True, batch: int = 4,
           prompt_len: int = 32, gen_len: int = 16, max_len: int = 128,
           device="cuda", seed: int = 0, params: lm.LM | None = None,
@@ -67,7 +68,9 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     cut in depth gets a cache of its own depth), which must be ``arch``'s.
     ``forced [batch, gen_len]`` feeds those tokens to the decode steps
     instead of the greedy ones (teacher forcing, for holding one run's
-    logits against another's)."""
+    logits against another's).  Runs under ``torch.no_grad()``, so that
+    a model fresh from training (its parameters requiring grad) serves
+    without building a graph."""
     if prompt_len + gen_len > max_len:
         raise ValueError(f"prompt_len + gen_len = {prompt_len + gen_len} "
                          f"exceeds max_len = {max_len}")

@@ -1,0 +1,155 @@
+"""Training entry point of the port: checkpointed, restartable, journalled.
+
+Counterpart of ``repro.launch.train`` on one device: the same loop, with
+the model's parameters and the AdamW state as dicts of tensors.  It makes
+the model (``lm.init_lm`` from ``seed``, or the caller's), makes it
+trainable, restores the latest complete checkpoint of ``ckpt_dir`` if there
+is one, replays the data from the restored step (batch ``n`` depends only
+on ``(seed, n)``), runs :func:`repro_torch.launch.steps.make_train_step`
+per step with the step's start and end journalled through a
+``ShuffleManager``, saves asynchronously every ``ckpt_every`` steps and
+waits for the last write at the end.  A training step runs no kernel of
+the port: ``lm.train_loss`` takes the plain paths, which autograd
+differentiates (the kernels have no backward).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-14b --smoke --device cpu --steps 3
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint.checkpoint import flatten
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.core.manager import ShuffleManager
+from repro_torch.core.plancache import PlanCache
+from repro_torch.data import DataConfig, DataPipeline
+from repro_torch.device import check_device
+from repro_torch.launch.steps import Recipe, make_train_step
+from repro_torch.models import lm
+from repro_torch.optim import AdamWConfig, init_opt_state
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def train(arch: str, *, smoke: bool = True, steps: int = 20,
+          global_batch: int = 8, seq_len: int = 128,
+          ckpt_dir: str | None = None, ckpt_every: int = 10, n_micro: int = 1,
+          lr: float = 3e-4, log_every: int = 1, seed: int = 0,
+          device="cuda", params: lm.LM | None = None) -> dict:
+    """Train ``arch`` for ``steps`` steps (counted from 0, a restored run
+    going on from its checkpoint's step): returns ``{"history": [{"loss",
+    "grad_norm", "lr", "seconds"} per step run], "params": the model,
+    "opt_state", "manager", "plan_cache": its stats}``.  ``params``
+    defaults to :func:`lm.init_lm` of ``arch``'s config (``smoke`` picks
+    SMOKE) with ``seed`` on ``device``; given ``params`` bring their own
+    config (a model cut in depth), which must be ``arch``'s, and are
+    trained in place.  ``seconds`` is each step's wall time, the
+    device synchronised."""
+    dev = check_device(device)
+    if params is None:
+        params = lm.init_lm(get_config(arch, smoke=smoke), seed=seed,
+                            device=dev)
+    model, cfg = params, params.cfg
+    if cfg.name.removesuffix("-smoke") != arch:
+        raise ValueError(f"params are a {cfg.name!r} model, not {arch!r}")
+    if model.embed.device.type != dev.type:
+        raise ValueError(f"params on {model.embed.device}, device {dev}")
+    dev = model.embed.device
+    recipe = Recipe(n_micro=n_micro, lr=lr)
+    ocfg = AdamWConfig(lr=lr, total_steps=max(steps, 2),
+                       warmup_steps=max(1, steps // 10),
+                       moment_dtype=recipe.moment_dtype)
+
+    # the run's shuffle control plane: the loop journals step records
+    # through it, and a shuffle service attached to it shares its PlanCache
+    # (the training step itself shuffles nothing, so the cache's counters
+    # stay zero unless such a service is wired in)
+    manager = ShuffleManager(
+        journal_path=f"{ckpt_dir}/shuffle_journal.jsonl" if ckpt_dir else None,
+        plan_cache=PlanCache(capacity=64))
+
+    model.requires_grad_(True)
+    named = dict(model.named_parameters())
+    opt_state = init_opt_state(named, recipe.moment_dtype)
+
+    start_step = 0
+    ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    if ckpt and ckpt.latest() is not None:
+        tree, meta = ckpt.restore({"params": named, "opt_state": opt_state})
+        src = flatten(tree)         # copied into the tensors in place,
+        with torch.no_grad():       # so that their layouts stay
+            for path, t in flatten({"params": named,
+                                    "opt_state": opt_state}).items():
+                t.copy_(src[path])
+        start_step = meta.get("step", ckpt.latest())
+        print(f"[train] restored step {start_step} from {ckpt_dir}")
+
+    dc = DataConfig(vocab=cfg.vocab, seq_len=seq_len,
+                    global_batch=global_batch, seed=seed,
+                    modality=cfg.modality, d_model=cfg.d_model)
+    pipe = DataPipeline(dc, dev, start_step=start_step)
+    step_fn = make_train_step(cfg, ocfg, recipe)
+
+    history = []
+    t0 = time.time()
+    _sync(dev)
+    t_step = time.perf_counter()
+    for step, batch in pipe:
+        if step >= steps:
+            break
+        manager.record_start(0, step, "train_step")
+        model, opt_state, metrics = step_fn(model, opt_state, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        _sync(dev)
+        now = time.perf_counter()
+        metrics["seconds"], t_step = now - t_step, now
+        manager.record_end(0, step, "train_step")
+        history.append(metrics)
+        if step % log_every == 0:
+            dt = (time.time() - t0) / max(1, len(history))
+            print(f"[train] step={step} loss={metrics['loss']:.4f} "
+                  f"gnorm={metrics['grad_norm']:.3f} "
+                  f"lr={metrics['lr']:.2e} {dt*1e3:.0f}ms/step", flush=True)
+        if ckpt and (step + 1) % ckpt_every == 0:
+            ckpt.save_async(step + 1, {"params": dict(model.named_parameters()),
+                                       "opt_state": opt_state},
+                            {"step": step + 1, "arch": arch})
+    pipe.close()
+    if ckpt:
+        ckpt.wait()
+    return {"history": history, "params": model, "opt_state": opt_state,
+            "manager": manager, "plan_cache": manager.plan_cache.stats()}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", choices=ARCHS, default="qwen2.5-14b")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--n-micro", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu")
+    args = ap.parse_args()
+    out = train(args.arch, smoke=args.smoke, steps=args.steps,
+                global_batch=args.batch, seq_len=args.seq,
+                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                n_micro=args.n_micro, lr=args.lr, device=args.device)
+    losses = [h["loss"] for h in out["history"]]
+    print(f"[train] done: first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,5 @@
-"""Carry the JAX package's LM weights and KV caches into the port.
+"""Carry the JAX package's LM weights, KV caches, gradients and optimizer
+states into the port.
 
 The model counterpart of :mod:`repro_torch.core.convert` (which carries
 shuffle plans).  Inputs are the reference's pytrees with numpy leaves (a
@@ -42,23 +43,50 @@ def _layer_trees(tree: dict, n_layers: int) -> list[dict]:
                     for i in range(n_layers - len(first))]
 
 
-def _copy_into(module: nn.Module, tree: dict, done: set, where: str) -> None:
+def _pairs(module: nn.Module, tree: dict, where: str = ""):
+    """``(port name, port tensor, reference leaf)`` for every leaf of
+    ``tree`` under ``module``: a subtree goes into the submodule of its
+    name, a norm's leaf is that module's ``weight``.  A leaf that is a
+    dict of the factored second moment's ``r`` and ``c`` counts as one
+    leaf."""
     for name, leaf in tree.items():
         target = getattr(module, name, None)
-        if isinstance(leaf, dict):
-            _copy_into(target, leaf, done, f"{where}{name}.")
+        if isinstance(leaf, dict) and not _is_factored(leaf):
+            yield from _pairs(target, leaf, f"{where}{name}.")
             continue
         if isinstance(target, nn.Module):        # a norm: its weight
-            target = target.weight
+            target, name = target.weight, f"{name}.weight"
         if not isinstance(target, torch.Tensor):
             raise KeyError(f"no port parameter for {where}{name}")
+        yield f"{where}{name}", target, leaf
+
+
+def _is_factored(leaf: dict) -> bool:
+    return set(leaf) == {"r", "c"}
+
+
+def _copy_into(module: nn.Module, tree: dict, done: set, where: str) -> None:
+    """Copy every leaf of ``tree`` into its tensor under ``module``
+    (shape and dtype checked), adding each tensor's ``id`` to ``done``."""
+    for name, target, leaf in _pairs(module, tree, where):
         src = to_tensor(leaf, target.device)
         if src.shape != target.shape or src.dtype != target.dtype:
-            raise ValueError(f"{where}{name}: reference {tuple(src.shape)} "
+            raise ValueError(f"{name}: reference {tuple(src.shape)} "
                              f"{src.dtype}, port {tuple(target.shape)} "
                              f"{target.dtype}")
         target.copy_(src)
         done.add(id(target))
+
+
+def _model_pairs(model: LM, params: dict):
+    """:func:`_pairs` over a whole reference tree shaped like
+    ``lm.init_lm``'s: the top-level leaves, then each layer's subtree
+    (unstacked) into its block."""
+    top = {k: v for k, v in params.items()
+           if k not in ("blocks", "block0", "layers")}
+    yield from _pairs(model, top)
+    for i, tree in enumerate(_layer_trees(params, model.cfg.n_layers)):
+        yield from _pairs(model.blocks[i], tree, f"blocks.{i}.")
 
 
 def lm_params_from_reference(cfg: ModelConfig, params: dict, *,
@@ -82,6 +110,63 @@ def lm_params_from_reference(cfg: ModelConfig, params: dict, *,
     if missing:
         raise KeyError(f"reference params lack {missing}")
     return model
+
+
+def named_from_reference(model: LM, tree: dict) -> dict:
+    """``{port parameter name: tensor}`` of a reference tree shaped like
+    the parameters (a gradient tree of ``jax.grad``, a moment, a mask
+    broadcast to the leaves), by the mapping
+    :func:`lm_params_from_reference` uses: each leaf keeps its own dtype,
+    and its shape must be the port parameter's.  A factored leaf (``{"r",
+    "c"}``) comes over as a dict of both.  Keys follow
+    ``model.named_parameters()``; on the model's device."""
+    dev = model.embed.device
+    out = {}
+    for name, target, leaf in _model_pairs(model, tree):
+        if isinstance(leaf, dict):
+            out[name] = {k: to_tensor(v, dev) for k, v in leaf.items()}
+            if not (_factorable(target) and out[name]["r"].shape
+                    == target.shape[:-1] and out[name]["c"].shape
+                    == target.shape[:-2] + target.shape[-1:]):
+                raise ValueError(f"{name}: a factored moment of "
+                                 f"{tuple(target.shape)} the port cannot "
+                                 f"hold (a stacked 1-D leaf the reference "
+                                 f"factors across its layers)")
+            continue
+        out[name] = to_tensor(leaf, dev)
+        if out[name].shape != target.shape:
+            raise ValueError(f"{name}: reference {tuple(out[name].shape)}, "
+                             f"port {tuple(target.shape)}")
+    order = [n for n, _ in model.named_parameters()]
+    if set(out) != set(order):
+        raise KeyError(f"reference tree lacks {sorted(set(order) - set(out))}")
+    return {n: out[n] for n in order}
+
+
+def _factorable(t: torch.Tensor) -> bool:
+    return t.dim() >= 2 and t.shape[-1] > 1 and t.shape[-2] > 1
+
+
+def opt_state_from_reference(model: LM, opt_state: dict) -> dict:
+    """The reference's ``init_opt_state`` / ``adamw_update`` state in the
+    port's layout: ``{"m": {name: ...}, "v": {name: ... or {"r", "c"}},
+    "step": 0-dim int32}`` on the model's device, every leaf in its own
+    dtype and each moment in its parameter's memory layout (as
+    ``init_opt_state`` makes it; ``unembed`` is a transposed view).  A
+    scanned stack's 1-D leaf that the reference factors across its layer
+    axis has no per-layer counterpart and raises."""
+    params = dict(model.named_parameters())
+
+    def laid_out(name, t):
+        if isinstance(t, dict):
+            return t
+        return torch.empty_like(params[name], dtype=t.dtype).copy_(t)
+    out = {k: {n: laid_out(n, t) for n, t in
+               named_from_reference(model, opt_state[k]).items()}
+           for k in ("m", "v")}
+    out["step"] = to_tensor(np.asarray(opt_state["step"], np.int32),
+                            model.embed.device)
+    return out
 
 
 def cache_from_reference(cfg: ModelConfig, cache: dict, *,

@@ -63,12 +63,28 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, state):
     return out, (xp[:, -(k - 1):] if k > 1 else None)
 
 
+def recording(*ts: torch.Tensor) -> bool:
+    """Whether autograd records an operation on ``ts``: grad mode on and
+    one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The inclusive scan of ``h_t = a_t h_{t-1} + b_t`` from ``h = 0``
     along axis 1: log2(L) Hillis-Steele steps of the reference's operator
     ``(a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2)``, in place: returns the
-    ``h`` in ``b``, and ``a`` is overwritten."""
+    ``h`` in ``b``, and ``a`` is overwritten.  When autograd records, the
+    same steps out of place (each step's rows joined to the untouched
+    head), which give the same bits."""
     off, n = 1, a.shape[1]
+    if recording(a, b):
+        while off < n:
+            b = torch.cat([b[:, :off], b[:, off:] + b[:, :-off] * a[:, off:]],
+                          dim=1)
+            if 2 * off < n:
+                a = torch.cat([a[:, :off], a[:, :-off] * a[:, off:]], dim=1)
+            off *= 2
+        return b
     while off < n:
         b[:, off:] += b[:, :-off] * a[:, off:]     # the product made first
         if 2 * off < n:                            # a's last step unused
@@ -119,7 +135,11 @@ def mamba_forward(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
             dbx = (dtc * xic)[..., None] * bc[:, :, None, :]
             hs = _scan(torch.exp(dta), dbx)
             # the carried state, decayed by the cumulative product
-            hs += torch.cumsum(dta, dim=1).exp_() * h[:, None]
+            carry = torch.cumsum(dta, dim=1)
+            if recording(hs, carry, h):
+                hs = hs + carry.exp() * h[:, None]
+            else:
+                hs += carry.exp_() * h[:, None]
             ys.append(torch.einsum("bldn,bln->bld", hs, cc))
             h = hs[:, -1]
         y = torch.stack(ys, dim=1).reshape(b, nc * L, di)[:, :s]

@@ -50,6 +50,9 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def param(t: torch.Tensor) -> nn.Parameter:
+    """A parameter that requires no grad: serving builds no graph, and
+    making a model trainable is the trainer's act
+    (``model.requires_grad_(True)``, :mod:`repro_torch.launch.train`)."""
     return nn.Parameter(t, requires_grad=False)
 
 

@@ -13,10 +13,19 @@ elsewhere, and an xLSTM model's every ``cfg.ssm.slstm_every``-th layer is
 sLSTM.  The reference's ``lax.scan`` over stacked blocks is an
 ``nn.ModuleList`` walked in order, and the embedding is a plain lookup (one
 device, no mesh).  Logits are computed for every position, as the
-reference does.
+reference does.  The vlm and audio configs (pixtral-12b, musicgen-large)
+take precomputed embeddings (``embeds``) in place of tokens, cast to the
+model's dtype, as the reference's stub frontends hand them over.
 
-Embedding input (vision / audio frontends) comes with a later slice of the
-port and raises ``NotImplementedError`` here.
+:func:`train_loss` is the training objective.  It runs the forward with
+``train=True``: the plain paths (``use_kernel=False``), as the
+reference's training path takes no Pallas kernel (``use_pallas=False``),
+so no kernel of the port runs in it either (none has a backward):
+attention without a cache goes through ``layers._attend``, the MoE
+experts through the grouped matmul's plain version, sLSTM through its
+plain cell loop; with ``cfg.remat`` every block is rematerialised under
+``torch.utils.checkpoint`` as the reference's ``jax.checkpoint`` does.
+The path is chosen by that argument, never by the device.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import check_device
 
@@ -146,22 +156,38 @@ class LM(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg, i, device=dev, gen=gen)
                                     for i in range(cfg.n_layers))
 
-    def forward(self, tokens: torch.Tensor, *, positions=None, cache=None,
-                use_kernel: bool = True):
-        """``tokens [B, S]`` -> ``(logits [B, S, vocab], cache, aux)``.
-        A given cache is updated in place (every layer's rows
-        ``[pos, pos + S)`` and ``pos``), not copied; ``aux`` is the float32
-        sum of the MoE layers' router losses (0 for a dense model)."""
-        b, s = tokens.shape
-        x = F.embedding(tokens, self.embed)
+    def forward(self, tokens: torch.Tensor | None = None, *, embeds=None,
+                positions=None, cache=None, use_kernel: bool = True,
+                train: bool = False):
+        """``tokens [B, S]`` (or ``embeds [B, S, D]``, cast to the model's
+        dtype) -> ``(logits [B, S, vocab], cache, aux)``.  A given cache is
+        updated in place (every layer's rows ``[pos, pos + S)`` and
+        ``pos``), not copied; ``aux`` is the float32 sum of the MoE layers'
+        router losses (0 for a dense model).  ``train=True`` takes the
+        plain paths (``use_kernel=False``) and no cache, each block
+        rematerialised when ``cfg.remat``."""
+        if tokens is not None:
+            b, s = tokens.shape
+            x = F.embedding(tokens, self.embed)
+        elif embeds is not None:
+            b, s = embeds.shape[:2]
+            x = embeds.to(self.embed.dtype)
+        else:
+            raise ValueError("forward needs tokens or embeds")
+        if train and cache is not None:
+            raise ValueError("the training forward takes no cache")
         if positions is None:
             base = cache["pos"] if cache is not None else 0
-            positions = (base + torch.arange(s, device=tokens.device)
-                         ).expand(b, s)
+            positions = (base + torch.arange(s, device=x.device)).expand(b, s)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        use_kernel = use_kernel and not train
         for i, block in enumerate(self.blocks):
-            x, aux = block(x, positions, use_kernel=use_kernel,
-                           cache=None if cache is None else cache["layers"][i])
+            if train and self.cfg.remat:
+                x, aux = checkpoint(block, x, positions, use_reentrant=False,
+                                    use_kernel=False)
+            else:
+                x, aux = block(x, positions, use_kernel=use_kernel, cache=None
+                               if cache is None else cache["layers"][i])
             if aux is not None:
                 aux_total = aux_total + aux
         x = self.final_norm(x)
@@ -182,13 +208,27 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> LM:
 
 
 def forward(model: LM, *, tokens=None, embeds=None, positions=None,
-            cache=None, use_kernel: bool = True):
+            cache=None, use_kernel: bool = True, train: bool = False):
     """Returns ``(logits, cache, aux)`` as the reference's ``forward``."""
-    if embeds is not None or tokens is None:
-        raise NotImplementedError("embedding input comes with the "
-                                  "vision/audio frontends slice of the port")
-    return model(tokens, positions=positions, cache=cache,
-                 use_kernel=use_kernel)
+    return model(tokens, embeds=embeds, positions=positions, cache=cache,
+                 use_kernel=use_kernel, train=train)
+
+
+def train_loss(model: LM, batch: dict) -> torch.Tensor:
+    """Next-token cross-entropy plus ``0.01 *`` the router's aux loss, as
+    the reference's ``train_loss``: ``batch`` holds ``tokens`` or
+    ``embeds``, and ``labels [B, S]`` (positions with a label < 0 are
+    masked); float32 logits, the mean over the unmasked positions.  Runs
+    the training forward (``train=True``)."""
+    logits, _, aux = forward(model, tokens=batch.get("tokens"),
+                             embeds=batch.get("embeds"), train=True)
+    labels = batch["labels"].long()
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll + 0.01 * aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,

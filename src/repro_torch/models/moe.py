@@ -23,6 +23,9 @@ reads them.
 Parameters keep the reference's names and layouts (``router [d, E]``,
 ``experts.w_gate / w_up [E, d, f]``, ``experts.w_down [E, f, d]``,
 ``shared.*``), so :mod:`repro_torch.models.convert` maps them one to one.
+
+Training takes the plain path (``use_kernel=False``), which autograd
+differentiates: the gmm kernel has no backward.
 """
 from __future__ import annotations
 

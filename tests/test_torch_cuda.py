@@ -1310,3 +1310,120 @@ def test_card_smoke_xlstm_serve_matches_plain(cuda):
     for a, b in zip(stats.logits, plain.logits):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# training: no kernel under autograd, the SMOKE run against the CPU's
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention",
+                                    "gmm", "slstm_scan"])
+def test_lm_kernel_wrappers_raise_under_autograd(cuda, kernel):
+    """A kernel has no backward: a launch that autograd would record raises
+    (naming the kernel), and counts nothing; under no_grad it launches."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda).bfloat16()
+    if kernel == "flash_attention":
+        args = (randn(8, 64, 64), randn(4, 64, 64), randn(4, 64, 64))
+        fn, kw = flash_attention, {}
+    elif kernel == "decode_attention":
+        args = (randn(2, 8, 64), randn(2, 64, 4, 64), randn(2, 64, 4, 64), 64)
+        fn, kw = decode_attention, {}
+    elif kernel == "gmm":
+        args = (randn(256, 64), randn(2, 64, 32),
+                torch.tensor([0, 1], dtype=torch.int32, device=cuda))
+        fn, kw = gmm, {"block_n": 128}
+    else:
+        state = {k: torch.zeros((2, 64), device=cuda) for k in ref.SLSTM_STATE}
+        args = (randn(2, 5, 256), randn(64, 256), randn(256), state)
+        fn, kw = slstm_scan, {}
+    first = args[0].clone().requires_grad_(True)
+    before = getattr(fn, "launches", 0)
+    with pytest.raises(RuntimeError, match=kernel):
+        fn(first, *args[1:], **kw)
+    assert getattr(fn, "launches", 0) == before
+    with torch.no_grad():
+        fn(first, *args[1:], **kw)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_micro", [1, 2])
+def test_card_smoke_train_matches_the_cpu(cuda, n_micro):
+    """The SMOKE ``train()`` on the card against the same run on the CPU:
+    the same initial weights, data and steps (float32; TF32 off), no kernel
+    launched.  The moments are held as the CPU run holds them to the JAX
+    package's (m within 1e-4 and v within 2e-4 of the tensor's largest),
+    and each tensor's displacement from the initial weights to the CPU
+    run's: ``1 - cos`` within 1e-3 and the norm ratio within 1e-2 of 1 per
+    tensor, 1e-5 and 1e-4 over all tensors together (a run that skipped
+    an update, or took it with the wrong sign, misses by far)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LM_KERNELS, MOE_KERNELS
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {}
+        for dev in ("cpu", cuda):
+            model = lm.init_lm(get_config("qwen2.5-14b", smoke=True), seed=5,
+                               device="cpu").to(dev)
+            before = [k.launches for k in LM_KERNELS + MOE_KERNELS]
+            runs[str(dev)] = train("qwen2.5-14b", steps=4, global_batch=4,
+                                   seq_len=32, n_micro=n_micro, device=dev,
+                                   params=model)
+            assert [k.launches for k in LM_KERNELS + MOE_KERNELS] == before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    cpu, card = runs["cpu"], runs[str(cuda)]
+    for a, b in zip(cpu["history"], card["history"]):
+        assert b["loss"] == pytest.approx(a["loss"], rel=1e-5)
+        assert b["grad_norm"] == pytest.approx(a["grad_norm"], rel=1e-4)
+    for k, rel in (("m", 1e-4), ("v", 2e-4)):
+        for n, w in cpu["opt_state"][k].items():
+            t = card["opt_state"][k][n].cpu()
+            assert float((t - w).abs().max()) <= rel * float(
+                w.abs().max()) + 1e-12, (k, n)
+    start = {n: p.detach() for n, p in lm.init_lm(
+        get_config("qwen2.5-14b", smoke=True), seed=5,
+        device="cpu").named_parameters()}
+    worst = [0.0, 0.0]
+    dot = na2 = nb2 = 0.0
+    for (n, p), (_, q) in zip(cpu["params"].named_parameters(),
+                              card["params"].named_parameters()):
+        a = (q.detach().cpu() - start[n]).double().flatten()
+        b = (p.detach() - start[n]).double().flatten()
+        ab, na, nb = float(a @ b), float(a.norm()), float(b.norm())
+        dot, na2, nb2 = dot + ab, na2 + na * na, nb2 + nb * nb
+        assert na > 0 and nb > 0, n
+        worst = [max(worst[0], 1 - ab / (na * nb)),
+                 max(worst[1], abs(na / nb - 1))]
+    assert worst[0] <= 1e-3 and worst[1] <= 1e-2, worst
+    assert 1 - dot / (na2 * nb2) ** 0.5 <= 1e-5, (dot, na2, nb2)
+    assert abs((na2 / nb2) ** 0.5 - 1) <= 1e-4, (na2, nb2)
+    assert dataclasses.asdict(card["params"].cfg) == dataclasses.asdict(
+        cpu["params"].cfg)
+
+
+@pytest.mark.cuda
+def test_card_restart_from_checkpoint_equals_uninterrupted_run(cuda, tmp_path):
+    import shutil
+    from repro_torch.launch.train import train
+    kw = dict(smoke=True, steps=6, global_batch=4, seq_len=16, n_micro=2,
+              ckpt_every=3, device=cuda, seed=3)
+    full = train("qwen2.5-14b", ckpt_dir=str(tmp_path / "a"), **kw)
+    (tmp_path / "b").mkdir()
+    shutil.copytree(tmp_path / "a" / "step_00000003",
+                    tmp_path / "b" / "step_00000003")
+    resumed = train("qwen2.5-14b", ckpt_dir=str(tmp_path / "b"), **kw)
+    losses = [h["loss"] for h in resumed["history"]]
+    want = [h["loss"] for h in full["history"][3:]]
+    assert losses == pytest.approx(want, rel=1e-6)
+    for (n, p), (_, q) in zip(full["params"].named_parameters(),
+                              resumed["params"].named_parameters()):
+        assert float((p - q).abs().max()) <= 1e-6, n

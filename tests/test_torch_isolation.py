@@ -95,3 +95,20 @@ def test_serving_defaults_to_the_card():
             lm.init_lm(cfg, device="meta")
         gen, _ = serve(arch, batch=1, prompt_len=2, gen_len=1, device="cpu")
         assert gen.shape == (1, 1)
+
+
+def test_training_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from repro_torch.data import DataConfig, DataPipeline, make_global_batch
+    from repro_torch.launch.train import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train("qwen2.5-14b", steps=1, global_batch=2, seq_len=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DataPipeline(DataConfig(vocab=8, seq_len=4, global_batch=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_global_batch({"x": __import__("numpy").zeros(2)}, "cuda")
+    out = train("qwen2.5-14b", steps=1, global_batch=2, seq_len=4,
+                device="cpu")
+    assert out["params"].embed.device == torch.device("cpu")
+    assert len(out["history"]) == 1

@@ -334,12 +334,6 @@ def test_moe_model_builds():
         + cfg.d_model
 
 
-def test_embeds_input_raises():
-    _, _, _, model = _pair("qwen2.5-14b")
-    with pytest.raises(NotImplementedError, match="frontends"):
-        lm.forward(model, embeds=torch.zeros((1, 2, 64)))
-
-
 def test_init_lm_is_seeded():
     cfg = get_config("qwen2.5-14b", smoke=True)
     a, b = (lm.init_lm(cfg, seed=7, device="cpu") for _ in range(2))
