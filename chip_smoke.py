@@ -71,10 +71,15 @@ exits non-zero and prints no result.  In order it
    decode step (S 1, from a random state) and the float32 SMOKE width
    (d 64); the plain loop without the recurrent product at step S/2, and
    the plain loop with the product summed in bf16, must each fail the
-   check by 10x; the prefill and the decode step are timed beside
-   the plain loop, with the bytes, operations and chain bounds (the chain:
-   the kernel rebuilt with the step's product replaced by nothing) and the
-   host's microseconds per call;
+   check by 10x, and so must the kernel rebuilt to read the stale half of
+   its exchange buffer; two calls must agree bit for bit, and the
+   library's SASS must hold ``HMMA`` (the bf16 product on the tensor
+   cores); the prefill and the decode step are timed beside the plain
+   loop (and the parent's kernel where ``build/parent`` holds a checkout
+   of the parent), with the bytes, operations and chain bounds (the chain:
+   S one-way trips of a flag between two SMs, from a ping-pong probe),
+   the exchange alone (the kernel rebuilt with the step's product
+   replaced by nothing) and the host's microseconds per call;
 4. counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions
    that ``cuobjdump --dump-sass`` finds in the built gmm library (both must
    be there), then holds the grouped-matmul kernel (``gmm``) against its
@@ -1226,6 +1231,8 @@ SLSTM_TOL = ("per element: ref.slstm_tolerance (each of z, i, f, o's "
              "order, twice)")
 SLSTM_FAULT = "the plain scan without the recurrent product at step S/2"
 SLSTM_LOW_SUM = "the plain scan with the recurrent product summed in bf16"
+SLSTM_STALE = ("the kernel rebuilt to read the exchange buffer's other half "
+               "(h from two steps back)")
 
 
 def _slstm_inputs(dev, gen, b, s, d, dtype, state):
@@ -1264,17 +1271,44 @@ def slstm_phase(dev) -> dict:
     """``slstm_scan`` held against ``slstm_scan_ref`` per element within
     ``ref.slstm_tolerance`` at ``SLSTM_CASES`` (hs and the final state),
     with two planted faults that must fail the check by 10x (the product
-    dropped at one step, the product summed in bf16); timed at the
-    served prefill and decode shapes beside the plain loop, with the bytes,
-    operations and chain bounds (the chain: the same launch rebuilt with the
-    step's product replaced by nothing, S exchanges of h and barriers) and
-    the host's microseconds per call at S 1."""
+    dropped at one step, the product summed in bf16) and, at the served
+    prefill, a third (the kernel rebuilt to read the stale half of its
+    exchange buffer) and two calls that must agree bit for bit; the
+    library's SASS must hold ``HMMA`` (the bf16 product on the tensor
+    cores).  Timed at the served prefill and decode shapes beside the plain
+    loop and, where ``build/parent`` holds a checkout of the parent, beside
+    the parent's kernel and its barrier-only probe (the grid-barrier
+    design's chain), with the bytes and operations bounds, the chain bound
+    (S one-way trips of a flag between two SMs, from a ping-pong probe),
+    the exchange alone (the kernel rebuilt with the step's product replaced
+    by nothing) and the host's microseconds per call at S 1."""
     import torch
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels.slstm import default_units, launch, slstm_scan
     sys.path.insert(0, str(ROOT / "dev"))
-    from slstm_timing import build_probe
+    from slstm_timing import (PROBE, STALE_HALF, build_variants,
+                              parent_launch, pingpong)
+
+    sass = sass_counts("slstm")
+    log(f"kernel slstm_scan SASS instructions: {json.dumps(sass)}")
+    assert sass["HMMA"] > 0, sass
+    shipped = _build.CSRC / "slstm.cu"
+    variants = {"exchange": (shipped, [PROBE]),
+                "stale half": (shipped, [STALE_HALF])}
+    parent = ROOT / "build" / "parent" / "src" / "repro_torch" / "kernels" \
+        / "csrc" / "slstm.cu"
+    if parent.exists():   # its kernel, and its barrier-only probe
+        variants["parent"] = (parent, [])
+        variants["parent exchange"] = (parent, [PROBE])
+    libs = build_variants(variants)
+    trip = pingpong(dev)
+    log(f"kernel slstm_scan flag ping-pong between two SMs: "
+        f"{json.dumps(trip)}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def over(x, tol) -> float:      # a NaN counts as out of any bound
+        return float((x / tol).nan_to_num(nan=float("inf")).max())
 
     gen = torch.Generator(device=dev).manual_seed(5)
     rows, row = {}, {}
@@ -1298,19 +1332,28 @@ def slstm_phase(dev) -> dict:
                     state_bound_share=state_share, planted_fault=SLSTM_FAULT,
                     fault_bound_share=fault, low_sum_control=SLSTM_LOW_SUM,
                     low_sum_bound_share=low_share)
+        if name == "served prefill":
+            units = default_units(d, sms, xw.dtype)
+            again, fin2 = slstm_scan(xw, w, bias, st)
+            stale, _ = launch(libs["stale half"], xw, w, bias, st, units)
+            torch.cuda.synchronize()
+            case.update(
+                bit_identical=bool(torch.equal(got, again) and all(
+                    torch.equal(fin[k], fin2[k]) for k in fin)),
+                stale_half_fault=SLSTM_STALE,
+                stale_half_bound_share=over((stale - plain).abs(), tol))
+            del again, fin2, stale
         log(f"kernel slstm_scan {name}: {json.dumps(case)}")
         assert share <= 1.0, f"slstm_scan {name}: {share} of the bound"
         assert max(state_share.values()) <= 1.0, state_share
         assert fault >= 10.0, f"the slstm check passes: {SLSTM_FAULT}"
         assert low_share >= 10.0, f"the slstm check passes: {SLSTM_LOW_SUM}"
         if name == "served prefill":
+            assert case["bit_identical"], "two slstm_scan calls differ"
+            assert case["stale_half_bound_share"] >= 10.0, \
+                f"the slstm check passes: {SLSTM_STALE}"
             nbytes, ops, rate = _slstm_work(b, s, d, dt)
             tb = bound(nbytes, ops, rate)
-            probe = build_probe()
-            units = default_units(d, torch.cuda.get_device_properties(
-                dev).multi_processor_count)
-            chain = time_ms(lambda: launch(probe, xw, w, bias, st, units),
-                            spin=True)
             ms = time_ms(lambda: slstm_scan(xw, w, bias, st), spin=True)
             row = dict(case, ms=ms, us_per_step=ms / s * 1e3,
                        plain_ms=time_ms(lambda: ref.slstm_scan_ref(
@@ -1318,10 +1361,28 @@ def slstm_phase(dev) -> dict:
                        bound_ms=tb[0], bound_by=tb[1],
                        bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                        operations_bound_ms=ops / rate * 1e3,
-                       chain_bound_ms=chain, chain_us_per_step=chain / s * 1e3,
-                       blocks=d // units, library_ms=None,
+                       chain_bound_ms=s * trip["one_way_ns"] * 1e-6,
+                       chain_bound="S one-way trips of a flag between two "
+                       "SMs through L2 (half a ping-pong round trip)",
+                       exchange_probe_ms=time_ms(lambda: launch(
+                           libs["exchange"], xw, w, bias, st, units),
+                           spin=True),
+                       units=units, blocks=d // units, library_ms=None,
                        library_call="none: torch.nn.LSTM and cuDNN compute "
                        "another cell (sigmoid input gate, no stabiliser m)")
+            if "parent" in libs:   # in turns: parent, this, this, parent
+                def par():
+                    return parent_launch(libs["parent"], xw, w, bias, st, 8)
+                assert over((par()[0] - plain).abs(), tol) <= 1.0
+                p0 = time_ms(par, spin=True)
+                m1 = time_ms(lambda: slstm_scan(xw, w, bias, st), spin=True)
+                m2 = time_ms(lambda: slstm_scan(xw, w, bias, st), spin=True)
+                p1 = time_ms(par, spin=True)
+                row.update(parent_ms=[p0, p1], turns_ms=[m1, m2],
+                           grid_barrier_chain_ms=time_ms(
+                               lambda: parent_launch(libs["parent exchange"],
+                                                     xw, w, bias, st, 8),
+                               spin=True))
         elif name == "decode step":
             nbytes, ops, rate = _slstm_work(b, s, d, dt)
             row.update(
@@ -1332,6 +1393,10 @@ def slstm_phase(dev) -> dict:
                 decode_bound_ms=bound(nbytes, ops, rate)[0],
                 host_us_per_call=_host_us(
                     [lambda: slstm_scan(xw, w, bias, st)] * 200))
+            if "parent" in libs:
+                def par():
+                    return parent_launch(libs["parent"], xw, w, bias, st, 8)
+                row.update(decode_parent_ms=time_ms(par, spin=True))
         del xw, w, bias, st, got, plain, tol, bad, low
     log(f"kernel slstm_scan: {json.dumps(row)}")
     torch.cuda.empty_cache()
@@ -3603,7 +3668,9 @@ def main() -> int:
         for key in ("zipf_ms", "zipf_longest_segment", "zipf_byte_bound_ms",
                     "library_call", "index_add_ms", "unsorted_ms",
                     "bytes_bound_ms", "operations_bound_ms", "chain_bound_ms",
-                    "decode_ms", "decode_plain_ms", "host_us_per_call"):
+                    "exchange_probe_ms", "parent_ms", "grid_barrier_chain_ms",
+                    "decode_ms",
+                    "decode_plain_ms", "decode_parent_ms", "host_us_per_call"):
             if key in r:      # the fold on the shuffle's own layout; PART's
                 line[-1][key] = r[key]   # and COMB's other yardsticks; the
                                          # sLSTM's bounds and decode step

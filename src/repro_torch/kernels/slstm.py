@@ -15,10 +15,14 @@ A CUDA tensor launches the kernel; a CPU tensor takes the plain version.
 Any other device, dtype or shape raises.  The kernel is one cooperative
 launch of ``d / units`` persistent blocks, all co-resident (checked with
 the occupancy API before the launch: a grid that cannot be resident
-raises), each owning ``units`` hidden units, the fewest that give at most
-one block per multiprocessor (8 at d 1,024 on an H100); a grid-wide
-barrier separates the steps.  It takes ``1 <= B <= 8``, ``S >= 1`` and
-``d`` a multiple of 8.
+raises), each owning ``units`` hidden units, with at most one block per
+multiprocessor: for bfloat16 the widest of 16, 8 and 4 (the tensor-core
+product's widths; 16, so 64 blocks, at d 1,024), else the fewest.  The
+blocks pass h from step to step through an exchange buffer and a flag
+each, which a buffer per (device, stream) keeps from call to call; each
+call's steps publish values above every earlier call's (:class:`FlagBase`),
+so nothing is cleared between calls.  It takes ``1 <= B <= 8``, ``S >= 1``
+and ``d`` a multiple of 8.
 """
 from __future__ import annotations
 
@@ -31,15 +35,56 @@ from .ref import SLSTM_STATE, slstm_scan_ref
 
 MAX_BATCH = 8           # the kernel's kMaxB
 THREADS = 256           # the kernel's kThreads
+MMA_UNITS = (16, 8, 4)  # units a block of the kernel's tensor-core path, the
+                        # widest first (fewer blocks, fewer flags to poll)
+MMA_MAX_D = 1024        # widths it holds in registers (d a multiple of 16)
+MAX_BLOCKS = 2048       # flags a (device, stream) keeps: above any grid
+                        # that an H100 holds at once
+FLAG_STRIDE = 16        # the kernel's kFlagStride: a flag a 128-byte line
 _ERRORS = {-1: "cannot be co-resident on the card",
            -2: "needs more shared memory a block than the card has"}
 _SMS: dict[int, int] = {}
+_FLAGS: dict[tuple[int, int], tuple] = {}
 
 
-def default_units(d: int, sms: int) -> int:
-    """The fewest hidden units a block, dividing ``d``, with ``d / units``
-    blocks at most ``sms``."""
+def default_units(d: int, sms: int, dtype=None) -> int:
+    """The hidden units a block: for bfloat16 at a width the tensor-core
+    path takes, the first of :data:`MMA_UNITS` dividing ``d`` with ``d /
+    units`` blocks at most ``sms``; otherwise the fewest of any."""
+    if dtype == torch.bfloat16 and d % 16 == 0 and d <= MMA_MAX_D:
+        for u in MMA_UNITS:
+            if d % u == 0 and d // u <= sms:
+                return u
     return next(u for u in range(1, d + 1) if d % u == 0 and d // u <= sms)
+
+
+class FlagBase:
+    """The base of one (device, stream)'s flags: a call of ``S`` steps
+    takes the current base and publishes ``base + 1`` to ``base + S - 1``
+    (at most ``base + S``), and the next call's base is ``S + 1`` higher,
+    so every flag a call finds shows less than its first awaited step
+    ``base + 1``.  64-bit values: 2^63 steps before they wrap."""
+
+    def __init__(self) -> None:
+        self.next = 0
+
+    def take(self, s: int) -> int:
+        base = self.next
+        self.next = base + s + 1
+        return base
+
+
+def _flags(device: torch.device, stream: int) -> tuple:
+    """(flags, :class:`FlagBase`) of ``device``'s ``stream``: room for
+    ``MAX_BLOCKS`` flags, ``FLAG_STRIDE`` int64 apart, zeroed once and kept
+    for the process (launches on one stream never overlap, so they can
+    share them)."""
+    key = (device.index, stream)
+    if key not in _FLAGS:
+        _FLAGS[key] = (torch.zeros(MAX_BLOCKS * FLAG_STRIDE,
+                                   dtype=torch.int64, device=device),
+                       FlagBase())
+    return _FLAGS[key]
 
 
 def slstm_scan(xw: torch.Tensor, w_rec: torch.Tensor, b: torch.Tensor,
@@ -86,7 +131,7 @@ def slstm_scan(xw: torch.Tensor, w_rec: torch.Tensor, b: torch.Tensor,
         _SMS[index] = torch.cuda.get_device_properties(
             index).multi_processor_count
     hs, out = launch(_build.library("slstm"), xw, w_rec, b, state,
-                     default_units(d, _SMS[index]))
+                     default_units(d, _SMS[index], xw.dtype))
     slstm_scan.launches += 1
     return hs, out
 
@@ -102,10 +147,12 @@ def launch(lib, xw, w_rec, b, state, units: int):
     f = lib.teshu_slstm_scan
     if f.argtypes is None:
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p] * 13 + [i32] * 5 + [p]
+        f.argtypes = [p] * 14 + [i32, ctypes.c_uint64] + [i32] * 5 + [p]
         f.restype = ctypes.c_int
     bsz, s, _ = xw.shape
     d = w_rec.shape[0]
+    stream = _build.stream_of(xw)
+    flags, flag_base = _flags(xw.device, stream)
     hs = torch.empty((bsz, s, d), dtype=torch.float32, device=xw.device)
     out = dict(zip(SLSTM_STATE, torch.empty(
         (len(SLSTM_STATE), bsz, d), dtype=torch.float32,
@@ -114,8 +161,9 @@ def launch(lib, xw, w_rec, b, state, units: int):
     err = f(xw.data_ptr(), w_rec.data_ptr(), b.data_ptr(),
             *(state[k].data_ptr() for k in SLSTM_STATE), hs.data_ptr(),
             *(out[k].data_ptr() for k in SLSTM_STATE), hx.data_ptr(),
-            bsz, s, d, units, int(xw.dtype == torch.bfloat16),
-            _build.stream_of(xw))
+            flags.data_ptr(), flags.numel(), flag_base.take(s), bsz, s, d,
+            units,
+            int(xw.dtype == torch.bfloat16), stream)
     if err in _ERRORS:
         raise RuntimeError(f"slstm_scan: a grid of {d // units} blocks of "
                            f"{units} units {_ERRORS[err]}")

@@ -1254,6 +1254,60 @@ def test_slstm_kernel_fails_the_check_with_a_bfloat16_sum(cuda, s, state):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("units", [8, 16])
+@pytest.mark.parametrize("s", [1, 4096])
+def test_slstm_kernel_matches_plain_at_units(cuda, s, units):
+    """The tensor-core path at 8 and 16 units a block (128 and 64 blocks)
+    at the served width (B 4, d 1,024, bf16): every element of hs and of
+    the final state within ``ref.slstm_tolerance``."""
+    from repro_torch.kernels import _build
+    xw, w, bias, st = _slstm_inputs(4, s, 1024, "bfloat16", cuda, seed=units)
+    hs, fin = slstm_launch(_build.library("slstm"), xw, w, bias, st, units)
+    plain, pfin = ref.slstm_scan_ref(xw, w, bias, st)
+    tol, tol_st = ref.slstm_tolerance(xw, w, bias, st)
+    torch.cuda.synchronize()
+    worst = float(((hs - plain).abs() / tol).max())
+    assert worst <= 1.0, f"hs off by {worst} of the bound"
+    for k in ref.SLSTM_STATE:
+        assert bool(((fin[k] - pfin[k]).abs() <= tol_st[k]).all()), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slstm_kernel_two_calls_are_bit_identical(cuda, dtype):
+    """The sum's order is fixed (each warp's k-steps in order, then the
+    warps' partial sums in order), so two calls on the same inputs give
+    the same bits, hs and state."""
+    d = 1024 if dtype == "bfloat16" else 64
+    xw, w, bias, st = _slstm_inputs(4, 512, d, dtype, cuda, seed=3)
+    hs, fin = slstm_scan(xw, w, bias, st)
+    hs2, fin2 = slstm_scan(xw, w, bias, st)
+    assert torch.equal(hs, hs2)
+    assert all(torch.equal(fin[k], fin2[k]) for k in ref.SLSTM_STATE)
+
+
+@pytest.mark.cuda
+def test_slstm_kernel_one_thousand_decode_calls_on_one_flag_buffer(cuda):
+    """1,000 decode steps in a row (S 1 and S 2 calls, alternating, on one
+    stream's flags), each from the last one's state and each held against
+    the plain step from the same state: a flag left by an earlier call that
+    showed a step of a later one would let a block read h before it was
+    written."""
+    xw, w, bias, st = _slstm_inputs(4, 2, 1024, "bfloat16", cuda, seed=7)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    worst = 0.0
+    for i in range(1000):
+        x = (torch.randn(xw[:, :1 + i % 2].shape, generator=gen,
+                         device=cuda)).bfloat16()
+        hs, fin = slstm_scan(x, w, bias, st)
+        plain, _ = ref.slstm_scan_ref(x, w, bias, st)
+        tol, _ = ref.slstm_tolerance(x, w, bias, st)
+        worst = max(worst, float(((hs - plain).abs() / tol).max()))
+        st = fin
+    assert worst <= 1.0, f"a decode call off by {worst} of the bound"
+
+
+@pytest.mark.cuda
 def test_slstm_grid_that_cannot_be_resident_raises(cuda):
     """4,096 blocks of one unit each cannot all be resident at once: the
     launcher raises before launching."""

@@ -258,19 +258,55 @@ def test_recipes_and_step_builders():
     new = steps._with_recipe(cfg, steps.Recipe(remat=True, dispatch="gspmd"))
     assert new.remat and new.moe.dispatch == "gspmd"
     assert steps._with_recipe(cfg, steps.Recipe()) is cfg
-    # prefill and serve steps: the serving path's logits
+
+
+# Both packages keep the KV cache in bf16 whatever the model's dtype, so a
+# key or value whose float32 value lies near a bf16 boundary may round to
+# either side in the two runs (their float32 sums differ in order); that
+# moves a logit by far less than this (at most 1.4e-4 in the prefill's and
+# 1.5e-4 in the serve step's logits over seeds 0-39 on the CPU)
+STEP_RTOL = STEP_ATOL = 2e-3
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_prefill_and_serve_steps_match_reference(seed):
+    """The serving path's step builders against the reference's, from the
+    same weights (carried by ``lm_params_from_reference``) and the same
+    numpy tokens: ``make_prefill_step``'s last logits and its cache
+    position, then one ``make_serve_step`` on each package's own cache,
+    within ``STEP_RTOL`` / ``STEP_ATOL``.  No cacheless forward is compared:
+    it keeps k and v in float32 where both step builders attend over the
+    cache's bf16 rows, so it differs from them by that rounding and not by
+    a fault."""
+    from repro.models.config import SHAPES as RSHAPES
+
+    from repro_torch.models.config import SHAPES
+    rcfg, pcfg = ref_config(ARCH, smoke=True), get_config(ARCH, smoke=True)
     shape = dataclasses.replace(SHAPES["prefill_32k"], seq_len=16,
                                 global_batch=2)
-    pcfg = get_config(ARCH, smoke=True)
-    model = lm.init_lm(pcfg, seed=4, device="cpu")
-    toks = torch.randint(0, pcfg.vocab, (2, 8))
-    last, cache = steps.make_prefill_step(pcfg, shape)(model, {"tokens": toks})
-    full, _, _ = lm.forward(model, tokens=toks)
-    assert last.shape == (2, 1, pcfg.vocab)
-    torch.testing.assert_close(last[:, 0], full[:, -1], rtol=2e-3, atol=2e-3)
-    nxt, cache = steps.make_serve_step(pcfg)(model, cache,
-                                             {"tokens": toks[:, :1]})
+    rshape = dataclasses.replace(RSHAPES["prefill_32k"], seq_len=16,
+                                 global_batch=2)
+    params = _ref_params(seed)
+    model = lm_params_from_reference(pcfg, params, device="cpu")
+    jp = jax.tree.map(jnp.asarray, params)
+    toks = np.random.default_rng(seed).integers(
+        0, pcfg.vocab, (2, 8)).astype(np.int32)
+    last, cache = steps.make_prefill_step(pcfg, shape)(
+        model, {"tokens": torch.from_numpy(toks)})
+    rlast, rcache = jsteps.make_prefill_step(rcfg, rshape, ())(
+        jp, {"tokens": jnp.asarray(toks)})
+    assert last.shape == (2, 1, pcfg.vocab) and cache["pos"] == 8
+    np.testing.assert_allclose(last.float().numpy(),
+                               np.asarray(rlast, np.float32),
+                               rtol=STEP_RTOL, atol=STEP_ATOL)
+    nxt, cache = steps.make_serve_step(pcfg)(
+        model, cache, {"tokens": torch.from_numpy(toks[:, :1])})
+    rnxt, _ = jsteps.make_serve_step(rcfg, ())(
+        jp, rcache, {"tokens": jnp.asarray(toks[:, :1])})
     assert nxt.shape == (2, 1, pcfg.vocab) and cache["pos"] == 9
+    np.testing.assert_allclose(nxt.float().numpy(),
+                               np.asarray(rnxt, np.float32),
+                               rtol=STEP_RTOL, atol=STEP_ATOL)
 
 
 def test_command_line_trains_on_the_cpu():
