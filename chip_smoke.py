@@ -205,6 +205,28 @@ exits non-zero and prints no result.  In order it
    each within its limit in bf16 steps, with a control (the absorbed
    scores without their rope term; the first chunk's rope keys zeroed)
    that must miss it by 10x;
+7m. the mesh (before 7): a NCCL world of one rank on the card (a file
+   store under ``build/chip_smoke_mesh``) and ``elastic_mesh(1,
+   model_parallel=1)``, the mesh the reference's ``serve`` builds on one
+   device (axes ``data``, ``model``; EP axes ``("model",)``).  Every
+   ``meshops`` function runs on CUDA tensors over the one-rank groups and
+   is held bit for bit to its plain meaning (the exchanges and sums give
+   their input back, the compressed ``hier_psum`` the int8 round trip;
+   ``quantize_int8`` and ``hash32`` equal the CPU's), and the refusals
+   (a CPU tensor on the NCCL mesh, a gloo mesh over the NCCL world, the
+   reference's ``OverflowError`` seeds) must raise.  In 7 and 7a, right
+   after the gspmd serve, the same weights are served with
+   ``serve(mesh=...)`` on the model's own ``teshu2`` dispatch (one EP axis:
+   the flat all-to-all through NCCL), teacher-forced with the gspmd run's
+   tokens: every launch count equal to the gspmd run's, the collectives a
+   MoE layer a forward (two all-to-alls, an all-gather, an all-reduce) and
+   the all-to-all bytes equal to the layout's arithmetic, the logits
+   within the gspmd check's 10 bf16 steps of the gspmd run's (logged: bit
+   for bit or not), and the control with the local expert axis rolled by
+   one must miss that by 10x; the prefill seconds and decode ms a step are
+   logged beside the gspmd run's, with the peak memory (``--profile``: the
+   EP prefill and 4 steps traced, the NCCL kernels a class of their own).
+   The group is destroyed after 7a;
 7b. trains (the training slice): (a) the gradient check at Qwen2.5-14B's
    full width with 2 of 48 layers: the bf16 model and its float32 copy
    (the same weights, cast) each take one microbatch of 2 x 512 Markov
@@ -2028,14 +2050,236 @@ class _Routing:
         return over, sum(e.numel() for e, _ in self.calls)
 
 
+# ---------------------------------------------------------------------------
+# the mesh: one NCCL rank on the card (``elastic_mesh(1, model_parallel=1)``,
+# the mesh the reference's serve() builds on one device), the collectives
+# on CUDA tensors, and each MoE model served over it on its own teshu2
+# dispatch (with one EP axis, the flat all-to-all) beside the gspmd branch
+# ---------------------------------------------------------------------------
+
+MESH_STORE = ROOT / "build" / "chip_smoke_mesh"
+EP_CONTROL = "the local expert axis rolled by one before the expert products"
+EP_CONTROL_FACTOR = 10
+
+
+def mesh_open(dev):
+    """A NCCL world of one rank (a file store under ``build/``) and
+    ``elastic_mesh(1, model_parallel=1)`` over it; every ``meshops``
+    function held on CUDA tensors (:func:`_meshops_checks`).  The caller
+    destroys the group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import elastic_mesh
+    MESH_STORE.mkdir(parents=True, exist_ok=True)
+    store = MESH_STORE / "store"
+    store.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, device_id=dev)
+    mesh = elastic_mesh(1, model_parallel=1)
+    res = dict(init_s=time.perf_counter() - t0, mesh=mesh.shape,
+               backend=dist.get_backend())
+    res.update(_meshops_checks(dev, mesh))
+    log(f"mesh phase: {json.dumps(res)}")
+    return mesh, res
+
+
+def _meshops_checks(dev, mesh) -> dict:
+    """Each ``meshops`` function on CUDA tensors over the one-rank groups,
+    held bit for bit to its plain meaning: the exchanges and sums give
+    their input back, the compressed ``hier_psum`` the int8 round trip
+    under its own scale; ``quantize_int8`` and ``hash32`` (seed 0, 2^20
+    int32 keys and the +-2^31 edges) equal the CPU's.  A CPU tensor on the
+    NCCL mesh, a gloo (cpu) mesh over the NCCL world, an unknown sync mode
+    and the reference's ``OverflowError`` seeds must raise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import meshops
+    from repro_torch.launch.mesh import Mesh
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((64, 33), generator=gen, device=dev)
+    x4 = torch.randn((4, 6, 3), generator=gen, device=dev)
+    meshops.reset_counts()
+    same = {}
+    for a in mesh.axis_names:
+        for sh in (1, -1, 3):
+            same[f"ring {a} {sh}"] = torch.equal(
+                meshops.ring_exchange(x, mesh, a, sh), x)
+    for axes in ("data", "model", ("data", "model"), ("model", "data")):
+        for sp, ct in ((0, 0), (1, 1), (0, 1), (1, 0)):
+            same[f"all_to_all {axes} {sp}{ct}"] = torch.equal(
+                meshops.all_to_all_axis(x4, mesh, axes, sp, ct), x4)
+    same["two_level"] = torch.equal(meshops.two_level_all_to_all(
+        x4[None, None], mesh, "data", "model"), x4[None, None])
+    same["flat_psum"] = torch.equal(
+        meshops.flat_psum(x, mesh, ("data", "model")), x)
+    same["hier_psum"] = torch.equal(
+        meshops.hier_psum(x, mesh, "data", "model"), x)
+    scale = x.abs().max() / 127.0 + 1e-12
+    codes = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int32)
+    same["hier_psum compressed"] = torch.equal(
+        meshops.hier_psum(x, mesh, "data", "model", compress_outer=True),
+        codes.to(x.dtype) * scale)
+    for mode in ("flat", "hier"):
+        got = meshops.grad_sync({"w": x, "n": {"b": x4}}, mesh,
+                                inner_axis="data", outer_axis="model",
+                                mode=mode)
+        same[f"grad_sync {mode}"] = torch.equal(got["w"], x) and \
+            torch.equal(got["n"]["b"], x4)
+    q, sc = meshops.quantize_int8(x)
+    qc, scc = meshops.quantize_int8(x.cpu())
+    same["quantize_int8"] = torch.equal(q.cpu(), qc) and \
+        torch.equal(sc.cpu(), scc)
+    same["dequantize_int8"] = torch.equal(
+        meshops.dequantize_int8(q, sc).cpu(), meshops.dequantize_int8(qc, scc))
+    keys = torch.cat([
+        torch.tensor([0, 1, -1, 2 ** 31 - 1, -2 ** 31, -2 ** 31 + 1],
+                     dtype=torch.int32),
+        torch.randint(-2 ** 31, 2 ** 31, (1 << 20,), dtype=torch.int64,
+                      generator=torch.Generator().manual_seed(3)
+                      ).to(torch.int32)])
+    same["hash32"] = torch.equal(meshops.hash32(keys.to(dev)).cpu(),
+                                 meshops.hash32(keys))
+    calls = dict(meshops.COUNTS)
+    refused = {}
+    for name, fn, err in (
+            ("hash32 seed 1", lambda: meshops.hash32(keys.to(dev), seed=1),
+             OverflowError),
+            ("sample_group_mask", lambda: meshops.sample_group_mask(
+                keys.to(dev), 0.01), OverflowError),
+            ("estimate_tokens_per_expert",
+             lambda: meshops.estimate_tokens_per_expert(
+                 (keys % 128).to(dev), 128, 0.01), OverflowError),
+            ("grad_sync mode 'ring'", lambda: meshops.grad_sync(
+                {"w": x}, mesh, inner_axis="data", outer_axis=None,
+                mode="ring"), ValueError),
+            ("a cpu tensor on the nccl mesh", lambda: meshops.flat_psum(
+                x.cpu(), mesh, ("data",)), ValueError),
+            ("a cpu (gloo) mesh over the nccl world", lambda: Mesh(
+                np.zeros((1, 1), np.int64), ("data", "model"), "cpu"),
+             ValueError)):
+        try:
+            fn()
+            refused[name] = False
+        except err:
+            refused[name] = True
+    bad = [k for k, v in same.items() if not v]
+    assert not bad, f"meshops on the card differ from their meaning: {bad}"
+    assert all(refused.values()), refused
+    return dict(held_bit_for_bit=len(same), nccl_calls=calls,
+                refused=sorted(refused))
+
+
+def _ep_serve(params, cfg, arch: str, dev, mesh, kw: dict, gen_tok, stats,
+              logits, counts: dict, tol: float, moe_layers: int,
+              profile_dir: Path | None, tag: str) -> dict:
+    """``serve(mesh=...)`` on the model's own ``teshu2`` dispatch (one EP
+    axis of one rank: the flat all-to-all through NCCL), on the gspmd run's
+    weights, teacher-forced with its tokens: the logits against the gspmd
+    run's (on one rank the two branches compute the same rows in the same
+    layout: expected bit for bit; held within ``tol``), the launch counts
+    against its, the collectives a forward and their bytes against the
+    layout's arithmetic; then the control with the local expert axis
+    rolled by one must miss ``tol`` by ``EP_CONTROL_FACTOR``."""
+    import torch
+
+    from repro_torch.core import meshops
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.shardings import ep_axes_for
+    from repro_torch.models import moe
+
+    m = cfg.moe
+    assert m.dispatch == "teshu2" and ep_axes_for(mesh) == ("model",), \
+        (m.dispatch, mesh)
+    serve(arch, mesh=mesh, forced=gen_tok, **dict(kw, gen_len=2))  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:                     # the EP serving path, alone
+        k.launches = 0
+    meshops.reset_counts()
+    _, ep = serve(arch, mesh=mesh, forced=gen_tok, **kw)
+    ep_counts = {k.__name__: k.launches for k in KERNELS}
+    calls, wire = dict(meshops.COUNTS), dict(meshops.BYTES)
+    peak = torch.cuda.max_memory_allocated()
+    assert ep_counts == counts, (ep_counts, counts)
+    forwards = 1 + SERVE["gen_len"]
+    per = moe_layers * forwards
+    # a MoE layer's forward: the dispatch and the return all-to-all, the
+    # all-gather over model, the aux loss's all-reduce; one all-gather of
+    # the tokens at the end
+    assert calls == dict(all_to_all=2 * per, all_gather=per + 1,
+                         all_reduce=per, reduce_scatter=0, send_recv=0), calls
+
+    def layer_bytes(tokens: int) -> tuple[int, int]:
+        """(capacity, bytes a MoE layer hands the all-to-alls): E cap rows
+        of d + 1 (the weight column) out, E cap rows of d back."""
+        cap = moe._capacity(tokens, m)
+        return cap, m.num_experts * cap * (2 * cfg.d_model + 1) * \
+            params.embed.element_size()
+    cap_p, bytes_p = layer_bytes(SERVE["batch"] * SERVE["prompt_len"])
+    cap_d, bytes_d = layer_bytes(SERVE["batch"])
+    assert wire["all_to_all"] == moe_layers * (bytes_p + SERVE["gen_len"]
+                                               * bytes_d), wire
+    ep_logits = torch.stack(ep.logits).float()
+    diffs = (ep_logits - logits).abs().amax(dim=(1, 2)).tolist()
+    n_diff = int((ep_logits != logits).sum())
+    ep_prefill_s, ep_decode_s = ep.prefill_s, ep.decode_s
+    del ep, ep_logits
+
+    real = moe._expert_ffn
+
+    def rolled(w, x, **k):                # the routed stack: E experts here
+        if x.shape[0] == m.num_experts == w.w_gate.shape[0]:
+            x = x.roll(1, 0)
+        return real(w, x, **k)
+    moe._expert_ffn = rolled
+    try:
+        _, control = serve(arch, mesh=mesh, forced=gen_tok, **kw)
+    finally:
+        moe._expert_ffn = real
+    control_diffs = (torch.stack(control.logits).float() - logits
+                     ).abs().amax(dim=(1, 2)).tolist()
+    del control
+    steps = SERVE["gen_len"]
+    out = dict(
+        dispatch=m.dispatch, ep_axes=list(ep_axes_for(mesh)),
+        prefill_s=ep_prefill_s, gspmd_prefill_s=stats.prefill_s,
+        decode_step_ms=ep_decode_s / steps * 1e3,
+        gspmd_decode_step_ms=stats.decode_s / steps * 1e3,
+        peak_device_bytes=peak, launches=ep_counts,
+        calls=calls, calls_per_forward={
+            k: (v - (k == "all_gather")) / forwards for k, v in calls.items()},
+        wire_bytes=wire, all_to_all_bytes_a_layer=dict(
+            prefill=bytes_p, prefill_capacity=cap_p, decode=bytes_d,
+            decode_capacity=cap_d),
+        logits_identical=n_diff == 0, logit_elements_differing=n_diff,
+        max_logit_diff_per_step=diffs, logit_tol=tol,
+        control=EP_CONTROL, control_max_logit_diff=max(control_diffs),
+        control_min_step_diff=min(control_diffs),
+        control_over_tol=max(control_diffs) / tol)
+    log(f"{tag}ep serve {arch} over {mesh.shape} ({m.dispatch}, EP axes "
+        f"{out['ep_axes']}): {json.dumps(out)}")
+    assert max(diffs) <= tol, f"EP logits differ from gspmd by {max(diffs)}"
+    assert max(control_diffs) > EP_CONTROL_FACTOR * tol, \
+        f"control {EP_CONTROL!r} misses the check by only " \
+        f"{max(control_diffs) / tol:.2f}x"
+    if profile_dir is not None:
+        _profile_serve(params, cfg, dev, profile_dir, tag=f"{tag}ep_",
+                       mesh=mesh)
+    return out
+
+
 def moe_serve_phase(dev, profile_dir: Path | None, arch: str,
-                    n_layers: int, tag: str) -> dict:
+                    n_layers: int, tag: str, mesh=None) -> dict:
     """``serve`` on MoE model ``arch`` at full width, its depth cut to
     ``n_layers``: every routed and shared expert drawn on its own, the
     launch counts, the plain versions' forced and routed run as the
-    yardstick, the dropped-reduction gmm control; an MLA model's attention
-    also held at full width (:func:`_mla_checks`).  ``tag`` names the
-    profile's files."""
+    yardstick, the dropped-reduction gmm control; then, given ``mesh``,
+    the same weights served over it (:func:`_ep_serve`); an MLA model's
+    attention also held at full width (:func:`_mla_checks`).  ``tag``
+    names the profile's files."""
     import dataclasses
 
     import numpy as np
@@ -2160,7 +2404,13 @@ def moe_serve_phase(dev, profile_dir: Path | None, arch: str,
     assert max(diffs) <= tol, f"logits differ from plain by {max(diffs)} > {tol}"
     assert max(control_diffs) > tol, \
         f"control {MOE_CONTROL!r} passes the logit check"
-    del stats, logits, plain_logits, routing
+    del plain_logits, routing
+    if mesh is not None:
+        torch.cuda.empty_cache()
+        out["ep"] = _ep_serve(params, cfg, arch, dev, mesh, kw, gen_tok,
+                              stats, logits, counts, tol, len(moe_layers),
+                              profile_dir, tag)
+    del stats, logits
     torch.cuda.empty_cache()
     if cfg.mla is not None:
         out["mla"] = _mla_checks(params.blocks[1].attn, cfg, dev)
@@ -3403,6 +3653,8 @@ def _kernel_class(name: str) -> str:
         return "gmm"
     if "slstm_scan" in name:
         return "slstm_scan"
+    if "nccl" in name.lower():
+        return "nccl"
     if any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass", "gemv",
                                "splitKreduce")):
         return "matmul"
@@ -3415,14 +3667,15 @@ RANGES = ("hymba.", "xlstm.", "mla.")
 
 
 def _profile_serve(params, cfg, dev, profile_dir: Path, tag: str = "",
-                   shape: dict = SERVE) -> None:
+                   shape: dict = SERVE, mesh=None) -> None:
     """The prefill and four decode steps under torch.profiler: device time
     by kernel class (attention kernels, gmm, the sLSTM kernel, matmuls, the
     rest) against wall, and the models' ``RANGES`` (Hymba's
     ``hymba.mamba``, xLSTM's ``xlstm.mlstm`` and ``xlstm.slstm``, MLA's
     ``mla.prefill`` and ``mla.decode``: host ms, and the device ms the
     ranges span); ``tag`` prefixes the names of the files and lines,
-    ``shape`` gives batch and lengths."""
+    ``shape`` gives batch and lengths; under ``mesh`` the model dispatches
+    over it (the NCCL kernels are the ``nccl`` class)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -3465,15 +3718,15 @@ def _profile_serve(params, cfg, dev, profile_dir: Path, tag: str = "",
             + (f" ranges={json.dumps(ranges)}" if ranges else ""))
         return out
 
-    logits, _, _ = traced("prefill", lambda: lm.forward(params, tokens=tokens,
-                                                        cache=cache))
+    logits, _, _ = traced("prefill", lambda: lm.forward(
+        params, tokens=tokens, cache=cache, mesh=mesh))
     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     del logits
 
     def steps():
         t = tok
         for _ in range(4):
-            out, _ = lm.serve_step(params, cache, tokens=t)
+            out, _ = lm.serve_step(params, cache, tokens=t, mesh=mesh)
             t = out[:, -1].argmax(-1).to(torch.int32)[:, None]
         return t
     traced("decode_4_steps", steps)
@@ -3602,13 +3855,21 @@ def main() -> int:
     t0 = time.perf_counter()
     xv = xlstm_serve_phase(dev, args.profile)
     log(f"xlstm serve phase: {time.perf_counter() - t0:.2f} s")
+    import torch.distributed as dist
     t0 = time.perf_counter()
-    mv = moe_serve_phase(dev, args.profile, MOE_ARCH, MOE_LAYERS, "moe_")
-    log(f"moe serve phase: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    dv = moe_serve_phase(dev, args.profile, DEEPSEEK_ARCH, DEEPSEEK_LAYERS,
-                         "deepseek_")
-    log(f"deepseek serve phase: {time.perf_counter() - t0:.2f} s")
+    mesh, _ = mesh_open(dev)
+    log(f"mesh open: {time.perf_counter() - t0:.2f} s")
+    try:
+        t0 = time.perf_counter()
+        mv = moe_serve_phase(dev, args.profile, MOE_ARCH, MOE_LAYERS, "moe_",
+                             mesh)
+        log(f"moe serve phase: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        dv = moe_serve_phase(dev, args.profile, DEEPSEEK_ARCH,
+                             DEEPSEEK_LAYERS, "deepseek_", mesh)
+        log(f"deepseek serve phase: {time.perf_counter() - t0:.2f} s")
+    finally:
+        dist.destroy_process_group()
     torch.cuda.empty_cache()              # the training state wants the card
     t0 = time.perf_counter()
     train_phase(dev, args.profile)
@@ -3620,11 +3881,12 @@ def main() -> int:
         flash_attention=sum(p["launches"]["flash_attention"] for p in (sv, hv)),
         decode_attention=sum(p["launches"]["decode_attention"]
                              for p in (sv, hv)),
-        gmm=mv["launches"]["gmm"] + dv["launches"]["gmm"],
+        gmm=sum(p["launches"]["gmm"] + p["ep"]["launches"]["gmm"]
+                for p in (mv, dv)),
         slstm_scan=xv["launches"]["slstm_scan"])
     # the gmm row of the line: Qwen3-MoE's decode gate/up launch, the shape
-    # of 1,152 of the two MoE serves' 2,772 launches (every timed shape is
-    # logged; DeepSeek-V2's decode gate/up rides along in the row)
+    # of 2,304 of the four MoE serves' 5,544 launches (gspmd and EP; every
+    # timed shape is logged; DeepSeek-V2's decode gate/up rides along)
     krows["gmm"] = krows["decode gate/up"]
 
     sources = {"partition_permute": ("partition.cu",
@@ -3653,8 +3915,10 @@ def main() -> int:
             line[-1]["path"] = r["path"]
         if k.__name__ == "gmm":   # DeepSeek-V2's launches and decode shape
             d = krows["DeepSeek decode routed gate/up"]
+            line[-1]["ep_launches"] = {"qwen3_moe": mv["ep"]["launches"]["gmm"],
+                                       "deepseek": dv["ep"]["launches"]["gmm"]}
             line[-1]["deepseek"] = {
-                "launches": dv["launches"]["gmm"],
+                "launches": dv["launches"]["gmm"] + dv["ep"]["launches"]["gmm"],
                 **{x: d[x] for x in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")}}
         w = krows.get(f"{k.__name__}_hymba")

@@ -10,7 +10,7 @@ step ``n`` computes, and hands each batch over as tensors on its device
 onto the mesh): ``{"tokens": [B, S], "labels": [B, S]}`` int32, or
 ``{"embeds": [B, S, D] float32, "labels"}`` for the vlm / audio stub
 frontends.  The reference's ``batch_specs`` (mesh stand-ins for the dry
-run) comes with the port of the launch mesh.
+run) waits for the port's DTensor placements.
 """
 from __future__ import annotations
 

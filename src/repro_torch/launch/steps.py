@@ -5,8 +5,8 @@ Counterpart of the mesh-free part of ``repro.launch.steps``: the recipes
 gradients, then one AdamW update) and thin prefill / serve steps.  A step
 takes the model (the port's parameters live in it) where the reference's
 takes a params pytree.  The reference's ``build_cell``, ``input_specs``
-and ``clamp_n_micro`` shard over a mesh and come with the port of the
-launch mesh.
+and ``clamp_n_micro`` shard over a mesh and wait for the port's DTensor
+placements; training under a mesh is not ported yet.
 """
 from __future__ import annotations
 

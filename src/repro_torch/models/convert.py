@@ -17,6 +17,7 @@ from repro_torch.device import check_device
 
 from .config import ModelConfig
 from .lm import LM
+from .moe import expert_slice
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -89,23 +90,38 @@ def _model_pairs(model: LM, params: dict):
         yield from _pairs(model.blocks[i], tree, f"blocks.{i}.")
 
 
+def _expert_rows(tree: dict, first: int, count: int) -> dict:
+    """A layer's subtree with its routed experts cut to ``[first, first +
+    count)``; the router and the shared experts whole."""
+    if "moe" not in tree:
+        return tree
+    experts = {k: np.asarray(v)[first:first + count]
+               for k, v in tree["moe"]["experts"].items()}
+    return {**tree, "moe": {**tree["moe"], "experts": experts}}
+
+
 def lm_params_from_reference(cfg: ModelConfig, params: dict, *,
-                             device="cuda") -> LM:
+                             device="cuda", mesh=None) -> LM:
     """The port's :class:`~repro_torch.models.lm.LM` holding a copy of every
     array of the reference's ``lm.init_lm`` tree ``params`` (each subtree,
     ``attn`` (GQA or MLA), ``mixer``, ``mlp``, ``moe`` (with its ``shared``
     experts), ``mlstm`` or ``slstm``, into the module of its name; a MoE
-    model's dense ``block0`` into layer 0).  Raises if the tree lacks an
-    array of the port's or holds one the port does not have."""
+    model's dense ``block0`` into layer 0).  Under ``mesh`` a MoE block
+    keeps only this rank's routed experts (``moe.expert_slice``).  Raises
+    if the tree lacks an array of the port's or holds one the port does
+    not have."""
     dev = check_device(device)
-    model = LM(cfg, device=dev)              # empty: every tensor is copied
+    model = LM(cfg, device=dev, mesh=mesh)   # empty: every tensor is copied
+    first, count = expert_slice(cfg, mesh) if cfg.family == "moe" \
+        else (0, 0)
     done: set = set()
     top = {k: v for k, v in params.items()
            if k not in ("blocks", "block0", "layers")}
     with torch.no_grad():
         _copy_into(model, top, done, "")
         for i, tree in enumerate(_layer_trees(params, cfg.n_layers)):
-            _copy_into(model.blocks[i], tree, done, f"blocks.{i}.")
+            _copy_into(model.blocks[i], _expert_rows(tree, first, count),
+                       done, f"blocks.{i}.")
     missing = [n for n, p in model.named_parameters() if id(p) not in done]
     if missing:
         raise KeyError(f"reference params lack {missing}")

@@ -11,8 +11,8 @@ width ``cfg.d_ff`` in layer 0 (its ``block0``), a hybrid model's attention
 is global in ``cfg.global_attn_layers`` and has ``cfg.sliding_window``
 elsewhere, and an xLSTM model's every ``cfg.ssm.slstm_every``-th layer is
 sLSTM.  The reference's ``lax.scan`` over stacked blocks is an
-``nn.ModuleList`` walked in order, and the embedding is a plain lookup (one
-device, no mesh).  Logits are computed for every position, as the
+``nn.ModuleList`` walked in order, and the embedding is a plain lookup.
+Logits are computed for every position, as the
 reference does.  The vlm and audio configs (pixtral-12b, musicgen-large)
 take precomputed embeddings (``embeds``) in place of tokens, cast to the
 model's dtype, as the reference's stub frontends hand them over.
@@ -26,6 +26,15 @@ experts through the grouped matmul's plain version, sLSTM through its
 plain cell loop; with ``cfg.remat`` every block is rematerialised under
 ``torch.utils.checkpoint`` as the reference's ``jax.checkpoint`` does.
 The path is chosen by that argument, never by the device.
+
+Under a mesh (:mod:`repro_torch.launch.mesh`) the model is per-rank SPMD
+code: ``forward``, ``serve_step`` and each :class:`Block` take it as an
+explicit ``mesh=`` keyword (there is no ambient mesh), the input is this
+rank's rows of the batch, and a MoE block dispatches over the EP axes
+``ep_axes_for(mesh)`` by its config's template (``teshu`` / ``teshu2``),
+its routed experts this rank's slice (``init_lm`` and ``convert`` take
+``mesh=`` too).  Training under a mesh is not ported yet: ``train=True``
+with a mesh raises.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import check_device
+from repro_torch.launch.shardings import ep_axes_for
 
 from .config import ModelConfig
 from .hybrid import HymbaMixer, init_ssm_cache
@@ -79,7 +89,8 @@ class Block(nn.Module):
     MoE FFN (``moe``) in a MoE model's routed layers.  An xLSTM block is a
     pre-norm ``mlstm`` or ``slstm`` and its residual, with no MLP."""
 
-    def __init__(self, cfg: ModelConfig, layer: int, *, device, gen=None):
+    def __init__(self, cfg: ModelConfig, layer: int, *, device, gen=None,
+                 mesh=None):
         super().__init__()
         dt = dtype_of(cfg)
         window = layer_window(cfg, layer)
@@ -99,19 +110,23 @@ class Block(nn.Module):
             self.attn = Attention(cfg, device=device, gen=gen, window=window)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
         if cfg.family == "moe" and not is_dense_layer(cfg, layer):
-            self.moe = MoE(cfg, device=device, gen=gen)
+            self.moe = MoE(cfg, device=device, gen=gen, mesh=mesh)
         else:
             self.mlp = MLP(cfg, device=device, gen=gen)
 
-    def forward(self, x, positions, *, cache=None, use_kernel=True):
-        """``(x, aux)``: ``aux`` the router's load-balance loss, or None."""
+    def forward(self, x, positions, *, cache=None, use_kernel=True,
+                mesh=None):
+        """``(x, aux)``: ``aux`` the router's load-balance loss, or None.
+        A MoE block under ``mesh`` dispatches over ``ep_axes_for(mesh)``."""
         if self.cfg.family == "ssm":
             return x + self._xlstm(self.ln1(x), cache, use_kernel), None
         mix = self.mixer if hasattr(self, "mixer") else self.attn
         out, _ = mix(self.ln1(x), positions, cache=cache, use_kernel=use_kernel)
         x = x + out
         if hasattr(self, "moe"):
-            y, aux = self.moe(self.ln2(x), use_kernel=use_kernel)
+            y, aux = self.moe(self.ln2(x), use_kernel=use_kernel, mesh=mesh,
+                              mesh_axes=() if mesh is None
+                              else ep_axes_for(mesh))
             return x + y, aux
         return x + self.mlp(self.ln2(x)), None
 
@@ -139,9 +154,11 @@ class Block(nn.Module):
 
 class LM(nn.Module):
     """Made from ``gen`` with the reference's distributions, or empty (for
-    :func:`repro_torch.models.convert.lm_params_from_reference` to fill)."""
+    :func:`repro_torch.models.convert.lm_params_from_reference` to fill);
+    under ``mesh`` each MoE block holds this rank's routed experts."""
 
-    def __init__(self, cfg: ModelConfig, *, device="cuda", gen=None):
+    def __init__(self, cfg: ModelConfig, *, device="cuda", gen=None,
+                 mesh=None):
         super().__init__()
         check_supported(cfg)
         dev = check_device(device)
@@ -153,19 +170,21 @@ class LM(nn.Module):
         unembed = None if cfg.tie_embeddings else param(
             embed_init(gen, cfg.vocab, cfg.d_model, dt, dev).t())
         self.register_parameter("unembed", unembed)
-        self.blocks = nn.ModuleList(Block(cfg, i, device=dev, gen=gen)
+        self.blocks = nn.ModuleList(Block(cfg, i, device=dev, gen=gen,
+                                          mesh=mesh)
                                     for i in range(cfg.n_layers))
 
     def forward(self, tokens: torch.Tensor | None = None, *, embeds=None,
                 positions=None, cache=None, use_kernel: bool = True,
-                train: bool = False):
+                train: bool = False, mesh=None):
         """``tokens [B, S]`` (or ``embeds [B, S, D]``, cast to the model's
         dtype) -> ``(logits [B, S, vocab], cache, aux)``.  A given cache is
         updated in place (every layer's rows ``[pos, pos + S)`` and
         ``pos``), not copied; ``aux`` is the float32 sum of the MoE layers'
         router losses (0 for a dense model).  ``train=True`` takes the
         plain paths (``use_kernel=False``) and no cache, each block
-        rematerialised when ``cfg.remat``."""
+        rematerialised when ``cfg.remat``.  Under ``mesh`` the batch is
+        this rank's rows."""
         if tokens is not None:
             b, s = tokens.shape
             x = F.embedding(tokens, self.embed)
@@ -176,6 +195,9 @@ class LM(nn.Module):
             raise ValueError("forward needs tokens or embeds")
         if train and cache is not None:
             raise ValueError("the training forward takes no cache")
+        if train and mesh is not None:
+            raise NotImplementedError("training under a mesh is not ported "
+                                      "yet")
         if positions is None:
             base = cache["pos"] if cache is not None else 0
             positions = (base + torch.arange(s, device=x.device)).expand(b, s)
@@ -187,7 +209,8 @@ class LM(nn.Module):
                                     use_kernel=False)
             else:
                 x, aux = block(x, positions, use_kernel=use_kernel, cache=None
-                               if cache is None else cache["layers"][i])
+                               if cache is None else cache["layers"][i],
+                               mesh=mesh)
             if aux is not None:
                 aux_total = aux_total + aux
         x = self.final_norm(x)
@@ -198,20 +221,24 @@ class LM(nn.Module):
         return logits, cache, aux_total
 
 
-def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> LM:
+def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
+            mesh=None) -> LM:
     """Random weights from a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (normal draws scaled as ``dense_init`` / ``embed_init``;
-    norms ones, biases zeros)."""
+    norms ones, biases zeros).  Under ``mesh`` the routed experts are this
+    rank's slice of the full init: one matrix a projection is drawn and
+    repeated over the experts, so the draws are the same."""
     dev = check_device(device)
-    return LM(cfg, device=dev,
+    return LM(cfg, device=dev, mesh=mesh,
               gen=torch.Generator(device=dev).manual_seed(seed))
 
 
 def forward(model: LM, *, tokens=None, embeds=None, positions=None,
-            cache=None, use_kernel: bool = True, train: bool = False):
+            cache=None, use_kernel: bool = True, train: bool = False,
+            mesh=None):
     """Returns ``(logits, cache, aux)`` as the reference's ``forward``."""
     return model(tokens, embeds=embeds, positions=positions, cache=cache,
-                 use_kernel=use_kernel, train=train)
+                 use_kernel=use_kernel, train=train, mesh=mesh)
 
 
 def train_loss(model: LM, batch: dict) -> torch.Tensor:
@@ -259,9 +286,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def serve_step(model: LM, cache: dict, tokens=None, embeds=None, *,
-               use_kernel: bool = True):
+               use_kernel: bool = True, mesh=None):
     """Decode one token per sequence: ``(logits [B, 1, V], cache)``, the
     cache updated in place."""
     logits, cache, _ = forward(model, tokens=tokens, embeds=embeds,
-                               cache=cache, use_kernel=use_kernel)
+                               cache=cache, use_kernel=use_kernel, mesh=mesh)
     return logits, cache

@@ -1,13 +1,29 @@
-"""Mixture-of-Experts block of the port: the reference's gspmd dispatch on
-one device.
+"""Mixture-of-Experts block of the port, with the shuffle layer as its
+dispatch service.
 
-Counterpart of ``repro.models.moe`` without a mesh: router top-k (``_route``),
-fixed per-expert capacity (``_capacity``; tokens over it drop), the
-capacity buffers (``_build_buffers``), the expert FFN (``_expert_ffn``) and
-the weighted combine (``_combine``), plus the shared-expert branch of
-``moe_ffn``.  The reference's ``teshu`` / ``teshu2`` dispatch (a shard_map
-all-to-all over the expert-parallel mesh axes) needs a mesh and comes with
-the port of ``meshops``.
+Counterpart of ``repro.models.moe``: router top-k (``_route``), fixed
+per-expert capacity (``_capacity``; tokens over it drop), the capacity
+buffers (``_build_buffers``), the expert FFN (``_expert_ffn``) and the
+weighted combine (``_combine``), the shared-expert branch of ``moe_ffn``,
+and the dispatch templates that ``cfg.moe.dispatch`` selects when
+``moe_ffn`` is given expert-parallel mesh axes (else ``gspmd``):
+
+* ``gspmd``  -- every expert on this rank, routing its own tokens (the
+  reference's result; XLA's sharding of the experts has no counterpart
+  until the port's DTensor placements).
+* ``teshu``  -- the explicit dispatch (:func:`_moe_ep`): one flat
+  all-to-all over the EP axes (``("pod", "model")`` when multi-pod),
+  :func:`repro_torch.core.meshops.all_to_all_axis`.
+* ``teshu2`` -- the two-level exchange template [27]: the all-to-all over
+  the fast ``model`` axis first, then one merged flow per pod pair
+  (:func:`~repro_torch.core.meshops.two_level_all_to_all`); with one EP
+  axis, the flat all-to-all.
+
+MoE dispatch is a TeShu shuffle: the router is ``partFunc``, the
+all-to-all the transfer, the weighted combine ``combFunc``.  The dispatch
+is per-rank SPMD code over a :class:`~repro_torch.launch.mesh.Mesh`: ``x``
+is this rank's rows of the batch, and its ``experts`` hold its slice of
+``E / ep`` experts (:func:`expert_slice`).
 
 The expert FFN's products run through the grouped matmul
 (:func:`repro_torch.kernels.ops.grouped_matmul`, the ``gmm`` kernel on the
@@ -18,7 +34,9 @@ The reference's capacity ``cap`` (a multiple of 8) decides which tokens are
 kept; only the buffer is padded, to ``cap_pad``, a multiple of the gmm's
 ``block_n`` (:func:`buffer_layout`).  Token ``p`` of expert ``e`` sits in
 slot ``e * cap_pad + p``, so the pad rows stay zero and the combine never
-reads them.
+reads them.  The expert-parallel dispatch ships the reference's ``cap``
+rows a (source, expert) pair, so its wire carries the reference's bytes,
+and lays them into a zeroed ``[e_local, ep * cap_pad, d]`` buffer.
 
 Parameters keep the reference's names and layouts (``router [d, E]``,
 ``experts.w_gate / w_up [E, d, f]``, ``experts.w_down [E, f, d]``,
@@ -33,8 +51,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import meshops
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.gmm import positions_in_group
+from repro_torch.launch.shardings import ep_axes_for
 
 from .config import ModelConfig
 from .layers import dense_init, dtype_of, param
@@ -66,25 +86,45 @@ class ExpertStack(nn.Module):
             setattr(self, name, param(w))
 
 
+def expert_slice(cfg: ModelConfig, mesh=None) -> tuple[int, int]:
+    """``(first, count)`` of the routed experts a rank holds: all of them
+    without a mesh or on the ``gspmd`` dispatch; else its block of ``E /
+    ep`` by its index over the EP axes (``ep_axes_for(mesh)``, the first
+    axis major), as the reference shards the expert axis ``P(ep_axes)``."""
+    e = cfg.moe.num_experts
+    if mesh is None or cfg.moe.dispatch == "gspmd":
+        return 0, e
+    axes = ep_axes_for(mesh)
+    ep = mesh.axis_size(axes)
+    if e % ep:
+        raise ValueError(f"{e} experts do not divide over {ep} EP ranks")
+    return mesh.index(axes) * (e // ep), e // ep
+
+
 class MoE(nn.Module):
     """The MoE FFN of one block: ``router [d, E]``, ``experts`` and, when
     ``num_shared``, the always-on ``shared`` experts.  Made from ``gen``
     with the reference's ``init_moe`` distributions (the router
     ``0.02``-scaled, each projection ``1/sqrt(d_in)``-scaled and repeated
-    over the experts), or empty for a conversion to fill."""
+    over the experts), or empty for a conversion to fill.  Under a
+    ``mesh`` the routed stack holds this rank's :func:`expert_slice`; the
+    router and the shared experts stay whole."""
 
-    def __init__(self, cfg: ModelConfig, *, device, gen=None):
+    def __init__(self, cfg: ModelConfig, *, device, gen=None, mesh=None):
         super().__init__()
         m = cfg.moe
         self.cfg = cfg
         self.router = param(dense_init(gen, cfg.d_model, m.num_experts,
                                        dtype_of(cfg), device, scale=0.02))
-        self.experts = ExpertStack(cfg, m.num_experts, device=device, gen=gen)
+        self.experts = ExpertStack(cfg, expert_slice(cfg, mesh)[1],
+                                   device=device, gen=gen)
         self.shared = ExpertStack(cfg, m.num_shared, device=device, gen=gen) \
             if m.num_shared else None
 
-    def forward(self, x, *, use_kernel: bool = True):
-        return moe_ffn(self, self.cfg, x, use_kernel=use_kernel)
+    def forward(self, x, *, use_kernel: bool = True, mesh=None,
+                mesh_axes: tuple[str, ...] = ()):
+        return moe_ffn(self, self.cfg, x, mesh=mesh, mesh_axes=mesh_axes,
+                       use_kernel=use_kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -192,10 +232,13 @@ def _combine(out_buf, wbuf, meta, t: int, d: int) -> torch.Tensor:
     return out
 
 
-def moe_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
-            use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor, *, mesh=None,
+            mesh_axes: tuple[str, ...] = (), use_kernel: bool = True
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """``x [B, S, D] -> ([B, S, D], aux loss)``: the shared experts (if
-    any) on every token, plus the routed experts by the gspmd dispatch."""
+    any) on every token, plus the routed experts by ``cfg.moe.dispatch``
+    when ``mesh_axes`` (the EP axes of ``mesh``) are given, else by the
+    gspmd dispatch.  Under a mesh ``x`` is this rank's rows."""
     m = cfg.moe
     b, s, d = x.shape
     out = torch.zeros_like(x)
@@ -208,7 +251,16 @@ def moe_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
         shared = _expert_ffn(p.shared, xs, block_n=block_n,
                              use_kernel=use_kernel)[:, :t]
         out = out + shared.float().sum(0).to(x.dtype).reshape(b, s, d)
-    y, aux = _moe_gspmd(p, cfg, x, use_kernel=use_kernel)
+    dispatch = m.dispatch if mesh_axes else "gspmd"
+    if dispatch == "gspmd":
+        y, aux = _moe_gspmd(p, cfg, x, use_kernel=use_kernel)
+    elif mesh is None:
+        raise ValueError(f"the {dispatch!r} dispatch over {mesh_axes} "
+                         f"needs the mesh")
+    else:
+        y, aux = _moe_ep(p, cfg, x, mesh, tuple(mesh_axes),
+                         two_level=dispatch == "teshu2",
+                         use_kernel=use_kernel)
     return out + y, aux
 
 
@@ -224,3 +276,89 @@ def _moe_gspmd(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
                                      cap, cap_pad)
     y = _expert_ffn(p.experts, buf, block_n=block_n, use_kernel=use_kernel)
     return _combine(y, wbuf, meta, b * s, d).reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# TeShu: explicit expert-parallel dispatch (vanilla or two-level template)
+# ---------------------------------------------------------------------------
+
+def _moe_ep(p: MoE, cfg: ModelConfig, x: torch.Tensor, mesh,
+            ep_axes: tuple[str, ...], *, two_level: bool,
+            use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Explicit expert-parallel dispatch through the shuffle layer, on
+    this rank (the reference's ``_moe_shard_map``).
+
+    Geometry: tokens stay split over the batch axes ``("pod", "data")``;
+    experts are split over ``ep_axes`` and replicated over ``data``.  The
+    ranks spanning ``ep_axes`` at one ``data`` coordinate form one EP group
+    covering every expert; the shuffle is an all-to-all over exactly those
+    axes.  Each ``model`` coordinate routes its own slice of the rank's
+    tokens (they are replicated over ``model``), and an all-gather over
+    ``model`` restores them all."""
+    m = cfg.moe
+    e_total = m.num_experts
+    ep = mesh.axis_size(ep_axes)
+    if e_total % ep:
+        raise ValueError(f"{e_total} experts do not divide over {ep} ranks")
+    e_local = e_total // ep
+    if p.experts.w_gate.shape[0] != e_local:
+        raise ValueError(f"the block holds {p.experts.w_gate.shape[0]} "
+                         f"experts, not this rank's {e_local} of {e_total}")
+    msize = mesh.shape["model"]
+    bl, s, d = x.shape
+    tokens = bl * s
+    do_slice = tokens % msize == 0 and tokens >= msize
+    x_flat = x.reshape(tokens, d)
+    if do_slice:                          # divide routing work over 'model'
+        tl = tokens // msize
+        x_my = x_flat[mesh.coord("model") * tl:][:tl]
+    else:                                 # tiny (decode) batches: route all
+        tl, x_my = tokens, x_flat
+    eids, weights, aux = _route(p.router, x_my, m)
+    cap = _capacity(tl, m)
+    buf, wbuf, meta = _build_buffers(x_my, eids, weights, e_total, cap)
+    # the shuffle template delivers the per-expert buffers to their ranks,
+    # the routing weight riding along as one column in x's dtype
+    payload = torch.cat([buf, wbuf[..., None].to(buf.dtype)], dim=-1
+                        ).reshape(ep, e_local * cap, d + 1)
+    del buf
+    payload = _ep_shuffle(payload, mesh, ep_axes, two_level).view(
+        ep, e_local, cap, d + 1)
+    # my local experts over the tokens from every source of the EP group,
+    # source j's in rows [j * cap_pad, j * cap_pad + cap) of each expert
+    block_n, cap_pad = buffer_layout(cap)
+    xb = torch.zeros((e_local, ep, cap_pad, d), dtype=x.dtype,
+                     device=x.device)
+    xb[:, :, :cap] = payload[..., :d].transpose(0, 1)
+    mask = torch.zeros((e_local, ep, cap_pad), dtype=torch.bool,
+                       device=x.device)
+    mask[:, :, :cap] = (payload[..., d] > 0).transpose(0, 1)
+    del payload
+    yb = _expert_ffn(p.experts, xb.view(e_local, ep * cap_pad, d),
+                     block_n=block_n, use_kernel=use_kernel)
+    del xb
+    yb = torch.where(mask.view(e_local, ep * cap_pad, 1), yb, 0.0)
+    # the reverse shuffle: outputs back to their sources, in the same slots
+    yb = yb.view(e_local, ep, cap_pad, d)[:, :, :cap].transpose(0, 1)
+    yb = _ep_shuffle(yb.reshape(ep, e_local * cap, d), mesh, ep_axes,
+                     two_level)
+    y = _combine(yb.view(e_total, cap, d), wbuf, meta, tl, d)
+    if do_slice:
+        y = meshops.all_gather(y, mesh, "model", axis=0)
+    axes = tuple(a for a in ("pod", "data", "model") if a in mesh.shape)
+    aux = meshops.psum(aux, mesh, axes) / mesh.axis_size(axes)
+    return y.reshape(bl, s, d), aux
+
+
+def _ep_shuffle(x: torch.Tensor, mesh, ep_axes: tuple[str, ...],
+                two_level: bool) -> torch.Tensor:
+    """The dispatch shuffle: flat all-to-all (vanilla template) or the
+    two-level exchange template over (slow pod boundary, fast model
+    axis)."""
+    if two_level and len(ep_axes) == 2:
+        o, i = mesh.shape[ep_axes[0]], mesh.shape[ep_axes[1]]
+        return meshops.two_level_all_to_all(
+            x.reshape(o, i, *x.shape[1:]), mesh, ep_axes[0], ep_axes[1]
+        ).reshape(x.shape)
+    return meshops.all_to_all_axis(x, mesh, ep_axes, split_axis=0,
+                                   concat_axis=0)

@@ -1481,3 +1481,121 @@ def test_card_restart_from_checkpoint_equals_uninterrupted_run(cuda, tmp_path):
     for (n, p), (_, q) in zip(full["params"].named_parameters(),
                               resumed["params"].named_parameters()):
         assert float((p - q).abs().max()) <= 1e-6, n
+
+
+# ---------------------------------------------------------------------------
+# the mesh: one NCCL rank on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A NCCL world of one rank (a file store) for the module, and
+    ``elastic_mesh(1, model_parallel=1)`` over it: the mesh the
+    reference's ``serve`` builds on one device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL runs only on the card")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import elastic_mesh
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield elastic_mesh(1, model_parallel=1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v2-236b"])
+def test_card_mesh_moe_serve_matches_gspmd(nccl_mesh, arch):
+    """A MoE smoke config (``dispatch="teshu2"``) served over the one-rank
+    NCCL mesh, teacher-forced with the gspmd run's tokens on the same
+    weights: the same rows in the same layout, so the same logits bit for
+    bit and the same launches (gmm three a MoE layer a forward for each
+    expert stack)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import meshops
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+
+    cuda = torch.device("cuda", 0)
+    cfg = get_config(arch, smoke=True)
+    assert cfg.moe.dispatch == "teshu2"
+    params = lm.init_lm(cfg, seed=0, device=cuda, mesh=nccl_mesh)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    with torch.no_grad():
+        for b in params.blocks:
+            if hasattr(b, "moe"):
+                for w in (b.moe.experts.w_gate, b.moe.experts.w_up,
+                          b.moe.experts.w_down):
+                    w.copy_(torch.randn(w.shape, generator=gen, device=cuda)
+                            / w.shape[1] ** 0.5)
+    kw = dict(batch=3, prompt_len=70, gen_len=6, max_len=128, device=cuda,
+              params=params)
+    for k in KERNELS:
+        k.launches = 0
+    want, gspmd = serve(arch, **kw)
+    counts = {k.__name__: k.launches for k in KERNELS}
+    for k in KERNELS:
+        k.launches = 0
+    meshops.reset_counts()
+    got, ep = serve(arch, mesh=nccl_mesh, forced=want, **kw)
+    assert {k.__name__: k.launches for k in KERNELS} == counts
+    assert counts["gmm"] > 0 and meshops.COUNTS["all_to_all"] > 0
+    np.testing.assert_array_equal(got, want)
+    for a, b in zip(ep.logits, gspmd.logits):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_card_meshops_at_one_rank(nccl_mesh):
+    """Each collective on CUDA tensors over the one-rank groups gives its
+    plain meaning bit for bit; a CPU tensor on the NCCL mesh raises."""
+    from repro_torch.core import meshops
+
+    cuda = torch.device("cuda", 0)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((7, 5), generator=gen, device=cuda)
+    x4 = torch.randn((2, 4, 3), generator=gen, device=cuda)
+    for shift in (1, -1, 3):
+        assert torch.equal(meshops.ring_exchange(x, nccl_mesh, "model",
+                                                 shift), x)
+    for axes in ("model", ("data", "model"), ("model", "data")):
+        for sp, ct in ((0, 0), (1, 1), (0, 2)):
+            assert torch.equal(meshops.all_to_all_axis(x4, nccl_mesh, axes,
+                                                       sp, ct), x4)
+    assert torch.equal(meshops.two_level_all_to_all(
+        x4[None, None], nccl_mesh, "data", "model"), x4[None, None])
+    assert torch.equal(meshops.flat_psum(x, nccl_mesh, ("data", "model")), x)
+    assert torch.equal(meshops.hier_psum(x, nccl_mesh, "data", "model"), x)
+    scale = x.abs().max() / 127.0 + 1e-12
+    codes = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int32)
+    assert torch.equal(meshops.hier_psum(x, nccl_mesh, "data", "model",
+                                         compress_outer=True),
+                       codes.to(x.dtype) * scale)
+    got = meshops.grad_sync({"w": x, "n": {"b": x4}}, nccl_mesh,
+                            inner_axis="data", outer_axis="model")
+    assert torch.equal(got["w"], x) and torch.equal(got["n"]["b"], x4)
+    with pytest.raises(ValueError, match="cpu tensor on a cuda mesh"):
+        meshops.flat_psum(x.cpu(), nccl_mesh, ("data",))
+
+
+@pytest.mark.cuda
+def test_card_hash32_matches_the_cpu(cuda):
+    from repro_torch.core import meshops
+
+    keys = torch.cat([
+        torch.tensor([0, 1, -1, 2 ** 31 - 1, -2 ** 31], dtype=torch.int32),
+        torch.randint(-2 ** 31, 2 ** 31, (100_000,), dtype=torch.int64,
+                      generator=torch.Generator().manual_seed(4)
+                      ).to(torch.int32)])
+    for seed in (0, -1):
+        assert torch.equal(meshops.hash32(keys.to(cuda), seed).cpu(),
+                           meshops.hash32(keys, seed))
+    with pytest.raises(OverflowError):
+        meshops.hash32(keys.to(cuda), seed=1)
+    q, s = meshops.quantize_int8(keys[:1000].to(cuda).float())
+    qc, sc = meshops.quantize_int8(keys[:1000].float())
+    assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)

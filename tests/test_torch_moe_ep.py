@@ -1,0 +1,272 @@
+"""The port's expert-parallel MoE dispatch (``teshu`` / ``teshu2``) and
+serving over a mesh on the CPU, held against the JAX package.
+
+Both sides run on a ``(2, 2, 2)`` ``("pod", "data", "model")`` mesh with
+the EP axes ``("pod", "model")`` (``mesh_ranks.py``): the reference's
+``moe_ffn`` under ``jax.jit`` and ``serve(mesh=make_mesh(...))`` in one
+subprocess over 8 forced host devices, the port's per-rank ``moe_ffn`` and
+``serve(mesh=...)`` in one spawn of 8 gloo ranks, each rank holding its
+rows of the batch and its 2 of the 8 experts.  The weights are the
+reference's ``init_moe`` with every expert jittered from numpy (its own
+init repeats one matrix over the experts, so a dispatch to the wrong rank
+would still agree), the same arrays on both sides.
+
+Tolerances.  float32 within ``LAYER`` (``test_torch_moe.py``: float32
+matmuls summing in other orders).  bfloat16 within :func:`_bf16_bound`:
+``ref.gmm_tolerance``'s reasoning carried through the block.  Each of the
+three products sums the same float32 products in another order (the
+reference's einsum over ``[e_local, ep * cap]`` rows, the port's grouped
+matmul over ``[e_local, ep * cap_pad]``), so its bf16 output may round a
+step apart (``2^-7`` of it, plus ``2 d 2^-24 (|x| @ |w|)``); a step in
+``gate`` or ``up`` moves ``h = silu(gate) * up`` by at most ``2^-6 (|gate|
++ 2 |silu(gate)|) |up|`` through its chain of bf16 roundings, and that
+reaches ``w_down``'s output through ``|w_down|``; the combine rounds each
+weighted term and the sum once more (``2^-7`` of the terms' magnitudes).
+The reference runs with ``--xla_allow_excess_precision=false``: under
+``jax.jit`` XLA otherwise keeps the router's bf16 matmul in float32 and
+routes other tokens than the same code run op by op, the written order
+the port follows (4,425 of 16,384 elements apart at this size).  At
+capacity factor 1.0 each
+``model`` slice keeps its own capacity and drops other tokens than gspmd
+would: the port must match the reference's EP result, which differs from
+the gspmd branch's.  A control with the two-level stages' axes swapped
+sends each expert's tokens to another rank's experts and must fail.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import mesh_ranks
+from repro.configs import get_config as ref_config
+from repro.models import config as rconfig
+from repro.models import lm as jlm
+from repro.models import moe as jmoe
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.models import config as pconfig  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
+
+ARCH = "qwen3-moe-235b-a22b"
+LAYER = dict(rtol=2e-5, atol=2e-5)
+CACHED = dict(rtol=2e-3, atol=2e-3)
+CASES = [(f"{d}-{dt}-{cf}", d, dt, cf) for d in ("teshu", "teshu2")
+         for dt in ("float32", "bfloat16") for cf in (8.0, 1.0)]
+SERVE = dict(batch=8, prompt_len=12, gen_len=5, max_len=32, seed=0)
+B, S, D = 8, 64, 32
+
+
+def _flatten(tree, prefix: str) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}|{k}"))
+        else:
+            out[f"{prefix}|{k}"] = np.asarray(v, np.float32)
+    return out
+
+
+def _jitter(tree, rng):
+    for name, a in tree.items():
+        f = np.asarray(a, np.float32)
+        tree[name] = (f + 0.5 * f.std() * rng.standard_normal(f.shape)
+                      ).astype(np.float32)
+
+
+def _case_inputs(nm, dispatch, dtype, cf) -> dict:
+    """The block's weights and x, rounded to ``dtype`` and held as
+    float32 (exact), for both sides."""
+    seed = sum(map(ord, nm))
+    cfg = mesh_ranks.moe_config(rconfig, dispatch, dtype, cf)
+    p = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                     jmoe.init_moe(jax.random.key(seed), cfg))
+    rng = np.random.default_rng(seed)
+    _jitter(p["experts"], rng)
+    p["x"] = rng.standard_normal((B, S, D))
+    dt = jnp.dtype(dtype)
+    return {k: np.asarray(jnp.asarray(v, dt).astype(jnp.float32))
+            for k, v in _flatten(p, nm).items()}
+
+
+def _serve_params() -> dict:
+    cfg = ref_config(ARCH, smoke=True)
+    params = jax.tree.map(np.asarray, jlm.init_lm(jax.random.key(11), cfg))
+    _jitter(params["blocks"]["moe"]["experts"], np.random.default_rng(11))
+    return params
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("moe_ep")
+    inputs = tmp / "inputs.npz"
+    data = {}
+    for case in CASES:
+        data.update(_case_inputs(*case))
+    params = _serve_params()
+    data.update(_flatten(params, "serve"))
+    np.savez(inputs, **data)
+    proc = mesh_ranks.start_reference(
+        "reference_moe", dict(inputs=str(inputs), out=str(tmp / "ref.npz"),
+                              cases=CASES, serve_kw=SERVE, arch=ARCH),
+        devices=8, xla_flags="--xla_allow_excess_precision=false")
+    try:
+        ranks = mesh_ranks.run_ranks("moe", tmp, (str(inputs), CASES, SERVE,
+                                                  ARCH), timeout=180)
+    finally:
+        mesh_ranks.finish(proc, timeout=300)
+    return dict(ranks=ranks, ref=dict(np.load(tmp / "ref.npz")), data=data,
+                params=params)
+
+
+def _rows(ranks, key: str) -> np.ndarray:
+    """The batch from the ranks' rows: rank ``r`` holds the rows of its
+    ``(pod, data)`` index ``r // 2``, the same on both ``model`` ranks."""
+    for r in range(0, 8, 2):
+        np.testing.assert_array_equal(ranks[r][key], ranks[r + 1][key])
+    return np.concatenate([ranks[r][key] for r in range(0, 8, 2)])
+
+
+def _bf16_bound(data: dict, nm: str, cfg) -> np.ndarray:
+    """Per element of the bf16 block output, the bound of the module
+    docstring, from the tokens' routing (the port's ``_route``, the
+    reference's op by op) and float64 products of the bf16 values; every
+    assignment counted, kept or dropped."""
+    x = data[f"{nm}|x"].reshape(-1, D).astype(np.float64)
+    wg, wu, wd = (data[f"{nm}|experts|{k}"].astype(np.float64)
+                  for k in ("w_gate", "w_up", "w_down"))
+    eids, weights, _ = moe._route(
+        torch.from_numpy(data[f"{nm}|router"]).to(torch.bfloat16),
+        torch.from_numpy(data[f"{nm}|x"]).to(torch.bfloat16).reshape(-1, D),
+        cfg.moe)
+    eids, weights = eids.long().numpy(), weights.double().numpy()
+    f = wg.shape[-1]
+    prop = np.zeros_like(x)
+    terms = np.zeros_like(x)
+    for j in range(eids.shape[1]):
+        e, w = eids[:, j], weights[:, j, None]
+        g = np.einsum("td,tdf->tf", x, wg[e])
+        u = np.einsum("td,tdf->tf", x, wu[e])
+        sg = g / (1 + np.exp(-g))
+        h = sg * u
+        y = np.einsum("tf,tfd->td", h, wd[e])
+        dh = 2.0 ** -6 * (np.abs(g) + 2 * np.abs(sg)) * np.abs(u) + \
+            2 * D * 2.0 ** -24 * np.einsum("td,tdf->tf", np.abs(x),
+                                          np.abs(wg[e]) + np.abs(wu[e]))
+        dy = np.einsum("tf,tfd->td", dh, np.abs(wd[e])) + 2.0 ** -7 * \
+            np.abs(y) + 2 * f * 2.0 ** -24 * np.einsum(
+                "tf,tfd->td", np.abs(h), np.abs(wd[e]))
+        prop += w * dy
+        terms += np.abs(w * y)
+    return (prop + 2.0 ** -7 * terms).reshape(B, S, D)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_ep_dispatch_matches_reference(runs, case):
+    nm, dispatch, dtype, cf = case
+    got = _rows(runs["ranks"], f"{nm}|y")
+    want = runs["ref"][f"{nm}|y"]
+    assert got.shape == want.shape == (B, S, D)
+    if dtype == "bfloat16":
+        cfg = mesh_ranks.moe_config(pconfig, dispatch, dtype, cf)
+        assert np.all(np.abs(got - want) <= _bf16_bound(runs["data"], nm,
+                                                        cfg))
+    else:
+        np.testing.assert_allclose(got, want, **LAYER)
+    for res in runs["ranks"]:
+        np.testing.assert_allclose(float(res[f"{nm}|aux"]),
+                                   float(runs["ref"][f"{nm}|aux"]), rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_ep_follows_the_reference_not_gspmd(runs, case):
+    """The gspmd branch of the port on the whole batch: equal to the EP
+    result without drops, not with them (at capacity factor 1.0 each
+    ``model`` slice of 64 tokens keeps 24 a expert, the whole batch of
+    512 keeps 136)."""
+    nm, dispatch, dtype, cf = case
+    cfg = mesh_ranks.moe_config(pconfig, dispatch, dtype, cf)
+    data = runs["data"]
+    block = moe.MoE(cfg, device="cpu")
+    with torch.no_grad():
+        block.router.copy_(torch.from_numpy(data[f"{nm}|router"]))
+        for k in ("w_gate", "w_up", "w_down"):
+            getattr(block.experts, k).copy_(torch.from_numpy(
+                data[f"{nm}|experts|{k}"]))
+    x = torch.from_numpy(data[f"{nm}|x"]).to(getattr(torch, dtype))
+    y, _ = moe.moe_ffn(block, cfg, x)
+    gspmd = y.float().numpy()
+    ep = _rows(runs["ranks"], f"{nm}|y")
+    if dtype == "float32":
+        assert np.allclose(gspmd, ep, **LAYER) == (cf > 1)
+    else:
+        assert np.all(np.abs(gspmd - ep) <= _bf16_bound(data, nm, cfg)) \
+            == (cf > 1)
+
+
+def test_swapped_two_level_axes_fail(runs):
+    """The two-level stages over ``("model", "pod")`` in place of
+    ``("pod", "model")``: each expert block reaches another rank."""
+    nm = "teshu2-float32-8.0"
+    got = _rows(runs["ranks"], f"{nm}|swapped")
+    want = runs["ref"][f"{nm}|y"]
+    assert np.isfinite(got).all()
+    assert not np.allclose(got, want, **LAYER)
+    assert np.abs(got - want).max() > 100 * (2e-5 + 2e-5 * np.abs(want).max())
+
+
+def test_serve_over_the_mesh_emits_the_reference_tokens(runs):
+    """SMOKE Qwen3-MoE (``dispatch="teshu2"``) on 8 ranks: every rank
+    returns the whole batch's tokens, the reference's; each rank's logits
+    are its own rows, within ``CACHED`` of the reference's (through the
+    bf16 KV cache)."""
+    want = runs["ref"]["serve|tokens"]
+    assert want.shape == (SERVE["batch"], SERVE["gen_len"])
+    for res in runs["ranks"]:
+        np.testing.assert_array_equal(res["serve|tokens"], want)
+    ranks = runs["ranks"]
+    for r in range(0, 8, 2):
+        np.testing.assert_array_equal(ranks[r]["serve|logits"],
+                                      ranks[r + 1]["serve|logits"])
+    got = np.concatenate([ranks[r]["serve|logits"] for r in range(0, 8, 2)],
+                         axis=1)
+    assert got.shape == (SERVE["gen_len"] + 1, SERVE["batch"], 256)
+    np.testing.assert_allclose(got, runs["ref"]["serve|logits"], **CACHED)
+
+
+def test_convert_keeps_the_rank_expert_slice(runs):
+    """Rank (pod, data, model) holds experts ``[2 i, 2 i + 2)``, ``i = 2
+    pod + model`` (the reference's ``P(("pod", "model"))`` on the expert
+    axis); the router whole."""
+    full = runs["params"]["blocks"]["moe"]["experts"]["w_up"][0]
+    for r, res in enumerate(runs["ranks"]):
+        pod, _, model = np.unravel_index(r, mesh_ranks.MESH)
+        i = 2 * pod + model
+        np.testing.assert_array_equal(res["serve|w_up"], full[2 * i:2 * i + 2])
+
+
+def test_init_lm_under_a_mesh_is_the_slice_of_the_full_init(runs):
+    for r, res in enumerate(runs["ranks"]):
+        pod, _, model = np.unravel_index(r, mesh_ranks.MESH)
+        assert res["init|slice"].tolist() == [2 * (2 * pod + model), 2]
+        assert bool(res["init|same"])
+
+
+def test_the_teshu_dispatch_needs_the_mesh():
+    cfg = mesh_ranks.moe_config(pconfig, "teshu2", "float32", 8.0)
+    block = moe.MoE(cfg, device="cpu",
+                    gen=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="needs the mesh"):
+        moe.moe_ffn(block, cfg, torch.zeros(1, 4, D),
+                    mesh_axes=("pod", "model"))
+
+
+def test_training_under_a_mesh_raises():
+    """The all-to-alls carry no gradient: the training forward refuses a
+    mesh (training under a mesh is not ported yet)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    model = lm.init_lm(get_config(ARCH, smoke=True), seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="under a mesh"):
+        lm.forward(model, tokens=torch.zeros((1, 4), dtype=torch.int64),
+                   train=True, mesh=object())
