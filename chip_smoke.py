@@ -226,7 +226,33 @@ exits non-zero and prints no result.  In order it
    one must miss that by 10x; the prefill seconds and decode ms a step are
    logged beside the gspmd run's, with the peak memory (``--profile``: the
    EP prefill and 4 steps traced, the NCCL kernels a class of their own).
-   The group is destroyed after 7a;
+7c. trains over the mesh (the ep train phase, before the group is
+   destroyed): Qwen3-MoE at full width, 1 of 94 layers (3,732,418,560
+   parameters; bf16 weights, each routed expert drawn on its own), on its
+   own ``teshu2`` dispatch over the one-rank NCCL mesh.  (a) One
+   microbatch of 4 x 1,024 Markov tokens through ``lm.train_loss`` under
+   the mesh (the gradients summed as the step sums them) against the
+   gspmd branch without a mesh on the same weights: bit for bit, or each
+   parameter within ``GRAD_BOUND`` (logged which); the exchange's backward
+   returning zeros and the local expert axis rolled by one must each miss
+   the bound by 10x.  (b) Six steps of ``train(mesh=mesh)`` (global batch
+   8 x 1,024, ``n_micro`` 2, float32 moments and accumulation, lr 3e-4,
+   remat), the kernel counters zeroed just before and read just after
+   (flash, decode and gmm 0), losses and gradient norms finite, moments
+   nonzero, every tensor moved or a bf16 weight whose steps fall under
+   half a bf16 step; the collectives against the layout (per MoE layer
+   and microbatch six all-to-alls: the two exchanges forward, again in the
+   remat recompute, and their adjoints; one all-gather and its
+   reduce-scatter; the aux loss's all-reduce and its adjoint's; per
+   microbatch the labels' count, per step the gradient
+   sums of ``steps.sum_plan``, the loss and the experts' norm share) and
+   their bytes.  (c) The same six steps on the gspmd branch from the same
+   weights, restored from a host copy: step seconds (median of steps
+   2-6), tokens/s and peak memory of both logged (``--profile``: one
+   mesh step's gradients traced, the NCCL device ms).  (d) The SMOKE
+   restart under the mesh (6 steps, a checkpoint every 3, a run resumed
+   from step 3) within ``RESTART_BOUND``.  About 85 s.  The group is
+   destroyed after 7c;
 7b. trains (the training slice): (a) the gradient check at Qwen2.5-14B's
    full width with 2 of 48 layers: the bf16 model and its float32 copy
    (the same weights, cast) each take one microbatch of 2 x 512 Markov
@@ -3643,6 +3669,311 @@ def train_phase(dev, profile_dir: Path | None) -> dict:
     return res
 
 
+EP_TRAIN_LAYERS = 1                  # of 94: 3.73e9 parameters, about 60 GB
+                                     # of weights, gradients, moments and
+                                     # accumulation in train()
+EP_TRAIN = dict(steps=6, global_batch=8, seq_len=1024, lr=3e-4, seed=0)
+EP_TRAIN_MICRO = 2
+EP_GRAD_CONTROL = "the exchange's backward returning zeros"
+
+
+def _ep_grads(model, batch, mesh=None):
+    """One microbatch's loss and gradients through ``lm.train_loss``:
+    under ``mesh`` the EP dispatch, summed over the mesh as the step sums
+    them; without it the gspmd branch."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import microbatch_grads
+
+    params = dict(model.named_parameters())
+    loss, grads = microbatch_grads(
+        lambda p, b: lm.train_loss(model, b, mesh=mesh), params, batch, 1)
+    if mesh is not None:
+        grads = steps.sum_grads(grads, mesh, steps.split_leaves(
+            model.cfg, params, mesh))
+    torch.cuda.synchronize()
+    return float(loss), grads
+
+
+def _ep_layout(cfg, params, mesh, calls: dict, wire: dict, steps_: int,
+               n_micro: int, tokens: int, accum_bytes: int) -> dict:
+    """The collectives ``train(mesh=...)`` made against the layout's:
+    per MoE layer and microbatch the dispatch and return all-to-alls
+    forward, again in the block's recompute (remat), and their adjoints
+    backward (six; the flat all-to-all on one EP axis), the all-gather
+    over ``model`` (the recompute stops before it) and its adjoint, a
+    reduce-scatter, and the aux loss's ``pmean`` and its adjoint, two
+    float32 all-reduces; per microbatch the all-reduce of the count of
+    labels; per step the gradient sums (``steps.sum_plan``: every leaf once, the
+    experts over ``data``, the rest over the mesh, packed by dtype into
+    buffers of at most ``steps.BUCKET_BYTES``), the loss's and the
+    experts' share of the norm.  All-to-all bytes: three passes of the
+    ``E cap (2 d + 1)`` elements of the forward pair."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+
+    layers = sum(1 for b in params.blocks if hasattr(b, "moe"))
+    per = layers * n_micro * steps_
+    meta = {n: torch.empty(p.shape, dtype=torch.float32, device="meta")
+            for n, p in params.named_parameters()}
+    split = steps.split_leaves(cfg, meta, mesh)
+    sums = len(steps.sum_plan(meta, mesh, split))
+    want = dict(all_to_all=6 * per, all_gather=per, reduce_scatter=per,
+                all_reduce=steps_ * (n_micro + sums + 2) + 2 * per,
+                send_recv=0)
+    cap = moe._capacity(tokens // n_micro, cfg.moe)
+    esz = params.embed.element_size()
+    a2a = 3 * cfg.moe.num_experts * cap * (2 * cfg.d_model + 1) * esz * per
+    reduce_bytes = steps_ * (accum_bytes + 4 * (n_micro + 2)) + 4 * 2 * per
+    assert calls == want, (calls, want)
+    assert wire["all_to_all"] == a2a, (wire, a2a)
+    assert wire["all_reduce"] == reduce_bytes, (wire, reduce_bytes)
+    return dict(calls=calls, wire_bytes=wire, gradient_sums_a_step=sums,
+                capacity=cap)
+
+
+def ep_train_phase(dev, profile_dir: Path | None, mesh) -> dict:
+    """Phase 7c: Qwen3-MoE trained over the one-rank NCCL mesh at full
+    width, 1 of 94 layers, on its own ``teshu2`` dispatch: (a) one
+    microbatch's gradients through the EP dispatch against the gspmd
+    branch's on the same weights and batch, with two controls; (b) six
+    steps of ``train(mesh=...)``; (c) the same steps on the gspmd branch
+    from the same weights (restored from a host copy) for the timing; (d)
+    the SMOKE restart under the mesh."""
+    import dataclasses
+    import math
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import meshops
+    from repro_torch.data import DataConfig, SyntheticLMDataset, make_global_batch
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.shardings import ep_axes_for
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm, moe
+    from repro_torch.models.layers import dense_init
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=EP_TRAIN_LAYERS)
+    assert cfg.moe.dispatch == "teshu2" and cfg.remat, cfg
+    assert ep_axes_for(mesh) == ("model",), mesh
+    t0 = time.perf_counter()
+    model = lm.init_lm(cfg, seed=EP_TRAIN["seed"], device=dev, mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(EP_TRAIN["seed"] + 1)
+    with torch.no_grad():                 # each expert drawn on its own
+        for b in model.blocks:
+            for w in (b.moe.experts.w_gate, b.moe.experts.w_up,
+                      b.moe.experts.w_down):
+                for e in range(w.shape[0]):
+                    w[e].copy_(dense_init(gen, w.shape[1], w.shape[2],
+                                          w.dtype, dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    snap = {n: p.detach().to("cpu", copy=True)
+            for n, p in model.named_parameters()}
+    log(f"ep train weights: {MOE_ARCH} {cfg.n_layers} of "
+        f"{get_config(MOE_ARCH).n_layers} layers, {n_params} parameters, "
+        f"made on the card and copied to the host in "
+        f"{time.perf_counter() - t0:.2f} s")
+    res: dict = {"parameters": n_params}
+
+    # (a) one microbatch's gradients: the EP dispatch against gspmd
+    model.requires_grad_(True)
+    ds = SyntheticLMDataset(DataConfig(
+        vocab=cfg.vocab, seq_len=EP_TRAIN["seq_len"],
+        global_batch=EP_TRAIN["global_batch"] // EP_TRAIN_MICRO,
+        seed=EP_TRAIN["seed"]))
+    batch = make_global_batch(ds.batch_at(0), dev)
+    t0 = time.perf_counter()
+    lf, gf = _ep_grads(model, batch)
+    le, ge = _ep_grads(model, batch, mesh)
+    bitwise = le == lf and all(torch.equal(ge[n], g) for n, g in gf.items())
+    held = _grad_errors(le, ge, lf, gf)
+    del ge
+    back = meshops._AllToAll.backward
+    meshops._AllToAll.backward = staticmethod(
+        lambda ctx, g: (torch.zeros_like(g), None, None, None, None))
+    try:
+        zeroed = _grad_errors(*_ep_grads(model, batch, mesh), lf, gf)
+    finally:
+        meshops._AllToAll.backward = staticmethod(back)
+    real = moe._expert_ffn
+
+    def rolled(w, x, **k):                # the routed stack: E experts here
+        if x.shape[0] == cfg.moe.num_experts == w.w_gate.shape[0]:
+            x = x.roll(1, 0)
+        return real(w, x, **k)
+    moe._expert_ffn = rolled
+    try:
+        roll = _grad_errors(*_ep_grads(model, batch, mesh), lf, gf)
+    finally:
+        moe._expert_ffn = real
+    del gf
+    res["grad_check"] = {
+        "bit_for_bit": bitwise, "held": held, "exchange_backward_zero":
+        zeroed, "experts_rolled": roll, "bound": GRAD_BOUND,
+        "misses": {"held": _miss(held), EP_GRAD_CONTROL: _miss(zeroed),
+                   EP_CONTROL: _miss(roll)},
+        "seconds": time.perf_counter() - t0}
+    log(f"ep train grad check: {MOE_ARCH} full width, {cfg.n_layers} layer, "
+        f"{batch['tokens'].shape[0]} x {EP_TRAIN['seq_len']}, EP dispatch "
+        f"over {mesh.shape} against gspmd: {json.dumps(res['grad_check'])}")
+    assert bitwise or _miss(held) <= 1.0, held
+    for name, err in ((EP_GRAD_CONTROL, zeroed), (EP_CONTROL, roll)):
+        assert _miss(err) >= 10.0, (name, err)
+    del batch
+    torch.cuda.empty_cache()
+
+    # (b) six steps of train(mesh=...)
+    runs = {}
+    for branch in ("ep", "gspmd"):
+        if branch == "gspmd":             # (c): the same weights, gspmd
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(snap[n])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in KERNELS:
+            k.launches = 0
+        meshops.reset_counts()
+        t0 = time.perf_counter()
+        out = train(MOE_ARCH, smoke=False, device=dev, params=model,
+                    mesh=mesh if branch == "ep" else None, log_every=1,
+                    n_micro=EP_TRAIN_MICRO, **EP_TRAIN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in KERNELS}
+        calls, wire = dict(meshops.COUNTS), dict(meshops.BYTES)
+        hist = out["history"]
+        assert len(hist) == EP_TRAIN["steps"]
+        assert all(launches[k] == 0 for k in ("flash_attention",
+                                              "decode_attention", "gmm")), \
+            launches
+        for h in hist:
+            assert math.isfinite(h["loss"]) and math.isfinite(
+                h["grad_norm"]), h
+            log(f"ep train {branch} step: loss={h['loss']!r} "
+                f"grad_norm={h['grad_norm']!r} seconds={h['seconds']!r}")
+        step_s = statistics.median(h["seconds"] for h in hist[1:])
+        tokens = EP_TRAIN["global_batch"] * EP_TRAIN["seq_len"]
+        runs[branch] = dict(
+            step_s=step_s, tokens_per_s=tokens / step_s,
+            peak_bytes=torch.cuda.max_memory_allocated(), wall_s=wall,
+            launches=launches, losses=[h["loss"] for h in hist],
+            grad_norms=[h["grad_norm"] for h in hist])
+        if branch == "ep":
+            opt_state = out["opt_state"]
+            bad = [n for n in opt_state["m"] if not all(
+                bool(torch.isfinite(opt_state[k][n]).all())
+                and float(opt_state[k][n].abs().max()) > 0
+                for k in ("m", "v"))]
+            assert not bad, f"moments zero or not finite: {bad}"
+            lr_sum = sum(h["lr"] for h in hist)
+            still = []
+            for n, p in model.named_parameters():
+                if torch.equal(p.detach().cpu(), snap[n]):
+                    assert float(snap[n].float().abs().min()) * 2.0 ** -9 \
+                        > lr_sum, n
+                    still.append(n)
+            accum = sum(p.numel() * 4 for p in model.parameters())
+            runs[branch]["layout"] = _ep_layout(
+                cfg, model, mesh, calls, wire, EP_TRAIN["steps"],
+                EP_TRAIN_MICRO, tokens, accum)
+            runs[branch]["unmoved"] = still
+            del opt_state
+            if profile_dir is not None:
+                runs[branch]["profile"] = _profile_ep_step(
+                    model, cfg, dev, mesh, profile_dir)
+        del out
+        torch.cuda.empty_cache()
+    res.update(runs)
+    log(f"ep train phase: {json.dumps(res['ep'])}")
+    log(f"ep train gspmd: {json.dumps(res['gspmd'])}")
+    del model, snap
+    torch.cuda.empty_cache()
+
+    # (d) the SMOKE restart under the mesh
+    base = ROOT / "build" / "chip_smoke_ep_train"
+    shutil.rmtree(base, ignore_errors=True)
+    kw = dict(smoke=True, steps=6, global_batch=4, seq_len=64, n_micro=2,
+              ckpt_every=3, device=dev, seed=3, log_every=10, mesh=mesh)
+    full = train(MOE_ARCH, ckpt_dir=str(base / "a"), **kw)
+    (base / "b").mkdir(parents=True)
+    shutil.copytree(base / "a" / "step_00000003", base / "b" / "step_00000003")
+    resumed = train(MOE_ARCH, ckpt_dir=str(base / "b"), **kw)
+    want = [h["loss"] for h in full["history"][3:]]
+    got = [h["loss"] for h in resumed["history"]]
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(want, got))
+    diffs = [float((p - q).detach().abs().max()) for (_, p), (_, q) in zip(
+        full["params"].named_parameters(),
+        resumed["params"].named_parameters())]
+    bitwise = got == want and max(diffs) == 0.0 and all(
+        torch.equal(full["opt_state"][k][n], resumed["opt_state"][k][n])
+        for k in ("m", "v") for n in full["opt_state"]["m"])
+    shutil.rmtree(base, ignore_errors=True)
+    res["restart"] = {"resumed_losses": got, "uninterrupted_losses": want,
+                      "loss_rel": loss_rel, "param_abs": max(diffs),
+                      "bit_for_bit": bitwise, "bound": RESTART_BOUND}
+    log(f"ep train restart check (SMOKE, float32, over {mesh.shape}): "
+        f"{json.dumps(res['restart'])}")
+    assert len(got) == 3 and loss_rel <= RESTART_BOUND["loss_rel"], res
+    assert max(diffs) <= RESTART_BOUND["param_abs"], res
+    return res
+
+
+def _profile_ep_step(model, cfg, dev, mesh, profile_dir: Path) -> dict:
+    """One ``train(mesh=...)`` step's gradients (both microbatches, the
+    gradient sums) traced: device ms by kernel class, the NCCL kernels a
+    class of their own."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import DataConfig, SyntheticLMDataset, make_global_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import microbatch_grads
+
+    batch = make_global_batch(SyntheticLMDataset(DataConfig(
+        vocab=cfg.vocab, seq_len=EP_TRAIN["seq_len"],
+        global_batch=EP_TRAIN["global_batch"], seed=EP_TRAIN["seed"])
+    ).batch_at(EP_TRAIN["steps"]), dev, mesh=mesh, n_micro=EP_TRAIN_MICRO)
+    params = dict(model.named_parameters())
+    split = steps.split_leaves(cfg, params, mesh)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        _, grads = microbatch_grads(
+            lambda p, b: lm.train_loss(model, b, mesh=mesh), params, batch,
+            EP_TRAIN_MICRO)
+        steps.sum_grads(grads, mesh, split)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(0.05)
+    del grads
+    busy: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.name in (
+                "Activity Buffer Request", "Command Buffer Full"):
+            continue
+        c = _kernel_class(e.name)
+        busy[c] = busy.get(c, 0.0) + e.device_time_total / 1e3
+    profile_dir.mkdir(parents=True, exist_ok=True)
+    (profile_dir / "profile_ep_train.txt").write_text(
+        prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+    out = {"wall_ms": wall * 1e3, "device_ms_by_class": busy,
+           "nccl_device_ms": busy.get("nccl", 0.0),
+           "idle_share": 1 - sum(busy.values()) / (wall * 1e3)}
+    log(f"profile ep train grads: {json.dumps(out)}")
+    return out
+
+
 def _kernel_class(name: str) -> str:
     if "flash_fwd" in name or "flash_mma" in name or "flash_wgmma" in name:
         return "flash_attention"
@@ -3868,6 +4199,10 @@ def main() -> int:
         dv = moe_serve_phase(dev, args.profile, DEEPSEEK_ARCH,
                              DEEPSEEK_LAYERS, "deepseek_", mesh)
         log(f"deepseek serve phase: {time.perf_counter() - t0:.2f} s")
+        torch.cuda.empty_cache()          # the training state wants the card
+        t0 = time.perf_counter()
+        ep_train_phase(dev, args.profile, mesh)
+        log(f"ep train phase: {time.perf_counter() - t0:.2f} s")
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()              # the training state wants the card

@@ -16,6 +16,10 @@ directory per step)::
   target from the entry of the same path, checks its shape, and puts it on
   the target leaf's device.  The reference's jax treedef has no
   counterpart: the path is the structure.
+* **Another mesh**: a checkpoint holds whole arrays.  A restore may read
+  a block of leading rows of an entry (``rows``), the slice of the routed
+  experts a rank of another mesh holds: the counterpart of the
+  reference's restore onto other shardings.
 * **Async**: :meth:`CheckpointManager.save_async` copies every leaf to host
   memory at once (training may then update the tensors in place) and
   writes on a background thread.
@@ -62,7 +66,7 @@ def _dtype_name(dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def _to_host(x) -> tuple[np.ndarray, str]:
+def to_host(x) -> tuple[np.ndarray, str]:
     """A host copy of ``x`` (a tensor, or an array already on the host)
     that later writes to ``x`` do not reach, and its dtype's name."""
     if isinstance(x, torch.Tensor):
@@ -99,7 +103,7 @@ def _write(directory: str, step: int, host: dict, metadata: dict | None) -> str:
 def save_checkpoint(directory: str, step: int, tree: dict,
                     metadata: dict | None = None) -> str:
     """Write one atomic checkpoint; returns the final directory path."""
-    host = {p: _to_host(x) for p, x in flatten(tree).items()}
+    host = {p: to_host(x) for p, x in flatten(tree).items()}
     return _write(directory, step, host, metadata)
 
 
@@ -119,13 +123,15 @@ def latest_step(directory: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(directory: str, step: int | None,
-                       target: dict) -> tuple[dict, dict]:
+def restore_checkpoint(directory: str, step: int | None, target: dict,
+                       rows: dict | None = None) -> tuple[dict, dict]:
     """``(tree, metadata)``: a tree shaped like ``target`` whose every leaf
     is read from the checkpoint's entry of the same path, in the stored
     dtype, on the target leaf's device (a leaf without a device: the
-    CPU).  Raises if the leaf counts differ, a path is missing or a shape
-    differs."""
+    CPU).  ``rows`` maps a path to ``(first, count)``: that leaf is the
+    entry's leading rows ``[first, first + count)``.  Raises if the leaf
+    counts differ, a path is missing or a shape differs."""
+    rows = rows or {}
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -144,6 +150,12 @@ def restore_checkpoint(directory: str, step: int | None,
             raise KeyError(f"checkpoint at {path} has no leaf {p!r}")
         entry = stored[p]
         arr = np.load(os.path.join(path, entry["file"]))
+        if p in rows:
+            first, count = rows[p]
+            if first + count > arr.shape[0]:
+                raise ValueError(f"rows {first}..{first + count} of {p} "
+                                 f"{arr.shape}")
+            arr = arr[first:first + count]
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"shape mismatch for {p} ({entry['file']}): "
                              f"{arr.shape} vs {tuple(leaf.shape)}")
@@ -175,7 +187,14 @@ class CheckpointManager:
                    metadata: dict | None = None) -> None:
         """Snapshot to host memory now; write on a background thread."""
         self.wait()
-        host = {p: _to_host(x) for p, x in flatten(tree).items()}
+        self.write_async(step, {p: to_host(x)
+                                for p, x in flatten(tree).items()}, metadata)
+
+    def write_async(self, step: int, host: dict,
+                    metadata: dict | None = None) -> None:
+        """Write a snapshot the caller made (``{path: to_host(leaf)}``) on
+        a background thread."""
+        self.wait()
 
         def write():
             _write(self.directory, step, host, metadata)
@@ -189,10 +208,10 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
 
-    def restore(self, target: dict, step: int | None = None
-                ) -> tuple[dict, dict]:
+    def restore(self, target: dict, step: int | None = None,
+                rows: dict | None = None) -> tuple[dict, dict]:
         self.wait()
-        return restore_checkpoint(self.directory, step, target)
+        return restore_checkpoint(self.directory, step, target, rows)
 
     def latest(self) -> int | None:
         return latest_step(self.directory)

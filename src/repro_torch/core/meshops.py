@@ -29,6 +29,16 @@ Every collective call and the bytes handed to it are counted in
 ``all_reduce``, ``reduce_scatter``, ``send_recv``); :func:`reset_counts`
 zeroes them.
 
+:func:`all_to_all_axis`, :func:`all_gather` and :func:`psum` carry a
+gradient: each is a ``torch.autograd.Function`` whose backward is its
+adjoint, as ``shard_map``'s transpose takes it.  The all-to-all's is the
+reverse all-to-all (``split_axis`` and ``concat_axis`` swapped), the tiled
+all-gather's a tiled ``psum_scatter`` over the same axes in the same (JAX)
+order, the sum's a sum.  :func:`two_level_all_to_all` is two all-to-alls
+and inherits theirs.  A backward's collective is counted under its own
+kind, as a forward's is; under ``torch.no_grad`` (serving) nothing is
+recorded and the calls are the same.
+
 Two places differ from the reference's wire or arithmetic, not its result:
 
 * The compressed path of :func:`hier_psum` sums its int8 codes as int32:
@@ -85,8 +95,13 @@ def all_to_all_axis(x: torch.Tensor, mesh, axis_name, split_axis: int = 0,
     concat_axis, tiled=True)``.  ``split_axis`` is cut into one chunk a
     rank, chunk ``j`` sent to rank ``j``, the chunks received concatenated
     on ``concat_axis`` in source order.  The split axis is moved to the
-    front and made contiguous for ``all_to_all_single``, then moved
-    back."""
+    front and made contiguous for ``all_to_all_single``, then moved back.
+    Its backward is the reverse all-to-all."""
+    return _AllToAll.apply(x, mesh, axis_name, split_axis, concat_axis)
+
+
+def _all_to_all(x: torch.Tensor, mesh, axis_name, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
     _check(x, mesh)
     g = mesh.group(axis_name)
     n = g.size
@@ -111,7 +126,13 @@ def all_to_all_axis(x: torch.Tensor, mesh, axis_name, split_axis: int = 0,
 
 def all_gather(x: torch.Tensor, mesh, axes, axis: int = 0) -> torch.Tensor:
     """``lax.all_gather(x, axes, axis=axis, tiled=True)``: every rank's
-    block concatenated on ``axis`` in the ranks' order."""
+    block concatenated on ``axis`` in the ranks' order.  Its backward sums
+    the gradient over ``axes`` and keeps this rank's block of it (a tiled
+    ``psum_scatter`` on ``axis``)."""
+    return _AllGather.apply(x, mesh, axes, axis)
+
+
+def _all_gather(x: torch.Tensor, mesh, axes, axis: int) -> torch.Tensor:
     _check(x, mesh)
     g = mesh.group(axes)
     inp = x.movedim(axis, 0).contiguous()
@@ -127,9 +148,16 @@ def all_gather(x: torch.Tensor, mesh, axes, axis: int = 0) -> torch.Tensor:
 
 def psum(x: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``lax.psum`` (``op`` SUM) or ``lax.pmax`` (MAX) of ``x`` over
-    ``axes``: a new tensor."""
+    ``axes``: a new tensor.  A sum's backward is the sum of the gradient
+    over ``axes``; a MAX carries none."""
+    if op == dist.ReduceOp.SUM:
+        return _PSum.apply(x, mesh, axes)
+    return _psum(x, mesh, axes, op)
+
+
+def _psum(x: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM) -> torch.Tensor:
     _check(x, mesh)
-    out = x.clone()
+    out = x.clone(memory_format=torch.contiguous_format)   # NCCL's layout
     _count("all_reduce", out)
     dist.all_reduce(out, op=op, group=mesh.group(axes).pg)
     return out
@@ -148,6 +176,53 @@ def psum_scatter(flat: torch.Tensor, mesh, axes) -> torch.Tensor:
     _count("reduce_scatter", chunks)
     dist.reduce_scatter_tensor(out, chunks.reshape(-1), group=g.pg)
     return out
+
+
+def _scatter_sum(g: torch.Tensor, mesh, axes, axis: int) -> torch.Tensor:
+    """The adjoint of the tiled all-gather on ``axis``: the sum of ``g``
+    over ``axes``, of which this rank keeps its block on ``axis``."""
+    front = g.movedim(axis, 0)
+    n = mesh.group(axes).size
+    block = (front.shape[0] // n, *front.shape[1:])
+    return psum_scatter(front.contiguous().reshape(-1), mesh, axes).view(
+        block).movedim(0, axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, split_axis, concat_axis):
+        ctx.args = (mesh, axes, split_axis, concat_axis)
+        return _all_to_all(x, mesh, axes, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, split_axis, concat_axis = ctx.args
+        return (_all_to_all(g, mesh, axes, concat_axis, split_axis),
+                None, None, None, None)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, axis):
+        ctx.args = (mesh, axes, axis)
+        return _all_gather(x, mesh, axes, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, axis = ctx.args
+        return _scatter_sum(g, mesh, axes, axis), None, None, None
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return _psum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.args
+        return _psum(g, mesh, axes), None, None
 
 
 def _inverse(order: Sequence[int]) -> list[int]:

@@ -1,6 +1,7 @@
 """Training data pipeline with host prefetch.
 
-Counterpart of ``repro.data.pipeline`` on one device.  ``DataConfig`` and
+Counterpart of ``repro.data.pipeline``, on one device or one rank of a
+mesh.  ``DataConfig`` and
 ``SyntheticLMDataset`` are copies of the reference's (pure numpy): batch
 ``n`` depends only on ``(seed, n)``, so a restart from a step-``k``
 checkpoint replays exactly the batches ``k, k+1, ...`` it would have seen.
@@ -9,8 +10,13 @@ step ``n`` computes, and hands each batch over as tensors on its device
 (:func:`make_global_batch`, the one-device form of the reference's reshard
 onto the mesh): ``{"tokens": [B, S], "labels": [B, S]}`` int32, or
 ``{"embeds": [B, S, D] float32, "labels"}`` for the vlm / audio stub
-frontends.  The reference's ``batch_specs`` (mesh stand-ins for the dry
-run) waits for the port's DTensor placements.
+frontends.  Under a mesh each rank gets only its rows of the global batch
+(:func:`rank_rows`), microbatch by microbatch: the counterpart of the
+reference's ``make_global_batch``, whose batch the reference's
+``microbatch_grads`` reshapes into ``[n_micro, B / n_micro]`` before
+``shard_map`` splits each microbatch over ``("pod", "data")``.  The
+reference's ``batch_specs`` (mesh stand-ins for the dry run) waits for the
+port's DTensor placements.
 """
 from __future__ import annotations
 
@@ -64,11 +70,40 @@ class SyntheticLMDataset:
         return out
 
 
-def make_global_batch(batch_np: dict[str, np.ndarray],
-                      device) -> dict[str, torch.Tensor]:
-    """A host batch as tensors on ``device`` (the batch is whole: one
-    device, no mesh)."""
+def _batch_axes(mesh) -> tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
+def rank_rows(x: np.ndarray, mesh, n_micro: int = 1) -> np.ndarray:
+    """This rank's rows of a global batch array ``x [B, ...]``: for each
+    microbatch ``j`` of ``n_micro``, the rows ``[j B / n + r b, j B / n +
+    (r + 1) b)`` with ``b = B / (n shards)`` and ``r`` the rank's index
+    over the batch axes ``("pod", "data")`` (``shards`` their size),
+    concatenated in ``j``; ranks that differ only on other axes get the
+    same rows.  Raises unless ``B`` divides into ``n_micro`` microbatches
+    that divide over the shards (see ``steps.clamp_n_micro``)."""
+    axes = _batch_axes(mesh)
+    shards = mesh.axis_size(axes)
+    b = x.shape[0]
+    if n_micro < 1 or b % n_micro or (b // n_micro) % shards:
+        raise ValueError(f"a batch of {b} rows in {n_micro} microbatches "
+                         f"does not divide over the {shards} batch shards "
+                         f"of {dict(mesh.shape)} (steps.clamp_n_micro picks "
+                         f"an n_micro that does)")
+    per = b // n_micro // shards
+    r = mesh.index(axes) if axes else 0
+    return x.reshape(n_micro, shards, per, *x.shape[1:])[:, r].reshape(
+        n_micro * per, *x.shape[1:])
+
+
+def make_global_batch(batch_np: dict[str, np.ndarray], device, *,
+                      mesh=None, n_micro: int = 1) -> dict[str, torch.Tensor]:
+    """A host batch as tensors on ``device``: whole without a mesh, else
+    this rank's rows (:func:`rank_rows`)."""
     dev = check_device(device)
+    if mesh is not None:
+        batch_np = {k: rank_rows(v, mesh, n_micro)
+                    for k, v in batch_np.items()}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
             for k, v in batch_np.items()}
 
@@ -79,12 +114,17 @@ class DataPipeline:
     ``iter(pipeline)`` yields ``(step, batch)`` from ``start_step`` on, the
     batch's tensors on ``device`` (the card unless the caller asks for the
     CPU); generation of batch ``n + prefetch`` overlaps compute on batch
-    ``n``.
+    ``n``.  Under ``mesh`` a batch is this rank's rows for ``n_micro``
+    microbatches (:func:`rank_rows`).
     """
 
-    def __init__(self, cfg: DataConfig, device="cuda", start_step: int = 0):
+    def __init__(self, cfg: DataConfig, device="cuda", start_step: int = 0,
+                 *, mesh=None, n_micro: int = 1):
         self.cfg = cfg
         self.device = check_device(device)
+        self.mesh, self.n_micro = mesh, n_micro
+        if mesh is not None:              # refuse an indivisible batch now
+            rank_rows(np.empty((cfg.global_batch, 0)), mesh, n_micro)
         self.dataset = SyntheticLMDataset(cfg)
         self.start_step = start_step
         self._q: queue.Queue = queue.Queue(maxsize=max(1, cfg.prefetch))
@@ -109,7 +149,9 @@ class DataPipeline:
         try:
             while True:
                 step, batch_np = self._q.get()
-                yield step, make_global_batch(batch_np, self.device)
+                yield step, make_global_batch(batch_np, self.device,
+                                              mesh=self.mesh,
+                                              n_micro=self.n_micro)
         finally:
             self.close()
 

@@ -1,7 +1,9 @@
 """Training entry point of the port: checkpointed, restartable, journalled.
 
-Counterpart of ``repro.launch.train`` on one device: the same loop, with
-the model's parameters and the AdamW state as dicts of tensors.  It makes
+Counterpart of ``repro.launch.train``: the same loop, with the model's
+parameters and the AdamW state as dicts of tensors, on one device or, with
+``mesh=``, as one rank of a mesh (SPMD: every rank calls ``train`` with its
+own mesh view).  It makes
 the model (``lm.init_lm`` from ``seed``, or the caller's), makes it
 trainable, restores the latest complete checkpoint of ``ckpt_dir`` if there
 is one, replays the data from the restored step (batch ``n`` depends only
@@ -12,6 +14,17 @@ waits for the last write at the end.  A training step runs no kernel of
 the port: ``lm.train_loss`` takes the plain paths, which autograd
 differentiates (the kernels have no backward).
 
+Under a mesh each rank holds its slice of the routed experts
+(``moe.expert_slice``) and every other parameter whole, reads its own rows
+of each batch (``data.rank_rows``) and runs the mesh's step
+(``steps.make_train_step(..., mesh=mesh)``), so that every rank's
+parameters stay the reference's.  A checkpoint holds the reference's whole
+arrays: the expert slices and their moments are gathered over the EP axes
+one leaf at a time, each copied to rank 0's host memory, and rank 0 writes
+them; a restore onto a mesh of another EP size reads
+each rank's slice.  Only rank 0 writes the ``ShuffleManager`` journal and
+the log.
+
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-14b --smoke --device cpu --steps 3
 """
 from __future__ import annotations
@@ -20,16 +33,18 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.checkpoint.checkpoint import flatten
+from repro_torch.checkpoint.checkpoint import flatten, to_host
 from repro_torch.configs import ARCHS, get_config
+from repro_torch.core import meshops
 from repro_torch.core.manager import ShuffleManager
 from repro_torch.core.plancache import PlanCache
 from repro_torch.data import DataConfig, DataPipeline
 from repro_torch.device import check_device
-from repro_torch.launch.steps import Recipe, make_train_step
-from repro_torch.models import lm
+from repro_torch.launch.steps import Recipe, make_train_step, split_leaves
+from repro_torch.models import lm, moe
 from repro_torch.optim import AdamWConfig, init_opt_state
 
 
@@ -38,11 +53,39 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _state_tree(model, opt_state) -> dict:
+    return {"params": dict(model.named_parameters()), "opt_state": opt_state}
+
+
+def _split_paths(cfg, model, mesh) -> dict:
+    """``{checkpoint path: EP axes}`` of every leaf that is this rank's
+    slice: the routed experts and their two moments."""
+    split = split_leaves(cfg, dict(model.named_parameters()), mesh)
+    return {f"{pre}/{n}": axes for n, axes in split.items()
+            for pre in ("params", "opt_state/m", "opt_state/v")}
+
+
+@torch.no_grad()
+def _host_state(model, opt_state, mesh, split: dict, lead: bool) -> dict:
+    """Rank 0's host snapshot of the state as the reference holds it,
+    ``{checkpoint path: to_host(leaf)}`` (empty on the other ranks): each
+    split leaf is gathered over its axes and copied to the host before the
+    next, so that a device holds one gathered leaf at a time.  Every rank
+    must call it."""
+    host = {}
+    for p, x in flatten(_state_tree(model, opt_state)).items():
+        if p in split:
+            x = meshops.all_gather(x, mesh, split[p], axis=0)
+        if lead:
+            host[p] = to_host(x)
+    return host
+
+
 def train(arch: str, *, smoke: bool = True, steps: int = 20,
           global_batch: int = 8, seq_len: int = 128,
           ckpt_dir: str | None = None, ckpt_every: int = 10, n_micro: int = 1,
           lr: float = 3e-4, log_every: int = 1, seed: int = 0,
-          device="cuda", params: lm.LM | None = None) -> dict:
+          device="cuda", params: lm.LM | None = None, mesh=None) -> dict:
     """Train ``arch`` for ``steps`` steps (counted from 0, a restored run
     going on from its checkpoint's step): returns ``{"history": [{"loss",
     "grad_norm", "lr", "seconds"} per step run], "params": the model,
@@ -51,18 +94,36 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
     SMOKE) with ``seed`` on ``device``; given ``params`` bring their own
     config (a model cut in depth), which must be ``arch``'s, and are
     trained in place.  ``seconds`` is each step's wall time, the
-    device synchronised."""
+    device synchronised.
+
+    With ``mesh`` (a mesh on ``device``'s type) this rank trains its part
+    of the model over it: ``params`` (by default ``init_lm(...,
+    mesh=mesh)``) hold this rank's expert slices, each batch is its rows
+    (``global_batch`` must split into ``n_micro`` microbatches that divide
+    over the batch axes), and ``loss`` and ``grad_norm`` are the global
+    ones, the same on every rank."""
     dev = check_device(device)
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"a {mesh.device_type} mesh, device {dev}")
     if params is None:
         params = lm.init_lm(get_config(arch, smoke=smoke), seed=seed,
-                            device=dev)
+                            device=dev, mesh=mesh)
     model, cfg = params, params.cfg
     if cfg.name.removesuffix("-smoke") != arch:
         raise ValueError(f"params are a {cfg.name!r} model, not {arch!r}")
     if model.embed.device.type != dev.type:
         raise ValueError(f"params on {model.embed.device}, device {dev}")
     dev = model.embed.device
+    lead = mesh is None or dist.get_rank() == 0
     recipe = Recipe(n_micro=n_micro, lr=lr)
+    if cfg.moe is not None:
+        want = moe.expert_slice(cfg, mesh)[1]
+        for b in model.blocks:
+            if hasattr(b, "moe") and b.moe.experts.w_gate.shape[0] != want:
+                raise ValueError(f"params hold {b.moe.experts.w_gate.shape[0]}"
+                                 f" routed experts a block, this rank's "
+                                 f"slice is {want}: build them with "
+                                 f"mesh={mesh}")
     ocfg = AdamWConfig(lr=lr, total_steps=max(steps, 2),
                        warmup_steps=max(1, steps // 10),
                        moment_dtype=recipe.moment_dtype)
@@ -72,30 +133,36 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
     # (the training step itself shuffles nothing, so the cache's counters
     # stay zero unless such a service is wired in)
     manager = ShuffleManager(
-        journal_path=f"{ckpt_dir}/shuffle_journal.jsonl" if ckpt_dir else None,
+        journal_path=f"{ckpt_dir}/shuffle_journal.jsonl"
+        if ckpt_dir and lead else None,
         plan_cache=PlanCache(capacity=64))
 
     model.requires_grad_(True)
     named = dict(model.named_parameters())
     opt_state = init_opt_state(named, recipe.moment_dtype)
 
+    split = _split_paths(cfg, model, mesh)
     start_step = 0
     ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
     if ckpt and ckpt.latest() is not None:
-        tree, meta = ckpt.restore({"params": named, "opt_state": opt_state})
+        state = flatten(_state_tree(model, opt_state))
+        first = moe.expert_slice(cfg, mesh)[0] if split else 0
+        tree, meta = ckpt.restore(_state_tree(model, opt_state), rows={
+            p: (first, state[p].shape[0]) for p in split})
         src = flatten(tree)         # copied into the tensors in place,
         with torch.no_grad():       # so that their layouts stay
-            for path, t in flatten({"params": named,
-                                    "opt_state": opt_state}).items():
+            for path, t in state.items():
                 t.copy_(src[path])
         start_step = meta.get("step", ckpt.latest())
-        print(f"[train] restored step {start_step} from {ckpt_dir}")
+        if lead:
+            print(f"[train] restored step {start_step} from {ckpt_dir}")
 
     dc = DataConfig(vocab=cfg.vocab, seq_len=seq_len,
                     global_batch=global_batch, seed=seed,
                     modality=cfg.modality, d_model=cfg.d_model)
-    pipe = DataPipeline(dc, dev, start_step=start_step)
-    step_fn = make_train_step(cfg, ocfg, recipe)
+    pipe = DataPipeline(dc, dev, start_step=start_step, mesh=mesh,
+                        n_micro=recipe.n_micro)
+    step_fn = make_train_step(cfg, ocfg, recipe, mesh=mesh)
 
     history = []
     t0 = time.time()
@@ -112,18 +179,23 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
         metrics["seconds"], t_step = now - t_step, now
         manager.record_end(0, step, "train_step")
         history.append(metrics)
-        if step % log_every == 0:
+        if step % log_every == 0 and lead:
             dt = (time.time() - t0) / max(1, len(history))
             print(f"[train] step={step} loss={metrics['loss']:.4f} "
                   f"gnorm={metrics['grad_norm']:.3f} "
                   f"lr={metrics['lr']:.2e} {dt*1e3:.0f}ms/step", flush=True)
         if ckpt and (step + 1) % ckpt_every == 0:
-            ckpt.save_async(step + 1, {"params": dict(model.named_parameters()),
-                                       "opt_state": opt_state},
-                            {"step": step + 1, "arch": arch})
+            ckpt.wait()                   # one host snapshot at a time
+            host = _host_state(model, opt_state, mesh, split, lead)
+            if lead:
+                ckpt.write_async(step + 1, host,
+                                 {"step": step + 1, "arch": arch})
+            del host
     pipe.close()
     if ckpt:
         ckpt.wait()
+        if mesh is not None:          # rank 0's last write is complete
+            dist.barrier(group=mesh.group(mesh.axis_names).pg)
     return {"history": history, "params": model, "opt_state": opt_state,
             "manager": manager, "plan_cache": manager.plan_cache.stats()}
 

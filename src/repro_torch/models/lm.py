@@ -28,13 +28,18 @@ plain cell loop; with ``cfg.remat`` every block is rematerialised under
 The path is chosen by that argument, never by the device.
 
 Under a mesh (:mod:`repro_torch.launch.mesh`) the model is per-rank SPMD
-code: ``forward``, ``serve_step`` and each :class:`Block` take it as an
-explicit ``mesh=`` keyword (there is no ambient mesh), the input is this
-rank's rows of the batch, and a MoE block dispatches over the EP axes
-``ep_axes_for(mesh)`` by its config's template (``teshu`` / ``teshu2``),
-its routed experts this rank's slice (``init_lm`` and ``convert`` take
-``mesh=`` too).  Training under a mesh is not ported yet: ``train=True``
-with a mesh raises.
+code: ``forward``, ``serve_step``, ``train_loss`` and each :class:`Block`
+take it as an explicit ``mesh=`` keyword (there is no ambient mesh), the
+input is this rank's rows of the batch, and a MoE block dispatches over
+the EP axes ``ep_axes_for(mesh)`` by its config's template (``teshu`` /
+``teshu2``), its routed experts this rank's slice (``init_lm`` and
+``convert`` take ``mesh=`` too).  The training forward runs under a mesh
+as well: the dispatch's collectives carry their adjoints, and under
+``cfg.remat`` each rank recomputes a block, and reissues its collectives,
+in the same order.  :func:`train_loss` then returns this rank's share of
+the reference's global loss.  The gspmd dispatch routes a rank's own rows
+with their own capacity and aux loss, where the reference's routes the
+global batch, so it trains only on a mesh of one batch shard.
 """
 from __future__ import annotations
 
@@ -44,7 +49,9 @@ from torch import nn
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import meshops
 from repro_torch.device import check_device
+from repro_torch.launch.mesh import batch_axes
 from repro_torch.launch.shardings import ep_axes_for
 
 from .config import ModelConfig
@@ -184,7 +191,8 @@ class LM(nn.Module):
         router losses (0 for a dense model).  ``train=True`` takes the
         plain paths (``use_kernel=False``) and no cache, each block
         rematerialised when ``cfg.remat``.  Under ``mesh`` the batch is
-        this rank's rows."""
+        this rank's rows; a MoE model on the gspmd dispatch trains under
+        it only where it has one batch shard (else it raises)."""
         if tokens is not None:
             b, s = tokens.shape
             x = F.embedding(tokens, self.embed)
@@ -195,9 +203,14 @@ class LM(nn.Module):
             raise ValueError("forward needs tokens or embeds")
         if train and cache is not None:
             raise ValueError("the training forward takes no cache")
-        if train and mesh is not None:
-            raise NotImplementedError("training under a mesh is not ported "
-                                      "yet")
+        if train and mesh is not None and self.cfg.moe is not None and (
+                self.cfg.moe.dispatch == "gspmd" or not ep_axes_for(mesh)) \
+                and mesh.axis_size(batch_axes(mesh)) > 1:
+            raise NotImplementedError(
+                "the gspmd dispatch routes each rank's rows with their own "
+                "capacity and aux loss, where the reference routes the "
+                "global batch: train over several batch shards on teshu or "
+                "teshu2")
         if positions is None:
             base = cache["pos"] if cache is not None else 0
             positions = (base + torch.arange(s, device=x.device)).expand(b, s)
@@ -206,7 +219,7 @@ class LM(nn.Module):
         for i, block in enumerate(self.blocks):
             if train and self.cfg.remat:
                 x, aux = checkpoint(block, x, positions, use_reentrant=False,
-                                    use_kernel=False)
+                                    use_kernel=False, mesh=mesh)
             else:
                 x, aux = block(x, positions, use_kernel=use_kernel, cache=None
                                if cache is None else cache["layers"][i],
@@ -241,21 +254,40 @@ def forward(model: LM, *, tokens=None, embeds=None, positions=None,
                  use_kernel=use_kernel, train=train, mesh=mesh)
 
 
-def train_loss(model: LM, batch: dict) -> torch.Tensor:
+def train_loss(model: LM, batch: dict, *, mesh=None) -> torch.Tensor:
     """Next-token cross-entropy plus ``0.01 *`` the router's aux loss, as
     the reference's ``train_loss``: ``batch`` holds ``tokens`` or
     ``embeds``, and ``labels [B, S]`` (positions with a label < 0 are
     masked); float32 logits, the mean over the unmasked positions.  Runs
-    the training forward (``train=True``)."""
+    the training forward (``train=True``).
+
+    Under ``mesh`` the batch is this rank's rows and the result is this
+    rank's share of the reference's global loss; the shares of all ranks
+    sum to it.  The NLL's share is the rank's masked sum over the global
+    count of unmasked positions (a sum over the batch axes ``("pod",
+    "data")``), divided by the number of ranks that hold the same rows (the
+    mesh's other axes: the tokens are replicated over ``model``); the aux's
+    is the aux, the same on every rank (the EP dispatch's ``pmean``, or the
+    gspmd dispatch's on one batch shard), over the number of ranks.
+    The gradient of the sum over ranks, which the mesh's step forms by
+    summing each leaf's gradient over the axes it is replicated on, is the
+    reference's under ``shard_map``."""
     logits, _, aux = forward(model, tokens=batch.get("tokens"),
-                             embeds=batch.get("embeds"), train=True)
+                             embeds=batch.get("embeds"), train=True,
+                             mesh=mesh)
     labels = batch["labels"].long()
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
-    nll = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return nll + 0.01 * aux
+    count, replicas, ranks = mask.sum(), 1, 1
+    if mesh is not None:
+        rows = batch_axes(mesh)
+        if rows:
+            count = meshops.psum(count, mesh, rows)
+        replicas, ranks = mesh.size // mesh.axis_size(rows), mesh.size
+    nll = ((logz - gold) * mask).sum() / torch.clamp(count, min=1.0)
+    return nll / replicas + 0.01 * aux / ranks
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,

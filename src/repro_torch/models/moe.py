@@ -43,7 +43,9 @@ Parameters keep the reference's names and layouts (``router [d, E]``,
 ``shared.*``), so :mod:`repro_torch.models.convert` maps them one to one.
 
 Training takes the plain path (``use_kernel=False``), which autograd
-differentiates: the gmm kernel has no backward.
+differentiates: the gmm kernel has no backward.  Under a mesh the dispatch
+trains too: its all-to-alls, its all-gather over ``model`` and the aux
+loss's ``pmean`` carry their adjoints (:mod:`repro_torch.core.meshops`).
 """
 from __future__ import annotations
 
@@ -294,7 +296,11 @@ def _moe_ep(p: MoE, cfg: ModelConfig, x: torch.Tensor, mesh,
     covering every expert; the shuffle is an all-to-all over exactly those
     axes.  Each ``model`` coordinate routes its own slice of the rank's
     tokens (they are replicated over ``model``), and an all-gather over
-    ``model`` restores them all."""
+    ``model`` restores them all.
+
+    The aux loss is the ``pmean`` of the ranks' own over the mesh.
+    Gradients flow back through both exchanges, the padded receive buffer
+    and its mask, the all-gather and the ``pmean``."""
     m = cfg.moe
     e_total = m.num_experts
     ep = mesh.axis_size(ep_axes)

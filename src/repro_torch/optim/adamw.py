@@ -18,6 +18,12 @@ it is given, as the reference's jitted step donates both buffers
 copy.  A leaf's update runs over slices of at most ``CHUNK`` elements, each
 element's chain of operations unchanged, so that its float32 temporaries
 stay small.
+
+Under a mesh every rank holds the whole gradient of a replicated leaf and
+of its own slice of a split one (a MoE block's routed experts, split over
+the EP axes).  The global norm then counts each replicated leaf once and
+sums the split leaves' squares over the axes they are split on, so that
+every rank clips by the reference's norm and the replicas stay equal.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch.core import meshops
 
 F32 = torch.float32
 CHUNK = 1 << 25            # elements per slice of a leaf's update
@@ -91,11 +99,26 @@ def init_opt_state(params: dict, moment_dtype: str = "float32",
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree: dict) -> torch.Tensor:
+def global_norm(tree: dict, *, mesh=None,
+                split: dict | None = None) -> torch.Tensor:
     """The float32 norm of every leaf together (each leaf's sum of squares
-    first, then their sum)."""
-    sums = [x.detach().float().square().sum() for x in tree.values()]
-    return torch.stack(sums).sum().sqrt()
+    first, then their sum).  Under ``mesh``, ``split`` maps the name of a
+    leaf that is this rank's slice to the axes it is split over: the
+    slices' squares are summed over those axes (one all-reduce an axis
+    set), and every other leaf counts once."""
+    split = split or {}
+
+    def sq(x):
+        return x.detach().float().square().sum()
+    whole = [sq(x) for k, x in tree.items() if k not in split]
+    total = torch.stack(whole).sum() if whole else torch.zeros(
+        (), dtype=F32, device=next(iter(tree.values())).device)
+    parts: dict = {}
+    for k, axes in split.items():
+        parts.setdefault(tuple(axes), []).append(sq(tree[k]))
+    for axes, sums in parts.items():
+        total = total + meshops.psum(torch.stack(sums).sum(), mesh, axes)
+    return total.sqrt()
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -134,13 +157,16 @@ def _slices(n: int):
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: dict, grads: dict,
-                 state: dict) -> tuple[dict, dict, dict]:
+                 state: dict, *, mesh=None,
+                 split: dict | None = None) -> tuple[dict, dict, dict]:
     """One AdamW step: ``(params, state, {"grad_norm", "lr"})``, the
     parameters and the state updated in place (the same dicts).  Each
     gradient is clipped, used and released in turn (``grads`` is
     emptied).  Each moment must lie in its parameter's layout, as
-    :func:`init_opt_state` makes it."""
-    norm = global_norm(grads)
+    :func:`init_opt_state` makes it.  Under ``mesh`` the gradients are
+    already summed over the mesh and ``split`` names the leaves that are
+    this rank's slices (:func:`global_norm`)."""
+    norm = global_norm(grads, mesh=mesh, split=split)
     dev = norm.device
     scale = _clip_scale(norm, cfg.grad_clip)
     state["step"] = state["step"] + 1

@@ -1550,6 +1550,63 @@ def test_card_mesh_moe_serve_matches_gspmd(nccl_mesh, arch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v2-236b"])
+def test_card_mesh_train_matches_the_cpu(nccl_mesh, arch):
+    """SMOKE ``train(mesh=...)`` over the one-rank NCCL mesh (the model's
+    ``teshu2`` dispatch, its exchanges through NCCL) against ``train()``
+    on the CPU without a mesh (on one rank the EP dispatch routes the
+    gspmd branch's tokens in the same groups): the same initial weights,
+    data and steps (float32; TF32 off), no LM kernel launched, the
+    collectives made.  Held as the dense card test holds its run: losses
+    to 1e-5, gradient norms to 1e-4, the moments within 1e-4 (m) and 2e-4
+    (v) of the tensor's largest, each tensor's displacement within 1e-3
+    (``1 - cos``) and 1e-2 (norm ratio)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import meshops
+    from repro_torch.kernels import LM_KERNELS, MOE_KERNELS
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+
+    cuda = torch.device("cuda", 0)
+    cfg = get_config(arch, smoke=True)
+    kw = dict(steps=4, global_batch=4, seq_len=32, n_micro=2)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = train(arch, device="cpu", params=lm.init_lm(
+            cfg, seed=5, device="cpu"), **kw)
+        before = [k.launches for k in LM_KERNELS + MOE_KERNELS]
+        meshops.reset_counts()
+        card = train(arch, device=cuda, mesh=nccl_mesh, params=lm.init_lm(
+            cfg, seed=5, device="cpu", mesh=nccl_mesh).to(cuda), **kw)
+        assert [k.launches for k in LM_KERNELS + MOE_KERNELS] == before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    layers = sum(1 for b in card["params"].blocks if hasattr(b, "moe"))
+    # a step of 2 microbatches: per MoE layer and microbatch the two
+    # exchanges and their adjoints, the all-gather's adjoint (no remat)
+    assert meshops.COUNTS["all_to_all"] == 4 * 2 * 4 * layers
+    assert meshops.COUNTS["reduce_scatter"] == 4 * 2 * layers
+    for a, b in zip(cpu["history"], card["history"]):
+        assert b["loss"] == pytest.approx(a["loss"], rel=1e-5)
+        assert b["grad_norm"] == pytest.approx(a["grad_norm"], rel=1e-4)
+    for k, rel in (("m", 1e-4), ("v", 2e-4)):
+        for n, w in cpu["opt_state"][k].items():
+            t = card["opt_state"][k][n].cpu()
+            assert float((t - w).abs().max()) <= rel * float(
+                w.abs().max()) + 1e-12, (k, n)
+    start = dict(lm.init_lm(cfg, seed=5, device="cpu").named_parameters())
+    for (n, p), (_, q) in zip(cpu["params"].named_parameters(),
+                              card["params"].named_parameters()):
+        a = (q.detach().cpu() - start[n].detach()).double().flatten()
+        b = (p.detach() - start[n].detach()).double().flatten()
+        na, nb = float(a.norm()), float(b.norm())
+        assert na > 0 and nb > 0, n
+        assert 1 - float(a @ b) / (na * nb) <= 1e-3, n
+        assert abs(na / nb - 1) <= 1e-2, n
+
+
+@pytest.mark.cuda
 def test_card_meshops_at_one_rank(nccl_mesh):
     """Each collective on CUDA tensors over the one-rank groups gives its
     plain meaning bit for bit; a CPU tensor on the NCCL mesh raises."""

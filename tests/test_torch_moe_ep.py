@@ -261,12 +261,38 @@ def test_the_teshu_dispatch_needs_the_mesh():
                     mesh_axes=("pod", "model"))
 
 
-def test_training_under_a_mesh_raises():
-    """The all-to-alls carry no gradient: the training forward refuses a
-    mesh (training under a mesh is not ported yet)."""
+def test_the_training_forward_under_a_mesh_has_a_gradient(tmp_path):
+    """On a one-rank gloo world (``elastic_mesh(1, model_parallel=1)``),
+    SMOKE Qwen3-MoE's ``teshu2`` dispatch in the training forward: a
+    finite loss that reaches every parameter, the router and the experts
+    through the exchange among them (``test_torch_train_mesh.py`` holds the
+    gradients on 8 ranks to the reference)."""
+    import datetime
+
+    import torch.distributed as dist
+
     from repro_torch.configs import get_config
+    from repro_torch.core import meshops
+    from repro_torch.launch.mesh import elastic_mesh
     from repro_torch.models import lm
-    model = lm.init_lm(get_config(ARCH, smoke=True), seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="under a mesh"):
-        lm.forward(model, tokens=torch.zeros((1, 4), dtype=torch.int64),
-                   train=True, mesh=object())
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = elastic_mesh(1, model_parallel=1, device_type="cpu")
+        model = lm.init_lm(get_config(ARCH, smoke=True), seed=0,
+                           device="cpu", mesh=mesh).requires_grad_(True)
+        rng = np.random.default_rng(0)
+        batch = {k: torch.from_numpy(rng.integers(0, 256, (2, 12)))
+                 for k in ("tokens", "labels")}
+        meshops.reset_counts()
+        loss = lm.train_loss(model, batch, mesh=mesh)
+        assert loss.requires_grad and bool(torch.isfinite(loss))
+        named = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(named.values()))
+        assert meshops.COUNTS["all_to_all"] == 2 * 2 * 2   # 2 MoE layers
+        assert meshops.COUNTS["reduce_scatter"] == 2
+    finally:
+        dist.destroy_process_group()
+    for n, g in zip(named, grads):
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, n
