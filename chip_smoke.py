@@ -2197,6 +2197,31 @@ def _meshops_checks(dev, mesh) -> dict:
                 refused=sorted(refused))
 
 
+# the peaks this script logged in earlier runs on an NVIDIA H100 80GB HBM3
+# at 700 W (PERF.md), for the placement line: the ep train phase's before
+# its model was placed, and the DeepSeek-V2 gspmd serve's
+EARLIER_PEAK_GB = {"ep_train": 74.40, "deepseek_serve": 72.79}
+
+
+def _placement(model, mesh, opt_state=None) -> dict:
+    """How ``model`` is placed on ``mesh``: its leaves, how many specs
+    name an axis, the leaves held in part and the leaves a forward gathers
+    (both none on one rank: every axis has size 1), the rank's parameter
+    bytes and, given ``opt_state``, its moment bytes."""
+    out = dict(
+        leaves=len(model.specs),
+        specs_naming_an_axis=sum(1 for s in model.specs.values() if any(s)),
+        held_in_part=len(model._split),
+        gathered_a_forward=sum(len(v) for v in model._gathers(mesh).values()),
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in model.parameters()))
+    if opt_state is not None:
+        out["moment_bytes"] = sum(t.numel() * t.element_size()
+                                  for k in ("m", "v")
+                                  for t in opt_state[k].values())
+    return out
+
+
 def _ep_serve(params, cfg, arch: str, dev, mesh, kw: dict, gen_tok, stats,
               logits, counts: dict, tol: float, moe_layers: int,
               profile_dir: Path | None, tag: str) -> dict:
@@ -2207,18 +2232,26 @@ def _ep_serve(params, cfg, arch: str, dev, mesh, kw: dict, gen_tok, stats,
     layout: expected bit for bit; held within ``tol``), the launch counts
     against its, the collectives a forward and their bytes against the
     layout's arithmetic; then the control with the local expert axis
-    rolled by one must miss ``tol`` by ``EP_CONTROL_FACTOR``."""
+    rolled by one must miss ``tol`` by ``EP_CONTROL_FACTOR``.  The weights
+    are placed on the mesh by their specs first (``lm.place``): on one
+    rank every leaf stays whole, in place, and no leaf is gathered."""
     import torch
 
     from repro_torch.core import meshops
     from repro_torch.kernels import KERNELS
     from repro_torch.launch.serve import serve
     from repro_torch.launch.shardings import ep_axes_for
-    from repro_torch.models import moe
+    from repro_torch.models import lm, moe
 
     m = cfg.moe
     assert m.dispatch == "teshu2" and ep_axes_for(mesh) == ("model",), \
         (m.dispatch, mesh)
+    ptrs = [p.data_ptr() for p in params.parameters()]
+    lm.place(params, mesh)
+    placement = _placement(params, mesh)
+    assert [p.data_ptr() for p in params.parameters()] == ptrs
+    assert placement["held_in_part"] == placement["gathered_a_forward"] == 0
+    assert placement["specs_naming_an_axis"] > 0, placement
     serve(arch, mesh=mesh, forced=gen_tok, **dict(kw, gen_len=2))  # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2235,6 +2268,7 @@ def _ep_serve(params, cfg, arch: str, dev, mesh, kw: dict, gen_tok, stats,
     # a MoE layer's forward: the dispatch and the return all-to-all, the
     # all-gather over model, the aux loss's all-reduce; one all-gather of
     # the tokens at the end
+    # (the placed leaves add none: every axis has size 1)
     assert calls == dict(all_to_all=2 * per, all_gather=per + 1,
                          all_reduce=per, reduce_scatter=0, send_recv=0), calls
 
@@ -2284,7 +2318,7 @@ def _ep_serve(params, cfg, arch: str, dev, mesh, kw: dict, gen_tok, stats,
         max_logit_diff_per_step=diffs, logit_tol=tol,
         control=EP_CONTROL, control_max_logit_diff=max(control_diffs),
         control_min_step_diff=min(control_diffs),
-        control_over_tol=max(control_diffs) / tol)
+        control_over_tol=max(control_diffs) / tol, placement=placement)
     log(f"{tag}ep serve {arch} over {mesh.shape} ({m.dispatch}, EP axes "
         f"{out['ep_axes']}): {json.dumps(out)}")
     assert max(diffs) <= tol, f"EP logits differ from gspmd by {max(diffs)}"
@@ -3692,13 +3726,13 @@ def _ep_grads(model, batch, mesh=None):
         lambda p, b: lm.train_loss(model, b, mesh=mesh), params, batch, 1)
     if mesh is not None:
         grads = steps.sum_grads(grads, mesh, steps.split_leaves(
-            model.cfg, params, mesh))
+            model.specs, mesh))
     torch.cuda.synchronize()
     return float(loss), grads
 
 
 def _ep_layout(cfg, params, mesh, calls: dict, wire: dict, steps_: int,
-               n_micro: int, tokens: int, accum_bytes: int) -> dict:
+               n_micro: int, tokens: int) -> dict:
     """The collectives ``train(mesh=...)`` made against the layout's:
     per MoE layer and microbatch the dispatch and return all-to-alls
     forward, again in the block's recompute (remat), and their adjoints
@@ -3706,11 +3740,13 @@ def _ep_layout(cfg, params, mesh, calls: dict, wire: dict, steps_: int,
     over ``model`` (the recompute stops before it) and its adjoint, a
     reduce-scatter, and the aux loss's ``pmean`` and its adjoint, two
     float32 all-reduces; per microbatch the all-reduce of the count of
-    labels; per step the gradient sums (``steps.sum_plan``: every leaf once, the
-    experts over ``data``, the rest over the mesh, packed by dtype into
-    buffers of at most ``steps.BUCKET_BYTES``), the loss's and the
-    experts' share of the norm.  All-to-all bytes: three passes of the
-    ``E cap (2 d + 1)`` elements of the forward pair."""
+    labels; per step the gradient sums (``steps.sum_plan``: each leaf over
+    the axes its spec does not name, packed by dtype into buffers of at
+    most ``steps.BUCKET_BYTES``; a leaf whose spec names both axes is not
+    summed), the loss's and the norm's (one an axis set the specs name).
+    The placed leaves add no gather and no reduce-scatter (every axis has
+    size 1).  All-to-all bytes: three passes of the ``E cap (2 d + 1)``
+    elements of the forward pair."""
     import torch
 
     from repro_torch.launch import steps
@@ -3720,20 +3756,25 @@ def _ep_layout(cfg, params, mesh, calls: dict, wire: dict, steps_: int,
     per = layers * n_micro * steps_
     meta = {n: torch.empty(p.shape, dtype=torch.float32, device="meta")
             for n, p in params.named_parameters()}
-    split = steps.split_leaves(cfg, meta, mesh)
-    sums = len(steps.sum_plan(meta, mesh, split))
+    split = steps.split_leaves(params.specs, mesh)
+    plan = steps.sum_plan(meta, mesh, split)
+    sums = len(plan)
+    summed = sum(meta[n].numel() * 4 for _, names in plan for n in names)
+    norms = len(set(split.values()))
     want = dict(all_to_all=6 * per, all_gather=per, reduce_scatter=per,
-                all_reduce=steps_ * (n_micro + sums + 2) + 2 * per,
+                all_reduce=steps_ * (n_micro + sums + 1 + norms) + 2 * per,
                 send_recv=0)
     cap = moe._capacity(tokens // n_micro, cfg.moe)
     esz = params.embed.element_size()
     a2a = 3 * cfg.moe.num_experts * cap * (2 * cfg.d_model + 1) * esz * per
-    reduce_bytes = steps_ * (accum_bytes + 4 * (n_micro + 2)) + 4 * 2 * per
+    reduce_bytes = steps_ * (summed + 4 * (n_micro + 1 + norms)) \
+        + 4 * 2 * per
     assert calls == want, (calls, want)
     assert wire["all_to_all"] == a2a, (wire, a2a)
     assert wire["all_reduce"] == reduce_bytes, (wire, reduce_bytes)
     return dict(calls=calls, wire_bytes=wire, gradient_sums_a_step=sums,
-                capacity=cap)
+                gradient_bytes_summed_a_step=summed,
+                norm_all_reduces_a_step=norms, capacity=cap)
 
 
 def ep_train_phase(dev, profile_dir: Path | None, mesh) -> dict:
@@ -3764,6 +3805,7 @@ def ep_train_phase(dev, profile_dir: Path | None, mesh) -> dict:
     assert ep_axes_for(mesh) == ("model",), mesh
     t0 = time.perf_counter()
     model = lm.init_lm(cfg, seed=EP_TRAIN["seed"], device=dev, mesh=mesh)
+    assert not model._split and not model._gathers(mesh), model._split
     gen = torch.Generator(device=dev).manual_seed(EP_TRAIN["seed"] + 1)
     with torch.no_grad():                 # each expert drawn on its own
         for b in model.blocks:
@@ -3879,10 +3921,10 @@ def ep_train_phase(dev, profile_dir: Path | None, mesh) -> dict:
                     assert float(snap[n].float().abs().min()) * 2.0 ** -9 \
                         > lr_sum, n
                     still.append(n)
-            accum = sum(p.numel() * 4 for p in model.parameters())
             runs[branch]["layout"] = _ep_layout(
                 cfg, model, mesh, calls, wire, EP_TRAIN["steps"],
-                EP_TRAIN_MICRO, tokens, accum)
+                EP_TRAIN_MICRO, tokens)
+            res["placement"] = _placement(model, mesh, opt_state)
             runs[branch]["unmoved"] = still
             del opt_state
             if profile_dir is not None:
@@ -3943,7 +3985,7 @@ def _profile_ep_step(model, cfg, dev, mesh, profile_dir: Path) -> dict:
         global_batch=EP_TRAIN["global_batch"], seed=EP_TRAIN["seed"])
     ).batch_at(EP_TRAIN["steps"]), dev, mesh=mesh, n_micro=EP_TRAIN_MICRO)
     params = dict(model.named_parameters())
-    split = steps.split_leaves(cfg, params, mesh)
+    split = steps.split_leaves(model.specs, mesh)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4201,7 +4243,7 @@ def main() -> int:
         log(f"deepseek serve phase: {time.perf_counter() - t0:.2f} s")
         torch.cuda.empty_cache()          # the training state wants the card
         t0 = time.perf_counter()
-        ep_train_phase(dev, args.profile, mesh)
+        et = ep_train_phase(dev, args.profile, mesh)
         log(f"ep train phase: {time.perf_counter() - t0:.2f} s")
     finally:
         dist.destroy_process_group()
@@ -4274,6 +4316,21 @@ def main() -> int:
                 line[-1][key] = r[key]   # and COMB's other yardsticks; the
                                          # sLSTM's bounds and decode step
     assert all(e["launches"] > 0 for e in line)
+    # the ep phases' state placed by the sharding rules on the one-rank mesh
+    gb = 1e9
+    placement = {"card": nvidia_smi_line(), "mesh": dict(mesh.shape)}
+    for name, ph in (("qwen3_moe_ep_serve", mv), ("deepseek_ep_serve", dv)):
+        placement[name] = dict(
+            ph["ep"]["placement"],
+            peak_gb=ph["ep"]["peak_device_bytes"] / gb,
+            gspmd_peak_gb_same_call=ph["peak_device_bytes"] / gb)
+    placement["deepseek_ep_serve"]["earlier_gspmd_peak_gb"] = \
+        EARLIER_PEAK_GB["deepseek_serve"]
+    placement["qwen3_moe_ep_train"] = dict(
+        et["placement"], peak_gb=et["ep"]["peak_bytes"] / gb,
+        gspmd_peak_gb_same_call=et["gspmd"]["peak_bytes"] / gb,
+        earlier_unplaced_peak_gb=EARLIER_PEAK_GB["ep_train"])
+    log(f"placement: {json.dumps(placement)}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.2f} s in all")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,9 @@ directory per step)::
   the target leaf's device.  The reference's jax treedef has no
   counterpart: the path is the structure.
 * **Another mesh**: a checkpoint holds whole arrays.  A restore may read
-  a block of leading rows of an entry (``rows``), the slice of the routed
-  experts a rank of another mesh holds: the counterpart of the
-  reference's restore onto other shardings.
+  a block of an entry (``blocks``: a slice a dimension), the shard a rank
+  of another mesh holds: the counterpart of the reference's restore onto
+  other shardings.
 * **Async**: :meth:`CheckpointManager.save_async` copies every leaf to host
   memory at once (training may then update the tensors in place) and
   writes on a background thread.
@@ -124,14 +124,15 @@ def latest_step(directory: str) -> int | None:
 
 
 def restore_checkpoint(directory: str, step: int | None, target: dict,
-                       rows: dict | None = None) -> tuple[dict, dict]:
+                       blocks: dict | None = None) -> tuple[dict, dict]:
     """``(tree, metadata)``: a tree shaped like ``target`` whose every leaf
     is read from the checkpoint's entry of the same path, in the stored
     dtype, on the target leaf's device (a leaf without a device: the
-    CPU).  ``rows`` maps a path to ``(first, count)``: that leaf is the
-    entry's leading rows ``[first, first + count)``.  Raises if the leaf
-    counts differ, a path is missing or a shape differs."""
-    rows = rows or {}
+    CPU).  ``blocks`` maps a path to a tuple of slices, one a dimension
+    (``shardings.shard_slices``): that leaf is the entry's block.  Raises
+    if the leaf counts differ, a path is missing, a block falls outside
+    its entry or a shape differs."""
+    blocks = blocks or {}
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -150,12 +151,12 @@ def restore_checkpoint(directory: str, step: int | None, target: dict,
             raise KeyError(f"checkpoint at {path} has no leaf {p!r}")
         entry = stored[p]
         arr = np.load(os.path.join(path, entry["file"]))
-        if p in rows:
-            first, count = rows[p]
-            if first + count > arr.shape[0]:
-                raise ValueError(f"rows {first}..{first + count} of {p} "
-                                 f"{arr.shape}")
-            arr = arr[first:first + count]
+        if p in blocks:
+            sl = blocks[p]
+            if len(sl) != arr.ndim or any(
+                    s.stop > n for s, n in zip(sl, arr.shape)):
+                raise ValueError(f"block {sl} of {p} {arr.shape}")
+            arr = np.ascontiguousarray(arr[sl])
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"shape mismatch for {p} ({entry['file']}): "
                              f"{arr.shape} vs {tuple(leaf.shape)}")
@@ -209,9 +210,9 @@ class CheckpointManager:
             self._thread = None
 
     def restore(self, target: dict, step: int | None = None,
-                rows: dict | None = None) -> tuple[dict, dict]:
+                blocks: dict | None = None) -> tuple[dict, dict]:
         self.wait()
-        return restore_checkpoint(self.directory, step, target, rows)
+        return restore_checkpoint(self.directory, step, target, blocks)
 
     def latest(self) -> int | None:
         return latest_step(self.directory)

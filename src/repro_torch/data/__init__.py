@@ -1,8 +1,8 @@
 """Data pipeline of the port: synthetic token streams and host prefetch
 (counterpart of ``repro.data``)."""
 from .pipeline import (DataConfig, DataPipeline, SyntheticLMDataset,
-                       make_global_batch, rank_rows)
+                       batch_specs, make_global_batch, rank_rows)
 from .tokens import markov_tokens, zipf_tokens
 
 __all__ = ["DataConfig", "SyntheticLMDataset", "DataPipeline",
-           "make_global_batch", "rank_rows", "zipf_tokens", "markov_tokens"]
+           "batch_specs", "make_global_batch", "rank_rows", "zipf_tokens", "markov_tokens"]

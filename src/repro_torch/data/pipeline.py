@@ -14,9 +14,9 @@ frontends.  Under a mesh each rank gets only its rows of the global batch
 (:func:`rank_rows`), microbatch by microbatch: the counterpart of the
 reference's ``make_global_batch``, whose batch the reference's
 ``microbatch_grads`` reshapes into ``[n_micro, B / n_micro]`` before
-``shard_map`` splits each microbatch over ``("pod", "data")``.  The
-reference's ``batch_specs`` (mesh stand-ins for the dry run) waits for the
-port's DTensor placements.
+``shard_map`` splits each microbatch over ``("pod", "data")``.
+:func:`batch_specs` gives a batch's stand-ins under a mesh (``DTensor``
+views of meta tensors, for the dry run).
 """
 from __future__ import annotations
 
@@ -94,6 +94,30 @@ def rank_rows(x: np.ndarray, mesh, n_micro: int = 1) -> np.ndarray:
     r = mesh.index(axes) if axes else 0
     return x.reshape(n_micro, shards, per, *x.shape[1:])[:, r].reshape(
         n_micro * per, *x.shape[1:])
+
+
+def batch_specs(cfg: DataConfig, mesh, batch_axes=("pod", "data")) -> dict:
+    """Stand-ins of a global batch under ``mesh``: ``DTensor`` views of
+    meta tensors of each rank's rows, the batch dimension over ``batch_axes``
+    (those in the mesh) and nothing else split; ``labels`` and ``tokens``
+    int32 ``[B, S]``, or ``embeds`` bfloat16 ``[B, S, D]`` for the vlm /
+    audio stub frontends."""
+    from repro_torch.launch.shardings import with_shardings
+    axes = tuple(a for a in batch_axes if a in mesh.shape)
+    b_axis = axes if axes else None
+    b, s = cfg.global_batch, cfg.seq_len
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    out = {"labels": meta((b, s), torch.int32)}
+    specs = {"labels": (b_axis, None)}
+    if cfg.modality == "text":
+        out["tokens"], specs["tokens"] = meta((b, s), torch.int32), \
+            (b_axis, None)
+    else:
+        out["embeds"] = meta((b, s, cfg.d_model), torch.bfloat16)
+        specs["embeds"] = (b_axis, None, None)
+    return with_shardings(out, specs, mesh)
 
 
 def make_global_batch(batch_np: dict[str, np.ndarray], device, *,

@@ -16,7 +16,9 @@ model`` is ``j``, whatever order ``torch.distributed`` gives the group's
 members (it sorts them by global rank).  :class:`AxisGroup` keeps both
 orders.
 
-A mesh on ``cuda`` needs a NCCL world, one on ``cpu`` a gloo world;
+A mesh on ``cuda`` needs a NCCL world, one on ``cpu`` a gloo world, and
+either may sit on a fake world (``torch.distributed``'s ``"fake"``
+backend, whose collectives move nothing), where a dry run builds stand-ins;
 ``torch.distributed.init_process_group`` is the caller's, with its address,
 world size and rank.  The reference's ``TPU_PERF_FLAGS`` (XLA flags for
 the latency-hiding scheduler) have no counterpart.
@@ -73,7 +75,7 @@ class Mesh:
             raise ValueError(f"device_type must be cuda or cpu: "
                              f"{device_type!r}")
         backend = dist.get_backend()
-        if backend != BACKEND[device_type]:
+        if backend not in (BACKEND[device_type], "fake"):
             raise ValueError(f"a {device_type} mesh needs a "
                              f"{BACKEND[device_type]} world, not {backend}")
         ranks = np.asarray(ranks, dtype=np.int64)
@@ -153,7 +155,8 @@ class Mesh:
                                                 for a in axes])))
         mine, _ = dist.new_subgroups_by_enumeration(
             [sorted(map(int, r)) for r in lists],
-            backend=BACKEND[self.device_type])
+            backend=None if dist.get_backend() == "fake"
+            else BACKEND[self.device_type])
         return mine
 
 

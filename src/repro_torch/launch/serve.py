@@ -1,9 +1,10 @@
 """Serving entry point of the port: prefill a fresh KV cache, then greedy-decode.
 
 Counterpart of ``repro.launch.serve``: on one device, or per rank over a
-mesh (``mesh=``, :mod:`repro_torch.launch.mesh`), where each rank serves
-the rows of its ``("pod", "data")`` coordinate (all of them where the
-batch does not divide), a MoE model's blocks dispatch over the EP axes
+mesh (``mesh=``, :mod:`repro_torch.launch.mesh`), where each rank holds
+its shard of every parameter (``launch.shardings``), serves the rows of
+its ``("pod", "data")`` coordinate (all of them where the batch does not
+divide), a MoE model's blocks dispatch over the EP axes
 (``teshu`` / ``teshu2``, :mod:`repro_torch.models.moe`) and every rank
 returns the tokens of the whole batch.  The prompts are the reference's
 (``np.random.default_rng(seed)`` integers), so the same weights give the
@@ -91,9 +92,10 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     a model fresh from training (its parameters requiring grad) serves
     without building a graph.  Under ``mesh`` (on ``device``'s type) the
     prompts are drawn on every rank, the rank runs its rows with a cache
-    of those rows, ``params`` must hold its routed experts (``init_lm`` /
-    ``convert`` with the same mesh) and the tokens are gathered over the
-    batch axes."""
+    of those rows, ``params`` must be placed on that mesh (``init_lm`` /
+    ``convert`` with the same mesh, or ``lm.place``: each leaf the rank's
+    shard, gathered at use) and the tokens are gathered over the batch
+    axes."""
     if prompt_len + gen_len > max_len:
         raise ValueError(f"prompt_len + gen_len = {prompt_len + gen_len} "
                          f"exceeds max_len = {max_len}")

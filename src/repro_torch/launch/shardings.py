@@ -1,19 +1,70 @@
-"""The sharding rules that serving needs: which axes a batch is split over,
-and the expert-parallel axes.
+"""Sharding rules: parameter, optimizer, cache and batch specs, and the
+placement of a leaf on a mesh of ranks.
 
-Counterpart of the part of ``repro.launch.shardings`` that the port's
-per-rank serving reads: ``ep_axes_for`` and ``batch_spec`` with its
-divisibility rule (``_fit``: an assignment of axes is dropped, the
-dimension replicated, when their sizes do not divide it).  A spec is a
-tuple with one entry a dimension, an axis name, a tuple of names or None,
-as a ``PartitionSpec`` reads.  The parameter, cache and optimizer specs
-wait for the port's DTensor placements.
+Counterpart of ``repro.launch.shardings``, with the same rules:
+
+* input-projection matrices ``[.., d_in, d_out]`` -> ``(.., fsdp, 'model')``
+  (FSDP over the ``fsdp_axes()``, column-parallel over ``model``),
+* output projections (``wo`` / ``w_down`` / ``w_out``) -> ``(.., 'model',
+  fsdp)``, the embedding ``[V, D]`` -> ``(None, 'model')``, the
+  unembedding ``(fsdp, 'model')``,
+* routed experts ``[.., E, d, f]`` -> experts over the EP axes
+  (``ep_axes_for``), ``f`` over ``data``; the router replicated,
+* caches: the batch over ``("pod", "data")`` where it divides, else the
+  sequence over ``data``; heads, latent or state over ``model``,
+* norms, biases and scalars replicated.
+
+Every assignment is checked for divisibility (:func:`_fit`) and dropped,
+the dimension replicated, where the axes' sizes do not divide it.  A spec
+is a tuple with one entry a dimension (an axis name, a tuple of names or
+None), as a ``PartitionSpec`` reads; a tuple of axes on one dimension is
+linearised as JAX linearises it, the first axis major.
+
+The reference stacks a scanned group's leaves ``[L, ...]``; the port keeps
+one leaf a layer, so a per-layer leaf's spec is the stacked leaf's with the
+layer entry dropped (:func:`leaf_spec`).  Where that entry is not None the
+reference splits the stack over layers and the port cannot: the leaf keeps
+its trailing split and is replicated over the dropped axes
+(:func:`lost_layer_splits`; norms and biases).
+
+Placement.  Under a mesh a leaf is held as this rank's shard by its spec
+(:func:`shard`), a plain local tensor in the whole leaf's memory order, and
+gathered whole right before the module that uses it (:func:`gather`: an
+all-gather a split dimension in JAX's order, its adjoint a reduce-scatter
+over the same axes), as ZeRO-3 does over each leaf's own axes.  Over axes
+of total size 1 :func:`gather` returns the leaf itself.
+:func:`to_placements` states a spec as ``torch.distributed.tensor``
+placements on the mesh's ``DeviceMesh``, and :func:`with_shardings` and
+:func:`global_view` make ``DTensor`` views (stand-ins on the meta device,
+or the global view of a rank's shard).
 """
 from __future__ import annotations
 
 from typing import Any
 
+import torch
+
+from repro_torch.core import meshops
+
 from .mesh import Mesh
+
+# FSDP axes of the parameters: ("data",) keeps them replicated across pods;
+# ("pod", "data") shards them across pods too (the reference's knob)
+_FSDP_AXES: tuple = ("data",)
+
+
+def set_fsdp_axes(axes: tuple) -> None:
+    global _FSDP_AXES
+    _FSDP_AXES = tuple(axes)
+
+
+def fsdp_axes() -> tuple:
+    return _FSDP_AXES
+
+
+_IN_PROJ = ("wq", "wk", "wv", "wq_a", "wq_b", "wkv_a", "wkv_b", "w_gate", "w_up",
+            "w_in", "w_rec", "w_bcdt", "w_ifo", "proj")
+_OUT_PROJ = ("wo", "w_down", "w_out")
 
 
 def _fit(axes, dim: int, mesh: Mesh) -> Any:
@@ -32,12 +83,416 @@ def _fit(axes, dim: int, mesh: Mesh) -> Any:
     return axes
 
 
+def _spec(shape, trailing, mesh) -> tuple:
+    """A spec: ``trailing`` covers the last dimensions, the leading ones
+    replicate."""
+    trailing = list(trailing)[-len(shape):] if shape else []
+    lead = len(shape) - len(trailing)
+    return (None,) * lead + tuple(
+        _fit(a, shape[lead + i], mesh) for i, a in enumerate(trailing))
+
+
 def ep_axes_for(mesh: Mesh) -> tuple[str, ...]:
     return tuple(a for a in ("pod", "model") if a in mesh.shape)
 
 
-def batch_spec(shape: tuple[int, ...], mesh: Mesh) -> tuple:
+def param_spec(path: str, shape: tuple[int, ...], mesh, cfg) -> tuple:
+    """The reference's spec of its leaf ``path`` (``/``-joined, as
+    ``blocks/attn/wq``) of ``shape``."""
+    name = path.rsplit("/", 1)[-1]
+    if len(shape) <= 1:
+        return (None,) * len(shape)                   # norms, biases, scalars
+    fa = _FSDP_AXES if all(a in mesh.shape for a in _FSDP_AXES) else ("data",)
+    if "experts/" in path or path.endswith("experts"):
+        ep = ep_axes_for(mesh)
+        if name in ("w_gate", "w_up"):                # [.., E, d, f]
+            return _spec(shape, (ep, None, "data"), mesh)
+        if name == "w_down":                          # [.., E, f, d]
+            return _spec(shape, (ep, "data", None), mesh)
+    if "shared/" in path:                             # few shared experts
+        if name in ("w_gate", "w_up"):
+            return _spec(shape, (None, fa, "model"), mesh)
+        if name == "w_down":
+            return _spec(shape, (None, "model", fa), mesh)
+    if name == "embed":
+        return _spec(shape, (None, "model"), mesh)
+    if name == "unembed":
+        return _spec(shape, (fa, "model"), mesh)
+    if name == "router":
+        return (None,) * len(shape)
+    if name == "conv":                                # [K, di]
+        return _spec(shape, (None, "model"), mesh)
+    if name == "log_a":                               # [di, n]
+        return _spec(shape, ("model", None), mesh)
+    if name in _OUT_PROJ:
+        return _spec(shape, ("model", fa), mesh)
+    if name in _IN_PROJ:
+        return _spec(shape, (fa, "model"), mesh)
+    return _spec(shape, (fa, "model"), mesh)          # FSDP x TP
+
+
+def _uniform_scan(cfg) -> bool:
+    return cfg.scan_layers and cfg.family in ("dense", "moe")
+
+
+def _first_stacked(cfg) -> int:
+    """The first layer of the reference's stack: 1 where a MoE model with
+    shared experts keeps a dense ``block0``."""
+    return int(cfg.family == "moe" and cfg.moe.num_shared > 0)
+
+
+def _path_str(name: str, cfg) -> tuple[str, int]:
+    """``(reference path, stacked layers)`` of the port's parameter
+    ``name`` (``blocks.3.attn.wq``, a norm's ``.weight``): the reference's
+    ``blocks/attn/wq`` with the number of layers its stack holds, its
+    ``block0/...`` or ``layers/3/...`` with 0."""
+    name = name.removesuffix(".weight")      # a norm: the reference's leaf
+    parts = name.split(".")
+    if parts[0] != "blocks":
+        return "/".join(parts), 0
+    layer, rest = int(parts[1]), "/".join(parts[2:])
+    if not _uniform_scan(cfg):
+        return f"layers/{layer}/{rest}", 0
+    start = _first_stacked(cfg)
+    if layer < start:
+        return f"block0/{rest}", 0
+    return f"blocks/{rest}", cfg.n_layers - start
+
+
+def _stacked(name: str, shape, mesh, cfg) -> tuple[tuple, Any]:
+    """``(spec, dropped entry)``: the port leaf's spec and the layer entry
+    of the reference's stacked spec (None for a leaf that is not
+    stacked)."""
+    path, layers = _path_str(name, cfg)
+    if not layers:
+        return param_spec(path, tuple(shape), mesh, cfg), None
+    full = param_spec(path, (layers,) + tuple(shape), mesh, cfg)
+    return full[1:], full[0]
+
+
+def leaf_spec(name: str, shape, mesh, cfg) -> tuple:
+    """The spec of the port's parameter ``name`` of (whole) ``shape``: the
+    reference's, a per-layer leaf's that of its stacked leaf with the layer
+    entry dropped."""
+    return _stacked(name, shape, mesh, cfg)[0]
+
+
+def param_specs(shapes: dict, mesh, cfg) -> dict:
+    """``{name: spec}`` of ``{name: tensor or shape}``, whole shapes."""
+    return {n: leaf_spec(n, getattr(s, "shape", s), mesh, cfg)
+            for n, s in shapes.items()}
+
+
+def lost_layer_splits(cfg, mesh) -> dict:
+    """``{port parameter name: axes}`` of the per-layer leaves whose
+    reference stack is split over its layer axis (``axes`` the dropped
+    entry): the port replicates each over those axes."""
+    from repro_torch.models.lm import LM
+    out = {}
+    for n, p in LM(cfg, device="meta").named_parameters():
+        _, dropped = _stacked(n, p.shape, mesh, cfg)
+        if dropped is not None:
+            out[n] = dropped
+    return out
+
+
+def batch_spec(shape: tuple[int, ...], mesh) -> tuple:
     """The batch's leading dimension over ``("pod", "data")`` where their
     sizes divide it, else replicated; the other dimensions replicated."""
     axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
     return (_fit(axes, shape[0], mesh),) + (None,) * (len(shape) - 1)
+
+
+def batch_specs(batch: dict, mesh) -> dict:
+    """``{key: spec}`` of a batch of tensors (or shapes)."""
+    return {k: batch_spec(tuple(getattr(v, "shape", v)), mesh)
+            for k, v in batch.items()}
+
+
+def cache_spec(path: str, shape: tuple[int, ...], mesh, cfg) -> tuple:
+    """The reference's spec of its cache leaf ``path`` of ``shape``
+    (``blocks/...`` stacked over layers)."""
+    name = path.rsplit("/", 1)[-1]
+    if len(shape) == 0:
+        return ()
+    dp = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    lead = 1 if path.startswith("blocks") else 0      # scan-stacked caches
+    body = shape[lead:]
+
+    def with_lead(trailing) -> tuple:
+        return _spec(shape, ([None] * lead) + list(trailing), mesh)
+
+    b_ok = body and _fit(dp, body[0], mesh) is not None
+    if name in ("k", "v"):                            # [B, T, kvh, dh]
+        kvh_ok = len(body) > 2 and _fit("model", body[2], mesh) is not None
+        if b_ok and kvh_ok:
+            return with_lead([dp, None, "model", None])
+        if b_ok:                                      # few kv heads (GQA):
+            return with_lead([dp, "model", None, None])   # T over model
+        if kvh_ok:
+            return with_lead([None, "data", "model", None])
+        return with_lead([None, ("data", "model"), None, None])
+    if name == "latent":                              # [B, T, r]
+        if b_ok:
+            return with_lead([dp, None, "model"])
+        return with_lead([None, "data", "model"])
+    if name == "k_rope":                              # [B, T, dr]
+        if b_ok:
+            return with_lead([dp, "model", None])
+        return with_lead([None, "data", None])
+    if name == "C":                                   # mLSTM [B, h, dh, dh]
+        return with_lead([dp, None, "model", None] if b_ok
+                         else [None, None, "model", None])
+    if name in ("n", "conv"):                         # [B,h,dh] / [B,K-1,di]
+        return with_lead([dp, None, "model"] if b_ok
+                         else [None, None, "model"])
+    if name == "ssm":                                 # mamba [B, di, n]
+        return with_lead([dp, "model", None] if b_ok
+                         else [None, "model", None])
+    if name in ("m", "c", "h"):                       # [B, h] / sLSTM [B, D]
+        return with_lead([dp, "model"] if b_ok else [None, "model"])
+    if name in ("len", "pos", "step"):
+        return (None,) * len(shape)
+    if body:                                          # batch-first
+        return with_lead([dp if b_ok else None] + [None] * (len(body) - 1))
+    return (None,) * len(shape)
+
+
+def cache_specs(cache: dict, mesh, cfg) -> dict:
+    """The port cache's specs (``lm.init_cache``'s tree: ``pos`` and one
+    dict a layer), each per-layer leaf's the reference's stacked leaf's
+    with the layer entry dropped; an integer leaf (``pos``, ``len``)
+    ``()``."""
+    start = _first_stacked(cfg)
+
+    def leaf(t, sub: str, layer: int | None):
+        shape = tuple(getattr(t, "shape", ()))
+        if layer is None:
+            return cache_spec(sub, shape, mesh, cfg)
+        if not _uniform_scan(cfg):
+            return cache_spec(f"layers/{layer}/{sub}", shape, mesh, cfg)
+        if layer < start:
+            return cache_spec(f"block0/{sub}", shape, mesh, cfg)
+        stacked = (cfg.n_layers - start,) + shape
+        return cache_spec(f"blocks/{sub}", stacked, mesh, cfg)[1:]
+
+    def walk(t, sub: str, layer: int | None):
+        if isinstance(t, dict):
+            return {k: walk(v, f"{sub}{k}/" if isinstance(v, dict)
+                            else f"{sub}{k}", layer) for k, v in t.items()}
+        return leaf(t, sub, layer)
+
+    out = {k: walk(v, k, None) for k, v in cache.items() if k != "layers"}
+    out["layers"] = [walk(t, "", i) for i, t in enumerate(cache["layers"])]
+    return out
+
+
+def opt_v_specs(specs: dict, shapes: dict, factored: bool) -> dict:
+    """The second moment's specs: the parameters', or for a factored
+    leaf ``{"r": spec without its last entry, "c": spec without its
+    second to last}``."""
+    if not factored:
+        return dict(specs)
+
+    def one(spec: tuple, shape) -> Any:
+        shape = tuple(getattr(shape, "shape", shape))
+        if len(shape) < 2 or shape[-1] <= 1 or shape[-2] <= 1:
+            return spec
+        parts = list(spec) + [None] * (len(shape) - len(spec))
+        return {"r": tuple(parts[:-1]), "c": tuple(parts[:-2] + [parts[-1]])}
+
+    return {n: one(s, shapes[n]) for n, s in specs.items()}
+
+
+# ---------------------------------------------------------------------------
+# placement on a mesh of ranks
+# ---------------------------------------------------------------------------
+
+def _axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def spec_axes(spec: tuple, mesh) -> tuple[str, ...]:
+    """The axes ``spec`` names, in mesh order."""
+    named = {a for e in spec for a in _axes(e)}
+    return tuple(a for a in mesh.axis_names if a in named)
+
+
+def split_leaves(specs: dict, mesh) -> dict:
+    """``{name: the axes its spec names, in mesh order}`` of the leaves
+    held in part under ``mesh``.  A spec naming an axis of size 1 counts:
+    the gradient sums follow the layout, whatever the axes' sizes."""
+    out = {}
+    for n, spec in (specs or {}).items():
+        axes = spec_axes(spec, mesh)
+        if axes:
+            out[n] = axes
+    return out
+
+
+def local_shape(spec: tuple, shape, mesh) -> tuple[int, ...]:
+    """The shape of a rank's shard of a leaf of ``shape`` (reads only
+    ``mesh.shape``)."""
+    out = []
+    for d, n in enumerate(shape):
+        k = 1
+        for a in _axes(spec[d] if d < len(spec) else None):
+            k *= mesh.shape[a]
+        if n % k:
+            raise ValueError(f"dimension {d} of {tuple(shape)} does not "
+                             f"split over {spec[d]} ({k} ranks)")
+        out.append(n // k)
+    return tuple(out)
+
+
+def global_shape(spec: tuple, local, mesh) -> tuple[int, ...]:
+    """The whole shape of a leaf whose shard by ``spec`` has shape
+    ``local``."""
+    out = []
+    for d, n in enumerate(local):
+        for a in _axes(spec[d] if d < len(spec) else None):
+            n *= mesh.shape[a]
+        out.append(n)
+    return tuple(out)
+
+
+def shard_slices(spec: tuple, shape, mesh) -> tuple[slice, ...]:
+    """This rank's block of a leaf of ``shape``: on each dimension the
+    block of its index over the dimension's axes, the first axis major."""
+    local = local_shape(spec, shape, mesh)
+    out = []
+    for d, n in enumerate(local):
+        axes = _axes(spec[d] if d < len(spec) else None)
+        i = mesh.index(axes) if axes else 0
+        out.append(slice(i * n, (i + 1) * n))
+    return tuple(out)
+
+
+def _dim_order(t: torch.Tensor) -> list[int]:
+    """The dimensions of ``t`` from the outermost in memory."""
+    return sorted(range(t.dim()), key=lambda i: (-t.stride(i), i))
+
+
+def _laid_out_like(like: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` whose dimensions lie in memory in ``like``'s
+    order (a transposed leaf, such as ``unembed``, stays transposed)."""
+    order = _dim_order(like)
+    inv = [order.index(i) for i in range(t.dim())]
+    out = torch.empty([t.shape[i] for i in order], dtype=t.dtype,
+                      device=t.device).permute(inv)
+    return out.copy_(t)
+
+
+def shard(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's shard of the whole leaf ``x`` by ``spec``, in ``x``'s
+    memory order; ``x`` itself where the shard is all of it."""
+    sl = shard_slices(spec, x.shape, mesh)
+    if all(s.stop - s.start == n for s, n in zip(sl, x.shape)):
+        return x
+    return _laid_out_like(x, x[sl])
+
+
+def gather_spec(spec: tuple, mesh, keep: tuple[str, ...] = ()) -> tuple:
+    """The part of ``spec`` that a use of the leaf gathers: each entry
+    without the axes in ``keep`` (a routed expert's EP axes, which the
+    dispatch serves in place), None where its axes' sizes multiply to 1.
+    An entry ``keep`` covers in part raises."""
+    out = []
+    for e in spec:
+        axes = _axes(e)
+        left = tuple(a for a in axes if a not in keep)
+        if left and len(left) != len(axes):
+            raise ValueError(f"spec entry {e} is kept in part: {keep}")
+        size = 1
+        for a in left:
+            size *= mesh.shape[a]
+        out.append(left if size > 1 else None)
+    return tuple(out)
+
+
+class _Gather(torch.autograd.Function):
+    """The whole leaf from this rank's shard: a tiled all-gather on each
+    split dimension in order; backward, the tiled reduce-scatter of each
+    in reverse order (the sum over the dimension's axes, this rank's
+    block kept)."""
+
+    @staticmethod
+    def forward(ctx, x, spec, mesh):
+        ctx.args = (spec, mesh)
+        out = x
+        for d, axes in enumerate(spec):
+            if axes:
+                out = meshops._all_gather(out, mesh, axes, d)
+        return out if _dim_order(out) == _dim_order(x) \
+            else _laid_out_like(x, out)
+
+    @staticmethod
+    def backward(ctx, g):
+        spec, mesh = ctx.args
+        for d in reversed(range(len(spec))):
+            if spec[d]:
+                g = meshops._scatter_sum(g, mesh, spec[d], d)
+        return g, None, None
+
+
+def gather(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The whole leaf from this rank's shard ``x``, ``spec`` a
+    :func:`gather_spec` (every entry a tuple of axes of size over 1, or
+    None): one all-gather a split dimension through ``meshops`` (counted),
+    the result in ``x``'s memory order; its gradient returns as a
+    reduce-scatter.  With nothing to gather, ``x`` itself: no copy, no
+    collective, the identity's gradient."""
+    if not any(spec):
+        return x
+    return _Gather.apply(x, spec, mesh)
+
+
+def to_placements(spec: tuple, mesh) -> tuple:
+    """``spec`` as ``torch.distributed.tensor`` placements, one a mesh
+    axis: ``Shard(d)`` for an axis that splits dimension ``d``, else
+    ``Replicate()``.  Consecutive ``Shard(d)`` linearise the first mesh
+    axis major, as JAX does a tuple of axes; a tuple out of mesh order
+    raises (it is not reordered)."""
+    from torch.distributed.tensor import Replicate, Shard
+    dims: dict = {}
+    for d, e in enumerate(spec):
+        axes = _axes(e)
+        for a in axes:
+            if a not in mesh.shape:
+                raise KeyError(f"no axis {a!r} in mesh {mesh.shape}")
+            if a in dims:
+                raise ValueError(f"axis {a!r} twice in spec {spec}")
+            dims[a] = d
+        idx = [mesh.axis_names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {e} is out of mesh order "
+                             f"{mesh.axis_names}")
+    return tuple(Shard(dims[a]) if a in dims else Replicate()
+                 for a in mesh.axis_names)
+
+
+def global_view(x: torch.Tensor, spec: tuple, mesh):
+    """A ``DTensor`` whose local tensor is this rank's shard ``x``
+    (``run_check=False``: nothing is exchanged)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(x, mesh.device_mesh, to_placements(spec, mesh),
+                              run_check=False)
+
+
+def with_shardings(tree, specs, mesh):
+    """Stand-ins of a tree of tensors (whole shapes and dtypes, any
+    device): each leaf a ``DTensor`` over a meta tensor of the rank's
+    local shape, placed by its spec in ``specs`` (a tree of the same
+    keys; a factored moment's ``{"r", "c"}`` of specs matches its
+    dict)."""
+    if not isinstance(tree, (dict, list, torch.Tensor)):
+        return tree                       # an integer leaf (a cache's len)
+    if isinstance(specs, tuple):
+        local = torch.empty(local_shape(specs, tree.shape, mesh),
+                            dtype=tree.dtype, device="meta")
+        return global_view(local, specs, mesh)
+    if isinstance(tree, list):
+        return [with_shardings(t, s, mesh) for t, s in zip(tree, specs)]
+    return {k: with_shardings(v, specs[k], mesh) for k, v in tree.items()}

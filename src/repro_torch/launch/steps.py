@@ -1,42 +1,55 @@
 """Step builders of the port: train, prefill and serve, on one device or
-over a mesh of ranks.
+over a mesh of ranks, and the cells that stand in for their inputs.
 
-Counterpart of ``repro.launch.steps`` but for its sharded cells: the
-recipes (per-architecture execution knobs), ``clamp_n_micro``,
-``make_train_step`` (microbatch gradients, then one AdamW update) and thin
-prefill / serve steps.  A step takes the model (the port's parameters live
-in it) where the reference's takes a params pytree.  Each builder takes the
-mesh, whose EP axes are ``ep_axes_for(mesh)``, where the reference's takes
-``ep`` under an ambient mesh.
+Counterpart of ``repro.launch.steps``: the recipes (per-architecture
+execution knobs), ``clamp_n_micro``, ``make_train_step`` (microbatch
+gradients, then one AdamW update), thin prefill / serve steps, and
+:func:`build_cell` / :func:`input_specs`, the step of one (architecture x
+input shape x mesh) cell with stand-ins for its arguments.  A step takes
+the model (the port's parameters live in it) where the reference's takes a
+params pytree.  Each of them takes the mesh, whose EP axes are
+``ep_axes_for(mesh)``, where the reference's takes ``ep`` under an ambient
+mesh.
 
-Under a mesh a train step is per-rank SPMD code on this rank's rows of the
-batch (:func:`repro_torch.data.pipeline.rank_rows`: microbatch by
-microbatch, as the reference's ``microbatch_grads`` reshapes the global
-batch before ``shard_map`` shards each microbatch).  ``lm.train_loss``
+Under a mesh the model's parameters are placed by their specs
+(``launch.shardings``), and a train step is per-rank SPMD code on this
+rank's rows of the batch (:func:`repro_torch.data.pipeline.rank_rows`:
+microbatch by microbatch, as the reference's ``microbatch_grads`` reshapes
+the global batch before ``shard_map`` shards each microbatch).  ``lm.train_loss``
 gives each rank its share of the global loss, the dispatch's collectives
 carry their adjoints, and the microbatches' gradients, accumulated on the
 rank, are summed once a step over the axes each leaf is replicated on
-(:func:`sum_grads`): a routed-expert slice over the axes outside the EP
-axes, every other leaf over the whole mesh.  That is the gradient of the
+(:func:`sum_grads`: the mesh's axes its spec does not name; the axes it
+names were summed by its gather's reduce-scatter, or for a routed expert's
+EP axes by the dispatch's exchanges).  That is the gradient of the
 reference's global loss under ``shard_map`` (whose transpose divides an
 output's cotangent over the axes it is not split on and sums an input's
 over the axes it is replicated on).  The reported loss is the global one.
-The reference's ``build_cell`` and ``input_specs`` wait for the port's
-DTensor placements.
+
+A :class:`Cell`'s arguments are stand-ins on the meta device: an ``LM``
+placed under the mesh (its leaves the rank's shards), and ``DTensor``
+stand-ins over meta tensors for the optimizer state, the batch and the
+cache.  The reference's ``Cell.jitted()`` and ``lower()`` have no
+counterpart here: the dry run runs a cell's step on its stand-ins under a
+fake process group and a dispatch mode that counts what each operation
+would do.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import meshops
 from repro_torch.models import lm
-from repro_torch.models.config import ModelConfig, ShapeConfig
-from repro_torch.optim import AdamWConfig, adamw_update, microbatch_grads
+from repro_torch.models.config import SHAPES, ModelConfig, ShapeConfig
+from repro_torch.optim import (AdamWConfig, adamw_update, init_opt_state,
+                               microbatch_grads)
 
-from .shardings import ep_axes_for
+from .shardings import (batch_specs, cache_specs, opt_v_specs, param_specs,
+                        split_leaves, with_shardings)
 
 # the most bytes :func:`sum_grads` packs into one buffer; a larger leaf is
 # summed alone
@@ -106,23 +119,13 @@ def _with_recipe(cfg: ModelConfig, recipe: Recipe) -> ModelConfig:
     return dataclasses.replace(cfg, **changes) if changes else cfg
 
 
-def split_leaves(cfg: ModelConfig, names, mesh) -> dict:
-    """``{name: EP axes}`` of the leaves that are this rank's slice under
-    ``mesh``: a MoE block's routed experts, when the model dispatches over
-    the mesh's EP axes (``teshu`` / ``teshu2``); empty without a mesh."""
-    if mesh is None or cfg.moe is None or cfg.moe.dispatch == "gspmd":
-        return {}
-    ep = ep_axes_for(mesh)
-    return {n: ep for n in names if ".moe.experts." in n} if ep else {}
-
-
 def sum_plan(grads: dict, mesh, split: dict) -> list[tuple[tuple, list]]:
     """The gradient sums of one step: ``[(axes, [names])]``, one
-    all-reduce each.  A leaf is summed over the axes it is replicated on
-    (a split leaf over the mesh's axes outside its own, every other leaf
-    over all of them); leaves of one dtype and axis set are packed into
-    buffers of at most :data:`BUCKET_BYTES`, in the dict's order, and a
-    larger leaf goes alone."""
+    all-reduce each.  A leaf is summed over the axes it is replicated on:
+    the mesh's axes outside those ``split`` (:func:`split_leaves`) gives
+    it, all of them for a leaf it does not name; leaves of one dtype and
+    axis set are packed into buffers of at most :data:`BUCKET_BYTES`, in
+    the dict's order, and a larger leaf goes alone."""
     groups: dict = {}
     for n, g in grads.items():
         axes = tuple(a for a in mesh.axis_names if a not in split.get(n, ()))
@@ -174,20 +177,20 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
     must require grad.
 
     Under ``mesh`` the batch is this rank's rows, microbatch-major
-    (``rank_rows``), the gradients are summed over the mesh once
-    (:func:`sum_grads`) before the update, and ``loss`` and ``grad_norm``
-    are the reference's global ones, the same on every rank."""
+    (``rank_rows``), the model is placed on the mesh, the gradients are
+    summed over the mesh once (:func:`sum_grads`) before the update, and
+    ``loss`` and ``grad_norm`` are the reference's global ones, the same on
+    every rank."""
     def train_step(model, opt_state, batch):
         params = dict(model.named_parameters())
         loss, grads = microbatch_grads(
             lambda p, b: lm.train_loss(model, b, mesh=mesh),
             params, batch, recipe.n_micro, accum_dtype=recipe.accum_dtype)
-        split = split_leaves(cfg, params, mesh)
         if mesh is not None:
-            grads = sum_grads(grads, mesh, split)
+            grads = sum_grads(grads, mesh, split_leaves(model.specs, mesh))
             loss = meshops.flat_psum(loss, mesh, mesh.axis_names)
         _, opt_state, metrics = adamw_update(ocfg, params, grads, opt_state,
-                                             mesh=mesh, split=split)
+                                             mesh=mesh, specs=model.specs)
         metrics["loss"] = loss
         return model, opt_state, metrics
 
@@ -222,3 +225,112 @@ def make_serve_step(cfg: ModelConfig, *, mesh=None) -> Callable:
                              embeds=batch.get("embeds"), mesh=mesh)
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# cells: a step and stand-ins for its arguments
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Cell:
+    """One (architecture x input shape x mesh) cell: the step ``fn``, its
+    ``args`` (stand-ins on the meta device), the specs its arguments and
+    results are placed by (``in_shardings`` / ``out_shardings``, trees of
+    specs; None where the reference leaves the placement to XLA), the
+    arguments the step may update in place (``donate_argnums``) and the
+    config with the recipe applied."""
+    arch: str
+    shape: ShapeConfig
+    fn: Callable
+    args: tuple
+    in_shardings: tuple
+    out_shardings: Any
+    donate_argnums: tuple[int, ...]
+    cfg: ModelConfig
+
+
+def _params_standin(cfg: ModelConfig, mesh) -> tuple[lm.LM, dict, dict]:
+    """``(model on meta placed under mesh, its specs, its whole leaves on
+    meta)``."""
+    whole = dict(lm.LM(cfg, device="meta").named_parameters())
+    model = lm.LM(cfg, device="meta", mesh=mesh)
+    return model, param_specs(whole, mesh, cfg), whole
+
+
+def _batch_standin(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                   decode: bool) -> tuple[dict, dict]:
+    s = 1 if decode else shape.seq_len
+    b = shape.global_batch
+    out = {}
+    if cfg.modality == "text":
+        out["tokens"] = torch.empty((b, s), dtype=torch.int32, device="meta")
+    else:
+        out["embeds"] = torch.empty((b, s, cfg.d_model),
+                                    dtype=getattr(torch, cfg.dtype),
+                                    device="meta")
+    if not decode:
+        out["labels"] = torch.empty((b, s), dtype=torch.int32, device="meta")
+    specs = batch_specs(out, mesh)
+    return with_shardings(out, specs, mesh), specs
+
+
+def _cache_standin(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    cache = lm.init_cache(cfg, shape.global_batch, shape.seq_len,
+                          device="meta")
+    specs = cache_specs(cache, mesh, cfg)
+    return with_shardings(cache, specs, mesh), specs
+
+
+def build_cell(arch: str, shape_name, mesh, *, smoke: bool = False,
+               recipe: Recipe | None = None) -> Cell:
+    """The cell of ``arch`` (``smoke``: its SMOKE config) at input shape
+    ``shape_name`` (a name of ``SHAPES`` or a ``ShapeConfig``) over
+    ``mesh``: a train cell ``fn(model, opt_state, batch)``, a prefill cell
+    ``fn(model, batch)``, a decode cell ``fn(model, cache, batch)``, the
+    recipe (``recipe_for``, ``n_micro`` clamped for training) applied to
+    the config."""
+    shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
+    cfg = get_config(arch, smoke=smoke)
+    recipe = recipe or recipe_for(arch, shape)
+    if shape.kind == "train":
+        recipe = clamp_n_micro(recipe, shape, mesh)
+    cfg = _with_recipe(cfg, recipe)
+    model, p_specs, whole = _params_standin(cfg, mesh)
+
+    if shape.kind == "train":
+        ocfg = AdamWConfig(lr=recipe.lr, moment_dtype=recipe.moment_dtype,
+                           factored_v=recipe.factored_v)
+        o_specs = {"m": p_specs,
+                   "v": opt_v_specs(p_specs, whole, recipe.factored_v),
+                   "step": ()}
+        o_args = with_shardings(init_opt_state(
+            whole, recipe.moment_dtype, recipe.factored_v), o_specs, mesh)
+        b_args, b_specs = _batch_standin(cfg, shape, mesh, decode=False)
+        fn = make_train_step(cfg, ocfg, recipe, mesh=mesh)
+        return Cell(arch, shape, fn, (model, o_args, b_args),
+                    (p_specs, o_specs, b_specs), (p_specs, o_specs, None),
+                    (0, 1), cfg)
+
+    if shape.kind == "prefill":
+        b_args, b_specs = _batch_standin(cfg, shape, mesh, decode=False)
+        _, c_specs = _cache_standin(cfg, shape, mesh)
+        fn = make_prefill_step(cfg, shape, mesh=mesh)
+        return Cell(arch, shape, fn, (model, b_args), (p_specs, b_specs),
+                    (None, c_specs), (), cfg)
+
+    # decode: one new token against a seq_len-deep cache
+    c_args, c_specs = _cache_standin(cfg, shape, mesh)
+    b_args, b_specs = _batch_standin(cfg, shape, mesh, decode=True)
+    fn = make_serve_step(cfg, mesh=mesh)
+    return Cell(arch, shape, fn, (model, c_args, b_args),
+                (p_specs, c_specs, b_specs), (None, c_specs), (1,), cfg)
+
+
+def input_specs(arch: str, shape_name, mesh, *, smoke: bool = False,
+                recipe: Recipe | None = None) -> dict:
+    """The stand-ins of every argument of the cell's step, by name."""
+    cell = build_cell(arch, shape_name, mesh, smoke=smoke, recipe=recipe)
+    names = {"train": ("params", "opt_state", "batch"),
+             "prefill": ("params", "batch"),
+             "decode": ("params", "cache", "batch")}[cell.shape.kind]
+    return dict(zip(names, cell.args))

@@ -14,16 +14,16 @@ waits for the last write at the end.  A training step runs no kernel of
 the port: ``lm.train_loss`` takes the plain paths, which autograd
 differentiates (the kernels have no backward).
 
-Under a mesh each rank holds its slice of the routed experts
-(``moe.expert_slice``) and every other parameter whole, reads its own rows
+Under a mesh each rank holds its shard of every parameter and moment by
+the reference's sharding rules (the model placed on the mesh,
+``launch.shardings``; the moments by ``opt_v_specs``), reads its own rows
 of each batch (``data.rank_rows``) and runs the mesh's step
-(``steps.make_train_step(..., mesh=mesh)``), so that every rank's
-parameters stay the reference's.  A checkpoint holds the reference's whole
-arrays: the expert slices and their moments are gathered over the EP axes
-one leaf at a time, each copied to rank 0's host memory, and rank 0 writes
-them; a restore onto a mesh of another EP size reads
-each rank's slice.  Only rank 0 writes the ``ShuffleManager`` journal and
-the log.
+(``steps.make_train_step(..., mesh=mesh)``), so that every rank's shards
+stay the reference's.  A checkpoint holds the reference's whole arrays:
+each placed leaf is gathered over every dimension it is split on, one leaf
+at a time, copied to rank 0's host memory, and rank 0 writes them; a
+restore onto another mesh reads each rank's block of every leaf.  Only
+rank 0 writes the ``ShuffleManager`` journal and the log.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-14b --smoke --device cpu --steps 3
 """
@@ -38,13 +38,14 @@ import torch.distributed as dist
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint.checkpoint import flatten, to_host
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.core import meshops
 from repro_torch.core.manager import ShuffleManager
 from repro_torch.core.plancache import PlanCache
 from repro_torch.data import DataConfig, DataPipeline
 from repro_torch.device import check_device
-from repro_torch.launch.steps import Recipe, make_train_step, split_leaves
-from repro_torch.models import lm, moe
+from repro_torch.launch.shardings import (gather, gather_spec, global_shape,
+                                         opt_v_specs, shard_slices)
+from repro_torch.launch.steps import Recipe, make_train_step
+from repro_torch.models import lm
 from repro_torch.optim import AdamWConfig, init_opt_state
 
 
@@ -57,25 +58,32 @@ def _state_tree(model, opt_state) -> dict:
     return {"params": dict(model.named_parameters()), "opt_state": opt_state}
 
 
-def _split_paths(cfg, model, mesh) -> dict:
-    """``{checkpoint path: EP axes}`` of every leaf that is this rank's
-    slice: the routed experts and their two moments."""
-    split = split_leaves(cfg, dict(model.named_parameters()), mesh)
-    return {f"{pre}/{n}": axes for n, axes in split.items()
-            for pre in ("params", "opt_state/m", "opt_state/v")}
+def _placed_paths(model, opt_state, mesh) -> dict:
+    """``{checkpoint path: spec}`` of every parameter and moment under
+    ``mesh`` (a factored moment's ``r`` and ``c`` each by its own);
+    empty without a mesh."""
+    if mesh is None:
+        return {}
+    whole = {n: global_shape(model.specs[n], p.shape, mesh)
+             for n, p in model.named_parameters()}
+    v = opt_v_specs(model.specs, whole, True)
+    return flatten({"params": model.specs, "opt_state": {
+        "m": model.specs, "v": {n: v[n] if isinstance(t, dict)
+                                else model.specs[n]
+                                for n, t in opt_state["v"].items()}}})
 
 
 @torch.no_grad()
-def _host_state(model, opt_state, mesh, split: dict, lead: bool) -> dict:
+def _host_state(model, opt_state, mesh, placed: dict, lead: bool) -> dict:
     """Rank 0's host snapshot of the state as the reference holds it,
     ``{checkpoint path: to_host(leaf)}`` (empty on the other ranks): each
-    split leaf is gathered over its axes and copied to the host before the
-    next, so that a device holds one gathered leaf at a time.  Every rank
-    must call it."""
+    placed leaf is gathered over every dimension it is split on and
+    copied to the host before the next, so that a device holds one
+    gathered leaf at a time.  Every rank must call it."""
     host = {}
     for p, x in flatten(_state_tree(model, opt_state)).items():
-        if p in split:
-            x = meshops.all_gather(x, mesh, split[p], axis=0)
+        if p in placed:
+            x = gather(x, gather_spec(placed[p], mesh), mesh)
         if lead:
             host[p] = to_host(x)
     return host
@@ -98,7 +106,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
 
     With ``mesh`` (a mesh on ``device``'s type) this rank trains its part
     of the model over it: ``params`` (by default ``init_lm(...,
-    mesh=mesh)``) hold this rank's expert slices, each batch is its rows
+    mesh=mesh)``) are placed on that mesh, each batch is its rows
     (``global_batch`` must split into ``n_micro`` microbatches that divide
     over the batch axes), and ``loss`` and ``grad_norm`` are the global
     ones, the same on every rank."""
@@ -116,14 +124,10 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
     dev = model.embed.device
     lead = mesh is None or dist.get_rank() == 0
     recipe = Recipe(n_micro=n_micro, lr=lr)
-    if cfg.moe is not None:
-        want = moe.expert_slice(cfg, mesh)[1]
-        for b in model.blocks:
-            if hasattr(b, "moe") and b.moe.experts.w_gate.shape[0] != want:
-                raise ValueError(f"params hold {b.moe.experts.w_gate.shape[0]}"
-                                 f" routed experts a block, this rank's "
-                                 f"slice is {want}: build them with "
-                                 f"mesh={mesh}")
+    if mesh is not None and model.mesh_shape != dict(mesh.shape):
+        raise ValueError(f"params are placed on {model.mesh_shape}, not "
+                         f"on {dict(mesh.shape)}: build them with "
+                         f"mesh={mesh}")
     ocfg = AdamWConfig(lr=lr, total_steps=max(steps, 2),
                        warmup_steps=max(1, steps // 10),
                        moment_dtype=recipe.moment_dtype)
@@ -141,14 +145,14 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
     named = dict(model.named_parameters())
     opt_state = init_opt_state(named, recipe.moment_dtype)
 
-    split = _split_paths(cfg, model, mesh)
+    placed = _placed_paths(model, opt_state, mesh)
     start_step = 0
     ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
     if ckpt and ckpt.latest() is not None:
         state = flatten(_state_tree(model, opt_state))
-        first = moe.expert_slice(cfg, mesh)[0] if split else 0
-        tree, meta = ckpt.restore(_state_tree(model, opt_state), rows={
-            p: (first, state[p].shape[0]) for p in split})
+        tree, meta = ckpt.restore(_state_tree(model, opt_state), blocks={
+            p: shard_slices(spec, global_shape(spec, state[p].shape, mesh),
+                            mesh) for p, spec in placed.items()})
         src = flatten(tree)         # copied into the tensors in place,
         with torch.no_grad():       # so that their layouts stay
             for path, t in state.items():
@@ -186,7 +190,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
                   f"lr={metrics['lr']:.2e} {dt*1e3:.0f}ms/step", flush=True)
         if ckpt and (step + 1) % ckpt_every == 0:
             ckpt.wait()                   # one host snapshot at a time
-            host = _host_state(model, opt_state, mesh, split, lead)
+            host = _host_state(model, opt_state, mesh, placed, lead)
             if lead:
                 ckpt.write_async(step + 1, host,
                                  {"step": step + 1, "arch": arch})

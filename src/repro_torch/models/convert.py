@@ -14,10 +14,10 @@ import torch
 from torch import nn
 
 from repro_torch.device import check_device
+from repro_torch.launch import shardings
 
 from .config import ModelConfig
 from .lm import LM
-from .moe import expert_slice
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -66,11 +66,23 @@ def _is_factored(leaf: dict) -> bool:
     return set(leaf) == {"r", "c"}
 
 
-def _copy_into(module: nn.Module, tree: dict, done: set, where: str) -> None:
-    """Copy every leaf of ``tree`` into its tensor under ``module``
-    (shape and dtype checked), adding each tensor's ``id`` to ``done``."""
+def _placed(model: LM | None, name: str, src: torch.Tensor,
+            mesh) -> torch.Tensor:
+    """This rank's shard of the whole array ``src`` of leaf ``name`` by
+    the model's spec (``src`` itself for a model not placed)."""
+    spec = None if model is None else model.specs.get(name)
+    if spec is None or mesh is None:
+        return src
+    return shardings.shard(src, spec, mesh)
+
+
+def _copy_into(module: nn.Module, tree: dict, done: set, where: str, *,
+               model: LM | None = None, mesh=None) -> None:
+    """Copy every leaf of ``tree`` (this rank's shard of it, for a placed
+    model) into its tensor under ``module`` (shape and dtype checked),
+    adding each tensor's ``id`` to ``done``."""
     for name, target, leaf in _pairs(module, tree, where):
-        src = to_tensor(leaf, target.device)
+        src = _placed(model, name, to_tensor(leaf, target.device), mesh)
         if src.shape != target.shape or src.dtype != target.dtype:
             raise ValueError(f"{name}: reference {tuple(src.shape)} "
                              f"{src.dtype}, port {tuple(target.shape)} "
@@ -90,57 +102,55 @@ def _model_pairs(model: LM, params: dict):
         yield from _pairs(model.blocks[i], tree, f"blocks.{i}.")
 
 
-def _expert_rows(tree: dict, first: int, count: int) -> dict:
-    """A layer's subtree with its routed experts cut to ``[first, first +
-    count)``; the router and the shared experts whole."""
-    if "moe" not in tree:
-        return tree
-    experts = {k: np.asarray(v)[first:first + count]
-               for k, v in tree["moe"]["experts"].items()}
-    return {**tree, "moe": {**tree["moe"], "experts": experts}}
-
-
 def lm_params_from_reference(cfg: ModelConfig, params: dict, *,
                              device="cuda", mesh=None) -> LM:
     """The port's :class:`~repro_torch.models.lm.LM` holding a copy of every
     array of the reference's ``lm.init_lm`` tree ``params`` (each subtree,
     ``attn`` (GQA or MLA), ``mixer``, ``mlp``, ``moe`` (with its ``shared``
     experts), ``mlstm`` or ``slstm``, into the module of its name; a MoE
-    model's dense ``block0`` into layer 0).  Under ``mesh`` a MoE block
-    keeps only this rank's routed experts (``moe.expert_slice``).  Raises
+    model's dense ``block0`` into layer 0).  Under ``mesh`` the model is
+    placed (``lm.LM``) and keeps this rank's shard of each array.  Raises
     if the tree lacks an array of the port's or holds one the port does
     not have."""
     dev = check_device(device)
     model = LM(cfg, device=dev, mesh=mesh)   # empty: every tensor is copied
-    first, count = expert_slice(cfg, mesh) if cfg.family == "moe" \
-        else (0, 0)
     done: set = set()
     top = {k: v for k, v in params.items()
            if k not in ("blocks", "block0", "layers")}
     with torch.no_grad():
-        _copy_into(model, top, done, "")
+        _copy_into(model, top, done, "", model=model, mesh=mesh)
         for i, tree in enumerate(_layer_trees(params, cfg.n_layers)):
-            _copy_into(model.blocks[i], _expert_rows(tree, first, count),
-                       done, f"blocks.{i}.")
+            _copy_into(model.blocks[i], tree, done, f"blocks.{i}.",
+                       model=model, mesh=mesh)
     missing = [n for n, p in model.named_parameters() if id(p) not in done]
     if missing:
         raise KeyError(f"reference params lack {missing}")
     return model
 
 
-def named_from_reference(model: LM, tree: dict) -> dict:
+def named_from_reference(model: LM, tree: dict, *, mesh=None) -> dict:
     """``{port parameter name: tensor}`` of a reference tree shaped like
     the parameters (a gradient tree of ``jax.grad``, a moment, a mask
     broadcast to the leaves), by the mapping
     :func:`lm_params_from_reference` uses: each leaf keeps its own dtype,
     and its shape must be the port parameter's.  A factored leaf (``{"r",
-    "c"}``) comes over as a dict of both.  Keys follow
-    ``model.named_parameters()``; on the model's device."""
+    "c"}``) comes over as a dict of both.  For a model placed on ``mesh``
+    each leaf is this rank's shard by its spec (a factored leaf's by
+    ``shardings.opt_v_specs``).  Keys follow ``model.named_parameters()``;
+    on the model's device."""
     dev = model.embed.device
     out = {}
     for name, target, leaf in _model_pairs(model, tree):
         if isinstance(leaf, dict):
             out[name] = {k: to_tensor(v, dev) for k, v in leaf.items()}
+            spec = model.specs.get(name)
+            if spec is not None and mesh is not None:
+                vs = shardings.opt_v_specs({name: spec}, {
+                    name: shardings.global_shape(spec, target.shape, mesh)},
+                    True)[name]
+                if isinstance(vs, dict):
+                    out[name] = {k: shardings.shard(t, vs[k], mesh)
+                                 for k, t in out[name].items()}
             if not (_factorable(target) and out[name]["r"].shape
                     == target.shape[:-1] and out[name]["c"].shape
                     == target.shape[:-2] + target.shape[-1:]):
@@ -149,7 +159,7 @@ def named_from_reference(model: LM, tree: dict) -> dict:
                                  f"hold (a stacked 1-D leaf the reference "
                                  f"factors across its layers)")
             continue
-        out[name] = to_tensor(leaf, dev)
+        out[name] = _placed(model, name, to_tensor(leaf, dev), mesh)
         if out[name].shape != target.shape:
             raise ValueError(f"{name}: reference {tuple(out[name].shape)}, "
                              f"port {tuple(target.shape)}")
@@ -163,14 +173,16 @@ def _factorable(t: torch.Tensor) -> bool:
     return t.dim() >= 2 and t.shape[-1] > 1 and t.shape[-2] > 1
 
 
-def opt_state_from_reference(model: LM, opt_state: dict) -> dict:
+def opt_state_from_reference(model: LM, opt_state: dict, *,
+                             mesh=None) -> dict:
     """The reference's ``init_opt_state`` / ``adamw_update`` state in the
     port's layout: ``{"m": {name: ...}, "v": {name: ... or {"r", "c"}},
     "step": 0-dim int32}`` on the model's device, every leaf in its own
     dtype and each moment in its parameter's memory layout (as
     ``init_opt_state`` makes it; ``unembed`` is a transposed view).  A
     scanned stack's 1-D leaf that the reference factors across its layer
-    axis has no per-layer counterpart and raises."""
+    axis has no per-layer counterpart and raises.  For a model placed on
+    ``mesh``, this rank's shards."""
     params = dict(model.named_parameters())
 
     def laid_out(name, t):
@@ -178,7 +190,7 @@ def opt_state_from_reference(model: LM, opt_state: dict) -> dict:
             return t
         return torch.empty_like(params[name], dtype=t.dtype).copy_(t)
     out = {k: {n: laid_out(n, t) for n, t in
-               named_from_reference(model, opt_state[k]).items()}
+               named_from_reference(model, opt_state[k], mesh=mesh).items()}
            for k in ("m", "v")}
     out["step"] = to_tensor(np.asarray(opt_state["step"], np.int32),
                             model.embed.device)

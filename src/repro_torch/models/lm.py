@@ -32,32 +32,46 @@ code: ``forward``, ``serve_step``, ``train_loss`` and each :class:`Block`
 take it as an explicit ``mesh=`` keyword (there is no ambient mesh), the
 input is this rank's rows of the batch, and a MoE block dispatches over
 the EP axes ``ep_axes_for(mesh)`` by its config's template (``teshu`` /
-``teshu2``), its routed experts this rank's slice (``init_lm`` and
-``convert`` take ``mesh=`` too).  The training forward runs under a mesh
-as well: the dispatch's collectives carry their adjoints, and under
-``cfg.remat`` each rank recomputes a block, and reissues its collectives,
-in the same order.  :func:`train_loss` then returns this rank's share of
-the reference's global loss.  The gspmd dispatch routes a rank's own rows
-with their own capacity and aux loss, where the reference's routes the
-global batch, so it trains only on a mesh of one batch shard.
+``teshu2``).  A model made under a mesh (``LM``, ``init_lm`` and
+``convert`` take ``mesh=``; :func:`place` places one made without) holds
+every parameter as this rank's shard by the reference's sharding rules
+(``launch.shardings``; the specs in ``model.specs``), and each module
+gathers its leaves whole right before it runs and drops them when it
+returns (``shardings.gather``: an all-gather a split dimension, whose
+gradient returns as a reduce-scatter); a routed expert keeps its split
+over the EP axes, the dispatch bringing the tokens to it, and is gathered
+over ``data`` only (on the gspmd dispatch, whole).  Under ``cfg.remat``
+the gather sits inside the checkpointed block, so the backward gathers
+again; without remat autograd keeps the gathered weights until the
+backward.  Placement changes where the parameters live, not what is
+computed: the gathered leaves are the whole ones, bit for bit.  The
+training forward runs under a mesh as well: the dispatch's collectives
+carry their adjoints, and under ``cfg.remat`` each rank recomputes a
+block, and reissues its collectives, in the same order.
+:func:`train_loss` then returns this rank's share of the reference's
+global loss.  The gspmd dispatch routes a rank's own rows with their own
+capacity and aux loss, where the reference's routes the global batch, so
+it trains only on a mesh of one batch shard.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import meshops
 from repro_torch.device import check_device
+from repro_torch.launch import shardings
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.launch.shardings import ep_axes_for
 
 from .config import ModelConfig
 from .hybrid import HymbaMixer, init_ssm_cache
 from .layers import (MLA, MLP, Attention, RMSNorm, dtype_of, embed_init,
-                     init_attention_cache, init_mla_cache, param)
+                     init_attention_cache, init_mla_cache, param, rms_norm)
 from .moe import MoE
 from .ssm import (MLSTM, SLSTM, init_mlstm_state, init_slstm_state,
                   mlstm_chunked, mlstm_step, slstm_forward)
@@ -96,8 +110,7 @@ class Block(nn.Module):
     MoE FFN (``moe``) in a MoE model's routed layers.  An xLSTM block is a
     pre-norm ``mlstm`` or ``slstm`` and its residual, with no MLP."""
 
-    def __init__(self, cfg: ModelConfig, layer: int, *, device, gen=None,
-                 mesh=None):
+    def __init__(self, cfg: ModelConfig, layer: int, *, device, gen=None):
         super().__init__()
         dt = dtype_of(cfg)
         window = layer_window(cfg, layer)
@@ -117,7 +130,7 @@ class Block(nn.Module):
             self.attn = Attention(cfg, device=device, gen=gen, window=window)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
         if cfg.family == "moe" and not is_dense_layer(cfg, layer):
-            self.moe = MoE(cfg, device=device, gen=gen, mesh=mesh)
+            self.moe = MoE(cfg, device=device, gen=gen)
         else:
             self.mlp = MLP(cfg, device=device, gen=gen)
 
@@ -159,27 +172,80 @@ class Block(nn.Module):
         return out
 
 
+def _device(device) -> torch.device:
+    """``check_device``, and the meta device for stand-ins."""
+    return torch.device("meta") if str(device) == "meta" \
+        else check_device(device)
+
+
 class LM(nn.Module):
     """Made from ``gen`` with the reference's distributions, or empty (for
-    :func:`repro_torch.models.convert.lm_params_from_reference` to fill);
-    under ``mesh`` each MoE block holds this rank's routed experts."""
+    :func:`repro_torch.models.convert.lm_params_from_reference` to fill;
+    on the meta device, a stand-in); under ``mesh`` each leaf is drawn
+    whole and kept as this rank's shard, each block as it is built."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", gen=None,
                  mesh=None):
         super().__init__()
         check_supported(cfg)
-        dev = check_device(device)
+        dev = _device(device)
         dt = dtype_of(cfg)
         self.cfg = cfg
+        self.specs: dict = {}             # {name: spec} once placed
+        self.mesh_shape: dict | None = None
+        self._split: set = set()          # leaves held in part
+        self._plans: dict = {}
         self.embed = param(embed_init(gen, cfg.vocab, cfg.d_model, dt, dev))
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dt, dev)
         # [d_model, vocab] as in the reference (a transposed view)
         unembed = None if cfg.tie_embeddings else param(
             embed_init(gen, cfg.vocab, cfg.d_model, dt, dev).t())
         self.register_parameter("unembed", unembed)
-        self.blocks = nn.ModuleList(Block(cfg, i, device=dev, gen=gen,
-                                          mesh=mesh)
-                                    for i in range(cfg.n_layers))
+        if mesh is not None:
+            _place_leaves(self, self, "", mesh)     # before the blocks
+        blocks = []
+        for i in range(cfg.n_layers):
+            block = Block(cfg, i, device=dev, gen=gen)
+            if mesh is not None:
+                _place_leaves(self, block, f"blocks.{i}.", mesh)
+            blocks.append(block)
+        self.blocks = nn.ModuleList(blocks)
+        if mesh is not None:
+            self.mesh_shape = dict(mesh.shape)
+
+    def _gathers(self, mesh) -> dict:
+        """``{prefix: {name under it: gather spec}}`` of the leaves a
+        forward under ``mesh`` gathers (``""`` the top-level leaves,
+        ``"blocks.i."`` block i's), the routed experts' EP axes kept where
+        the block dispatches over them."""
+        if mesh is None:
+            if self._split:
+                raise ValueError(f"the model is placed on a mesh of "
+                                 f"{self.mesh_shape}: pass that mesh")
+            return {}
+        if self.mesh_shape != dict(mesh.shape):
+            raise ValueError(f"the model is placed on {self.mesh_shape}, "
+                             f"not on {dict(mesh.shape)}: make it with "
+                             f"mesh= or place() it")
+        plan = self._plans.get(mesh)
+        if plan is None:
+            m = self.cfg.moe
+            keep = ep_axes_for(mesh) if m is not None and \
+                m.dispatch != "gspmd" else ()
+            plan = {}
+            for n, spec in self.specs.items():
+                g = shardings.gather_spec(
+                    spec, mesh, keep if ".moe.experts." in n else ())
+                if any(g):
+                    pre = "" if not n.startswith("blocks.") else \
+                        ".".join(n.split(".")[:2]) + "."
+                    plan.setdefault(pre, {})[n[len(pre):]] = g
+            self._plans[mesh] = plan
+        return plan
+
+    def _leaf(self, name: str, top: dict, mesh) -> torch.Tensor:
+        p = self.get_parameter(name)
+        return shardings.gather(p, top[name], mesh) if name in top else p
 
     def forward(self, tokens: torch.Tensor | None = None, *, embeds=None,
                 positions=None, cache=None, use_kernel: bool = True,
@@ -190,12 +256,16 @@ class LM(nn.Module):
         ``pos``), not copied; ``aux`` is the float32 sum of the MoE layers'
         router losses (0 for a dense model).  ``train=True`` takes the
         plain paths (``use_kernel=False``) and no cache, each block
-        rematerialised when ``cfg.remat``.  Under ``mesh`` the batch is
-        this rank's rows; a MoE model on the gspmd dispatch trains under
-        it only where it has one batch shard (else it raises)."""
+        rematerialised when ``cfg.remat``.  Under ``mesh`` (the one the
+        model is placed on) the batch is this rank's rows, and each module
+        gathers its placed leaves right before it runs; a MoE model on the
+        gspmd dispatch trains under it only where it has one batch shard
+        (else it raises)."""
+        plan = self._gathers(mesh)
+        top = plan.get("", {})
         if tokens is not None:
             b, s = tokens.shape
-            x = F.embedding(tokens, self.embed)
+            x = F.embedding(tokens, self._leaf("embed", top, mesh))
         elif embeds is not None:
             b, s = embeds.shape[:2]
             x = embeds.to(self.embed.dtype)
@@ -217,30 +287,79 @@ class LM(nn.Module):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         use_kernel = use_kernel and not train
         for i, block in enumerate(self.blocks):
+            leaves = plan.get(f"blocks.{i}.")
             if train and self.cfg.remat:
-                x, aux = checkpoint(block, x, positions, use_reentrant=False,
-                                    use_kernel=False, mesh=mesh)
+                x, aux = checkpoint(_run_block, block, leaves, x, positions,
+                                    use_reentrant=False, use_kernel=False,
+                                    mesh=mesh)
             else:
-                x, aux = block(x, positions, use_kernel=use_kernel, cache=None
-                               if cache is None else cache["layers"][i],
-                               mesh=mesh)
+                x, aux = _run_block(block, leaves, x, positions,
+                                    use_kernel=use_kernel, cache=None
+                                    if cache is None else cache["layers"][i],
+                                    mesh=mesh)
             if aux is not None:
                 aux_total = aux_total + aux
-        x = self.final_norm(x)
-        unembed = self.embed.t() if self.unembed is None else self.unembed
+        x = rms_norm(x, self._leaf("final_norm.weight", top, mesh),
+                     self.final_norm.eps)
+        unembed = self._leaf("embed", top, mesh).t() if self.unembed is None \
+            else self._leaf("unembed", top, mesh)
         logits = x @ unembed
+        del unembed
         if cache is not None:
             cache["pos"] += s
         return logits, cache, aux_total
+
+
+def _run_block(block: Block, leaves: dict | None, x, positions, *, mesh,
+               **kw):
+    """``block(x, positions, ...)`` with each leaf of ``leaves`` (``{name
+    under the block: gather spec}``) gathered whole for the call (the
+    gathered copies dropped when it returns); without leaves the block as
+    it is."""
+    if not leaves:
+        return block(x, positions, mesh=mesh, **kw)
+    whole = {n: shardings.gather(block.get_parameter(n), spec, mesh)
+             for n, spec in leaves.items()}
+    return functional_call(block, whole, (x, positions),
+                           dict(kw, mesh=mesh))
+
+
+def _place_leaves(model: LM, module: nn.Module, prefix: str, mesh) -> None:
+    """Each parameter of ``module`` (named ``prefix + name`` in ``model``)
+    replaced, one at a time, by this rank's shard by its spec; the specs
+    recorded on ``model``."""
+    for n, p in module.named_parameters():
+        name = prefix + n
+        spec = shardings.leaf_spec(name, p.shape, mesh, model.cfg)
+        model.specs[name] = spec
+        whole = p.data
+        local = shardings.shard(whole, spec, mesh)
+        if local is not whole:
+            p.data = local
+            model._split.add(name)
+
+
+def place(model: LM, mesh) -> LM:
+    """Place a model made without a mesh on ``mesh``: every parameter kept
+    as this rank's shard by its spec, in place (on one rank, or wherever
+    every axis a spec names has size 1, the tensors stay as they are).
+    Returns the model."""
+    if model.mesh_shape is not None:
+        raise ValueError(f"the model is already placed on "
+                         f"{model.mesh_shape}")
+    _place_leaves(model, model, "", mesh)
+    model.mesh_shape = dict(mesh.shape)
+    model._plans.clear()
+    return model
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
             mesh=None) -> LM:
     """Random weights from a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (normal draws scaled as ``dense_init`` / ``embed_init``;
-    norms ones, biases zeros).  Under ``mesh`` the routed experts are this
-    rank's slice of the full init: one matrix a projection is drawn and
-    repeated over the experts, so the draws are the same."""
+    norms ones, biases zeros).  Under ``mesh`` each leaf is drawn whole, in
+    the same order, and this rank keeps its shard: every mesh holds the
+    same global weights."""
     dev = check_device(device)
     return LM(cfg, device=dev, mesh=mesh,
               gen=torch.Generator(device=dev).manual_seed(seed))
@@ -301,7 +420,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     xLSTM states float32, as in the reference (an xLSTM cache does not
     grow: ``max_len`` is unused)."""
     check_supported(cfg)
-    dev = check_device(device)
+    dev = _device(device)
 
     def one(layer):
         if cfg.family == "ssm":

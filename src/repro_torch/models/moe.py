@@ -9,8 +9,8 @@ and the dispatch templates that ``cfg.moe.dispatch`` selects when
 ``moe_ffn`` is given expert-parallel mesh axes (else ``gspmd``):
 
 * ``gspmd``  -- every expert on this rank, routing its own tokens (the
-  reference's result; XLA's sharding of the experts has no counterpart
-  until the port's DTensor placements).
+  reference's result); under a mesh the experts are gathered whole from
+  their placed shards before the block runs (``models.lm``).
 * ``teshu``  -- the explicit dispatch (:func:`_moe_ep`): one flat
   all-to-all over the EP axes (``("pod", "model")`` when multi-pod),
   :func:`repro_torch.core.meshops.all_to_all_axis`.
@@ -23,7 +23,9 @@ MoE dispatch is a TeShu shuffle: the router is ``partFunc``, the
 all-to-all the transfer, the weighted combine ``combFunc``.  The dispatch
 is per-rank SPMD code over a :class:`~repro_torch.launch.mesh.Mesh`: ``x``
 is this rank's rows of the batch, and its ``experts`` hold its slice of
-``E / ep`` experts (:func:`expert_slice`).
+``E / ep`` experts (the expert axis of their placement,
+``launch.shardings``; the block sees them gathered over ``data``, their
+other split).
 
 The expert FFN's products run through the grouped matmul
 (:func:`repro_torch.kernels.ops.grouped_matmul`, the ``gmm`` kernel on the
@@ -56,7 +58,6 @@ from torch import nn
 from repro_torch.core import meshops
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.gmm import positions_in_group
-from repro_torch.launch.shardings import ep_axes_for
 
 from .config import ModelConfig
 from .layers import dense_init, dtype_of, param
@@ -88,38 +89,21 @@ class ExpertStack(nn.Module):
             setattr(self, name, param(w))
 
 
-def expert_slice(cfg: ModelConfig, mesh=None) -> tuple[int, int]:
-    """``(first, count)`` of the routed experts a rank holds: all of them
-    without a mesh or on the ``gspmd`` dispatch; else its block of ``E /
-    ep`` by its index over the EP axes (``ep_axes_for(mesh)``, the first
-    axis major), as the reference shards the expert axis ``P(ep_axes)``."""
-    e = cfg.moe.num_experts
-    if mesh is None or cfg.moe.dispatch == "gspmd":
-        return 0, e
-    axes = ep_axes_for(mesh)
-    ep = mesh.axis_size(axes)
-    if e % ep:
-        raise ValueError(f"{e} experts do not divide over {ep} EP ranks")
-    return mesh.index(axes) * (e // ep), e // ep
-
-
 class MoE(nn.Module):
     """The MoE FFN of one block: ``router [d, E]``, ``experts`` and, when
     ``num_shared``, the always-on ``shared`` experts.  Made from ``gen``
     with the reference's ``init_moe`` distributions (the router
     ``0.02``-scaled, each projection ``1/sqrt(d_in)``-scaled and repeated
-    over the experts), or empty for a conversion to fill.  Under a
-    ``mesh`` the routed stack holds this rank's :func:`expert_slice`; the
-    router and the shared experts stay whole."""
+    over the experts), or empty for a conversion to fill; whole (an
+    ``LM`` under a mesh places each of its leaves)."""
 
-    def __init__(self, cfg: ModelConfig, *, device, gen=None, mesh=None):
+    def __init__(self, cfg: ModelConfig, *, device, gen=None):
         super().__init__()
         m = cfg.moe
         self.cfg = cfg
         self.router = param(dense_init(gen, cfg.d_model, m.num_experts,
                                        dtype_of(cfg), device, scale=0.02))
-        self.experts = ExpertStack(cfg, expert_slice(cfg, mesh)[1],
-                                   device=device, gen=gen)
+        self.experts = ExpertStack(cfg, m.num_experts, device=device, gen=gen)
         self.shared = ExpertStack(cfg, m.num_shared, device=device, gen=gen) \
             if m.num_shared else None
 

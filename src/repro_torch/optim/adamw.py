@@ -19,11 +19,13 @@ copy.  A leaf's update runs over slices of at most ``CHUNK`` elements, each
 element's chain of operations unchanged, so that its float32 temporaries
 stay small.
 
-Under a mesh every rank holds the whole gradient of a replicated leaf and
-of its own slice of a split one (a MoE block's routed experts, split over
-the EP axes).  The global norm then counts each replicated leaf once and
-sums the split leaves' squares over the axes they are split on, so that
-every rank clips by the reference's norm and the replicas stay equal.
+Under a mesh every leaf is this rank's shard by its spec
+(``launch.shardings``), and so are its gradient, already summed over the
+mesh, and its moments.  The global norm sums each leaf's squares over the
+axes its spec names (each replicated leaf counts once), so that every rank
+clips by the reference's norm and the replicas stay equal; a factored
+second moment sums its row and column means over the axes that split the
+dimension they reduce.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import math
 import torch
 
 from repro_torch.core import meshops
+from repro_torch.launch.shardings import split_leaves
 
 F32 = torch.float32
 CHUNK = 1 << 25            # elements per slice of a leaf's update
@@ -103,9 +106,10 @@ def global_norm(tree: dict, *, mesh=None,
                 split: dict | None = None) -> torch.Tensor:
     """The float32 norm of every leaf together (each leaf's sum of squares
     first, then their sum).  Under ``mesh``, ``split`` maps the name of a
-    leaf that is this rank's slice to the axes it is split over: the
-    slices' squares are summed over those axes (one all-reduce an axis
-    set), and every other leaf counts once."""
+    leaf that is this rank's shard to the axes it is split over
+    (``shardings.split_leaves``): the shards' squares are summed over
+    those axes (one all-reduce an axis set), and every other leaf counts
+    once."""
     split = split or {}
 
     def sq(x):
@@ -155,18 +159,35 @@ def _slices(n: int):
         yield slice(start, min(n, start + CHUNK))
 
 
+def _entry(spec: tuple, d: int) -> tuple:
+    """The axes of ``spec``'s entry for dimension ``d`` (negative)."""
+    e = spec[d] if len(spec) >= -d else None
+    return () if e is None else e if isinstance(e, tuple) else (e,)
+
+
+def _mean(x: torch.Tensor, dim: int, axes, mesh) -> torch.Tensor:
+    """``x.mean(dim)``, the dimension split over ``axes`` of ``mesh``:
+    the local sum summed over them, over the whole length."""
+    if not axes:
+        return x.mean(dim)
+    return meshops.psum(x.sum(dim), mesh, axes) / (
+        x.shape[dim] * mesh.axis_size(axes))
+
+
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: dict, grads: dict,
                  state: dict, *, mesh=None,
-                 split: dict | None = None) -> tuple[dict, dict, dict]:
+                 specs: dict | None = None) -> tuple[dict, dict, dict]:
     """One AdamW step: ``(params, state, {"grad_norm", "lr"})``, the
     parameters and the state updated in place (the same dicts).  Each
     gradient is clipped, used and released in turn (``grads`` is
     emptied).  Each moment must lie in its parameter's layout, as
     :func:`init_opt_state` makes it.  Under ``mesh`` the gradients are
-    already summed over the mesh and ``split`` names the leaves that are
-    this rank's slices (:func:`global_norm`)."""
-    norm = global_norm(grads, mesh=mesh, split=split)
+    already summed over the mesh, and ``specs`` (the model's) places each
+    leaf (:func:`global_norm`; the factored moment's means)."""
+    specs = specs if mesh is not None else None
+    norm = global_norm(grads, mesh=mesh, split=split_leaves(specs, mesh)
+                       if specs else None)
     dev = norm.device
     scale = _clip_scale(norm, cfg.grad_clip)
     state["step"] = state["step"] + 1
@@ -201,12 +222,14 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict,
         m, v = state["m"][name], state["v"][name]
         dmask = _f32(1.0 if decay[name] else 0.0, dev)
         if isinstance(v, dict):                       # factored second moment
+            spec = (specs or {}).get(name, ())
+            last, second = (_entry(spec, d) for d in (-1, -2))
             g32 = clipped(g)
             m2 = b1 * m.float() + c1 * g32
             g2 = torch.square(g32)
-            r2 = b2 * v["r"] + c2 * g2.mean(-1)
-            c2_ = b2 * v["c"] + c2 * g2.mean(-2)
-            r_mean = r2.mean(-1, keepdim=True)
+            r2 = b2 * v["r"] + c2 * _mean(g2, -1, last, mesh)
+            c2_ = b2 * v["c"] + c2 * _mean(g2, -2, second, mesh)
+            r_mean = _mean(r2, -1, second, mesh)[..., None]
             vh = (r2[..., :, None] * c2_[..., None, :]
                   / torch.clamp(r_mean[..., None], min=1e-30)) / b2t
             p.copy_(new_p(p, m2 / b1t, vh, dmask))

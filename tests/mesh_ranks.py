@@ -193,6 +193,17 @@ def moe_config(pkg, dispatch: str, dtype: str, capacity_factor: float):
                                        capacity_factor=capacity_factor))
 
 
+def expert_rows(cfg, mesh) -> tuple[int, int]:
+    """``(first, count)`` of the routed experts a rank holds: the expert
+    axis of their spec's block."""
+    from repro_torch.launch import shardings
+    shape = (cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert)
+    spec = shardings.leaf_spec(f"blocks.{cfg.n_layers - 1}.moe.experts.w_up",
+                               shape, mesh, cfg)
+    rows = shardings.shard_slices(spec, shape, mesh)[0]
+    return rows.start, rows.stop - rows.start
+
+
 def unflatten(flat: dict, prefix: str) -> dict:
     """``{"a|b|c": v}`` -> ``{"a": {"b": {"c": v}}}`` for the keys under
     ``prefix|``."""
@@ -209,13 +220,18 @@ def unflatten(flat: dict, prefix: str) -> dict:
 
 
 def reference_moe(inputs: str, out: str, cases: list, serve_kw: dict,
-                  arch: str) -> None:
+                  arch: str, archs: tuple = ()) -> None:
     """``moe_ffn`` on each case under ``jax.jit`` with the EP axes ``("pod",
     "model")``, and the serving loop over the mesh
-    (:func:`_reference_serve`)."""
+    (:func:`_reference_serve`) for ``arch`` (under ``serve``) and each of
+    ``archs`` (under ``serve-<arch>``); for each served model every
+    device's bytes of each leaf placed by ``param_specs``
+    (``bytes-<arch>|<path>``, one count a device)."""
     import jax
     import jax.numpy as jnp
 
+    from repro.configs import get_config
+    from repro.launch.shardings import (_path_str, param_specs, to_named)
     from repro.models import config as rconfig
     from repro.models.moe import moe_ffn
     data = dict(np.load(inputs))
@@ -232,9 +248,18 @@ def reference_moe(inputs: str, out: str, cases: list, serve_kw: dict,
                 p, cfg, x, mesh_axes=("pod", "model")))(p, x)
         res[f"{nm}|y"] = np.asarray(y.astype(jnp.float32))
         res[f"{nm}|aux"] = np.asarray(aux)
-    gen, logits = _reference_serve(arch, unflatten(data, "serve"), mesh,
-                                   **serve_kw)
-    res["serve|tokens"], res["serve|logits"] = gen, logits
+    devices = list(mesh.devices.flat)
+    for a, key in [(arch, "serve")] + [(a, f"serve-{a}") for a in archs]:
+        params = unflatten(data, key)
+        gen, logits = _reference_serve(a, params, mesh, **serve_kw)
+        res[f"{key}|tokens"], res[f"{key}|logits"] = gen, logits
+        placed = jax.device_put(params, to_named(param_specs(
+            params, mesh, get_config(a, smoke=True)), mesh))
+        for path, leaf in jax.tree_util.tree_flatten_with_path(placed)[0]:
+            n = [0] * len(devices)
+            for sh in leaf.addressable_shards:
+                n[devices.index(sh.device)] += sh.data.nbytes
+            res[f"bytes-{a}|{_path_str(path)}"] = np.array(n)
     np.savez(out, **res)
 
 
@@ -384,13 +409,20 @@ def _meshops_rank(inputs: str) -> dict:
     return res
 
 
-def _moe_rank(inputs: str, cases: list, serve_kw: dict, arch: str) -> dict:
+def _local_bytes(model) -> dict:
+    return {n: p.numel() * p.element_size()
+            for n, p in model.named_parameters()}
+
+
+def _moe_rank(inputs: str, cases: list, serve_kw: dict, arch: str,
+              archs: tuple = ()) -> dict:
     import dataclasses
 
     import torch
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
+    from repro_torch.launch import shardings
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import serve
     from repro_torch.models import config as pconfig
@@ -403,14 +435,16 @@ def _moe_rank(inputs: str, cases: list, serve_kw: dict, arch: str) -> dict:
     res = {"rank": np.array(dist.get_rank())}
 
     def block(nm, cfg, dtype):
-        first, n = moe.expert_slice(cfg, mesh)
+        """A lone MoE block holding this rank's experts (the EP slice the
+        dispatch needs) and the router whole."""
+        first, n = expert_rows(cfg, mesh)
         tree = unflatten(data, nm)
-        b = moe.MoE(cfg, device="cpu", mesh=mesh)
+        b = moe.MoE(cfg, device="cpu")
         with torch.no_grad():
             b.router.copy_(torch.from_numpy(tree["router"]))
             for k, v in tree["experts"].items():
-                getattr(b.experts, k).copy_(torch.from_numpy(
-                    v[first:first + n]))
+                getattr(b.experts, k).data = torch.from_numpy(
+                    np.ascontiguousarray(v[first:first + n]))
         return b
 
     for nm, dispatch, dtype, cf in cases:
@@ -434,22 +468,46 @@ def _moe_rank(inputs: str, cases: list, serve_kw: dict, arch: str) -> dict:
             finally:
                 moe._ep_shuffle = real
             res[f"{nm}|swapped"] = y.float().numpy()
-    # serving over the mesh, and the expert slices of init and convert
+    # serving over the mesh with the parameters placed by their specs; the
+    # same with every leaf but the routed experts replicated
+    real_spec = shardings.leaf_spec
+
+    def replicated(name, shape, mesh_, cfg):
+        spec = real_spec(name, shape, mesh_, cfg)
+        return spec if ".moe.experts." in name else (None,) * len(spec)
+    for a, key in [(arch, "serve")] + [(a, f"serve-{a}") for a in archs]:
+        pcfg = get_config(a, smoke=True)
+        model = lm_params_from_reference(pcfg, unflatten(data, key),
+                                         device="cpu", mesh=mesh)
+        res.update({f"bytes-{a}|{n}": np.array(v)
+                    for n, v in _local_bytes(model).items()})
+        if key == "serve":
+            res["serve|w_up"] = model.blocks[0].moe.experts.w_up.numpy()
+        gen, stats = serve(a, device="cpu", params=model, mesh=mesh,
+                           **serve_kw)
+        res[f"{key}|tokens"] = gen
+        res[f"{key}|logits"] = torch.stack(stats.logits).numpy()
+        shardings.leaf_spec = replicated
+        try:
+            model = lm_params_from_reference(pcfg, unflatten(data, key),
+                                             device="cpu", mesh=mesh)
+        finally:
+            shardings.leaf_spec = real_spec
+        res[f"repl-{a}|placed"] = np.array(len(model._split))
+        gen, stats = serve(a, device="cpu", params=model, mesh=mesh,
+                           **serve_kw)
+        res[f"repl-{a}|tokens"] = gen
+        res[f"repl-{a}|logits"] = torch.stack(stats.logits).numpy()
+    # init_lm under the mesh: each leaf this rank's shard of the full init
     pcfg = get_config(arch, smoke=True)
-    model = lm_params_from_reference(pcfg, unflatten(data, "serve"),
-                                     device="cpu", mesh=mesh)
-    res["serve|w_up"] = model.blocks[0].moe.experts.w_up.numpy()
-    gen, stats = serve(arch, device="cpu", params=model, mesh=mesh,
-                       **serve_kw)
-    res["serve|tokens"] = gen
-    res["serve|logits"] = torch.stack(stats.logits).numpy()
     cut = dataclasses.replace(pcfg, n_layers=1)
     mine = lm.init_lm(cut, seed=3, device="cpu", mesh=mesh)
-    full = lm.init_lm(cut, seed=3, device="cpu")
-    first, n = moe.expert_slice(cut, mesh)
+    full = dict(lm.init_lm(cut, seed=3, device="cpu").named_parameters())
+    first, n = expert_rows(cut, mesh)
     res["init|slice"] = np.array([first, n])
     res["init|same"] = np.array(all(
-        torch.equal(p, dict(full.named_parameters())[k][first:first + n]
-                    if ".experts." in k else dict(full.named_parameters())[k])
+        torch.equal(p, full[k][shardings.shard_slices(
+            mine.specs[k], full[k].shape, mesh)])
         for k, p in mine.named_parameters()))
+    res["init|split"] = np.array(sorted(mine._split))
     return res

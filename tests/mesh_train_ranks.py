@@ -5,7 +5,9 @@ The pattern of ``mesh_ranks.py``: the reference in one subprocess over 8
 forced host devices, under ``with mesh:`` on ``make_mesh((2, 2, 2),
 ("pod", "data", "model"))`` with replicated parameters, its steps jitted;
 the port in one ``torch.multiprocessing`` spawn of 8 gloo ranks (and one of
-4 for the restore onto a smaller mesh) that meet through a file store.
+4 for the restore onto a smaller mesh) that meet through a file store, its
+parameters and moments placed by the sharding rules (each rank's results
+gathered whole before they are written).
 Both read one ``.npz`` of numpy inputs made from seeds and write their
 outputs to ``.npz`` files.  This module imports neither jax nor torch at
 its top.
@@ -22,7 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
-from mesh_ranks import AXES, MESH, REPO, unflatten
+from mesh_ranks import AXES, MESH, REPO, expert_rows, unflatten
 
 ARCHS = ("deepseek-v2-236b", "qwen3-moe-235b-a22b")
 # 8 rows of 30 tokens: at n_micro 1 a rank routes 30 tokens (2 rows over
@@ -54,6 +56,10 @@ TRAIN = dict(arch="qwen3-moe-235b-a22b", steps=3, global_batch=8,
 CKPT = dict(arch="qwen3-moe-235b-a22b", steps=6, global_batch=8,
             seq_len=16, lr=1e-2, seed=5, ckpt_every=3)
 SMALL = (1, 2, 2)
+# placement against replication: n_micro 1, teshu2, capacity 8.0
+PLACE_CASES = [(f"{a}-teshu2-8.0-1", a) for a in ARCHS]
+# build_cell's stand-ins of the SMOKE cells
+CELLS = ("train_4k", "prefill_32k", "decode_32k")
 
 
 def moe_cfg(cfg, dispatch: str, cf: float):
@@ -104,8 +110,9 @@ def reference_train(inputs: str, out: str) -> None:
     from repro.configs import get_config
     from repro.data.pipeline import DataConfig, SyntheticLMDataset
     from repro.launch.mesh import make_mesh
-    from repro.launch.shardings import ep_axes_for
-    from repro.launch.steps import Recipe, make_train_step
+    from repro.launch.shardings import (_path_str, ep_axes_for, opt_v_specs,
+                                        param_specs, to_named)
+    from repro.launch.steps import Recipe, build_cell, make_train_step
     from repro.models import lm
     from repro.optim import AdamWConfig, init_opt_state, microbatch_grads
     data = dict(np.load(inputs))
@@ -160,6 +167,32 @@ def reference_train(inputs: str, out: str) -> None:
                                  if s.device == dev)
                     res[f"rows|{n}|{r}|{k}"] = np.asarray(
                         shard.data).reshape(-1, *x.shape[1:])
+    # each device's bytes of the parameters and moments placed by the
+    # sharding rules (train()'s float32 moments)
+    devices = list(mesh.devices.flat)
+    cfg = get_config(TRAIN["arch"], smoke=True)
+    p = unflatten(data, f"p-{TRAIN['arch']}")
+    specs = param_specs(p, mesh, cfg)
+    o = init_opt_state(p)
+    o_specs = {"m": specs, "v": opt_v_specs(specs, p, False), "step": P()}
+    for key, tree, sp in (("p", p, specs), ("o", o, o_specs)):
+        placed = jax.device_put(tree, to_named(sp, mesh))
+        for path, leaf in jax.tree_util.tree_flatten_with_path(placed)[0]:
+            n = [0] * len(devices)
+            for sh in leaf.addressable_shards:
+                n[devices.index(sh.device)] += sh.data.nbytes
+            res[f"bytes|{key}|{_path_str(path)}"] = np.array(n)
+    # build_cell's stand-ins: global shape, dtype and shard shape
+    for arch in ARCHS:
+        for shape in CELLS:
+            cell = build_cell(arch, shape, mesh, smoke=True)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(
+                    cell.args)[0]:
+                key = f"cell|{arch}|{shape}|{_path_str(path)}"
+                res[f"{key}|global"] = np.array(leaf.shape)
+                res[f"{key}|local"] = np.array(
+                    leaf.sharding.shard_shape(leaf.shape))
+                res[f"{key}|dtype"] = np.array(str(leaf.dtype))
     np.savez(out, **res)
 
 
@@ -198,31 +231,116 @@ def _rank_main(rank: int, world: int, tmp: str, job: str, args: tuple):
         dist.destroy_process_group()
 
 
-def _named(model) -> dict:
-    return {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
+def _whole(x, spec, mesh):
+    from repro_torch.launch import shardings
+    return shardings.gather(x, shardings.gather_spec(spec, mesh), mesh)
 
 
-def _mesh_grads(model, cfg, mesh, batch: dict, n_micro: int, split=None):
-    """This rank's summed gradients and the global loss of one step's
-    microbatches (the step without its update)."""
+def _named(model, mesh=None) -> dict:
+    """Every parameter whole (gathered over the mesh it is placed on)."""
+    import torch
+    with torch.no_grad():
+        return {n: (p if mesh is None else _whole(p, model.specs[n], mesh))
+                .detach().numpy().copy()
+                for n, p in model.named_parameters()}
+
+
+def _mesh_grads(model, cfg, mesh, batch: dict, n_micro: int,
+                pre: dict | None = None):
+    """This rank's summed gradients, gathered whole, the global loss of
+    one step's microbatches (the step without its update) and the
+    collectives the step made (counted before the gathering).  Given
+    ``pre``, it receives each gradient before the sums over ranks: a
+    placed leaf's as its gather's backward receives it (the whole leaf's),
+    any other as the microbatches leave it."""
     import torch
 
     from repro_torch.core import meshops
     from repro_torch.data import rank_rows
-    from repro_torch.launch import steps
+    from repro_torch.launch import shardings, steps
     from repro_torch.models import lm
     from repro_torch.optim import microbatch_grads
     params = dict(model.named_parameters())
     rows = {k: torch.from_numpy(rank_rows(v, mesh, n_micro))
             for k, v in batch.items()}
-    loss, grads = microbatch_grads(
-        lambda p, b: lm.train_loss(model, b, mesh=mesh), params, rows,
-        n_micro)
-    if split is None:
-        split = steps.split_leaves(cfg, params, mesh)
-    grads = steps.sum_grads(grads, mesh, split)
+    real, names = shardings.gather, {id(p): n for n, p in params.items()}
+
+    def capture(x, spec, mesh_):
+        y = real(x, spec, mesh_)
+        if y is not x and y.requires_grad:
+            y.register_hook(lambda g, n=names[id(x)]: pre.__setitem__(
+                n, g.detach().clone() + pre.get(n, 0)))
+        return y
+    if pre is not None:
+        shardings.gather = capture
+    try:
+        loss, grads = microbatch_grads(
+            lambda p, b: lm.train_loss(model, b, mesh=mesh), params, rows,
+            n_micro)
+    finally:
+        shardings.gather = real
+    if pre is not None:
+        for n, g in grads.items():
+            pre.setdefault(n, g.clone())
+    grads = steps.sum_grads(grads, mesh, shardings.split_leaves(model.specs,
+                                                                mesh))
     loss = meshops.flat_psum(loss, mesh, mesh.axis_names)
-    return float(loss), {n: g.numpy() for n, g in grads.items()}
+    counts = np.array([meshops.COUNTS[k] for k in meshops.KINDS])
+    with torch.no_grad():
+        whole = {n: _whole(g, model.specs[n], mesh).numpy()
+                 for n, g in grads.items()}
+    return float(loss), whole, counts
+
+
+def _model_major(real):
+    """The planted fault: a leaf split over ``data`` and ``model`` (on two
+    dimensions) gathered as one tile a rank over ``("model", "data")``
+    and laid out as if ``data`` were the major axis."""
+    import torch
+
+    from repro_torch.core import meshops
+
+    def gather(x, spec, mesh):
+        if sorted(a for e in spec if e for a in e) != ["data", "model"] \
+                or any(e and len(e) > 1 for e in spec):
+            return real(x, spec, mesh)
+        tiles = meshops.all_gather(x[None], mesh, ("model", "data"), axis=0)
+        d, m = mesh.shape["data"], mesh.shape["model"]
+        grid = tiles.reshape(d, m, *x.shape)
+        dd, dm = spec.index(("data",)), spec.index(("model",))
+        return torch.cat([torch.cat(list(grid[i]), dim=dm)
+                          for i in range(d)], dim=dd)
+    return gather
+
+
+def _sliced_backward(ctx, g):
+    """The planted fault: a placed leaf's gradient kept as this rank's
+    block of it, not reduce-scattered (``shardings._Gather``'s
+    backward)."""
+    spec, mesh = ctx.args
+    for d in reversed(range(len(spec))):
+        if spec[d]:
+            n = g.shape[d] // mesh.axis_size(spec[d])
+            g = g.narrow(d, mesh.index(spec[d]) * n, n)
+    return g.contiguous(), None, None
+
+
+def _experts_sliced(real, model):
+    """``shardings.gather`` whose gathers of a routed expert (over
+    ``data``) take :func:`_sliced_backward`: the experts' gradient sum
+    over ``data`` skipped."""
+    from repro_torch.launch import shardings
+
+    class Sliced(shardings._Gather):
+        backward = staticmethod(_sliced_backward)
+    experts = {id(p) for n, p in model.named_parameters()
+               if ".moe.experts." in n}
+
+    def gather(x, spec, mesh):
+        if id(x) in experts and any(spec):
+            return Sliced.apply(x, spec, mesh)
+        return real(x, spec, mesh)
+    return gather
 
 
 def _train_rank(inputs: str) -> dict:
@@ -235,7 +353,7 @@ def _train_rank(inputs: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core import meshops
     from repro_torch.data import DataConfig, SyntheticLMDataset, rank_rows
-    from repro_torch.launch import steps
+    from repro_torch.launch import shardings, steps
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import train
     from repro_torch.models import moe
@@ -244,7 +362,7 @@ def _train_rank(inputs: str) -> dict:
     data = dict(np.load(inputs))
     mesh = make_mesh(MESH, AXES, device_type="cpu")
     res: dict = {"rank": np.array(dist.get_rank()),
-                 "expert_slice": np.array(moe.expert_slice(
+                 "expert_slice": np.array(expert_rows(
                      get_config(ARCHS[0], smoke=True), mesh))}
 
     def model_of(arch, cfg, on=mesh):
@@ -257,10 +375,9 @@ def _train_rank(inputs: str) -> dict:
 
     def run_case(key, arch, cfg, n_micro, on=mesh):
         meshops.reset_counts()
-        loss, g = _mesh_grads(model_of(arch, cfg, on), cfg, on,
-                              batch_of(arch), n_micro)
-        res[f"{key}|counts"] = np.array([meshops.COUNTS[k]
-                                         for k in meshops.KINDS])
+        loss, g, counts = _mesh_grads(model_of(arch, cfg, on), cfg, on,
+                                      batch_of(arch), n_micro)
+        res[f"{key}|counts"] = counts
         res[f"{key}|loss"] = np.array(loss)
         res.update({f"{key}|g|{n}": v for n, v in g.items()})
 
@@ -289,37 +406,75 @@ def _train_rank(inputs: str) -> dict:
     try:
         for arch in ARCHS:
             cfg = moe_cfg(get_config(arch, smoke=True), "teshu2", 8.0)
-            loss, g = _mesh_grads(model_of(arch, cfg), cfg, mesh,
-                                  batch_of(arch), 1)
+            loss, g, _ = _mesh_grads(model_of(arch, cfg), cfg, mesh,
+                                     batch_of(arch), 1)
             res[f"noaux-{arch}|loss"] = np.array(loss)
             res.update({f"noaux-{arch}|g|{n}": v for n, v in g.items()})
     finally:
         moe._route = real
-    # the controls: the experts' sum over data skipped; the all-gather's
-    # backward a slice of the gradient without the sum over model
+    # placement against replication: every leaf but the routed experts
+    # replicated (a monkeypatched leaf_spec), the gradients before and
+    # after the sums over ranks
+    real_spec = shardings.leaf_spec
+
+    def replicated(name, shape, mesh_, cfg_):
+        spec = real_spec(name, shape, mesh_, cfg_)
+        return spec if ".moe.experts." in name else (None,) * len(spec)
+    for key, arch in PLACE_CASES:
+        cfg = moe_cfg(get_config(arch, smoke=True), "teshu2", 8.0)
+        for tag in ("placed", "replicated"):
+            if tag == "replicated":
+                shardings.leaf_spec = replicated
+            try:
+                model = model_of(arch, cfg)
+            finally:
+                shardings.leaf_spec = real_spec
+            pre: dict = {}
+            loss, g, _ = _mesh_grads(model, cfg, mesh, batch_of(arch), 1,
+                                     pre=pre)
+            res[f"{tag}-{arch}|loss"] = np.array(loss)
+            res[f"{tag}-{arch}|split"] = np.array(len(model._split))
+            res.update({f"{tag}-{arch}|g|{n}": v for n, v in g.items()})
+            res.update({f"{tag}-{arch}|pre|{n}": v.numpy()
+                        for n, v in pre.items()})
+
+    # the controls: the experts' sum over data skipped (their gather's
+    # reduce-scatter a slice); the dispatch's all-gather's backward a slice
+    # of the gradient without the sum over model; every placed leaf
+    # gathered with model major over data; every placed leaf's
+    # reduce-scatter a slice
     arch = CONTROL_CASE.split("-teshu")[0]
     cfg = get_config(arch, smoke=True)
     cfg = moe_cfg(cfg, "teshu2", 8.0)
-    model = model_of(arch, cfg)
-    skip = {n: mesh.axis_names for n in dict(model.named_parameters())
-            if ".moe.experts." in n}
-    _, g = _mesh_grads(model, cfg, mesh, batch_of(arch), 1, split=skip)
-    res.update({f"no_data_sum|g|{n}": v for n, v in g.items()})
-    back = meshops._AllGather.backward
+    back = shardings._Gather.backward
+    real_gather = shardings.gather
+    ag_back = meshops._AllGather.backward
 
-    def sliced(ctx, g):
+    def ag_sliced(ctx, g):
         mesh_, axes, axis = ctx.args
         grp = mesh_.group(axes)
         front = g.movedim(axis, 0)
         n = front.shape[0] // grp.size
         return (front[grp.index * n:(grp.index + 1) * n].movedim(0, axis)
                 .contiguous(), None, None, None)
-    meshops._AllGather.backward = staticmethod(sliced)
-    try:
-        _, g = _mesh_grads(model_of(arch, cfg), cfg, mesh, batch_of(arch), 1)
-    finally:
-        meshops._AllGather.backward = staticmethod(back)
-    res.update({f"no_gather_sum|g|{n}": v for n, v in g.items()})
+    for control in ("no_data_sum", "no_gather_sum", "model_major",
+                    "rs_slice"):
+        model = model_of(arch, cfg)
+        if control == "no_data_sum":
+            shardings.gather = _experts_sliced(real_gather, model)
+        elif control == "no_gather_sum":
+            meshops._AllGather.backward = staticmethod(ag_sliced)
+        elif control == "model_major":
+            shardings.gather = _model_major(real_gather)
+        else:
+            shardings._Gather.backward = staticmethod(_sliced_backward)
+        try:
+            _, g, _ = _mesh_grads(model, cfg, mesh, batch_of(arch), 1)
+        finally:
+            shardings._Gather.backward = staticmethod(back)
+            shardings.gather = real_gather
+            meshops._AllGather.backward = staticmethod(ag_back)
+        res.update({f"{control}|g|{n}": v for n, v in g.items()})
 
     # the prefill and serve step builders over the mesh, at 8.0
     from repro_torch.models.config import SHAPES
@@ -345,9 +500,44 @@ def _train_rank(inputs: str) -> dict:
             for k, v in batch_of(STEPS["arch"]).items()}
     for i in range(STEPS["n"]):
         _, opt, m = step(model, opt, rows)
-        res.update({f"step{i}|p|{n}": v for n, v in _named(model).items()})
+        res.update({f"step{i}|p|{n}": v
+                    for n, v in _named(model, mesh).items()})
         for k, v in m.items():
             res[f"step{i}|{k}"] = np.array(float(v))
+
+    # one step with a factored second moment, placed and with every leaf
+    # but the routed experts replicated: the moments' factors (gathered
+    # whole) and the weights; and named_from_reference's shards
+    from repro_torch.models.convert import named_from_reference
+    for tag in ("placed", "replicated"):
+        if tag == "replicated":
+            shardings.leaf_spec = replicated
+        try:
+            model = model_of(STEPS["arch"], cfg)
+        finally:
+            shardings.leaf_spec = real_spec
+        if tag == "placed":
+            res["named|same"] = np.array(all(
+                torch.equal(t, p) for t, p in zip(named_from_reference(
+                    model, unflatten(data, f"p-{STEPS['arch']}"),
+                    mesh=mesh).values(), model.parameters())))
+        opt = init_opt_state(dict(model.named_parameters()),
+                             factored_v=True)
+        step = steps.make_train_step(
+            cfg, AdamWConfig(**STEPS["opt"], factored_v=True),
+            steps.Recipe(n_micro=STEPS["n_micro"], factored_v=True),
+            mesh=mesh)
+        _, opt, _ = step(model, opt, rows)
+        res.update({f"factored-{tag}|p|{n}": v
+                    for n, v in _named(model, mesh).items()})
+        vspecs = shardings.opt_v_specs(model.specs, {
+            n: shardings.global_shape(model.specs[n], p.shape, mesh)
+            for n, p in model.named_parameters()}, True)
+        with torch.no_grad():
+            for n, v in opt["v"].items():
+                for k, t in (v.items() if isinstance(v, dict) else ()):
+                    res[f"factored-{tag}|{k}|{n}"] = _whole(
+                        t, vspecs[n][k], mesh).numpy()
 
     # train(mesh=...) against a loop of the step on the pipeline's rows
     kw = {k: v for k, v in TRAIN.items() if k != "arch"}
@@ -357,7 +547,14 @@ def _train_rank(inputs: str) -> dict:
     res["train|loss"] = np.array([h["loss"] for h in out["history"]])
     res["train|grad_norm"] = np.array([h["grad_norm"]
                                        for h in out["history"]])
-    res.update({f"train|p|{n}": v for n, v in _named(out["params"]).items()})
+    res.update({f"train|p|{n}": v
+                for n, v in _named(out["params"], mesh).items()})
+    # the rank's bytes of train()'s parameters and moments
+    res.update({f"tbytes|{k}|{n}": np.array(t.numel() * t.element_size())
+                for k, tree in (("p", dict(out["params"].named_parameters())),
+                                ("m", out["opt_state"]["m"]),
+                                ("v", out["opt_state"]["v"]))
+                for n, t in tree.items()})
     model = model_of(TRAIN["arch"], cfg)
     ocfg = AdamWConfig(lr=TRAIN["lr"], total_steps=max(TRAIN["steps"], 2),
                        warmup_steps=max(1, TRAIN["steps"] // 10))
@@ -376,7 +573,7 @@ def _train_rank(inputs: str) -> dict:
                                       for k, v in rows.items()})
         losses.append(float(m["loss"]))
     res["loop|loss"] = np.array(losses)
-    res.update({f"loop|p|{n}": v for n, v in _named(model).items()})
+    res.update({f"loop|p|{n}": v for n, v in _named(model, mesh).items()})
 
     # the uninterrupted run that the restore onto (1, 2, 2) resumes
     ck = {k: v for k, v in CKPT.items() if k != "arch"}
@@ -388,8 +585,43 @@ def _train_rank(inputs: str) -> dict:
     out = train(CKPT["arch"], device="cpu", mesh=mesh, n_micro=1,
                 ckpt_dir=str(ckdir), params=model_of(CKPT["arch"], cfg), **ck)
     res["ckpt|loss"] = np.array([h["loss"] for h in out["history"]])
-    res.update({f"ckpt|p|{n}": v for n, v in _named(out["params"]).items()})
+
+    # build_cell's stand-ins: each one's global shape, dtype and local shape
+    for arch in ARCHS:
+        for shape in CELLS:
+            cell = steps.build_cell(arch, shape, mesh, smoke=True)
+            model, rest = cell.args[0], cell.args[1:]
+            key = f"cell|{arch}|{shape}"
+            for n, p in model.named_parameters():
+                res[f"{key}|params/{n}|global"] = np.array(
+                    shardings.global_view(p, model.specs[n], mesh).shape)
+                res[f"{key}|params/{n}|local"] = np.array(p.shape)
+                res[f"{key}|params/{n}|dtype"] = np.array(
+                    str(p.dtype).removeprefix("torch."))
+            names = {"train": ("opt_state", "batch"), "prefill": ("batch",),
+                     "decode": ("cache", "batch")}[cell.shape.kind]
+            for name, tree in zip(names, rest):
+                for path, t in _leaves(tree, name):
+                    res[f"{key}|{path}|global"] = np.array(t.shape)
+                    res[f"{key}|{path}|local"] = np.array(
+                        t.to_local().shape)
+                    res[f"{key}|{path}|dtype"] = np.array(
+                        str(t.dtype).removeprefix("torch."))
     return res
+
+
+def _leaves(tree, prefix: str):
+    """``(path, DTensor)`` of a tree of stand-ins (integer leaves, a
+    cache's ``pos`` and ``len``, left out)."""
+    import torch
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}/{i}")
+    elif isinstance(tree, torch.Tensor):
+        yield prefix, tree
 
 
 def _resume_rank(inputs: str, ckdir: str) -> dict:
@@ -400,14 +632,13 @@ def _resume_rank(inputs: str, ckdir: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import train
-    from repro_torch.models import moe
     from repro_torch.models.convert import lm_params_from_reference
     data = dict(np.load(inputs))
     mesh = make_mesh(SMALL, AXES, device_type="cpu")
     cfg = get_config(CKPT["arch"], smoke=True)
     ck = {k: v for k, v in CKPT.items() if k not in ("arch", "steps")}
     res = {"rank": np.array(dist.get_rank()),
-           "expert_slice": np.array(moe.expert_slice(cfg, mesh))}
+           "expert_slice": np.array(expert_rows(cfg, mesh))}
 
     def fresh():                   # any weights: the restore overwrites
         return lm_params_from_reference(cfg, unflatten(
@@ -415,7 +646,8 @@ def _resume_rank(inputs: str, ckdir: str) -> dict:
     out = train(CKPT["arch"], device="cpu", mesh=mesh, n_micro=2,
                 ckpt_dir=ckdir, params=fresh(), steps=3, **ck)
     assert out["history"] == []
-    res.update({f"restored|p|{n}": v for n, v in _named(out["params"]).items()})
+    res.update({f"restored|p|{n}": v
+                for n, v in _named(out["params"]).items()})
     res.update({f"restored|m|{n}": v.numpy()
                 for n, v in out["opt_state"]["m"].items()})
     res.update({f"restored|v|{n}": v.numpy()

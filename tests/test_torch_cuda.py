@@ -1607,6 +1607,54 @@ def test_card_mesh_train_matches_the_cpu(nccl_mesh, arch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v2-236b"])
+def test_card_mesh_placed_moe_models_match_the_cpu(nccl_mesh, arch):
+    """A SMOKE MoE model placed on the one-rank NCCL mesh by its specs
+    (``init_lm(..., mesh=)``): every leaf's spec recorded, most naming an
+    axis, none held in part and none gathered (every axis has size 1), so
+    the collectives of one microbatch's training forward and backward are
+    the dispatch's alone (per MoE layer an all-gather and its
+    reduce-scatter); its loss and every gradient through the ``teshu2``
+    dispatch on the card against the same weights' on the CPU without a
+    mesh (float32, TF32 off): the loss to 1e-5, each gradient within 1e-4
+    of its leaf's largest element."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import meshops
+    from repro_torch.models import lm
+
+    cuda = torch.device("cuda", 0)
+    cfg = get_config(arch, smoke=True)
+    cpu = lm.init_lm(cfg, seed=7, device="cpu").requires_grad_(True)
+    card = lm.init_lm(cfg, seed=7, device="cpu",
+                      mesh=nccl_mesh).to(cuda).requires_grad_(True)
+    names = [n for n, _ in cpu.named_parameters()]
+    assert sorted(card.specs) == sorted(names)
+    assert sum(1 for s in card.specs.values() if any(s)) > len(names) // 2
+    assert not card._split and not card._gathers(nccl_mesh)
+    rng = np.random.default_rng(7)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)))
+             for k in ("tokens", "labels")}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = lm.train_loss(cpu, batch)
+        gw = torch.autograd.grad(want, list(cpu.parameters()))
+        meshops.reset_counts()
+        got = lm.train_loss(card, {k: v.to(cuda) for k, v in batch.items()},
+                            mesh=nccl_mesh)
+        gg = torch.autograd.grad(got, list(card.parameters()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    layers = sum(1 for b in card.blocks if hasattr(b, "moe"))
+    assert meshops.COUNTS["all_gather"] == layers
+    assert meshops.COUNTS["reduce_scatter"] == layers
+    assert float(got) == pytest.approx(float(want), rel=1e-5)
+    for n, a, b in zip(names, gw, gg):
+        assert float((b.cpu() - a).abs().max()) <= 1e-4 * float(
+            a.abs().max()) + 1e-12, n
+
+
+@pytest.mark.cuda
 def test_card_meshops_at_one_rank(nccl_mesh):
     """Each collective on CUDA tensors over the one-rank groups gives its
     plain meaning bit for bit; a CPU tensor on the NCCL mesh raises."""

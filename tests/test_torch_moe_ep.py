@@ -6,7 +6,12 @@ the EP axes ``("pod", "model")`` (``mesh_ranks.py``): the reference's
 ``moe_ffn`` under ``jax.jit`` and ``serve(mesh=make_mesh(...))`` in one
 subprocess over 8 forced host devices, the port's per-rank ``moe_ffn`` and
 ``serve(mesh=...)`` in one spawn of 8 gloo ranks, each rank holding its
-rows of the batch and its 2 of the 8 experts.  The weights are the
+rows of the batch and its 2 of the 8 experts.  Served over the mesh, the
+port's model (SMOKE Qwen3-MoE and DeepSeek-V2) is placed by the
+reference's sharding rules: each rank holds its shard of every leaf and
+gathers it whole right before use, so its logits are bit for bit those of
+the same run with every leaf but the routed experts replicated, and its
+bytes are the reference's per device.  The weights are the
 reference's ``init_moe`` with every expert jittered from numpy (its own
 init repeats one matrix over the experts, so a dispatch to the wrong rank
 would still agree), the same arrays on both sides.
@@ -45,10 +50,12 @@ from repro.models import moe as jmoe
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import config as pconfig  # noqa: E402
-from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import lm, moe  # noqa: E402
 
 ARCH = "qwen3-moe-235b-a22b"
+ARCHS = ("deepseek-v2-236b",)            # served beside ARCH
 LAYER = dict(rtol=2e-5, atol=2e-5)
 CACHED = dict(rtol=2e-3, atol=2e-3)
 CASES = [(f"{d}-{dt}-{cf}", d, dt, cf) for d in ("teshu", "teshu2")
@@ -89,8 +96,8 @@ def _case_inputs(nm, dispatch, dtype, cf) -> dict:
             for k, v in _flatten(p, nm).items()}
 
 
-def _serve_params() -> dict:
-    cfg = ref_config(ARCH, smoke=True)
+def _serve_params(arch: str = ARCH) -> dict:
+    cfg = ref_config(arch, smoke=True)
     params = jax.tree.map(np.asarray, jlm.init_lm(jax.random.key(11), cfg))
     _jitter(params["blocks"]["moe"]["experts"], np.random.default_rng(11))
     return params
@@ -105,14 +112,17 @@ def runs(tmp_path_factory):
         data.update(_case_inputs(*case))
     params = _serve_params()
     data.update(_flatten(params, "serve"))
+    for a in ARCHS:
+        data.update(_flatten(_serve_params(a), f"serve-{a}"))
     np.savez(inputs, **data)
     proc = mesh_ranks.start_reference(
         "reference_moe", dict(inputs=str(inputs), out=str(tmp / "ref.npz"),
-                              cases=CASES, serve_kw=SERVE, arch=ARCH),
+                              cases=CASES, serve_kw=SERVE, arch=ARCH,
+                              archs=ARCHS),
         devices=8, xla_flags="--xla_allow_excess_precision=false")
     try:
         ranks = mesh_ranks.run_ranks("moe", tmp, (str(inputs), CASES, SERVE,
-                                                  ARCH), timeout=180)
+                                                  ARCH, ARCHS), timeout=180)
     finally:
         mesh_ranks.finish(proc, timeout=300)
     return dict(ranks=ranks, ref=dict(np.load(tmp / "ref.npz")), data=data,
@@ -236,20 +246,30 @@ def test_serve_over_the_mesh_emits_the_reference_tokens(runs):
 
 def test_convert_keeps_the_rank_expert_slice(runs):
     """Rank (pod, data, model) holds experts ``[2 i, 2 i + 2)``, ``i = 2
-    pod + model`` (the reference's ``P(("pod", "model"))`` on the expert
-    axis); the router whole."""
+    pod + model`` (the reference's ``P(("pod", "model"), None, "data")``:
+    the expert axis over the EP axes), and of each its half of ``f`` by
+    its ``data`` coordinate."""
     full = runs["params"]["blocks"]["moe"]["experts"]["w_up"][0]
+    f = full.shape[-1] // 2
     for r, res in enumerate(runs["ranks"]):
-        pod, _, model = np.unravel_index(r, mesh_ranks.MESH)
+        pod, data, model = np.unravel_index(r, mesh_ranks.MESH)
         i = 2 * pod + model
-        np.testing.assert_array_equal(res["serve|w_up"], full[2 * i:2 * i + 2])
+        np.testing.assert_array_equal(res["serve|w_up"], full[
+            2 * i:2 * i + 2, :, data * f:(data + 1) * f])
 
 
 def test_init_lm_under_a_mesh_is_the_slice_of_the_full_init(runs):
+    """Each rank of ``init_lm(..., mesh=)`` holds its shard of the mesh-free
+    init of every leaf; the leaves held in part are every matrix and the
+    per-layer norms (``model``-split), not the router."""
     for r, res in enumerate(runs["ranks"]):
         pod, _, model = np.unravel_index(r, mesh_ranks.MESH)
         assert res["init|slice"].tolist() == [2 * (2 * pod + model), 2]
         assert bool(res["init|same"])
+        split = set(res["init|split"].tolist())
+        assert "blocks.0.moe.router" not in split
+        assert {"embed", "unembed", "blocks.0.attn.wq", "blocks.0.ln1.weight",
+                "blocks.0.moe.experts.w_up"} <= split
 
 
 def test_the_teshu_dispatch_needs_the_mesh():
@@ -296,3 +316,69 @@ def test_the_training_forward_under_a_mesh_has_a_gradient(tmp_path):
         dist.destroy_process_group()
     for n, g in zip(named, grads):
         assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, n
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_placed_serve_emits_the_reference_tokens(runs, arch):
+    """SMOKE DeepSeek-V2 (MLA, shared experts, the dense layer 0) served
+    placed over the mesh, as ``test_serve_over_the_mesh_emits_the_reference
+    _tokens`` holds Qwen3-MoE: the reference's tokens on every rank, each
+    rank's logits within ``CACHED`` of the reference's rows."""
+    key = f"serve-{arch}"
+    want = runs["ref"][f"{key}|tokens"]
+    for res in runs["ranks"]:
+        np.testing.assert_array_equal(res[f"{key}|tokens"], want)
+    ranks = runs["ranks"]
+    got = np.concatenate([ranks[r][f"{key}|logits"] for r in range(0, 8, 2)],
+                         axis=1)
+    np.testing.assert_allclose(got, runs["ref"][f"{key}|logits"], **CACHED)
+
+
+@pytest.mark.parametrize("arch", (ARCH,) + ARCHS)
+def test_placement_changes_no_logit(runs, arch):
+    """Every leaf but the routed experts replicated in place of placed (a
+    monkeypatched ``shardings.leaf_spec``): the same tokens and the same
+    logits bit for bit on every rank; the routed experts, placed in both
+    runs, the only leaves held in part there."""
+    key = "serve" if arch == ARCH else f"serve-{arch}"
+    cfg = get_config(arch, smoke=True)
+    experts = 3 * sum(1 for i in range(cfg.n_layers)
+                      if not lm.is_dense_layer(cfg, i))
+    for res in runs["ranks"]:
+        assert int(res[f"repl-{arch}|placed"]) == experts
+        np.testing.assert_array_equal(res[f"repl-{arch}|tokens"],
+                                      res[f"{key}|tokens"])
+        np.testing.assert_array_equal(res[f"repl-{arch}|logits"],
+                                      res[f"{key}|logits"])
+
+
+@pytest.mark.parametrize("arch", (ARCH,) + ARCHS)
+def test_rank_bytes_are_the_reference_per_device_bytes(runs, arch):
+    """Each rank's parameter bytes after ``lm_params_from_reference(...,
+    mesh=)`` equal its device's after the reference's ``jax.device_put``
+    of the same tree by ``param_specs``, the leaves of
+    ``lost_layer_splits`` aside (the reference splits their stack over
+    layers; each rank holds a per-layer leaf's ``model`` shard whole over
+    ``data``: its bytes are the device's share of the stack times the
+    dropped axis' size, 2)."""
+    from types import SimpleNamespace
+
+    from repro_torch.launch import shardings
+    cfg = get_config(arch, smoke=True)
+    mesh = SimpleNamespace(shape=dict(zip(mesh_ranks.AXES, mesh_ranks.MESH)))
+    lost = shardings.lost_layer_splits(cfg, mesh)
+    lost_paths = {shardings._path_str(n, cfg)[0] for n in lost}
+    if arch == ARCH:
+        assert lost and set(lost.values()) == {("data",)}
+    ref = {k.split("|", 1)[1]: v for k, v in runs["ref"].items()
+           if k.startswith(f"bytes-{arch}|")}
+    for r, res in enumerate(runs["ranks"]):
+        mine = {k.split("|", 1)[1]: int(v) for k, v in res.items()
+                if k.startswith(f"bytes-{arch}|")}
+        kept = sum(v for n, v in mine.items() if n not in lost)
+        want = sum(int(v[r]) for p, v in ref.items() if p not in lost_paths)
+        assert kept == want, (r, kept, want)
+        for p in lost_paths:
+            held = sum(v for n, v in mine.items()
+                       if shardings._path_str(n, cfg)[0] == p)
+            assert held == int(ref[p][r]) * 2, (p, held)     # data: 2

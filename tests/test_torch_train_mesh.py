@@ -6,8 +6,11 @@ the EP axes ``("pod", "model")`` (``mesh_train_ranks.py``): the reference
 in one subprocess over 8 forced host devices, its steps jitted under ``with
 mesh:`` with the parameters replicated (as ``test_distributed.py``'s
 ``test_train_step_under_mesh_runs_and_learns`` runs them), and the port in
-one spawn of 8 gloo ranks, each holding its rows of the batch, its 2 of the
-8 routed experts and every other parameter whole.  The weights are the
+one spawn of 8 gloo ranks, each holding its rows of the batch and its shard
+of every parameter and moment by the reference's sharding rules (its 2 of
+the 8 routed experts, half of each over ``data``), every leaf gathered
+whole at use; the ranks write their gradients and weights gathered whole.
+The weights are the
 reference's ``init_lm`` with every array jittered from numpy (the experts
 made distinct), the same arrays on both sides; two labels of the batch are
 masked, in one rank's rows, so that the loss's count is the global one.
@@ -28,10 +31,20 @@ mesh-free gradient, aux included.
 Tolerances, from ``test_torch_train_loss.py``: the loss to rtol 1e-5, and
 each gradient element within 2e-5 of the largest |element| of its leaf's
 reference gradient.  The parameters after a step are held to
-``test_torch_train.py``'s bound.  Two planted faults must miss the
+``test_torch_train.py``'s bound.  Four planted faults must miss the
 gradient bound by 10x: the experts' gradients not summed over ``data``,
-and the all-gather's backward a slice of its gradient without the sum over
-``model``.
+the dispatch's all-gather's backward a slice of its gradient without the
+sum over ``model``, a leaf gathered with its ``model`` shard taken as major
+over ``data``, and a placed leaf's gradient reduce-scatter replaced by a
+slice.
+
+Placement against replication (every leaf but the routed experts
+replicated): the loss bit for bit, and each rank's gradients before the
+sums over ranks bit for bit; after them within ``2 (R - 1) 2^-24 sum_r
+|g_r|`` (R = 8 ranks), the bound of two orders of one float32 sum: a
+placed leaf is summed by its gather's reduce-scatter over the axes its
+spec names and then over the rest, a replicated one in one all-reduce
+over all eight ranks, and gloo adds those in another order.
 """
 import dataclasses
 import shutil
@@ -51,7 +64,7 @@ from repro.models import lm as jlm  # noqa: E402
 from test_torch_train_loss import F32_GRAD, F32_LOSS, jittered  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch import shardings, steps  # noqa: E402
 from repro_torch.models import lm, moe  # noqa: E402
 from repro_torch.models.convert import named_from_reference  # noqa: E402
 
@@ -94,27 +107,20 @@ def runs(tmp_path_factory):
                 ref=dict(np.load(tmp / "ref.npz")))
 
 
-def _ep_index(r: int, shape=mtr.MESH) -> int:
-    pod, _, model = np.unravel_index(r, shape)
-    return int(pod * shape[2] + model)
+def _standin(shape=mtr.MESH):
+    """The mesh's axes and sizes, all the sharding rules read."""
+    from types import SimpleNamespace
+    axes = ("pod", "data", "model")[-len(shape):]
+    return SimpleNamespace(shape=dict(zip(axes, shape)), axis_names=axes)
 
 
-def _whole(ranks, key: str, name: str, shape=mtr.MESH) -> np.ndarray:
-    """Leaf ``name`` of ``key`` as the reference holds it: a routed
-    expert's slices in EP order, else rank 0's; every replica must hold
-    the same bits."""
-    if ".moe.experts." not in name:
-        for res in ranks:
-            np.testing.assert_array_equal(res[f"{key}|{name}"],
-                                          ranks[0][f"{key}|{name}"])
-        return ranks[0][f"{key}|{name}"]
-    by_ep: dict = {}
-    for r, res in enumerate(ranks):
-        i = _ep_index(r, shape)
-        if i in by_ep:
-            np.testing.assert_array_equal(res[f"{key}|{name}"], by_ep[i])
-        by_ep[i] = res[f"{key}|{name}"]
-    return np.concatenate([by_ep[i] for i in sorted(by_ep)])
+def _whole(ranks, key: str, name: str) -> np.ndarray:
+    """Leaf ``name`` of ``key`` as the reference holds it (every rank
+    writes it gathered whole): every replica must hold the same bits."""
+    for res in ranks:
+        np.testing.assert_array_equal(res[f"{key}|{name}"],
+                                      ranks[0][f"{key}|{name}"])
+    return ranks[0][f"{key}|{name}"]
 
 
 def _ref_named(arch: str, tree: dict) -> dict:
@@ -169,17 +175,38 @@ def _layout(case, remat: bool = False) -> dict:
     and the aux loss's ``pmean`` forward; under remat the two exchanges
     again in the block's recompute (which stops before the all-gather);
     their adjoints (the reverse exchanges, a reduce-scatter and a sum)
-    backward.  All-reduces besides: the count of unmasked labels a
-    microbatch, the two gradient sums (replicated leaves over the mesh,
-    the experts over ``data``) and the loss."""
+    backward.  Per microbatch the placed leaves' gathers, an all-gather
+    a split dimension of size over 1 (a routed expert's over ``data``
+    only: the dispatch serves its EP axes), a block's again in its
+    recompute under remat, and a reduce-scatter each backward.
+    All-reduces besides: the count of unmasked labels a microbatch, the
+    gradient sums (``steps.sum_plan``: each leaf over the axes its spec
+    does not name, one buffer an axis set) and the loss."""
     _, arch, dispatch, _, n_micro = case
-    cfg = get_config(arch, smoke=True)
+    cfg = mtr.moe_cfg(get_config(arch, smoke=True), dispatch, 8.0)
+    mesh = _standin()
+    whole = dict(lm.LM(cfg, device="meta").named_parameters())
+    specs = shardings.param_specs(whole, mesh, cfg)
+    top = blocks = 0
+    for n, spec in specs.items():
+        keep = shardings.ep_axes_for(mesh) if ".moe.experts." in n else ()
+        k = sum(1 for e in shardings.gather_spec(spec, mesh, keep) if e)
+        if n.startswith("blocks."):
+            blocks += k
+        else:
+            top += k
+    local = {n: torch.empty(shardings.local_shape(specs[n], p.shape, mesh),
+                            device="meta") for n, p in whole.items()}
+    sums = len(steps.sum_plan(local, mesh,
+                              shardings.split_leaves(specs, mesh)))
     layers = cfg.n_layers - (1 if cfg.moe.num_shared else 0)
     per = layers * n_micro
     a2a = 2 if dispatch == "teshu2" else 1
     return dict(all_to_all=(3 if remat else 2) * 2 * a2a * per,
-                all_gather=per, all_reduce=n_micro + 2 + 1 + 2 * per,
-                reduce_scatter=per, send_recv=0)
+                all_gather=per + n_micro * (top + (2 if remat else 1)
+                                            * blocks),
+                all_reduce=n_micro + sums + 1 + 2 * per,
+                reduce_scatter=per + n_micro * (top + blocks), send_recv=0)
 
 
 @pytest.mark.parametrize("case", mtr.CASES, ids=[c[0] for c in mtr.CASES])
@@ -296,17 +323,15 @@ def test_prefill_and_serve_steps_over_the_mesh(runs):
                                    rtol=STEP_RTOL, atol=STEP_ATOL)
 
 
-@pytest.mark.parametrize("control", ["no_data_sum", "no_gather_sum"])
+@pytest.mark.parametrize("control", ["no_data_sum", "no_gather_sum",
+                                     "model_major", "rs_slice"])
 def test_planted_faults_miss_the_gradient_bound(runs, control):
     arch = mtr.CONTROL_CASE.split("-teshu")[0]
     want = _ref_named(arch, mesh_ranks.unflatten(
         runs["ref"], f"{mtr.CONTROL_CASE}|g"))
-    # rank 0's leaves, the slices of the ranks at data 0 in EP order (a
-    # fault may leave the replicas unequal)
-    got = {n: np.concatenate([runs["ranks"][r][f"{control}|g|{n}"]
-                              for r in (0, 1, 4, 5)])
-           if ".moe.experts." in n else runs["ranks"][0][f"{control}|g|{n}"]
-           for n in want}
+    # rank 0's leaves, gathered whole (a fault may leave the replicas
+    # unequal)
+    got = {n: runs["ranks"][0][f"{control}|g|{n}"] for n in want}
     held = _port_grads(runs, mtr.CONTROL_CASE, arch)
     assert _miss(held, want) <= 1.0
     assert _miss(got, want) >= CONTROL_FACTOR, control
@@ -377,9 +402,25 @@ def test_train_over_the_mesh_is_the_step_on_the_pipeline_rows(runs):
     assert np.isfinite(losses).all() and len(losses) == mtr.TRAIN["steps"]
 
 
+def _block(spec, shape, coord: dict, sizes: dict) -> tuple:
+    """The block of a leaf of ``shape`` at mesh coordinate ``coord`` by
+    ``spec``: on each dimension the block of the index over its axes, the
+    first axis major."""
+    out = []
+    for d, n in enumerate(shape):
+        e = spec[d] if d < len(spec) else None
+        axes = () if e is None else (e,) if isinstance(e, str) else e
+        k, i = 1, 0
+        for a in axes:
+            k, i = k * sizes[a], i * sizes[a] + int(coord[a])
+        out.append(slice(i * n // k, (i + 1) * n // k))
+    return tuple(out)
+
+
 def test_checkpoint_restores_onto_a_mesh_of_another_ep_size(runs):
     """Saved on ``(2, 2, 2)`` (EP 4), restored onto ``(1, 2, 2)`` (EP 2):
-    each rank's slices and moments are the checkpoint's rows bit for bit,
+    each rank's shards of the parameters and moments are the checkpoint's
+    blocks by their specs bit for bit,
     and steps 3-5 resumed there (``n_micro`` 2, whose microbatches route
     the same groups of rows as the 8 ranks at ``n_micro`` 1) give the
     uninterrupted run's losses."""
@@ -391,20 +432,23 @@ def test_checkpoint_restores_onto_a_mesh_of_another_ep_size(runs):
         "m": named, "v": named, "step": torch.zeros((), dtype=torch.int32)}}
     saved, meta = restore_checkpoint(str(runs["tmp"] / "b"), 3, target)
     assert meta["step"] == 3
+    mesh = _standin(mtr.SMALL)
+    cfg = get_config(arch, smoke=True)
     for r, res in enumerate(runs["small"]):
-        _, _, model_c = np.unravel_index(r, mtr.SMALL)
+        coord = dict(zip(mesh.axis_names,
+                         np.unravel_index(r, mtr.SMALL)))
         first, count = res["expert_slice"].tolist()
-        assert (first, count) == (4 * model_c, 4)
+        assert (first, count) == (4 * coord["model"], 4)
         assert int(res["restored|step"]) == 3
         for n in named:
+            spec = shardings.leaf_spec(n, named[n].shape, mesh, cfg)
             for key, tree in (("p", saved["params"]),
                               ("m", saved["opt_state"]["m"]),
                               ("v", saved["opt_state"]["v"])):
                 want = tree[n].numpy()
-                if ".moe.experts." in n:
-                    want = want[first:first + count]
-                np.testing.assert_array_equal(res[f"restored|{key}|{n}"],
-                                              want)
+                np.testing.assert_array_equal(
+                    res[f"restored|{key}|{n}"],
+                    want[_block(spec, want.shape, coord, mesh.shape)])
     # only rank 0 journals: the 8-rank run's 6 steps, a start and an end
     journal = (runs["tmp"] / "ckpt" / "shuffle_journal.jsonl").read_text()
     assert journal.count("train_step") == 2 * mtr.CKPT["steps"]
@@ -449,3 +493,147 @@ def test_rank_rows_refuse_a_batch_that_does_not_divide():
         with pytest.raises(ValueError, match="does not divide"):
             rank_rows(x, mesh, n)
     np.testing.assert_array_equal(rank_rows(x, mesh, 1), x[:1])
+
+
+@pytest.mark.parametrize("case", mtr.PLACE_CASES,
+                         ids=[c[0] for c in mtr.PLACE_CASES])
+def test_placement_changes_where_state_lives_not_what_is_computed(runs, case):
+    """Every leaf but the routed experts replicated (a monkeypatched
+    ``shardings.leaf_spec``) against placed: the same loss bit for bit and,
+    on every rank, the same gradients before the sums over ranks (a placed
+    leaf's as its gather's backward receives it) bit for bit; the routed
+    experts, placed in both runs, the same after them; every other leaf
+    after them within the bound of two orders of the sum over 8 ranks."""
+    key, arch = case
+    ranks = runs["ranks"]
+    names = [n for n, _ in lm.LM(get_config(arch, smoke=True),
+                                 device="meta").named_parameters()]
+    experts = [n for n in names if ".moe.experts." in n]
+    for res in ranks:
+        assert int(res[f"replicated-{arch}|split"]) == len(experts)
+        assert int(res[f"placed-{arch}|split"]) > 2 * len(experts)
+        assert float(res[f"placed-{arch}|loss"]) == float(
+            res[f"replicated-{arch}|loss"])
+        for n in names:
+            np.testing.assert_array_equal(res[f"placed-{arch}|pre|{n}"],
+                                          res[f"replicated-{arch}|pre|{n}"])
+    for n in names:
+        a, b = (_whole(ranks, f"{t}-{arch}|g", n)
+                for t in ("placed", "replicated"))
+        if n in experts:
+            np.testing.assert_array_equal(a, b)
+            continue
+        absum = sum(np.abs(res[f"placed-{arch}|pre|{n}"]).astype(np.float64)
+                    for res in ranks)
+        assert (np.abs(a.astype(np.float64) - b) <= 2 * 7 * 2.0 ** -24
+                * absum).all(), n
+
+
+def test_train_holds_the_reference_per_device_bytes(runs):
+    """``train(mesh=...)``'s parameters and float32 moments: each rank's
+    bytes equal its device's after the reference's ``jax.device_put`` of
+    the same trees by ``param_specs`` and ``opt_v_specs``, the leaves of
+    ``lost_layer_splits`` aside (each held whole over ``data``, the
+    stack's share times 2)."""
+    arch = mtr.TRAIN["arch"]
+    cfg = get_config(arch, smoke=True)
+    lost = shardings.lost_layer_splits(cfg, _standin())
+    assert lost and set(lost.values()) == {("data",)}
+    ref = runs["ref"]
+    for r, res in enumerate(runs["ranks"]):
+        for k, pre in (("p", "bytes|p|"), ("m", "bytes|o|m/"),
+                       ("v", "bytes|o|v/")):
+            mine = {n[len(f"tbytes|{k}|"):]: int(v) for n, v in res.items()
+                    if n.startswith(f"tbytes|{k}|")}
+            paths = {}
+            for n, v in mine.items():
+                p = shardings._path_str(n, cfg)[0]
+                paths[p] = paths.get(p, 0) + v
+            lost_paths = {shardings._path_str(n, cfg)[0] for n in lost}
+            assert sum(v for p, v in paths.items() if p not in lost_paths) \
+                == sum(int(ref[pre + p][r]) for p in paths
+                       if p not in lost_paths), (r, k)
+            for p in lost_paths:
+                assert paths[p] == 2 * int(ref[pre + p][r]), (r, k, p)
+
+
+def _ref_cell_path(n: str, cfg) -> tuple[str, bool]:
+    """The reference's path of a port stand-in (``params/<name>``,
+    ``opt_state/m/<name>``, ``cache/layers/<i>/...``) and whether the
+    reference stacks it over layers."""
+    kind, _, rest = n.partition("/")
+    if kind == "cache":
+        _, i, sub = rest.split("/", 2)
+        start = shardings._first_stacked(cfg)
+        if not shardings._uniform_scan(cfg):
+            return f"layers/{i}/{sub}", False
+        return (f"block0/{sub}", False) if int(i) < start \
+            else (f"blocks/{sub}", True)
+    if kind == "batch" or rest == "step":
+        return rest, False
+    if kind == "opt_state":
+        moment, _, rest = rest.partition("/")
+        path, layers = shardings._path_str(rest, cfg)
+        return f"{moment}/{path}", bool(layers)
+    path, layers = shardings._path_str(rest, cfg)
+    return path, bool(layers)
+
+
+@pytest.mark.parametrize("shape", mtr.CELLS)
+@pytest.mark.parametrize("arch", mtr.ARCHS)
+def test_build_cell_stand_ins_match_the_reference(runs, arch, shape):
+    """``steps.build_cell`` of a SMOKE cell on ``(2, 2, 2)``: every
+    stand-in's global shape, dtype and local shape (a per-layer leaf's
+    those of the reference's stacked leaf without the layer axis) equal to
+    the reference ``build_cell``'s ``cell.args`` leaf and its
+    ``sharding.shard_shape``, on every rank; every reference leaf but the
+    cache's ``pos`` and ``len`` has a stand-in."""
+    cfg = get_config(arch, smoke=True)
+    kind = {"train": ("params", "opt_state", "batch"),
+            "prefill": ("params", "batch"),
+            "decode": ("params", "cache", "batch")}[
+        shape.split("_")[0]]
+    pre = f"cell|{arch}|{shape}|"
+    ref = {k[len(pre):].rsplit("|", 1)[0] for k in runs["ref"]
+           if k.startswith(pre)}
+    seen = set()
+    for res in runs["ranks"]:
+        mine = {k[len(pre):].rsplit("|", 1)[0] for k in res
+                if k.startswith(pre)}
+        assert mine
+        for n in sorted(mine):
+            path, stacked = _ref_cell_path(n, cfg)
+            rp = f"{kind.index(n.split('/')[0])}/{path}"
+            seen.add(rp)
+            g, loc, dt = (runs["ref"][f"{pre}{rp}|{f}"]
+                          for f in ("global", "local", "dtype"))
+            if stacked:
+                g, loc = g[1:], loc[1:]
+            assert res[f"{pre}{n}|global"].tolist() == g.tolist(), n
+            assert res[f"{pre}{n}|local"].tolist() == loc.tolist(), n
+            assert str(res[f"{pre}{n}|dtype"]) == str(dt), n
+    assert ref - seen == {p for p in ref if p.rsplit("/", 1)[-1] in
+                          ("pos", "len")}, sorted(ref - seen)
+
+
+def test_factored_moment_under_placement(runs):
+    """One step (the ``STEPS`` step) with a factored second moment: the
+    placed leaves' row and column means are local sums summed over the
+    axes that split the dimension they reduce; against the same step with
+    every leaf but the routed experts replicated (means taken whole), each
+    factor within 1e-5 of its leaf's largest and each weight within
+    ``1e-4 lr``, every rank alike; and ``named_from_reference(...,
+    mesh=)`` gives each rank's shards of the reference's arrays."""
+    ranks = runs["ranks"]
+    lr = mtr.STEPS["opt"]["lr"]
+    keys = [k.split("|", 1)[1] for k in ranks[0]
+            if k.startswith("factored-placed|")]
+    assert any(k.startswith(("r|", "c|")) for k in keys)
+    for k in keys:
+        a = _whole(ranks, "factored-placed", k)
+        b = _whole(ranks, "factored-replicated", k)
+        if k.startswith("p|"):
+            assert np.abs(a - b).max() <= 1e-4 * lr, k
+        else:
+            assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max() + 1e-30, k
+    assert all(bool(res["named|same"]) for res in ranks)
