@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port of TeShu on one NVIDIA card.
 
     python3 chip_smoke.py                    # the smoke run (one card)
+    python3 chip_smoke.py --meta-counts F    # no card: the dry run's four
+                                             # steps counted on meta into F
     python3 chip_smoke.py --profile DIR      # also trace one hit per template,
                                              # and the prefill and 4 decode
                                              # steps of each served model
@@ -278,7 +280,26 @@ exits non-zero and prints no result.  In order it
    ``RESTART_BOUND`` (bit for bit or not is logged); with ``--profile``,
    one step's gradients and its update traced apart, device time by
    kernel class;
-8. prints the ``kernels`` JSON line, then the ``ok`` line last.
+8. the dry run (``repro_torch.launch.dryrun``): its processes, started
+   together right after the build at the lowest priority and shown no
+   card, count the cells of ``DRYRUN_JOBS`` (the served archs at the
+   serving shapes but DeepSeek-V2's prefill_32k, and the dense arch's
+   train_4k) on meta stand-ins over a fake world of 256 on ``(16, 16)``
+   (the log holds ``report.render``'s table; every cell must be ok or
+   ``shape_applicable``'s skip) and, on a one-rank meta mesh, four steps
+   the script also runs on the card (``DRYRUN_CELLS``: the Qwen2.5-14B
+   prefill of 4 x 1,024 and a decode step at 1,025 valid positions, the
+   Qwen3-MoE 12-layer prefill over the one-rank mesh, one step of the
+   8-layer training cell over a one-rank NCCL mesh of its own).  Each of
+   the four is counted on the card (``OpCounter`` around one call, in its
+   phase, after that phase's checks) and timed without the counter: FLOPs
+   and bytes must equal the meta counts op for op (but ``ONE_SIDE_OPS``,
+   each with its reason), the kernels' reports must match, and the
+   measured time must be at least ``COMPUTE_FLOOR`` x the roofline's
+   compute term; the memory term and the predicted peak are logged beside
+   the measured time and ``max_memory_allocated``;
+9. prints the ``dryrun`` JSON line, the ``kernels`` JSON line, then the
+   ``ok`` line last.
 
 The card's peaks used for the bounds are NVIDIA's H100 SXM data-sheet
 numbers: 3.35 TB/s of HBM3, 989 TFLOP/s bf16 on the tensor cores, 67
@@ -888,30 +909,24 @@ def _held(got, plain, tol) -> tuple[float, float]:
 
 
 def _flash_work(q, k, causal: bool, window: int = 0) -> tuple[float, float]:
-    """(bytes, operations) of one flash call on these shapes: every input
-    read once, the output written once; 4 * D operations (QK^T and PV)
-    for each query-key pair that the causal mask and the window keep."""
-    bhq, sq, d = q.shape
-    skv = k.shape[1]
-    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
-    off = skv - sq
-    pairs = 0
-    for i in range(sq):
-        hi = min(skv, i + off + 1) if causal else skv
-        lo = max(0, i + off - window + 1) if window else 0
-        pairs += max(0, hi - lo)
-    return nbytes, 4.0 * d * pairs * bhq
+    """(bytes, operations) of one flash call on these shapes
+    (``kernels.work.flash_work``: every input read once, the output
+    written once; 4 D operations for each query-key pair that the causal
+    mask and the window keep)."""
+    from repro_torch.kernels import work
+    return work.flash_work(q.shape[0], q.shape[1], k.shape[0], k.shape[1],
+                           q.shape[2], q.element_size(), k.element_size(),
+                           causal, window)
 
 
 def _decode_work(q, k, valid: int, window: int = 0) -> tuple[float, float]:
-    """(bytes, operations) of one decode call: q read and out written once,
-    and the cache's attended positions of K and V read once."""
+    """(bytes, operations) of one decode call (``kernels.work.decode_work``:
+    q read and out written once, the cache's attended positions of K and V
+    read once)."""
+    from repro_torch.kernels import work
     b, h, d = q.shape
-    kvh = k.shape[2]
-    n = min(valid, window) if window else valid
-    nbytes = (2 * q.numel() * q.element_size()
-              + 2 * b * n * kvh * d * k.element_size())
-    return nbytes, 4.0 * d * b * h * n
+    return work.decode_work(b, h, k.shape[2], d, valid, q.element_size(),
+                            k.element_size(), window)
 
 
 def _window_mask(sq: int, skv: int, window: int, device):
@@ -1150,15 +1165,13 @@ def _gmm_share(got, plain, tol) -> float:
 
 
 def _gmm_work(x, w, ids) -> tuple[float, float]:
-    """(bytes, operations) of one gmm call: x read and the output written
-    once, and each group's weights that some tile uses read once; 2 d
-    operations per output element."""
+    """(bytes, operations) of one gmm call (``kernels.work.gmm_work``: x
+    read and the output written once, each group's weights that some tile
+    uses read once; 2 d operations per output element)."""
+    from repro_torch.kernels import work
     n, d = x.shape
-    f = w.shape[2]
-    used = int(ids.unique().numel())
-    nbytes = (x.numel() + n * f) * x.element_size() \
-        + used * d * f * w.element_size()
-    return nbytes, 2.0 * n * d * f
+    return work.gmm_work(n, d, w.shape[2], int(ids.unique().numel()),
+                         x.element_size(), w.element_size())
 
 
 def _gmm_ids(kind: str, groups: int, tiles: int, gen, dev):
@@ -1304,15 +1317,14 @@ def _slstm_inputs(dev, gen, b, s, d, dtype, state):
 
 
 def _slstm_work(b, s, d, dtype) -> tuple[float, float, float]:
-    """(bytes, operations, the operations' peak rate) of one call: xw, w_rec
-    and b read once, the state read and written once, hs written once; the
-    recurrent product's 2 B S d 4d operations at the inputs' type's peak
-    (bf16 on the tensor cores, float32 outside them)."""
-    el = 2 if dtype == "bfloat16" else 4
-    nbytes = (b * s * 4 * d + d * 4 * d + 4 * d) * el + 8 * b * d * 4 \
-        + b * s * d * 4
+    """(bytes, operations, the operations' peak rate) of one call
+    (``kernels.work.slstm_work``): the recurrent product's operations at
+    the inputs' type's peak (bf16 on the tensor cores, float32 outside
+    them)."""
+    from repro_torch.kernels import work
+    nbytes, ops = work.slstm_work(b, s, d, 2 if dtype == "bfloat16" else 4)
     rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
-    return nbytes, 2.0 * b * s * d * 4 * d, rate
+    return nbytes, ops, rate
 
 
 def slstm_phase(dev) -> dict:
@@ -1637,6 +1649,7 @@ def serve_phase(dev, profile_dir: Path | None) -> dict:
     assert max(diffs) <= tol, f"logits differ from plain by {max(diffs)} > {tol}"
     assert max(controls[MUST_FAIL_CONTROL]) > tol, \
         f"control {MUST_FAIL_CONTROL!r} passes the logit check"
+    _dense_serve_counts(params, cfg, dev)      # the dry run's check (8)
     if profile_dir is not None:
         _profile_serve(params, cfg, dev, profile_dir)
     del params, stats, plain, logits, plain_logits
@@ -2325,6 +2338,8 @@ def _ep_serve(params, cfg, arch: str, dev, mesh, kw: dict, gen_tok, stats,
     assert max(control_diffs) > EP_CONTROL_FACTOR * tol, \
         f"control {EP_CONTROL!r} misses the check by only " \
         f"{max(control_diffs) / tol:.2f}x"
+    if arch == MOE_ARCH:                       # the dry run's check (8)
+        _moe_prefill_count(params, cfg, dev, mesh)
     if profile_dir is not None:
         _profile_serve(params, cfg, dev, profile_dir, tag=f"{tag}ep_",
                        mesh=mesh)
@@ -2425,10 +2440,9 @@ def moe_serve_phase(dev, profile_dir: Path | None, arch: str,
     # GMM_DROP columns of its reduction
     plain_gmm = ref.gmm_ref
 
-    def dropping(x, w, tile_group_ids, *, block_n):
+    def dropping(x, w, tile_group_ids, **kw):
         return plain_gmm(x[:, :-GMM_DROP].contiguous(),
-                         w[:, :-GMM_DROP].contiguous(), tile_group_ids,
-                         block_n=block_n)
+                         w[:, :-GMM_DROP].contiguous(), tile_group_ids, **kw)
     ref.gmm_ref = dropping
     try:
         with routing.replay():
@@ -3697,6 +3711,7 @@ def train_phase(dev, profile_dir: Path | None) -> dict:
                 TRAIN["steps"] + 1), dev)
         res["profile"] = _profile_train(model, opt_state, full, ocfg, recipe,
                                         profile_dir)
+    _train_count(model, opt_state, cfg, recipe, dev)   # the dry run's (8)
     del model, out, opt_state, params
     torch.cuda.empty_cache()
     res["restart"] = _restart_check(dev)
@@ -4162,17 +4177,383 @@ def _profiled(name: str, fn, profile_dir: Path):
 
 
 # ---------------------------------------------------------------------------
+# the dry run (item 8): the matrix of cells counted on meta stand-ins,
+# and four steps the script runs counted on the card against the same
+# steps counted on meta
+# ---------------------------------------------------------------------------
+
+DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
+DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun.jsonl"
+# the matrix on (16, 16): the archs this script serves or trains, at the
+# serving shapes, and the dense arch's train_4k cell; each job one process
+# of its own: name -> (archs, shapes, cells at once).  The whole matrix
+# takes far longer than the script's limit on a host's CPU: counting runs
+# every eager op on meta, and a train_4k cell of the MoE, MLA, Hymba and
+# xLSTM archs (their loops over chunks, steps and 8-16 microbatches) or
+# DeepSeek-V2's prefill_32k (60 layers of the plain blocked attention at
+# 32k) counts for many minutes on a host's CPU
+DRYRUN_ARCHS = (SERVE_ARCH, MOE_ARCH, HYMBA_ARCH, XLSTM_ARCH, DEEPSEEK_ARCH)
+DRYRUN_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+DRYRUN_JOBS = {
+    "serving": (DRYRUN_ARCHS[:4], DRYRUN_SHAPES, 2),
+    "deepseek": ((DEEPSEEK_ARCH,), ("decode_32k", "long_500k"), 1),
+    "train": ((TRAIN_ARCH,), ("train_4k",), 1),
+}
+DRYRUN_TIMEOUT_S = 900       # from their start, right after the build
+COMPUTE_FLOOR = 0.95      # measured time >= this x the roofline's compute term
+# the four steps counted on the card and on meta (a one-rank mesh on a fake
+# world): tag -> (arch, kind, sequence, batch, layers (None: all), cache
+# positions before the step (decode))
+DRYRUN_CELLS = {
+    "qwen2.5-14b prefill": (SERVE_ARCH, "prefill", SERVE["prompt_len"],
+                            SERVE["batch"], None, None),
+    "qwen2.5-14b decode": (SERVE_ARCH, "decode", SERVE["max_len"],
+                           SERVE["batch"], None, SERVE["prompt_len"]),
+    "qwen3-moe 12L prefill": (MOE_ARCH, "prefill", SERVE["prompt_len"],
+                              SERVE["batch"], MOE_LAYERS, None),
+    "qwen2.5-14b 8L train": (TRAIN_ARCH, "train", TRAIN["seq_len"],
+                             TRAIN["global_batch"], TRAIN_LAYERS, None),
+}
+# ops that run on one side only, each with its reason (PERF.md)
+ONE_SIDE_OPS: dict[str, str] = {}
+CARD_COUNTS: dict = {}
+
+
+def _dryrun_recipe(kind: str):
+    from repro_torch.launch.steps import Recipe, recipe_for
+    from repro_torch.models.config import SHAPES
+    if kind != "train":
+        return Recipe()
+    import dataclasses
+    return dataclasses.replace(recipe_for(TRAIN_ARCH, SHAPES["train_4k"]),
+                               lr=TRAIN["lr"])
+
+
+def _op_table(counts) -> dict:
+    """``{"name|shapes|flash": [calls, flops, bytes]}`` of a counter."""
+    return {f"{n}|{s}|{int(f)}": [op.calls, op.flops, op.nbytes]
+            for (n, s, f), op in counts.ops.items()}
+
+
+def meta_counts(path: Path) -> int:
+    """``--meta-counts PATH``: each of ``DRYRUN_CELLS`` built on a one-rank
+    meta mesh (``elastic_mesh(1, model_parallel=1)`` on a fake world of
+    one), its step counted once, the counts written to ``PATH``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import elastic_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.config import ShapeConfig
+    out = {}
+    with dryrun.fake_world(1):
+        mesh = _mesh_groups(elastic_mesh(1, model_parallel=1,
+                                         device_type="meta"))
+        for tag, (arch, kind, seq, batch, layers, cached) in \
+                DRYRUN_CELLS.items():
+            t0 = time.perf_counter()
+            cell = build_cell(arch, ShapeConfig(tag, seq, batch, kind), mesh,
+                              n_layers=layers, recipe=_dryrun_recipe(kind))
+            c = dryrun.count_cell(cell, dryrun.local_args(cell,
+                                                          cache_len=cached))
+            out[tag] = dict(ops=_op_table(c), flops=c.flops,
+                            bytes=c.hbm_bytes, ici_bytes=c.ici_bytes,
+                            dcn_bytes=c.dcn_bytes, memory=c.memory,
+                            kernels=c.kernel_calls,
+                            seconds=time.perf_counter() - t0)
+            print(f"meta counts {tag}: flops={c.flops!r} bytes="
+                  f"{c.hbm_bytes!r} {out[tag]['seconds']:.1f} s", flush=True)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out))
+    return 0
+
+
+def dryrun_start() -> list:
+    """The dry run's processes, started together right after the build at
+    the lowest priority (five processes of one or two cores beside the
+    script's own, on a host of 8) and with no card in sight: the jobs of
+    ``DRYRUN_JOBS`` and the meta counts of ``DRYRUN_CELLS``; each writes a
+    log under ``DRYRUN_DIR``."""
+    import os
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    jobs = [("meta_counts", [sys.executable, str(Path(__file__).resolve()),
+                             "--meta-counts",
+                             str(DRYRUN_DIR / "meta_counts.json")])]
+    for name, (archs, shapes, at_once) in DRYRUN_JOBS.items():
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--jobs",
+               str(at_once), "--out", str(DRYRUN_DIR / f"{name}.jsonl")]
+        for arch in archs:
+            cmd += ["--arch", arch]
+        for shape in shapes:
+            cmd += ["--shape", shape]
+        jobs.append((name, cmd))
+    procs = []
+    for name, cmd in jobs:
+        log_f = open(DRYRUN_DIR / f"{name}.log", "w")
+        procs.append((name, subprocess.Popen(
+            cmd, env=env, cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT,
+            start_new_session=True, preexec_fn=lambda: os.nice(19)), log_f,
+            time.perf_counter()))
+    return procs
+
+
+def _kill_group(proc) -> None:
+    """``proc`` and every process it started (its session's group)."""
+    import os
+    import signal
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def dryrun_stop(procs) -> None:
+    for _, proc, log_f, _ in procs:
+        _kill_group(proc)                 # its pool's workers too
+        log_f.close()
+
+
+def _mesh_groups(mesh):
+    """``mesh`` with the group of every set of its axes made, before any
+    step is counted: on the card a group's first use otherwise sets NCCL
+    up inside the counted call, with the card full of the step's
+    tensors."""
+    import itertools
+    names = mesh.axis_names
+    for r in range(1, len(names) + 1):
+        for axes in itertools.combinations(names, r):
+            mesh.group(axes)
+    return mesh
+
+
+def _card_count(tag: str, fn, args, reset=None, reps: int = 3) -> None:
+    """One call of ``fn()`` counted on the card (``OpCounter``, ``args`` its
+    arguments) with its peak allocated memory, then ``reps`` calls timed
+    without the counter (the median; ``reset()`` before each call)."""
+    import torch
+
+    from repro_torch.launch.op_analysis import OpCounter
+    if reset is not None:
+        reset()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with OpCounter(args=args) as counts:
+        out = fn()
+        counts.output_bytes = counts.live_bytes
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    times = []
+    for _ in range(reps):
+        if reset is not None:
+            reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del res
+    CARD_COUNTS[tag] = dict(counts=counts, peak_bytes=peak,
+                            allocated_before=base,
+                            seconds=statistics.median(times), times=times)
+    log(f"dryrun card count {tag}: flops={counts.flops!r} bytes="
+        f"{counts.hbm_bytes!r} kernels={counts.kernel_calls} seconds="
+        f"{CARD_COUNTS[tag]['seconds']!r} peak_gb={peak / 1e9:.3f}")
+
+
+def _dense_serve_counts(params, cfg, dev) -> None:
+    """The dense serving steps counted: ``make_prefill_step`` on 4 x 1,024
+    tokens and one ``make_serve_step`` after a prefill of 1,024 into a
+    cache of 2,048 (the ``DRYRUN_CELLS`` shapes)."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+    gen = torch.Generator(device=dev).manual_seed(SERVE["seed"] + 7)
+    b, s = SERVE["batch"], SERVE["prompt_len"]
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev,
+                         dtype=torch.int32)
+    batch = {"tokens": toks, "labels": torch.zeros_like(toks)}
+    tag = "qwen2.5-14b prefill"
+    step = make_prefill_step(cfg, ShapeConfig(tag, s, b, "prefill"))
+    _card_count(tag, lambda: step(params, batch), (params, batch))
+    cache = lm.init_cache(cfg, b, SERVE["max_len"], device=dev)
+    with torch.no_grad():
+        lm.forward(params, tokens=toks, cache=cache)
+
+    def reset():
+        cache["pos"] = s
+        for layer in cache["layers"]:
+            layer["len"] = s
+    one = {"tokens": toks[:, -1:].contiguous()}
+    serve_step = make_serve_step(cfg)
+    _card_count("qwen2.5-14b decode", lambda: serve_step(params, cache, one),
+                (params, cache, one), reset=reset)
+    del cache
+
+
+def _moe_prefill_count(params, cfg, dev, mesh) -> None:
+    """The Qwen3-MoE prefill over the one-rank mesh (its ``teshu2``
+    dispatch) counted, on the ``DRYRUN_CELLS`` shape."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.config import ShapeConfig
+    gen = torch.Generator(device=dev).manual_seed(SERVE["seed"] + 8)
+    b, s = SERVE["batch"], SERVE["prompt_len"]
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev,
+                         dtype=torch.int32)
+    batch = {"tokens": toks, "labels": torch.zeros_like(toks)}
+    tag = "qwen3-moe 12L prefill"
+    step = make_prefill_step(cfg, ShapeConfig(tag, s, b, "prefill"),
+                             mesh=mesh)
+    _card_count(tag, lambda: step(params, batch), (params, batch))
+
+
+def _train_count(model, opt_state, cfg, recipe, dev) -> None:
+    """One training step of the 8-layer cell counted over a one-rank NCCL
+    mesh (a world of its own, destroyed after): ``make_train_step`` under
+    the mesh, the model placed on it (every leaf whole, in place), on the
+    pipeline's batch of ``TRAIN``'s shape."""
+    import torch.distributed as dist
+
+    from repro_torch.data import (DataConfig, SyntheticLMDataset,
+                                  make_global_batch)
+    from repro_torch.launch.mesh import elastic_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig
+    import torch
+    MESH_STORE.mkdir(parents=True, exist_ok=True)
+    store = MESH_STORE / "store_train"
+    store.unlink(missing_ok=True)
+    torch.cuda.empty_cache()        # NCCL allocates beside torch's cache
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = _mesh_groups(elastic_mesh(1, model_parallel=1))
+        lm.place(model, mesh)
+        batch = make_global_batch(SyntheticLMDataset(DataConfig(
+            vocab=cfg.vocab, seq_len=TRAIN["seq_len"],
+            global_batch=TRAIN["global_batch"], seed=TRAIN["seed"])).batch_at(
+                TRAIN["steps"] + 2), dev, mesh=mesh, n_micro=recipe.n_micro)
+        ocfg = AdamWConfig(lr=recipe.lr, moment_dtype=recipe.moment_dtype,
+                           factored_v=recipe.factored_v)
+        step = make_train_step(cfg, ocfg, recipe, mesh=mesh)
+        _card_count("qwen2.5-14b 8L train",
+                    lambda: step(model, opt_state, batch),
+                    (model, opt_state, batch))
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_phase(procs) -> dict:
+    """Waits for the dry run's processes; logs the matrix's ``report``
+    table (every cell must be ok or a ``shape_applicable`` skip); holds each
+    of ``DRYRUN_CELLS``' card counts to its meta counts (FLOPs and bytes
+    equal op for op, but for ``ONE_SIDE_OPS``; the measured time at least
+    ``COMPUTE_FLOOR`` x the roofline's compute term) and returns the
+    ``dryrun`` line's object."""
+    from repro_torch.launch import report, roofline
+    waited = {}
+    for name, proc, log_f, t0 in procs:
+        left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+        try:
+            proc.wait(timeout=max(1.0, left))
+        except subprocess.TimeoutExpired:
+            _kill_group(proc)
+        log_f.flush()
+        waited[name] = dict(rc=proc.returncode,
+                            seconds=time.perf_counter() - t0)
+    tails = {n: (DRYRUN_DIR / f"{n}.log").read_text()[-1500:]
+             for n, w in waited.items() if w["rc"] != 0}
+    assert not tails, f"dry run processes failed: {waited} {tails}"
+    rows = []
+    for name in DRYRUN_JOBS:
+        rows += [json.loads(line) for line in
+                 (DRYRUN_DIR / f"{name}.jsonl").read_text().splitlines()]
+    DRYRUN_OUT.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    log("dryrun matrix (report.render, per rank, NVIDIA H100 constants):\n"
+        + report.render(rows))
+    bad = [r for r in rows if r["status"] not in ("ok", "skip")]
+    assert not bad, f"dry run cells failed: {bad}"
+    meta = json.loads((DRYRUN_DIR / "meta_counts.json").read_text())
+    cells = {}
+    for tag in DRYRUN_CELLS:
+        card, want = CARD_COUNTS[tag], meta[tag]
+        got, ops = _op_table(card["counts"]), want["ops"]
+        one_side = sorted({k.split("|")[0] for k in set(got) ^ set(ops)})
+        unnamed = [n for n in one_side if n not in ONE_SIDE_OPS]
+        diff = {k: (got[k], ops[k]) for k in set(got) & set(ops)
+                if got[k] != ops[k]}
+
+        def total(table, i):
+            return sum(v[i] for k, v in table.items()
+                       if k.split("|")[0] not in ONE_SIDE_OPS)
+        flops = (total(got, 1), total(ops, 1))
+        nbytes = (total(got, 2), total(ops, 2))
+        compute_s = want["flops"] / roofline.PEAK_FLOPS
+        memory_s = want["bytes"] / roofline.HBM_BW
+        collective_s = want["ici_bytes"] / roofline.ICI_BW \
+            + want["dcn_bytes"] / roofline.DCN_BW
+        measured = card["seconds"]
+        cells[tag] = dict(
+            card_flops=card["counts"].flops, meta_flops=want["flops"],
+            card_bytes=card["counts"].hbm_bytes, meta_bytes=want["bytes"],
+            compute_s=compute_s, memory_s=memory_s,
+            collective_s=collective_s, measured_s=measured,
+            measured_over_compute=measured / compute_s,
+            memory_over_measured=memory_s / measured,
+            meta_peak_gb=want["memory"]["total_gb"],
+            card_peak_gb=card["peak_bytes"] / 1e9,
+            card_allocated_before_gb=card["allocated_before"] / 1e9,
+            kernels=want["kernels"], card_kernels=card["counts"].kernel_calls,
+            one_side_ops=one_side, meta_seconds=want["seconds"])
+        log(f"dryrun cell {tag}: {json.dumps(cells[tag])}")
+        assert not unnamed, f"{tag}: ops on one side only: {unnamed}"
+        assert not diff, f"{tag}: ops counted apart: {list(diff.items())[:8]}"
+        assert flops[0] == flops[1] and nbytes[0] == nbytes[1], \
+            (tag, flops, nbytes)
+        assert want["kernels"] == card["counts"].kernel_calls, tag
+        assert measured >= COMPUTE_FLOOR * compute_s, \
+            f"{tag}: {measured} s under {COMPUTE_FLOOR} x {compute_s} s"
+    import re
+    seconds = {n: float(m.group(1)) for n in DRYRUN_JOBS for m in re.finditer(
+        r"\(([\d.]+) s\) ===", (DRYRUN_DIR / f"{n}.log").read_text())}
+    seconds["meta_counts"] = sum(c["seconds"] for c in meta.values())
+    ok = sum(r["status"] == "ok" for r in rows)
+    return dict(card=nvidia_smi_line(), mesh="16x16",
+                jobs={n: [list(a), list(sh)] for n, (a, sh, _) in
+                      DRYRUN_JOBS.items()},
+                matrix=dict(ok=ok, skip=len(rows) - ok, failed=0,
+                            seconds=seconds,
+                            waited_from_start_s={n: w["seconds"]
+                                                 for n, w in waited.items()},
+                            out=str(DRYRUN_OUT.relative_to(ROOT))),
+                cells=cells)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
                     help="trace one hit per template into this directory")
+    ap.add_argument("--meta-counts", type=Path, default=None,
+                    help="count the dry run's four steps on meta stand-ins "
+                         "into this file and exit (the script runs itself "
+                         "so, with no card)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}: "
               f"run it from a checkout of the repo", file=sys.stderr)
         return 2
+    if args.meta_counts is not None:
+        return meta_counts(args.meta_counts)
     if not __debug__:
         sys.exit("chip_smoke.py checks its results with assert: run it "
                  "without -O")
@@ -4197,6 +4578,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
+    procs = dryrun_start()                # item 8 counts beside the rest
+    import atexit
+    atexit.register(dryrun_stop, procs)   # stopped however the script ends
     t0 = time.perf_counter()
     paths = trace_phase(dev)
     log(f"trace phase: {time.perf_counter() - t0:.2f} s")
@@ -4251,6 +4635,12 @@ def main() -> int:
     t0 = time.perf_counter()
     train_phase(dev, args.profile)
     log(f"train phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    try:
+        dry = dryrun_phase(procs)
+    finally:
+        dryrun_stop(procs)
+    log(f"dryrun phase: {time.perf_counter() - t0:.2f} s (waited)")
     # each path's launches, counted from zero just before it ran
     launches = {k: sum(p["launches"][k] for p in (sl, sk, bt, gr))
                 for k in sl["launches"]}
@@ -4332,6 +4722,7 @@ def main() -> int:
         earlier_unplaced_peak_gb=EARLIER_PEAK_GB["ep_train"])
     log(f"placement: {json.dumps(placement)}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.2f} s in all")
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,10 +21,16 @@ a value outside ``[1, T]`` gives NaN rows.  Anything else takes
 host from ``int(valid_len)``.
 
 A CUDA tensor launches a kernel; a CPU tensor takes the plain version
-(:func:`repro_torch.kernels.ref.decode_attention_ref`).  Any other device,
-dtype or layout raises.  The per-pair counters of ``decode_tma`` live in one
-zeroed buffer per device, which each launch leaves zeroed: launches that
-share a device run in one stream's order.
+(:func:`repro_torch.kernels.ref.decode_attention_ref`); a meta tensor is
+checked as a CUDA one is (but for the head widths and groups the built
+library takes, which only the card's library answers) and gets an empty
+meta result of the kernel's shape and dtype, with ``valid_len`` an int.
+Any other device, dtype or layout raises.  On a CUDA or a meta tensor the
+call's work (:func:`.work.decode_work`) goes to the active counters
+(:data:`.work.COUNTERS`; a ``valid_len`` tensor is read for it, on the
+host, only while one is active).  The per-pair counters of ``decode_tma``
+live in one zeroed buffer per device, which each launch leaves zeroed:
+launches that share a device run in one stream's order.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, work
 from .ref import decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -157,13 +163,24 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = (d ** -0.5) if scale is None else float(scale)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, valid, scale=scale, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode attention runs on cuda or cpu tensors, "
-                         f"not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"decode attention runs on cuda, cpu or meta "
+                         f"tensors, not {q.device}")
     _build.refuse_autograd("decode_attention", q, k, v)
     if q.dtype not in _DTYPES or k.dtype not in _DTYPES or v.dtype != k.dtype:
         raise TypeError(f"decode attention wants float32/bfloat16 q and k, v "
                         f"of one such dtype: {q.dtype} {k.dtype} {v.dtype}")
+    if work.COUNTERS and b:
+        work.report("decode_attention", *work.decode_work(
+            b, h, kvh, d, work.host_int(valid_len) if valid is None else valid,
+            q.element_size(), k.element_size(), window),
+            (tuple(q.shape), tuple(k.shape)))
+    if q.device.type == "meta":
+        if b * kvh > 65535:
+            raise ValueError(f"B * KVH = {b * kvh} exceeds the grid's 65535")
+        if not all(x.is_contiguous() for x in (q, k, v)):
+            raise ValueError("decode attention wants contiguous q, k and v")
+        return torch.empty_like(q)
     g = h // kvh
     lib = _lib()
     bf16 = torch.bfloat16

@@ -11,8 +11,11 @@ kv tiles that meet a block's windows.  The math is float32; the result has
 q's dtype.
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
-(:func:`repro_torch.kernels.ref.flash_attention_ref`).  Any other device,
-dtype or layout raises.
+(:func:`repro_torch.kernels.ref.flash_attention_ref`); a meta tensor is
+checked as a CUDA one is and gets an empty meta result of the kernel's
+shape and dtype.  Any other device, dtype or layout raises.  On a CUDA or
+a meta tensor the call's work (:func:`.work.flash_work`) goes to the active
+counters (:data:`.work.COUNTERS`).
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, work
 from .ref import flash_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,9 +66,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale=scale, causal=causal,
                                    window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu tensors, "
-                         f"not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash attention runs on cuda, cpu or meta "
+                         f"tensors, not {q.device}")
     _build.refuse_autograd("flash_attention", q, k, v)
     if q.dtype not in _DTYPES or k.dtype not in _DTYPES or v.dtype != k.dtype:
         raise TypeError(f"flash attention wants float32/bfloat16 q and k, v "
@@ -80,6 +83,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              "aligned q, k and v")
     out = torch.empty_like(q)
     if sq == 0 or bhq == 0:
+        return out
+    if work.COUNTERS:
+        work.report("flash_attention", *work.flash_work(
+            bhq, sq, bhkv, skv, d, q.element_size(), k.element_size(), causal,
+            window), (tuple(q.shape), tuple(k.shape)))
+    if q.device.type == "meta":
         return out
     _build.check(_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), bhq, bhkv, sq, skv, d, _DTYPES[q.dtype],

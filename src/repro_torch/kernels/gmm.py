@@ -11,8 +11,13 @@ any positive multiple of 16; the reference's ``block_d`` and ``block_f`` are
 TPU tiling and have no counterpart.
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
-(:func:`repro_torch.kernels.ref.gmm_ref`).  Any other device, dtype or
-layout raises.
+(:func:`repro_torch.kernels.ref.gmm_ref`); a meta tensor is checked as a
+CUDA one is and gets an empty meta result of the kernel's shape and dtype.
+Any other device, dtype or layout raises.  On a CUDA or a meta tensor the
+call's work (:func:`.work.gmm_work`) goes to the active counters
+(:data:`.work.COUNTERS`): on the card the groups its ids use, read only
+while a counter is active; on meta, whose ids hold no values, the groups
+of the layout the caller states (``group_tiles``).
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, work
 from .ref import gmm_ref
 
 DEFAULT_BLOCK_N = 128
@@ -37,9 +42,12 @@ def _fn():
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor, tile_group_ids: torch.Tensor, *,
-        block_n: int = DEFAULT_BLOCK_N) -> torch.Tensor:
+        block_n: int = DEFAULT_BLOCK_N, group_tiles: int | None = None
+        ) -> torch.Tensor:
     """``[n, d] x [G, d, f] -> [n, f]``, row tile ``i`` times
-    ``w[tile_group_ids[i]]``."""
+    ``w[tile_group_ids[i]]``.  ``group_tiles``: the caller's statement that
+    the ids are that many tiles of each group in turn, which meta ids,
+    holding no values, need."""
     if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1]:
         raise ValueError(f"gmm wants x [n, d] and w [G, d, f]: "
                          f"{tuple(x.shape)} {tuple(w.shape)}")
@@ -59,9 +67,11 @@ def gmm(x: torch.Tensor, w: torch.Tensor, tile_group_ids: torch.Tensor, *,
         raise ValueError(f"x on {x.device}, w on {w.device}, ids on "
                          f"{tile_group_ids.device}")
     if x.device.type == "cpu":
-        return gmm_ref(x, w, tile_group_ids, block_n=block_n)
-    if x.device.type != "cuda":
-        raise ValueError(f"gmm runs on cuda or cpu tensors, not {x.device}")
+        return gmm_ref(x, w, tile_group_ids, block_n=block_n,
+                       group_tiles=group_tiles)
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"gmm runs on cuda, cpu or meta tensors, not "
+                         f"{x.device}")
     _build.refuse_autograd("gmm", x, w)
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(f"gmm wants float32 or bfloat16 x and w of one "
@@ -74,8 +84,21 @@ def gmm(x: torch.Tensor, w: torch.Tensor, tile_group_ids: torch.Tensor, *,
     for t in (x, w):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("gmm wants contiguous, 16-byte aligned x and w")
+    if x.device.type == "meta" and (
+            group_tiles is None or groups * group_tiles != n // block_n):
+        raise ValueError(f"meta group ids hold no values: state their "
+                         f"layout (group_tiles {group_tiles} for {groups} "
+                         f"groups, {n // block_n} ids)")
     out = torch.empty((n, f), dtype=x.dtype, device=x.device)
     if n == 0:
+        return out
+    if work.COUNTERS:
+        used = groups if x.device.type == "meta" else \
+            work.distinct(tile_group_ids)
+        work.report("gmm", *work.gmm_work(n, d, f, used, x.element_size(),
+                                          w.element_size()),
+                    (tuple(x.shape), tuple(w.shape)))
+    if x.device.type == "meta":
         return out
     ids = tile_group_ids.to(torch.int32).contiguous()
     _build.check(_fn()(x.data_ptr(), w.data_ptr(), ids.data_ptr(),

@@ -51,10 +51,13 @@ def decode_attention(q, k, v, valid_len, *, window=0, use_kernel=True):
     return ref.decode_attention_ref(q, k, v, valid_len, window=window)
 
 
-def grouped_matmul(x, w, tile_group_ids, *, block_n=128, use_kernel=True):
+def grouped_matmul(x, w, tile_group_ids, *, block_n=128, group_tiles=None,
+                   use_kernel=True):
     if use_kernel:
-        return gmm(x, w, tile_group_ids, block_n=block_n)
-    return ref.gmm_ref(x, w, tile_group_ids, block_n=block_n)
+        return gmm(x, w, tile_group_ids, block_n=block_n,
+                   group_tiles=group_tiles)
+    return ref.gmm_ref(x, w, tile_group_ids, block_n=block_n,
+                       group_tiles=group_tiles)
 
 
 def slstm_scan(xw, w_rec, b, state, *, use_kernel=True):

@@ -62,10 +62,11 @@ def segmented_fold_ref(op: str, is_start: torch.Tensor,
 
     The loop runs over the position inside a segment: step ``p`` folds every
     row at position ``p`` onto the result of position ``p - 1`` at once, so
-    it takes as many vectorised steps as the longest segment has rows."""
+    it takes as many vectorised steps as the longest segment has rows.  A
+    meta tensor has no segments to walk: its result is the shape alone."""
     n = vals.shape[0]
     out = vals.clone()
-    if n == 0:
+    if n == 0 or vals.device.type == "meta":
         return out
     idx = torch.arange(n, device=vals.device)
     start = is_start.clone()
@@ -149,7 +150,7 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def gmm_ref(x: torch.Tensor, w: torch.Tensor, tile_group_ids, *,
-            block_n: int) -> torch.Tensor:
+            block_n: int, group_tiles: int | None = None) -> torch.Tensor:
     """Grouped matmul: row tile ``i`` (rows ``[i * block_n, (i + 1) *
     block_n)``) of ``x [n, d]`` times ``w[tile_group_ids[i]]``, ``w [G, d,
     f]``.  float32 math, the result in x's dtype.
@@ -157,10 +158,21 @@ def gmm_ref(x: torch.Tensor, w: torch.Tensor, tile_group_ids, *,
     Unlike the reference's oracle it never gathers ``w[tile_group_ids]``
     (at the MoE prefill that is a float32 copy of the experts' weights for
     every tile): it walks the runs of equal group id and does one float32
-    matmul per run.  The ids are read on the host (one copy)."""
+    matmul per run.  The ids are read on the host (one copy).  Meta ids
+    hold no values: the caller states their layout, ``group_tiles`` tiles
+    of group 0, then of group 1, and so on, and the runs are taken from
+    that."""
     n, d = x.shape
     g, dw, f = w.shape
-    ids = torch.as_tensor(tile_group_ids).tolist()
+    tiles = torch.as_tensor(tile_group_ids)
+    if tiles.device.type != "meta":
+        ids = tiles.tolist()
+    elif group_tiles is None or tiles.shape != (g * group_tiles,):
+        raise ValueError(f"meta group ids hold no values: state their "
+                         f"layout (group_tiles {group_tiles} for {g} groups, "
+                         f"{tuple(tiles.shape)} ids)")
+    else:
+        ids = [j for j in range(g) for _ in range(group_tiles)]
     if dw != d or block_n <= 0 or n != len(ids) * block_n:
         raise ValueError(f"gmm wants x [n, d], w [G, d, f] and one group id "
                          f"per {block_n}-row tile: x {tuple(x.shape)}, w "

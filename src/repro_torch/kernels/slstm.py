@@ -11,9 +11,13 @@ rounding but for the recurrent product's float32 sum, which the kernel
 takes in another order (:func:`~repro_torch.kernels.ref.slstm_tolerance`
 bounds the difference).
 
-A CUDA tensor launches the kernel; a CPU tensor takes the plain version.
-Any other device, dtype or shape raises.  The kernel is one cooperative
-launch of ``d / units`` persistent blocks, all co-resident (checked with
+A CUDA tensor launches the kernel; a CPU tensor takes the plain version;
+a meta tensor is checked as a CUDA one is (but for co-residency, which
+only the card answers) and gets empty meta results of the kernel's shapes.
+Any other device, dtype or shape raises.  On a CUDA or a meta tensor the
+call's work (:func:`.work.slstm_work`) goes to the active counters
+(:data:`.work.COUNTERS`).  The kernel is one cooperative launch of ``d /
+units`` persistent blocks, all co-resident (checked with
 the occupancy API before the launch: a grid that cannot be resident
 raises), each owning ``units`` hidden units, with at most one block per
 multiprocessor: for bfloat16 the widest of 16, 8 and 4 (the tensor-core
@@ -30,7 +34,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, work
 from .ref import SLSTM_STATE, slstm_scan_ref
 
 MAX_BATCH = 8           # the kernel's kMaxB
@@ -116,8 +120,8 @@ def slstm_scan(xw: torch.Tensor, w_rec: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"slstm_scan wants every tensor on {xw.device}")
     if xw.device.type == "cpu":
         return slstm_scan_ref(xw, w_rec, b, state)
-    if xw.device.type != "cuda":
-        raise ValueError(f"slstm_scan runs on cuda or cpu tensors, not "
+    if xw.device.type not in ("cuda", "meta"):
+        raise ValueError(f"slstm_scan runs on cuda, cpu or meta tensors, not "
                          f"{xw.device}")
     _build.refuse_autograd("slstm_scan", xw, w_rec, b, *state.values())
     if not 1 <= bsz <= MAX_BATCH or d % 8:
@@ -125,6 +129,14 @@ def slstm_scan(xw: torch.Tensor, w_rec: torch.Tensor, b: torch.Tensor,
                          f"multiple of 8: B {bsz}, d {d}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("slstm_scan wants contiguous tensors")
+    if work.COUNTERS:
+        work.report("slstm_scan", *work.slstm_work(bsz, s, d,
+                                                   xw.element_size()),
+                    (tuple(xw.shape), tuple(w_rec.shape)))
+    if xw.device.type == "meta":
+        return (torch.empty((bsz, s, d), dtype=torch.float32, device="meta"),
+                {k: torch.empty((bsz, d), dtype=torch.float32, device="meta")
+                 for k in SLSTM_STATE})
     index = xw.device.index if xw.device.index is not None \
         else torch.cuda.current_device()
     if index not in _SMS:

@@ -19,6 +19,8 @@ orders.
 A mesh on ``cuda`` needs a NCCL world, one on ``cpu`` a gloo world, and
 either may sit on a fake world (``torch.distributed``'s ``"fake"``
 backend, whose collectives move nothing), where a dry run builds stand-ins;
+a mesh on ``meta`` (tensors with shapes and no data) sits on a fake world
+only, where the dry run (:mod:`repro_torch.launch.dryrun`) runs its steps;
 ``torch.distributed.init_process_group`` is the caller's, with its address,
 world size and rank.  The reference's ``TPU_PERF_FLAGS`` (XLA flags for
 the latency-hiding scheduler) have no counterpart.
@@ -59,8 +61,9 @@ class AxisGroup:
 class Mesh:
     """This rank's view of a mesh of ranks ``ranks`` (an integer array,
     one global rank per device slot) with axis names ``axes``, on
-    ``device_type`` (``"cuda"``: NCCL, ``"cpu"``: gloo).  Built over
-    ``torch.distributed``'s :class:`DeviceMesh` (``device_mesh``), whose
+    ``device_type`` (``"cuda"``: NCCL, ``"cpu"``: gloo, ``"meta"``: a fake
+    world).  Built over ``torch.distributed``'s :class:`DeviceMesh`
+    (``device_mesh``), whose
     per-axis groups it hands out; a tuple of several axes gets a group of
     its own, made the first time it is asked for (every rank of the world
     must ask, in the same order, as for any new process group)."""
@@ -71,13 +74,14 @@ class Mesh:
             raise RuntimeError("a mesh needs torch.distributed initialised "
                                "(init_process_group with its world size "
                                "and rank)")
-        if device_type not in BACKEND:
-            raise ValueError(f"device_type must be cuda or cpu: "
+        if device_type not in (*BACKEND, "meta"):
+            raise ValueError(f"device_type must be cuda, cpu or meta: "
                              f"{device_type!r}")
         backend = dist.get_backend()
-        if backend not in (BACKEND[device_type], "fake"):
-            raise ValueError(f"a {device_type} mesh needs a "
-                             f"{BACKEND[device_type]} world, not {backend}")
+        want = BACKEND.get(device_type, "fake")
+        if backend not in (want, "fake"):
+            raise ValueError(f"a {device_type} mesh needs a {want} world, "
+                             f"not {backend}")
         ranks = np.asarray(ranks, dtype=np.int64)
         if ranks.ndim != len(axes) or len(set(axes)) != len(axes):
             raise ValueError(f"mesh of shape {ranks.shape} with axes {axes}")

@@ -198,10 +198,11 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
 
 
 def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, *,
-                      mesh=None) -> Callable:
+                      mesh=None, use_kernel: bool = True) -> Callable:
     """``prefill_step(model, batch) -> (last logits [B, 1, V], cache)``
     into a fresh cache of ``shape.seq_len`` positions for the batch's rows
-    (under ``mesh``, this rank's)."""
+    (under ``mesh``, this rank's); ``use_kernel=False`` takes the kernels'
+    plain versions (the route the reference's dry run lowers)."""
     @torch.no_grad()
     def prefill_step(model, batch):
         x = batch.get("tokens", batch.get("embeds"))
@@ -209,20 +210,22 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, *,
                               device=x.device)
         logits, cache, _ = lm.forward(model, tokens=batch.get("tokens"),
                                       embeds=batch.get("embeds"), cache=cache,
-                                      mesh=mesh)
+                                      use_kernel=use_kernel, mesh=mesh)
         return logits[:, -1:], cache
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, *, mesh=None) -> Callable:
+def make_serve_step(cfg: ModelConfig, *, mesh=None,
+                    use_kernel: bool = True) -> Callable:
     """``serve_step(model, cache, batch) -> (logits [B, 1, V], cache)``,
     one token per sequence, the cache updated in place (under ``mesh``,
-    this rank's rows)."""
+    this rank's rows); ``use_kernel`` as in :func:`make_prefill_step`."""
     @torch.no_grad()
     def serve_step(model, cache, batch):
         return lm.serve_step(model, cache, tokens=batch.get("tokens"),
-                             embeds=batch.get("embeds"), mesh=mesh)
+                             embeds=batch.get("embeds"),
+                             use_kernel=use_kernel, mesh=mesh)
 
     return serve_step
 
@@ -282,15 +285,20 @@ def _cache_standin(cfg: ModelConfig, shape: ShapeConfig, mesh):
 
 
 def build_cell(arch: str, shape_name, mesh, *, smoke: bool = False,
-               recipe: Recipe | None = None) -> Cell:
-    """The cell of ``arch`` (``smoke``: its SMOKE config) at input shape
-    ``shape_name`` (a name of ``SHAPES`` or a ``ShapeConfig``) over
-    ``mesh``: a train cell ``fn(model, opt_state, batch)``, a prefill cell
-    ``fn(model, batch)``, a decode cell ``fn(model, cache, batch)``, the
+               recipe: Recipe | None = None, n_layers: int | None = None,
+               use_kernel: bool = True) -> Cell:
+    """The cell of ``arch`` (``smoke``: its SMOKE config; ``n_layers``: its
+    depth cut to that many layers) at input shape ``shape_name`` (a name
+    of ``SHAPES`` or a ``ShapeConfig``) over ``mesh``: a train cell
+    ``fn(model, opt_state, batch)``, its model's leaves requiring grad, a
+    prefill cell ``fn(model, batch)``, a decode cell ``fn(model, cache,
+    batch)`` (``use_kernel=False``: on the kernels' plain versions), the
     recipe (``recipe_for``, ``n_micro`` clamped for training) applied to
     the config."""
     shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
     cfg = get_config(arch, smoke=smoke)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     recipe = recipe or recipe_for(arch, shape)
     if shape.kind == "train":
         recipe = clamp_n_micro(recipe, shape, mesh)
@@ -307,6 +315,7 @@ def build_cell(arch: str, shape_name, mesh, *, smoke: bool = False,
             whole, recipe.moment_dtype, recipe.factored_v), o_specs, mesh)
         b_args, b_specs = _batch_standin(cfg, shape, mesh, decode=False)
         fn = make_train_step(cfg, ocfg, recipe, mesh=mesh)
+        model.requires_grad_(True)
         return Cell(arch, shape, fn, (model, o_args, b_args),
                     (p_specs, o_specs, b_specs), (p_specs, o_specs, None),
                     (0, 1), cfg)
@@ -314,14 +323,14 @@ def build_cell(arch: str, shape_name, mesh, *, smoke: bool = False,
     if shape.kind == "prefill":
         b_args, b_specs = _batch_standin(cfg, shape, mesh, decode=False)
         _, c_specs = _cache_standin(cfg, shape, mesh)
-        fn = make_prefill_step(cfg, shape, mesh=mesh)
+        fn = make_prefill_step(cfg, shape, mesh=mesh, use_kernel=use_kernel)
         return Cell(arch, shape, fn, (model, b_args), (p_specs, b_specs),
                     (None, c_specs), (), cfg)
 
     # decode: one new token against a seq_len-deep cache
     c_args, c_specs = _cache_standin(cfg, shape, mesh)
     b_args, b_specs = _batch_standin(cfg, shape, mesh, decode=True)
-    fn = make_serve_step(cfg, mesh=mesh)
+    fn = make_serve_step(cfg, mesh=mesh, use_kernel=use_kernel)
     return Cell(arch, shape, fn, (model, c_args, b_args),
                 (p_specs, c_specs, b_specs), (None, c_specs), (1,), cfg)
 

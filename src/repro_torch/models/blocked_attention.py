@@ -14,10 +14,22 @@ As in the reference, masked tiles inside a query block's range are
 computed and discarded, and with a causal sliding window a query block
 reads only the ``nwb`` kv blocks that its rows can see.
 
+The tiles default to :data:`DEFAULT_BLOCK_Q` x :data:`DEFAULT_BLOCK_KV`;
+:func:`set_block_defaults` overrides them for later calls (the dry run's
+``perf`` knob, as the reference's).  Every operation of the blocked loop
+runs inside :func:`attention_scope`, the counterpart of the reference's
+``jax.named_scope("flash_xla")``: the dry run's counter
+(:mod:`repro_torch.launch.op_analysis`) reads :func:`in_attention_scope`
+and keeps those bytes apart, the traffic that the flash kernel keeps on
+chip (the backward's operations, which autograd runs outside the call, are
+not in it).
+
 Shapes: q ``[B, S, H, dk]``, k ``[B, T, KVH, dk]``, v ``[B, T, KVH, dv]``
 -> ``[B, S, H, dv]``.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +38,34 @@ _NEG = -1e30
 
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_KV = 1024
+_block_overrides: dict = {}
+_scope_depth = [0]
+
+
+def set_block_defaults(block_q: int | None = None,
+                       block_kv: int | None = None) -> None:
+    """Override the tile sizes of later calls that name none (None: back
+    to the default)."""
+    for key, value in (("q", block_q), ("kv", block_kv)):
+        if value is None:
+            _block_overrides.pop(key, None)
+        else:
+            _block_overrides[key] = value
+
+
+@contextlib.contextmanager
+def attention_scope():
+    """Marks the operations issued inside as the plain blocked
+    attention's."""
+    _scope_depth[0] += 1
+    try:
+        yield
+    finally:
+        _scope_depth[0] -= 1
+
+
+def in_attention_scope() -> bool:
+    return _scope_depth[0] > 0
 # Below this many logit elements the fused path is used instead
 # (:func:`use_blocked`), as in the reference
 _FUSED_LOGITS_BUDGET = 1 << 27          # 128M float32 logits ~ 512 MB
@@ -48,8 +88,8 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_offset + i``, which sees columns ``c < valid_len``, ``c <= row`` when
     causal and ``row - c < window`` with a window (0: none).  float32
     math, the result in q's dtype."""
-    block_q = block_q or DEFAULT_BLOCK_Q
-    block_kv = block_kv or DEFAULT_BLOCK_KV
+    block_q = block_q or _block_overrides.get("q", DEFAULT_BLOCK_Q)
+    block_kv = block_kv or _block_overrides.get("kv", DEFAULT_BLOCK_KV)
     b, s, h, dk = q.shape
     _, t, kvh, _ = k.shape
     dv = v.shape[-1]
@@ -78,36 +118,38 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     dev = q.device
     blocks = []
-    for qi in range(nq):
-        qblk = qb[qi].float()                          # [B, bq, KVH, g, dk]
-        q_start = q_offset + qi * bq
-        rows = q_start + torch.arange(bq, device=dev)
-        first = 0
-        if nwb < nk:
-            first = min(max((q_start - (window - 1)) // bk, 0), nk - nwb)
-        m = torch.full((b, kvh, group, bq), _NEG, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((b, kvh, group, bq), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, kvh, group, bq, dv), dtype=torch.float32,
-                          device=dev)
-        for kj in range(first, first + nwb):
-            cols = kj * bk + torch.arange(bk, device=dev)
-            logits = torch.einsum("bqkgd,bckd->bkgqc", qblk,
-                                  kb[kj].float()) * scale
-            mask = (cols[None, :] < t_valid).expand(bq, bk)
-            if causal:
-                mask = mask & (rows[:, None] >= cols[None, :])
-            if window:
-                mask = mask & ((rows[:, None] - cols[None, :]) < window)
-            logits = torch.where(mask, logits, _NEG)
-            m_new = torch.maximum(m, logits.amax(-1))
-            p = torch.exp(logits - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = alpha * l + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bkgqc,bckd->bkgqd", p, vb[kj].float())
-            m = m_new
-        out = acc / torch.where(l == 0.0, 1.0, l)[..., None]
-        blocks.append(out.permute(0, 3, 1, 2, 4))      # [B, bq, KVH, g, dv]
+    with attention_scope():      # the reference's flash_xla scope
+        for qi in range(nq):
+            qblk = qb[qi].float()                  # [B, bq, KVH, g, dk]
+            q_start = q_offset + qi * bq
+            rows = q_start + torch.arange(bq, device=dev)
+            first = 0
+            if nwb < nk:
+                first = min(max((q_start - (window - 1)) // bk, 0), nk - nwb)
+            m = torch.full((b, kvh, group, bq), _NEG, dtype=torch.float32,
+                           device=dev)
+            l = torch.zeros((b, kvh, group, bq), dtype=torch.float32,
+                            device=dev)
+            acc = torch.zeros((b, kvh, group, bq, dv), dtype=torch.float32,
+                              device=dev)
+            for kj in range(first, first + nwb):
+                cols = kj * bk + torch.arange(bk, device=dev)
+                logits = torch.einsum("bqkgd,bckd->bkgqc", qblk,
+                                      kb[kj].float()) * scale
+                mask = (cols[None, :] < t_valid).expand(bq, bk)
+                if causal:
+                    mask = mask & (rows[:, None] >= cols[None, :])
+                if window:
+                    mask = mask & ((rows[:, None] - cols[None, :]) < window)
+                logits = torch.where(mask, logits, _NEG)
+                m_new = torch.maximum(m, logits.amax(-1))
+                p = torch.exp(logits - m_new[..., None])
+                alpha = torch.exp(m - m_new)
+                l = alpha * l + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bkgqc,bckd->bkgqd", p, vb[kj].float())
+                m = m_new
+            out = acc / torch.where(l == 0.0, 1.0, l)[..., None]
+            blocks.append(out.permute(0, 3, 1, 2, 4))  # [B, bq, KVH, g, dv]
     out = torch.stack(blocks).permute(1, 0, 2, 3, 4, 5).reshape(b, s_p, h, dv)
     return out[:, :s].to(q.dtype)

@@ -130,7 +130,11 @@ def _route(router_w, x_flat, m):
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, eids = top.values[:, :m.top_k], top.indices[:, :m.top_k]
     weights = weights / (weights.sum(-1, keepdim=True) + 1e-9)
-    f = F.one_hot(eids[:, 0], m.num_experts).float().mean(0)
+    # the top-1 one-hot as a comparison: F.one_hot takes other ops on each
+    # device (a host check of the ids on the CPU, a scatter on the card, a
+    # comparison on meta), where the dry run wants one op sequence
+    top1 = torch.arange(m.num_experts, device=eids.device)
+    f = (eids[:, :1] == top1).float().mean(0)
     aux = m.num_experts * (f * probs.mean(0)).sum()
     return eids.to(torch.int32), weights, aux
 
@@ -196,6 +200,7 @@ def _expert_ffn(w: ExpertStack, x: torch.Tensor, *, block_n: int,
 
     def mm(a, wt):
         return kops.grouped_matmul(a, wt, ids, block_n=block_n,
+                                   group_tiles=tiles,
                                    use_kernel=use_kernel)
     h = silu(mm(flat, w.w_gate)) * mm(flat, w.w_up)
     return mm(h, w.w_down).reshape(e, c, -1).to(x.dtype)

@@ -419,14 +419,27 @@ def test_lm_kernels_are_the_attention_wrappers():
 
 
 def test_wrappers_refuse_other_devices():
+    """Tensors on two devices raise; a meta tensor (the dry run's) is
+    checked as a card tensor is, so what the card refuses raises on meta
+    too, and what it takes gives an empty meta result of the kernel's
+    shape without a launch."""
     q = torch.zeros((2, 8, 16), device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        flash_attention(q, q, q)
-    c = torch.zeros((2, 8, 2, 16), device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        decode_attention(torch.zeros((2, 4, 16), device="meta"), c, c, 3)
     with pytest.raises(ValueError):                  # devices disagree
         flash_attention(torch.zeros((2, 8, 16)), q, q)
+    q24 = torch.zeros((2, 8, 24), device="meta")
+    with pytest.raises(ValueError, match="head width 24 not compiled"):
+        flash_attention(q24, q24, q24)
+    c = torch.zeros((2, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention(torch.zeros((2, 4, 16), device="meta"),
+                         c.transpose(1, 2).contiguous().transpose(1, 2),
+                         c, 3)
+    launches = flash_attention.launches, decode_attention.launches
+    out = flash_attention(q, q, q)
+    assert out.is_meta and out.shape == q.shape
+    out = decode_attention(torch.zeros((2, 4, 16), device="meta"), c, c, 3)
+    assert out.is_meta and out.shape == (2, 4, 16)
+    assert (flash_attention.launches, decode_attention.launches) == launches
 
 
 def test_plain_versions_match_on_mixed_inputs():

@@ -1,0 +1,662 @@
+"""The port's dry run: the per-op counter, the LM kernels' meta branch and
+work formulas, the roofline, ``perf`` and ``report``, and each SMOKE
+family's per-rank FLOPs against the JAX package's dry run.
+
+The reference side (``repro.launch.steps.build_cell`` lowered and compiled
+over 8 forced host devices, ``hlo_analysis.analyze_hlo``) runs in one
+subprocess started with the module, the pattern of ``mesh_ranks.py``; the
+port's cells run on meta stand-ins on rank 0 of a fake world.  Both on the
+``(2, 4, 1)`` ``("pod", "data", "model")`` mesh, whose ``model`` axis is 1
+(XLA splits the dense work over ``model`` where the port's ``model`` ranks
+compute the same rows), at a sequence of 64 and a batch of 8, the port on
+its plain route (``use_kernel=False``: the route the reference's dry run
+lowers, ``use_pallas=False``).  The port's MoE blocks pad each expert's
+rows to the grouped matmul's tile (``moe.buffer_layout``) where the
+reference's einsum takes the capacity: those rows' FLOPs are worked out
+from the shapes and taken off before the comparison.  So are the sLSTM
+weight gradients, which the port runs as matmuls and the reference's
+compiled scan as elementwise products, which ``analyze_hlo`` does not count.
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+dist = pytest.importorskip("torch.distributed")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.kernels import work  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.gmm import gmm  # noqa: E402
+from repro_torch.kernels.slstm import slstm_scan  # noqa: E402
+from repro_torch.launch import dryrun, perf, report, roofline  # noqa: E402
+from repro_torch.launch.mesh import make_mesh, make_production_mesh  # noqa: E402
+from repro_torch.launch.op_analysis import OpCounter  # noqa: E402
+from repro_torch.launch.steps import Recipe, build_cell  # noqa: E402
+from repro_torch.models import blocked_attention as blocked  # noqa: E402
+from repro_torch.models import lm, moe  # noqa: E402
+from repro_torch.models.config import ShapeConfig  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+AXES = ("pod", "data", "model")
+MESH = (2, 4, 1)
+SEQ, BATCH = 64, 8
+FAMILIES = {"dense": "qwen2.5-14b", "moe": "qwen3-moe-235b-a22b",
+            "mla": "deepseek-v2-236b", "hybrid": "hymba-1.5b",
+            "ssm": "xlstm-350m"}
+KINDS = ("train", "prefill", "decode")
+FLOP_TOL = 0.02
+
+_REF_SCRIPT = textwrap.dedent("""
+    import json, os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    from repro.launch.hlo_analysis import analyze_hlo
+    from repro.launch.mesh import make_mesh
+    from repro.launch.steps import build_cell
+    from repro.models.config import ShapeConfig
+    out_path, archs = sys.argv[1], sys.argv[2:]
+    mesh = make_mesh(tuple(MESH), AXES)
+    out = {}
+    for arch in archs:
+        for kind in ("train", "prefill", "decode"):
+            cell = build_cell(arch, ShapeConfig(kind + "_s", SEQ, BATCH, kind),
+                              mesh, smoke=True)
+            with mesh:
+                compiled = cell.lower().compile()
+            out[arch + "|" + kind] = analyze_hlo(compiled.as_text(),
+                                                 pod_size=8).flops
+            with open(out_path, "w") as f:
+                json.dump(out, f)
+""")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_flops(tmp_path_factory):
+    """The reference's per-chip FLOPs of every family's SMOKE cells, from
+    one subprocess started before the file's first test (the tests that
+    read it wait for it)."""
+    out = tmp_path_factory.mktemp("ref") / "flops.json"
+    script = f"MESH, AXES, SEQ, BATCH = {MESH}, {AXES}, {SEQ}, {BATCH}\n" \
+        + _REF_SCRIPT
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", script, str(out), *FAMILIES.values()],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def result() -> dict:
+        log, _ = proc.communicate(timeout=600)
+        assert proc.returncode == 0, log[-3000:]
+        return json.loads(out.read_text())
+    yield result
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture()
+def fake8():
+    with dryrun.fake_world(8):
+        yield make_mesh(MESH, AXES, device_type="meta")
+
+
+# ---------------------------------------------------------------------------
+# the counter (tests/test_substrate.py's cases of the reference's analyzer)
+# ---------------------------------------------------------------------------
+
+def test_counter_scales_loops():
+    w, c = torch.zeros(32, 32), torch.zeros(4, 32)
+    with OpCounter() as counts:
+        for _ in range(9):
+            c = torch.tanh(c @ w)
+    assert counts.flops == 2 * 4 * 32 * 32 * 9
+
+
+def test_counter_dot_flops_batched():
+    a, b = torch.zeros(3, 8, 16), torch.zeros(3, 16, 4)
+    with OpCounter() as counts:
+        torch.einsum("bij,bjk->bik", a, b)
+    assert counts.flops == 2 * 3 * 8 * 4 * 16
+
+
+def test_counter_bytes_of_elementwise_ops_and_views():
+    """An elementwise op counts its inputs and its output; views and
+    ``empty`` count nothing; a copy into a slice its source and the
+    slice."""
+    a, b = torch.zeros(10, 10), torch.zeros(10, 10)
+    with OpCounter() as counts:
+        a.view(100), a.t(), a[:5], a.reshape(5, 20), a.detach()
+        torch.empty(1000)
+    assert counts.hbm_bytes == 0
+    with OpCounter() as counts:
+        a + b
+    assert counts.hbm_bytes == 3 * 400 and counts.flops == 0
+    with OpCounter() as counts:
+        a[:5] = b[5:]
+    assert counts.hbm_bytes == 2 * 200
+
+
+def test_counter_collectives_by_ring_factor_ici_and_dcn():
+    """An all-gather and an all-to-all on groups of a fake world of 16:
+    the ring factors' wire bytes, a group inside one 8-rank NVLink domain
+    as ICI and one across two as DCN; a group of one rank moves nothing."""
+    with dryrun.fake_world(16):
+        inside = dist.new_group(list(range(8)))
+        across = dist.new_group([0, 8])
+        alone = dist.new_group([0])
+        x = torch.empty(64, device="meta")
+        with OpCounter(boundary=8) as counts:
+            dist.all_gather_into_tensor(torch.empty(8 * 64, device="meta"),
+                                        x, group=inside)
+            dist.all_to_all_single(torch.empty(64, device="meta"), x,
+                                   group=across)
+            dist.all_reduce(x, group=alone)
+        assert counts.ici_bytes == 8 * 64 * 4 * 7 / 8
+        assert counts.dcn_bytes == 64 * 4 * 1 / 2
+        assert counts.collective_count == 2
+        assert counts.by_op == {("all-gather", "ici"): 8 * 64 * 4 * 7 / 8,
+                                ("all-to-all", "dcn"): 64 * 4 / 2}
+
+
+def test_counter_refuses_a_collective_without_a_ring_factor():
+    """A ``c10d`` operation the counter has no ring factor for raises
+    (here the list all-to-all), where counting it as nothing would drop it
+    from the collective term; a barrier moves nothing.  The ICI/DCN line
+    is the roofline's NVLink domain unless one is given."""
+    assert OpCounter().boundary == roofline.NVLINK_DOMAIN
+    with dryrun.fake_world(16):
+        x = [torch.empty(4, device="meta") for _ in range(16)]
+        with OpCounter() as counts:
+            dist.barrier()
+            with pytest.raises(NotImplementedError, match="alltoall_"):
+                dist.all_to_all([torch.empty_like(t) for t in x], x)
+        assert counts.collective_count == 0 and counts.by_op == {}
+
+
+def test_counter_tracks_peak_memory():
+    """Argument bytes from the arguments' storages, the step's peak live
+    bytes from the storages its operations make, freed ones dropped."""
+    x = torch.zeros(1000)                      # 4,000 bytes
+    with OpCounter(args=(x,)) as counts:
+        y = x * 2                              # +4,000
+        z = y + 1                              # +4,000: 8,000 live
+        del y                                  # 4,000
+        w = z * 3                              # 8,000 live again
+        del z, w
+    assert counts.argument_bytes == 4000
+    assert counts.peak_bytes == 8000 and counts.live_bytes == 0
+
+
+# ---------------------------------------------------------------------------
+# the LM kernels' meta branch and work formulas
+# ---------------------------------------------------------------------------
+
+def _bound_ms(nbytes: float, flops: float) -> float:
+    return max(nbytes / roofline.HBM_BW, flops / roofline.PEAK_FLOPS) * 1e3
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("case", ["flash", "decode", "gmm decode",
+                                  "gmm prefill", "slstm"])
+def test_kernel_meta_branch_and_bound(case):
+    """Each wrapper on meta tensors at the shapes of PERF.md's kernel
+    table: an empty meta result of the kernel's shape and dtype, no
+    launch counted, and the work reported to the counter, whose bound
+    (bytes at 3.35 TB/s or operations at 989 TFLOP/s) is the table's."""
+    before = {k.__name__: k.launches for k in (flash_attention,
+                                               decode_attention, gmm,
+                                               slstm_scan)}
+    with OpCounter() as counts:
+        if case == "flash":
+            out = flash_attention(_meta(160, 1024, 128), _meta(32, 1024, 128),
+                                  _meta(32, 1024, 128))
+            want, bound = ((160, 1024, 128), torch.bfloat16), 0.0435
+            work_ = work.flash_work(160, 1024, 32, 1024, 128, 2, 2, True)
+        elif case == "decode":
+            k = _meta(4, 2048, 8, 128)
+            out = decode_attention(_meta(4, 40, 128), k, k, 1056)
+            want, bound = ((4, 40, 128), torch.bfloat16), 0.00519
+            work_ = work.decode_work(4, 40, 8, 128, 1056, 2, 2)
+        elif case.startswith("gmm"):
+            n, bn = (2048, 16) if case == "gmm decode" else (49152, 128)
+            out = gmm(_meta(n, 4096), _meta(128, 4096, 1536),
+                      _meta(n // bn, dtype=torch.int32), block_n=bn,
+                      group_tiles=n // bn // 128)
+            want = ((n, 1536), torch.bfloat16)
+            bound = 0.488 if case == "gmm decode" else 0.646
+            work_ = work.gmm_work(n, 4096, 1536, 128, 2, 2)
+        else:
+            st = {k: _meta(4, 1024, dtype=torch.float32)
+                  for k in kref.SLSTM_STATE}
+            out, new = slstm_scan(_meta(4, 4096, 4096), _meta(1024, 4096),
+                                  _meta(4096), st)
+            assert all(t.shape == (4, 1024) and t.dtype == torch.float32
+                       for t in new.values())
+            want, bound = ((4, 4096, 1024), torch.float32), 0.139
+            work_ = work.slstm_work(4, 4096, 1024, 2)
+    assert (tuple(out.shape), out.dtype) == want and out.is_meta
+    assert (counts.hbm_bytes, counts.flops) == work_
+    assert len(counts.kernel_calls) == 1
+    assert float(f"{_bound_ms(*work_):.3g}") == bound
+    assert {k.__name__: k.launches for k in (
+        flash_attention, decode_attention, gmm, slstm_scan)} == before
+
+
+def test_kernel_meta_branch_validates():
+    """A meta call is checked as a card call is: a head width the flash
+    kernel was not built for, a non-contiguous decode cache and a bad
+    gmm dtype raise; ``valid_len`` out of range too."""
+    with pytest.raises(ValueError, match="head width"):
+        flash_attention(_meta(4, 8, 48), _meta(4, 8, 48), _meta(4, 8, 48))
+    k = _meta(2, 16, 2, 64).transpose(1, 2)
+    with pytest.raises(ValueError):
+        decode_attention(_meta(2, 4, 64), k, k, 4)
+    with pytest.raises(TypeError):
+        gmm(_meta(32, 16), _meta(2, 16, 16, dtype=torch.float16),
+            _meta(2, dtype=torch.int32), block_n=16)
+    with pytest.raises(ValueError, match="valid_len"):
+        decode_attention(_meta(2, 4, 64), _meta(2, 16, 2, 64),
+                         _meta(2, 16, 2, 64), 17)
+
+
+def test_cpu_tensor_takes_the_plain_version_and_is_counted():
+    """On a CPU tensor a wrapper runs its plain version: the counter sees
+    the plain version's own operations and no kernel report."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((4, 8, 16), (2, 8, 16), (2, 8, 16)))
+    with OpCounter() as counts:
+        got = flash_attention(q, k, v)
+    assert counts.kernel_calls == {}
+    assert counts.flops == 2 * (2 * 4 * 8 * 8 * 16)      # QK^T and PV
+    torch.testing.assert_close(got, kref.flash_attention_ref(q, k, v))
+
+
+def test_meta_ids_take_the_capacity_layout():
+    """``gmm_ref`` on meta ids runs one matmul a run of the layout its
+    caller states (``group_tiles`` tiles a group, the MoE block's
+    capacity layout); meta ids without a layout, or with one that does
+    not match their count, raise, in ``gmm_ref`` and in the ``gmm``
+    wrapper; the ordered fold on meta gives its shape."""
+    x, w = _meta(64, 16, dtype=torch.float32), \
+        _meta(2, 16, 8, dtype=torch.float32)
+    with OpCounter() as counts:
+        out = kref.gmm_ref(x, w, _meta(4, dtype=torch.int32), block_n=16,
+                           group_tiles=2)
+    assert out.shape == (64, 8) and out.is_meta
+    assert counts.flops == 2 * 64 * 16 * 8
+    assert counts.ops[("aten.mm", ((32, 16), (16, 8)), False)].calls == 2
+    for tiles in (None, 1):
+        with pytest.raises(ValueError, match="hold no values"):
+            kref.gmm_ref(x, w, _meta(4, dtype=torch.int32), block_n=16,
+                         group_tiles=tiles)
+        with pytest.raises(ValueError, match="hold no values"):
+            gmm(x, w, _meta(4, dtype=torch.int32), block_n=16,
+                group_tiles=tiles)
+    vals = _meta(10, 3, dtype=torch.float64)
+    out = kref.segmented_fold_ref("sum", _meta(10, dtype=torch.bool), vals)
+    assert out.shape == vals.shape and out.is_meta
+
+
+# ---------------------------------------------------------------------------
+# the repairs the cells need
+# ---------------------------------------------------------------------------
+
+def test_meta_mesh_and_meshops(fake8):
+    """A meta mesh on a fake world: ``meshops`` takes meta tensors on it
+    and gives the shapes a rank would get; a CPU tensor on it raises."""
+    from repro_torch.core import meshops
+    x = torch.empty(3, 5, device="meta")
+    assert meshops.all_gather(x, fake8, "data").shape == (12, 5)
+    assert meshops.all_to_all_axis(torch.empty(4, 2, device="meta"), fake8,
+                                   "data").shape == (4, 2)
+    assert meshops.psum(x, fake8, AXES).shape == (3, 5)
+    with pytest.raises(ValueError, match="cpu tensor on a meta mesh"):
+        meshops.psum(torch.zeros(3), fake8, "data")
+
+
+def test_meta_mesh_refuses_a_real_world(tmp_path):
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/s",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="fake world"):
+            make_mesh((1, 1), ("data", "model"), device_type="meta")
+        with pytest.raises(RuntimeError, match="fake world"):
+            with dryrun.fake_world(8):
+                pass
+    finally:
+        dist.destroy_process_group()
+
+
+def test_train_cell_leaves_require_grad_and_run(fake8):
+    """A train cell's meta ``LM`` requires grad, and its step runs on the
+    stand-ins' local tensors (the batch's rows of this rank, the moments
+    laid out as their parameters)."""
+    cell = build_cell("qwen2.5-14b", ShapeConfig("t", SEQ, BATCH, "train"),
+                      fake8, smoke=True)
+    assert all(p.requires_grad for p in cell.args[0].parameters())
+    model, opt, batch = dryrun.local_args(cell)
+    assert batch["tokens"].shape == (BATCH // 8, SEQ)
+    assert opt["m"]["unembed"].stride() == model.unembed.stride()
+    _, _, metrics = cell.fn(model, opt, batch)
+    assert metrics["loss"].is_meta
+
+
+def test_decode_cell_cache_in_the_port_layout(fake8):
+    """A decode cell's cache: the batch split over ``("pod", "data")``
+    only, filled to ``seq_len - 1`` positions."""
+    cell = build_cell("qwen2.5-14b", ShapeConfig("d", SEQ, BATCH, "decode"),
+                      fake8, smoke=True)
+    _, cache, batch = dryrun.local_args(cell)
+    cfg = cell.cfg
+    layer = cache["layers"][0]
+    assert layer["k"].shape == (1, SEQ, cfg.n_kv_heads, cfg.d_head)
+    assert layer["len"] == SEQ - 1 and cache["pos"] == SEQ - 1
+
+
+def test_one_rank_mesh_counts_the_mesh_free_dense_step():
+    """A dense prefill and decode step on a one-rank meta mesh count the
+    same ops as the mesh-free step (no gather, no collective): the card's
+    mesh-free serving steps are held to the dry run's one-rank cells."""
+    cfg = get_config("qwen2.5-14b", smoke=True)
+    shape = ShapeConfig("p", SEQ, 2, "prefill")
+    with dryrun.fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="meta")
+        tables = []
+        for m in (mesh, None):
+            model = lm.LM(cfg, device="meta", mesh=m)
+            toks = torch.empty((2, SEQ), dtype=torch.int32, device="meta")
+            from repro_torch.launch.steps import make_prefill_step
+            with OpCounter() as counts:
+                make_prefill_step(cfg, shape, mesh=m)(model, {"tokens": toks})
+            tables.append({k: (v.calls, v.flops, v.nbytes)
+                           for k, v in counts.ops.items()})
+    assert tables[0] == tables[1]
+
+
+@pytest.mark.parametrize("arch,kind", [
+    ("qwen2.5-14b", "prefill"), ("qwen2.5-14b", "decode"),
+    ("qwen3-moe-235b-a22b", "prefill"), ("qwen2.5-14b", "train")])
+def test_meta_counts_equal_real_counts(tmp_path, arch, kind):
+    """A SMOKE step counted on meta stand-ins on a one-rank meta mesh and
+    on CPU tensors of real values on a one-rank gloo mesh, both on the
+    plain route: the same ops, calls, FLOPs and bytes (the premise of
+    ``chip_smoke.py``'s check on the card: nothing the step counts hangs
+    on the data).  The train step as the card's: two microbatches, each
+    block rematerialised."""
+    from repro_torch.launch.mesh import elastic_mesh
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          make_train_step)
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    shape = ShapeConfig(kind, 32, 4, kind)
+    recipe = Recipe(n_micro=2, remat=True) if kind == "train" else None
+
+    def table(counts):
+        return {k: (v.calls, v.flops, v.nbytes)
+                for k, v in counts.ops.items()}
+    with dryrun.fake_world(1):
+        mesh = elastic_mesh(1, model_parallel=1, device_type="meta")
+        cell = build_cell(arch, shape, mesh, smoke=True, recipe=recipe,
+                          use_kernel=False)
+        meta = table(dryrun.count_cell(cell, dryrun.local_args(
+            cell, cache_len=20)))
+    cfg = cell.cfg
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 32),
+                                         dtype=np.int32))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/s",
+                            rank=0, world_size=1)
+    try:
+        mesh = elastic_mesh(1, model_parallel=1, device_type="cpu")
+        model = lm.init_lm(cfg, seed=0, device="cpu", mesh=mesh)
+        batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+        if kind == "prefill":
+            fn = make_prefill_step(cfg, shape, mesh=mesh, use_kernel=False)
+            args = (model, batch)
+        elif kind == "decode":
+            cache = lm.init_cache(cfg, 4, 32, device="cpu")
+            with torch.no_grad():
+                lm.forward(model, tokens=toks[:, :20], cache=cache,
+                           use_kernel=False, mesh=mesh)
+            fn = make_serve_step(cfg, mesh=mesh, use_kernel=False)
+            args = (model, cache, {"tokens": toks[:, 20:21].contiguous()})
+        else:
+            model.requires_grad_(True)
+            params = dict(model.named_parameters())
+            fn = make_train_step(cfg, AdamWConfig(lr=recipe.lr), recipe,
+                                 mesh=mesh)
+            args = (model, init_opt_state(params), batch)
+        with OpCounter(args=args) as counts:
+            fn(*args)
+    finally:
+        dist.destroy_process_group()
+    real = table(counts)
+    assert set(real) == set(meta), sorted(set(real) ^ set(meta))[:6]
+    assert real == meta
+
+
+# ---------------------------------------------------------------------------
+# the blocked attention's tiles and scope
+# ---------------------------------------------------------------------------
+
+def test_block_defaults_change_the_tiles_and_keep_the_result():
+    """``set_block_defaults`` changes the tiles a call that names none
+    uses (the einsums' shapes inside the attention scope), and the output
+    stays within the attention tests' tolerance of the reference's blocked
+    attention at those tiles."""
+    import jax.numpy as jnp
+    from repro.models import blocked_attention as jblocked
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((1, 64, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((1, 64, 2, 16)).astype(np.float32)
+    tq, tk = torch.from_numpy(q), torch.from_numpy(k)
+    try:
+        blocked.set_block_defaults(16, 32)
+        with OpCounter() as counts:
+            got = blocked.blocked_attention(tq, tk, tk)
+    finally:
+        blocked.set_block_defaults(None, None)
+    with OpCounter() as plain:
+        blocked.blocked_attention(tq, tk, tk)
+    shapes = {s for (n, s, _) in counts.ops if n == "aten.bmm"}
+    # Q K^T of a block: [B KVH, g block_q, d] x [B KVH, d, block_kv]
+    assert ((2, 2 * 16, 16), (2, 16, 32)) in shapes, shapes
+    assert {s for (n, s, _) in plain.ops if n == "aten.bmm"} != shapes
+    assert counts.flash_bytes > 0 and plain.flash_bytes > 0
+    want = jblocked.blocked_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(k), block_q=16,
+                                      block_kv=32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# against the reference's dry run
+# ---------------------------------------------------------------------------
+
+def _moe_padding_flops(cfg, mesh, tokens: int, passes: int) -> float:
+    """FLOPs of the rows the port's MoE blocks pad to the grouped matmul's
+    tile (``cap_pad - cap`` an expert and EP source, routed; ``t_pad - t``
+    of the shared experts), each through the three expert matmuls,
+    ``passes`` times (3 in training: forward, and the input and weight
+    gradients)."""
+    if cfg.moe is None:
+        return 0.0
+    m, d = cfg.moe, cfg.d_model
+    ep = 1
+    for a in ("pod", "model"):
+        ep *= mesh.shape.get(a, 1)
+    cap = moe._capacity(tokens, m)
+    _, cap_pad = moe.buffer_layout(cap)
+    _, t_pad = moe.buffer_layout(tokens)
+    n_moe = sum(not lm.is_dense_layer(cfg, i) for i in range(cfg.n_layers))
+    routed = (m.num_experts // ep) * ep * (cap_pad - cap) * m.d_ff_expert
+    shared = m.num_shared * (t_pad - tokens) * m.d_ff_expert
+    return float(n_moe * (routed + shared) * 3 * 2 * d * passes)
+
+
+def _slstm_weight_grad_flops(cfg, tokens: int) -> float:
+    """FLOPs of the sLSTM blocks' ``w_in`` and ``w_rec`` gradients, ``2
+    tokens d 4d`` each.  The reference's scan projects each step's input
+    and state inside the loop; the transposed loop's per-step outer
+    products (a contraction of size 1) compile to elementwise multiplies
+    added into the gradients, not to ``dot``, so ``analyze_hlo`` counts
+    none of them.  The port runs them as matmuls: ``x^T dgates`` over the
+    sequence and one ``h^T dgates`` a step."""
+    n_slstm = sum(lm.is_slstm(cfg, i) for i in range(cfg.n_layers))
+    return float(n_slstm * 2 * 2 * tokens * cfg.d_model * 4 * cfg.d_model)
+
+
+def _port_flops(mesh, arch, kind, **kw) -> float:
+    return dryrun.run_cell(arch, ShapeConfig(f"{kind}_s", SEQ, BATCH, kind),
+                           mesh, verbose=False, smoke=True, use_kernel=False,
+                           **kw)["compute_s"] * roofline.PEAK_FLOPS
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_flops_match_the_reference(reference_flops, fake8, family):
+    """Per-rank FLOPs of each family's SMOKE cells against the reference's
+    ``analyze_hlo`` on ``(2, 4, 1)``, the MoE padding and the sLSTM weight
+    gradients taken off: train and prefill within 2%; decode at most the
+    reference's, short of it by no more than the attention over the cache
+    rows the port does not read (none: the cache holds ``seq_len - 1``
+    positions and the step reads all ``seq_len``)."""
+    arch = FAMILIES[family]
+    ref = reference_flops()
+    cfg = get_config(arch, smoke=True)
+    rows = BATCH // (MESH[0] * MESH[1])
+    for kind in KINDS:
+        want = ref[f"{arch}|{kind}"]
+        tokens = rows * (1 if kind == "decode" else SEQ)
+        pad = _moe_padding_flops(cfg, fake8, tokens,
+                                 3 if kind == "train" else 1)
+        if kind == "train":
+            pad += _slstm_weight_grad_flops(cfg, tokens)
+        got = _port_flops(fake8, arch, kind) - pad
+        if kind == "decode":
+            unread = 0           # valid = T
+            gap = 4 * cfg.d_model * rows * unread * cfg.n_layers
+            assert want - gap <= got <= want * (1 + 1e-9), (kind, got, want)
+        else:
+            assert abs(got - want) <= FLOP_TOL * want, (kind, got, want)
+
+
+def test_remat_control_misses(reference_flops, fake8):
+    """The control: the dense train cell counted with the other remat
+    setting than the reference's cell (the SMOKE configs keep remat off;
+    on, every block's forward runs again in the backward) misses the
+    reference's FLOPs by far more than the 2%."""
+    arch = FAMILIES["dense"]
+    assert not get_config(arch, smoke=True).remat
+    want = reference_flops()[f"{arch}|train"]
+    got = _port_flops(fake8, arch, "train", recipe=Recipe(remat=True))
+    assert got > (1 + 5 * FLOP_TOL) * want, (got, want)
+
+
+# ---------------------------------------------------------------------------
+# roofline, report, perf and the command line
+# ---------------------------------------------------------------------------
+
+def _rows() -> list[dict]:
+    base = {"arch": "a", "shape": "s", "mesh": "16x16", "chips": 256,
+            "status": "ok", "memory_s_kernel": 0.1, "step_time_s": 1.0,
+            "model_flops_ratio": 0.5, "hbm_gb": 12.3, "ici_gb": 1.0,
+            "dcn_gb": 0.5, "collectives": 3}
+    return [
+        dict(base, compute_s=2.0, memory_s=0.5, collective_s=0.1,
+             dominant="compute", mfu=0.4),
+        dict(base, compute_s=0.01, memory_s=0.5, collective_s=0.1,
+             memory_s_kernel=0.4, dominant="memory", mfu=0.01),
+        dict(base, compute_s=0.01, memory_s=0.02, collective_s=3.0,
+             dominant="collective", mfu=0.001),
+        {"arch": "b", "shape": "long_500k", "mesh": "16x16", "status": "skip"},
+        {"arch": "c", "shape": "s", "mesh": "16x16", "status": "fail",
+         "error": "boom"},
+        dict(base, compute_s=0.01, memory_s=0.5, collective_s=0.1,
+             memory_s_kernel=0.1, dominant="memory", mfu=0.01)]
+
+
+def test_report_renders_the_reference_table():
+    """``render`` gives the reference's text on the same rows but for the
+    kernel-traffic note, which speaks of the port."""
+    from repro.launch import report as rreport
+    rows = _rows()
+    assert report.render(rows[:-1]) == rreport.render(rows[:-1])
+    got, want = report.render(rows[-1:]), rreport.render(rows[-1:])
+    assert "the plain attention's traffic; the flash kernel removes it" in got
+    assert got.replace("the plain attention's traffic; the flash kernel "
+                       "removes it", "XLA attention traffic; Pallas flash "
+                       "kernel removes it") == want
+
+
+def test_roofline_row_keys_and_h100_terms():
+    from repro.launch import roofline as rroof
+
+    class C:
+        flops, hbm_bytes, ici_bytes, dcn_bytes = 989e12, 3.35e12, 450e9, 50e9
+        collective_count, flash_bytes = 2, 0.0
+        memory = {"total_gb": 1.0}
+    cfg = get_config("qwen2.5-14b", smoke=True)
+    shape = ShapeConfig("t", SEQ, BATCH, "train")
+    mesh = type("M", (), {"shape": {"data": 16, "model": 16}})()
+    roof = roofline.analyze(C(), arch="x", shape=shape, mesh=mesh, cfg=cfg)
+    assert (roof.compute_s, roof.memory_s, roof.collective_s) == (1.0, 1.0,
+                                                                  2.0)
+    assert roof.dominant == "collective" and roof.chips == 256
+    ref_row = rroof.Roofline("x", "t", "16x16", 256, 1, 1, 1, 1, 1).row()
+    assert set(roof.row()) == set(ref_row)
+    assert roofline.model_flops_for(cfg, shape) == \
+        rroof.model_flops_for(cfg, shape)
+
+
+def test_perf_and_dryrun_main_on_smoke(tmp_path, capsys):
+    """``perf.run`` on a SMOKE cell with the tiles overridden prints the
+    terms and the top ops; ``dryrun.main`` on SMOKE, two cells at a time
+    in processes of their own, writes its rows, one a cell, skips what
+    ``shape_applicable`` skips, exits 0 and reads back through
+    ``report``."""
+    row = perf.run("qwen2.5-14b", "prefill_32k", multi_pod=False,
+                   recipe=Recipe(), top=5, smoke=True, block_q=256,
+                   block_kv=512)
+    out = capsys.readouterr().out
+    assert "top traffic items" in out and row["status"] == "ok"
+    assert len(row["top"]) == 5
+    path = tmp_path / "dry.jsonl"
+    assert dryrun.main(["--arch", "qwen2.5-14b", "--smoke", "--jobs", "2",
+                        "--out", str(path)]) == 0
+    rows = [json.loads(line) for line in path.read_text().splitlines()]
+    assert [r["status"] for r in rows] == ["ok", "ok", "ok", "skip"]
+    assert rows[2]["kernels"] == {"decode_attention": 2}
+    text = report.render(rows)
+    assert text.count("\n") == len(rows) + 1 and "skip" in text
+    assert "0 failed" in capsys.readouterr().out
+
+
+def test_full_width_cell_argument_bytes():
+    """One full-width cell on ``(16, 16)`` under a fake world of 256: the
+    counted argument bytes are its stand-ins' local bytes (the model's
+    shards and the batch's rows), the flash kernel reported once a
+    layer."""
+    from torch.distributed.tensor import DTensor
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh(device_type="meta")
+        cell = build_cell("qwen2.5-14b", "prefill_32k", mesh)
+        local = sum(p.numel() * p.element_size()
+                    for p in cell.args[0].parameters())
+        local += sum(t.to_local().numel() * t.element_size()
+                     for t in cell.args[1].values() if isinstance(t, DTensor))
+        counts = dryrun.count_cell(cell, dryrun.local_args(cell))
+    assert counts.argument_bytes == local
+    assert counts.kernel_calls == {"flash_attention": cell.cfg.n_layers}

@@ -218,8 +218,9 @@ def test_gmm_refuses_what_it_does_not_take():
         gmm(x, w, ids.float(), block_n=16)
     with pytest.raises(ValueError, match="lie in"):
         gmm(x, w, torch.tensor([0, 2], dtype=torch.int32), block_n=16)
-    with pytest.raises(ValueError):
-        gmm(x.to("meta"), w.to("meta"), ids.to("meta"), block_n=16)
+    with pytest.raises(ValueError):      # on meta, what the card refuses
+        gmm(x.to("meta", torch.bfloat16), w.to("meta", torch.bfloat16),
+            ids.to("meta"), block_n=16)   # f = 4: bf16 rows of 8 bytes
 
 
 @pytest.mark.parametrize("n,experts,block_n,tiles,skew", [
