@@ -228,6 +228,13 @@ exits non-zero and prints no result.  In order it
    one must miss that by 10x; the prefill seconds and decode ms a step are
    logged beside the gspmd run's, with the peak memory (``--profile``: the
    EP prefill and 4 steps traced, the NCCL kernels a class of their own).
+7t. the ``tp`` line (first on the mesh): Qwen2.5-14B at full width and
+   depth, the dense serve's weights and prompts, served mesh-free and then
+   with ``serve(mesh=...)`` on the one-rank mesh, teacher-forced: on
+   ``model`` 1 the tensor-parallel leaves are whole and no row-parallel
+   sum is issued, so logits and tokens bit for bit, every launch count
+   equal and the serve loop's token all-gather the only collective; the
+   prefill s and decode ms beside the mesh-free run's.
 7c. trains over the mesh (the ep train phase, before the group is
    destroyed): Qwen3-MoE at full width, 1 of 94 layers (3,732,418,560
    parameters; bf16 weights, each routed expert drawn on its own), on its
@@ -297,7 +304,8 @@ exits non-zero and prints no result.  In order it
    each with its reason), the kernels' reports must match, and the
    measured time must be at least ``COMPUTE_FLOOR`` x the roofline's
    compute term; the memory term and the predicted peak are logged beside
-   the measured time and ``max_memory_allocated``;
+   the measured time and ``max_memory_allocated``; each ``(16, 16)`` cell's
+   FLOPs a rank and the model's FLOPs over the ranks' count (``per_rank``);
 9. prints the ``dryrun`` JSON line, the ``kernels`` JSON line, then the
    ``ok`` line last.
 
@@ -2121,6 +2129,69 @@ def mesh_open(dev):
     res.update(_meshops_checks(dev, mesh))
     log(f"mesh phase: {json.dumps(res)}")
     return mesh, res
+
+
+def tp_serve_phase(dev, mesh) -> dict:
+    """The ``tp`` line: Qwen2.5-14B at full width and depth (the dense
+    serve phase's seed: its weights and prompts) served mesh-free, then
+    placed on the one-rank NCCL mesh (``lm.place``: nothing moves) and
+    served with ``serve(mesh=...)``, teacher-forced on the mesh-free run's
+    tokens.  ``model`` is 1, so every leaf the tensor-parallel rules keep
+    (``shardings.kept_axes``) is its whole self, no row-parallel sum is
+    issued and the kernels see the shapes they see mesh-free: logits and
+    tokens bit for bit, every launch count equal, and the only collective
+    the serve loop's all-gather of the tokens over the batch axes.  The
+    prefill s and decode ms beside the mesh-free run's, each run after one
+    warm-up."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import meshops
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import shardings
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+
+    cfg = get_config(SERVE_ARCH)
+    params = lm.init_lm(cfg, seed=SERVE["seed"], device=dev)
+    kw = dict(smoke=False, device=dev, params=params, **SERVE)
+    serve(SERVE_ARCH, **dict(kw, gen_len=2))          # warm (not counted)
+    for k in KERNELS:
+        k.launches = 0
+    gen, free = serve(SERVE_ARCH, **kw)
+    want = {k.__name__: k.launches for k in KERNELS}
+    lm.place(params, mesh)
+    assert not params._split, sorted(params._split)
+    kept = sorted(n for n, spec in params.specs.items()
+                  if "model" in shardings.kept_axes(n, spec, mesh, cfg))
+    serve(SERVE_ARCH, mesh=mesh, **dict(kw, gen_len=2))
+    for k in KERNELS:
+        k.launches = 0
+    meshops.reset_counts()
+    mgen, tp = serve(SERVE_ARCH, mesh=mesh, forced=gen, **kw)
+    counts = {k.__name__: k.launches for k in KERNELS}
+    collectives = dict(meshops.COUNTS)
+    same_logits = all(torch.equal(a, b)
+                      for a, b in zip(free.logits, tp.logits))
+    out = dict(card=nvidia_smi_line(), arch=SERVE_ARCH, mesh=mesh.shape,
+               layers=cfg.n_layers, **SERVE,
+               split=shardings.attention_split(cfg, mesh),
+               kept_model_leaves=len(kept),
+               prefill_s=tp.prefill_s, mesh_free_prefill_s=free.prefill_s,
+               decode_ms=tp.decode_s / SERVE["gen_len"] * 1e3,
+               mesh_free_decode_ms=free.decode_s / SERVE["gen_len"] * 1e3,
+               tokens_equal=bool(np.array_equal(mgen, gen)),
+               logits_bit_for_bit=same_logits, launches=counts,
+               mesh_free_launches=want, collectives=collectives)
+    log(f"tp: {json.dumps(out)}")
+    assert out["tokens_equal"] and same_logits
+    assert counts == want and want["flash_attention"] == cfg.n_layers, counts
+    assert collectives == {k: int(k == "all_gather")
+                           for k in meshops.KINDS}, collectives
+    del params, free, tp
+    torch.cuda.empty_cache()
+    return out
 
 
 def _meshops_checks(dev, mesh) -> dict:
@@ -4520,6 +4591,13 @@ def dryrun_phase(procs) -> dict:
         assert want["kernels"] == card["counts"].kernel_calls, tag
         assert measured >= COMPUTE_FLOOR * compute_s, \
             f"{tag}: {measured} s under {COMPUTE_FLOOR} x {compute_s} s"
+    # each (16, 16) cell's count a rank, and the model's FLOPs over it
+    # (6 N D or 2 N D over the ranks' sum: 1 where each rank did its share)
+    per_rank = {f"{r['arch']}|{r['shape']}": dict(
+        flops_per_rank=r["compute_s"] * roofline.PEAK_FLOPS,
+        model_over_counted=r["model_flops_ratio"])
+        for r in rows if r["status"] == "ok"}
+    log(f"dryrun per rank: {json.dumps(per_rank)}")
     import re
     seconds = {n: float(m.group(1)) for n in DRYRUN_JOBS for m in re.finditer(
         r"\(([\d.]+) s\) ===", (DRYRUN_DIR / f"{n}.log").read_text())}
@@ -4533,7 +4611,7 @@ def dryrun_phase(procs) -> dict:
                             waited_from_start_s={n: w["seconds"]
                                                  for n, w in waited.items()},
                             out=str(DRYRUN_OUT.relative_to(ROOT))),
-                cells=cells)
+                per_rank=per_rank, cells=cells)
 
 
 # ---------------------------------------------------------------------------
@@ -4618,6 +4696,9 @@ def main() -> int:
     log(f"mesh open: {time.perf_counter() - t0:.2f} s")
     try:
         t0 = time.perf_counter()
+        tv = tp_serve_phase(dev, mesh)
+        log(f"tp phase: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
         mv = moe_serve_phase(dev, args.profile, MOE_ARCH, MOE_LAYERS, "moe_",
                              mesh)
         log(f"moe serve phase: {time.perf_counter() - t0:.2f} s")
@@ -4680,6 +4761,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         if "path" in r:       # the kernel of the row's shape (flash, decode)
             line[-1]["path"] = r["path"]
+        if k.__name__ in tv["launches"] and tv["launches"][k.__name__]:
+            line[-1]["tp_launches"] = tv["launches"][k.__name__]
         if k.__name__ == "gmm":   # DeepSeek-V2's launches and decode shape
             d = krows["DeepSeek decode routed gate/up"]
             line[-1]["ep_launches"] = {"qwen3_moe": mv["ep"]["launches"]["gmm"],

@@ -22,9 +22,11 @@ rank's shards already; each ``DTensor`` stand-in gives its ``to_local()``
 (the batch's rows are this rank's ``data.rank_rows``, whose order meta
 tensors do not hold; the moments laid out as their parameters, as
 ``init_opt_state`` lays them out); a decode cell's cache is made in the
-port's own layout (its batch split over ``("pod", "data")`` only, where
-the stand-ins keep the reference's specs, which also split kv heads over
-``model``), filled to ``seq_len - 1`` positions so that the step attends
+port's own layout (its batch split over ``("pod", "data")``, and the
+rank's kv heads where its attention splits them over ``model``: ``kvh /
+m``, or the one kv head of KV replication, where the reference's
+stand-ins split ``T`` over ``model``; all of them where the layer runs
+whole), filled to ``seq_len - 1`` positions so that the step attends
 over ``seq_len``.  A cell whose step raises is a failed cell.
 
 Usage::
@@ -121,7 +123,8 @@ def local_args(cell, *, cache_len: int | None = None) -> tuple:
     batch = _to_local(cell.args[2])
     rows = next(iter(batch.values())).shape[0]
     length = cell.shape.seq_len - 1 if cache_len is None else cache_len
-    cache = lm.init_cache(cell.cfg, rows, cell.shape.seq_len, device="meta")
+    cache = lm.init_cache(cell.cfg, rows, cell.shape.seq_len, device="meta",
+                          mesh=cell.mesh, specs=model.specs)
     cache["pos"] = length
     for layer in cache["layers"]:
         for sub in (layer, layer.get("attn", {})):

@@ -94,8 +94,11 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     prompts are drawn on every rank, the rank runs its rows with a cache
     of those rows, ``params`` must be placed on that mesh (``init_lm`` /
     ``convert`` with the same mesh, or ``lm.place``: each leaf the rank's
-    shard, gathered at use) and the tokens are gathered over the batch
-    axes."""
+    shard, gathered at use or consumed in place over ``model``), the cache
+    holds the rank's kv heads where its attention splits them, each
+    step's last-position logits are gathered over ``model`` before the
+    argmax where the unembedding splits the vocabulary, and the tokens are
+    gathered over the batch axes."""
     if prompt_len + gen_len > max_len:
         raise ValueError(f"prompt_len + gen_len = {prompt_len + gen_len} "
                          f"exceeds max_len = {max_len}")
@@ -116,11 +119,13 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
 
     _sync(dev)
     t0 = time.perf_counter()
-    cache = lm.init_cache(cfg, prompts.shape[0], max_len, device=dev)
+    cache = lm.init_cache(cfg, prompts.shape[0], max_len, device=dev,
+                          mesh=mesh, specs=params.specs)
     logits, cache, _ = lm.forward(params, tokens=torch.from_numpy(prompts).to(dev),
                                   cache=cache, use_kernel=use_kernel,
-                                  mesh=mesh)
-    stats.logits.append(logits[:, -1].clone())
+                                  mesh=mesh, local_logits=True)
+    stats.logits.append(lm.gather_vocab(logits[:, -1].clone(), mesh,
+                                        cfg.vocab))
     del logits
     _sync(dev)
     stats.prefill_s = time.perf_counter() - t0
@@ -133,8 +138,10 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
         step_in = tok if forced is None else torch.from_numpy(
             np.asarray(forced[rows, i:i + 1], np.int32)).to(dev)
         logits, cache = lm.serve_step(params, cache, tokens=step_in,
-                                      use_kernel=use_kernel, mesh=mesh)
-        stats.logits.append(logits[:, -1].clone())
+                                      use_kernel=use_kernel, mesh=mesh,
+                                      local_logits=True)
+        stats.logits.append(lm.gather_vocab(logits[:, -1].clone(), mesh,
+                                            cfg.vocab))
         tok = stats.logits[-1].argmax(-1).to(torch.int32)[:, None]
     _sync(dev)
     stats.decode_s = time.perf_counter() - t0

@@ -29,10 +29,16 @@ its trailing split and is replicated over the dropped axes
 
 Placement.  Under a mesh a leaf is held as this rank's shard by its spec
 (:func:`shard`), a plain local tensor in the whole leaf's memory order, and
-gathered whole right before the module that uses it (:func:`gather`: an
+gathered right before the module that uses it (:func:`gather`: an
 all-gather a split dimension in JAX's order, its adjoint a reduce-scatter
-over the same axes), as ZeRO-3 does over each leaf's own axes.  Over axes
-of total size 1 :func:`gather` returns the leaf itself.
+over the same axes), as ZeRO-3 does over each leaf's own axes, but for the
+axes the module consumes in place (:func:`kept_axes`): a routed expert's
+EP axes, and ``model`` for the tensor-parallel leaves (the MLP's and
+shared experts' column- and row-parallel matrices, GQA attention's heads
+where :func:`attention_split` splits them, the embedding's ``d`` slice,
+the unembedding's vocabulary slice), whose modules end a row-parallel
+product in one sum over ``model``.  Over axes of total size 1
+:func:`gather` returns the leaf itself.
 :func:`to_placements` states a spec as ``torch.distributed.tensor``
 placements on the mesh's ``DeviceMesh``, and :func:`with_shardings` and
 :func:`global_view` make ``DTensor`` views (stand-ins on the meta device,
@@ -410,6 +416,92 @@ def gather_spec(spec: tuple, mesh, keep: tuple[str, ...] = ()) -> tuple:
             size *= mesh.shape[a]
         out.append(left if size > 1 else None)
     return tuple(out)
+
+
+_MLP_LEAVES = (".mlp.w_gate", ".mlp.w_up", ".mlp.w_down", ".moe.shared.w_gate",
+               ".moe.shared.w_up", ".moe.shared.w_down")
+_ATTN_LEAVES = (".attn.wq", ".attn.wk", ".attn.wv", ".attn.wo")
+
+
+def attention_split(cfg, mesh) -> str | None:
+    """How a GQA layer splits its heads over ``model`` (reads only
+    ``mesh.shape``): ``"heads"`` where ``m = mesh.shape["model"]`` divides
+    both head counts (each rank its ``h/m`` q and ``kvh/m`` kv heads),
+    ``"replicate"`` where ``m`` divides ``n_heads`` and ``n_kv_heads``
+    divides ``m`` (each rank its ``h/m`` q heads and the one kv head they
+    read, Megatron's KV replication), else None: the layer runs whole.
+    Only the dense and MoE families' GQA attention splits (not MLA, not a
+    hybrid's mixer)."""
+    m = mesh.shape.get("model")
+    if m is None or cfg.family not in ("dense", "moe") or cfg.mla is not None \
+            or cfg.n_heads % m:
+        return None
+    if cfg.n_kv_heads % m == 0:
+        return "heads"
+    return "replicate" if m % cfg.n_kv_heads == 0 else None
+
+
+def kv_head_of(rank: int, m: int, n_kv_heads: int) -> int:
+    """The kv head that the q heads of ``model`` rank ``rank`` read under
+    KV replication (``n_kv_heads`` dividing ``m``): ``rank // (m /
+    n_kv_heads)``."""
+    return rank // (m // n_kv_heads)
+
+
+def kept_axes(name: str, spec: tuple, mesh, cfg) -> tuple[str, ...]:
+    """The axes of ``spec`` that the module of the port's parameter
+    ``name`` consumes in place, so that a forward under ``mesh`` does not
+    gather the leaf over them (a pure function of its arguments; reads only
+    ``mesh.shape``):
+
+    * a routed expert: its EP axes (``ep_axes_for``), where the dispatch
+      is not gspmd (the dispatch brings the tokens to the experts);
+    * ``model``, where the spec names it, for the tensor-parallel leaves:
+      an MLP's (a dense FFN's, a MoE model's layer-0 FFN and shared
+      experts) ``w_gate`` / ``w_up`` (column-parallel) and ``w_down``
+      (row-parallel); a GQA layer's ``wq`` and ``wo`` where
+      :func:`attention_split` splits its heads, and ``wk`` / ``wv`` where
+      it splits the kv heads too (under KV replication they are gathered
+      whole and the rank takes its kv head's columns); the embedding (its
+      ``d`` slice; not where it is tied to the unembedding) and the
+      unembedding (its vocabulary slice).
+
+    Every other leaf (MLA, a hybrid's mixer, the xLSTM mixers, the router,
+    the norms, the biases) is gathered whole."""
+    named = {a for e in spec for a in _axes(e)}
+    if ".moe.experts." in name:
+        if cfg.moe.dispatch == "gspmd":
+            return ()
+        return tuple(a for a in ep_axes_for(mesh) if a in named)
+    if "model" not in named:
+        return ()
+    if name == "embed":
+        return () if cfg.tie_embeddings else ("model",)
+    if name == "unembed" or name.endswith(_MLP_LEAVES):
+        return ("model",)
+    if name.endswith(_ATTN_LEAVES):
+        split = attention_split(cfg, mesh)
+        if split is None or (split == "replicate"
+                             and name.endswith((".wk", ".wv"))):
+            return ()
+        return ("model",)
+    return ()
+
+
+def local_kv_heads(cfg, mesh, layer: int, specs: dict | None = None) -> int:
+    """The kv heads a rank's cache of attention layer ``layer`` holds under
+    ``mesh``: ``n_kv_heads / m`` where the layer splits its kv heads, 1
+    under KV replication, all of them where it runs whole (by ``specs``,
+    the model's, else by the rules; reads only ``mesh.shape``).  The
+    reference splits the cache's ``T`` over ``model`` where its kv heads do
+    not divide; the port holds the rank's kv head whole."""
+    name = f"blocks.{layer}.attn.wq"
+    spec = specs.get(name) if specs is not None else leaf_spec(
+        name, (cfg.d_model, cfg.n_heads * cfg.d_head), mesh, cfg)
+    if spec is None or "model" not in kept_axes(name, spec, mesh, cfg):
+        return cfg.n_kv_heads
+    m = mesh.shape["model"]
+    return cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else 1
 
 
 class _Gather(torch.autograd.Function):

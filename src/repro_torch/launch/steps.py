@@ -201,17 +201,20 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, *,
                       mesh=None, use_kernel: bool = True) -> Callable:
     """``prefill_step(model, batch) -> (last logits [B, 1, V], cache)``
     into a fresh cache of ``shape.seq_len`` positions for the batch's rows
-    (under ``mesh``, this rank's); ``use_kernel=False`` takes the kernels'
-    plain versions (the route the reference's dry run lowers)."""
+    (under ``mesh``, this rank's, and its kv heads; only the last
+    position's logits gathered over ``model``); ``use_kernel=False`` takes
+    the kernels' plain versions (the route the reference's dry run
+    lowers)."""
     @torch.no_grad()
     def prefill_step(model, batch):
         x = batch.get("tokens", batch.get("embeds"))
         cache = lm.init_cache(cfg, x.shape[0], shape.seq_len,
-                              device=x.device)
+                              device=x.device, mesh=mesh, specs=model.specs)
         logits, cache, _ = lm.forward(model, tokens=batch.get("tokens"),
                                       embeds=batch.get("embeds"), cache=cache,
-                                      use_kernel=use_kernel, mesh=mesh)
-        return logits[:, -1:], cache
+                                      use_kernel=use_kernel, mesh=mesh,
+                                      local_logits=True)
+        return lm.gather_vocab(logits[:, -1:], mesh, cfg.vocab), cache
 
     return prefill_step
 
@@ -240,8 +243,8 @@ class Cell:
     ``args`` (stand-ins on the meta device), the specs its arguments and
     results are placed by (``in_shardings`` / ``out_shardings``, trees of
     specs; None where the reference leaves the placement to XLA), the
-    arguments the step may update in place (``donate_argnums``) and the
-    config with the recipe applied."""
+    arguments the step may update in place (``donate_argnums``), the
+    config with the recipe applied and the mesh."""
     arch: str
     shape: ShapeConfig
     fn: Callable
@@ -250,6 +253,7 @@ class Cell:
     out_shardings: Any
     donate_argnums: tuple[int, ...]
     cfg: ModelConfig
+    mesh: Any
 
 
 def _params_standin(cfg: ModelConfig, mesh) -> tuple[lm.LM, dict, dict]:
@@ -318,21 +322,22 @@ def build_cell(arch: str, shape_name, mesh, *, smoke: bool = False,
         model.requires_grad_(True)
         return Cell(arch, shape, fn, (model, o_args, b_args),
                     (p_specs, o_specs, b_specs), (p_specs, o_specs, None),
-                    (0, 1), cfg)
+                    (0, 1), cfg, mesh)
 
     if shape.kind == "prefill":
         b_args, b_specs = _batch_standin(cfg, shape, mesh, decode=False)
         _, c_specs = _cache_standin(cfg, shape, mesh)
         fn = make_prefill_step(cfg, shape, mesh=mesh, use_kernel=use_kernel)
         return Cell(arch, shape, fn, (model, b_args), (p_specs, b_specs),
-                    (None, c_specs), (), cfg)
+                    (None, c_specs), (), cfg, mesh)
 
     # decode: one new token against a seq_len-deep cache
     c_args, c_specs = _cache_standin(cfg, shape, mesh)
     b_args, b_specs = _batch_standin(cfg, shape, mesh, decode=True)
     fn = make_serve_step(cfg, mesh=mesh, use_kernel=use_kernel)
     return Cell(arch, shape, fn, (model, c_args, b_args),
-                (p_specs, c_specs, b_specs), (None, c_specs), (1,), cfg)
+                (p_specs, c_specs, b_specs), (None, c_specs), (1,), cfg,
+                mesh)
 
 
 def input_specs(arch: str, shape_name, mesh, *, smoke: bool = False,

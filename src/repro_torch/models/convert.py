@@ -197,20 +197,38 @@ def opt_state_from_reference(model: LM, opt_state: dict, *,
     return out
 
 
+def _rank_heads(cfg: ModelConfig, mesh, layer: int, specs) -> slice:
+    """The kv heads of attention layer ``layer`` that this rank's cache
+    holds under ``mesh`` (``shardings.local_kv_heads``): its ``model``
+    block of them, or under KV replication the one its q heads read."""
+    n = shardings.local_kv_heads(cfg, mesh, layer, specs)
+    if n == cfg.n_kv_heads:
+        return slice(None)
+    m, r = mesh.shape["model"], mesh.coord("model")
+    first = r * n if n * m == cfg.n_kv_heads else shardings.kv_head_of(
+        r, m, cfg.n_kv_heads)
+    return slice(first, first + n)
+
+
 def cache_from_reference(cfg: ModelConfig, cache: dict, *,
-                         device="cuda") -> dict:
+                         device="cuda", mesh=None,
+                         specs: dict | None = None) -> dict:
     """The port's cache (``{"pos", "layers": [{"k", "v", "len"}]}``, an MLA
     model's layers ``{"latent", "k_rope", "len"}``, a hybrid model's layers
     ``{"attn": {"k", "v", "len"}, "ssm": {"conv", "ssm"}}``, an xLSTM
     model's ``{"state": {...}}``) holding a copy of the reference's
-    ``lm.init_cache`` / ``forward`` cache, every leaf in its own dtype."""
+    ``lm.init_cache`` / ``forward`` cache, every leaf in its own dtype.
+    Under ``mesh`` a GQA layer whose heads split over ``model`` keeps this
+    rank's kv heads (``lm.init_cache``'s layout; ``specs`` the model's, as
+    there); the rows stay the caller's."""
     dev = check_device(device)
 
-    def attn(t):
-        return {"k": to_tensor(t["k"], dev), "v": to_tensor(t["v"], dev),
+    def attn(t, heads=slice(None)):
+        return {"k": to_tensor(np.asarray(t["k"])[:, :, heads], dev),
+                "v": to_tensor(np.asarray(t["v"])[:, :, heads], dev),
                 "len": int(np.asarray(t["len"]))}
 
-    def layer(t):
+    def layer(t, i):
         if "latent" in t:                    # MLA: the latent and rope key
             return {"latent": to_tensor(t["latent"], dev),
                     "k_rope": to_tensor(t["k_rope"], dev),
@@ -219,8 +237,10 @@ def cache_from_reference(cfg: ModelConfig, cache: dict, *,
             return {"state": {k: to_tensor(v, dev)
                               for k, v in t["state"].items()}}
         if "ssm" not in t:
-            return attn(t)
+            return attn(t, slice(None) if mesh is None
+                        else _rank_heads(cfg, mesh, i, specs))
         return {"attn": attn(t["attn"]),
                 "ssm": {k: to_tensor(v, dev) for k, v in t["ssm"].items()}}
     return {"pos": int(np.asarray(cache["pos"])),
-            "layers": [layer(t) for t in _layer_trees(cache, cfg.n_layers)]}
+            "layers": [layer(t, i) for i, t in enumerate(
+                _layer_trees(cache, cfg.n_layers))]}

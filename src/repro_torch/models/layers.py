@@ -34,8 +34,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
+from repro_torch.core import meshops
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import MASKED
+from repro_torch.launch import shardings
 
 from .blocked_attention import blocked_attention, use_blocked
 from .config import ModelConfig
@@ -43,6 +45,16 @@ from .config import ModelConfig
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def tp_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum over ``model`` that ends a row-parallel product
+    (``meshops.psum``: its gradient the same sum); ``x`` itself where
+    ``model`` has one rank, as ``shardings.gather`` skips an empty
+    gather."""
+    if mesh.shape["model"] == 1:
+        return x
+    return meshops.psum(x, mesh, ("model",))
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +194,18 @@ def _flash(q, k, v, *, window: int, use_kernel: bool) -> torch.Tensor:
 
 class Attention(nn.Module):
     """GQA self-attention with optional QKV bias, a sliding ``window`` (0:
-    global) and a KV cache."""
+    global) and a KV cache.
+
+    Under a mesh whose ``model`` axis splits its heads
+    (``shardings.attention_split``) the layer is called with ``wq``'s
+    columns and ``wo``'s rows of this rank's ``h/m`` q heads (``[r h/m,
+    (r + 1) h/m)`` for ``model`` rank ``r``), and ``wk`` / ``wv`` either
+    as their own ``model`` shard (``kvh/m`` kv heads) or whole, of which it
+    takes the columns of the one kv head its q heads read
+    (``shardings.kv_head_of``); the replicated biases are sliced alike.
+    It attends over those heads (its cache holds its kv heads) and ends in
+    one sum over ``model`` (:func:`tp_sum`).  Whole leaves run the layer
+    whole."""
 
     def __init__(self, cfg: ModelConfig, *, device, gen=None, window: int = 0):
         super().__init__()
@@ -198,21 +221,55 @@ class Attention(nn.Module):
             self.register_parameter(name, param(torch.zeros(
                 width, dtype=dt, device=device)) if cfg.qkv_bias else None)
 
+    def _local(self, mesh):
+        """``(h, kvh, wq, wk, wv, bq, bk, bv)``: the heads this rank
+        computes and the weights and biases of those heads."""
+        cfg, dh = self.cfg, self.cfg.d_head
+        w = [self.wq, self.wk, self.wv, self.bq, self.bk, self.bv]
+        h = self.wq.shape[1] // dh
+        if h == cfg.n_heads:
+            return cfg.n_heads, cfg.n_kv_heads, *w
+        m, r = mesh.shape["model"], mesh.coord("model")
+        if h * m != cfg.n_heads or self.wo.shape[0] != h * dh:
+            raise ValueError(f"wq holds {h} of {cfg.n_heads} heads and wo "
+                             f"{self.wo.shape[0] // dh} on a model axis of "
+                             f"{m}")
+
+        def cols(t, first, n):
+            return None if t is None else t[..., first * dh:(first + n) * dh]
+        kvh = self.wk.shape[1] // dh
+        if kvh == cfg.n_kv_heads:         # KV replication: this rank's head
+            if m % kvh:
+                raise ValueError(f"{kvh} kv heads on a model axis of {m}")
+            first, kvh = shardings.kv_head_of(r, m, cfg.n_kv_heads), 1
+            w[1], w[2], w[4], w[5] = (cols(t, first, 1)
+                                      for t in (w[1], w[2], w[4], w[5]))
+        elif kvh * m != cfg.n_kv_heads:
+            raise ValueError(f"wk holds {kvh} of {cfg.n_kv_heads} kv heads "
+                             f"on a model axis of {m}")
+        else:
+            w[4], w[5] = cols(w[4], r * kvh, kvh), cols(w[5], r * kvh, kvh)
+        w[3] = cols(w[3], r * h, h)
+        return h, kvh, *w
+
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
-                cache: dict | None = None, use_kernel: bool = True):
+                cache: dict | None = None, use_kernel: bool = True,
+                mesh=None):
         """x: ``[B, S, D]``.  Returns ``(out, cache)``; a given cache is
         updated in place (its ``k``/``v`` rows ``[len, len + S)`` are
-        written and ``len`` advances), not copied."""
+        written and ``len`` advances), not copied.  ``mesh`` is needed
+        only where the leaves arrive as this rank's heads."""
         cfg = self.cfg
         b, s, _ = x.shape
-        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
-        if self.bq is not None:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
-        q = apply_rope(q.reshape(b, s, cfg.n_heads, cfg.d_head), positions,
+        h, kvh, wq, wk, wv, bq, bk, bv = self._local(mesh)
+        q, k, v = x @ wq, x @ wk, x @ wv
+        if bq is not None:
+            q, k, v = q + bq, k + bk, v + bv
+        q = apply_rope(q.reshape(b, s, h, cfg.d_head), positions,
                        cfg.rope_theta)
-        k = apply_rope(k.reshape(b, s, cfg.n_kv_heads, cfg.d_head), positions,
+        k = apply_rope(k.reshape(b, s, kvh, cfg.d_head), positions,
                        cfg.rope_theta)
-        v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+        v = v.reshape(b, s, kvh, cfg.d_head)
 
         if cache is None:
             out = _flash(q, k, v, window=self.window, use_kernel=True) \
@@ -222,6 +279,10 @@ class Attention(nn.Module):
             if ln + s > kc.shape[1]:
                 raise ValueError(f"KV cache full: {ln} + {s} positions > "
                                  f"{kc.shape[1]}")
+            if kc.shape[2] != kvh:
+                raise ValueError(f"the cache holds {kc.shape[2]} kv heads, "
+                                 f"the layer computes {kvh}: make it with "
+                                 f"the model's mesh")
             kc[:, ln:ln + s] = k            # cast to the cache's dtype
             vc[:, ln:ln + s] = v
             cache["len"] = ln + s
@@ -233,13 +294,16 @@ class Attention(nn.Module):
             else:     # prefill, fresh or appended: flash on the cache rows,
                 out = _flash(q, kc[:, :ln + s], vc[:, :ln + s],   # end-aligned
                              window=self.window, use_kernel=use_kernel)
-        out = out.reshape(b, s, cfg.n_heads * cfg.d_head)
-        return (out @ self.wo).to(x.dtype), cache
+        out = out.reshape(b, s, h * cfg.d_head)
+        out = (out @ self.wo).to(x.dtype)
+        return (out if h == cfg.n_heads else tp_sum(out, mesh)), cache
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-                         device, dtype=torch.bfloat16) -> dict:
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
+                         device, dtype=torch.bfloat16,
+                         kv_heads: int | None = None) -> dict:
+    """``kv_heads`` (default all) the heads a rank's split layer holds."""
+    shape = (batch, max_len, kv_heads or cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device), "len": 0}
 
@@ -390,19 +454,31 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
+    """SwiGLU (``w_gate``, ``w_up``, ``w_down``) or GELU (``w_up``,
+    ``w_down``) of width ``d_ff``.  Under a mesh that splits it over
+    ``model`` it is called with this rank's ``f/m`` columns of ``w_gate``
+    and ``w_up`` (column-parallel) and rows of ``w_down`` (row-parallel),
+    and ends in one sum over ``model`` (:func:`tp_sum`)."""
+
     def __init__(self, cfg: ModelConfig, *, device, gen=None,
                  d_ff: int | None = None):
         super().__init__()
         d_ff = d_ff or cfg.d_ff
         dt = dtype_of(cfg)
+        self.d_ff = d_ff
         gate = dense_init(gen, cfg.d_model, d_ff, dt, device) \
             if cfg.gated_mlp else None
         self.register_parameter("w_gate", None if gate is None else param(gate))
         self.w_up = param(dense_init(gen, cfg.d_model, d_ff, dt, device))
         self.w_down = param(dense_init(gen, d_ff, cfg.d_model, dt, device))
 
-    def forward(self, x):
+    def forward(self, x, mesh=None):
+        f = self.w_up.shape[1]
+        if self.w_down.shape[0] != f:
+            raise ValueError(f"w_up holds {f} columns, w_down "
+                             f"{self.w_down.shape[0]} rows")
         if self.w_gate is not None:
-            return (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
-        # jax.nn.gelu's default is the tanh approximation
-        return F.gelu(x @ self.w_up, approximate="tanh") @ self.w_down
+            y = (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
+        else:   # jax.nn.gelu's default is the tanh approximation
+            y = F.gelu(x @ self.w_up, approximate="tanh") @ self.w_down
+        return y if f == self.d_ff else tp_sum(y, mesh)

@@ -36,15 +36,24 @@ the EP axes ``ep_axes_for(mesh)`` by its config's template (``teshu`` /
 ``convert`` take ``mesh=``; :func:`place` places one made without) holds
 every parameter as this rank's shard by the reference's sharding rules
 (``launch.shardings``; the specs in ``model.specs``), and each module
-gathers its leaves whole right before it runs and drops them when it
-returns (``shardings.gather``: an all-gather a split dimension, whose
-gradient returns as a reduce-scatter); a routed expert keeps its split
-over the EP axes, the dispatch bringing the tokens to it, and is gathered
-over ``data`` only (on the gspmd dispatch, whole).  Under ``cfg.remat``
+gathers its leaves right before it runs and drops them when it returns
+(``shardings.gather``: an all-gather a split dimension, whose gradient
+returns as a reduce-scatter), but for the axes it consumes in place
+(``shardings.kept_axes``): a routed expert keeps its split over the EP
+axes, the dispatch bringing the tokens to it, and is gathered over
+``data`` only (on the gspmd dispatch, whole); the ranks along ``model``
+split the dense work as the reference's specs do (tensor parallelism):
+an MLP on its ``f / m`` columns, GQA attention on its ``h / m`` heads
+(where ``model`` divides them; its kv heads too, or the one they read),
+each ending in one sum over ``model``, the embedding looked up in the
+rank's ``d`` slice and all-gathered, the logits computed on the rank's
+vocabulary slice (gathered whole for callers; ``train_loss`` reads the
+slice).  MLA, a hybrid's or an xLSTM's mixer, the router and the norms
+run whole on every ``model`` rank.  Under ``cfg.remat``
 the gather sits inside the checkpointed block, so the backward gathers
 again; without remat autograd keeps the gathered weights until the
-backward.  Placement changes where the parameters live, not what is
-computed: the gathered leaves are the whole ones, bit for bit.  The
+backward.  On a ``model`` axis of one rank nothing is split and no sum is
+issued: the mesh computes the mesh-free rows bit for bit.  The
 training forward runs under a mesh as well: the dispatch's collectives
 carry their adjoints, and under ``cfg.remat`` each rank recomputes a
 block, and reissues its collectives, in the same order.
@@ -56,6 +65,7 @@ it trains only on a mesh of one batch shard.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
@@ -68,6 +78,7 @@ from repro_torch.launch import shardings
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.launch.shardings import ep_axes_for
 
+from . import layers
 from .config import ModelConfig
 from .hybrid import HymbaMixer, init_ssm_cache
 from .layers import (MLA, MLP, Attention, RMSNorm, dtype_of, embed_init,
@@ -141,14 +152,16 @@ class Block(nn.Module):
         if self.cfg.family == "ssm":
             return x + self._xlstm(self.ln1(x), cache, use_kernel), None
         mix = self.mixer if hasattr(self, "mixer") else self.attn
-        out, _ = mix(self.ln1(x), positions, cache=cache, use_kernel=use_kernel)
+        heads = {"mesh": mesh} if isinstance(mix, Attention) else {}
+        out, _ = mix(self.ln1(x), positions, cache=cache,
+                     use_kernel=use_kernel, **heads)
         x = x + out
         if hasattr(self, "moe"):
             y, aux = self.moe(self.ln2(x), use_kernel=use_kernel, mesh=mesh,
                               mesh_axes=() if mesh is None
                               else ep_axes_for(mesh))
             return x + y, aux
-        return x + self.mlp(self.ln2(x)), None
+        return x + self.mlp(self.ln2(x), mesh), None
 
     def _xlstm(self, h, cache, use_kernel):
         """The xLSTM mixer's output; a given cache's ``state`` is updated in
@@ -216,8 +229,9 @@ class LM(nn.Module):
     def _gathers(self, mesh) -> dict:
         """``{prefix: {name under it: gather spec}}`` of the leaves a
         forward under ``mesh`` gathers (``""`` the top-level leaves,
-        ``"blocks.i."`` block i's), the routed experts' EP axes kept where
-        the block dispatches over them."""
+        ``"blocks.i."`` block i's), without the axes each leaf's module
+        consumes in place (``shardings.kept_axes``: a routed expert's EP
+        axes, a tensor-parallel leaf's ``model``)."""
         if mesh is None:
             if self._split:
                 raise ValueError(f"the model is placed on a mesh of "
@@ -229,13 +243,10 @@ class LM(nn.Module):
                              f"mesh= or place() it")
         plan = self._plans.get(mesh)
         if plan is None:
-            m = self.cfg.moe
-            keep = ep_axes_for(mesh) if m is not None and \
-                m.dispatch != "gspmd" else ()
             plan = {}
             for n, spec in self.specs.items():
-                g = shardings.gather_spec(
-                    spec, mesh, keep if ".moe.experts." in n else ())
+                g = shardings.gather_spec(spec, mesh, shardings.kept_axes(
+                    n, spec, mesh, self.cfg))
                 if any(g):
                     pre = "" if not n.startswith("blocks.") else \
                         ".".join(n.split(".")[:2]) + "."
@@ -249,7 +260,7 @@ class LM(nn.Module):
 
     def forward(self, tokens: torch.Tensor | None = None, *, embeds=None,
                 positions=None, cache=None, use_kernel: bool = True,
-                train: bool = False, mesh=None):
+                train: bool = False, mesh=None, local_logits: bool = False):
         """``tokens [B, S]`` (or ``embeds [B, S, D]``, cast to the model's
         dtype) -> ``(logits [B, S, vocab], cache, aux)``.  A given cache is
         updated in place (every layer's rows ``[pos, pos + S)`` and
@@ -258,14 +269,21 @@ class LM(nn.Module):
         plain paths (``use_kernel=False``) and no cache, each block
         rematerialised when ``cfg.remat``.  Under ``mesh`` (the one the
         model is placed on) the batch is this rank's rows, and each module
-        gathers its placed leaves right before it runs; a MoE model on the
-        gspmd dispatch trains under it only where it has one batch shard
-        (else it raises)."""
+        gathers its placed leaves right before it runs, but for those it
+        consumes as its ``model`` shard; the logits are gathered whole over
+        ``model`` where the unembedding splits the vocabulary, unless
+        ``local_logits`` (this rank's ``V / m`` of them: the vocabulary
+        slice of its ``model`` coordinate).  A MoE model on the gspmd
+        dispatch trains under it only where it has one batch shard (else it
+        raises)."""
         plan = self._gathers(mesh)
         top = plan.get("", {})
         if tokens is not None:
             b, s = tokens.shape
-            x = F.embedding(tokens, self._leaf("embed", top, mesh))
+            table = self._leaf("embed", top, mesh)
+            x = F.embedding(tokens, table)
+            if table.shape[1] != self.cfg.d_model:    # this rank's d slice
+                x = meshops.all_gather(x, mesh, "model", axis=2)
         elif embeds is not None:
             b, s = embeds.shape[:2]
             x = embeds.to(self.embed.dtype)
@@ -303,10 +321,12 @@ class LM(nn.Module):
                      self.final_norm.eps)
         unembed = self._leaf("embed", top, mesh).t() if self.unembed is None \
             else self._leaf("unembed", top, mesh)
-        logits = x @ unembed
+        logits = x @ unembed                  # [B, S, V / m] where split
         del unembed
         if cache is not None:
             cache["pos"] += s
+        if not local_logits:
+            logits = gather_vocab(logits, mesh, self.cfg.vocab)
         return logits, cache, aux_total
 
 
@@ -365,12 +385,50 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
               gen=torch.Generator(device=dev).manual_seed(seed))
 
 
+def gather_vocab(logits: torch.Tensor, mesh, vocab: int) -> torch.Tensor:
+    """Logits whole over the vocabulary: the ``model`` ranks' slices
+    all-gathered on the last dimension where ``logits`` holds ``V / m``
+    of ``vocab``, else ``logits`` itself."""
+    if logits.shape[-1] == vocab:
+        return logits
+    return meshops.all_gather(logits, mesh, "model", axis=logits.dim() - 1)
+
+
 def forward(model: LM, *, tokens=None, embeds=None, positions=None,
             cache=None, use_kernel: bool = True, train: bool = False,
-            mesh=None):
-    """Returns ``(logits, cache, aux)`` as the reference's ``forward``."""
+            mesh=None, local_logits: bool = False):
+    """Returns ``(logits, cache, aux)`` as the reference's ``forward``
+    (``local_logits``: see :meth:`LM.forward`)."""
     return model(tokens, embeds=embeds, positions=positions, cache=cache,
-                 use_kernel=use_kernel, train=train, mesh=mesh)
+                 use_kernel=use_kernel, train=train, mesh=mesh,
+                 local_logits=local_logits)
+
+
+def _gold_logit(logits: torch.Tensor, labels: torch.Tensor, mesh
+                ) -> torch.Tensor:
+    """Each position's logit of its label from this rank's vocabulary
+    slice ``logits [.., V / m]`` (the ``model`` rank that owns the label
+    gives it, the others 0), summed over ``model``."""
+    v, first = logits.shape[-1], mesh.coord("model") * logits.shape[-1]
+    own = (labels >= first) & (labels < first + v)
+    idx = (labels - first).clamp(0, v - 1)
+    gold = logits.gather(-1, idx[..., None])[..., 0]
+    return layers.tp_sum(torch.where(own, gold, 0.0), mesh)
+
+
+def _logz_gold(logits: torch.Tensor, labels: torch.Tensor, mesh, vocab: int):
+    """``(logsumexp, gold logit)`` of float32 ``logits`` over the
+    vocabulary, each position's ``labels`` (>= 0).  Where ``logits`` is
+    this rank's slice of a vocabulary split over ``model``: the max over
+    ``model`` (a MAX all-reduce, no gradient), the sum of exponentials
+    summed over ``model``, the gold logit from the rank that owns it."""
+    if logits.shape[-1] == vocab:
+        return torch.logsumexp(logits, dim=-1), \
+            logits.gather(-1, labels[..., None])[..., 0]
+    top = meshops.psum(logits.detach().amax(-1), mesh, ("model",),
+                       op=dist.ReduceOp.MAX)
+    sumexp = layers.tp_sum((logits - top[..., None]).exp().sum(-1), mesh)
+    return top + sumexp.log(), _gold_logit(logits, labels, mesh)
 
 
 def train_loss(model: LM, batch: dict, *, mesh=None) -> torch.Tensor:
@@ -387,17 +445,18 @@ def train_loss(model: LM, batch: dict, *, mesh=None) -> torch.Tensor:
     "data")``), divided by the number of ranks that hold the same rows (the
     mesh's other axes: the tokens are replicated over ``model``); the aux's
     is the aux, the same on every rank (the EP dispatch's ``pmean``, or the
-    gspmd dispatch's on one batch shard), over the number of ranks.
+    gspmd dispatch's on one batch shard), over the number of ranks.  Where
+    the unembedding splits the vocabulary over ``model`` each rank reads
+    its own slice of the logits (:func:`_logz_gold`).
     The gradient of the sum over ranks, which the mesh's step forms by
     summing each leaf's gradient over the axes it is replicated on, is the
     reference's under ``shard_map``."""
     logits, _, aux = forward(model, tokens=batch.get("tokens"),
                              embeds=batch.get("embeds"), train=True,
-                             mesh=mesh)
+                             mesh=mesh, local_logits=True)
     labels = batch["labels"].long()
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    logz, gold = _logz_gold(logits.float(), labels.clamp(min=0), mesh,
+                            model.cfg.vocab)
     mask = (labels >= 0).float()
     count, replicas, ranks = mask.sum(), 1, 1
     if mesh is not None:
@@ -410,7 +469,7 @@ def train_loss(model: LM, batch: dict, *, mesh=None) -> torch.Tensor:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device="cuda") -> dict:
+               device="cuda", mesh=None, specs: dict | None = None) -> dict:
     """``{"pos": 0, "layers": [{"k", "v", "len"}, ...]}``, an MLA model's
     layers ``{"latent", "k_rope", "len"}``, a hybrid model's layers
     ``{"attn": {"k", "v", "len"}, "ssm": {"conv", "ssm"}}``, an xLSTM
@@ -418,7 +477,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     "n", "h", "m"}}`` (sLSTM); keys, values, the latent, the rope key and
     the conv tail are bfloat16 whatever the model's dtype, the scan and
     xLSTM states float32, as in the reference (an xLSTM cache does not
-    grow: ``max_len`` is unused)."""
+    grow: ``max_len`` is unused).  Under ``mesh`` a GQA layer whose heads
+    split over ``model`` keeps this rank's kv heads
+    (``shardings.local_kv_heads``, by ``specs``, the model's, where
+    given: a model placed with other specs than the rules' keeps its
+    own)."""
     check_supported(cfg)
     dev = _device(device)
 
@@ -429,7 +492,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             return {"state": init(cfg, batch, device=dev)}
         if cfg.mla is not None:
             return init_mla_cache(cfg, batch, max_len, device=dev)
-        attn = init_attention_cache(cfg, batch, max_len, device=dev)
+        attn = init_attention_cache(
+            cfg, batch, max_len, device=dev, kv_heads=None if mesh is None
+            else shardings.local_kv_heads(cfg, mesh, layer, specs))
         if cfg.family == "hybrid":
             return {"attn": attn, "ssm": init_ssm_cache(cfg, batch, device=dev)}
         return attn
@@ -437,9 +502,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def serve_step(model: LM, cache: dict, tokens=None, embeds=None, *,
-               use_kernel: bool = True, mesh=None):
+               use_kernel: bool = True, mesh=None,
+               local_logits: bool = False):
     """Decode one token per sequence: ``(logits [B, 1, V], cache)``, the
-    cache updated in place."""
+    cache updated in place (``local_logits``: see :meth:`LM.forward`)."""
     logits, cache, _ = forward(model, tokens=tokens, embeds=embeds,
-                               cache=cache, use_kernel=use_kernel, mesh=mesh)
+                               cache=cache, use_kernel=use_kernel, mesh=mesh,
+                               local_logits=local_logits)
     return logits, cache

@@ -59,6 +59,7 @@ from repro_torch.core import meshops
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.gmm import positions_in_group
 
+from . import layers
 from .config import ModelConfig
 from .layers import dense_init, dtype_of, param
 
@@ -229,7 +230,10 @@ def moe_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor, *, mesh=None,
     """``x [B, S, D] -> ([B, S, D], aux loss)``: the shared experts (if
     any) on every token, plus the routed experts by ``cfg.moe.dispatch``
     when ``mesh_axes`` (the EP axes of ``mesh``) are given, else by the
-    gspmd dispatch.  Under a mesh ``x`` is this rank's rows."""
+    gspmd dispatch.  Under a mesh ``x`` is this rank's rows; shared
+    experts held as this rank's ``f / m`` columns over ``model``
+    (``shardings.kept_axes``) run their three grouped matmuls at that
+    width and end in one sum over ``model``."""
     m = cfg.moe
     b, s, d = x.shape
     out = torch.zeros_like(x)
@@ -241,7 +245,10 @@ def moe_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor, *, mesh=None,
         xs[:, :t] = x.reshape(t, d)
         shared = _expert_ffn(p.shared, xs, block_n=block_n,
                              use_kernel=use_kernel)[:, :t]
-        out = out + shared.float().sum(0).to(x.dtype).reshape(b, s, d)
+        shared = shared.float().sum(0).to(x.dtype).reshape(b, s, d)
+        if p.shared.w_up.shape[-1] != m.d_ff_expert:   # f / m columns
+            shared = layers.tp_sum(shared, mesh)
+        out = out + shared
     dispatch = m.dispatch if mesh_axes else "gspmd"
     if dispatch == "gspmd":
         y, aux = _moe_gspmd(p, cfg, x, use_kernel=use_kernel)

@@ -27,6 +27,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parents[1]
 AXES = ("pod", "data", "model")
 MESH = (2, 2, 2)
+FLAT_MESH = (2, 4, 1)                 # the same 8 ranks, model 1
 WORLD = 8
 
 
@@ -475,6 +476,9 @@ def _moe_rank(inputs: str, cases: list, serve_kw: dict, arch: str,
     def replicated(name, shape, mesh_, cfg):
         spec = real_spec(name, shape, mesh_, cfg)
         return spec if ".moe.experts." in name else (None,) * len(spec)
+    # and both again on (2, 4, 1), whose model axis of 1 splits no dense
+    # work: the placed run computes the replicated one's rows
+    flat_mesh = make_mesh(FLAT_MESH, AXES, device_type="cpu")
     for a, key in [(arch, "serve")] + [(a, f"serve-{a}") for a in archs]:
         pcfg = get_config(a, smoke=True)
         model = lm_params_from_reference(pcfg, unflatten(data, key),
@@ -487,17 +491,26 @@ def _moe_rank(inputs: str, cases: list, serve_kw: dict, arch: str,
                            **serve_kw)
         res[f"{key}|tokens"] = gen
         res[f"{key}|logits"] = torch.stack(stats.logits).numpy()
-        shardings.leaf_spec = replicated
-        try:
-            model = lm_params_from_reference(pcfg, unflatten(data, key),
-                                             device="cpu", mesh=mesh)
-        finally:
-            shardings.leaf_spec = real_spec
-        res[f"repl-{a}|placed"] = np.array(len(model._split))
-        gen, stats = serve(a, device="cpu", params=model, mesh=mesh,
-                           **serve_kw)
-        res[f"repl-{a}|tokens"] = gen
-        res[f"repl-{a}|logits"] = torch.stack(stats.logits).numpy()
+        for on, tag in ((mesh, ""), (flat_mesh, "flat-")):
+            if on is flat_mesh:
+                model = lm_params_from_reference(
+                    pcfg, unflatten(data, key), device="cpu", mesh=on)
+                gen, stats = serve(a, device="cpu", params=model, mesh=on,
+                                   **serve_kw)
+                res[f"{tag}placed-{a}|tokens"] = gen
+                res[f"{tag}placed-{a}|logits"] = torch.stack(
+                    stats.logits).numpy()
+            shardings.leaf_spec = replicated
+            try:
+                model = lm_params_from_reference(
+                    pcfg, unflatten(data, key), device="cpu", mesh=on)
+            finally:
+                shardings.leaf_spec = real_spec
+            res[f"{tag}repl-{a}|placed"] = np.array(len(model._split))
+            gen, stats = serve(a, device="cpu", params=model, mesh=on,
+                               **serve_kw)
+            res[f"{tag}repl-{a}|tokens"] = gen
+            res[f"{tag}repl-{a}|logits"] = torch.stack(stats.logits).numpy()
     # init_lm under the mesh: each leaf this rank's shard of the full init
     pcfg = get_config(arch, smoke=True)
     cut = dataclasses.replace(pcfg, n_layers=1)

@@ -56,8 +56,19 @@ TRAIN = dict(arch="qwen3-moe-235b-a22b", steps=3, global_batch=8,
 CKPT = dict(arch="qwen3-moe-235b-a22b", steps=6, global_batch=8,
             seq_len=16, lr=1e-2, seed=5, ckpt_every=3)
 SMALL = (1, 2, 2)
-# placement against replication: n_micro 1, teshu2, capacity 8.0
+# placement against replication: n_micro 1, teshu2, capacity 8.0, on the
+# (2, 2, 2) mesh (model 2: the placed run splits its dense work over model,
+# the replicated one runs it whole) and on (2, 4, 1) (model 1: the same
+# arithmetic in both)
 PLACE_CASES = [(f"{a}-teshu2-8.0-1", a) for a in ARCHS]
+PLACE_MESHES = (MESH, (2, 4, 1))
+
+
+def place_key(tag: str, shape) -> str:
+    """The result key of a placement run: ``tag`` on the (2, 2, 2) mesh,
+    ``tag@2x4x1`` on another."""
+    return tag if tuple(shape) == MESH else \
+        f"{tag}@{'x'.join(map(str, shape))}"
 # build_cell's stand-ins of the SMOKE cells
 CELLS = ("train_4k", "prefill_32k", "decode_32k")
 
@@ -420,23 +431,28 @@ def _train_rank(inputs: str) -> dict:
     def replicated(name, shape, mesh_, cfg_):
         spec = real_spec(name, shape, mesh_, cfg_)
         return spec if ".moe.experts." in name else (None,) * len(spec)
-    for key, arch in PLACE_CASES:
-        cfg = moe_cfg(get_config(arch, smoke=True), "teshu2", 8.0)
-        for tag in ("placed", "replicated"):
-            if tag == "replicated":
-                shardings.leaf_spec = replicated
-            try:
-                model = model_of(arch, cfg)
-            finally:
-                shardings.leaf_spec = real_spec
-            pre: dict = {}
-            loss, g, _ = _mesh_grads(model, cfg, mesh, batch_of(arch), 1,
-                                     pre=pre)
-            res[f"{tag}-{arch}|loss"] = np.array(loss)
-            res[f"{tag}-{arch}|split"] = np.array(len(model._split))
-            res.update({f"{tag}-{arch}|g|{n}": v for n, v in g.items()})
-            res.update({f"{tag}-{arch}|pre|{n}": v.numpy()
-                        for n, v in pre.items()})
+    place_meshes = {s: mesh if s == MESH else make_mesh(s, AXES,
+                                                        device_type="cpu")
+                    for s in PLACE_MESHES}
+    for shape, on in place_meshes.items():
+        for key, arch in PLACE_CASES:
+            cfg = moe_cfg(get_config(arch, smoke=True), "teshu2", 8.0)
+            for tag in ("placed", "replicated"):
+                if tag == "replicated":
+                    shardings.leaf_spec = replicated
+                try:
+                    model = model_of(arch, cfg, on)
+                finally:
+                    shardings.leaf_spec = real_spec
+                pre: dict = {}
+                loss, g, _ = _mesh_grads(model, cfg, on, batch_of(arch), 1,
+                                         pre=pre)
+                k = place_key(f"{tag}-{arch}", shape)
+                res[f"{k}|loss"] = np.array(loss)
+                res[f"{k}|split"] = np.array(len(model._split))
+                res.update({f"{k}|g|{n}": v for n, v in g.items()})
+                res.update({f"{k}|pre|{n}": v.numpy()
+                            for n, v in pre.items()})
 
     # the controls: the experts' sum over data skipped (their gather's
     # reduce-scatter a slice); the dispatch's all-gather's backward a slice
@@ -508,36 +524,46 @@ def _train_rank(inputs: str) -> dict:
     # one step with a factored second moment, placed and with every leaf
     # but the routed experts replicated: the moments' factors (gathered
     # whole) and the weights; and named_from_reference's shards
+    # (on (2, 4, 1) at n_micro 1: its 8 batch shards take no microbatch
+    # of 4 rows), with the replicated run's gradients of the step
     from repro_torch.models.convert import named_from_reference
-    for tag in ("placed", "replicated"):
-        if tag == "replicated":
-            shardings.leaf_spec = replicated
-        try:
-            model = model_of(STEPS["arch"], cfg)
-        finally:
-            shardings.leaf_spec = real_spec
-        if tag == "placed":
-            res["named|same"] = np.array(all(
-                torch.equal(t, p) for t, p in zip(named_from_reference(
-                    model, unflatten(data, f"p-{STEPS['arch']}"),
-                    mesh=mesh).values(), model.parameters())))
-        opt = init_opt_state(dict(model.named_parameters()),
-                             factored_v=True)
-        step = steps.make_train_step(
-            cfg, AdamWConfig(**STEPS["opt"], factored_v=True),
-            steps.Recipe(n_micro=STEPS["n_micro"], factored_v=True),
-            mesh=mesh)
-        _, opt, _ = step(model, opt, rows)
-        res.update({f"factored-{tag}|p|{n}": v
-                    for n, v in _named(model, mesh).items()})
-        vspecs = shardings.opt_v_specs(model.specs, {
-            n: shardings.global_shape(model.specs[n], p.shape, mesh)
-            for n, p in model.named_parameters()}, True)
-        with torch.no_grad():
-            for n, v in opt["v"].items():
-                for k, t in (v.items() if isinstance(v, dict) else ()):
-                    res[f"factored-{tag}|{k}|{n}"] = _whole(
-                        t, vspecs[n][k], mesh).numpy()
+    for shape, on in place_meshes.items():
+        n_micro = STEPS["n_micro"] if shape == MESH else 1
+        for tag in ("placed", "replicated"):
+            if tag == "replicated":
+                shardings.leaf_spec = replicated
+            try:
+                model = model_of(STEPS["arch"], cfg, on)
+            finally:
+                shardings.leaf_spec = real_spec
+            if tag == "placed" and shape == MESH:
+                res["named|same"] = np.array(all(
+                    torch.equal(t, p) for t, p in zip(named_from_reference(
+                        model, unflatten(data, f"p-{STEPS['arch']}"),
+                        mesh=on).values(), model.parameters())))
+            key = place_key(f"factored-{tag}", shape)
+            if tag == "replicated":
+                _, g, _ = _mesh_grads(model, cfg, on,
+                                      batch_of(STEPS["arch"]), n_micro)
+                res.update({f"{key}|g|{n}": v for n, v in g.items()})
+            opt = init_opt_state(dict(model.named_parameters()),
+                                 factored_v=True)
+            step = steps.make_train_step(
+                cfg, AdamWConfig(**STEPS["opt"], factored_v=True),
+                steps.Recipe(n_micro=n_micro, factored_v=True), mesh=on)
+            _, opt, _ = step(model, opt, {
+                k: torch.from_numpy(rank_rows(v, on, n_micro))
+                for k, v in batch_of(STEPS["arch"]).items()})
+            res.update({f"{key}|p|{n}": v
+                        for n, v in _named(model, on).items()})
+            vspecs = shardings.opt_v_specs(model.specs, {
+                n: shardings.global_shape(model.specs[n], p.shape, on)
+                for n, p in model.named_parameters()}, True)
+            with torch.no_grad():
+                for n, v in opt["v"].items():
+                    for k, t in (v.items() if isinstance(v, dict) else ()):
+                        res[f"{key}|{k}|{n}"] = _whole(
+                            t, vspecs[n][k], on).numpy()
 
     # train(mesh=...) against a loop of the step on the pipeline's rows
     kw = {k: v for k, v in TRAIN.items() if k != "arch"}

@@ -334,22 +334,34 @@ def test_placed_serve_emits_the_reference_tokens(runs, arch):
     np.testing.assert_allclose(got, runs["ref"][f"{key}|logits"], **CACHED)
 
 
+@pytest.mark.parametrize("mesh", ["2x2x2", "2x4x1"])
 @pytest.mark.parametrize("arch", (ARCH,) + ARCHS)
-def test_placement_changes_no_logit(runs, arch):
-    """Every leaf but the routed experts replicated in place of placed (a
-    monkeypatched ``shardings.leaf_spec``): the same tokens and the same
-    logits bit for bit on every rank; the routed experts, placed in both
-    runs, the only leaves held in part there."""
+def test_placement_changes_no_logit(runs, arch, mesh):
+    """Every leaf but the routed experts replicated (a monkeypatched
+    ``shardings.leaf_spec``) in place of placed; the routed experts,
+    placed in both runs, the only leaves held in part there.  On ``(2, 4,
+    1)`` (``model`` 1) the same tokens and the same logits bit for bit on
+    every rank.  On ``(2, 2, 2)`` the placed run splits its dense work
+    over ``model`` (each row-parallel product summed over ``model`` in
+    another order than one matmul): the same tokens, the logits within
+    ``CACHED`` (through the bf16 cache)."""
+    flat = mesh == "2x4x1"
     key = "serve" if arch == ARCH else f"serve-{arch}"
+    placed = f"flat-placed-{arch}" if flat else key
+    repl = f"flat-repl-{arch}" if flat else f"repl-{arch}"
     cfg = get_config(arch, smoke=True)
     experts = 3 * sum(1 for i in range(cfg.n_layers)
                       if not lm.is_dense_layer(cfg, i))
     for res in runs["ranks"]:
-        assert int(res[f"repl-{arch}|placed"]) == experts
-        np.testing.assert_array_equal(res[f"repl-{arch}|tokens"],
-                                      res[f"{key}|tokens"])
-        np.testing.assert_array_equal(res[f"repl-{arch}|logits"],
-                                      res[f"{key}|logits"])
+        assert int(res[f"{repl}|placed"]) == experts
+        np.testing.assert_array_equal(res[f"{repl}|tokens"],
+                                      res[f"{placed}|tokens"])
+        if flat:
+            np.testing.assert_array_equal(res[f"{repl}|logits"],
+                                          res[f"{placed}|logits"])
+        else:
+            np.testing.assert_allclose(res[f"{repl}|logits"],
+                                       res[f"{placed}|logits"], **CACHED)
 
 
 @pytest.mark.parametrize("arch", (ARCH,) + ARCHS)

@@ -1,0 +1,331 @@
+"""The port's tensor parallelism over ``model`` on the CPU, held against
+the JAX package.
+
+The port's ranks along ``model`` split the dense work as the reference's
+sharding rules do (``shardings.kept_axes``): an MLP's ``w_gate`` / ``w_up``
+column-parallel and ``w_down`` row-parallel, a GQA layer's heads (its kv
+heads too where ``model`` divides them, else each rank the one kv head its
+q heads read), the embedding's ``d`` slice and the unembedding's vocabulary
+slice, each row-parallel product ending in one sum over ``model``.  Four
+SMOKE models (Qwen2.5-14B, Granite-34B's MQA, Qwen3-MoE's GQA beside
+``teshu2``, DeepSeek-V2's shared experts and layer 0 with its MLA whole)
+run on 8 gloo ranks as ``(2, 2, 2)`` and ``(1, 2, 4)`` ``("pod", "data",
+"model")`` meshes (``tp_ranks.py``), and the reference in one subprocess
+over 8 forced host devices, on the same weights (``init_lm`` jittered from
+numpy) and batch (two labels masked).
+
+Tolerances: the forward's logits within ``LAYER`` of
+``test_torch_moe_ep.py`` (float32 matmuls summing in other orders: a
+row-parallel product is summed over ``model`` in another order than one
+matmul); served tokens equal and the last positions' logits within
+``CACHED`` (through the bf16 cache); the loss to rtol ``F32_LOSS`` and each
+summed gradient within ``F32_GRAD`` of its leaf's largest reference
+element (``test_torch_train_mesh.py``'s bound).  Four planted faults must
+miss by 10x: the row-parallel sum skipped, the replicated kv head taken as
+``r % n_kv_heads``, the gold logit taken from every rank, and the
+column-split leaves' gradients summed over ``model``.
+"""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+import tp_ranks
+from mesh_train_ranks import flat
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as ref_config  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from test_torch_moe_ep import CACHED, LAYER  # noqa: E402
+from test_torch_train_loss import F32_GRAD, F32_LOSS, jittered  # noqa: E402
+from test_torch_train_mesh import _block, _ref_named  # noqa: E402
+
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
+from repro_torch.launch import shardings  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+
+AXES = ("pod", "data", "model")
+CONTROL_FACTOR = 10
+CASES = [(a, s) for s in tp_ranks.MESHES for a in tp_ranks.ARCHS]
+IDS = [f"{a}-{tp_ranks.mesh_name(s)}" for a, s in CASES]
+
+
+def _inputs() -> dict:
+    data = {}
+    for i, arch in enumerate(tp_ranks.ARCHS):
+        cfg = ref_config(arch, smoke=True)
+        p = jittered(jax.tree.map(np.asarray, jlm.init_lm(
+            jax.random.key(50 + i), cfg)), 60 + i)
+        data.update(flat(p, f"p-{arch}"))
+        rng = np.random.default_rng(70 + i)
+        shape = (tp_ranks.B, tp_ranks.S)
+        labels = rng.integers(0, cfg.vocab, shape).astype(np.int32)
+        labels[2, :3] = -1
+        data[f"batch-{arch}|labels"] = labels
+        data[f"batch-{arch}|tokens"] = rng.integers(
+            0, cfg.vocab, shape).astype(np.int32)
+        if arch in tp_ranks.DENSE:    # a reference cache of distinct values
+            cache = jax.tree.map(np.asarray, jlm.init_cache(cfg, 2, 8))
+            for k in ("k", "v"):
+                cache["blocks"][k] = rng.standard_normal(
+                    cache["blocks"][k].shape).astype(np.float32)
+            data.update(flat(cache, f"cache-{arch}"))
+    return data
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    import mesh_ranks
+    tmp = tmp_path_factory.mktemp("tp")
+    inputs = tmp / "inputs.npz"
+    data = _inputs()
+    np.savez(inputs, **data)
+    proc = tp_ranks.start_reference(str(inputs), str(tmp / "ref.npz"))
+    try:
+        ranks = tp_ranks.run_ranks(tmp, str(inputs), timeout=300)
+    finally:
+        mesh_ranks.finish(proc, timeout=300)
+    return dict(ranks=ranks, data=data, tmp=tmp,
+                ref=dict(np.load(tmp / "ref.npz")))
+
+
+def _standin(shape):
+    return SimpleNamespace(shape=dict(zip(AXES, shape)), axis_names=AXES)
+
+
+def _coord(rank: int, shape) -> dict:
+    return dict(zip(AXES, map(int, np.unravel_index(rank, shape))))
+
+
+def _rows(rank: int, shape) -> slice:
+    """The batch rows of ``rank``: those of its ``(pod, data)`` index."""
+    c = _coord(rank, shape)
+    groups = shape[0] * shape[1]
+    per = tp_ranks.B // groups
+    i = c["pod"] * shape[1] + c["data"]
+    return slice(i * per, (i + 1) * per)
+
+
+def _miss(got: dict, want: dict) -> float:
+    return max(float(np.abs(got[n] - w).max())
+               / (F32_GRAD * max(float(np.abs(w).max()), 1e-30))
+               for n, w in want.items())
+
+
+def _logit_miss(got, want) -> float:
+    return float((np.abs(got - want) / (LAYER["atol"] + LAYER["rtol"]
+                                        * np.abs(want))).max())
+
+
+def _grads(res, key: str, names) -> dict:
+    return {n: res[f"{key}|g|{n}"] for n in names}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("shape", [(16, 16), (2, 16, 16), (2, 2, 2),
+                                   (1, 2, 4)])
+def test_kept_axes_rule(arch, shape):
+    """``shardings.kept_axes`` for every leaf of the full-width config: a
+    routed expert keeps its EP axes (teshu / teshu2), ``model`` is kept by
+    the MLP's and shared experts' matrices, the embedding and unembedding
+    where their spec names it, by ``wq`` / ``wo`` where
+    ``attention_split`` splits the heads and by ``wk`` / ``wv`` where it
+    splits the kv heads too; nothing else keeps an axis, and a leaf whose
+    spec does not name ``model`` keeps none of it."""
+    cfg = get_config(arch)
+    axes = AXES[-len(shape):]
+    mesh = SimpleNamespace(shape=dict(zip(axes, shape)), axis_names=axes)
+    split = shardings.attention_split(cfg, mesh)
+    m = mesh.shape["model"]
+    if cfg.family in ("dense", "moe") and cfg.mla is None:
+        want = None if cfg.n_heads % m else "heads" \
+            if cfg.n_kv_heads % m == 0 else "replicate" \
+            if m % cfg.n_kv_heads == 0 else None
+        assert split == want
+    else:
+        assert split is None
+    model = lm.LM(cfg, device="meta")
+    for n, p in model.named_parameters():
+        spec = shardings.leaf_spec(n, p.shape, mesh, cfg)
+        kept = shardings.kept_axes(n, spec, mesh, cfg)
+        named = {a for e in spec if e for a in
+                 ((e,) if isinstance(e, str) else e)}
+        assert set(kept) <= named, (n, spec, kept)
+        if ".moe.experts." in n:
+            assert kept == tuple(a for a in ("pod", "model") if a in named)
+            continue
+        leaf = n.rsplit(".", 1)[-1]
+        tp = n in ("embed", "unembed") or ".mlp." in n or \
+            ".moe.shared." in n or (
+                ".attn." in n and leaf in ("wq", "wo") and split) or (
+                ".attn." in n and leaf in ("wk", "wv") and split == "heads")
+        assert kept == (("model",) if tp and "model" in named else ()), \
+            (n, spec, kept)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_local_shapes(runs, case):
+    """Each rank holds its spec's ``local_shape`` of every leaf (so ``h/m``
+    q heads in ``wq`` and ``f/m`` columns of each MLP), and its cache the
+    kv heads of the stated layout: ``kvh/m`` where ``model`` divides them,
+    the one kv head of KV replication, all of them for MLA (no ``k``)."""
+    arch, shape = case
+    cfg = get_config(arch, smoke=True)
+    mesh, m = _standin(shape), shape[-1]
+    key = f"{arch}|{tp_ranks.mesh_name(shape)}"
+    whole = dict(lm.LM(cfg, device="meta").named_parameters())
+    split = shardings.attention_split(cfg, mesh)
+    for res in runs["ranks"]:
+        for n, p in whole.items():
+            spec = shardings.leaf_spec(n, p.shape, mesh, cfg)
+            assert tuple(res[f"{key}|local|{n}"]) == shardings.local_shape(
+                spec, p.shape, mesh), n
+            if n.endswith(".mlp.w_up") or n.endswith(".moe.shared.w_up"):
+                assert res[f"{key}|local|{n}"][-1] == p.shape[-1] // m, n
+            if n.endswith(".attn.wq") and split:
+                assert res[f"{key}|local|{n}"][-1] == \
+                    cfg.n_heads // m * cfg.d_head
+        kvh = cfg.n_kv_heads // m if split == "heads" else 1 \
+            if split == "replicate" else cfg.n_kv_heads
+        layers = [k for k in res if k.startswith(f"{key}|cache|")]
+        assert len(layers) == (0 if cfg.mla else cfg.n_layers)
+        for k in layers:
+            assert res[k].tolist() == [1, 4, kvh, cfg.d_head]
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_forward_logits_match_reference(runs, case):
+    """Each rank's logits of its rows, gathered whole over ``model``,
+    within ``LAYER`` of the reference's unsharded forward; every rank of
+    one ``(pod, data)`` group holds the same bits."""
+    arch, shape = case
+    key = f"{arch}|{tp_ranks.mesh_name(shape)}"
+    want = runs["ref"][f"{tp_ranks.ref_key(arch, shape)}|logits"]
+    for r, res in enumerate(runs["ranks"]):
+        got = res[f"{key}|logits"]
+        np.testing.assert_array_equal(
+            got, runs["ranks"][r - r % shape[-1]][f"{key}|logits"])
+        np.testing.assert_allclose(got, want[_rows(r, shape)], **LAYER)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_serve_emits_the_reference_tokens(runs, case):
+    """``serve(mesh=...)``: the reference's tokens on every rank, the last
+    positions' logits (gathered over ``model`` before the argmax) within
+    ``CACHED`` of the reference's rows."""
+    arch, shape = case
+    key = f"{arch}|{tp_ranks.mesh_name(shape)}"
+    rk = tp_ranks.ref_key(arch, shape)
+    for r, res in enumerate(runs["ranks"]):
+        np.testing.assert_array_equal(res[f"{key}|tokens"],
+                                      runs["ref"][f"{rk}|tokens"])
+        np.testing.assert_allclose(
+            res[f"{key}|serve_logits"],
+            runs["ref"][f"{rk}|serve_logits"][:, _rows(r, shape)], **CACHED)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_loss_and_gradients_match_reference(runs, case):
+    """The global loss (the vocabulary-parallel cross-entropy's shares
+    summed) to rtol ``F32_LOSS`` and every summed gradient, gathered whole,
+    within ``F32_GRAD`` of the reference's ``jax.value_and_grad``; every
+    rank alike."""
+    arch, shape = case
+    key = f"{arch}|{tp_ranks.mesh_name(shape)}"
+    rk = tp_ranks.ref_key(arch, shape)
+    want = _ref_named(arch, tp_ranks.unflatten(runs["ref"], f"{rk}|g"))
+    for res in runs["ranks"]:
+        assert float(res[f"{key}|loss"]) == pytest.approx(
+            float(runs["ref"][f"{rk}|loss"]), rel=F32_LOSS)
+        got = _grads(res, key, want)
+        for n, w in want.items():
+            assert got[n].shape == w.shape, n
+        assert _miss(got, want) <= 1.0, key
+
+
+@pytest.mark.parametrize("fault", tp_ranks.FAULTS)
+def test_planted_faults_miss(runs, fault):
+    """Each fault misses its check by 10x where the unfaulted run meets
+    it: the row-parallel sum skipped and the replicated kv head taken as
+    ``r % n_kv_heads`` (the forward's logits), the gold logit taken from
+    every rank (the loss) and the column-split leaves' gradients summed
+    over ``model`` (the gradients)."""
+    arch, shape = tp_ranks.FAULT_CASE[fault]
+    rk = tp_ranks.ref_key(arch, shape)
+    ref = runs["ref"]
+    misses = []
+    for r, res in enumerate(runs["ranks"]):
+        if fault in ("no_psum", "kv_head_mod"):
+            misses.append(_logit_miss(res[f"{fault}|logits"],
+                                      ref[f"{rk}|logits"][_rows(r, shape)]))
+        elif fault == "gold_everywhere":
+            want = float(ref[f"{rk}|loss"])
+            misses.append(abs(float(res[f"{fault}|loss"]) - want)
+                          / (F32_LOSS * abs(want)))
+        else:
+            want = _ref_named(arch, tp_ranks.unflatten(ref, f"{rk}|g"))
+            misses.append(_miss(_grads(res, fault, want), want))
+    assert max(misses) >= CONTROL_FACTOR, (fault, misses)
+
+
+@pytest.mark.parametrize("shape", tp_ranks.RESTORE_MESHES,
+                         ids=[tp_ranks.mesh_name(s)
+                              for s in tp_ranks.RESTORE_MESHES])
+def test_checkpoint_restores_onto_another_model_size(runs, shape):
+    """``train(mesh=...)`` on ``(2, 2, 2)`` saved at step 3 and restored
+    onto ``shape``: each rank's parameters and moments are the checkpoint's
+    blocks by their specs on ``shape`` bit for bit, and steps 3-5 resumed
+    there give the uninterrupted run's losses (the first to
+    ``F32_LOSS``)."""
+    from repro_torch.checkpoint.checkpoint import restore_checkpoint
+    arch = tp_ranks.CKPT["arch"]
+    cfg = get_config(arch, smoke=True)
+    named = dict(lm.LM(cfg, device="cpu").named_parameters())
+    target = {"params": named, "opt_state": {
+        "m": named, "v": named, "step": torch.zeros((), dtype=torch.int32)}}
+    saved, meta = restore_checkpoint(str(runs["tmp"] / "tp_ckpt"), 3, target)
+    assert meta["step"] == 3
+    mesh = _standin(shape)
+    name = tp_ranks.mesh_name(shape)
+    for r, res in enumerate(runs["ranks"]):
+        coord = _coord(r, shape)
+        for n in named:
+            spec = shardings.leaf_spec(n, named[n].shape, mesh, cfg)
+            for key, tree in (("p", saved["params"]),
+                              ("m", saved["opt_state"]["m"]),
+                              ("v", saved["opt_state"]["v"])):
+                want = tree[n].numpy()
+                np.testing.assert_array_equal(
+                    res[f"restored|{name}|{key}|{n}"],
+                    want[_block(spec, want.shape, coord, mesh.shape)])
+    full = runs["ranks"][0]["ckpt|loss"]
+    for res in runs["ranks"]:
+        got = res[f"resumed|{name}|loss"]
+        assert len(got) == 3
+        assert got[0] == pytest.approx(full[3], rel=F32_LOSS)
+        np.testing.assert_allclose(got, full[3:], rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[0] in tp_ranks.DENSE],
+                         ids=[i for c, i in zip(CASES, IDS)
+                              if c[0] in tp_ranks.DENSE])
+def test_converted_cache_keeps_the_rank_heads(runs, case):
+    """``convert.cache_from_reference(..., mesh=)``: each rank's ``k`` and
+    ``v`` of every layer are the reference cache's kv heads of the stated
+    layout: its ``model`` block of ``kvh / m`` heads, or under KV
+    replication the head ``r // (m / kvh)`` its q heads read."""
+    arch, shape = case
+    cfg = get_config(arch, smoke=True)
+    m, kvh = shape[-1], cfg.n_kv_heads
+    key = f"{arch}|{tp_ranks.mesh_name(shape)}"
+    for r, res in enumerate(runs["ranks"]):
+        c = _coord(r, shape)["model"]
+        heads = slice(c * kvh // m, (c + 1) * kvh // m) if kvh % m == 0 \
+            else slice(c // (m // kvh), c // (m // kvh) + 1)
+        for i in range(cfg.n_layers):
+            for k in ("k", "v"):
+                whole = runs["data"][f"cache-{arch}|blocks|{k}"][i]
+                np.testing.assert_array_equal(
+                    res[f"{key}|converted|{i}|{k}"], whole[:, :, heads])

@@ -176,21 +176,31 @@ def _layout(case, remat: bool = False) -> dict:
     again in the block's recompute (which stops before the all-gather);
     their adjoints (the reverse exchanges, a reduce-scatter and a sum)
     backward.  Per microbatch the placed leaves' gathers, an all-gather
-    a split dimension of size over 1 (a routed expert's over ``data``
-    only: the dispatch serves its EP axes), a block's again in its
-    recompute under remat, and a reduce-scatter each backward.
-    All-reduces besides: the count of unmasked labels a microbatch, the
-    gradient sums (``steps.sum_plan``: each leaf over the axes its spec
-    does not name, one buffer an axis set) and the loss."""
+    a split dimension of size over 1 but for the axes the leaf's module
+    consumes in place (``shardings.kept_axes``: a routed expert's EP axes,
+    a tensor-parallel leaf's ``model``), a block's again in its recompute
+    under remat, and a reduce-scatter each backward; the embedding's
+    lookup in its ``d`` slice all-gathered over ``model`` (a
+    reduce-scatter backward).  The tensor-parallel sums over ``model``,
+    forward and backward: one a head-split attention (Qwen3-MoE's 4 heads
+    on 2), an MLP (DeepSeek-V2's layer 0) and a shared-expert stack, its
+    forward's again in the recompute under remat but for the block's last
+    (DeepSeek-V2's MLP; the recompute stops at the block's last saved
+    tensor); the vocabulary-parallel loss's max (forward only), its sum
+    of exponentials and its gold logit.  All-reduces besides: the count of
+    unmasked labels a microbatch, the gradient sums (``steps.sum_plan``:
+    each leaf over the axes its spec does not name, one buffer an axis
+    set) and the loss."""
     _, arch, dispatch, _, n_micro = case
     cfg = mtr.moe_cfg(get_config(arch, smoke=True), dispatch, 8.0)
     mesh = _standin()
     whole = dict(lm.LM(cfg, device="meta").named_parameters())
     specs = shardings.param_specs(whole, mesh, cfg)
     top = blocks = 0
+    kept = {n: shardings.kept_axes(n, spec, mesh, cfg)
+            for n, spec in specs.items()}
     for n, spec in specs.items():
-        keep = shardings.ep_axes_for(mesh) if ".moe.experts." in n else ()
-        k = sum(1 for e in shardings.gather_spec(spec, mesh, keep) if e)
+        k = sum(1 for e in shardings.gather_spec(spec, mesh, kept[n]) if e)
         if n.startswith("blocks."):
             blocks += k
         else:
@@ -202,11 +212,19 @@ def _layout(case, remat: bool = False) -> dict:
     layers = cfg.n_layers - (1 if cfg.moe.num_shared else 0)
     per = layers * n_micro
     a2a = 2 if dispatch == "teshu2" else 1
+    tp = sum(1 for n, k in kept.items() if "model" in k and n.endswith(
+        (".attn.wq", ".mlp.w_up", ".moe.shared.w_up")))
+    last = sum(1 for n, k in kept.items() if "model" in k and n.endswith(
+        ".mlp.w_up"))                     # the block's last op: no recompute
+    embed = int("model" in kept["embed"])
+    vocab = int("model" in kept["unembed"])
     return dict(all_to_all=(3 if remat else 2) * 2 * a2a * per,
                 all_gather=per + n_micro * (top + (2 if remat else 1)
-                                            * blocks),
-                all_reduce=n_micro + sums + 1 + 2 * per,
-                reduce_scatter=per + n_micro * (top + blocks), send_recv=0)
+                                            * blocks + embed),
+                all_reduce=n_micro + sums + 1 + 2 * per + n_micro * (
+                    2 * tp + (tp - last if remat else 0) + 5 * vocab),
+                reduce_scatter=per + n_micro * (top + blocks + embed),
+                send_recv=0)
 
 
 @pytest.mark.parametrize("case", mtr.CASES, ids=[c[0] for c in mtr.CASES])
@@ -495,35 +513,53 @@ def test_rank_rows_refuse_a_batch_that_does_not_divide():
     np.testing.assert_array_equal(rank_rows(x, mesh, 1), x[:1])
 
 
+@pytest.mark.parametrize("shape", mtr.PLACE_MESHES,
+                         ids=["x".join(map(str, s)) for s in mtr.PLACE_MESHES])
 @pytest.mark.parametrize("case", mtr.PLACE_CASES,
                          ids=[c[0] for c in mtr.PLACE_CASES])
-def test_placement_changes_where_state_lives_not_what_is_computed(runs, case):
+def test_placement_changes_where_state_lives_not_what_is_computed(runs, case,
+                                                                  shape):
     """Every leaf but the routed experts replicated (a monkeypatched
-    ``shardings.leaf_spec``) against placed: the same loss bit for bit and,
-    on every rank, the same gradients before the sums over ranks (a placed
-    leaf's as its gather's backward receives it) bit for bit; the routed
-    experts, placed in both runs, the same after them; every other leaf
-    after them within the bound of two orders of the sum over 8 ranks."""
+    ``shardings.leaf_spec``) against placed.  On ``(2, 4, 1)`` (``model``
+    1) the same loss bit for bit and, on every rank, the same gradients
+    before the sums over ranks (a placed leaf's as its gather's backward
+    receives it) bit for bit; the routed experts, placed in both runs, the
+    same after them; every other leaf after them within the bound of two
+    orders of the sum over 8 ranks.  On ``(2, 2, 2)`` the placed run splits
+    its dense work over ``model`` (each row-parallel product summed over
+    ``model`` in another order than one matmul, and the split leaves'
+    gradients before the sums are their shards): the loss to rtol
+    ``F32_LOSS`` and each summed gradient within ``F32_GRAD`` of its
+    leaf's largest replicated element."""
     key, arch = case
     ranks = runs["ranks"]
+    placed, repl = (mtr.place_key(f"{t}-{arch}", shape)
+                    for t in ("placed", "replicated"))
     names = [n for n, _ in lm.LM(get_config(arch, smoke=True),
                                  device="meta").named_parameters()]
     experts = [n for n in names if ".moe.experts." in n]
     for res in ranks:
-        assert int(res[f"replicated-{arch}|split"]) == len(experts)
-        assert int(res[f"placed-{arch}|split"]) > 2 * len(experts)
-        assert float(res[f"placed-{arch}|loss"]) == float(
-            res[f"replicated-{arch}|loss"])
+        assert int(res[f"{repl}|split"]) == len(experts)
+        assert int(res[f"{placed}|split"]) > 2 * len(experts)
+    if tuple(shape) == mtr.MESH:
+        for res in ranks:
+            assert float(res[f"{placed}|loss"]) == pytest.approx(
+                float(res[f"{repl}|loss"]), rel=F32_LOSS)
+        want = {n: _whole(ranks, f"{repl}|g", n) for n in names}
+        assert _miss({n: _whole(ranks, f"{placed}|g", n) for n in names},
+                     want) <= 1.0
+        return
+    for res in ranks:
+        assert float(res[f"{placed}|loss"]) == float(res[f"{repl}|loss"])
         for n in names:
-            np.testing.assert_array_equal(res[f"placed-{arch}|pre|{n}"],
-                                          res[f"replicated-{arch}|pre|{n}"])
+            np.testing.assert_array_equal(res[f"{placed}|pre|{n}"],
+                                          res[f"{repl}|pre|{n}"])
     for n in names:
-        a, b = (_whole(ranks, f"{t}-{arch}|g", n)
-                for t in ("placed", "replicated"))
+        a, b = (_whole(ranks, f"{t}|g", n) for t in (placed, repl))
         if n in experts:
             np.testing.assert_array_equal(a, b)
             continue
-        absum = sum(np.abs(res[f"placed-{arch}|pre|{n}"]).astype(np.float64)
+        absum = sum(np.abs(res[f"{placed}|pre|{n}"]).astype(np.float64)
                     for res in ranks)
         assert (np.abs(a.astype(np.float64) - b) <= 2 * 7 * 2.0 ** -24
                 * absum).all(), n
@@ -616,24 +652,57 @@ def test_build_cell_stand_ins_match_the_reference(runs, arch, shape):
                           ("pos", "len")}, sorted(ref - seen)
 
 
-def test_factored_moment_under_placement(runs):
-    """One step (the ``STEPS`` step) with a factored second moment: the
-    placed leaves' row and column means are local sums summed over the
-    axes that split the dimension they reduce; against the same step with
-    every leaf but the routed experts replicated (means taken whole), each
-    factor within 1e-5 of its leaf's largest and each weight within
-    ``1e-4 lr``, every rank alike; and ``named_from_reference(...,
-    mesh=)`` gives each rank's shards of the reference's arrays."""
+@pytest.mark.parametrize("shape", mtr.PLACE_MESHES,
+                         ids=["x".join(map(str, s)) for s in mtr.PLACE_MESHES])
+def test_factored_moment_under_placement(runs, shape):
+    """One step (the ``STEPS`` step; on ``(2, 4, 1)`` at ``n_micro`` 1) with
+    a factored second moment: the placed leaves' row and column means are
+    local sums summed over the axes that split the dimension they reduce;
+    against the same step with every leaf but the routed experts
+    replicated (means taken whole), each factor within 1e-5 of its leaf's
+    largest, every rank alike; each weight within ``1e-4 lr`` on
+    ``(2, 4, 1)``, where both runs compute the same rows; on ``(2, 2, 2)``,
+    where the placed run splits its dense work over ``model``, within
+    ``test_three_steps_match_reference_and_learn``'s bound of one step
+    from gradients ``2 F32_GRAD`` of their leaf's largest apart (the
+    replicated run's gradients and factors giving the step's scale).  And
+    ``named_from_reference(..., mesh=)`` gives each rank's shards of the
+    reference's arrays."""
+    from repro_torch.optim import AdamWConfig
     ranks = runs["ranks"]
     lr = mtr.STEPS["opt"]["lr"]
+    placed, repl = (mtr.place_key(f"factored-{t}", shape)
+                    for t in ("placed", "replicated"))
     keys = [k.split("|", 1)[1] for k in ranks[0]
-            if k.startswith("factored-placed|")]
+            if k.startswith(f"{placed}|")]
     assert any(k.startswith(("r|", "c|")) for k in keys)
+    tp = tuple(shape) == mtr.MESH
+    if tp:
+        b2t = 1 - AdamWConfig(**mtr.STEPS["opt"]).b2      # step 1's
+        grads = {k[len(repl) + 3:]: _whole(ranks, repl, k[len(repl) + 1:])
+                 for k in ranks[0] if k.startswith(f"{repl}|g|")}
+        norm = np.sqrt(sum(float(np.square(g.astype(np.float64)).sum())
+                           for g in grads.values()))
+        scale = min(1.0, 1.0 / norm)
     for k in keys:
-        a = _whole(ranks, "factored-placed", k)
-        b = _whole(ranks, "factored-replicated", k)
-        if k.startswith("p|"):
+        a = _whole(ranks, placed, k)
+        b = _whole(ranks, repl, k)
+        if not k.startswith("p|"):
+            assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max() + 1e-30, k
+        elif not tp:
             assert np.abs(a - b).max() <= 1e-4 * lr, k
         else:
-            assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max() + 1e-30, k
-    assert all(bool(res["named|same"]) for res in ranks)
+            n = k[2:]
+            g = grads[n].astype(np.float64) * scale
+            e = 2 * F32_GRAD * float(np.abs(g).max())
+            if f"r|{n}" in keys:          # the factored step's sqrt(v)
+                r = _whole(ranks, repl, f"r|{n}").astype(np.float64)
+                c = _whole(ranks, repl, f"c|{n}").astype(np.float64)
+                root = np.sqrt(r[..., :, None] * c[..., None, :] / np.maximum(
+                    r.mean(-1)[..., None, None], 1e-30) / b2t)
+            else:
+                root = np.abs(g)
+            move = np.minimum(2 * e / np.maximum(root - e, 1e-30), 2.0)
+            assert (np.abs(a - b) <= lr * move + 2 * _spacing(b)).all(), k
+    if tp:
+        assert all(bool(res["named|same"]) for res in ranks)

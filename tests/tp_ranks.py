@@ -1,0 +1,286 @@
+"""Runs the port's tensor parallelism over ``model`` on gloo ranks and the
+reference over forced host devices, for ``test_torch_tp.py``.
+
+The pattern of ``mesh_ranks.py``: the reference in one subprocess over 8
+forced host devices, the port in one ``torch.multiprocessing`` spawn of 8
+gloo ranks that meet through a file store and build both meshes of
+:data:`MESHES` on one world.  Both read one ``.npz`` of numpy inputs made
+from seeds and write their outputs to ``.npz`` files.  This module imports
+neither jax nor torch at its top.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+import time
+from pathlib import Path
+
+import numpy as np
+
+from mesh_ranks import AXES, REPO, _reference_serve, unflatten
+from mesh_train_ranks import _mesh_grads
+
+# the dense family (GQA with 2 kv heads of 4; Granite's MQA: its one kv head
+# replicated), the MoE family's GQA beside teshu2, and DeepSeek-V2 (its
+# shared experts and layer 0 split, MLA whole)
+ARCHS = ("qwen2.5-14b", "granite-34b", "qwen3-moe-235b-a22b",
+         "deepseek-v2-236b")
+DENSE = ARCHS[:2]
+# model 2 (each rank 2 q heads, one kv head of its own) and model 4 (one q
+# head; Qwen2.5-14B's 2 kv heads each shared by 2 ranks)
+MESHES = ((2, 2, 2), (1, 2, 4))
+B, S = 8, 12
+SERVE = dict(batch=8, prompt_len=12, gen_len=5, max_len=32, seed=0)
+FAULTS = ("no_psum", "kv_head_mod", "gold_everywhere", "column_model_sum")
+# the planted faults, each on the mesh and arch where it bites
+FAULT_CASE = {"no_psum": ("qwen2.5-14b", (2, 2, 2)),
+              "kv_head_mod": ("qwen2.5-14b", (1, 2, 4)),
+              "gold_everywhere": ("qwen2.5-14b", (2, 2, 2)),
+              "column_model_sum": ("qwen2.5-14b", (2, 2, 2))}
+# train(mesh=...) on (2, 2, 2) with a checkpoint every 3 steps; steps 3-5
+# resumed from it on a mesh of another model size
+CKPT = dict(arch="qwen2.5-14b", steps=6, global_batch=8, seq_len=16,
+            lr=1e-2, seed=5, ckpt_every=3)
+RESTORE_MESHES = ((1, 2, 4), (2, 4, 1))
+
+
+def mesh_name(shape) -> str:
+    return "x".join(map(str, shape))
+
+
+# ---------------------------------------------------------------------------
+# the reference: one subprocess over 8 forced host devices
+# ---------------------------------------------------------------------------
+
+def start_reference(inputs: str, out: str) -> subprocess.Popen:
+    code = textwrap.dedent(f"""
+        import os, sys
+        os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+        sys.path.insert(0, {str(REPO / "tests")!r})
+        import tp_ranks
+        tp_ranks.reference_tp({inputs!r}, {out!r})
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def reference_tp(inputs: str, out: str) -> None:
+    """For each arch the reference's forward logits, its ``jax.value_and
+    _grad`` of ``train_loss`` and its serving loop (``_reference_serve``),
+    each jitted with the parameters unsharded; a MoE model's under each
+    mesh of :data:`MESHES` with the mesh's EP axes (each ``model`` slice
+    routes its own tokens, so its aux loss depends on the mesh), a dense
+    model's once."""
+    import jax
+    import jax.numpy as jnp
+
+    from mesh_train_ranks import flat
+    from repro.configs import get_config
+    from repro.launch.mesh import make_mesh
+    from repro.launch.shardings import ep_axes_for
+    from repro.models import lm
+    data = dict(np.load(inputs))
+    res = {}
+    for arch in ARCHS:
+        cfg = get_config(arch, smoke=True)
+        p = jax.tree.map(jnp.asarray, unflatten(data, f"p-{arch}"))
+        batch = {k: jnp.asarray(data[f"batch-{arch}|{k}"])
+                 for k in ("tokens", "labels")}
+        for shape in (MESHES[:1] if arch in DENSE else MESHES):
+            mesh = make_mesh(shape, AXES)
+            ep = ep_axes_for(mesh) if arch not in DENSE else ()
+            key = arch if arch in DENSE else f"{arch}|{mesh_name(shape)}"
+            with mesh:
+                logits = jax.jit(lambda p, t: lm.forward(
+                    p, cfg, tokens=t, ep_axes=ep)[0])(p, batch["tokens"])
+                loss, g = jax.jit(jax.value_and_grad(
+                    lambda p, b: lm.train_loss(p, cfg, b, ep_axes=ep)))(
+                        p, batch)
+            res[f"{key}|logits"] = np.asarray(logits, np.float32)
+            res[f"{key}|loss"] = np.asarray(loss)
+            res.update(flat(jax.tree.map(np.asarray, g), f"{key}|g"))
+            gen, last = _reference_serve(arch, p, mesh, **SERVE)
+            res[f"{key}|tokens"], res[f"{key}|serve_logits"] = gen, last
+    np.savez(out, **res)
+
+
+def ref_key(arch: str, shape) -> str:
+    return arch if arch in DENSE else f"{arch}|{mesh_name(shape)}"
+
+
+# ---------------------------------------------------------------------------
+# the port: one spawn of 8 gloo ranks
+# ---------------------------------------------------------------------------
+
+def run_ranks(tmp: Path, inputs: str, timeout: float) -> list[dict]:
+    """:func:`_tp_rank` on 8 gloo ranks (a file store under ``tmp``);
+    each rank's outputs as a dict, in rank order."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(_rank_main, args=(str(tmp), inputs), nprocs=8,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=1):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"tp ranks still running after {timeout} s")
+    return [dict(np.load(tmp / f"tp_{r}.npz")) for r in range(8)]
+
+
+def _rank_main(rank: int, tmp: str, inputs: str):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store_tp",
+                            rank=rank, world_size=8,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        np.savez(f"{tmp}/tp_{rank}.npz", **_tp_rank(inputs))
+    finally:
+        dist.destroy_process_group()
+
+
+def _rows(x: np.ndarray, mesh):
+    import torch
+
+    from repro_torch.data import rank_rows
+    return torch.from_numpy(rank_rows(x, mesh))
+
+
+def _tp_rank(inputs: str) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardings
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import layers, lm
+    from repro_torch.models.convert import (cache_from_reference,
+                                            lm_params_from_reference)
+    data = dict(np.load(inputs))
+    res: dict = {"rank": np.array(dist.get_rank())}
+    meshes = {s: make_mesh(s, AXES, device_type="cpu") for s in MESHES}
+
+    def model_of(arch, mesh):
+        return lm_params_from_reference(get_config(arch, smoke=True),
+                                        unflatten(data, f"p-{arch}"),
+                                        device="cpu", mesh=mesh)
+
+    def batch_of(arch):
+        return {k: data[f"batch-{arch}|{k}"] for k in ("tokens", "labels")}
+
+    def forward(model, arch, mesh):
+        with torch.no_grad():
+            return lm.forward(model, tokens=_rows(batch_of(arch)["tokens"],
+                                                  mesh), mesh=mesh)[0].numpy()
+
+    def grads(model, arch, mesh):
+        model.requires_grad_(True)
+        return _mesh_grads(model, model.cfg, mesh, batch_of(arch), 1)
+
+    for shape, mesh in meshes.items():
+        for arch in ARCHS:
+            key = f"{arch}|{mesh_name(shape)}"
+            model = model_of(arch, mesh)
+            res.update({f"{key}|local|{n}": np.array(p.shape)
+                        for n, p in model.named_parameters()})
+            cache = lm.init_cache(model.cfg, 1, 4, device="cpu", mesh=mesh,
+                                  specs=model.specs)
+            for i, layer in enumerate(cache["layers"]):
+                if "k" in layer:
+                    res[f"{key}|cache|{i}"] = np.array(layer["k"].shape)
+            if arch in DENSE:
+                conv = cache_from_reference(
+                    model.cfg, unflatten(data, f"cache-{arch}"),
+                    device="cpu", mesh=mesh, specs=model.specs)
+                for i, layer in enumerate(conv["layers"]):
+                    for k in ("k", "v"):
+                        res[f"{key}|converted|{i}|{k}"] = layer[k].numpy()
+            res[f"{key}|logits"] = forward(model, arch, mesh)
+            gen, stats = serve(arch, device="cpu", params=model, mesh=mesh,
+                               **SERVE)
+            res[f"{key}|tokens"] = gen
+            res[f"{key}|serve_logits"] = torch.stack(stats.logits).numpy()
+            loss, g, _ = grads(model, arch, mesh)
+            res[f"{key}|loss"] = np.array(loss)
+            res.update({f"{key}|g|{n}": v for n, v in g.items()})
+
+    # the planted faults
+    for fault in FAULTS:
+        arch, shape = FAULT_CASE[fault]
+        mesh = meshes[shape]
+        model = model_of(arch, mesh)
+        real = (layers.tp_sum, shardings.kv_head_of, lm._gold_logit,
+                shardings.split_leaves)
+        if fault == "no_psum":
+            layers.tp_sum = lambda x, mesh_: x
+        elif fault == "kv_head_mod":
+            shardings.kv_head_of = lambda r, m, kvh: r % kvh
+        elif fault == "gold_everywhere":
+            def everywhere(logits, labels, mesh_):
+                v = logits.shape[-1]
+                gold = logits.gather(-1, (labels % v)[..., None])[..., 0]
+                return layers.tp_sum(gold, mesh_)
+            lm._gold_logit = everywhere
+        else:
+            def column_sum(specs, mesh_):
+                out = real[3](specs, mesh_)
+                return {n: tuple(a for a in axes if a != "model")
+                        if n.endswith((".w_gate", ".w_up", ".wq"))
+                        else axes for n, axes in out.items()}
+            shardings.split_leaves = column_sum
+        try:
+            res[f"{fault}|logits"] = forward(model, arch, mesh)
+            loss, g, _ = grads(model, arch, mesh)
+        finally:
+            (layers.tp_sum, shardings.kv_head_of, lm._gold_logit,
+             shardings.split_leaves) = real
+        res[f"{fault}|loss"] = np.array(loss)
+        res.update({f"{fault}|g|{n}": v for n, v in g.items()})
+
+    # a checkpoint of train(mesh=...) on (2, 2, 2) restored onto meshes of
+    # another model size
+    from repro_torch.launch.train import train
+    tmp = Path(inputs).parent
+    arch = CKPT["arch"]
+    ck = {k: v for k, v in CKPT.items() if k not in ("arch", "steps")}
+    ckdir = tmp / "tp_ckpt"
+    if dist.get_rank() == 0:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    dist.barrier()
+    out = train(arch, device="cpu", mesh=meshes[MESHES[0]], n_micro=1,
+                ckpt_dir=str(ckdir), params=model_of(arch, meshes[MESHES[0]])
+                .requires_grad_(True), steps=CKPT["steps"], **ck)
+    res["ckpt|loss"] = np.array([h["loss"] for h in out["history"]])
+    for shape in RESTORE_MESHES:
+        mesh = meshes[shape] if shape in meshes else make_mesh(
+            shape, AXES, device_type="cpu")
+        where = tmp / f"tp_restore_{mesh_name(shape)}"
+        if dist.get_rank() == 0:
+            shutil.rmtree(where, ignore_errors=True)
+            where.mkdir()
+            shutil.copytree(ckdir / "step_00000003", where / "step_00000003")
+        dist.barrier()
+        name = mesh_name(shape)
+        got = train(arch, device="cpu", mesh=mesh, n_micro=1,
+                    ckpt_dir=str(where), params=model_of(arch, mesh),
+                    steps=3, **ck)
+        assert got["history"] == []
+        res.update({f"restored|{name}|p|{n}": p.detach().numpy().copy()
+                    for n, p in got["params"].named_parameters()})
+        for k in ("m", "v"):
+            res.update({f"restored|{name}|{k}|{n}": t.numpy()
+                        for n, t in got["opt_state"][k].items()})
+        got = train(arch, device="cpu", mesh=mesh, n_micro=1,
+                    ckpt_dir=str(where), params=model_of(arch, mesh),
+                    steps=CKPT["steps"], **ck)
+        res[f"resumed|{name}|loss"] = np.array([h["loss"]
+                                               for h in got["history"]])
+    return res
