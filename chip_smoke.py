@@ -293,12 +293,13 @@ exits non-zero and prints no result.  In order it
    serving shapes but DeepSeek-V2's prefill_32k, and the dense arch's
    train_4k) on meta stand-ins over a fake world of 256 on ``(16, 16)``
    (the log holds ``report.render``'s table; every cell must be ok or
-   ``shape_applicable``'s skip) and, on a one-rank meta mesh, four steps
+   ``shape_applicable``'s skip) and, on a one-rank meta mesh, five steps
    the script also runs on the card (``DRYRUN_CELLS``: the Qwen2.5-14B
    prefill of 4 x 1,024 and a decode step at 1,025 valid positions, the
-   Qwen3-MoE 12-layer prefill over the one-rank mesh, one step of the
-   8-layer training cell over a one-rank NCCL mesh of its own).  Each of
-   the four is counted on the card (``OpCounter`` around one call, in its
+   Qwen3-MoE 12-layer and the DeepSeek-V2 9-layer prefills over the
+   one-rank mesh, one step of the 8-layer training cell over a one-rank
+   NCCL mesh of its own).  Each of
+   the five is counted on the card (``OpCounter`` around one call, in its
    phase, after that phase's checks) and timed without the counter: FLOPs
    and bytes must equal the meta counts op for op (but ``ONE_SIDE_OPS``,
    each with its reason), the kernels' reports must match, and the
@@ -2352,7 +2353,8 @@ def _ep_serve(params, cfg, arch: str, dev, mesh, kw: dict, gen_tok, stats,
     # a MoE layer's forward: the dispatch and the return all-to-all, the
     # all-gather over model, the aux loss's all-reduce; one all-gather of
     # the tokens at the end
-    # (the placed leaves add none: every axis has size 1)
+    # (the placed leaves add none: every axis has size 1; nor does
+    # DeepSeek-V2's MLA, whose leaves are whole on a model of one rank)
     assert calls == dict(all_to_all=2 * per, all_gather=per + 1,
                          all_reduce=per, reduce_scatter=0, send_recv=0), calls
 
@@ -2409,8 +2411,7 @@ def _ep_serve(params, cfg, arch: str, dev, mesh, kw: dict, gen_tok, stats,
     assert max(control_diffs) > EP_CONTROL_FACTOR * tol, \
         f"control {EP_CONTROL!r} misses the check by only " \
         f"{max(control_diffs) / tol:.2f}x"
-    if arch == MOE_ARCH:                       # the dry run's check (8)
-        _moe_prefill_count(params, cfg, dev, mesh)
+    _moe_prefill_count(params, cfg, dev, mesh, arch)   # the dry run's (8)
     if profile_dir is not None:
         _profile_serve(params, cfg, dev, profile_dir, tag=f"{tag}ep_",
                        mesh=mesh)
@@ -4249,7 +4250,7 @@ def _profiled(name: str, fn, profile_dir: Path):
 
 # ---------------------------------------------------------------------------
 # the dry run (item 8): the matrix of cells counted on meta stand-ins,
-# and four steps the script runs counted on the card against the same
+# and five steps the script runs counted on the card against the same
 # steps counted on meta
 # ---------------------------------------------------------------------------
 
@@ -4272,7 +4273,7 @@ DRYRUN_JOBS = {
 }
 DRYRUN_TIMEOUT_S = 900       # from their start, right after the build
 COMPUTE_FLOOR = 0.95      # measured time >= this x the roofline's compute term
-# the four steps counted on the card and on meta (a one-rank mesh on a fake
+# the five steps counted on the card and on meta (a one-rank mesh on a fake
 # world): tag -> (arch, kind, sequence, batch, layers (None: all), cache
 # positions before the step (decode))
 DRYRUN_CELLS = {
@@ -4282,6 +4283,8 @@ DRYRUN_CELLS = {
                            SERVE["batch"], None, SERVE["prompt_len"]),
     "qwen3-moe 12L prefill": (MOE_ARCH, "prefill", SERVE["prompt_len"],
                               SERVE["batch"], MOE_LAYERS, None),
+    "deepseek-v2 9L prefill": (DEEPSEEK_ARCH, "prefill", SERVE["prompt_len"],
+                               SERVE["batch"], DEEPSEEK_LAYERS, None),
     "qwen2.5-14b 8L train": (TRAIN_ARCH, "train", TRAIN["seq_len"],
                              TRAIN["global_batch"], TRAIN_LAYERS, None),
 }
@@ -4466,9 +4469,10 @@ def _dense_serve_counts(params, cfg, dev) -> None:
     del cache
 
 
-def _moe_prefill_count(params, cfg, dev, mesh) -> None:
-    """The Qwen3-MoE prefill over the one-rank mesh (its ``teshu2``
-    dispatch) counted, on the ``DRYRUN_CELLS`` shape."""
+def _moe_prefill_count(params, cfg, dev, mesh, arch: str) -> None:
+    """The Qwen3-MoE or DeepSeek-V2 prefill over the one-rank mesh (its
+    ``teshu2`` dispatch; DeepSeek-V2's MLA whole, as ``model`` is 1)
+    counted, on its ``DRYRUN_CELLS`` shape."""
     import torch
 
     from repro_torch.launch.steps import make_prefill_step
@@ -4478,7 +4482,8 @@ def _moe_prefill_count(params, cfg, dev, mesh) -> None:
     toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev,
                          dtype=torch.int32)
     batch = {"tokens": toks, "labels": torch.zeros_like(toks)}
-    tag = "qwen3-moe 12L prefill"
+    tag = next(t for t, c in DRYRUN_CELLS.items()
+               if c[:2] == (arch, "prefill"))
     step = make_prefill_step(cfg, ShapeConfig(tag, s, b, "prefill"),
                              mesh=mesh)
     _card_count(tag, lambda: step(params, batch), (params, batch))
@@ -4621,7 +4626,7 @@ def main() -> int:
     ap.add_argument("--profile", type=Path, default=None,
                     help="trace one hit per template into this directory")
     ap.add_argument("--meta-counts", type=Path, default=None,
-                    help="count the dry run's four steps on meta stand-ins "
+                    help="count the dry run's five steps on meta stand-ins "
                          "into this file and exit (the script runs itself "
                          "so, with no card)")
     args = ap.parse_args()

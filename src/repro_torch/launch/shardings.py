@@ -35,8 +35,9 @@ over the same axes), as ZeRO-3 does over each leaf's own axes, but for the
 axes the module consumes in place (:func:`kept_axes`): a routed expert's
 EP axes, and ``model`` for the tensor-parallel leaves (the MLP's and
 shared experts' column- and row-parallel matrices, GQA attention's heads
-where :func:`attention_split` splits them, the embedding's ``d`` slice,
-the unembedding's vocabulary slice), whose modules end a row-parallel
+where :func:`attention_split` splits them, MLA's five matrices where
+:func:`mla_split` splits its heads, the embedding's ``d`` slice, the
+unembedding's vocabulary slice), whose modules end a row-parallel
 product in one sum over ``model``.  Over axes of total size 1
 :func:`gather` returns the leaf itself.
 :func:`to_placements` states a spec as ``torch.distributed.tensor``
@@ -421,6 +422,8 @@ def gather_spec(spec: tuple, mesh, keep: tuple[str, ...] = ()) -> tuple:
 _MLP_LEAVES = (".mlp.w_gate", ".mlp.w_up", ".mlp.w_down", ".moe.shared.w_gate",
                ".moe.shared.w_up", ".moe.shared.w_down")
 _ATTN_LEAVES = (".attn.wq", ".attn.wk", ".attn.wv", ".attn.wo")
+_MLA_LEAVES = (".attn.wq_a", ".attn.wq_b", ".attn.wkv_a", ".attn.wkv_b",
+               ".attn.wo")
 
 
 def attention_split(cfg, mesh) -> str | None:
@@ -430,8 +433,8 @@ def attention_split(cfg, mesh) -> str | None:
     ``"replicate"`` where ``m`` divides ``n_heads`` and ``n_kv_heads``
     divides ``m`` (each rank its ``h/m`` q heads and the one kv head they
     read, Megatron's KV replication), else None: the layer runs whole.
-    Only the dense and MoE families' GQA attention splits (not MLA, not a
-    hybrid's mixer)."""
+    Only the dense and MoE families' GQA attention splits this way (MLA:
+    :func:`mla_split`; a hybrid's mixer runs whole)."""
     m = mesh.shape.get("model")
     if m is None or cfg.family not in ("dense", "moe") or cfg.mla is not None \
             or cfg.n_heads % m:
@@ -439,6 +442,17 @@ def attention_split(cfg, mesh) -> str | None:
     if cfg.n_kv_heads % m == 0:
         return "heads"
     return "replicate" if m % cfg.n_kv_heads == 0 else None
+
+
+def mla_split(cfg, mesh) -> bool:
+    """Whether an MLA layer splits its heads over ``model`` (reads only
+    ``mesh.shape``): where ``m = mesh.shape["model"]`` divides ``n_heads``.
+    Each rank then computes its ``h/m`` heads from its columns of ``wq_b``
+    and ``wkv_b`` and its rows of ``wo``, and its ``1/m`` of the two
+    down-projections ``wq_a`` and ``wkv_a``, whose outputs it all-gathers
+    (``layers.MLA``); the latent cache stays whole on each rank."""
+    m = mesh.shape.get("model")
+    return cfg.mla is not None and m is not None and cfg.n_heads % m == 0
 
 
 def kv_head_of(rank: int, m: int, n_kv_heads: int) -> int:
@@ -462,12 +476,14 @@ def kept_axes(name: str, spec: tuple, mesh, cfg) -> tuple[str, ...]:
       (row-parallel); a GQA layer's ``wq`` and ``wo`` where
       :func:`attention_split` splits its heads, and ``wk`` / ``wv`` where
       it splits the kv heads too (under KV replication they are gathered
-      whole and the rank takes its kv head's columns); the embedding (its
-      ``d`` slice; not where it is tied to the unembedding) and the
-      unembedding (its vocabulary slice).
+      whole and the rank takes its kv head's columns); an MLA layer's
+      ``wq_a``, ``wq_b``, ``wkv_a``, ``wkv_b`` (column-parallel) and ``wo``
+      (row-parallel) where :func:`mla_split` splits its heads; the
+      embedding (its ``d`` slice; not where it is tied to the unembedding)
+      and the unembedding (its vocabulary slice).
 
-    Every other leaf (MLA, a hybrid's mixer, the xLSTM mixers, the router,
-    the norms, the biases) is gathered whole."""
+    Every other leaf (a hybrid's mixer, the xLSTM mixers, the router, the
+    norms, the biases) is gathered whole."""
     named = {a for e in spec for a in _axes(e)}
     if ".moe.experts." in name:
         if cfg.moe.dispatch == "gspmd":
@@ -475,6 +491,8 @@ def kept_axes(name: str, spec: tuple, mesh, cfg) -> tuple[str, ...]:
         return tuple(a for a in ep_axes_for(mesh) if a in named)
     if "model" not in named:
         return ()
+    if cfg.mla is not None and name.endswith(_MLA_LEAVES):
+        return ("model",) if mla_split(cfg, mesh) else ()
     if name == "embed":
         return () if cfg.tie_embeddings else ("model",)
     if name == "unembed" or name.endswith(_MLP_LEAVES):

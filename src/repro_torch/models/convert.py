@@ -220,7 +220,8 @@ def cache_from_reference(cfg: ModelConfig, cache: dict, *,
     ``lm.init_cache`` / ``forward`` cache, every leaf in its own dtype.
     Under ``mesh`` a GQA layer whose heads split over ``model`` keeps this
     rank's kv heads (``lm.init_cache``'s layout; ``specs`` the model's, as
-    there); the rows stay the caller's."""
+    there) and an MLA layer the whole latent and rope key; the rows stay
+    the caller's."""
     dev = check_device(device)
 
     def attn(t, heads=slice(None)):

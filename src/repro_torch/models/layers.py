@@ -18,7 +18,8 @@ their plain versions instead.  Without a cache, the flash slot, or with
 fused and the blocked plain attention.
 
 MLA (:class:`MLA`) runs on tensor ops alone, as the reference's does on
-XLA: no kernel of the port takes its ``dk != dv`` heads.  Its two forms
+XLA: no kernel of the port takes its ``dk != dv`` heads.  Under a mesh it
+splits its heads over ``model`` as GQA attention does.  Its two forms
 are plain functions: :func:`mla_materialized` (the latent up-projected to
 per-head keys and values, then :func:`_attend`) for every call but a
 single-token decode, which takes :func:`mla_absorbed_decode` (``wkv_b``
@@ -45,6 +46,16 @@ from .config import ModelConfig
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def tp_gather(y: torch.Tensor, width: int, mesh) -> torch.Tensor:
+    """``y`` with its last dimension whole: ``y`` itself where it holds all
+    ``width`` columns, else this rank's block of them all-gathered over
+    ``model`` (``meshops.all_gather``: its gradient the reduce-scatter,
+    this rank's block of the sum)."""
+    if y.shape[-1] == width:
+        return y
+    return meshops.all_gather(y, mesh, "model", axis=y.dim() - 1)
 
 
 def tp_sum(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -312,6 +323,12 @@ def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 # MLA (DeepSeek-V2 multi-head latent attention)
 # ---------------------------------------------------------------------------
 
+def _mla_heads(p: MLA) -> int:
+    """The heads ``p``'s ``wkv_b`` holds (this rank's under a split)."""
+    m = p.cfg.mla
+    return p.wkv_b.shape[1] // (m.nope_head_dim + m.v_head_dim)
+
+
 class MLA(nn.Module):
     """Multi-head latent attention: ``wq_a [d, q_lora]``, ``q_a_norm``,
     ``wq_b [q_lora, h (dn + dr)]``, ``wkv_a [d, r + dr]``, ``kv_a_norm``,
@@ -319,7 +336,18 @@ class MLA(nn.Module):
     ``init_mla`` names and layouts (``r`` the kv latent's rank, ``dn`` /
     ``dr`` the no-rope and rope halves of a query-key head, ``dv`` a value
     head).  The cache holds only the normalised latent and one rope key per
-    position, shared by the heads."""
+    position, shared by the heads.
+
+    Under a mesh whose ``model`` axis splits its heads
+    (``shardings.mla_split``) the layer is called with ``wq_b``'s and
+    ``wkv_b``'s columns and ``wo``'s rows of this rank's ``h/m`` heads
+    (``[r h/m, (r + 1) h/m)`` for ``model`` rank ``r``) and with its ``1/m``
+    of the columns of the down-projections ``wq_a`` and ``wkv_a``.  It
+    all-gathers those two products over ``model`` (:func:`tp_gather`), so
+    that ``q_a_norm`` sees the whole ``q_lora`` row and the latent and rope
+    key are split apart, normalised and cached whole on every rank (each
+    head reads all of them); it attends over its heads and ends in one sum
+    over ``model`` (:func:`tp_sum`).  Whole leaves run the layer whole."""
 
     def __init__(self, cfg: ModelConfig, *, device, gen=None):
         super().__init__()
@@ -338,30 +366,58 @@ class MLA(nn.Module):
             device))
         self.wo = param(dense_init(gen, h * m.v_head_dim, d, dt, device))
 
-    def project(self, x: torch.Tensor, positions: torch.Tensor):
+    def _local(self, mesh) -> int:
+        """The heads this rank computes: all of them where the leaves are
+        whole, else ``wkv_b``'s, which must be ``n_heads / m`` and agree
+        with ``wq_b``'s and ``wo``'s."""
+        cfg, m, h = self.cfg, self.cfg.mla, _mla_heads(self)
+        others = (self.wq_b.shape[1] // (m.nope_head_dim + m.rope_head_dim),
+                  self.wo.shape[0] // m.v_head_dim)
+        if others != (h, h):
+            raise ValueError(f"wkv_b holds {h} heads, wq_b and wo {others}")
+        if h == cfg.n_heads:
+            return h
+        if mesh is None or h * mesh.shape["model"] != cfg.n_heads:
+            raise ValueError(f"wkv_b holds {h} of {cfg.n_heads} heads: run "
+                             f"the layer under the mesh that splits them")
+        return h
+
+    def _q_a(self, x: torch.Tensor, mesh) -> torch.Tensor:
+        """``q_a_norm(x @ wq_a)`` over the whole ``q_lora`` row: this
+        rank's columns gathered before the norm."""
+        return self.q_a_norm(tp_gather(x @ self.wq_a,
+                                       self.cfg.mla.q_lora_rank, mesh))
+
+    def project(self, x: torch.Tensor, positions: torch.Tensor, mesh=None):
         """``(q_nope [B,S,h,dn], q_rope [B,S,h,dr], latent [B,S,r], k_rope
         [B,S,dr])`` of ``x [B, S, D]``: the rope halves rotated at
-        ``positions``, the latent normalised (what the cache holds)."""
+        ``positions``, the latent normalised (what the cache holds); ``h``
+        this rank's heads (:meth:`_local`), the latent and rope key
+        whole."""
         cfg, m = self.cfg, self.cfg.mla
         b, s, _ = x.shape
-        q = self.q_a_norm(x @ self.wq_a) @ self.wq_b
-        q = q.reshape(b, s, cfg.n_heads, m.nope_head_dim + m.rope_head_dim)
+        h = self._local(mesh)
+        q = self._q_a(x, mesh) @ self.wq_b
+        q = q.reshape(b, s, h, m.nope_head_dim + m.rope_head_dim)
         q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
         q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-        latent, k_rope = (x @ self.wkv_a).split(
-            [m.kv_lora_rank, m.rope_head_dim], dim=-1)
+        latent, k_rope = tp_gather(
+            x @ self.wkv_a, m.kv_lora_rank + m.rope_head_dim, mesh).split(
+                [m.kv_lora_rank, m.rope_head_dim], dim=-1)
         k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
         return q_nope, q_rope, self.kv_a_norm(latent), k_rope[:, :, 0]
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
-                cache: dict | None = None, use_kernel: bool = True):
+                cache: dict | None = None, use_kernel: bool = True,
+                mesh=None):
         """x: ``[B, S, D]``.  Returns ``(out, cache)``; a given cache is
         updated in place (its ``latent`` / ``k_rope`` rows ``[len, len +
         S)`` are written and ``len`` advances).  Both forms read the cache's
         rows ``[0, len + S)`` only.  ``use_kernel`` is taken for the
-        interface's sake: no kernel runs here."""
+        interface's sake: no kernel runs here.  ``mesh`` is needed only
+        where the leaves arrive as this rank's shards."""
         b, s, _ = x.shape
-        q_nope, q_rope, latent, k_rope = self.project(x, positions)
+        q_nope, q_rope, latent, k_rope = self.project(x, positions, mesh)
         if cache is None:
             with record_function("mla.prefill"):     # names it in a profile
                 out = mla_materialized(self, q_nope, q_rope, latent, k_rope)
@@ -382,7 +438,9 @@ class MLA(nn.Module):
                 with record_function("mla.prefill"):
                     out = mla_materialized(self, q_nope, q_rope, *rows,
                                            q_offset=ln, valid_len=ln + s)
-        return out.to(x.dtype) @ self.wo, cache
+        out = out.to(x.dtype) @ self.wo
+        return (out if q_nope.shape[2] == self.cfg.n_heads
+                else tp_sum(out, mesh)), cache
 
 
 def _mla_scale(m) -> float:
@@ -396,9 +454,9 @@ def mla_materialized(p: MLA, q_nope, q_rope, latent, k_rope, *,
     shared rope key broadcast over the heads), then causal :func:`_attend`
     with head widths ``dn + dr`` and ``dv``.  Rows ``T`` are this call's or
     the cache's (bfloat16 rows cast to the weights' dtype, which is exact);
-    the queries are rows ``[q_offset, q_offset + S)``.  ``[B, S, h dv]`` in
-    the queries' dtype."""
-    m, h = p.cfg.mla, p.cfg.n_heads
+    the queries are rows ``[q_offset, q_offset + S)``; ``h`` the heads of
+    ``wkv_b``.  ``[B, S, h dv]`` in the queries' dtype."""
+    m, h = p.cfg.mla, _mla_heads(p)
     b, s = q_nope.shape[:2]
     t = latent.shape[1]
     kv = (latent.to(p.wkv_b.dtype) @ p.wkv_b).reshape(
@@ -418,9 +476,9 @@ def mla_absorbed_decode(p: MLA, q_nope, q_rope, latent, k_rope, *,
     into the query (``q_lat [B, S, h, r]``), its value half into the output,
     so that attention runs over the latent rows ``[B, T, r]`` themselves,
     every operand float32.  Columns ``>= valid_len`` are masked (no causal
-    mask: the decode's one query sees every valid row).  ``[B, S, h dv]``
-    float32."""
-    m, h = p.cfg.mla, p.cfg.n_heads
+    mask: the decode's one query sees every valid row); ``h`` the heads of
+    ``wkv_b``.  ``[B, S, h dv]`` float32."""
+    m, h = p.cfg.mla, _mla_heads(p)
     b, s = q_nope.shape[:2]
     t = latent.shape[1]
     w_abs = p.wkv_b.float().reshape(m.kv_lora_rank, h,

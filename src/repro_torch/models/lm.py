@@ -45,11 +45,13 @@ axes, the dispatch bringing the tokens to it, and is gathered over
 split the dense work as the reference's specs do (tensor parallelism):
 an MLP on its ``f / m`` columns, GQA attention on its ``h / m`` heads
 (where ``model`` divides them; its kv heads too, or the one they read),
-each ending in one sum over ``model``, the embedding looked up in the
-rank's ``d`` slice and all-gathered, the logits computed on the rank's
+MLA on its ``h / m`` heads and its ``1 / m`` of the two down-projections
+(their outputs all-gathered; the latent cache whole on every rank), each
+ending in one sum over ``model``, the embedding looked up in the rank's
+``d`` slice and all-gathered, the logits computed on the rank's
 vocabulary slice (gathered whole for callers; ``train_loss`` reads the
-slice).  MLA, a hybrid's or an xLSTM's mixer, the router and the norms
-run whole on every ``model`` rank.  Under ``cfg.remat``
+slice).  A hybrid's or an xLSTM's mixer, the router and the norms are
+gathered whole and run whole on every ``model`` rank.  Under ``cfg.remat``
 the gather sits inside the checkpointed block, so the backward gathers
 again; without remat autograd keeps the gathered weights until the
 backward.  On a ``model`` axis of one rank nothing is split and no sum is
@@ -152,7 +154,7 @@ class Block(nn.Module):
         if self.cfg.family == "ssm":
             return x + self._xlstm(self.ln1(x), cache, use_kernel), None
         mix = self.mixer if hasattr(self, "mixer") else self.attn
-        heads = {"mesh": mesh} if isinstance(mix, Attention) else {}
+        heads = {"mesh": mesh} if isinstance(mix, (Attention, MLA)) else {}
         out, _ = mix(self.ln1(x), positions, cache=cache,
                      use_kernel=use_kernel, **heads)
         x = x + out
@@ -481,7 +483,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     split over ``model`` keeps this rank's kv heads
     (``shardings.local_kv_heads``, by ``specs``, the model's, where
     given: a model placed with other specs than the rules' keeps its
-    own)."""
+    own); an MLA layer's latent and rope key are whole on every rank,
+    whose heads all read them (the reference's specs split the latent's
+    ``r`` over ``model``)."""
     check_supported(cfg)
     dev = _device(device)
 

@@ -7,8 +7,8 @@ over 8 forced host devices, ``hlo_analysis.analyze_hlo``) runs in one
 subprocess started with the module, the pattern of ``mesh_ranks.py``; the
 port's cells run on meta stand-ins on rank 0 of a fake world.  Both on the
 ``(2, 4, 1)`` ``("pod", "data", "model")`` mesh, whose ``model`` axis is 1,
-and on ``(2, 2, 2)``, where the dense and MoE families split their dense
-work over ``model`` as XLA does (MLA, Hymba's mixer and the xLSTM mixers
+and on ``(2, 2, 2)``, where the dense, MoE and MLA families split their
+dense work over ``model`` as XLA does (Hymba's mixer and the xLSTM mixers
 run whole on each ``model`` rank: their ratios are printed, not held), at
 a sequence of 64 and a batch of 8, the port on
 its plain route (``use_kernel=False``: the route the reference's dry run
@@ -51,11 +51,11 @@ from repro_torch.models.config import ShapeConfig  # noqa: E402
 REPO = Path(__file__).resolve().parents[1]
 AXES = ("pod", "data", "model")
 MESH = (2, 4, 1)
-# model 2: the dense and MoE families split their dense work over model as
-# the reference's XLA does; MLA, Hymba's mixer and the xLSTM mixers run
+# model 2: the dense, MoE and MLA families split their dense work over
+# model as the reference's XLA does; Hymba's mixer and the xLSTM mixers run
 # whole on each model rank (their ratios printed, not held)
 TP_MESH = (2, 2, 2)
-TP_HELD = ("dense", "moe")
+TP_HELD = ("dense", "moe", "mla")
 SEQ, BATCH = 64, 8
 FAMILIES = {"dense": "qwen2.5-14b", "moe": "qwen3-moe-235b-a22b",
             "mla": "deepseek-v2-236b", "hybrid": "hymba-1.5b",
@@ -402,7 +402,8 @@ def test_one_rank_mesh_counts_the_mesh_free_dense_step():
 
 @pytest.mark.parametrize("arch,kind", [
     ("qwen2.5-14b", "prefill"), ("qwen2.5-14b", "decode"),
-    ("qwen3-moe-235b-a22b", "prefill"), ("qwen2.5-14b", "train")])
+    ("qwen3-moe-235b-a22b", "prefill"), ("deepseek-v2-236b", "prefill"),
+    ("qwen2.5-14b", "train")])
 def test_meta_counts_equal_real_counts(tmp_path, arch, kind):
     """A SMOKE step counted on meta stand-ins on a one-rank meta mesh and
     on CPU tensors of real values on a one-rank gloo mesh, both on the
@@ -503,7 +504,8 @@ def test_block_defaults_change_the_tiles_and_keep_the_result():
 def _moe_padding_flops(cfg, mesh, tokens: int, passes: int) -> float:
     """FLOPs of the rows the port's MoE blocks pad to the grouped matmul's
     tile (``cap_pad - cap`` an expert and EP source, routed; ``t_pad - t``
-    of the shared experts), each through the three expert matmuls,
+    of the shared experts, at their ``f / m`` columns where ``model``
+    splits them), each through the three expert matmuls,
     ``passes`` times (3 in training: forward, and the input and weight
     gradients), for one microbatch of ``tokens``.  Each ``model`` rank
     routes its own slice of the rank's ``tokens`` where ``model`` divides
@@ -523,7 +525,9 @@ def _moe_padding_flops(cfg, mesh, tokens: int, passes: int) -> float:
     _, t_pad = moe.buffer_layout(tokens)
     n_moe = sum(not lm.is_dense_layer(cfg, i) for i in range(cfg.n_layers))
     routed = (m.num_experts // ep) * ep * (cap_pad - cap) * m.d_ff_expert
-    shared = m.num_shared * (t_pad - tokens) * m.d_ff_expert
+    shared_f = m.d_ff_expert // msize if m.d_ff_expert % msize == 0 \
+        else m.d_ff_expert
+    shared = m.num_shared * (t_pad - tokens) * shared_f
     return float(n_moe * (routed + shared) * 3 * 2 * d * passes)
 
 
@@ -584,11 +588,18 @@ def _hold_flops(ref: dict, mesh, family: str, held: bool = True) -> dict:
 def test_flops_split_over_model_match_the_reference(reference_flops,
                                                     family):
     """On ``TP_MESH`` (``model`` 2), as :func:`test_flops_match_the
-    _reference` holds ``(2, 4, 1)``: the dense and MoE families within 2%
-    (their MLP, GQA heads, embedding and vocabulary split over ``model``
-    as the reference's XLA splits them); the MLA, hybrid and xLSTM
-    families' ratios printed (their mixers run whole on each ``model``
-    rank), each cell counted."""
+    _reference` holds ``(2, 4, 1)``: the dense, MoE and MLA families
+    within 2% (their MLP, GQA heads, MLA heads and down-projections,
+    embedding and vocabulary split over ``model`` as the reference's XLA
+    splits them); the hybrid and xLSTM families' ratios printed (their
+    mixers run whole on each ``model`` rank), each cell counted.  MLA
+    leaves no difference: dot for dot, XLA's per-device products of the
+    absorbed decode (``wq_a`` / ``wkv_a`` on 24 of 48 columns, ``wq_b`` and
+    ``wo`` on 2 of 4 heads, the scores and context over the whole latent
+    for 2 heads, or over half of ``T`` or of ``r`` for all 4, the same
+    FLOPs) are the port's, and the prefill's and training's as well.  The
+    shared experts' padded rows are worked out at their ``f / m``
+    columns (DeepSeek-V2's decode: ``2 x 14`` rows of ``16``)."""
     with dryrun.fake_world(8):
         mesh = make_mesh(TP_MESH, AXES, device_type="meta")
         ratios = _hold_flops(reference_flops(TP_MESH), mesh, family,

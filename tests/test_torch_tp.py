@@ -6,24 +6,30 @@ sharding rules do (``shardings.kept_axes``): an MLP's ``w_gate`` / ``w_up``
 column-parallel and ``w_down`` row-parallel, a GQA layer's heads (its kv
 heads too where ``model`` divides them, else each rank the one kv head its
 q heads read), the embedding's ``d`` slice and the unembedding's vocabulary
-slice, each row-parallel product ending in one sum over ``model``.  Four
-SMOKE models (Qwen2.5-14B, Granite-34B's MQA, Qwen3-MoE's GQA beside
-``teshu2``, DeepSeek-V2's shared experts and layer 0 with its MLA whole)
-run on 8 gloo ranks as ``(2, 2, 2)`` and ``(1, 2, 4)`` ``("pod", "data",
-"model")`` meshes (``tp_ranks.py``), and the reference in one subprocess
-over 8 forced host devices, on the same weights (``init_lm`` jittered from
-numpy) and batch (two labels masked).
+slice, each row-parallel product ending in one sum over ``model``; an
+MLA layer its ``h/m`` heads of ``wq_b`` / ``wkv_b`` (columns) and ``wo``
+(rows) and its ``1/m`` of the down-projections ``wq_a`` / ``wkv_a``, whose
+outputs it all-gathers, the latent cache whole on every rank.  Four SMOKE
+models (Qwen2.5-14B, Granite-34B's MQA, Qwen3-MoE's GQA beside ``teshu2``,
+DeepSeek-V2's MLA, shared experts and layer 0) run on 8 gloo ranks as
+``(2, 2, 2)`` and ``(1, 2, 4)`` ``("pod", "data", "model")`` meshes
+(``tp_ranks.py``), and the reference in one subprocess over 8 forced host
+devices, on the same weights (``init_lm`` jittered from numpy) and batch
+(two labels masked).
 
 Tolerances: the forward's logits within ``LAYER`` of
 ``test_torch_moe_ep.py`` (float32 matmuls summing in other orders: a
 row-parallel product is summed over ``model`` in another order than one
 matmul); served tokens equal and the last positions' logits within
-``CACHED`` (through the bf16 cache); the loss to rtol ``F32_LOSS`` and each
+``CACHED`` (through the bf16 cache), as are DeepSeek-V2's logits of a
+prefill in two chunks on one cache; the loss to rtol ``F32_LOSS`` and each
 summed gradient within ``F32_GRAD`` of its leaf's largest reference
-element (``test_torch_train_mesh.py``'s bound).  Four planted faults must
+element (``test_torch_train_mesh.py``'s bound).  Seven planted faults must
 miss by 10x: the row-parallel sum skipped, the replicated kv head taken as
-``r % n_kv_heads``, the gold logit taken from every rank, and the
-column-split leaves' gradients summed over ``model``.
+``r % n_kv_heads``, the gold logit taken from every rank, the
+column-split leaves' gradients summed over ``model``, and in MLA
+``q_a_norm`` taken over the rank's columns before the gather, the rank's
+``wkv_b`` heads taken at the next rank's offset and ``wo``'s sum skipped.
 """
 from types import SimpleNamespace
 
@@ -66,11 +72,14 @@ def _inputs() -> dict:
         data[f"batch-{arch}|labels"] = labels
         data[f"batch-{arch}|tokens"] = rng.integers(
             0, cfg.vocab, shape).astype(np.int32)
-        if arch in tp_ranks.DENSE:    # a reference cache of distinct values
-            cache = jax.tree.map(np.asarray, jlm.init_cache(cfg, 2, 8))
-            for k in ("k", "v"):
-                cache["blocks"][k] = rng.standard_normal(
-                    cache["blocks"][k].shape).astype(np.float32)
+        if arch in tp_ranks.DENSE + tp_ranks.MLA:    # a reference cache
+            cache = jax.tree.map(np.asarray,         # of distinct values
+                                 jlm.init_cache(cfg, 2, 8))
+            for part in ("block0", "blocks"):
+                for k in ("k", "v", "latent", "k_rope"):
+                    if k in cache.get(part, {}):
+                        cache[part][k] = rng.standard_normal(
+                            cache[part][k].shape).astype(np.float32)
             data.update(flat(cache, f"cache-{arch}"))
     return data
 
@@ -132,12 +141,16 @@ def test_kept_axes_rule(arch, shape):
     the MLP's and shared experts' matrices, the embedding and unembedding
     where their spec names it, by ``wq`` / ``wo`` where
     ``attention_split`` splits the heads and by ``wk`` / ``wv`` where it
-    splits the kv heads too; nothing else keeps an axis, and a leaf whose
-    spec does not name ``model`` keeps none of it."""
+    splits the kv heads too, and by MLA's ``wq_a``, ``wq_b``, ``wkv_a``,
+    ``wkv_b`` and ``wo`` where ``mla_split`` splits its heads (``model``
+    divides ``n_heads``: DeepSeek-V2's 128 on all four meshes); nothing
+    else keeps an axis, and a leaf whose spec does not name ``model`` keeps
+    none of it."""
     cfg = get_config(arch)
     axes = AXES[-len(shape):]
     mesh = SimpleNamespace(shape=dict(zip(axes, shape)), axis_names=axes)
     split = shardings.attention_split(cfg, mesh)
+    mla = shardings.mla_split(cfg, mesh)
     m = mesh.shape["model"]
     if cfg.family in ("dense", "moe") and cfg.mla is None:
         want = None if cfg.n_heads % m else "heads" \
@@ -146,6 +159,7 @@ def test_kept_axes_rule(arch, shape):
         assert split == want
     else:
         assert split is None
+    assert mla == (cfg.mla is not None and cfg.n_heads % m == 0)
     model = lm.LM(cfg, device="meta")
     for n, p in model.named_parameters():
         spec = shardings.leaf_spec(n, p.shape, mesh, cfg)
@@ -160,7 +174,9 @@ def test_kept_axes_rule(arch, shape):
         tp = n in ("embed", "unembed") or ".mlp." in n or \
             ".moe.shared." in n or (
                 ".attn." in n and leaf in ("wq", "wo") and split) or (
-                ".attn." in n and leaf in ("wk", "wv") and split == "heads")
+                ".attn." in n and leaf in ("wk", "wv") and split == "heads") \
+            or (".attn." in n and mla and leaf in ("wq_a", "wq_b", "wkv_a",
+                                                   "wkv_b", "wo"))
         assert kept == (("model",) if tp and "model" in named else ()), \
             (n, spec, kept)
 
@@ -168,9 +184,12 @@ def test_kept_axes_rule(arch, shape):
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_local_shapes(runs, case):
     """Each rank holds its spec's ``local_shape`` of every leaf (so ``h/m``
-    q heads in ``wq`` and ``f/m`` columns of each MLP), and its cache the
-    kv heads of the stated layout: ``kvh/m`` where ``model`` divides them,
-    the one kv head of KV replication, all of them for MLA (no ``k``)."""
+    q heads in ``wq``, ``f/m`` columns of each MLP, and in MLA ``h/m``
+    heads in ``wq_b`` / ``wkv_b`` (columns) and ``wo`` (rows) and
+    ``q_lora/m`` and ``(r + dr)/m`` columns of ``wq_a`` / ``wkv_a``), and
+    its cache the kv heads of the stated layout: ``kvh/m`` where ``model``
+    divides them, the one kv head of KV replication; an MLA layer's
+    ``latent`` and ``k_rope`` whole."""
     arch, shape = case
     cfg = get_config(arch, smoke=True)
     mesh, m = _standin(shape), shape[-1]
@@ -187,12 +206,34 @@ def test_local_shapes(runs, case):
             if n.endswith(".attn.wq") and split:
                 assert res[f"{key}|local|{n}"][-1] == \
                     cfg.n_heads // m * cfg.d_head
+            if cfg.mla is not None and ".attn." in n:
+                _assert_mla_local(cfg, m, n, res[f"{key}|local|{n}"])
         kvh = cfg.n_kv_heads // m if split == "heads" else 1 \
             if split == "replicate" else cfg.n_kv_heads
         layers = [k for k in res if k.startswith(f"{key}|cache|")]
-        assert len(layers) == (0 if cfg.mla else cfg.n_layers)
+        assert len(layers) == cfg.n_layers
         for k in layers:
-            assert res[k].tolist() == [1, 4, kvh, cfg.d_head]
+            want = [1, 4, cfg.mla.kv_lora_rank] if cfg.mla else \
+                [1, 4, kvh, cfg.d_head]
+            assert res[k].tolist() == want
+
+
+def _assert_mla_local(cfg, m: int, name: str, local) -> None:
+    """An MLA leaf's rank-local width over ``model``: ``h/m`` heads of
+    ``dn + dr`` (``wq_b``), ``dn + dv`` (``wkv_b``) or ``dv`` rows
+    (``wo``), ``q_lora/m`` (``wq_a``) and ``(r + dr)/m`` columns
+    (``wkv_a``).  The norms are held by their specs and gathered whole
+    before the layer runs."""
+    a, h = cfg.mla, cfg.n_heads // m
+    want = {"wq_a": (-1, a.q_lora_rank // m),
+            "wq_b": (-1, h * (a.nope_head_dim + a.rope_head_dim)),
+            "wkv_a": (-1, (a.kv_lora_rank + a.rope_head_dim) // m),
+            "wkv_b": (-1, h * (a.nope_head_dim + a.v_head_dim)),
+            "wo": (0, h * a.v_head_dim)}
+    leaf = name.split(".attn.")[-1]
+    if leaf in want:
+        dim, width = want[leaf]
+        assert local[dim] == width, (name, list(local), width)
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
@@ -245,19 +286,38 @@ def test_loss_and_gradients_match_reference(runs, case):
         assert _miss(got, want) <= 1.0, key
 
 
+@pytest.mark.parametrize("case", [c for c in CASES if c[0] in tp_ranks.MLA],
+                         ids=[i for c, i in zip(CASES, IDS)
+                              if c[0] in tp_ranks.MLA])
+def test_two_chunk_prefill_matches_reference(runs, case):
+    """An MLA model's prompt prefilled in two chunks (7, then 5) on one
+    cache under the mesh: the second chunk runs the materialised form on
+    the rank's heads over the whole cached latent from position 7.  Every
+    position's logits within ``CACHED`` of the reference's same two
+    chunks."""
+    arch, shape = case
+    key = f"{arch}|{tp_ranks.mesh_name(shape)}"
+    want = runs["ref"][f"{tp_ranks.ref_key(arch, shape)}|chunked"]
+    for r, res in enumerate(runs["ranks"]):
+        np.testing.assert_allclose(res[f"{key}|chunked"],
+                                   want[_rows(r, shape)], **CACHED)
+
+
 @pytest.mark.parametrize("fault", tp_ranks.FAULTS)
 def test_planted_faults_miss(runs, fault):
     """Each fault misses its check by 10x where the unfaulted run meets
-    it: the row-parallel sum skipped and the replicated kv head taken as
-    ``r % n_kv_heads`` (the forward's logits), the gold logit taken from
-    every rank (the loss) and the column-split leaves' gradients summed
-    over ``model`` (the gradients)."""
+    it: the row-parallel sum skipped, the replicated kv head taken as
+    ``r % n_kv_heads``, MLA's ``q_a_norm`` over the rank's columns, its
+    ``wkv_b`` heads at the next rank's offset and its ``wo`` sum skipped
+    (the forward's logits), the gold logit taken from every rank (the
+    loss) and the column-split leaves' gradients summed over ``model``
+    (the gradients)."""
     arch, shape = tp_ranks.FAULT_CASE[fault]
     rk = tp_ranks.ref_key(arch, shape)
     ref = runs["ref"]
     misses = []
     for r, res in enumerate(runs["ranks"]):
-        if fault in ("no_psum", "kv_head_mod"):
+        if fault in tp_ranks.LOGIT_FAULTS:
             misses.append(_logit_miss(res[f"{fault}|logits"],
                                       ref[f"{rk}|logits"][_rows(r, shape)]))
         elif fault == "gold_everywhere":
@@ -270,25 +330,31 @@ def test_planted_faults_miss(runs, fault):
     assert max(misses) >= CONTROL_FACTOR, (fault, misses)
 
 
-@pytest.mark.parametrize("shape", tp_ranks.RESTORE_MESHES,
-                         ids=[tp_ranks.mesh_name(s)
-                              for s in tp_ranks.RESTORE_MESHES])
-def test_checkpoint_restores_onto_another_model_size(runs, shape):
+RESTORE_CASES = [(a, s) for a in tp_ranks.CKPT_ARCHS
+                 for s in tp_ranks.RESTORE_MESHES]
+
+
+@pytest.mark.parametrize("case", RESTORE_CASES, ids=[
+    tp_ranks.mesh_name(s) if a == tp_ranks.CKPT_ARCHS[0]
+    else f"{a}-{tp_ranks.mesh_name(s)}" for a, s in RESTORE_CASES])
+def test_checkpoint_restores_onto_another_model_size(runs, case):
     """``train(mesh=...)`` on ``(2, 2, 2)`` saved at step 3 and restored
     onto ``shape``: each rank's parameters and moments are the checkpoint's
     blocks by their specs on ``shape`` bit for bit, and steps 3-5 resumed
     there give the uninterrupted run's losses (the first to
-    ``F32_LOSS``)."""
+    ``F32_LOSS``).  Qwen2.5-14B, and DeepSeek-V2 with its MLA split over
+    ``model`` 2, then 4, then 1."""
     from repro_torch.checkpoint.checkpoint import restore_checkpoint
-    arch = tp_ranks.CKPT["arch"]
+    arch, shape = case
     cfg = get_config(arch, smoke=True)
     named = dict(lm.LM(cfg, device="cpu").named_parameters())
     target = {"params": named, "opt_state": {
         "m": named, "v": named, "step": torch.zeros((), dtype=torch.int32)}}
-    saved, meta = restore_checkpoint(str(runs["tmp"] / "tp_ckpt"), 3, target)
+    saved, meta = restore_checkpoint(str(runs["tmp"] / f"tp_ckpt_{arch}"),
+                                     3, target)
     assert meta["step"] == 3
     mesh = _standin(shape)
-    name = tp_ranks.mesh_name(shape)
+    name = f"{arch}|{tp_ranks.mesh_name(shape)}"
     for r, res in enumerate(runs["ranks"]):
         coord = _coord(r, shape)
         for n in named:
@@ -300,12 +366,32 @@ def test_checkpoint_restores_onto_another_model_size(runs, shape):
                 np.testing.assert_array_equal(
                     res[f"restored|{name}|{key}|{n}"],
                     want[_block(spec, want.shape, coord, mesh.shape)])
-    full = runs["ranks"][0]["ckpt|loss"]
+    full = runs["ranks"][0][f"{arch}|ckpt|loss"]
     for res in runs["ranks"]:
         got = res[f"resumed|{name}|loss"]
         assert len(got) == 3
         assert got[0] == pytest.approx(full[3], rel=F32_LOSS)
         np.testing.assert_allclose(got, full[3:], rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[0] in tp_ranks.MLA],
+                         ids=[i for c, i in zip(CASES, IDS)
+                              if c[0] in tp_ranks.MLA])
+def test_converted_cache_keeps_the_whole_latent(runs, case):
+    """``convert.cache_from_reference(..., mesh=)`` of an MLA model: every
+    rank's ``latent`` and ``k_rope`` of every layer are the reference
+    cache's whole (each head reads all of the latent; the reference's own
+    specs split ``r`` over ``model``)."""
+    arch, shape = case
+    cfg = get_config(arch, smoke=True)
+    key = f"{arch}|{tp_ranks.mesh_name(shape)}"
+    for res in runs["ranks"]:
+        for i in range(cfg.n_layers):
+            for k in ("latent", "k_rope"):
+                whole = runs["data"][f"cache-{arch}|block0|{k}"] if i == 0 \
+                    else runs["data"][f"cache-{arch}|blocks|{k}"][i - 1]
+                np.testing.assert_array_equal(
+                    res[f"{key}|converted|{i}|{k}"], whole)
 
 
 @pytest.mark.parametrize("case", [c for c in CASES if c[0] in tp_ranks.DENSE],

@@ -181,9 +181,12 @@ def _layout(case, remat: bool = False) -> dict:
     a tensor-parallel leaf's ``model``), a block's again in its recompute
     under remat, and a reduce-scatter each backward; the embedding's
     lookup in its ``d`` slice all-gathered over ``model`` (a
-    reduce-scatter backward).  The tensor-parallel sums over ``model``,
-    forward and backward: one a head-split attention (Qwen3-MoE's 4 heads
-    on 2), an MLP (DeepSeek-V2's layer 0) and a shared-expert stack, its
+    reduce-scatter backward); an MLA layer's two down-projections'
+    outputs all-gathered over ``model`` (again in the recompute under
+    remat; a reduce-scatter each backward).  The tensor-parallel sums over
+    ``model``, forward and backward: one a head-split attention
+    (Qwen3-MoE's 4 heads on 2, DeepSeek-V2's MLA: counted at ``wo``), an
+    MLP (DeepSeek-V2's layer 0) and a shared-expert stack, its
     forward's again in the recompute under remat but for the block's last
     (DeepSeek-V2's MLP; the recompute stops at the block's last saved
     tensor); the vocabulary-parallel loss's max (forward only), its sum
@@ -213,17 +216,19 @@ def _layout(case, remat: bool = False) -> dict:
     per = layers * n_micro
     a2a = 2 if dispatch == "teshu2" else 1
     tp = sum(1 for n, k in kept.items() if "model" in k and n.endswith(
-        (".attn.wq", ".mlp.w_up", ".moe.shared.w_up")))
+        (".attn.wo", ".mlp.w_up", ".moe.shared.w_up")))
+    mla = sum(1 for n, k in kept.items() if "model" in k and n.endswith(
+        (".attn.wq_a", ".attn.wkv_a")))
     last = sum(1 for n, k in kept.items() if "model" in k and n.endswith(
         ".mlp.w_up"))                     # the block's last op: no recompute
     embed = int("model" in kept["embed"])
     vocab = int("model" in kept["unembed"])
     return dict(all_to_all=(3 if remat else 2) * 2 * a2a * per,
                 all_gather=per + n_micro * (top + (2 if remat else 1)
-                                            * blocks + embed),
+                                            * (blocks + mla) + embed),
                 all_reduce=n_micro + sums + 1 + 2 * per + n_micro * (
                     2 * tp + (tp - last if remat else 0) + 5 * vocab),
-                reduce_scatter=per + n_micro * (top + blocks + embed),
+                reduce_scatter=per + n_micro * (top + blocks + mla + embed),
                 send_recv=0)
 
 

@@ -26,25 +26,38 @@ from mesh_train_ranks import _mesh_grads
 
 # the dense family (GQA with 2 kv heads of 4; Granite's MQA: its one kv head
 # replicated), the MoE family's GQA beside teshu2, and DeepSeek-V2 (its
-# shared experts and layer 0 split, MLA whole)
+# shared experts, layer 0 and MLA split: 4 heads, q_lora 48, r + dr 48)
 ARCHS = ("qwen2.5-14b", "granite-34b", "qwen3-moe-235b-a22b",
          "deepseek-v2-236b")
 DENSE = ARCHS[:2]
+MLA = ARCHS[3:]
 # model 2 (each rank 2 q heads, one kv head of its own) and model 4 (one q
 # head; Qwen2.5-14B's 2 kv heads each shared by 2 ranks)
 MESHES = ((2, 2, 2), (1, 2, 4))
 B, S = 8, 12
+CHUNK = 7                 # an MLA model's two-chunk prefill: 7, then 5
 SERVE = dict(batch=8, prompt_len=12, gen_len=5, max_len=32, seed=0)
-FAULTS = ("no_psum", "kv_head_mod", "gold_everywhere", "column_model_sum")
+FAULTS = ("no_psum", "kv_head_mod", "gold_everywhere", "column_model_sum",
+          "q_norm_local", "wkv_b_offset", "mla_no_sum")
 # the planted faults, each on the mesh and arch where it bites
 FAULT_CASE = {"no_psum": ("qwen2.5-14b", (2, 2, 2)),
               "kv_head_mod": ("qwen2.5-14b", (1, 2, 4)),
               "gold_everywhere": ("qwen2.5-14b", (2, 2, 2)),
-              "column_model_sum": ("qwen2.5-14b", (2, 2, 2))}
+              "column_model_sum": ("qwen2.5-14b", (2, 2, 2)),
+              "q_norm_local": ("deepseek-v2-236b", (1, 2, 4)),
+              "wkv_b_offset": ("deepseek-v2-236b", (2, 2, 2)),
+              "mla_no_sum": ("deepseek-v2-236b", (2, 2, 2))}
+# the faults read off the forward's logits (the others off the loss or the
+# gradients)
+LOGIT_FAULTS = ("no_psum", "kv_head_mod", "q_norm_local", "wkv_b_offset",
+                "mla_no_sum")
 # train(mesh=...) on (2, 2, 2) with a checkpoint every 3 steps; steps 3-5
-# resumed from it on a mesh of another model size
-CKPT = dict(arch="qwen2.5-14b", steps=6, global_batch=8, seq_len=16,
-            lr=1e-2, seed=5, ckpt_every=3)
+# resumed from it on a mesh of another model size, for each arch of
+# CKPT_ARCHS (DeepSeek-V2's MoE layers route one row a group on all three
+# meshes: 2 rows a rank over model 2, 4 over 4, 1 over 1)
+CKPT = dict(steps=6, global_batch=8, seq_len=16, lr=1e-2, seed=5,
+            ckpt_every=3)
+CKPT_ARCHS = ("qwen2.5-14b", "deepseek-v2-236b")
 RESTORE_MESHES = ((1, 2, 4), (2, 4, 1))
 
 
@@ -107,7 +120,24 @@ def reference_tp(inputs: str, out: str) -> None:
             res.update(flat(jax.tree.map(np.asarray, g), f"{key}|g"))
             gen, last = _reference_serve(arch, p, mesh, **SERVE)
             res[f"{key}|tokens"], res[f"{key}|serve_logits"] = gen, last
+            if arch in MLA:
+                with mesh:
+                    res[f"{key}|chunked"] = np.asarray(jax.jit(
+                        lambda p, t: _two_chunks(lm, p, cfg, t, ep))(
+                            p, batch["tokens"]), np.float32)
     np.savez(out, **res)
+
+
+def _two_chunks(lm, params, cfg, tokens, ep):
+    """The reference's logits of ``tokens`` prefilled into one cache in two
+    chunks, ``[0, CHUNK)`` and ``[CHUNK, S)``."""
+    import jax.numpy as jnp
+    cache = lm.init_cache(cfg, tokens.shape[0], S)
+    first, cache, _ = lm.forward(params, cfg, tokens=tokens[:, :CHUNK],
+                                 cache=cache, ep_axes=ep)
+    second, _, _ = lm.forward(params, cfg, tokens=tokens[:, CHUNK:],
+                              cache=cache, ep_axes=ep)
+    return jnp.concatenate([first, second], axis=1)
 
 
 def ref_key(arch: str, shape) -> str:
@@ -158,6 +188,7 @@ def _tp_rank(inputs: str) -> dict:
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
+    from repro_torch.core import meshops
     from repro_torch.launch import shardings
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import serve
@@ -185,6 +216,15 @@ def _tp_rank(inputs: str) -> dict:
         model.requires_grad_(True)
         return _mesh_grads(model, model.cfg, mesh, batch_of(arch), 1)
 
+    def two_chunks(model, arch, mesh):
+        tokens = _rows(batch_of(arch)["tokens"], mesh)
+        cache = lm.init_cache(model.cfg, tokens.shape[0], S, device="cpu",
+                              mesh=mesh, specs=model.specs)
+        with torch.no_grad():
+            out = [lm.forward(model, tokens=t, cache=cache, mesh=mesh)[0]
+                   for t in (tokens[:, :CHUNK], tokens[:, CHUNK:])]
+        return torch.cat(out, dim=1).numpy()
+
     for shape, mesh in meshes.items():
         for arch in ARCHS:
             key = f"{arch}|{mesh_name(shape)}"
@@ -194,16 +234,19 @@ def _tp_rank(inputs: str) -> dict:
             cache = lm.init_cache(model.cfg, 1, 4, device="cpu", mesh=mesh,
                                   specs=model.specs)
             for i, layer in enumerate(cache["layers"]):
-                if "k" in layer:
-                    res[f"{key}|cache|{i}"] = np.array(layer["k"].shape)
-            if arch in DENSE:
+                res[f"{key}|cache|{i}"] = np.array(
+                    layer["latent" if "latent" in layer else "k"].shape)
+            if arch in DENSE + MLA:
                 conv = cache_from_reference(
                     model.cfg, unflatten(data, f"cache-{arch}"),
                     device="cpu", mesh=mesh, specs=model.specs)
                 for i, layer in enumerate(conv["layers"]):
-                    for k in ("k", "v"):
+                    for k in ("latent", "k_rope") if arch in MLA \
+                            else ("k", "v"):
                         res[f"{key}|converted|{i}|{k}"] = layer[k].numpy()
             res[f"{key}|logits"] = forward(model, arch, mesh)
+            if arch in MLA:
+                res[f"{key}|chunked"] = two_chunks(model, arch, mesh)
             gen, stats = serve(arch, device="cpu", params=model, mesh=mesh,
                                **SERVE)
             res[f"{key}|tokens"] = gen
@@ -218,7 +261,7 @@ def _tp_rank(inputs: str) -> dict:
         mesh = meshes[shape]
         model = model_of(arch, mesh)
         real = (layers.tp_sum, shardings.kv_head_of, lm._gold_logit,
-                shardings.split_leaves)
+                shardings.split_leaves, layers.MLA._q_a)
         if fault == "no_psum":
             layers.tp_sum = lambda x, mesh_: x
         elif fault == "kv_head_mod":
@@ -229,58 +272,93 @@ def _tp_rank(inputs: str) -> dict:
                 gold = logits.gather(-1, (labels % v)[..., None])[..., 0]
                 return layers.tp_sum(gold, mesh_)
             lm._gold_logit = everywhere
-        else:
+        elif fault == "column_model_sum":
             def column_sum(specs, mesh_):
                 out = real[3](specs, mesh_)
                 return {n: tuple(a for a in axes if a != "model")
                         if n.endswith((".w_gate", ".w_up", ".wq"))
                         else axes for n, axes in out.items()}
             shardings.split_leaves = column_sum
+        elif fault == "q_norm_local":
+            def local_norm(self, x, mesh_):     # normed before the gather
+                y = x @ self.wq_a
+                n, r = y.shape[-1], mesh_.coord("model")
+                y = layers.rms_norm(y, self.q_a_norm.weight[r * n:(r + 1) * n],
+                                    self.q_a_norm.eps)
+                return meshops.all_gather(y, mesh_, "model", axis=y.dim() - 1)
+            layers.MLA._q_a = local_norm
+        elif fault == "wkv_b_offset":
+            _next_rank_heads(model, model_of(arch, None), mesh)
+        else:
+            def no_mla_sum(x, mesh_):           # wo's sum skipped
+                caller = sys._getframe(1).f_locals.get("self")
+                return x if isinstance(caller, layers.MLA) \
+                    else real[0](x, mesh_)
+            layers.tp_sum = no_mla_sum
         try:
             res[f"{fault}|logits"] = forward(model, arch, mesh)
-            loss, g, _ = grads(model, arch, mesh)
+            if fault not in LOGIT_FAULTS:
+                loss, g, _ = grads(model, arch, mesh)
+                res[f"{fault}|loss"] = np.array(loss)
+                res.update({f"{fault}|g|{n}": v for n, v in g.items()})
         finally:
             (layers.tp_sum, shardings.kv_head_of, lm._gold_logit,
-             shardings.split_leaves) = real
-        res[f"{fault}|loss"] = np.array(loss)
-        res.update({f"{fault}|g|{n}": v for n, v in g.items()})
+             shardings.split_leaves, layers.MLA._q_a) = real
 
     # a checkpoint of train(mesh=...) on (2, 2, 2) restored onto meshes of
     # another model size
     from repro_torch.launch.train import train
     tmp = Path(inputs).parent
-    arch = CKPT["arch"]
-    ck = {k: v for k, v in CKPT.items() if k not in ("arch", "steps")}
-    ckdir = tmp / "tp_ckpt"
-    if dist.get_rank() == 0:
-        shutil.rmtree(ckdir, ignore_errors=True)
-    dist.barrier()
-    out = train(arch, device="cpu", mesh=meshes[MESHES[0]], n_micro=1,
-                ckpt_dir=str(ckdir), params=model_of(arch, meshes[MESHES[0]])
-                .requires_grad_(True), steps=CKPT["steps"], **ck)
-    res["ckpt|loss"] = np.array([h["loss"] for h in out["history"]])
-    for shape in RESTORE_MESHES:
-        mesh = meshes[shape] if shape in meshes else make_mesh(
-            shape, AXES, device_type="cpu")
-        where = tmp / f"tp_restore_{mesh_name(shape)}"
+    meshes.update({s: make_mesh(s, AXES, device_type="cpu")
+                   for s in RESTORE_MESHES if s not in meshes})
+    ck = {k: v for k, v in CKPT.items() if k != "steps"}
+    for arch in CKPT_ARCHS:
+        ckdir = tmp / f"tp_ckpt_{arch}"
         if dist.get_rank() == 0:
-            shutil.rmtree(where, ignore_errors=True)
-            where.mkdir()
-            shutil.copytree(ckdir / "step_00000003", where / "step_00000003")
+            shutil.rmtree(ckdir, ignore_errors=True)
         dist.barrier()
-        name = mesh_name(shape)
-        got = train(arch, device="cpu", mesh=mesh, n_micro=1,
-                    ckpt_dir=str(where), params=model_of(arch, mesh),
-                    steps=3, **ck)
-        assert got["history"] == []
-        res.update({f"restored|{name}|p|{n}": p.detach().numpy().copy()
-                    for n, p in got["params"].named_parameters()})
-        for k in ("m", "v"):
-            res.update({f"restored|{name}|{k}|{n}": t.numpy()
-                        for n, t in got["opt_state"][k].items()})
-        got = train(arch, device="cpu", mesh=mesh, n_micro=1,
-                    ckpt_dir=str(where), params=model_of(arch, mesh),
+        out = train(arch, device="cpu", mesh=meshes[MESHES[0]], n_micro=1,
+                    ckpt_dir=str(ckdir), params=model_of(
+                        arch, meshes[MESHES[0]]).requires_grad_(True),
                     steps=CKPT["steps"], **ck)
-        res[f"resumed|{name}|loss"] = np.array([h["loss"]
-                                               for h in got["history"]])
+        res[f"{arch}|ckpt|loss"] = np.array([h["loss"]
+                                             for h in out["history"]])
+        for shape in RESTORE_MESHES:
+            mesh = meshes[shape]
+            where = tmp / f"tp_restore_{mesh_name(shape)}"
+            if dist.get_rank() == 0:
+                shutil.rmtree(where, ignore_errors=True)
+                where.mkdir()
+                shutil.copytree(ckdir / "step_00000003",
+                                where / "step_00000003")
+            dist.barrier()
+            name = f"{arch}|{mesh_name(shape)}"
+            got = train(arch, device="cpu", mesh=mesh, n_micro=1,
+                        ckpt_dir=str(where), params=model_of(arch, mesh),
+                        steps=3, **ck)
+            assert got["history"] == []
+            res.update({f"restored|{name}|p|{n}": p.detach().numpy().copy()
+                        for n, p in got["params"].named_parameters()})
+            for k in ("m", "v"):
+                res.update({f"restored|{name}|{k}|{n}": t.numpy()
+                            for n, t in got["opt_state"][k].items()})
+            got = train(arch, device="cpu", mesh=mesh, n_micro=1,
+                        ckpt_dir=str(where), params=model_of(arch, mesh),
+                        steps=CKPT["steps"], **ck)
+            res[f"resumed|{name}|loss"] = np.array([h["loss"]
+                                                   for h in got["history"]])
     return res
+
+
+def _next_rank_heads(model, whole, mesh) -> None:
+    """The planted fault ``wkv_b_offset``: each MLA layer's ``wkv_b`` shard
+    replaced by the columns of the next ``model`` rank's heads (its own
+    block of rows)."""
+    from repro_torch.launch import shardings
+    for i in range(len(model.blocks)):
+        name = f"blocks.{i}.attn.wkv_b"
+        p, w = model.get_parameter(name), whole.get_parameter(name)
+        rows, cols = shardings.shard_slices(model.specs[name], w.shape, mesh)
+        n = cols.stop - cols.start
+        first = (cols.start + n) % w.shape[1]
+        p.data = w[rows, first:first + n].clone()
