@@ -78,7 +78,9 @@ exits non-zero and prints no result.  In order it
    library's SASS must hold ``HMMA`` (the bf16 product on the tensor
    cores); the prefill and the decode step are timed beside the plain
    loop (and the parent's kernel where ``build/parent`` holds a checkout
-   of the parent), with the bytes, operations and chain bounds (the chain:
+   of the parent, launched through the C interface its own ``slstm.cu``
+   declares; an unknown one raises), with the bytes, operations and chain
+   bounds (the chain:
    S one-way trips of a flag between two SMs, from a ping-pong probe),
    the exchange alone (the kernel rebuilt with the step's product
    replaced by nothing) and the host's microseconds per call;
@@ -228,13 +230,16 @@ exits non-zero and prints no result.  In order it
    one must miss that by 10x; the prefill seconds and decode ms a step are
    logged beside the gspmd run's, with the peak memory (``--profile``: the
    EP prefill and 4 steps traced, the NCCL kernels a class of their own).
-7t. the ``tp`` line (first on the mesh): Qwen2.5-14B at full width and
-   depth, the dense serve's weights and prompts, served mesh-free and then
-   with ``serve(mesh=...)`` on the one-rank mesh, teacher-forced: on
-   ``model`` 1 the tensor-parallel leaves are whole and no row-parallel
+7t. the ``tp`` lines (first on the mesh): Qwen2.5-14B, Hymba-1.5B and
+   xLSTM-350M at full width and depth, each with its serve phase's
+   weights and prompts, served mesh-free and then with ``serve(mesh=...)``
+   on the one-rank mesh, teacher-forced: on ``model`` 1 the
+   tensor-parallel leaves (Hymba's Mamba channels, the xLSTM projections
+   among them) are whole and no gather of a split product or row-parallel
    sum is issued, so logits and tokens bit for bit, every launch count
-   equal and the serve loop's token all-gather the only collective; the
-   prefill s and decode ms beside the mesh-free run's.
+   equal (Hymba flash 32 and decode 1,024; xLSTM ``slstm_scan`` 99) and
+   the serve loop's token all-gather the only collective; the prefill s
+   and decode ms beside the mesh-free run's.
 7c. trains over the mesh (the ep train phase, before the group is
    destroyed): Qwen3-MoE at full width, 1 of 94 layers (3,732,418,560
    parameters; bf16 weights, each routed expert drawn on its own), on its
@@ -1346,8 +1351,11 @@ def slstm_phase(dev) -> dict:
     library's SASS must hold ``HMMA`` (the bf16 product on the tensor
     cores).  Timed at the served prefill and decode shapes beside the plain
     loop and, where ``build/parent`` holds a checkout of the parent, beside
-    the parent's kernel and its barrier-only probe (the grid-barrier
-    design's chain), with the bytes and operations bounds, the chain bound
+    the parent's kernel and its exchange-only probe (``grid_barrier_chain
+    _ms``; the grid-barrier design's chain for a parent of that design), each
+    launched through the interface the parent's source declares
+    (``slstm_timing.parent_interface``), with the bytes and operations
+    bounds, the chain bound
     (S one-way trips of a flag between two SMs, from a ping-pong probe),
     the exchange alone (the kernel rebuilt with the step's product replaced
     by nothing) and the host's microseconds per call at S 1."""
@@ -1357,7 +1365,8 @@ def slstm_phase(dev) -> dict:
     from repro_torch.kernels.slstm import default_units, launch, slstm_scan
     sys.path.insert(0, str(ROOT / "dev"))
     from slstm_timing import (PROBE, STALE_HALF, build_variants,
-                              parent_launch, pingpong)
+                              parent_interface, parent_launch, parent_units,
+                              pingpong)
 
     sass = sass_counts("slstm")
     log(f"kernel slstm_scan SASS instructions: {json.dumps(sass)}")
@@ -1367,7 +1376,9 @@ def slstm_phase(dev) -> dict:
                 "stale half": (shipped, [STALE_HALF])}
     parent = ROOT / "build" / "parent" / "src" / "repro_torch" / "kernels" \
         / "csrc" / "slstm.cu"
-    if parent.exists():   # its kernel, and its barrier-only probe
+    if parent.exists():   # its kernel, and its exchange-only probe
+        log(f"kernel slstm_scan parent interface: "
+            f"{parent_interface(parent)}")      # raises on an unknown one
         variants["parent"] = (parent, [])
         variants["parent exchange"] = (parent, [PROBE])
     libs = build_variants(variants)
@@ -1440,17 +1451,21 @@ def slstm_phase(dev) -> dict:
                        library_call="none: torch.nn.LSTM and cuDNN compute "
                        "another cell (sigmoid input gate, no stabiliser m)")
             if "parent" in libs:   # in turns: parent, this, this, parent
+                pu = parent_units(parent, units)
+
                 def par():
-                    return parent_launch(libs["parent"], xw, w, bias, st, 8)
+                    return parent_launch(libs["parent"], xw, w, bias, st, pu,
+                                         parent)
                 assert over((par()[0] - plain).abs(), tol) <= 1.0
                 p0 = time_ms(par, spin=True)
                 m1 = time_ms(lambda: slstm_scan(xw, w, bias, st), spin=True)
                 m2 = time_ms(lambda: slstm_scan(xw, w, bias, st), spin=True)
                 p1 = time_ms(par, spin=True)
                 row.update(parent_ms=[p0, p1], turns_ms=[m1, m2],
-                           grid_barrier_chain_ms=time_ms(
+                           parent_units=pu, grid_barrier_chain_ms=time_ms(
                                lambda: parent_launch(libs["parent exchange"],
-                                                     xw, w, bias, st, 8),
+                                                     xw, w, bias, st, pu,
+                                                     parent),
                                spin=True))
         elif name == "decode step":
             nbytes, ops, rate = _slstm_work(b, s, d, dt)
@@ -1464,7 +1479,8 @@ def slstm_phase(dev) -> dict:
                     [lambda: slstm_scan(xw, w, bias, st)] * 200))
             if "parent" in libs:
                 def par():
-                    return parent_launch(libs["parent"], xw, w, bias, st, 8)
+                    return parent_launch(libs["parent"], xw, w, bias, st,
+                                         parent_units(parent, units), parent)
                 row.update(decode_parent_ms=time_ms(par, spin=True))
         del xw, w, bias, st, got, plain, tol, bad, low
     log(f"kernel slstm_scan: {json.dumps(row)}")
@@ -2133,17 +2149,44 @@ def mesh_open(dev):
 
 
 def tp_serve_phase(dev, mesh) -> dict:
-    """The ``tp`` line: Qwen2.5-14B at full width and depth (the dense
-    serve phase's seed: its weights and prompts) served mesh-free, then
-    placed on the one-rank NCCL mesh (``lm.place``: nothing moves) and
-    served with ``serve(mesh=...)``, teacher-forced on the mesh-free run's
-    tokens.  ``model`` is 1, so every leaf the tensor-parallel rules keep
-    (``shardings.kept_axes``) is its whole self, no row-parallel sum is
-    issued and the kernels see the shapes they see mesh-free: logits and
-    tokens bit for bit, every launch count equal, and the only collective
-    the serve loop's all-gather of the tokens over the batch axes.  The
-    prefill s and decode ms beside the mesh-free run's, each run after one
-    warm-up."""
+    """The ``tp`` lines, one a model of :data:`TP_SERVE`: Qwen2.5-14B,
+    Hymba-1.5B and xLSTM-350M at full width and depth, each with its serve
+    phase's seed and traffic, served mesh-free, then placed on the
+    one-rank NCCL mesh (``lm.place``: nothing moves) and served with
+    ``serve(mesh=...)``, teacher-forced on the mesh-free run's tokens.
+    ``model`` is 1, so every leaf the tensor-parallel rules keep
+    (``shardings.kept_axes``: GQA heads, the MLP, Hymba's Mamba channels,
+    the xLSTM projections) is its whole self, no gather of a column-split
+    product and no row-parallel sum is issued, and the kernels see the
+    shapes they see mesh-free: logits and tokens bit for bit, every launch
+    count equal (and the model's own: Qwen2.5-14B flash one a layer, Hymba
+    flash 32 and decode 1,024, xLSTM ``slstm_scan`` 99), and the only
+    collective the serve loop's all-gather of the tokens over the batch
+    axes.  The prefill s and decode ms beside the mesh-free run's, each run
+    after one warm-up.  Returns ``{arch: its line}``."""
+    return {arch: _tp_serve(dev, mesh, arch, traffic)
+            for arch, traffic in TP_SERVE.items()}
+
+
+# the tp lines: each model with its serve phase's traffic
+TP_SERVE = {SERVE_ARCH: SERVE, HYMBA_ARCH: HYMBA, XLSTM_ARCH: XLSTM}
+
+
+def _tp_launches(cfg, traffic) -> dict:
+    """The launches a model's serve of ``traffic`` must make: flash one a
+    prefill a layer and decode one a step a layer (dense, hybrid), or
+    ``slstm_scan`` one a prefill and a step an sLSTM layer (xLSTM)."""
+    from repro_torch.models import lm
+    steps = traffic["gen_len"]
+    if cfg.family == "ssm":
+        n = sum(lm.is_slstm(cfg, i) for i in range(cfg.n_layers))
+        return {"slstm_scan": n * (1 + steps)}
+    return {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * steps}
+
+
+def _tp_serve(dev, mesh, arch: str, traffic: dict) -> dict:
+    """One ``tp`` line (:func:`tp_serve_phase`)."""
     import numpy as np
     import torch
 
@@ -2154,40 +2197,43 @@ def tp_serve_phase(dev, mesh) -> dict:
     from repro_torch.launch.serve import serve
     from repro_torch.models import lm
 
-    cfg = get_config(SERVE_ARCH)
-    params = lm.init_lm(cfg, seed=SERVE["seed"], device=dev)
-    kw = dict(smoke=False, device=dev, params=params, **SERVE)
-    serve(SERVE_ARCH, **dict(kw, gen_len=2))          # warm (not counted)
+    cfg = get_config(arch)
+    params = lm.init_lm(cfg, seed=traffic["seed"], device=dev)
+    kw = dict(smoke=False, device=dev, params=params, **traffic)
+    serve(arch, **dict(kw, gen_len=2))                # warm (not counted)
     for k in KERNELS:
         k.launches = 0
-    gen, free = serve(SERVE_ARCH, **kw)
+    gen, free = serve(arch, **kw)
     want = {k.__name__: k.launches for k in KERNELS}
     lm.place(params, mesh)
     assert not params._split, sorted(params._split)
     kept = sorted(n for n, spec in params.specs.items()
                   if "model" in shardings.kept_axes(n, spec, mesh, cfg))
-    serve(SERVE_ARCH, mesh=mesh, **dict(kw, gen_len=2))
+    serve(arch, mesh=mesh, **dict(kw, gen_len=2))
     for k in KERNELS:
         k.launches = 0
     meshops.reset_counts()
-    mgen, tp = serve(SERVE_ARCH, mesh=mesh, forced=gen, **kw)
+    mgen, tp = serve(arch, mesh=mesh, forced=gen, **kw)
     counts = {k.__name__: k.launches for k in KERNELS}
     collectives = dict(meshops.COUNTS)
     same_logits = all(torch.equal(a, b)
                       for a, b in zip(free.logits, tp.logits))
-    out = dict(card=nvidia_smi_line(), arch=SERVE_ARCH, mesh=mesh.shape,
-               layers=cfg.n_layers, **SERVE,
+    out = dict(card=nvidia_smi_line(), arch=arch, mesh=mesh.shape,
+               layers=cfg.n_layers, **traffic,
                split=shardings.attention_split(cfg, mesh),
+               mixer_split=shardings.mixer_split(cfg, mesh),
                kept_model_leaves=len(kept),
                prefill_s=tp.prefill_s, mesh_free_prefill_s=free.prefill_s,
-               decode_ms=tp.decode_s / SERVE["gen_len"] * 1e3,
-               mesh_free_decode_ms=free.decode_s / SERVE["gen_len"] * 1e3,
+               decode_ms=tp.decode_s / traffic["gen_len"] * 1e3,
+               mesh_free_decode_ms=free.decode_s / traffic["gen_len"] * 1e3,
                tokens_equal=bool(np.array_equal(mgen, gen)),
                logits_bit_for_bit=same_logits, launches=counts,
                mesh_free_launches=want, collectives=collectives)
     log(f"tp: {json.dumps(out)}")
-    assert out["tokens_equal"] and same_logits
-    assert counts == want and want["flash_attention"] == cfg.n_layers, counts
+    assert out["tokens_equal"] and same_logits, arch
+    expect = _tp_launches(cfg, traffic)
+    assert counts == want and all(counts[k] == n for k, n in expect.items()), \
+        (arch, counts, expect)
     assert collectives == {k: int(k == "all_gather")
                            for k in meshops.KINDS}, collectives
     del params, free, tp
@@ -4766,8 +4812,10 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         if "path" in r:       # the kernel of the row's shape (flash, decode)
             line[-1]["path"] = r["path"]
-        if k.__name__ in tv["launches"] and tv["launches"][k.__name__]:
-            line[-1]["tp_launches"] = tv["launches"][k.__name__]
+        tp = {a: t["launches"][k.__name__] for a, t in tv.items()
+              if t["launches"].get(k.__name__)}
+        if tp:                # the tp lines' launches, by model
+            line[-1]["tp_launches"] = tp
         if k.__name__ == "gmm":   # DeepSeek-V2's launches and decode shape
             d = krows["DeepSeek decode routed gate/up"]
             line[-1]["ep_launches"] = {"qwen3_moe": mv["ep"]["launches"]["gmm"],
@@ -4787,7 +4835,8 @@ def main() -> int:
         for key in ("zipf_ms", "zipf_longest_segment", "zipf_byte_bound_ms",
                     "library_call", "index_add_ms", "unsorted_ms",
                     "bytes_bound_ms", "operations_bound_ms", "chain_bound_ms",
-                    "exchange_probe_ms", "parent_ms", "grid_barrier_chain_ms",
+                    "exchange_probe_ms", "parent_ms", "parent_units",
+                    "grid_barrier_chain_ms",
                     "decode_ms",
                     "decode_plain_ms", "decode_parent_ms", "host_us_per_call"):
             if key in r:      # the fold on the shuffle's own layout; PART's

@@ -23,10 +23,13 @@ of each block sums the cycles of each phase of its steps: the wait for the
 flags, the copy of h, the product, the cross-warp reduction, the cell, the
 stores and the publication), ``STALE_HALF`` a planted fault (``chip_smoke.py``
 imports these).  ``--parent DIR`` (a checkout of the parent, e.g. ``git
-archive`` into ``build/parent``) builds the parent's kernel (the
-grid-barrier design, launched through its own C interface) and times it in
-turns with this one (parent, new, new, parent), with its exchange probe
-and, with ``--phases``, its own clock64 probe (``PARENT_PHASE_SUBS``: the
+archive`` into ``build/parent``) builds the parent's kernel, launched
+through the C interface its own ``slstm.cu`` declares (``parent_interface``:
+the flags design, with a flag buffer and base of its own, or
+the grid-barrier design before it; any other declaration raises), and times
+it in turns with this one (parent, new, new, parent), with its exchange
+probe and, with ``--phases``, its own clock64 probe (a flags parent the
+shipped ``PHASE_PROBE``; a grid-barrier parent ``PARENT_PHASE_SUBS``: the
 copy of h, the product, the reduction, the cell, the stores, the wait at
 the grid barrier).  ``--pingpong`` bounces one flag between two blocks on
 two SMs through L2 (``dev/slstm_pingpong.cu``): S times half its round
@@ -51,7 +54,9 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -60,7 +65,8 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.slstm import (_flags, default_units, launch,
+from repro_torch.kernels.slstm import (MAX_BLOCKS, FLAG_STRIDE, FlagBase,
+                                       _flags, default_units, launch,
                                        slstm_scan)
 
 D = 1024
@@ -184,9 +190,63 @@ def build_probe() -> ctypes.CDLL:
                                         [PROBE])})["exchange"]
 
 
-def parent_launch(lib, xw, w_rec, b, state, units: int):
-    """One launch of the parent's ``teshu_slstm_scan`` (its C interface:
-    the exchange buffer its only scratch; a grid barrier a step)."""
+# the parameters of teshu_slstm_scan, one letter each (p a pointer, i an
+# int, u a 64-bit unsigned): the flags design (its flag buffer, their count
+# and the call's base) and the older grid-barrier design
+INTERFACES = {"p" * 14 + "iu" + "i" * 5 + "p": "flags",
+              "p" * 13 + "i" * 5 + "p": "barrier"}
+# a parent library's own flags: {(id of the library, device): (buffer,
+# FlagBase)}
+_PARENT_FLAGS: dict = {}
+
+
+@functools.cache
+def parent_interface(source) -> str:
+    """``"flags"`` or ``"barrier"``: the C interface of the
+    ``teshu_slstm_scan`` that ``source`` (a parent's ``slstm.cu``)
+    declares, read from its parameter list once a file (a launch's timing
+    must not read it).  A source without the declaration, or with another
+    list, raises with the file and the declaration."""
+    text = Path(source).read_text()
+    decl = re.search(r'extern "C" int teshu_slstm_scan\(([^)]*)\)', text)
+    if decl is None:
+        raise RuntimeError(f"{source}: no teshu_slstm_scan declaration")
+
+    def kind(param: str) -> str:
+        return "p" if "*" in param else "u" if "long long" in param else \
+            "i" if param.split()[0] == "int" else "?"
+    sig = "".join(kind(q) for q in decl.group(1).split(","))
+    if sig not in INTERFACES:
+        raise RuntimeError(f"{source}: teshu_slstm_scan has an interface "
+                           f"this script does not launch: "
+                           f"{' '.join(decl.group(0).split())}")
+    return INTERFACES[sig]
+
+
+def parent_units(source, units: int) -> int:
+    """The hidden units a block the parent's kernel runs at beside the
+    shipped one's ``units``: the same for a flags parent (its kernel takes
+    the same block widths, so the two are timed at one grid), 8 for the
+    grid-barrier design (its wrapper's choice at d 1,024 on 132 SMs)."""
+    return units if parent_interface(source) == "flags" else 8
+
+
+def parent_launch(lib, xw, w_rec, b, state, units: int, source):
+    """One launch of the parent's ``teshu_slstm_scan`` from ``lib``
+    (built from ``source``, the parent's ``slstm.cu``) through the C
+    interface ``source`` declares (:func:`parent_interface`).  The flags
+    design takes the arguments of ``kernels.slstm.launch``, with a flag
+    buffer and base of ``lib``'s own, zeroed once (the shipped launches
+    advance the stream's base, not these); the grid-barrier design the
+    exchange buffer as its only scratch."""
+    if parent_interface(source) == "flags":
+        key = (id(lib), xw.device)
+        if key not in _PARENT_FLAGS:
+            _PARENT_FLAGS[key] = (torch.zeros(MAX_BLOCKS * FLAG_STRIDE,
+                                              dtype=torch.int64,
+                                              device=xw.device), FlagBase())
+        return launch(lib, xw, w_rec, b, state, units,
+                      flags=_PARENT_FLAGS[key])
     f = lib.teshu_slstm_scan
     if f.argtypes is None:
         p, i32 = ctypes.c_void_p, ctypes.c_int
@@ -442,10 +502,12 @@ def main() -> None:
     if args.parent is not None:
         psrc = args.parent / "src" / "repro_torch" / "kernels" / "csrc" / \
             "slstm.cu"
+        flags = parent_interface(psrc) == "flags"
         variants["parent"] = (psrc, [])
         variants["parent exchange"] = (psrc, [PROBE])
         if args.phases:
-            variants["parent phases"] = (psrc, PARENT_PHASE_SUBS)
+            variants["parent phases"] = (
+                psrc, [PHASE_PROBE] if flags else PARENT_PHASE_SUBS)
     libs = build_variants(variants)
     lib = _build.library("slstm")
     if args.pingpong:
@@ -453,7 +515,6 @@ def main() -> None:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     units = [default_units(D, sms, torch.bfloat16)] + [
         int(u) for u in args.units.split(",") if u]
-    parent_units = 8   # the parent's choice at d 1,024 on 132 SMs
     for name, (b, s, state) in SHAPES.items():
         xw, w, bias, st = _inputs(dev, b, s, state)
         plain, _ = ref.slstm_scan_ref(xw, w, bias, st)
@@ -468,9 +529,11 @@ def main() -> None:
                        reps=3 if s > 1 else 10)
         par = None
         if "parent" in libs:
+            pu = parent_units(psrc, units[0])
+
             def par():
-                return parent_launch(libs["parent"], xw, w, bias, st,
-                                     parent_units)
+                return parent_launch(libs["parent"], xw, w, bias, st, pu,
+                                     psrc)
             assert share(par()[0]) <= 1.0, f"{name}: the parent off"
         for u in units:
             for r in range(args.rounds):
@@ -487,11 +550,11 @@ def main() -> None:
                            bound_share=share(launch(lib, xw, w, bias, st,
                                                     u)[0]))
                 if par:
-                    row.update(parent_ms=[p0, p1], parent_units=parent_units,
+                    row.update(parent_ms=[p0, p1], parent_units=pu,
                                parent_exchange_probe_ms=_ms(
                                    lambda: parent_launch(
                                        libs["parent exchange"], xw, w, bias,
-                                       st, parent_units)))
+                                       st, pu, psrc)))
                 for v in VARIANTS:    # each lever taken back, in turns
                     lib_v = libs[v]
                     row[f"{v}: ms"] = [
@@ -507,13 +570,14 @@ def main() -> None:
                                           libs["phases"], xw, w, bias, st, u),
                                       PHASES, D // u, s))), flush=True)
         if name == "prefill" and "parent phases" in libs:
-            print(json.dumps(dict(phases="parent", units=parent_units, S=s,
+            print(json.dumps(dict(phases="parent", units=pu, S=s,
                                   cycles_a_step=phase_split(
                                       libs["parent phases"],
                                       lambda: parent_launch(
                                           libs["parent phases"], xw, w, bias,
-                                          st, parent_units),
-                                      PARENT_PHASES, D // parent_units, s))),
+                                          st, pu, psrc),
+                                      PHASES if flags else PARENT_PHASES,
+                                      D // pu, s))),
                   flush=True)
         del xw, w, bias, st, got, plain, tol
     if args.profile is not None:

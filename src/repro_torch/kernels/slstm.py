@@ -151,11 +151,12 @@ def slstm_scan(xw: torch.Tensor, w_rec: torch.Tensor, b: torch.Tensor,
 slstm_scan.launches = 0
 
 
-def launch(lib, xw, w_rec, b, state, units: int):
+def launch(lib, xw, w_rec, b, state, units: int, *, flags=None):
     """One launch of ``teshu_slstm_scan`` from ``lib`` (the shipped library,
     or a probe built from the same source) with ``units`` hidden units a
     block, on inputs :func:`slstm_scan` has checked; counts nothing.  A
-    ``units`` the kernel does not take raises."""
+    ``units`` the kernel does not take raises.  ``flags``: a ``(buffer,
+    FlagBase)`` of the caller's own, else the stream's."""
     f = lib.teshu_slstm_scan
     if f.argtypes is None:
         p, i32 = ctypes.c_void_p, ctypes.c_int
@@ -164,7 +165,7 @@ def launch(lib, xw, w_rec, b, state, units: int):
     bsz, s, _ = xw.shape
     d = w_rec.shape[0]
     stream = _build.stream_of(xw)
-    flags, flag_base = _flags(xw.device, stream)
+    flags, flag_base = flags or _flags(xw.device, stream)
     hs = torch.empty((bsz, s, d), dtype=torch.float32, device=xw.device)
     out = dict(zip(SLSTM_STATE, torch.empty(
         (len(SLSTM_STATE), bsz, d), dtype=torch.float32,

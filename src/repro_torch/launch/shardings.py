@@ -35,10 +35,12 @@ over the same axes), as ZeRO-3 does over each leaf's own axes, but for the
 axes the module consumes in place (:func:`kept_axes`): a routed expert's
 EP axes, and ``model`` for the tensor-parallel leaves (the MLP's and
 shared experts' column- and row-parallel matrices, GQA attention's heads
-where :func:`attention_split` splits them, MLA's five matrices where
-:func:`mla_split` splits its heads, the embedding's ``d`` slice, the
-unembedding's vocabulary slice), whose modules end a row-parallel
-product in one sum over ``model``.  Over axes of total size 1
+where :func:`attention_split` splits them (a hybrid's too), MLA's five
+matrices where :func:`mla_split` splits its heads, Hymba's Mamba head on
+its channels and the xLSTM mixers' projections where :func:`mixer_split`
+splits them, the embedding's ``d`` slice, the unembedding's vocabulary
+slice), whose modules end a row-parallel product in one sum over
+``model``.  Over axes of total size 1
 :func:`gather` returns the leaf itself.
 :func:`to_placements` states a spec as ``torch.distributed.tensor``
 placements on the mesh's ``DeviceMesh``, and :func:`with_shardings` and
@@ -424,6 +426,10 @@ _MLP_LEAVES = (".mlp.w_gate", ".mlp.w_up", ".mlp.w_down", ".moe.shared.w_gate",
 _ATTN_LEAVES = (".attn.wq", ".attn.wk", ".attn.wv", ".attn.wo")
 _MLA_LEAVES = (".attn.wq_a", ".attn.wq_b", ".attn.wkv_a", ".attn.wkv_b",
                ".attn.wo")
+_MAMBA_LEAVES = (".mamba.w_in", ".mamba.conv", ".mamba.log_a", ".mamba.w_out")
+_XLSTM_LEAVES = (".mlstm.w_up", ".mlstm.wq", ".mlstm.wk", ".mlstm.wv",
+                 ".mlstm.w_ifo", ".mlstm.w_down", ".slstm.w_in",
+                 ".slstm.w_down")
 
 
 def attention_split(cfg, mesh) -> str | None:
@@ -433,11 +439,11 @@ def attention_split(cfg, mesh) -> str | None:
     ``"replicate"`` where ``m`` divides ``n_heads`` and ``n_kv_heads``
     divides ``m`` (each rank its ``h/m`` q heads and the one kv head they
     read, Megatron's KV replication), else None: the layer runs whole.
-    Only the dense and MoE families' GQA attention splits this way (MLA:
-    :func:`mla_split`; a hybrid's mixer runs whole)."""
+    The dense, MoE and hybrid families' GQA attention splits this way
+    (Hymba's is the same layer with a window; MLA: :func:`mla_split`)."""
     m = mesh.shape.get("model")
-    if m is None or cfg.family not in ("dense", "moe") or cfg.mla is not None \
-            or cfg.n_heads % m:
+    if m is None or cfg.family not in ("dense", "moe", "hybrid") \
+            or cfg.mla is not None or cfg.n_heads % m:
         return None
     if cfg.n_kv_heads % m == 0:
         return "heads"
@@ -453,6 +459,33 @@ def mla_split(cfg, mesh) -> bool:
     (``layers.MLA``); the latent cache stays whole on each rank."""
     m = mesh.shape.get("model")
     return cfg.mla is not None and m is not None and cfg.n_heads % m == 0
+
+
+def mixer_split(cfg, mesh) -> bool:
+    """Whether a hybrid's or an xLSTM model's mixer splits over ``model``
+    (reads only ``mesh.shape``):
+
+    * Hymba's Mamba head, where ``m = mesh.shape["model"]`` divides its
+      ``di`` channels: each rank computes its ``2 di / m`` columns of
+      ``w_in``, all-gathers them and takes its ``di / m`` channels of ``x``
+      and of ``z``; it keeps those channels of ``conv`` and ``log_a``, takes
+      them of the whole ``d_skip`` and the rows of the whole ``w_bcdt``
+      (whose partial product it sums over ``model``), scans them, and ends
+      in ``w_out``'s rows and one sum;
+    * the xLSTM mixers on any ``model`` axis: each in-projection (mLSTM's
+      ``w_up``, ``wq``, ``wk``, ``wv``, ``w_ifo``; sLSTM's ``w_in``) on its
+      ``model`` columns where its spec names ``model``, the output
+      all-gathered; the core (the mLSTM chunks and state, the sLSTM
+      recurrence over the whole ``w_rec``) whole on every rank; the
+      down-projection ``w_down`` on its ``model`` rows, then one sum.
+
+    Where it is False the mixer runs whole (its leaves gathered)."""
+    m = mesh.shape.get("model")
+    if m is None or cfg.ssm is None:
+        return False
+    if cfg.family == "ssm":
+        return True
+    return cfg.family == "hybrid" and (cfg.d_model * cfg.ssm.expand) % m == 0
 
 
 def kv_head_of(rank: int, m: int, n_kv_heads: int) -> int:
@@ -478,12 +511,16 @@ def kept_axes(name: str, spec: tuple, mesh, cfg) -> tuple[str, ...]:
       it splits the kv heads too (under KV replication they are gathered
       whole and the rank takes its kv head's columns); an MLA layer's
       ``wq_a``, ``wq_b``, ``wkv_a``, ``wkv_b`` (column-parallel) and ``wo``
-      (row-parallel) where :func:`mla_split` splits its heads; the
-      embedding (its ``d`` slice; not where it is tied to the unembedding)
-      and the unembedding (its vocabulary slice).
+      (row-parallel) where :func:`mla_split` splits its heads; a hybrid's
+      Mamba ``w_in``, ``conv``, ``log_a`` and ``w_out``, and the xLSTM
+      mixers' ``w_up``, ``wq``, ``wk``, ``wv``, ``w_ifo``, ``w_in`` and
+      ``w_down``, where :func:`mixer_split` splits them; the embedding (its
+      ``d`` slice; not where it is tied to the unembedding) and the
+      unembedding (its vocabulary slice).
 
-    Every other leaf (a hybrid's mixer, the xLSTM mixers, the router, the
-    norms, the biases) is gathered whole."""
+    Every other leaf (sLSTM's ``w_rec``, Mamba's ``w_bcdt`` and ``d_skip``,
+    of which the module takes its rows, the router, the norms, the biases)
+    is gathered whole."""
     named = {a for e in spec for a in _axes(e)}
     if ".moe.experts." in name:
         if cfg.moe.dispatch == "gspmd":
@@ -493,6 +530,8 @@ def kept_axes(name: str, spec: tuple, mesh, cfg) -> tuple[str, ...]:
         return ()
     if cfg.mla is not None and name.endswith(_MLA_LEAVES):
         return ("model",) if mla_split(cfg, mesh) else ()
+    if name.endswith(_MAMBA_LEAVES + _XLSTM_LEAVES):
+        return ("model",) if mixer_split(cfg, mesh) else ()
     if name == "embed":
         return () if cfg.tie_embeddings else ("model",)
     if name == "unembed" or name.endswith(_MLP_LEAVES):
@@ -512,14 +551,29 @@ def local_kv_heads(cfg, mesh, layer: int, specs: dict | None = None) -> int:
     under KV replication, all of them where it runs whole (by ``specs``,
     the model's, else by the rules; reads only ``mesh.shape``).  The
     reference splits the cache's ``T`` over ``model`` where its kv heads do
-    not divide; the port holds the rank's kv head whole."""
-    name = f"blocks.{layer}.attn.wq"
+    not divide; the port holds the rank's kv head whole.  A hybrid block's
+    attention is its mixer's (``blocks.{layer}.mixer.attn.wq``)."""
+    name = f"blocks.{layer}.{'mixer.' if cfg.family == 'hybrid' else ''}attn.wq"
     spec = specs.get(name) if specs is not None else leaf_spec(
         name, (cfg.d_model, cfg.n_heads * cfg.d_head), mesh, cfg)
     if spec is None or "model" not in kept_axes(name, spec, mesh, cfg):
         return cfg.n_kv_heads
     m = mesh.shape["model"]
     return cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else 1
+
+
+def local_channels(cfg, mesh, layer: int, specs: dict | None = None) -> int:
+    """The Mamba channels a rank's state of hybrid layer ``layer`` holds
+    under ``mesh``: ``di / m`` where the head splits them
+    (:func:`mixer_split`), else all ``di`` (by ``specs``, the model's,
+    else by the rules; reads only ``mesh.shape``)."""
+    di = cfg.d_model * cfg.ssm.expand
+    name = f"blocks.{layer}.mixer.mamba.conv"
+    spec = specs.get(name) if specs is not None else leaf_spec(
+        name, (cfg.ssm.conv_dim, di), mesh, cfg)
+    if spec is None or "model" not in kept_axes(name, spec, mesh, cfg):
+        return di
+    return di // mesh.shape["model"]
 
 
 class _Gather(torch.autograd.Function):

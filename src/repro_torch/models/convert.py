@@ -220,9 +220,25 @@ def cache_from_reference(cfg: ModelConfig, cache: dict, *,
     ``lm.init_cache`` / ``forward`` cache, every leaf in its own dtype.
     Under ``mesh`` a GQA layer whose heads split over ``model`` keeps this
     rank's kv heads (``lm.init_cache``'s layout; ``specs`` the model's, as
-    there) and an MLA layer the whole latent and rope key; the rows stay
-    the caller's."""
+    there; a hybrid layer's attention too), a hybrid layer's Mamba state
+    the rank's channels where its head splits them, and an MLA layer the
+    whole latent and rope key, an xLSTM layer the whole state; the rows
+    stay the caller's."""
     dev = check_device(device)
+
+    def ssm(t, i):
+        c = slice(None)
+        if mesh is not None:
+            n = shardings.local_channels(cfg, mesh, i, specs)
+            r = mesh.coord("model") if n != cfg.d_model * cfg.ssm.expand \
+                else 0
+            c = slice(r * n, (r + 1) * n)
+        return {"conv": to_tensor(np.asarray(t["conv"])[:, :, c], dev),
+                "ssm": to_tensor(np.asarray(t["ssm"])[:, c], dev)}
+
+    def kv(i):
+        return slice(None) if mesh is None else _rank_heads(cfg, mesh, i,
+                                                            specs)
 
     def attn(t, heads=slice(None)):
         return {"k": to_tensor(np.asarray(t["k"])[:, :, heads], dev),
@@ -238,10 +254,8 @@ def cache_from_reference(cfg: ModelConfig, cache: dict, *,
             return {"state": {k: to_tensor(v, dev)
                               for k, v in t["state"].items()}}
         if "ssm" not in t:
-            return attn(t, slice(None) if mesh is None
-                        else _rank_heads(cfg, mesh, i, specs))
-        return {"attn": attn(t["attn"]),
-                "ssm": {k: to_tensor(v, dev) for k, v in t["ssm"].items()}}
+            return attn(t, kv(i))
+        return {"attn": attn(t["attn"], kv(i)), "ssm": ssm(t["ssm"], i)}
     return {"pos": int(np.asarray(cache["pos"])),
             "layers": [layer(t, i) for i, t in enumerate(
                 _layer_trees(cache, cfg.n_layers))]}

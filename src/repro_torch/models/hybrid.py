@@ -14,6 +14,21 @@ inclusive scan over its ``L`` positions, written as a log-depth
 from a zero start, to which the carried state decayed by the cumulative
 product is added.  A single decoded token with a state takes the
 reference's fast path (one update of the state).
+
+Under a mesh whose ``model`` axis splits the Mamba head
+(``shardings.mixer_split``: ``m`` divides ``di``) the head is called with
+this rank's ``2 di / m`` columns of ``w_in`` and its ``di / m`` channels of
+``conv``, ``log_a`` and ``w_out`` (rows), and with ``d_skip`` and
+``w_bcdt`` whole.  ``w_in``'s columns hold ``x`` and ``z`` side by side, so
+a contiguous block is all ``x`` on the first half of the ranks and all
+``z`` on the rest: the rank all-gathers its product and takes its own
+channels of both (:func:`_x_and_z`).  ``w_bcdt`` contracts over the
+channels: the rank multiplies its channels by their rows and sums the
+``[B, S, 2n + 1]`` product over ``model`` before ``B``, ``C`` and ``dt``
+are split off.  The scan and its state (``conv [B, K-1, di/m]``, ``ssm
+[B, di/m, n]``, the reference's ``cache_spec``) hold the rank's channels,
+and ``w_out``'s row-parallel product ends in one sum.  The attention
+beside it splits its heads as :class:`~.layers.Attention` does.
 """
 from __future__ import annotations
 
@@ -23,7 +38,8 @@ from torch import nn
 from torch.profiler import record_function
 
 from .config import ModelConfig
-from .layers import Attention, dense_init, dtype_of, normal_init, param, rms_norm
+from .layers import (Attention, dense_init, dtype_of, normal_init, param,
+                     rms_norm, tp_block, tp_gather, tp_sum)
 
 MAMBA_CHUNK = 128
 
@@ -93,32 +109,62 @@ def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
+def _channels(p: Mamba, cfg: ModelConfig, mesh) -> int:
+    """The channels ``p`` holds: all ``di`` where its leaves are whole,
+    else ``conv``'s, which must be ``di / m`` and agree with ``w_in``'s,
+    ``log_a``'s and ``w_out``'s."""
+    di = cfg.d_model * cfg.ssm.expand
+    c = p.conv.shape[1]
+    if (p.w_in.shape[1], p.log_a.shape[0], p.w_out.shape[0]) != (2 * c, c, c):
+        raise ValueError(f"conv holds {c} channels, w_in "
+                         f"{p.w_in.shape[1]} columns, log_a "
+                         f"{p.log_a.shape[0]} and w_out {p.w_out.shape[0]} "
+                         f"rows")
+    if c != di and (mesh is None or c * mesh.shape["model"] != di):
+        raise ValueError(f"conv holds {c} of {di} channels: run the head "
+                         f"under the mesh that splits them")
+    return c
+
+
+def _x_and_z(p: Mamba, x: torch.Tensor, di: int, c: int, mesh):
+    """This rank's ``c`` channels of ``x`` and of ``z``: ``x @ w_in``
+    all-gathered whole over ``model`` where ``w_in`` holds the rank's
+    columns, then each half's block of the rank."""
+    xz = tp_gather(x @ p.w_in, 2 * di, mesh)
+    return tp_block(xz[..., :di], c, mesh), tp_block(xz[..., di:], c, mesh)
+
+
 def mamba_forward(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
-                  state: dict | None = None, *, chunk: int = MAMBA_CHUNK):
+                  state: dict | None = None, *, chunk: int = MAMBA_CHUNK,
+                  mesh=None):
     """S6 selective scan of ``x [B, S, d]``: ``(out [B, S, d], {"conv":
-    [B, K-1, di], "ssm": [B, di, n] float32})``; ``state`` is the same
-    dict from the past (None: zeros)."""
+    [B, K-1, c], "ssm": [B, c, n] float32})``; ``state`` is the same
+    dict from the past (None: zeros).  ``c`` is ``di``, or this rank's
+    ``di / m`` channels where ``p`` holds them (see the module's
+    docstring); ``mesh`` is needed only then."""
     b, s, _ = x.shape
-    n = cfg.ssm.state_dim
-    xi, z = (x @ p.w_in).chunk(2, dim=-1)                  # [B, S, di]
-    di = xi.shape[-1]
+    n, di = cfg.ssm.state_dim, cfg.d_model * cfg.ssm.expand
+    c = _channels(p, cfg, mesh)
+    xi, z = _x_and_z(p, x, di, c, mesh)                    # [B, S, c]
     xi, conv_state = _causal_conv(xi, p.conv,
                                   None if state is None else state["conv"])
     xi = F.silu(xi)
-    bcdt = (xi @ p.w_bcdt).float()
+    bcdt = xi @ tp_block(p.w_bcdt, c, mesh, 0)
+    bcdt = (bcdt if c == di else tp_sum(bcdt, mesh)).float()
     bmat, cmat, dt_raw = bcdt.split([n, n, 1], dim=-1)     # [B,S,n] x2, [B,S,1]
     dt = F.softplus(dt_raw + p.dt_bias.float())
-    a = -torch.exp(p.log_a)                                # [di, n]
-    prev = torch.zeros((b, di, n), dtype=torch.float32, device=x.device) \
+    a = -torch.exp(p.log_a)                                # [c, n]
+    d_skip = tp_block(p.d_skip, c, mesh, 0)
+    prev = torch.zeros((b, c, n), dtype=torch.float32, device=x.device) \
         if state is None else state["ssm"].float()
     xif = xi.float()
 
     if s == 1 and state is not None:                       # decode fast path
-        da = torch.exp(dt[..., None] * a)                  # [B, 1, di, n]
+        da = torch.exp(dt[..., None] * a)                  # [B, 1, c, n]
         dbx = (dt * xif)[..., None] * bmat[:, :, None, :]
-        h = prev * da[:, 0] + dbx[:, 0]                    # [B, di, n]
+        h = prev * da[:, 0] + dbx[:, 0]                    # [B, c, n]
         y = torch.einsum("bdn,bn->bd", h, cmat[:, 0])[:, None] \
-            + xif * p.d_skip
+            + xif * d_skip
     else:
         L = min(chunk, s)
         pad = (-s) % L
@@ -131,7 +177,7 @@ def mamba_forward(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
         h, ys = prev, []
         for dtc, xic, bc, cc in zip(chunks(dt), chunks(xif), chunks(bmat),
                                     chunks(cmat)):
-            dta = dtc[..., None] * a                       # [B, L, di, n]
+            dta = dtc[..., None] * a                       # [B, L, c, n]
             dbx = (dtc * xic)[..., None] * bc[:, :, None, :]
             hs = _scan(torch.exp(dta), dbx)
             # the carried state, decayed by the cumulative product
@@ -142,10 +188,11 @@ def mamba_forward(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
                 hs += carry.exp_() * h[:, None]
             ys.append(torch.einsum("bldn,bln->bld", hs, cc))
             h = hs[:, -1]
-        y = torch.stack(ys, dim=1).reshape(b, nc * L, di)[:, :s]
-        y = y + xif * p.d_skip
-    y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ p.w_out, {"conv": conv_state, "ssm": h.float()}
+        y = torch.stack(ys, dim=1).reshape(b, nc * L, c)[:, :s]
+        y = y + xif * d_skip
+    y = (y * F.silu(z.float())).to(x.dtype) @ p.w_out
+    return (y if c == di else tp_sum(y, mesh)), \
+        {"conv": conv_state, "ssm": h.float()}
 
 
 class HymbaMixer(nn.Module):
@@ -163,16 +210,20 @@ class HymbaMixer(nn.Module):
             setattr(self, name, param(torch.ones(cfg.d_model, dtype=dt,
                                                  device=device)))
 
-    def forward(self, x, positions, *, cache=None, use_kernel=True):
+    def forward(self, x, positions, *, cache=None, use_kernel=True,
+                mesh=None):
         """``(fused [B, S, d], cache)``: a given cache ``{"attn", "ssm"}``
         is updated in place (the attention rows, and the Mamba state
-        replaced by the new one)."""
+        replaced by the new one).  ``mesh`` is needed only where the
+        leaves arrive as this rank's heads or channels; both paths end in
+        their sums, so the norms and the fuse read whole outputs."""
         eps = self.cfg.norm_eps
-        ao, _ = self.attn(x, positions, use_kernel=use_kernel,
+        ao, _ = self.attn(x, positions, use_kernel=use_kernel, mesh=mesh,
                           cache=None if cache is None else cache["attn"])
         with record_function("hymba.mamba"):    # names it in a profile
             mo, ssm = mamba_forward(self.mamba, self.cfg, x,
-                                    None if cache is None else cache["ssm"])
+                                    None if cache is None else cache["ssm"],
+                                    mesh=mesh)
         fused = 0.5 * (rms_norm(ao, self.attn_norm, eps) * self.attn_scale
                        + rms_norm(mo, self.mamba_norm, eps) * self.mamba_scale)
         if cache is not None:
@@ -180,11 +231,13 @@ class HymbaMixer(nn.Module):
         return fused, cache
 
 
-def init_ssm_cache(cfg: ModelConfig, batch: int, *, device) -> dict:
+def init_ssm_cache(cfg: ModelConfig, batch: int, *, device,
+                   channels: int | None = None) -> dict:
     """The Mamba head's zero state: the conv tail ``[B, K-1, di]`` bfloat16
     and the scan state ``[B, di, n]`` float32, as the reference's
-    ``init_cache``."""
-    di = cfg.d_model * cfg.ssm.expand
+    ``init_cache``; ``channels`` (default all ``di``) those a rank's split
+    head holds."""
+    di = channels or cfg.d_model * cfg.ssm.expand
     return {"conv": torch.zeros((batch, cfg.ssm.conv_dim - 1, di),
                                 dtype=torch.bfloat16, device=device),
             "ssm": torch.zeros((batch, di, cfg.ssm.state_dim),

@@ -58,6 +58,15 @@ def tp_gather(y: torch.Tensor, width: int, mesh) -> torch.Tensor:
     return meshops.all_gather(y, mesh, "model", axis=y.dim() - 1)
 
 
+def tp_block(t: torch.Tensor, n: int, mesh, dim: int = -1) -> torch.Tensor:
+    """This ``model`` rank's block of ``n`` along ``dim`` of the whole
+    ``t`` (block ``r`` for ``model`` rank ``r``, a view); ``t`` itself where
+    it is ``n`` wide."""
+    if t.shape[dim] == n:
+        return t
+    return t.narrow(dim, mesh.coord("model") * n, n)
+
+
 def tp_sum(x: torch.Tensor, mesh) -> torch.Tensor:
     """The sum over ``model`` that ends a row-parallel product
     (``meshops.psum``: its gradient the same sum); ``x`` itself where

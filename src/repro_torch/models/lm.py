@@ -44,21 +44,24 @@ axes, the dispatch bringing the tokens to it, and is gathered over
 ``data`` only (on the gspmd dispatch, whole); the ranks along ``model``
 split the dense work as the reference's specs do (tensor parallelism):
 an MLP on its ``f / m`` columns, GQA attention on its ``h / m`` heads
-(where ``model`` divides them; its kv heads too, or the one they read),
-MLA on its ``h / m`` heads and its ``1 / m`` of the two down-projections
-(their outputs all-gathered; the latent cache whole on every rank), each
-ending in one sum over ``model``, the embedding looked up in the rank's
-``d`` slice and all-gathered, the logits computed on the rank's
-vocabulary slice (gathered whole for callers; ``train_loss`` reads the
-slice).  A hybrid's or an xLSTM's mixer, the router and the norms are
-gathered whole and run whole on every ``model`` rank.  Under ``cfg.remat``
-the gather sits inside the checkpointed block, so the backward gathers
-again; without remat autograd keeps the gathered weights until the
-backward.  On a ``model`` axis of one rank nothing is split and no sum is
-issued: the mesh computes the mesh-free rows bit for bit.  The
-training forward runs under a mesh as well: the dispatch's collectives
-carry their adjoints, and under ``cfg.remat`` each rank recomputes a
-block, and reissues its collectives, in the same order.
+(where ``model`` divides them; its kv heads too, or the one they read;
+a hybrid's attention as well), MLA on its ``h / m`` heads and its ``1 /
+m`` of the two down-projections (their outputs all-gathered; the latent
+cache whole on every rank), Hymba's Mamba head on its ``di / m``
+channels (where ``model`` divides them; its state too), the xLSTM
+mixers' projections on their ``model`` columns (the outputs gathered,
+the cores and states whole) and rows (``w_down``), each ending in one
+sum over ``model``, the embedding looked up in the rank's ``d`` slice
+and all-gathered, the logits computed on the rank's vocabulary slice
+(gathered whole for callers; ``train_loss`` reads the slice).  The
+router, the norms and sLSTM's ``w_rec`` are gathered whole.  Under
+``cfg.remat`` the gather sits inside the checkpointed block, so the
+backward gathers again; without remat autograd keeps the gathered
+weights until the backward.  On a ``model`` axis of one rank nothing is
+split and no sum is issued: the mesh computes the mesh-free rows bit for
+bit.  The training forward runs under a mesh as well: the dispatch's
+collectives carry their adjoints, and under ``cfg.remat`` each rank
+recomputes a block, and reissues its collectives, in the same order.
 :func:`train_loss` then returns this rank's share of the reference's
 global loss.  The gspmd dispatch routes a rank's own rows with their own
 capacity and aux loss, where the reference's routes the global batch, so
@@ -152,11 +155,10 @@ class Block(nn.Module):
         """``(x, aux)``: ``aux`` the router's load-balance loss, or None.
         A MoE block under ``mesh`` dispatches over ``ep_axes_for(mesh)``."""
         if self.cfg.family == "ssm":
-            return x + self._xlstm(self.ln1(x), cache, use_kernel), None
+            return x + self._xlstm(self.ln1(x), cache, use_kernel, mesh), None
         mix = self.mixer if hasattr(self, "mixer") else self.attn
-        heads = {"mesh": mesh} if isinstance(mix, (Attention, MLA)) else {}
         out, _ = mix(self.ln1(x), positions, cache=cache,
-                     use_kernel=use_kernel, **heads)
+                     use_kernel=use_kernel, mesh=mesh)
         x = x + out
         if hasattr(self, "moe"):
             y, aux = self.moe(self.ln2(x), use_kernel=use_kernel, mesh=mesh,
@@ -165,22 +167,26 @@ class Block(nn.Module):
             return x + y, aux
         return x + self.mlp(self.ln2(x), mesh), None
 
-    def _xlstm(self, h, cache, use_kernel):
+    def _xlstm(self, h, cache, use_kernel, mesh):
         """The xLSTM mixer's output; a given cache's ``state`` is updated in
         place.  With a cache, one token takes ``mlstm_step`` and any other
         length ``mlstm_chunked`` from the cached state; sLSTM always runs
-        ``slstm_forward`` (from the cached state, if any)."""
+        ``slstm_forward`` (from the cached state, if any).  ``mesh`` is
+        needed only where the projections arrive as this rank's
+        ``model`` shards (``ssm``'s docstring)."""
         cfg, state = self.cfg, None if cache is None else cache["state"]
         if hasattr(self, "slstm"):
             with record_function("xlstm.slstm"):    # names it in a profile
                 out, new = slstm_forward(self.slstm, cfg, h, state,
-                                         use_kernel=use_kernel)
+                                         use_kernel=use_kernel, mesh=mesh)
         else:
             with record_function("xlstm.mlstm"):
                 if state is not None and h.shape[1] == 1:
-                    out, new = mlstm_step(self.mlstm, cfg, h, state)
+                    out, new = mlstm_step(self.mlstm, cfg, h, state,
+                                          mesh=mesh)
                 else:
-                    out, new = mlstm_chunked(self.mlstm, cfg, h, state)
+                    out, new = mlstm_chunked(self.mlstm, cfg, h, state,
+                                             mesh=mesh)
         if state is not None:
             for k, v in new.items():
                 state[k].copy_(v)
@@ -485,7 +491,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     given: a model placed with other specs than the rules' keeps its
     own); an MLA layer's latent and rope key are whole on every rank,
     whose heads all read them (the reference's specs split the latent's
-    ``r`` over ``model``)."""
+    ``r`` over ``model``).  A hybrid layer's attention cache keeps its
+    rank's kv heads alike, and its Mamba state (``conv``, ``ssm``) the
+    rank's channels where the head splits them
+    (``shardings.local_channels``), as the reference's ``cache_spec``
+    splits them.  The xLSTM states are whole on every rank, whose cores
+    run whole (the reference's split ``C``'s key dimension and the sLSTM
+    state's ``d`` over ``model``)."""
     check_supported(cfg)
     dev = _device(device)
 
@@ -500,7 +512,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             cfg, batch, max_len, device=dev, kv_heads=None if mesh is None
             else shardings.local_kv_heads(cfg, mesh, layer, specs))
         if cfg.family == "hybrid":
-            return {"attn": attn, "ssm": init_ssm_cache(cfg, batch, device=dev)}
+            return {"attn": attn, "ssm": init_ssm_cache(
+                cfg, batch, device=dev, channels=None if mesh is None
+                else shardings.local_channels(cfg, mesh, layer, specs))}
         return attn
     return {"pos": 0, "layers": [one(i) for i in range(cfg.n_layers)]}
 

@@ -17,6 +17,18 @@ sLSTM mixes its hidden state recurrently, so it is sequential:
 token as one matmul and hands the recurrence to
 :func:`repro_torch.kernels.ops.slstm_scan` (the ``slstm_scan`` kernel on
 the card, its plain loop on the CPU or with ``use_kernel=False``).
+
+Under a mesh (``shardings.mixer_split``) both mixers take one rule: each
+in-projection that arrives as this rank's ``model`` columns (mLSTM's
+``w_up``, ``wq``, ``wk``, ``wv`` and ``w_ifo``, sLSTM's ``w_in``) is
+multiplied on them and its output all-gathered whole over ``model``, so
+the core (the chunkwise or recurrent mLSTM with its ``(C, n, m)`` state,
+the sLSTM recurrence over the whole ``w_rec`` and state, which reads all
+of ``h`` at every step) runs whole on every rank, and the normed output
+meets ``w_down``'s rows of the rank, a row-parallel product ending in one
+sum over ``model``.  ``w_up``'s columns hold ``xi`` and ``zg`` side by
+side and ``w_ifo``'s are laid out ``(3, h)``: each is gathered before it
+is split.  A leaf that arrives whole runs whole.
 """
 from __future__ import annotations
 
@@ -28,7 +40,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import softplus
 
 from .config import ModelConfig
-from .layers import dense_init, dtype_of, param, rms_norm
+from .layers import (dense_init, dtype_of, param, rms_norm, tp_block,
+                     tp_gather, tp_sum)
 from .moe import silu
 
 MLSTM_CHUNK = 256
@@ -73,37 +86,55 @@ class SLSTM(nn.Module):
 # mLSTM
 # ---------------------------------------------------------------------------
 
-def _qkv_gates(p: MLSTM, cfg: ModelConfig, xi: torch.Tensor):
+def _up(p: MLSTM, cfg: ModelConfig, x: torch.Tensor, mesh):
+    """``(xi, zg)`` ``[..., di]`` of ``x @ w_up``, gathered whole over
+    ``model`` where ``w_up`` holds the rank's columns."""
+    return tp_gather(x @ p.w_up, 4 * cfg.d_model, mesh).chunk(2, dim=-1)
+
+
+def _qkv_gates(p: MLSTM, cfg: ModelConfig, xi: torch.Tensor, mesh=None):
     """q, k, v ``[..., h, dh]`` float32 (k divided by ``sqrt(dh)`` in x's
     dtype, the divisor rounded to it first, as jax takes a Python scalar)
     and the gates ``log_i``, ``log_f``, ``o`` ``[..., h]`` float32 (the
-    gates' bias added in x's dtype)."""
+    gates' bias added in x's dtype); each product gathered whole over
+    ``model`` where its matrix holds the rank's columns."""
     h = cfg.n_heads
-    lead = xi.shape[:-1]
-    dh = xi.shape[-1] // h
+    lead, di = xi.shape[:-1], xi.shape[-1]
+    dh = di // h
     root = torch.tensor(dh ** 0.5, dtype=xi.dtype, device=xi.device)
-    q = (xi @ p.wq).reshape(*lead, h, dh).float()
-    k = ((xi @ p.wk) / root).reshape(*lead, h, dh).float()
-    v = (xi @ p.wv).reshape(*lead, h, dh).float()
-    gates = (xi @ p.w_ifo + p.b_ifo).reshape(*lead, 3, h).float()
+    q = tp_gather(xi @ p.wq, di, mesh).reshape(*lead, h, dh).float()
+    k = (tp_gather(xi @ p.wk, di, mesh) / root).reshape(*lead, h, dh).float()
+    v = tp_gather(xi @ p.wv, di, mesh).reshape(*lead, h, dh).float()
+    gates = (tp_gather(xi @ p.w_ifo, 3 * h, mesh) + p.b_ifo).reshape(
+        *lead, 3, h).float()
     log_i = -softplus(-gates[..., 0, :])
     log_f = -softplus(-gates[..., 1, :])
     o = torch.sigmoid(gates[..., 2, :])
     return q, k, v, log_i, log_f, o
 
 
-def _mlstm_out(p: MLSTM, cfg: ModelConfig, out: torch.Tensor, zg, dtype):
-    """``out`` (float32, gated) cast to x's dtype, normed, times
-    ``silu(zg)``, projected down."""
+def _down(w_down: torch.Tensor, y: torch.Tensor, mesh) -> torch.Tensor:
+    """``y @ w_down``; where ``w_down`` holds the rank's ``model`` rows,
+    the rank's block of ``y``'s columns times them, summed over
+    ``model``."""
+    rows = w_down.shape[0]
+    out = tp_block(y, rows, mesh) @ w_down
+    return out if rows == y.shape[-1] else tp_sum(out, mesh)
+
+
+def _mlstm_out(p: MLSTM, cfg: ModelConfig, out: torch.Tensor, zg, dtype,
+               mesh=None):
+    """``out`` (float32, gated) cast to x's dtype, normed over the whole
+    ``di``, times ``silu(zg)``, projected down (:func:`_down`)."""
     out = rms_norm(out.to(dtype), p.norm, cfg.norm_eps) * silu(zg)
-    return out @ p.w_down
+    return _down(p.w_down, out, mesh)
 
 
 def mlstm_parallel(p: MLSTM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """The exact parallel form (training): decay-masked linear attention
     over an ``S x S`` decay matrix, max-stabilised per query row."""
     b, s, _ = x.shape
-    xi, zg = (x @ p.w_up).chunk(2, dim=-1)
+    xi, zg = _up(p, cfg, x, None)
     q, k, v, log_i, log_f, o = _qkv_gates(p, cfg, xi)
     a = torch.cumsum(log_f, dim=1)                          # [B, S, h]
     dmat = a[:, :, None, :] - a[:, None, :, :] + log_i[:, None, :, :]
@@ -131,7 +162,8 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, *, device) -> dict:
 
 
 def mlstm_chunked(p: MLSTM, cfg: ModelConfig, x: torch.Tensor,
-                  state: dict | None = None, *, chunk: int = MLSTM_CHUNK):
+                  state: dict | None = None, *, chunk: int = MLSTM_CHUNK,
+                  mesh=None):
     """The chunkwise-parallel mLSTM: an ``L x L`` decay matrix within each
     chunk of ``L = min(chunk, S)`` positions, the ``(C, n, m)`` state
     carried exactly across chunks.  A ragged tail is padded with input
@@ -139,8 +171,8 @@ def mlstm_chunked(p: MLSTM, cfg: ModelConfig, x: torch.Tensor,
     and cut after.  Returns ``(out [B, S, d], {"C", "n", "m"})``; ``state``
     (None: zeros) is not modified."""
     b, s, _ = x.shape
-    xi, zg = (x @ p.w_up).chunk(2, dim=-1)
-    q, k, v, log_i, log_f, o = _qkv_gates(p, cfg, xi)
+    xi, zg = _up(p, cfg, x, mesh)
+    q, k, v, log_i, log_f, o = _qkv_gates(p, cfg, xi, mesh)
     h, dh = q.shape[2], q.shape[3]
     L = min(chunk, s)
     pad = (-s) % L
@@ -181,17 +213,19 @@ def mlstm_chunked(p: MLSTM, cfg: ModelConfig, x: torch.Tensor,
         m_in = m_out
     out = torch.cat(outs, dim=1)[:, :s]
     out = (out * o[..., None]).reshape(b, s, h * dh)
-    return _mlstm_out(p, cfg, out, zg, x.dtype), {"C": C, "n": n, "m": m_in}
+    return _mlstm_out(p, cfg, out, zg, x.dtype, mesh), \
+        {"C": C, "n": n, "m": m_in}
 
 
-def mlstm_step(p: MLSTM, cfg: ModelConfig, x: torch.Tensor, state: dict):
+def mlstm_step(p: MLSTM, cfg: ModelConfig, x: torch.Tensor, state: dict, *,
+               mesh=None):
     """The recurrent form, one token: ``x [B, 1, d]`` -> ``(out [B, 1, d],
     the new state)``; ``state`` is not modified."""
     b, s, _ = x.shape
     if s != 1:
         raise ValueError(f"mlstm_step takes one token: x {tuple(x.shape)}")
-    xi, zg = (x[:, 0] @ p.w_up).chunk(2, dim=-1)
-    q, k, v, log_i, log_f, o = _qkv_gates(p, cfg, xi)      # [B, h, dh]
+    xi, zg = _up(p, cfg, x[:, 0], mesh)
+    q, k, v, log_i, log_f, o = _qkv_gates(p, cfg, xi, mesh)  # [B, h, dh]
     m_new = torch.maximum(log_f + state["m"], log_i)        # [B, h]
     i_s = torch.exp(log_i - m_new)
     f_s = torch.exp(log_f + state["m"] - m_new)
@@ -202,7 +236,7 @@ def mlstm_step(p: MLSTM, cfg: ModelConfig, x: torch.Tensor, state: dict):
     den = torch.maximum(torch.einsum("bhk,bhk->bh", n, q).abs(),
                         torch.exp(-m_new))
     out = (num / (den[..., None] + 1e-6)) * o[..., None]
-    out = _mlstm_out(p, cfg, out.reshape(b, -1), zg, x.dtype)
+    out = _mlstm_out(p, cfg, out.reshape(b, -1), zg, x.dtype, mesh)
     return out[:, None], {"C": C, "n": n, "m": m_new}
 
 
@@ -219,14 +253,19 @@ def init_slstm_state(cfg: ModelConfig, batch: int, *, device) -> dict:
 
 
 def slstm_forward(p: SLSTM, cfg: ModelConfig, x: torch.Tensor,
-                  state: dict | None = None, *, use_kernel: bool = True):
+                  state: dict | None = None, *, use_kernel: bool = True,
+                  mesh=None):
     """``x [B, S, d]`` -> ``(out [B, S, d], the final state)``: the input
-    product for every token as one matmul, the recurrence on
-    ``kops.slstm_scan``, its float32 ``hs`` cast to x's dtype, normed and
-    projected down.  ``state`` (None: zeros) is not modified."""
+    product for every token as one matmul (gathered whole over ``model``
+    where ``w_in`` holds the rank's columns: the gates lie ``[z | i | f |
+    o]``, so a block of columns is never one unit's four; the gathered
+    product made contiguous, as the kernel takes it), the recurrence on
+    ``kops.slstm_scan`` over the whole ``w_rec`` and state, its float32
+    ``hs`` cast to x's dtype, normed and projected down
+    (:func:`_down`).  ``state`` (None: zeros) is not modified."""
     st = init_slstm_state(cfg, x.shape[0], device=x.device) \
         if state is None else state
-    hs, st = kops.slstm_scan(x @ p.w_in, p.w_rec, p.b, st,
-                             use_kernel=use_kernel)
+    xw = tp_gather(x @ p.w_in, 4 * cfg.d_model, mesh).contiguous()
+    hs, st = kops.slstm_scan(xw, p.w_rec, p.b, st, use_kernel=use_kernel)
     hs = rms_norm(hs.to(x.dtype), p.norm, cfg.norm_eps)
-    return hs @ p.w_down, st
+    return _down(p.w_down, hs, mesh), st

@@ -1655,6 +1655,95 @@ def test_card_mesh_placed_moe_models_match_the_cpu(nccl_mesh, arch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m"])
+def test_card_mesh_mixer_serve_matches_mesh_free(nccl_mesh, arch):
+    """A SMOKE Hymba or xLSTM model served mesh-free, then placed on the
+    one-rank NCCL mesh (``lm.place``) and served with ``serve(mesh=...)``,
+    teacher-forced on the mesh-free tokens: on a ``model`` of 1 every
+    tensor-parallel leaf (Hymba's Mamba channels and attention heads, the
+    xLSTM projections) is whole, so no product is gathered or summed and
+    the logits are bit for bit, the launches equal (Hymba's flash and
+    decode, xLSTM's ``slstm_scan``), and the serve loop's token all-gather
+    is the only collective."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import meshops
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import shardings
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+
+    cuda = torch.device("cuda", 0)
+    cfg = get_config(arch, smoke=True)
+    params = lm.init_lm(cfg, seed=0, device=cuda)
+    kw = dict(batch=3, prompt_len=70, gen_len=6, max_len=128, device=cuda,
+              params=params)
+    for k in KERNELS:
+        k.launches = 0
+    want, free = serve(arch, **kw)
+    counts = {k.__name__: k.launches for k in KERNELS}
+    lm.place(params, nccl_mesh)
+    assert shardings.mixer_split(cfg, nccl_mesh) and not params._split
+    for k in KERNELS:
+        k.launches = 0
+    meshops.reset_counts()
+    got, tp = serve(arch, mesh=nccl_mesh, forced=want, **kw)
+    assert {k.__name__: k.launches for k in KERNELS} == counts
+    used = ("slstm_scan",) if cfg.family == "ssm" else ("flash_attention",
+                                                         "decode_attention")
+    assert all(counts[k] > 0 for k in used), counts
+    assert dict(meshops.COUNTS) == {k: int(k == "all_gather")
+                                    for k in meshops.KINDS}
+    np.testing.assert_array_equal(got, want)
+    for a, b in zip(tp.logits, free.logits):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m"])
+def test_card_mesh_placed_mixer_models_match_the_cpu(nccl_mesh, arch):
+    """A SMOKE Hymba or xLSTM model placed on the one-rank NCCL mesh by its
+    specs (``init_lm(..., mesh=)``): no leaf held in part or gathered, and
+    the mixers' gathers and sums skipped (a ``model`` of 1), so one
+    microbatch's training forward and backward make no all-gather,
+    reduce-scatter or all-to-all; its loss and every gradient on the card
+    against the same weights' on the CPU without a mesh (float32, TF32
+    off): the loss to 1e-5, each gradient within 1e-4 of its leaf's
+    largest element."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import meshops
+    from repro_torch.models import lm
+
+    cuda = torch.device("cuda", 0)
+    cfg = get_config(arch, smoke=True)
+    cpu = lm.init_lm(cfg, seed=7, device="cpu").requires_grad_(True)
+    card = lm.init_lm(cfg, seed=7, device="cpu",
+                      mesh=nccl_mesh).to(cuda).requires_grad_(True)
+    names = [n for n, _ in cpu.named_parameters()]
+    assert sorted(card.specs) == sorted(names)
+    assert not card._split and not card._gathers(nccl_mesh)
+    rng = np.random.default_rng(7)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)))
+             for k in ("tokens", "labels")}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = lm.train_loss(cpu, batch)
+        gw = torch.autograd.grad(want, list(cpu.parameters()))
+        meshops.reset_counts()
+        got = lm.train_loss(card, {k: v.to(cuda) for k, v in batch.items()},
+                            mesh=nccl_mesh)
+        gg = torch.autograd.grad(got, list(card.parameters()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert all(meshops.COUNTS[k] == 0 for k in
+               ("all_gather", "reduce_scatter", "all_to_all")), meshops.COUNTS
+    assert float(got) == pytest.approx(float(want), rel=1e-5)
+    for n, a, b in zip(names, gw, gg):
+        assert float((b.cpu() - a).abs().max()) <= 1e-4 * float(
+            a.abs().max()) + 1e-12, n
+
+
+@pytest.mark.cuda
 def test_card_meshops_at_one_rank(nccl_mesh):
     """Each collective on CUDA tensors over the one-rank groups gives its
     plain meaning bit for bit; a CPU tensor on the NCCL mesh raises."""

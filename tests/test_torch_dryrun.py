@@ -51,11 +51,11 @@ from repro_torch.models.config import ShapeConfig  # noqa: E402
 REPO = Path(__file__).resolve().parents[1]
 AXES = ("pod", "data", "model")
 MESH = (2, 4, 1)
-# model 2: the dense, MoE and MLA families split their dense work over
-# model as the reference's XLA does; Hymba's mixer and the xLSTM mixers run
-# whole on each model rank (their ratios printed, not held)
+# model 2: every family splits its dense work over model as the reference's
+# XLA does, but the xLSTM cores, which each model rank repeats whole (taken
+# off by _xlstm_repeated_flops)
 TP_MESH = (2, 2, 2)
-TP_HELD = ("dense", "moe", "mla")
+TP_HELD = ("dense", "moe", "mla", "hybrid", "ssm")
 SEQ, BATCH = 64, 8
 FAMILIES = {"dense": "qwen2.5-14b", "moe": "qwen3-moe-235b-a22b",
             "mla": "deepseek-v2-236b", "hybrid": "hymba-1.5b",
@@ -531,16 +531,52 @@ def _moe_padding_flops(cfg, mesh, tokens: int, passes: int) -> float:
     return float(n_moe * (routed + shared) * 3 * 2 * d * passes)
 
 
-def _slstm_weight_grad_flops(cfg, tokens: int) -> float:
+def _slstm_weight_grad_flops(cfg, tokens: int, m: int = 1) -> float:
     """FLOPs of the sLSTM blocks' ``w_in`` and ``w_rec`` gradients, ``2
-    tokens d 4d`` each.  The reference's scan projects each step's input
-    and state inside the loop; the transposed loop's per-step outer
-    products (a contraction of size 1) compile to elementwise multiplies
-    added into the gradients, not to ``dot``, so ``analyze_hlo`` counts
-    none of them.  The port runs them as matmuls: ``x^T dgates`` over the
-    sequence and one ``h^T dgates`` a step."""
+    tokens d 4d`` each (``w_in``'s on the rank's ``4d / m`` columns of a
+    ``model`` axis of ``m``; ``w_rec`` is whole on every rank).  The
+    reference's scan projects each step's input and state inside the loop;
+    the transposed loop's per-step outer products (a contraction of size 1)
+    compile to elementwise multiplies added into the gradients, not to
+    ``dot``, so ``analyze_hlo`` counts none of them.  The port runs them
+    as matmuls: ``x^T dgates`` over the sequence and one ``h^T dgates`` a
+    step."""
     n_slstm = sum(lm.is_slstm(cfg, i) for i in range(cfg.n_layers))
-    return float(n_slstm * 2 * 2 * tokens * cfg.d_model * 4 * cfg.d_model)
+    one = 2 * tokens * cfg.d_model * 4 * cfg.d_model
+    return float(n_slstm * (one / m + one))
+
+
+def _xlstm_repeated_flops(cfg, rows: int, kind: str, m: int) -> float:
+    """The dot FLOPs a rank of an xLSTM model repeats on a ``model`` axis
+    of ``m`` (its cores run whole on every rank) where the reference's XLA
+    splits them ``m`` ways: ``(1 - 1/m)`` of the port's count of those
+    dots on the rank's ``rows`` (``B``) of one cell (``S = SEQ``, one
+    chunk of ``L = S`` positions; ``h`` heads of ``dh``; ``d`` the model
+    width).  An mLSTM layer's chunk core: the scores and their product
+    with v, ``4 B L^2 h dh``; C's and n's products with q and the state
+    updates, ``4 B L h dh^2 + 4 B L h dh``.  Its decode step: C's and n's
+    products with q, ``2 B h dh^2 + 2 B h dh`` (the update's outer
+    product ``k v^T`` is elementwise).  An sLSTM layer's recurrence ``h @
+    w_rec``: ``8 B d^2`` a step.  A train cell adds their backward: both
+    operands' gradients of the scores and of their product with v, ``8 B
+    L^2 h dh``; q's of C's and n's products, ``2 B L h dh^2 + 2 B L h
+    dh`` (the zero starting state takes none, and the last chunk's state
+    update reaches no loss); the recurrence's input gradient at every step
+    but the first (the starting h takes none), ``8 B (S - 1) d^2``."""
+    h, d = cfg.n_heads, cfg.d_model
+    dh = 2 * d // h
+    b, s = rows, SEQ
+    n_s = sum(lm.is_slstm(cfg, i) for i in range(cfg.n_layers))
+    n_m = cfg.n_layers - n_s
+    if kind == "decode":
+        mlstm, slstm = 2 * b * h * dh * (dh + 1), 8 * b * d * d
+    else:
+        mlstm = 4 * b * s * h * dh * (s + dh + 1)
+        slstm = 8 * b * s * d * d
+        if kind == "train":
+            mlstm += 8 * b * s * s * h * dh + 2 * b * s * h * dh * (dh + 1)
+            slstm += 8 * b * (s - 1) * d * d
+    return float((1 - 1 / m) * (n_m * mlstm + n_s * slstm))
 
 
 def _port_flops(mesh, arch, kind, **kw) -> float:
@@ -551,16 +587,19 @@ def _port_flops(mesh, arch, kind, **kw) -> float:
 
 def _hold_flops(ref: dict, mesh, family: str, held: bool = True) -> dict:
     """Each kind's ``port / reference`` FLOPs a rank of ``family``'s SMOKE
-    cells on ``mesh``, the MoE padding and the sLSTM weight gradients
-    taken off: where ``held``, train and prefill within 2%; decode at most
-    the reference's, short of it by no more than the attention over the
-    cache rows the port does not read (none: the cache holds ``seq_len -
-    1`` positions and the step reads all ``seq_len``)."""
+    cells on ``mesh``, the MoE padding, the sLSTM weight gradients and the
+    xLSTM cores' repeated work (:func:`_xlstm_repeated_flops`, also
+    returned under ``repeated``) taken off: where ``held``, train and
+    prefill within 2%; decode at most the reference's, short of it by no
+    more than the attention over the cache rows the port does not read
+    (none: the cache holds ``seq_len - 1`` positions and the step reads
+    all ``seq_len``)."""
     from repro_torch.launch.steps import clamp_n_micro, recipe_for
     arch = FAMILIES[family]
     cfg = get_config(arch, smoke=True)
     rows = BATCH // (mesh.shape["pod"] * mesh.shape["data"])
-    ratios = {}
+    m = mesh.shape["model"]
+    ratios, repeated = {}, {}
     for kind in KINDS:
         want = ref[f"{arch}|{kind}"]
         tokens = rows * (1 if kind == "decode" else SEQ)
@@ -570,7 +609,10 @@ def _hold_flops(ref: dict, mesh, family: str, held: bool = True) -> dict:
         pad = n_micro * _moe_padding_flops(cfg, mesh, tokens // n_micro,
                                            3 if kind == "train" else 1)
         if kind == "train":
-            pad += _slstm_weight_grad_flops(cfg, tokens)
+            pad += _slstm_weight_grad_flops(cfg, tokens, m)
+        if cfg.family == "ssm":
+            repeated[kind] = _xlstm_repeated_flops(cfg, rows, kind, m)
+            pad += repeated[kind]
         got = _port_flops(mesh, arch, kind) - pad
         ratios[kind] = got / want
         if not held:
@@ -581,6 +623,8 @@ def _hold_flops(ref: dict, mesh, family: str, held: bool = True) -> dict:
             assert want - gap <= got <= want * (1 + 1e-9), (kind, got, want)
         else:
             assert abs(got - want) <= FLOP_TOL * want, (kind, got, want)
+    if repeated:
+        ratios["repeated"] = repeated
     return ratios
 
 
@@ -588,11 +632,12 @@ def _hold_flops(ref: dict, mesh, family: str, held: bool = True) -> dict:
 def test_flops_split_over_model_match_the_reference(reference_flops,
                                                     family):
     """On ``TP_MESH`` (``model`` 2), as :func:`test_flops_match_the
-    _reference` holds ``(2, 4, 1)``: the dense, MoE and MLA families
-    within 2% (their MLP, GQA heads, MLA heads and down-projections,
-    embedding and vocabulary split over ``model`` as the reference's XLA
-    splits them); the hybrid and xLSTM families' ratios printed (their
-    mixers run whole on each ``model`` rank), each cell counted.  MLA
+    _reference` holds ``(2, 4, 1)``: every family within 2% (the MLP, GQA
+    heads (Hymba's too), MLA heads and down-projections, Hymba's Mamba
+    channels, the xLSTM projections, the embedding and vocabulary split
+    over ``model`` as the reference's XLA splits them), the xLSTM cores'
+    repeated work taken off and printed beside the ratios (prefill and
+    decode then equal the reference's to the FLOP).  MLA
     leaves no difference: dot for dot, XLA's per-device products of the
     absorbed decode (``wq_a`` / ``wkv_a`` on 24 of 48 columns, ``wq_b`` and
     ``wo`` on 2 of 4 heads, the scores and context over the whole latent
@@ -604,9 +649,35 @@ def test_flops_split_over_model_match_the_reference(reference_flops,
         mesh = make_mesh(TP_MESH, AXES, device_type="meta")
         ratios = _hold_flops(reference_flops(TP_MESH), mesh, family,
                              held=family in TP_HELD)
+    repeated = ratios.pop("repeated", {})
     print(f"{family} on {TP_MESH}: port / reference FLOPs "
-          + " ".join(f"{k} {v:.4f}" for k, v in ratios.items()))
+          + " ".join(f"{k} {v:.4f}" for k, v in ratios.items())
+          + "".join(f"; {k} repeated {v:.0f}" for k, v in repeated.items()))
     assert all(np.isfinite(v) and v > 0 for v in ratios.values())
+
+
+@pytest.mark.parametrize("family", ["hybrid", "ssm"])
+def test_mixer_kernels_take_the_split_mesh_inputs(family):
+    """Hymba's and xLSTM's SMOKE prefill and decode cells on ``TP_MESH``
+    with the kernels' meta branches (``use_kernel=True``), which check
+    what the card's wrappers would: under the mixers' split each kernel
+    of the path takes its inputs (sLSTM's all-gathered ``x @ w_in`` made
+    contiguous; Hymba's heads of the rank) and is counted once a layer it
+    serves."""
+    from repro_torch.models import lm
+    arch = FAMILIES[family]
+    cfg = get_config(arch, smoke=True)
+    n_slstm = sum(lm.is_slstm(cfg, i) for i in range(cfg.n_layers))
+    with dryrun.fake_world(8):
+        mesh = make_mesh(TP_MESH, AXES, device_type="meta")
+        for kind, name in (("prefill", "flash_attention"),
+                           ("decode", "decode_attention")):
+            row = dryrun.run_cell(arch, ShapeConfig(f"{kind}_s", SEQ, BATCH,
+                                                    kind), mesh, verbose=False,
+                                  smoke=True)
+            want = {"slstm_scan": n_slstm} if family == "ssm" \
+                else {name: cfg.n_layers}
+            assert row["kernels"] == want, (kind, row["kernels"])
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))

@@ -181,3 +181,85 @@ def test_slstm_scan_on_cpu_tensors_takes_the_plain_version(monkeypatch):
     assert slstm._FLAGS == {}
     assert torch.equal(hs, want)
     assert all(torch.equal(fin[k], wfin[k]) for k in ref.SLSTM_STATE)
+
+
+# the parameters of the flags design's entry point that the older
+# grid-barrier design lacks
+_FLAG_PARAMS = "void* flags, int n_flags,\n                                unsigned long long base, "
+
+
+@pytest.mark.parametrize("edit, want", [
+    ((), "flags"),
+    ((_FLAG_PARAMS, ""), "barrier"),
+    (("int is_bf16,", "int is_bf16, int extra,"), None),
+    (("teshu_slstm_scan(", "teshu_slstm_scan_v2("), None)],
+    ids=["flags", "barrier", "another", "none"])
+def test_parent_interface_reads_the_declaration(tmp_path, edit, want):
+    """``slstm_timing.parent_interface`` reads a parent's ``slstm.cu``:
+    the shipped declaration is the flags interface, the same without the
+    flag buffer, its count and the base the grid-barrier one; another
+    parameter list, or no declaration, raises with the file.  A flags
+    parent runs at the shipped kernel's units a block, a grid-barrier one
+    at its own 8 (``parent_units``)."""
+    text = SOURCE if not edit else SOURCE.replace(*edit)
+    assert not edit or text != SOURCE
+    src = tmp_path / "slstm.cu"
+    src.write_text(text)
+    if want is None:
+        with pytest.raises(RuntimeError, match=str(src)):
+            slstm_timing.parent_interface(src)
+    else:
+        assert slstm_timing.parent_interface(src) == want
+        assert slstm_timing.parent_units(src, 16) == (
+            16 if want == "flags" else 8)
+
+
+@pytest.mark.parametrize("design", ["flags", "barrier"])
+def test_parent_launch_takes_the_parent_interface(tmp_path, monkeypatch,
+                                                  design):
+    """``slstm_timing.parent_launch`` against a stand-in library, the
+    parent's source the shipped one (flags) or the same without the flag
+    parameters (barrier): one argument per declared parameter; a flags
+    parent gets a buffer of its own, zeroed, whose base rises by S + 1 a
+    call, and leaves the stream's flags (the shipped launches') alone."""
+    src = tmp_path / "slstm.cu"
+    src.write_text(SOURCE if design == "flags"
+                   else SOURCE.replace(_FLAG_PARAMS, ""))
+    sig = re.search(r'extern "C" int teshu_slstm_scan\(([^)]*)\)',
+                    src.read_text())
+    n_params = len(sig.group(1).split(","))
+    calls = []
+
+    class Fn:
+        argtypes = None
+
+        def __call__(self, *args):
+            calls.append(args)
+            return 0
+
+    class Lib:
+        teshu_slstm_scan = Fn()
+
+    monkeypatch.setattr(_build, "stream_of", lambda t: 12345)
+    monkeypatch.setattr(slstm, "_FLAGS", {})
+    monkeypatch.setattr(slstm_timing, "_PARENT_FLAGS", {})
+    xw = torch.zeros((2, 5, 64))
+    w, b = torch.zeros((16, 64)), torch.zeros(64)
+    st = {k: torch.zeros((2, 16)) for k in ref.SLSTM_STATE}
+    lib = Lib()
+    for _ in range(3):
+        hs, out = slstm_timing.parent_launch(lib, xw, w, b, st, 4, src)
+        assert hs.shape == (2, 5, 16) and set(out) == set(ref.SLSTM_STATE)
+    assert len(Lib.teshu_slstm_scan.argtypes) == n_params
+    assert all(len(args) == n_params for args in calls)
+    assert slstm._FLAGS == {}
+    if design == "barrier":
+        assert slstm_timing._PARENT_FLAGS == {}
+        assert [args[13:18] for args in calls] == [(2, 5, 16, 4, 0)] * 3
+        return
+    (flags, base), = slstm_timing._PARENT_FLAGS.values()
+    assert flags.numel() == slstm.MAX_BLOCKS * slstm.FLAG_STRIDE
+    assert not flags.any() and base.next == 18
+    for i, args in enumerate(calls):
+        assert args[13:15] == (flags.data_ptr(), flags.numel())
+        assert args[15] == 6 * i

@@ -9,27 +9,36 @@ q heads read), the embedding's ``d`` slice and the unembedding's vocabulary
 slice, each row-parallel product ending in one sum over ``model``; an
 MLA layer its ``h/m`` heads of ``wq_b`` / ``wkv_b`` (columns) and ``wo``
 (rows) and its ``1/m`` of the down-projections ``wq_a`` / ``wkv_a``, whose
-outputs it all-gathers, the latent cache whole on every rank.  Four SMOKE
-models (Qwen2.5-14B, Granite-34B's MQA, Qwen3-MoE's GQA beside ``teshu2``,
-DeepSeek-V2's MLA, shared experts and layer 0) run on 8 gloo ranks as
-``(2, 2, 2)`` and ``(1, 2, 4)`` ``("pod", "data", "model")`` meshes
-(``tp_ranks.py``), and the reference in one subprocess over 8 forced host
-devices, on the same weights (``init_lm`` jittered from numpy) and batch
-(two labels masked).
+outputs it all-gathers, the latent cache whole on every rank; Hymba's
+Mamba head its ``di/m`` channels (``w_in``'s columns computed and
+all-gathered, the rank's own of ``x`` and ``z`` taken; ``w_bcdt``'s
+partial product summed; ``w_out`` row-parallel; its state the rank's
+channels) beside its attention split by heads; the xLSTM mixers their
+in-projections' columns, all-gathered, the cores and states whole, and
+``w_down``'s rows.  Six SMOKE models (Qwen2.5-14B, Granite-34B's MQA,
+Qwen3-MoE's GQA beside ``teshu2``, DeepSeek-V2's MLA, shared experts and
+layer 0, Hymba-1.5B, xLSTM-350M) run on 8 gloo ranks as ``(2, 2, 2)`` and
+``(1, 2, 4)`` ``("pod", "data", "model")`` meshes (``tp_ranks.py``), and
+the reference in one subprocess over 8 forced host devices, on the same
+weights (``init_lm`` jittered from numpy) and batch (two labels masked).
 
 Tolerances: the forward's logits within ``LAYER`` of
 ``test_torch_moe_ep.py`` (float32 matmuls summing in other orders: a
 row-parallel product is summed over ``model`` in another order than one
 matmul); served tokens equal and the last positions' logits within
-``CACHED`` (through the bf16 cache), as are DeepSeek-V2's logits of a
-prefill in two chunks on one cache; the loss to rtol ``F32_LOSS`` and each
-summed gradient within ``F32_GRAD`` of its leaf's largest reference
-element (``test_torch_train_mesh.py``'s bound).  Seven planted faults must
-miss by 10x: the row-parallel sum skipped, the replicated kv head taken as
-``r % n_kv_heads``, the gold logit taken from every rank, the
-column-split leaves' gradients summed over ``model``, and in MLA
-``q_a_norm`` taken over the rank's columns before the gather, the rank's
-``wkv_b`` heads taken at the next rank's offset and ``wo``'s sum skipped.
+``CACHED`` (through the bf16 cache), as are DeepSeek-V2's, Hymba's and
+xLSTM's logits of a prefill in two chunks on one cache; the loss to rtol
+``F32_LOSS`` and each summed gradient within ``F32_GRAD`` of its leaf's
+largest reference element (``test_torch_train_mesh.py``'s bound).  Twelve
+planted faults must miss by 10x: the row-parallel sum skipped, the
+replicated kv head taken as ``r % n_kv_heads``, the gold logit taken from
+every rank, the column-split leaves' gradients summed over ``model``; in
+MLA ``q_a_norm`` taken over the rank's columns before the gather, the
+rank's ``wkv_b`` heads taken at the next rank's offset and ``wo``'s sum
+skipped; in Hymba ``w_in``'s contiguous block taken as the rank's ``x``
+and ``z``, ``w_bcdt``'s and ``w_out``'s sums skipped; in xLSTM the mLSTM
+output normed over the rank's columns and the sLSTM ``w_down`` sum
+skipped.
 """
 from types import SimpleNamespace
 
@@ -37,7 +46,6 @@ import numpy as np
 import pytest
 
 import tp_ranks
-from mesh_train_ranks import flat
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
@@ -64,7 +72,7 @@ def _inputs() -> dict:
         cfg = ref_config(arch, smoke=True)
         p = jittered(jax.tree.map(np.asarray, jlm.init_lm(
             jax.random.key(50 + i), cfg)), 60 + i)
-        data.update(flat(p, f"p-{arch}"))
+        data.update(tp_ranks.flat_tree(p, f"p-{arch}"))
         rng = np.random.default_rng(70 + i)
         shape = (tp_ranks.B, tp_ranks.S)
         labels = rng.integers(0, cfg.vocab, shape).astype(np.int32)
@@ -72,15 +80,12 @@ def _inputs() -> dict:
         data[f"batch-{arch}|labels"] = labels
         data[f"batch-{arch}|tokens"] = rng.integers(
             0, cfg.vocab, shape).astype(np.int32)
-        if arch in tp_ranks.DENSE + tp_ranks.MLA:    # a reference cache
-            cache = jax.tree.map(np.asarray,         # of distinct values
-                                 jlm.init_cache(cfg, 2, 8))
-            for part in ("block0", "blocks"):
-                for k in ("k", "v", "latent", "k_rope"):
-                    if k in cache.get(part, {}):
-                        cache[part][k] = rng.standard_normal(
-                            cache[part][k].shape).astype(np.float32)
-            data.update(flat(cache, f"cache-{arch}"))
+        if arch != "qwen3-moe-235b-a22b":   # a reference cache of distinct
+            cache = jax.tree.map(              # values in every array
+                lambda a: rng.standard_normal(np.shape(a)).astype(np.float32)
+                if np.ndim(a) >= 2 else np.asarray(a),
+                jlm.init_cache(cfg, 2, 8))
+            data.update(tp_ranks.flat_tree(cache, f"cache-{arch}"))
     return data
 
 
@@ -132,6 +137,16 @@ def _grads(res, key: str, names) -> dict:
     return {n: res[f"{key}|g|{n}"] for n in names}
 
 
+def _ref_grads(runs, arch: str, shape) -> dict:
+    return _ref_named(arch, tp_ranks.unflat_tree(
+        runs["ref"], f"{tp_ranks.ref_key(arch, shape)}|g"))
+
+
+_MIXER_TP = {".mamba.": ("w_in", "conv", "log_a", "w_out"),
+             ".mlstm.": ("w_up", "wq", "wk", "wv", "w_ifo", "w_down"),
+             ".slstm.": ("w_in", "w_down")}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("shape", [(16, 16), (2, 16, 16), (2, 2, 2),
                                    (1, 2, 4)])
@@ -143,16 +158,26 @@ def test_kept_axes_rule(arch, shape):
     ``attention_split`` splits the heads and by ``wk`` / ``wv`` where it
     splits the kv heads too, and by MLA's ``wq_a``, ``wq_b``, ``wkv_a``,
     ``wkv_b`` and ``wo`` where ``mla_split`` splits its heads (``model``
-    divides ``n_heads``: DeepSeek-V2's 128 on all four meshes); nothing
-    else keeps an axis, and a leaf whose spec does not name ``model`` keeps
-    none of it."""
+    divides ``n_heads``: DeepSeek-V2's 128 on all four meshes), by Hymba's
+    Mamba ``w_in``, ``conv``, ``log_a`` and ``w_out`` where
+    ``mixer_split`` splits its channels (``model`` divides ``di``: 3,200
+    on 16, 2 and 4) and by the xLSTM mixers' projections (``w_up``, ``wq``,
+    ``wk``, ``wv``, ``w_ifo``, ``w_in``, ``w_down``) on every mesh; Hymba's
+    attention splits as GQA does (its 25 heads not on 16, so it is whole
+    on the first two meshes); nothing else keeps an axis (sLSTM's
+    ``w_rec``, Mamba's ``w_bcdt`` and ``d_skip`` are gathered whole), and a
+    leaf whose spec does not name ``model`` keeps none of it (xLSTM's
+    ``w_ifo``, 12 columns, on 16)."""
     cfg = get_config(arch)
     axes = AXES[-len(shape):]
     mesh = SimpleNamespace(shape=dict(zip(axes, shape)), axis_names=axes)
     split = shardings.attention_split(cfg, mesh)
     mla = shardings.mla_split(cfg, mesh)
+    mixer = shardings.mixer_split(cfg, mesh)
     m = mesh.shape["model"]
-    if cfg.family in ("dense", "moe") and cfg.mla is None:
+    assert mixer == (cfg.family == "ssm" or (
+        cfg.family == "hybrid" and cfg.d_model * cfg.ssm.expand % m == 0))
+    if cfg.family in ("dense", "moe", "hybrid") and cfg.mla is None:
         want = None if cfg.n_heads % m else "heads" \
             if cfg.n_kv_heads % m == 0 else "replicate" \
             if m % cfg.n_kv_heads == 0 else None
@@ -176,7 +201,9 @@ def test_kept_axes_rule(arch, shape):
                 ".attn." in n and leaf in ("wq", "wo") and split) or (
                 ".attn." in n and leaf in ("wk", "wv") and split == "heads") \
             or (".attn." in n and mla and leaf in ("wq_a", "wq_b", "wkv_a",
-                                                   "wkv_b", "wo"))
+                                                   "wkv_b", "wo")) \
+            or (mixer and any(mod in n and leaf in names
+                              for mod, names in _MIXER_TP.items()))
         assert kept == (("model",) if tp and "model" in named else ()), \
             (n, spec, kept)
 
@@ -189,7 +216,10 @@ def test_local_shapes(runs, case):
     ``q_lora/m`` and ``(r + dr)/m`` columns of ``wq_a`` / ``wkv_a``), and
     its cache the kv heads of the stated layout: ``kvh/m`` where ``model``
     divides them, the one kv head of KV replication; an MLA layer's
-    ``latent`` and ``k_rope`` whole."""
+    ``latent`` and ``k_rope`` whole; a Hymba layer's Mamba ``conv`` and
+    ``ssm`` its ``di/m`` channels, the reference's ``cache_spec`` local
+    shapes; an xLSTM layer's state whole."""
+    from repro.launch.shardings import cache_spec as ref_cache_spec
     arch, shape = case
     cfg = get_config(arch, smoke=True)
     mesh, m = _standin(shape), shape[-1]
@@ -208,14 +238,26 @@ def test_local_shapes(runs, case):
                     cfg.n_heads // m * cfg.d_head
             if cfg.mla is not None and ".attn." in n:
                 _assert_mla_local(cfg, m, n, res[f"{key}|local|{n}"])
+            if cfg.family == "hybrid" and n.endswith(".mamba.conv"):
+                assert res[f"{key}|local|{n}"][-1] == p.shape[-1] // m, n
         kvh = cfg.n_kv_heads // m if split == "heads" else 1 \
             if split == "replicate" else cfg.n_kv_heads
-        layers = [k for k in res if k.startswith(f"{key}|cache|")]
-        assert len(layers) == cfg.n_layers
-        for k in layers:
-            want = [1, 4, cfg.mla.kv_lora_rank] if cfg.mla else \
-                [1, 4, kvh, cfg.d_head]
-            assert res[k].tolist() == want
+        fresh = lm.init_cache(cfg, 1, 4, device="cpu")["layers"]
+        for i in range(cfg.n_layers):
+            got = {k.rsplit(f"|cache|{i}|", 1)[1]: v for k, v in res.items()
+                   if k.startswith(f"{key}|cache|{i}|")}
+            want = {k: list(t.shape) for k, t in tp_ranks._leaves(
+                fresh[i]).items()}
+            for k in ("k", "attn|k", "attn|v", "v"):
+                if k in want:
+                    want[k][2] = kvh
+            for k in ("ssm|conv", "ssm|ssm"):
+                if k in want:
+                    want[k] = list(shardings.local_shape(tuple(ref_cache_spec(
+                        f"layers/{i}/{k.replace('|', '/')}", tuple(want[k]),
+                        mesh, cfg)), want[k], mesh))
+            assert {k: v.tolist() for k, v in got.items()} == want, i
+        assert f"{key}|cache|{cfg.n_layers}|" not in "".join(res)
 
 
 def _assert_mla_local(cfg, m: int, name: str, local) -> None:
@@ -276,7 +318,7 @@ def test_loss_and_gradients_match_reference(runs, case):
     arch, shape = case
     key = f"{arch}|{tp_ranks.mesh_name(shape)}"
     rk = tp_ranks.ref_key(arch, shape)
-    want = _ref_named(arch, tp_ranks.unflatten(runs["ref"], f"{rk}|g"))
+    want = _ref_grads(runs, arch, shape)
     for res in runs["ranks"]:
         assert float(res[f"{key}|loss"]) == pytest.approx(
             float(runs["ref"][f"{rk}|loss"]), rel=F32_LOSS)
@@ -286,15 +328,17 @@ def test_loss_and_gradients_match_reference(runs, case):
         assert _miss(got, want) <= 1.0, key
 
 
-@pytest.mark.parametrize("case", [c for c in CASES if c[0] in tp_ranks.MLA],
+@pytest.mark.parametrize("case", [c for c in CASES
+                                  if c[0] in tp_ranks.CHUNKED],
                          ids=[i for c, i in zip(CASES, IDS)
-                              if c[0] in tp_ranks.MLA])
+                              if c[0] in tp_ranks.CHUNKED])
 def test_two_chunk_prefill_matches_reference(runs, case):
-    """An MLA model's prompt prefilled in two chunks (7, then 5) on one
-    cache under the mesh: the second chunk runs the materialised form on
-    the rank's heads over the whole cached latent from position 7.  Every
-    position's logits within ``CACHED`` of the reference's same two
-    chunks."""
+    """A prompt prefilled in two chunks (7, then 5) on one cache under the
+    mesh: DeepSeek-V2's second chunk runs the materialised form on the
+    rank's heads over the whole cached latent from position 7; Hymba's
+    carries the rank's Mamba channels and its kv heads; xLSTM's the whole
+    mLSTM and sLSTM states.  Every position's logits within ``CACHED`` of
+    the reference's same two chunks."""
     arch, shape = case
     key = f"{arch}|{tp_ranks.mesh_name(shape)}"
     want = runs["ref"][f"{tp_ranks.ref_key(arch, shape)}|chunked"]
@@ -308,10 +352,13 @@ def test_planted_faults_miss(runs, fault):
     """Each fault misses its check by 10x where the unfaulted run meets
     it: the row-parallel sum skipped, the replicated kv head taken as
     ``r % n_kv_heads``, MLA's ``q_a_norm`` over the rank's columns, its
-    ``wkv_b`` heads at the next rank's offset and its ``wo`` sum skipped
-    (the forward's logits), the gold logit taken from every rank (the
-    loss) and the column-split leaves' gradients summed over ``model``
-    (the gradients)."""
+    ``wkv_b`` heads at the next rank's offset and its ``wo`` sum skipped,
+    Hymba's ``w_in`` block taken as the rank's ``x`` and ``z`` and its
+    ``w_bcdt`` and ``w_out`` sums skipped, the mLSTM output normed over
+    the rank's columns and the sLSTM ``w_down`` sum skipped (the forward's
+    logits), the gold logit taken from every rank (the loss) and the
+    column-split leaves' gradients summed over ``model`` (the
+    gradients)."""
     arch, shape = tp_ranks.FAULT_CASE[fault]
     rk = tp_ranks.ref_key(arch, shape)
     ref = runs["ref"]
@@ -325,7 +372,7 @@ def test_planted_faults_miss(runs, fault):
             misses.append(abs(float(res[f"{fault}|loss"]) - want)
                           / (F32_LOSS * abs(want)))
         else:
-            want = _ref_named(arch, tp_ranks.unflatten(ref, f"{rk}|g"))
+            want = _ref_grads(runs, arch, shape)
             misses.append(_miss(_grads(res, fault, want), want))
     assert max(misses) >= CONTROL_FACTOR, (fault, misses)
 
@@ -415,3 +462,41 @@ def test_converted_cache_keeps_the_rank_heads(runs, case):
                 whole = runs["data"][f"cache-{arch}|blocks|{k}"][i]
                 np.testing.assert_array_equal(
                     res[f"{key}|converted|{i}|{k}"], whole[:, :, heads])
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[0] in
+                                  tp_ranks.HYBRID + tp_ranks.XLSTM],
+                         ids=[i for c, i in zip(CASES, IDS) if c[0] in
+                              tp_ranks.HYBRID + tp_ranks.XLSTM])
+def test_converted_cache_keeps_the_rank_channels(runs, case):
+    """``convert.cache_from_reference(..., mesh=)`` of a Hymba or xLSTM
+    model: a Hymba layer's ``k`` and ``v`` are the reference cache's kv
+    heads of the stated layout (the ``model`` block on ``(2, 2, 2)``, the
+    head ``r // 2`` on ``(1, 2, 4)``) and its ``conv`` and ``ssm`` the
+    rank's ``model`` block of the ``di`` channels; an xLSTM layer's state is
+    the reference's whole."""
+    arch, shape = case
+    cfg = get_config(arch, smoke=True)
+    m, kvh = shape[-1], cfg.n_kv_heads
+    key = f"{arch}|{tp_ranks.mesh_name(shape)}"
+    layers = tp_ranks.unflat_tree(runs["data"], f"cache-{arch}")["layers"]
+    for r, res in enumerate(runs["ranks"]):
+        c = _coord(r, shape)["model"]
+        heads = slice(c * kvh // m, (c + 1) * kvh // m) if kvh % m == 0 \
+            else slice(c // (m // kvh), c // (m // kvh) + 1)
+        for i, layer in enumerate(layers):
+            got = {k.rsplit(f"|converted|{i}|", 1)[1]: v
+                   for k, v in res.items()
+                   if k.startswith(f"{key}|converted|{i}|")}
+            if cfg.family == "ssm":
+                want = {f"state|{k}": v for k, v in layer["state"].items()}
+            else:
+                n = cfg.d_model * cfg.ssm.expand // m
+                ch = slice(c * n, (c + 1) * n)
+                want = {"attn|k": layer["attn"]["k"][:, :, heads],
+                        "attn|v": layer["attn"]["v"][:, :, heads],
+                        "ssm|conv": layer["ssm"]["conv"][:, :, ch],
+                        "ssm|ssm": layer["ssm"]["ssm"][:, ch]}
+            assert set(got) == set(want), (i, sorted(got))
+            for k, w in want.items():
+                np.testing.assert_array_equal(got[k], w)

@@ -25,12 +25,20 @@ from mesh_ranks import AXES, REPO, _reference_serve, unflatten
 from mesh_train_ranks import _mesh_grads
 
 # the dense family (GQA with 2 kv heads of 4; Granite's MQA: its one kv head
-# replicated), the MoE family's GQA beside teshu2, and DeepSeek-V2 (its
-# shared experts, layer 0 and MLA split: 4 heads, q_lora 48, r + dr 48)
+# replicated), the MoE family's GQA beside teshu2, DeepSeek-V2 (its shared
+# experts, layer 0 and MLA split: 4 heads, q_lora 48, r + dr 48), Hymba
+# (the Mamba head's 128 channels split, its attention's 4 / 2 heads) and
+# xLSTM (an mLSTM and an sLSTM layer, their projections split)
 ARCHS = ("qwen2.5-14b", "granite-34b", "qwen3-moe-235b-a22b",
-         "deepseek-v2-236b")
+         "deepseek-v2-236b", "hymba-1.5b", "xlstm-350m")
 DENSE = ARCHS[:2]
-MLA = ARCHS[3:]
+MLA = ARCHS[3:4]
+HYBRID = ARCHS[4:5]
+XLSTM = ARCHS[5:]
+# the archs whose reference runs once (no EP axes), and those prefilled in
+# two chunks
+ONCE = DENSE + HYBRID + XLSTM
+CHUNKED = MLA + HYBRID + XLSTM
 # model 2 (each rank 2 q heads, one kv head of its own) and model 4 (one q
 # head; Qwen2.5-14B's 2 kv heads each shared by 2 ranks)
 MESHES = ((2, 2, 2), (1, 2, 4))
@@ -38,7 +46,8 @@ B, S = 8, 12
 CHUNK = 7                 # an MLA model's two-chunk prefill: 7, then 5
 SERVE = dict(batch=8, prompt_len=12, gen_len=5, max_len=32, seed=0)
 FAULTS = ("no_psum", "kv_head_mod", "gold_everywhere", "column_model_sum",
-          "q_norm_local", "wkv_b_offset", "mla_no_sum")
+          "q_norm_local", "wkv_b_offset", "mla_no_sum", "mamba_xz_block",
+          "bcdt_no_sum", "mamba_no_sum", "mlstm_norm_local", "slstm_no_sum")
 # the planted faults, each on the mesh and arch where it bites
 FAULT_CASE = {"no_psum": ("qwen2.5-14b", (2, 2, 2)),
               "kv_head_mod": ("qwen2.5-14b", (1, 2, 4)),
@@ -46,11 +55,17 @@ FAULT_CASE = {"no_psum": ("qwen2.5-14b", (2, 2, 2)),
               "column_model_sum": ("qwen2.5-14b", (2, 2, 2)),
               "q_norm_local": ("deepseek-v2-236b", (1, 2, 4)),
               "wkv_b_offset": ("deepseek-v2-236b", (2, 2, 2)),
-              "mla_no_sum": ("deepseek-v2-236b", (2, 2, 2))}
+              "mla_no_sum": ("deepseek-v2-236b", (2, 2, 2)),
+              "mamba_xz_block": ("hymba-1.5b", (2, 2, 2)),
+              "bcdt_no_sum": ("hymba-1.5b", (2, 2, 2)),
+              "mamba_no_sum": ("hymba-1.5b", (1, 2, 4)),
+              "mlstm_norm_local": ("xlstm-350m", (1, 2, 4)),
+              "slstm_no_sum": ("xlstm-350m", (2, 2, 2))}
 # the faults read off the forward's logits (the others off the loss or the
 # gradients)
 LOGIT_FAULTS = ("no_psum", "kv_head_mod", "q_norm_local", "wkv_b_offset",
-                "mla_no_sum")
+                "mla_no_sum", "mamba_xz_block", "bcdt_no_sum", "mamba_no_sum",
+                "mlstm_norm_local", "slstm_no_sum")
 # train(mesh=...) on (2, 2, 2) with a checkpoint every 3 steps; steps 3-5
 # resumed from it on a mesh of another model size, for each arch of
 # CKPT_ARCHS (DeepSeek-V2's MoE layers route one row a group on all three
@@ -63,6 +78,31 @@ RESTORE_MESHES = ((1, 2, 4), (2, 4, 1))
 
 def mesh_name(shape) -> str:
     return "x".join(map(str, shape))
+
+
+def flat_tree(tree, prefix: str) -> dict:
+    """``flat`` of a tree whose lists (a hybrid's or an xLSTM's
+    ``layers``) become dicts keyed by index (:func:`unflat_tree`'s
+    inverse)."""
+    from mesh_train_ranks import flat
+
+    def dicts(t):
+        if isinstance(t, (list, tuple)):
+            return {str(i): dicts(v) for i, v in enumerate(t)}
+        return {k: dicts(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t
+    return flat(dicts(tree), prefix)
+
+
+def unflat_tree(data: dict, prefix: str) -> dict:
+    """``unflatten`` with each dict keyed ``"0"``, ``"1"``, ... a list."""
+    def lists(t):
+        if not isinstance(t, dict):
+            return t
+        if t and all(k.isdigit() for k in t):
+            return [lists(t[str(i)]) for i in range(len(t))]
+        return {k: lists(v) for k, v in t.items()}
+    return lists(unflatten(data, prefix))
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +133,6 @@ def reference_tp(inputs: str, out: str) -> None:
     import jax
     import jax.numpy as jnp
 
-    from mesh_train_ranks import flat
     from repro.configs import get_config
     from repro.launch.mesh import make_mesh
     from repro.launch.shardings import ep_axes_for
@@ -102,13 +141,13 @@ def reference_tp(inputs: str, out: str) -> None:
     res = {}
     for arch in ARCHS:
         cfg = get_config(arch, smoke=True)
-        p = jax.tree.map(jnp.asarray, unflatten(data, f"p-{arch}"))
+        p = jax.tree.map(jnp.asarray, unflat_tree(data, f"p-{arch}"))
         batch = {k: jnp.asarray(data[f"batch-{arch}|{k}"])
                  for k in ("tokens", "labels")}
-        for shape in (MESHES[:1] if arch in DENSE else MESHES):
+        for shape in (MESHES[:1] if arch in ONCE else MESHES):
             mesh = make_mesh(shape, AXES)
-            ep = ep_axes_for(mesh) if arch not in DENSE else ()
-            key = arch if arch in DENSE else f"{arch}|{mesh_name(shape)}"
+            ep = ep_axes_for(mesh) if arch not in ONCE else ()
+            key = ref_key(arch, shape)
             with mesh:
                 logits = jax.jit(lambda p, t: lm.forward(
                     p, cfg, tokens=t, ep_axes=ep)[0])(p, batch["tokens"])
@@ -117,10 +156,10 @@ def reference_tp(inputs: str, out: str) -> None:
                         p, batch)
             res[f"{key}|logits"] = np.asarray(logits, np.float32)
             res[f"{key}|loss"] = np.asarray(loss)
-            res.update(flat(jax.tree.map(np.asarray, g), f"{key}|g"))
+            res.update(flat_tree(jax.tree.map(np.asarray, g), f"{key}|g"))
             gen, last = _reference_serve(arch, p, mesh, **SERVE)
             res[f"{key}|tokens"], res[f"{key}|serve_logits"] = gen, last
-            if arch in MLA:
+            if arch in CHUNKED:
                 with mesh:
                     res[f"{key}|chunked"] = np.asarray(jax.jit(
                         lambda p, t: _two_chunks(lm, p, cfg, t, ep))(
@@ -141,7 +180,7 @@ def _two_chunks(lm, params, cfg, tokens, ep):
 
 
 def ref_key(arch: str, shape) -> str:
-    return arch if arch in DENSE else f"{arch}|{mesh_name(shape)}"
+    return arch if arch in ONCE else f"{arch}|{mesh_name(shape)}"
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +231,7 @@ def _tp_rank(inputs: str) -> dict:
     from repro_torch.launch import shardings
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import serve
-    from repro_torch.models import layers, lm
+    from repro_torch.models import hybrid, layers, lm, ssm
     from repro_torch.models.convert import (cache_from_reference,
                                             lm_params_from_reference)
     data = dict(np.load(inputs))
@@ -201,7 +240,7 @@ def _tp_rank(inputs: str) -> dict:
 
     def model_of(arch, mesh):
         return lm_params_from_reference(get_config(arch, smoke=True),
-                                        unflatten(data, f"p-{arch}"),
+                                        unflat_tree(data, f"p-{arch}"),
                                         device="cpu", mesh=mesh)
 
     def batch_of(arch):
@@ -234,18 +273,17 @@ def _tp_rank(inputs: str) -> dict:
             cache = lm.init_cache(model.cfg, 1, 4, device="cpu", mesh=mesh,
                                   specs=model.specs)
             for i, layer in enumerate(cache["layers"]):
-                res[f"{key}|cache|{i}"] = np.array(
-                    layer["latent" if "latent" in layer else "k"].shape)
-            if arch in DENSE + MLA:
+                res.update({f"{key}|cache|{i}|{k}": np.array(v.shape)
+                            for k, v in _leaves(layer).items()})
+            if arch in DENSE + MLA + HYBRID + XLSTM:
                 conv = cache_from_reference(
-                    model.cfg, unflatten(data, f"cache-{arch}"),
+                    model.cfg, unflat_tree(data, f"cache-{arch}"),
                     device="cpu", mesh=mesh, specs=model.specs)
                 for i, layer in enumerate(conv["layers"]):
-                    for k in ("latent", "k_rope") if arch in MLA \
-                            else ("k", "v"):
-                        res[f"{key}|converted|{i}|{k}"] = layer[k].numpy()
+                    res.update({f"{key}|converted|{i}|{k}": v.numpy()
+                                for k, v in _leaves(layer).items()})
             res[f"{key}|logits"] = forward(model, arch, mesh)
-            if arch in MLA:
+            if arch in CHUNKED:
                 res[f"{key}|chunked"] = two_chunks(model, arch, mesh)
             gen, stats = serve(arch, device="cpu", params=model, mesh=mesh,
                                **SERVE)
@@ -261,8 +299,11 @@ def _tp_rank(inputs: str) -> dict:
         mesh = meshes[shape]
         model = model_of(arch, mesh)
         real = (layers.tp_sum, shardings.kv_head_of, lm._gold_logit,
-                shardings.split_leaves, layers.MLA._q_a)
-        if fault == "no_psum":
+                shardings.split_leaves, layers.MLA._q_a, hybrid._x_and_z,
+                hybrid.tp_sum, ssm._mlstm_out, ssm._down)
+        if fault in _MIXER_FAULTS:
+            _plant_mixer_fault(fault, model.cfg, real)
+        elif fault == "no_psum":
             layers.tp_sum = lambda x, mesh_: x
         elif fault == "kv_head_mod":
             shardings.kv_head_of = lambda r, m, kvh: r % kvh
@@ -303,7 +344,8 @@ def _tp_rank(inputs: str) -> dict:
                 res.update({f"{fault}|g|{n}": v for n, v in g.items()})
         finally:
             (layers.tp_sum, shardings.kv_head_of, lm._gold_logit,
-             shardings.split_leaves, layers.MLA._q_a) = real
+             shardings.split_leaves, layers.MLA._q_a, hybrid._x_and_z,
+             hybrid.tp_sum, ssm._mlstm_out, ssm._down) = real
 
     # a checkpoint of train(mesh=...) on (2, 2, 2) restored onto meshes of
     # another model size
@@ -348,6 +390,60 @@ def _tp_rank(inputs: str) -> dict:
             res[f"resumed|{name}|loss"] = np.array([h["loss"]
                                                    for h in got["history"]])
     return res
+
+
+def _leaves(layer: dict, pre: str = "") -> dict:
+    """``{"k": tensor, "ssm|conv": tensor, ...}`` of a port cache layer's
+    tensors (its ``len`` left out)."""
+    out = {}
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{pre}{k}|"))
+        elif k != "len":
+            out[pre + k] = v
+    return out
+
+
+_MIXER_FAULTS = ("mamba_xz_block", "bcdt_no_sum", "mamba_no_sum",
+                 "mlstm_norm_local", "slstm_no_sum")
+
+
+def _plant_mixer_fault(fault: str, cfg, real: tuple) -> None:
+    """One of the mixers' planted faults, patched into ``hybrid`` or
+    ``ssm`` (``real`` the originals, restored by the caller):
+    ``mamba_xz_block`` takes ``w_in``'s contiguous block of the rank as
+    its ``x`` and ``z``; ``bcdt_no_sum`` and ``mamba_no_sum`` skip the sum
+    of ``w_bcdt``'s ``[.., 2n + 1]`` and ``w_out``'s ``[.., d]`` partial
+    products; ``mlstm_norm_local`` norms the mLSTM output over the rank's
+    columns before ``w_down``; ``slstm_no_sum`` skips the sLSTM
+    ``w_down`` sum."""
+    import sys
+
+    from repro_torch.models import hybrid, layers, ssm
+    tp_sum = real[0]
+    if fault == "mamba_xz_block":
+        hybrid._x_and_z = lambda p, x, di, c, mesh: (x @ p.w_in).chunk(
+            2, dim=-1)
+    elif fault in ("bcdt_no_sum", "mamba_no_sum"):
+        skip = 2 * cfg.ssm.state_dim + 1 if fault == "bcdt_no_sum" \
+            else cfg.d_model
+        hybrid.tp_sum = lambda x, mesh: x if x.shape[-1] == skip \
+            else tp_sum(x, mesh)
+    elif fault == "mlstm_norm_local":
+        def local_norm(p, cfg_, out, zg, dtype, mesh=None):
+            rows = p.w_down.shape[0]
+            cols = slice(mesh.coord("model") * rows,
+                         (mesh.coord("model") + 1) * rows)
+            y = layers.rms_norm(out[..., cols].to(dtype), p.norm[cols],
+                                cfg_.norm_eps) * ssm.silu(zg[..., cols])
+            return tp_sum(y @ p.w_down, mesh)
+        ssm._mlstm_out = local_norm
+    else:
+        def no_slstm_sum(w_down, y, mesh):
+            if sys._getframe(1).f_code.co_name != "slstm_forward":
+                return real[8](w_down, y, mesh)
+            return layers.tp_block(y, w_down.shape[0], mesh) @ w_down
+        ssm._down = no_slstm_sum
 
 
 def _next_rank_heads(model, whole, mesh) -> None:
