@@ -51,7 +51,20 @@ exits non-zero and prints no result.  In order it
    on the device too), with a window past ``valid_len``, and on
    ``decode_split``; the window one 64-position tile wider must fail, and
    the step is timed windowed, unwindowed and beside SDPA on the window's
-   slice of the cache.  The ordered fold is held bit for bit (NaN = NaN) to its plain
+   slice of the cache.  The pieces of a GQA layer split over ``model`` by
+   positions (its heads do not divide ``model``; the card's one rank never
+   splits, so the split itself is held on the CPU over gloo ranks): the
+   decode kernel's log-sum-exp route on both kernels (its float32 output
+   and its ``lse``) against the plain version at the Qwen2.5-14B and the
+   windowed Hymba decode shapes, with the LSE in base 2 as a control;
+   each of those caches cut into the 16 blocks of ``T`` that model 16
+   gives its ranks, each block decoded on that route (an empty block
+   returns zeros and ``-inf`` with no launch) and the blocks merged by
+   their LSE, held to one whole launch, with the base-2 LSE as a control
+   that must fail, and timed beside it; and the dense prefill's query rows
+   cut as ``shardings.position_blocks`` cuts them over 16 ranks, each
+   block through flash over the key rows up to its end, held to the whole
+   launch and timed beside it.  The ordered fold is held bit for bit (NaN = NaN) to its plain
    version for sum, min and max on segments of 1..64 rows, and for sum on
    the global stage's own Zipf layout (one segment of 263,532 rows; the
    plain version runs on a CPU copy); two adjacent rows of that segment
@@ -437,6 +450,29 @@ DECODE_TIMED = {"serving decode": "decode_attention",
                 "Hymba step, window 1,024": "decode_attention_hymba"}
 DECODE_WINDOW_FAULT = "Hymba step, window 1,024"   # one 64-position tile wider
 SHARP = 4.0
+# the pieces of a GQA layer split over model by positions (its heads do not
+# divide model: Qwen2.5-14B's 40 and Hymba's 25 on 16), which the card's
+# one rank never runs as a mesh: the decode kernel's log-sum-exp route on
+# both kernels (bf16 q runs decode_tma, float32 q decode_split) ...
+LSE_CASES = [  # name, B, H, KVH, T, d, valid_len, q dtype (cache: bf16), window
+    ("serving decode, LSE", 4, 40, 8, 2048, 128, 1056, "bfloat16", 0),
+    ("serving decode, LSE, decode_split (float32 q)", 4, 40, 8, 2048, 128,
+     1056, "float32", 0),
+    ("Hymba step, window 1,024, LSE", 4, 25, 5, 4160, 64, 4128, "bfloat16",
+     1024),
+    ("Hymba step, window 1,024, LSE, decode_split (float32 q)", 4, 25, 5,
+     4160, 64, 4128, "float32", 1024)]
+# ... one card's cache cut into the blocks of T that model 16 gives its
+# ranks, each block decoded on the LSE route and the blocks merged, against
+# one whole launch (the row of the kernels line that each one fills) ...
+SPLIT_MODEL = 16
+SPLIT_CASES = {"serving decode, LSE": "decode_attention_lse",
+               "Hymba step, window 1,024, LSE": "decode_attention_lse_hymba"}
+SPLIT_CONTROL = "the blocks' log-sum-exps taken in base 2 (lse / ln 2)"
+# ... and the dense prefill's query rows cut as model 16's ranks take them
+# (blocks r and 31 - r of 32), each block through flash over the key rows
+# up to its end, against the whole launch
+ZIGZAG_CASE = "serving prefill"
 
 MOE_ARCH = "qwen3-moe-235b-a22b"     # the MoE slice: full width, depth cut
 MOE_LAYERS = 12                      # of 94: 62.2 GB of bf16 weights
@@ -710,6 +746,14 @@ def trace_phase(dev) -> dict:
         decode_attention(q, kc, vc, vl, window=win)
         paths["decode"][name] = decode_kernel_ran(
             lambda: decode_attention(q, kc, vc, vl, window=win))
+    paths["decode_lse"] = {}
+    for name, bb, hh, kk, tt, dd, valid, qdt, win in LSE_CASES:
+        q = randn((bb, hh, dd), getattr(torch, qdt))
+        kc, vc = randn((bb, tt, kk, dd)), randn((bb, tt, kk, dd))
+        decode_attention(q, kc, vc, valid, window=win, return_lse=True)
+        paths["decode_lse"][name] = decode_kernel_ran(
+            lambda: decode_attention(q, kc, vc, valid, window=win,
+                                     return_lse=True))
     del q, kc, vc
     torch.cuda.empty_cache()
     log(f"trace flash and decode cases: {json.dumps(paths)}")
@@ -1162,6 +1206,169 @@ def attention_phase(dev, paths: dict) -> dict:
         del got, plain, tol, kv
     del prev, q, kc, vc
     del scratch
+    torch.cuda.empty_cache()
+    return rows
+
+
+LSE_TOL = ("lse: ref.lse_tolerance, 2^-24 (attended + d) (1 + |plain|); "
+           "out (float32): 1e-5 (1 + |plain|)")
+SPLIT_TOL = ("against the whole launch's bf16 output: ref.attention_"
+             "tolerance, 2^-7 |whole| + 2^-14 A")
+ZIGZAG_TOL = ("against the whole launch: ref.attention_tolerance with "
+              "rounds_p, 2^-7 |whole| + (2^-14 + 2^-8 (1 + 2^-8)) A")
+
+
+def split_phase(dev, paths: dict) -> dict:
+    """The kernels of a GQA layer split over ``model`` by positions, on
+    one card (``shardings.attention_split``: ``"positions"``; on the
+    card's one rank every layer splits by heads, so the split itself is
+    held on the CPU over gloo ranks): the decode kernel's log-sum-exp
+    route on both kernels against the plain version, one card's cache cut
+    into the ``SPLIT_MODEL`` blocks of ``T`` that model 16 gives its ranks
+    (each decoded on that route by ``block_window``'s rows and window, the
+    empty ones returned by the wrapper with no launch, the blocks merged
+    by ``merge_blocks``) against one whole launch, with a planted base-2
+    LSE that must fail, and the dense prefill's query rows cut as
+    ``shardings.position_blocks`` cuts them over 16, each block through
+    flash, against the whole launch.  Returns the rows of the kernels
+    line's ``lse`` and ``zigzag`` entries."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import (block_window,
+                                                      decode_attention,
+                                                      merge_blocks)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.shardings import position_blocks
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(5)
+    scratch = torch.ones(2 * L2_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def flush():
+        scratch.sum()
+
+    def randn(shape, dtype=bf16):
+        return torch.randn(shape, dtype=dtype, device=dev, generator=gen)
+
+    rows, inputs = {}, {}
+    for name, bb, hh, kk, tt, d, valid, qdt, win in LSE_CASES:
+        q = randn((bb, hh, d), getattr(torch, qdt))
+        kc, vc = randn((bb, tt, kk, d)), randn((bb, tt, kk, d))
+        out, lse = decode_attention(q, kc, vc, valid, window=win,
+                                    return_lse=True)
+        path = paths["decode_lse"][name]
+        if qdt == "bfloat16":
+            assert path == ("decode_tma",), (name, path)
+        else:
+            assert path[0] == "decode_split", (name, path)
+        p_out, p_lse = ref.decode_attention_ref(q, kc, vc, valid, window=win,
+                                                return_lse=True)
+        err, share = _held(out, p_out, ref.decode_attention_tolerance(
+            q, kc, vc, valid, p_out, window=win))
+        ltol = ref.lse_tolerance(p_lse, min(valid, win) if win else valid, d)
+        lerr, lshare = _held(lse, p_lse, ltol)
+        _, fshare = _held(lse / math.log(2), p_lse, ltol)
+        assert out.dtype == lse.dtype == torch.float32
+        assert tuple(lse.shape) == (bb, hh)
+        assert bool(torch.isfinite(out).all() & torch.isfinite(lse).all())
+        assert share <= 1.0 and lshare <= 1.0, (name, share, lshare)
+        assert fshare > 1.0, f"the LSE check passes a base-2 LSE: {name}"
+        # one launch on the route against the same call off it
+        ms = time_ms(lambda: decode_attention(q, kc, vc, valid, window=win,
+                                              return_lse=True),
+                     flush=flush, spin=True)
+        off_ms = time_ms(lambda: decode_attention(q, kc, vc, valid,
+                                                  window=win),
+                         flush=flush, spin=True)
+        log(f"kernel decode {name} q={tuple(q.shape)} cache={tuple(kc.shape)}"
+            f" valid_len={valid} window={win} ran {'+'.join(path)}: out "
+            f"max_abs_err={err!r} (bound share {share!r}), lse max_abs_err="
+            f"{lerr!r} (bound share {lshare!r}; base 2: {fshare!r}; "
+            f"{LSE_TOL}); {ms!r} ms, off the route {off_ms!r} ms")
+        inputs[name] = (q, kc, vc, valid, win, path, lerr, ms, off_ms)
+        del p_out, p_lse, out, lse
+
+    for name, key in SPLIT_CASES.items():
+        q, kc, vc, valid, win, path, lerr, route_ms, off_ms = inputs[name]
+        t = kc.shape[1]
+        n = t // SPLIT_MODEL
+        blocks = [(kc[:, i * n:(i + 1) * n].contiguous(),
+                   vc[:, i * n:(i + 1) * n].contiguous(),
+                   *block_window(valid, i * n, n, win))
+                  for i in range(SPLIT_MODEL)]
+
+        def split(lse_scale: float = 1.0, blocks=blocks, q=q):
+            outs, lses = [], []
+            for kb, vb, v_r, w_r in blocks:   # an empty block: no launch
+                o, lse = decode_attention(q, kb, vb, v_r, window=w_r,
+                                          return_lse=True)
+                outs.append(o)
+                lses.append(lse * lse_scale)
+            return merge_blocks(torch.stack(outs), torch.stack(lses))
+
+        before = decode_attention.launches
+        got = split()
+        launched = decode_attention.launches - before
+        assert launched == sum(b[2] > 0 for b in blocks), launched
+        whole = decode_attention(q, kc, vc, valid, window=win)
+        a = ref.decode_attention_ref(q.float(), kc, vc.abs(), valid,
+                                     window=win)
+        tol = ref.attention_tolerance(whole, a)
+        err, share = _held(got, whole, tol)
+        _, fshare = _held(split(1 / math.log(2)), whole, tol)
+        assert share <= 1.0, f"split decode {name}: {share} of the bound"
+        assert fshare > 1.0, f"the split check passes a base-2 LSE: {name}"
+        row = dict(blocks=SPLIT_MODEL, launches=launched,
+                   rows_a_block=n, valid_len=valid, window=win,
+                   path="+".join(path), max_abs_err=err, tolerance=SPLIT_TOL,
+                   bound_share=share, control=SPLIT_CONTROL,
+                   control_share=fshare, lse_max_abs_err=lerr,
+                   route_ms=route_ms, off_route_ms=off_ms,
+                   ms=time_ms(split, flush=flush, spin=True),
+                   whole_ms=time_ms(lambda: decode_attention(
+                       q, kc, vc, valid, window=win), flush=flush, spin=True))
+        rows[key] = row
+        log(f"kernel decode split {name} over {SPLIT_MODEL} blocks of {n} "
+            f"rows: {json.dumps(row)}")
+        del blocks, got, whole, a, tol
+    del inputs
+
+    # the dense prefill's rows as model 16's ranks take them
+    _, bhq, bhkv, sq, skv, d, causal, qdt, win = next(
+        c for c in FLASH_CASES if c[0] == ZIGZAG_CASE)
+    q, k, v = randn((bhq, sq, d)), randn((bhkv, skv, d)), randn((bhkv, skv, d))
+    whole = flash_attention(q, k, v, causal=True)
+    parts = []
+    for pair in position_blocks(sq, SPLIT_MODEL):
+        for lo, hi in pair:
+            end = skv - sq + hi
+            parts.append((lo, q[:, lo:hi].contiguous(),
+                          k[:, :end].contiguous(), v[:, :end].contiguous()))
+    parts.sort(key=lambda x: x[0])
+
+    def zigzag():
+        return torch.cat([flash_attention(qb, kb, vb, causal=True)
+                          for _, qb, kb, vb in parts], dim=1)
+    before = flash_attention.launches
+    got = zigzag()
+    launched = flash_attention.launches - before
+    a = ref.flash_attention_ref(q.float(), k, v.abs(), causal=True)
+    err, share = _held(got, whole, ref.attention_tolerance(whole, a,
+                                                           rounds_p=True))
+    assert got.shape == whole.shape and share <= 1.0, share
+    row = dict(blocks=len(parts), launches=launched,
+               bit_for_bit=bool(torch.equal(got, whole)), max_abs_err=err,
+               tolerance=ZIGZAG_TOL, bound_share=share,
+               ms=time_ms(zigzag, spin=True),
+               whole_ms=time_ms(lambda: flash_attention(q, k, v, causal=True),
+                                spin=True))
+    rows["flash_attention_zigzag"] = row
+    log(f"kernel flash zig-zag rows of {ZIGZAG_CASE} over {SPLIT_MODEL} "
+        f"ranks: {json.dumps(row)}")
+    del q, k, v, whole, parts, got, a, scratch
     torch.cuda.empty_cache()
     return rows
 
@@ -4716,6 +4923,7 @@ def main() -> int:
     t0 = time.perf_counter()
     krows = kernel_phase(dev)
     krows.update(attention_phase(dev, paths))
+    krows.update(split_phase(dev, paths))
     krows.update(gmm_phase(dev))
     krows.update(slstm_phase(dev))
     log(f"kernel phase: {time.perf_counter() - t0:.2f} s")
@@ -4824,6 +5032,17 @@ def main() -> int:
                 "launches": dv["launches"]["gmm"] + dv["ep"]["launches"]["gmm"],
                 **{x: d[x] for x in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")}}
+        split = {x: krows[f"{k.__name__}_{x}"] for x in
+                 ("lse", "lse_hymba", "zigzag")
+                 if f"{k.__name__}_{x}" in krows}
+        if split:             # the pieces of the split by positions
+            line[-1]["positions_split"] = {x: {
+                y: r[y] for y in ("blocks", "launches", "max_abs_err",
+                                  "bound_share", "ms", "whole_ms",
+                                  "route_ms", "off_route_ms",
+                                  "lse_max_abs_err", "control_share",
+                                  "bit_for_bit") if y in r}
+                for x, r in split.items()}
         w = krows.get(f"{k.__name__}_hymba")
         if w is not None:     # flash and decode with Hymba's window
             line[-1]["window"] = {

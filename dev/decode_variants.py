@@ -125,8 +125,8 @@ def build_variants() -> dict:
             raise RuntimeError(f"variant {name!r} does not build:\n{log}")
         f = ctypes.CDLL(str(so)).teshu_decode_attention_tma
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        f.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64,
-                      i64, i64, ctypes.c_float, p]
+        f.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64,
+                      i64, i64, i64, ctypes.c_float, p]
         f.restype = ctypes.c_int
         libs[name] = f
     return libs
@@ -143,8 +143,9 @@ def _launch(f, q, k, v, valid):
     ml = torch.empty((pairs, grid, g, 2), dtype=torch.float32, device=q.device)
     cnt = mod._counters(q.device, pairs)
     _build.check(f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   acc.data_ptr(), ml.data_ptr(), cnt.data_ptr(), None, valid,
-                   b, t, kvh, g, d, 0, grid, d ** -0.5, _build.stream_of(q)),
+                   acc.data_ptr(), ml.data_ptr(), cnt.data_ptr(), None, None,
+                   valid, b, t, kvh, g, d, 0, grid, d ** -0.5,
+                   _build.stream_of(q)),
                  "decode variant")
     return out
 

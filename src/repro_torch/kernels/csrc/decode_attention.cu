@@ -74,6 +74,15 @@
 //   columns) keeps its accumulator in registers across tiles.  Positions
 //   past valid_len, and left of a window, are copied as zeros and masked;
 //   decode_combine merges whatever positions the splits covered.
+//
+// The log-sum-exp route (both kernels): given an lse pointer, each (batch,
+// q head) row also gets the natural log of the sum of exp(scale q.k) over
+// the positions it attended (from the same float32 max and sum as its
+// output; decode_tma works in base 2 and converts before it writes), and
+// the output is written in float32 rather than in q's dtype.  A caller
+// that splits a cache into blocks launches each block on this route and
+// merges the blocks' outputs by their LSE (models/layers.py), with no
+// rounding of a block's output between.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -156,7 +165,8 @@ template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(kThreads)
 decode_split(const TQ* __restrict__ q, const TKV* __restrict__ k,
              const TKV* __restrict__ v, TQ* __restrict__ out,
-             float* __restrict__ part_acc, float* __restrict__ part_ml,
+             float* __restrict__ out_f32, float* __restrict__ part_acc,
+             float* __restrict__ part_ml, float* __restrict__ lse,
              int t_len, int kvh_count, int g, int d, int valid, int first,
              int tiles_per_split, float scale) {
   constexpr int kVec = 16 / sizeof(TKV);          // cache values per unit
@@ -318,9 +328,12 @@ decode_split(const TQ* __restrict__ q, const TKV* __restrict__ k,
     if (num_splits == 1) {
       const float l = l_s[r];
       const float den = l == 0.0f ? 1.0f : l;
-      TQ* o = out + static_cast<int64_t>(bk) * gd + col;
+      const int64_t at = static_cast<int64_t>(bk) * gd + col;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) store(o + e, acc[j][e] / den);
+      for (int e = 0; e < 8; ++e) {
+        if (out_f32 != nullptr) out_f32[at + e] = acc[j][e] / den;
+        else store(out + at + e, acc[j][e] / den);
+      }
     } else {
       float* o = part_acc + slot * gd + col;
 #pragma unroll
@@ -332,6 +345,9 @@ decode_split(const TQ* __restrict__ q, const TKV* __restrict__ k,
       part_ml[(slot * g + r) * 2] = m_s[r];
       part_ml[(slot * g + r) * 2 + 1] = l_s[r];
     }
+  } else if (lse != nullptr) {   // natural units: the scores are scaled by e
+    for (int r = tid; r < g; r += kThreads)
+      lse[static_cast<int64_t>(bk) * g + r] = m_s[r] + logf(l_s[r]);
   }
 }
 
@@ -341,6 +357,7 @@ template <typename TQ>
 __global__ void __launch_bounds__(kThreads)
 decode_combine(const float* __restrict__ part_acc,
                const float* __restrict__ part_ml, TQ* __restrict__ out,
+               float* __restrict__ out_f32, float* __restrict__ lse,
                int g, int d, int num_splits) {
   const int bk = blockIdx.x;
   const int gd = g * d;
@@ -356,16 +373,20 @@ decode_combine(const float* __restrict__ part_acc,
       l = fmaf(w, part_ml[((slot0 + s) * g + r) * 2 + 1], l);
       a = fmaf(w, part_acc[(slot0 + s) * gd + i], a);
     }
-    store(out + static_cast<int64_t>(bk) * gd + i, a / (l == 0.0f ? 1.0f : l));
+    const int64_t at = static_cast<int64_t>(bk) * gd + i;
+    if (out_f32 != nullptr) out_f32[at] = a / (l == 0.0f ? 1.0f : l);
+    else store(out + at, a / (l == 0.0f ? 1.0f : l));
+    if (lse != nullptr && i == r * d)
+      lse[static_cast<int64_t>(bk) * g + r] = mx + logf(l);
   }
 }
 
 template <typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, void* out,
-           void* part_acc, void* part_ml, int64_t batch, int64_t t_len,
-           int64_t kvh, int64_t g, int64_t d, int64_t valid, int64_t first,
-           int64_t tiles_per_split, int64_t num_splits, float scale,
-           cudaStream_t st) {
+           void* part_acc, void* part_ml, void* lse, int64_t batch,
+           int64_t t_len, int64_t kvh, int64_t g, int64_t d, int64_t valid,
+           int64_t first, int64_t tiles_per_split, int64_t num_splits,
+           float scale, cudaStream_t st) {
   auto kern = decode_split<TQ, TKV>;
   static bool ready = false;   // per instantiation: allow > 48 KB once
   if (!ready) {
@@ -377,19 +398,22 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const size_t smem = static_cast<size_t>(smem_bytes(g, d, sizeof(TKV)));
   const dim3 grid(static_cast<unsigned>(num_splits),
                   static_cast<unsigned>(batch * kvh));
+  // the log-sum-exp route writes a float32 output
+  TQ* out_q = lse != nullptr ? nullptr : static_cast<TQ*>(out);
+  float* out_f = lse != nullptr ? static_cast<float*>(out) : nullptr;
   kern<<<grid, kThreads, smem, st>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), static_cast<TQ*>(out),
+      static_cast<const TKV*>(v), out_q, out_f,
       static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-      static_cast<int>(t_len), static_cast<int>(kvh), static_cast<int>(g),
+      static_cast<float*>(lse), static_cast<int>(t_len), static_cast<int>(kvh), static_cast<int>(g),
       static_cast<int>(d), static_cast<int>(valid), static_cast<int>(first),
       static_cast<int>(tiles_per_split), scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || num_splits == 1) return static_cast<int>(e);
   decode_combine<TQ><<<static_cast<unsigned>(batch * kvh), kThreads, 0, st>>>(
       static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<TQ*>(out), static_cast<int>(g), static_cast<int>(d),
-      static_cast<int>(num_splits));
+      out_q, out_f, static_cast<float*>(lse), static_cast<int>(g),
+      static_cast<int>(d), static_cast<int>(num_splits));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -452,6 +476,14 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+constexpr float kLn2 = 0.6931471805599453f;
+
+// 4 consecutive outputs a / den in float32, in one 16-byte store
+__device__ __forceinline__ void store4(float* dst, float4 a, float den) {
+  *reinterpret_cast<float4*>(dst) =
+      make_float4(a.x / den, a.y / den, a.z / den, a.w / den);
+}
+
 // 4 consecutive outputs a / den, rounded to bf16, in one 8-byte store
 __device__ __forceinline__ void store4(bf16* dst, float4 a, float den) {
   __nv_bfloat162 lo = __floats2bfloat162_rn(a.x / den, a.y / den);
@@ -470,7 +502,8 @@ __global__ void __launch_bounds__(kMaxTmaThreads, 1)
 decode_tma(const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv,
            const bf16* __restrict__ q, bf16* __restrict__ out,
-           float* __restrict__ part_acc, float* __restrict__ part_ml,
+           float* __restrict__ out_f32, float* __restrict__ part_acc,
+           float* __restrict__ part_ml, float* __restrict__ lse,
            int* __restrict__ counters, const int* __restrict__ valid_ptr,
            int valid_arg, int t_len, int kvh_count, int g, int window,
            float scale_log2) {
@@ -482,11 +515,20 @@ decode_tma(const __grid_constant__ CUtensorMap tk,
   const int pair = blockIdx.y;                    // b * KVH + kvh
   const int split = blockIdx.x;
   const int gd = g * D;
-  bf16* ob = out + static_cast<int64_t>(pair) * gd;
+  // the pair's output: bf16 rows, or float32 rows where out_f32 is given
+  bf16* ob = out_f32 != nullptr ? nullptr : out + static_cast<int64_t>(pair) * gd;
+  float* of = out_f32 != nullptr ? out_f32 + static_cast<int64_t>(pair) * gd : nullptr;
   if (valid < 1 || valid > t_len) {               // only from the device
-    if (split == 0)
-      for (int i = threadIdx.x; i < gd; i += blockDim.x)
-        ob[i] = __float2bfloat16(__int_as_float(0x7fc00000));
+    if (split == 0) {
+      const float qnan = __int_as_float(0x7fc00000);
+      for (int i = threadIdx.x; i < gd; i += blockDim.x) {
+        if (of != nullptr) of[i] = qnan;
+        else ob[i] = __float2bfloat16(qnan);
+      }
+      if (lse != nullptr)
+        for (int i = threadIdx.x; i < g; i += blockDim.x)
+          lse[static_cast<int64_t>(pair) * g + i] = qnan;
+    }
     return;
   }
   // the attended positions [lo, valid): their tiles, from lo's on, are cut
@@ -773,7 +815,10 @@ decode_tma(const __grid_constant__ CUtensorMap tk,
     }
     const float mx = row_ml[2 * row], lsum = row_ml[2 * row + 1];
     if (splits == 1) {
-      store4(ob + 4 * i4, a, lsum == 0.0f ? 1.0f : lsum);
+      if (of != nullptr) store4(of + 4 * i4, a, lsum == 0.0f ? 1.0f : lsum);
+      else store4(ob + 4 * i4, a, lsum == 0.0f ? 1.0f : lsum);
+      if (lse != nullptr && col == 0)     // base 2 to natural
+        lse[static_cast<int64_t>(pair) * g + row] = (mx + log2f(lsum)) * kLn2;
     } else {
       *reinterpret_cast<float4*>(part_acc + slot * gd + 4 * i4) = a;
       if (col == 0)
@@ -819,7 +864,10 @@ decode_tma(const __grid_constant__ CUtensorMap tk,
       a.w = fmaf(f, x.w, a.w * f_old);
       mx = m_new;
     }
-    store4(ob + 4 * i4, a, lsum == 0.0f ? 1.0f : lsum);
+    if (of != nullptr) store4(of + 4 * i4, a, lsum == 0.0f ? 1.0f : lsum);
+    else store4(ob + 4 * i4, a, lsum == 0.0f ? 1.0f : lsum);
+    if (lse != nullptr && 4 * i4 == row * D)   // base 2 to natural
+      lse[static_cast<int64_t>(pair) * g + row] = (mx + log2f(lsum)) * kLn2;
   }
 }
 
@@ -842,7 +890,7 @@ bool cache_map(const void* base, int64_t b, int64_t t, int64_t kvh, int64_t d,
 template <int D, int N8>
 int launch_tma(const void* q, const void* k, const void* v, void* out,
                void* part_acc, void* part_ml, int* counters,
-               const int* valid_ptr, int64_t valid, int64_t batch,
+               const int* valid_ptr, void* lse, int64_t valid, int64_t batch,
                int64_t t_len, int64_t kvh, int64_t g, int64_t window,
                int64_t max_splits, float scale, cudaStream_t st) {
   using T = TTile<D, N8>;
@@ -869,9 +917,11 @@ int launch_tma(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(static_cast<unsigned>(max_splits),
                   static_cast<unsigned>(batch * kvh));
   kern<<<grid, 32 * (warps + 1), T::smem(warps, groups), st>>>(
-      mk, mv, static_cast<const bf16*>(q), static_cast<bf16*>(out),
-      static_cast<float*>(part_acc), static_cast<float*>(part_ml), counters,
-      valid_ptr, static_cast<int>(valid), static_cast<int>(t_len),
+      mk, mv, static_cast<const bf16*>(q),
+      lse != nullptr ? nullptr : static_cast<bf16*>(out),   // float32 with
+      lse != nullptr ? static_cast<float*>(out) : nullptr,  // the LSE
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+      static_cast<float*>(lse), counters, valid_ptr, static_cast<int>(valid), static_cast<int>(t_len),
       static_cast<int>(kvh), static_cast<int>(g), static_cast<int>(window),
       scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
@@ -890,7 +940,8 @@ extern "C" int teshu_decode_attention_fits(int64_t g, int64_t d, int kv_dtype) {
 }
 
 // q [batch, kvh * g, d], k and v [batch, t_len, kvh, d], out like q, all
-// contiguous and 16-byte aligned; 0 <= first < valid <= t_len, positions
+// contiguous and 16-byte aligned; lse, when not null, float32 [batch, kvh *
+// g], and out then float32; 0 <= first < valid <= t_len, positions
 // [first, valid) attended (first > 0: a sliding window).  With num_splits > 1,
 // part_acc is float32 [batch * kvh, num_splits, g, d] and part_ml float32
 // [batch * kvh, num_splits, g, 2]; with f = first / 64 the first tile, split
@@ -900,9 +951,10 @@ extern "C" int teshu_decode_attention_fits(int64_t g, int64_t d, int kv_dtype) {
 // Returns a cudaError_t.
 extern "C" int teshu_decode_attention(
     const void* q, const void* k, const void* v, void* out, void* part_acc,
-    void* part_ml, int64_t batch, int64_t t_len, int64_t kvh, int64_t g,
-    int64_t d, int64_t valid, int64_t first, int64_t tiles_per_split,
-    int64_t num_splits, int q_dtype, int kv_dtype, float scale, void* stream) {
+    void* part_ml, void* lse, int64_t batch, int64_t t_len, int64_t kvh,
+    int64_t g, int64_t d, int64_t valid, int64_t first,
+    int64_t tiles_per_split, int64_t num_splits, int q_dtype, int kv_dtype,
+    float scale, void* stream) {
   if (valid < 1 || valid > t_len || first < 0 || first >= valid ||
       num_splits < 1 || tiles_per_split < 1 ||
       (first / kTile + (num_splits - 1) * tiles_per_split) * kTile >= valid ||
@@ -910,16 +962,16 @@ extern "C" int teshu_decode_attention(
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && kv_dtype == 0)
-    return launch<float, float>(q, k, v, out, part_acc, part_ml, batch, t_len,
+    return launch<float, float>(q, k, v, out, part_acc, part_ml, lse, batch, t_len,
                                 kvh, g, d, valid, first, tiles_per_split, num_splits, scale, st);
   if (q_dtype == 0 && kv_dtype == 1)
-    return launch<float, __nv_bfloat16>(q, k, v, out, part_acc, part_ml, batch, t_len,
+    return launch<float, __nv_bfloat16>(q, k, v, out, part_acc, part_ml, lse, batch, t_len,
                                         kvh, g, d, valid, first, tiles_per_split, num_splits, scale, st);
   if (q_dtype == 1 && kv_dtype == 0)
-    return launch<__nv_bfloat16, float>(q, k, v, out, part_acc, part_ml, batch, t_len,
+    return launch<__nv_bfloat16, float>(q, k, v, out, part_acc, part_ml, lse, batch, t_len,
                                         kvh, g, d, valid, first, tiles_per_split, num_splits, scale, st);
   if (q_dtype == 1 && kv_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, out, part_acc, part_ml, batch, t_len,
+    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, out, part_acc, part_ml, lse, batch, t_len,
                                                 kvh, g, d, valid, first, tiles_per_split, num_splits, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -931,7 +983,8 @@ extern "C" int teshu_decode_attention_tma_fits(int64_t g, int64_t d) {
 }
 
 // decode_tma: bf16 q [batch, kvh * g, d], k and v [batch, t_len, kvh, d],
-// out like q, all contiguous and 16-byte aligned.  valid_ptr, when not
+// out like q, all contiguous and 16-byte aligned; lse, when not null,
+// float32 [batch, kvh * g], and out then float32.  valid_ptr, when not
 // null, points at an int32 on the device that the kernel reads (outside
 // [1, t_len] it writes NaN rows); otherwise valid (1 <= valid <= t_len) is
 // the length; window 0 (none) or the sliding window's width.  The grid holds
@@ -942,9 +995,10 @@ extern "C" int teshu_decode_attention_tma_fits(int64_t g, int64_t d) {
 // cudaError_t.
 extern "C" int teshu_decode_attention_tma(
     const void* q, const void* k, const void* v, void* out, void* part_acc,
-    void* part_ml, void* counters, const void* valid_ptr, int64_t valid,
-    int64_t batch, int64_t t_len, int64_t kvh, int64_t g, int64_t d,
-    int64_t window, int64_t max_splits, float scale, void* stream) {
+    void* part_ml, void* counters, const void* valid_ptr, void* lse,
+    int64_t valid, int64_t batch, int64_t t_len, int64_t kvh, int64_t g,
+    int64_t d, int64_t window, int64_t max_splits, float scale,
+    void* stream) {
   if (batch < 1 || kvh < 1 || batch * kvh > 65535 || t_len < 1 ||
       window < 0 || window > (int64_t{1} << 30) ||
       t_len > (int64_t{1} << 30) || max_splits < 1 || max_splits > 65535 ||
@@ -957,10 +1011,10 @@ extern "C" int teshu_decode_attention_tma(
   auto vp = static_cast<const int*>(valid_ptr);
   auto cnt = static_cast<int*>(counters);
   if (d == 128 && g <= 8)
-    return launch_tma<128, 1>(q, k, v, out, part_acc, part_ml, cnt, vp, valid, batch, t_len, kvh, g, window, max_splits, scale, st);
+    return launch_tma<128, 1>(q, k, v, out, part_acc, part_ml, cnt, vp, lse, valid, batch, t_len, kvh, g, window, max_splits, scale, st);
   if (d == 128)
-    return launch_tma<128, 2>(q, k, v, out, part_acc, part_ml, cnt, vp, valid, batch, t_len, kvh, g, window, max_splits, scale, st);
+    return launch_tma<128, 2>(q, k, v, out, part_acc, part_ml, cnt, vp, lse, valid, batch, t_len, kvh, g, window, max_splits, scale, st);
   if (g <= 8)
-    return launch_tma<64, 1>(q, k, v, out, part_acc, part_ml, cnt, vp, valid, batch, t_len, kvh, g, window, max_splits, scale, st);
-  return launch_tma<64, 2>(q, k, v, out, part_acc, part_ml, cnt, vp, valid, batch, t_len, kvh, g, window, max_splits, scale, st);
+    return launch_tma<64, 1>(q, k, v, out, part_acc, part_ml, cnt, vp, lse, valid, batch, t_len, kvh, g, window, max_splits, scale, st);
+  return launch_tma<64, 2>(q, k, v, out, part_acc, part_ml, cnt, vp, lse, valid, batch, t_len, kvh, g, window, max_splits, scale, st);
 }

@@ -25,7 +25,20 @@ A CUDA tensor launches a kernel; a CPU tensor takes the plain version
 checked as a CUDA one is (but for the head widths and groups the built
 library takes, which only the card's library answers) and gets an empty
 meta result of the kernel's shape and dtype, with ``valid_len`` an int.
-Any other device, dtype or layout raises.  On a CUDA or a meta tensor the
+Any other device, dtype or layout raises.
+
+``return_lse=True`` takes the log-sum-exp route, for a cache split into
+blocks whose outputs are merged afterwards (``models.layers``, over
+``model`` ranks that each hold a block of ``T``): the call returns ``(out,
+lse)``, ``out`` float32 whatever q's dtype (a block's output is not rounded
+before the merge) and ``lse [B, H]`` float32, the natural log of the sum of
+``exp(scale q.k)`` over the positions the row attended.  Both kernels
+write them.  There an int ``valid_len`` of 0 (a block with no valid row)
+is taken: the result is zeros and ``-inf``, with no launch (the kernels
+take ``1 <= valid_len <= T``).  :func:`block_window` gives a block its
+valid rows and its own window, and :func:`merge_blocks` merges the blocks.
+
+On a CUDA or a meta tensor the
 call's work (:func:`.work.decode_work`) goes to the active counters
 (:data:`.work.COUNTERS`; a ``valid_len`` tensor is read for it, on the
 host, only while one is active).  The per-pair counters of ``decode_tma``
@@ -53,13 +66,13 @@ def _lib():
     f = lib.teshu_decode_attention
     if f.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        f.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64,
+        f.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64,
                       i64, i64, i32, i32, ctypes.c_float, p]
         f.restype = ctypes.c_int
         lib.teshu_decode_attention_fits.argtypes = [i64, i64, i32]
         lib.teshu_decode_attention_fits.restype = i32
         lib.teshu_decode_attention_tma.argtypes = [
-            p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64,
+            p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64,
             ctypes.c_float, p]
         lib.teshu_decode_attention_tma.restype = ctypes.c_int
         lib.teshu_decode_attention_tma_fits.argtypes = [i64, i64]
@@ -129,10 +142,41 @@ def _counters(device: torch.device, pairs: int) -> torch.Tensor:
     return buf
 
 
+def block_window(valid: int, offset: int, rows: int, window: int = 0
+                 ) -> tuple[int, int]:
+    """``(valid rows, window)`` of the cache block that holds positions
+    ``[offset, offset + rows)`` of a cache whose first ``valid`` positions
+    are valid, under a sliding ``window`` (0: none): the block's valid rows
+    ``clamp(valid - offset, 0, rows)``, and the window to pass for them so
+    that the block attends from the whole cache's first attended position
+    ``valid - window``, which lies ``start = max(0, valid - window -
+    offset)`` rows into the block: ``v_r - start`` (0 where the window
+    starts at or before the block).  A block wholly left of the window, or
+    past ``valid``, has no valid row: ``(0, 0)``."""
+    v_r = min(max(valid - offset, 0), rows)
+    start = max(0, valid - window - offset) if window else 0
+    if start >= v_r:
+        return 0, 0
+    return v_r, (v_r - start if start else 0)
+
+
+def merge_blocks(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """Merge the blocks of one decode: ``outs [n, B, H, d]`` float32 (each
+    block's output over its own rows) and ``lses [n, B, H]`` (their
+    log-sum-exps; ``-inf`` for a block with no row) into ``[B, H, d]``
+    float32: ``sum_i exp(lse_i - M) out_i / sum_i exp(lse_i - M)``, ``M``
+    the largest ``lse_i``.  Elementwise ops in block order, the same
+    result on every rank that merges the same blocks."""
+    top = lses.amax(0)
+    w = torch.exp(lses - top)
+    return (w[..., None] * outs).sum(0) / w.sum(0)[..., None]
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid_len, *, scale: float | None = None,
-                     window: int = 0) -> torch.Tensor:
-    """One-token attention of ``q [B, H, d]`` over ``k, v [B, T, KVH, d]``."""
+                     window: int = 0, return_lse: bool = False):
+    """One-token attention of ``q [B, H, d]`` over ``k, v [B, T, KVH, d]``;
+    ``return_lse``: ``(out float32, lse [B, H] float32)``."""
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"decode attention wants q [B, H, d] and k, v "
                          f"[B, T, KVH, d]: {tuple(q.shape)} {tuple(k.shape)} "
@@ -158,11 +202,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         valid = None
     else:
         valid = int(valid_len)
-        if not 1 <= valid <= t:
+        if not (0 if return_lse else 1) <= valid <= t:
             raise ValueError(f"valid_len must lie in [1, T={t}]: {valid}")
     scale = (d ** -0.5) if scale is None else float(scale)
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, valid, scale=scale, window=window)
+        return decode_attention_ref(q, k, v, valid, scale=scale, window=window,
+                                    return_lse=return_lse)
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode attention runs on cuda, cpu or meta "
                          f"tensors, not {q.device}")
@@ -170,16 +215,22 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _DTYPES or k.dtype not in _DTYPES or v.dtype != k.dtype:
         raise TypeError(f"decode attention wants float32/bfloat16 q and k, v "
                         f"of one such dtype: {q.dtype} {k.dtype} {v.dtype}")
+    if valid == 0:                       # an empty block: nothing launched
+        return (torch.zeros(q.shape, dtype=torch.float32, device=q.device),
+                torch.full((b, h), -torch.inf, device=q.device))
     if work.COUNTERS and b:
         work.report("decode_attention", *work.decode_work(
             b, h, kvh, d, work.host_int(valid_len) if valid is None else valid,
-            q.element_size(), k.element_size(), window),
+            q.element_size(), k.element_size(), window, lse=return_lse),
             (tuple(q.shape), tuple(k.shape)))
     if q.device.type == "meta":
         if b * kvh > 65535:
             raise ValueError(f"B * KVH = {b * kvh} exceeds the grid's 65535")
         if not all(x.is_contiguous() for x in (q, k, v)):
             raise ValueError("decode attention wants contiguous q, k and v")
+        if return_lse:
+            return (torch.empty(q.shape, dtype=torch.float32, device="meta"),
+                    torch.empty((b, h), dtype=torch.float32, device="meta"))
         return torch.empty_like(q)
     g = h // kvh
     lib = _lib()
@@ -195,9 +246,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError("decode attention wants contiguous, 16-byte "
                              "aligned q, k and v")
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32 if return_lse else q.dtype)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if b == 0:
-        return out
+        return (out, lse) if return_lse else out
+    lse_ptr = None if lse is None else lse.data_ptr()
     pairs = b * kvh
     sms = _sm_count(q.device.index or 0)
     if tma:
@@ -214,11 +268,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if part_acc is None else part_acc.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(),
             None if counters is None else counters.data_ptr(),
-            valid_len.data_ptr() if on_device else None,
+            valid_len.data_ptr() if on_device else None, lse_ptr,
             0 if on_device else valid, b, t, kvh, g, d, window, grid, scale,
             _build.stream_of(q)), "decode_attention")
         decode_attention.launches += 1
-        return out
+        return (out, lse) if return_lse else out
     if valid is None:                    # decode_split plans on the host
         valid = int(valid_len)
         if not 1 <= valid <= t:
@@ -233,12 +287,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(lib.teshu_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         0 if part_acc is None else part_acc.data_ptr(),
-        0 if part_ml is None else part_ml.data_ptr(),
+        0 if part_ml is None else part_ml.data_ptr(), lse_ptr,
         b, t, kvh, g, d, valid, window_start(valid, window), per, splits,
-        _DTYPES[q.dtype],
-        _DTYPES[k.dtype], scale, _build.stream_of(q)), "decode_attention")
+        _DTYPES[q.dtype], _DTYPES[k.dtype], scale, _build.stream_of(q)),
+        "decode_attention")
     decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0

@@ -45,10 +45,16 @@ def attention(q, k, v, *, causal=True, scale=None, window=0, use_kernel=True):
                                    window=window)
 
 
-def decode_attention(q, k, v, valid_len, *, window=0, use_kernel=True):
+def decode_attention(q, k, v, valid_len, *, window=0, use_kernel=True,
+                     return_lse=False):
+    """``return_lse`` (the log-sum-exp route) is passed on only where it is
+    asked for, so that a plain version patched in without it still serves
+    every other call."""
+    lse = {"return_lse": True} if return_lse else {}
     if use_kernel:
-        return decode_attention_kernel(q, k, v, valid_len, window=window)
-    return ref.decode_attention_ref(q, k, v, valid_len, window=window)
+        return decode_attention_kernel(q, k, v, valid_len, window=window,
+                                       **lse)
+    return ref.decode_attention_ref(q, k, v, valid_len, window=window, **lse)
 
 
 def grouped_matmul(x, w, tile_group_ids, *, block_n=128, group_tiles=None,

@@ -127,15 +127,21 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          valid_len, *, scale: float | None = None,
-                         window: int = 0) -> torch.Tensor:
+                         window: int = 0, return_lse: bool = False):
     """``[B, H, d] x [B, T, KVH, d] -> [B, H, d]``: one new token per
     sequence against a cache whose positions ``>= valid_len`` are masked,
     and with a sliding window (``window`` > 0) those ``< valid_len -
     window`` too.  q head ``h`` reads kv head ``h // (H / KVH)``.  float32
-    math, the result in q's dtype."""
+    math, the result in q's dtype.  ``return_lse``: ``(out float32, lse [B,
+    H] float32)``, ``lse`` the natural log of the sum of ``exp(scale q.k)``
+    over the attended positions; at ``valid_len`` 0 zeros and ``-inf``
+    (nothing attended)."""
     b, h, d = q.shape
     _, t, kvh, _ = k.shape
     g = h // kvh
+    if return_lse and int(valid_len) == 0:
+        return (torch.zeros((b, h, d), dtype=torch.float32, device=q.device),
+                torch.full((b, h), -torch.inf, device=q.device))
     scale = (d ** -0.5) if scale is None else scale
     qg = q.reshape(b, kvh, g, d)
     s = torch.einsum("bkgd,btkd->bkgt", qg.float(), k.float()) * scale
@@ -145,8 +151,10 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= pos >= valid_len - window
     s = torch.where(mask[None, None, None], s, MASKED)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgt,btkd->bkgd", p, v.float())
-    return out.reshape(b, h, d).to(q.dtype)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v.float()).reshape(b, h, d)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1).reshape(b, h)
+    return out.to(q.dtype)
 
 
 def gmm_ref(x: torch.Tensor, w: torch.Tensor, tile_group_ids, *,
@@ -237,6 +245,17 @@ def decode_attention_tolerance(q, k, v, valid_len, plain, *,
     a = decode_attention_ref(q.float(), k, v.abs(), valid_len, scale=scale,
                              window=window)
     return attention_tolerance(plain, a)
+
+
+def lse_tolerance(plain_lse: torch.Tensor, attended: int,
+                  d: int) -> torch.Tensor:
+    """Per-element bound on ``|kernel lse - plain lse|`` for the decode
+    kernels' log-sum-exp (``decode_attention(..., return_lse=True)``) over
+    ``attended`` positions of head width ``d``: both are float32 (a score
+    is a sum of ``d`` exact products, the log a sum of ``attended``
+    exponentials, each kept in its own order), so ``2^-24 (attended + d)
+    (1 + |lse|)``."""
+    return 2.0 ** -24 * (attended + d) * (1.0 + plain_lse.abs())
 
 
 # ---------------------------------------------------------------------------

@@ -69,12 +69,15 @@ def flash_work(bhq: int, sq: int, bhkv: int, skv: int, d: int, q_bytes: int,
 
 
 def decode_work(b: int, h: int, kvh: int, d: int, valid: int, q_bytes: int,
-                kv_bytes: int, window: int = 0) -> tuple[float, float]:
+                kv_bytes: int, window: int = 0, lse: bool = False
+                ) -> tuple[float, float]:
     """(bytes, operations) of one decode call: q read and the output written
-    once, the cache's attended positions of K and V read once (``valid``,
-    or the window's last ``window`` of them)."""
+    once (float32, and the ``[B, H]`` float32 log-sum-exp with it, on the
+    ``lse`` route), the cache's attended positions of K and V read once
+    (``valid``, or the window's last ``window`` of them)."""
     n = min(valid, window) if window else valid
-    nbytes = 2 * b * h * d * q_bytes + 2 * b * n * kvh * d * kv_bytes
+    out = b * h * (4 * d + 4) if lse else b * h * d * q_bytes
+    nbytes = b * h * d * q_bytes + out + 2 * b * n * kvh * d * kv_bytes
     return float(nbytes), 4.0 * d * b * h * n
 
 

@@ -25,8 +25,10 @@ tensors do not hold; the moments laid out as their parameters, as
 port's own layout (its batch split over ``("pod", "data")``, and the
 rank's kv heads where its attention splits them over ``model``: ``kvh /
 m``, or the one kv head of KV replication, where the reference's
-stand-ins split ``T`` over ``model``; all of them where the layer runs
-whole; an MLA layer's latent and rope key whole, which every head reads,
+stand-ins split ``T`` over ``model``; every kv head of the rank's block of
+``T`` where the layer splits by positions, as the reference's do; all of
+them where the layer runs whole; an MLA layer's latent and rope key whole,
+which every head reads,
 where the reference's split the latent's ``r`` over ``model``), filled to
 ``seq_len - 1`` positions so that the step attends over ``seq_len``.  A
 cell whose step raises is a failed cell.

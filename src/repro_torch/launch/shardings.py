@@ -34,8 +34,9 @@ all-gather a split dimension in JAX's order, its adjoint a reduce-scatter
 over the same axes), as ZeRO-3 does over each leaf's own axes, but for the
 axes the module consumes in place (:func:`kept_axes`): a routed expert's
 EP axes, and ``model`` for the tensor-parallel leaves (the MLP's and
-shared experts' column- and row-parallel matrices, GQA attention's heads
-where :func:`attention_split` splits them (a hybrid's too), MLA's five
+shared experts' column- and row-parallel matrices, GQA attention's
+projections where :func:`attention_split` splits them by heads or by
+positions (a hybrid's too), MLA's five
 matrices where :func:`mla_split` splits its heads, Hymba's Mamba head on
 its channels and the xLSTM mixers' projections where :func:`mixer_split`
 splits them, the embedding's ``d`` slice, the unembedding's vocabulary
@@ -433,21 +434,50 @@ _XLSTM_LEAVES = (".mlstm.w_up", ".mlstm.wq", ".mlstm.wk", ".mlstm.wv",
 
 
 def attention_split(cfg, mesh) -> str | None:
-    """How a GQA layer splits its heads over ``model`` (reads only
-    ``mesh.shape``): ``"heads"`` where ``m = mesh.shape["model"]`` divides
-    both head counts (each rank its ``h/m`` q and ``kvh/m`` kv heads),
-    ``"replicate"`` where ``m`` divides ``n_heads`` and ``n_kv_heads``
-    divides ``m`` (each rank its ``h/m`` q heads and the one kv head they
-    read, Megatron's KV replication), else None: the layer runs whole.
+    """How a GQA layer splits over ``model`` (reads only ``mesh.shape``):
+
+    * ``"heads"`` where ``m = mesh.shape["model"]`` divides both head
+      counts (each rank its ``h/m`` q and ``kvh/m`` kv heads);
+    * ``"replicate"`` where ``m`` divides ``n_heads`` and ``n_kv_heads``
+      divides ``m`` (each rank its ``h/m`` q heads and the one kv head they
+      read, Megatron's KV replication);
+    * ``"positions"`` on any other ``m > 1`` where ``m`` divides the
+      projections' widths ``h dh`` and ``kvh dh`` (Qwen2.5-14B's 40 heads
+      and Hymba's 25 on 16): each rank computes its ``1/m`` of the columns
+      of ``wq``, ``wk`` and ``wv`` and all-gathers them, attends for its
+      query rows (:func:`position_blocks`) in a prefill or in training and
+      over its block of the cache's ``T`` (:func:`local_cache_rows`) in a
+      decode step, and ends in its ``1/m`` of ``wo``'s rows and one sum
+      (``layers.Attention``);
+    * else None: the layer runs whole.
+
     The dense, MoE and hybrid families' GQA attention splits this way
     (Hymba's is the same layer with a window; MLA: :func:`mla_split`)."""
     m = mesh.shape.get("model")
     if m is None or cfg.family not in ("dense", "moe", "hybrid") \
-            or cfg.mla is not None or cfg.n_heads % m:
+            or cfg.mla is not None:
         return None
-    if cfg.n_kv_heads % m == 0:
+    if cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
         return "heads"
-    return "replicate" if m % cfg.n_kv_heads == 0 else None
+    if cfg.n_heads % m == 0 and m % cfg.n_kv_heads == 0:
+        return "replicate"
+    qh, kvh = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+    return "positions" if m > 1 and qh % m == 0 and kvh % m == 0 else None
+
+
+def position_blocks(s: int, m: int) -> list[tuple[tuple[int, int], ...]]:
+    """The query rows each of ``m`` ``model`` ranks attends for in a
+    prefill or a training step of ``s`` positions under the
+    ``"positions"`` split: ``s`` cut at ``floor(i s / 2m)`` into ``2m``
+    blocks (their sizes differ by at most one; none is dropped), rank
+    ``r`` given blocks ``r`` and ``2m - 1 - r``.  Under a causal mask each
+    rank then attends for as many query-key pairs as every other (exactly
+    where ``2m`` divides ``s``): a block's pairs grow with its end, and
+    the two ends of a rank's blocks add up alike.  ``[((a, b), (c, d)),
+    ...]`` a rank, in rank order."""
+    cut = [i * s // (2 * m) for i in range(2 * m + 1)]
+    return [((cut[r], cut[r + 1]), (cut[2 * m - 1 - r], cut[2 * m - r]))
+            for r in range(m)]
 
 
 def mla_split(cfg, mesh) -> bool:
@@ -511,7 +541,9 @@ def kept_axes(name: str, spec: tuple, mesh, cfg) -> tuple[str, ...]:
       it splits the kv heads too (under KV replication they are gathered
       whole and the rank takes its kv head's columns); an MLA layer's
       ``wq_a``, ``wq_b``, ``wkv_a``, ``wkv_b`` (column-parallel) and ``wo``
-      (row-parallel) where :func:`mla_split` splits its heads; a hybrid's
+      (row-parallel) where :func:`mla_split` splits its heads; a GQA
+      layer's ``wq``, ``wk``, ``wv`` and ``wo`` where it splits by
+      positions (each rank its ``1/m`` of their columns and rows); a hybrid's
       Mamba ``w_in``, ``conv``, ``log_a`` and ``w_out``, and the xLSTM
       mixers' ``w_up``, ``wq``, ``wk``, ``wv``, ``w_ifo``, ``w_in`` and
       ``w_down``, where :func:`mixer_split` splits them; the embedding (its
@@ -545,21 +577,64 @@ def kept_axes(name: str, spec: tuple, mesh, cfg) -> tuple[str, ...]:
     return ()
 
 
+def _attn_name(cfg, layer: int) -> str:
+    """The port's name of attention layer ``layer``'s ``wq`` (a hybrid
+    block's attention is its mixer's)."""
+    return f"blocks.{layer}.{'mixer.' if cfg.family == 'hybrid' else ''}attn.wq"
+
+
+def _attn_kept(cfg, mesh, layer: int, specs: dict | None) -> bool:
+    """Whether attention layer ``layer``'s ``wq`` is kept as its ``model``
+    shard (by ``specs``, the model's, else by the rules)."""
+    name = _attn_name(cfg, layer)
+    spec = specs.get(name) if specs is not None else leaf_spec(
+        name, (cfg.d_model, cfg.n_heads * cfg.d_head), mesh, cfg)
+    return spec is not None and "model" in kept_axes(name, spec, mesh, cfg)
+
+
 def local_kv_heads(cfg, mesh, layer: int, specs: dict | None = None) -> int:
     """The kv heads a rank's cache of attention layer ``layer`` holds under
     ``mesh``: ``n_kv_heads / m`` where the layer splits its kv heads, 1
-    under KV replication, all of them where it runs whole (by ``specs``,
-    the model's, else by the rules; reads only ``mesh.shape``).  The
-    reference splits the cache's ``T`` over ``model`` where its kv heads do
-    not divide; the port holds the rank's kv head whole.  A hybrid block's
-    attention is its mixer's (``blocks.{layer}.mixer.attn.wq``)."""
-    name = f"blocks.{layer}.{'mixer.' if cfg.family == 'hybrid' else ''}attn.wq"
-    spec = specs.get(name) if specs is not None else leaf_spec(
-        name, (cfg.d_model, cfg.n_heads * cfg.d_head), mesh, cfg)
-    if spec is None or "model" not in kept_axes(name, spec, mesh, cfg):
+    under KV replication, all of them where it runs whole or splits by
+    positions (by ``specs``, the model's, else by the rules; reads only
+    ``mesh.shape``).  Under KV replication the reference splits the cache's
+    ``T`` over ``model`` where the port holds the rank's kv head whole; by
+    positions both hold a block of ``T`` (:func:`local_cache_rows`).  A
+    hybrid block's attention is its mixer's
+    (``blocks.{layer}.mixer.attn.wq``)."""
+    if not _attn_kept(cfg, mesh, layer, specs) \
+            or attention_split(cfg, mesh) == "positions":
         return cfg.n_kv_heads
     m = mesh.shape["model"]
     return cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else 1
+
+
+def local_cache_rows(cfg, mesh, layer: int, max_len: int,
+                     specs: dict | None = None) -> tuple[int, int] | None:
+    """``(t0, rows)``: the positions ``[t0, t0 + rows)`` of a ``max_len``
+    cache that this rank's cache of attention layer ``layer`` holds where
+    the layer splits by positions, or None for all of them (every other
+    mode, or a layer that runs whole).  Read off :func:`cache_spec`'s entry
+    on ``T`` for the layer's ``k``, whose kv heads do not divide ``model``
+    there: ``T`` over ``model`` (``t0`` the rank's ``model`` coordinate
+    times ``max_len / m``), or whole where ``m`` does not divide
+    ``max_len``.  The batch is taken as split over ``("pod", "data")``:
+    where the reference's batch does not divide them its spec names
+    ``("data", "model")`` on ``T``, and the port keeps the ``data`` part
+    as it holds the rows, on every rank, and splits ``T`` over ``model``
+    alone (by ``specs``, the model's, else by the rules)."""
+    if attention_split(cfg, mesh) != "positions" \
+            or not _attn_kept(cfg, mesh, layer, specs):
+        return None
+    dp = 1
+    for a in ("pod", "data"):
+        dp *= mesh.shape.get(a, 1)
+    spec = cache_spec(f"layers/{layer}/k", (dp, max_len, cfg.n_kv_heads,
+                                            cfg.d_head), mesh, cfg)
+    if "model" not in _axes(spec[1]):
+        return None
+    rows = max_len // mesh.shape["model"]
+    return mesh.coord("model") * rows, rows
 
 
 def local_channels(cfg, mesh, layer: int, specs: dict | None = None) -> int:

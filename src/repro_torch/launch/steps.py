@@ -201,7 +201,8 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, *,
                       mesh=None, use_kernel: bool = True) -> Callable:
     """``prefill_step(model, batch) -> (last logits [B, 1, V], cache)``
     into a fresh cache of ``shape.seq_len`` positions for the batch's rows
-    (under ``mesh``, this rank's, and its kv heads; only the last
+    (under ``mesh``, this rank's, and its kv heads or its block of ``T``,
+    ``lm.init_cache``; only the last
     position's logits gathered over ``model``); ``use_kernel=False`` takes
     the kernels' plain versions (the route the reference's dry run
     lowers)."""

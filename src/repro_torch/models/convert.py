@@ -220,10 +220,12 @@ def cache_from_reference(cfg: ModelConfig, cache: dict, *,
     ``lm.init_cache`` / ``forward`` cache, every leaf in its own dtype.
     Under ``mesh`` a GQA layer whose heads split over ``model`` keeps this
     rank's kv heads (``lm.init_cache``'s layout; ``specs`` the model's, as
-    there; a hybrid layer's attention too), a hybrid layer's Mamba state
+    there; a hybrid layer's attention too), a GQA layer that splits by
+    positions every kv head of the rank's block of ``T`` (and its ``t0``:
+    ``shardings.local_cache_rows``), a hybrid layer's Mamba state
     the rank's channels where its head splits them, and an MLA layer the
     whole latent and rope key, an xLSTM layer the whole state; the rows
-    stay the caller's."""
+    of the batch stay the caller's."""
     dev = check_device(device)
 
     def ssm(t, i):
@@ -240,10 +242,19 @@ def cache_from_reference(cfg: ModelConfig, cache: dict, *,
         return slice(None) if mesh is None else _rank_heads(cfg, mesh, i,
                                                             specs)
 
-    def attn(t, heads=slice(None)):
-        return {"k": to_tensor(np.asarray(t["k"])[:, :, heads], dev),
-                "v": to_tensor(np.asarray(t["v"])[:, :, heads], dev),
-                "len": int(np.asarray(t["len"]))}
+    def attn(t, i):
+        heads, rows = kv(i), None
+        if mesh is not None:
+            rows = shardings.local_cache_rows(cfg, mesh, i,
+                                              np.shape(t["k"])[1], specs)
+        pos = slice(None) if rows is None else slice(rows[0],
+                                                     rows[0] + rows[1])
+        out = {"k": to_tensor(np.asarray(t["k"])[:, pos, heads], dev),
+               "v": to_tensor(np.asarray(t["v"])[:, pos, heads], dev),
+               "len": int(np.asarray(t["len"]))}
+        if rows is not None:
+            out["t0"] = rows[0]
+        return out
 
     def layer(t, i):
         if "latent" in t:                    # MLA: the latent and rope key
@@ -254,8 +265,8 @@ def cache_from_reference(cfg: ModelConfig, cache: dict, *,
             return {"state": {k: to_tensor(v, dev)
                               for k, v in t["state"].items()}}
         if "ssm" not in t:
-            return attn(t, kv(i))
-        return {"attn": attn(t["attn"], kv(i)), "ssm": ssm(t["ssm"], i)}
+            return attn(t, i)
+        return {"attn": attn(t["attn"], i), "ssm": ssm(t["ssm"], i)}
     return {"pos": int(np.asarray(cache["pos"])),
             "layers": [layer(t, i) for i, t in enumerate(
                 _layer_trees(cache, cfg.n_layers))]}

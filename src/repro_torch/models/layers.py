@@ -37,6 +37,7 @@ from torch.profiler import record_function
 
 from repro_torch.core import meshops
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.decode_attention import block_window, merge_blocks
 from repro_torch.kernels.ref import MASKED
 from repro_torch.launch import shardings
 
@@ -212,6 +213,50 @@ def _flash(q, k, v, *, window: int, use_kernel: bool) -> torch.Tensor:
     return of.reshape(b, h, s, d).transpose(1, 2)
 
 
+def _rotated_heads(y: torch.Tensor, heads: int, positions: torch.Tensor,
+                   cfg: ModelConfig, mesh) -> torch.Tensor:
+    """``y [B, S, heads dh / m]`` (this rank's columns of a projection,
+    every row) all-gathered whole over ``model`` (:func:`tp_gather`), then
+    rotated at ``positions``: ``[B, S, heads, dh]``.  RoPE pairs column
+    ``i`` of a head with column ``i + dh/2``, which a rank's block of
+    columns may cut apart (Qwen2.5-14B on 16: 320 columns, 2.5 heads), so
+    it follows the gather."""
+    b, s = y.shape[:2]
+    y = tp_gather(y, heads * cfg.d_head, mesh).reshape(b, s, heads,
+                                                       cfg.d_head)
+    return apply_rope(y, positions, cfg.rope_theta)
+
+
+def _query_blocks(s: int, mesh) -> tuple[tuple[int, int], ...]:
+    """This ``model`` rank's query rows of ``s`` under the ``"positions"``
+    split (``shardings.position_blocks``)."""
+    return shardings.position_blocks(s, mesh.shape["model"])[
+        mesh.coord("model")]
+
+
+def _append(cache: dict, k: torch.Tensor, v: torch.Tensor, blocks: int = 1
+            ) -> int:
+    """Write ``k, v [B, S, kvh, dh]`` at the cache's positions ``[len, len +
+    S)`` (cast to its dtype) and advance ``len``; returns the old ``len``.
+    A cache holding one of ``blocks`` blocks of ``T`` (its ``t0``, the
+    ``"positions"`` split) takes the rows that fall in its block."""
+    kc, vc, ln = cache["k"], cache["v"], cache["len"]
+    s, t0 = k.shape[1], cache.get("t0", 0)
+    t_all = kc.shape[1] * (blocks if "t0" in cache else 1)
+    if ln + s > t_all:
+        raise ValueError(f"KV cache full: {ln} + {s} positions > {t_all}")
+    if kc.shape[2] != k.shape[2]:
+        raise ValueError(f"the cache holds {kc.shape[2]} kv heads, the layer "
+                         f"computes {k.shape[2]}: make it with the model's "
+                         f"mesh")
+    lo, hi = max(ln, t0), min(ln + s, t0 + kc.shape[1])
+    if lo < hi:
+        kc[:, lo - t0:hi - t0] = k[:, lo - ln:hi - ln]
+        vc[:, lo - t0:hi - t0] = v[:, lo - ln:hi - ln]
+    cache["len"] = ln + s
+    return ln
+
+
 class Attention(nn.Module):
     """GQA self-attention with optional QKV bias, a sliding ``window`` (0:
     global) and a KV cache.
@@ -224,8 +269,18 @@ class Attention(nn.Module):
     takes the columns of the one kv head its q heads read
     (``shardings.kv_head_of``); the replicated biases are sliced alike.
     It attends over those heads (its cache holds its kv heads) and ends in
-    one sum over ``model`` (:func:`tp_sum`).  Whole leaves run the layer
-    whole."""
+    one sum over ``model`` (:func:`tp_sum`).
+
+    Where ``model`` divides neither (the ``"positions"`` split: ``h`` not
+    a multiple of ``m``, or ``kvh`` neither dividing nor divided by it)
+    the layer is called with its ``1/m`` of the columns of ``wq``, ``wk``
+    and ``wv`` and of the rows of ``wo`` (a leaf that arrives whole is cut
+    to that block here), and it splits the work by positions
+    (:meth:`_by_positions`): it computes its columns of ``q``, ``k`` and
+    ``v`` for every row and all-gathers them, then attends for its query
+    rows in a prefill or training step, or over its block of the cache's
+    rows in a decode step, and ends in its rows of ``wo`` and one sum.
+    Whole leaves run the layer whole."""
 
     def __init__(self, cfg: ModelConfig, *, device, gen=None, window: int = 0):
         super().__init__()
@@ -278,7 +333,11 @@ class Attention(nn.Module):
         """x: ``[B, S, D]``.  Returns ``(out, cache)``; a given cache is
         updated in place (its ``k``/``v`` rows ``[len, len + S)`` are
         written and ``len`` advances), not copied.  ``mesh`` is needed
-        only where the leaves arrive as this rank's heads."""
+        only where the leaves arrive as this rank's heads or columns."""
+        if mesh is not None and \
+                self.wq.shape[1] != self.cfg.n_heads * self.cfg.d_head and \
+                shardings.attention_split(self.cfg, mesh) == "positions":
+            return self._by_positions(x, positions, cache, use_kernel, mesh)
         cfg = self.cfg
         b, s, _ = x.shape
         h, kvh, wq, wk, wv, bq, bk, bv = self._local(mesh)
@@ -295,17 +354,8 @@ class Attention(nn.Module):
             out = _flash(q, k, v, window=self.window, use_kernel=True) \
                 if use_kernel else _attend(q, k, v, window=self.window)
         else:
-            kc, vc, ln = cache["k"], cache["v"], cache["len"]
-            if ln + s > kc.shape[1]:
-                raise ValueError(f"KV cache full: {ln} + {s} positions > "
-                                 f"{kc.shape[1]}")
-            if kc.shape[2] != kvh:
-                raise ValueError(f"the cache holds {kc.shape[2]} kv heads, "
-                                 f"the layer computes {kvh}: make it with "
-                                 f"the model's mesh")
-            kc[:, ln:ln + s] = k            # cast to the cache's dtype
-            vc[:, ln:ln + s] = v
-            cache["len"] = ln + s
+            ln = _append(cache, k, v)
+            kc, vc = cache["k"], cache["v"]
             if s == 1:                      # the decode kernel's slot
                 out = kops.decode_attention(q[:, 0].contiguous(), kc, vc,
                                             ln + 1, window=self.window,
@@ -318,14 +368,151 @@ class Attention(nn.Module):
         out = (out @ self.wo).to(x.dtype)
         return (out if h == cfg.n_heads else tp_sum(out, mesh)), cache
 
+    def _by_positions(self, x, positions, cache, use_kernel, mesh):
+        """The ``"positions"`` split (``shardings.attention_split``) on
+        ``model`` rank ``r`` of ``m``.
+
+        * Projections: the rank's ``1/m`` of the columns of ``q``, ``k``
+          and ``v`` (and of the replicated biases) for every row,
+          all-gathered over ``model`` and only then rotated
+          (:func:`_rotated_heads`).
+        * Without a cache (a prefill, or training) and in a prefill over a
+          cache: the rank attends for its query rows
+          (``shardings.position_blocks``: blocks ``r`` and ``2m - 1 - r``
+          of ``2m``) over the key rows up to the end of each block, through
+          the flash slot (end-aligned), or ``use_kernel=False`` through
+          :func:`_attend` over every key row with the block's offset (the
+          causal mask keeps the same pairs).  The keys of a fresh prefill
+          are this call's rows (cast to the cache's dtype where there is
+          one, as the cache holds them); over a filled cache, the cache's
+          blocks all-gathered over ``model`` for the call.  The rank's
+          ``[B, S_r, h dh]`` then goes to the ranks by an all-to-all
+          (``meshops.all_to_all_axis``, each rank's rows padded to the
+          longest's), each receiving its ``1/m`` of the columns of every
+          row, put back in position order.
+        * A decode step: every rank holds ``q`` of all heads; it attends
+          over the valid rows of its own block of the cache's ``T`` (the
+          cache's ``t0``: ``lm.init_cache``) through the decode slot's
+          log-sum-exp route (:func:`block_window` gives the block its rows
+          and window; a block with none gets zeros and ``-inf``), the
+          ``[B, h, dh + 1]`` float32 outputs and log-sum-exps are
+          all-gathered over ``model`` and merged (:func:`merge_blocks`), and
+          every rank takes its ``1/m`` of the columns.  A cache that holds
+          all of ``T`` (``m`` does not divide it) is attended whole.
+        * Each path ends in the rank's rows of ``wo`` and one sum over
+          ``model`` (:func:`tp_sum`).
+
+        The new ``k`` and ``v`` rows are written where they fall in the
+        rank's block of the cache."""
+        cfg, dh = self.cfg, self.cfg.d_head
+        b, s, _ = x.shape
+        m = mesh.shape["model"]
+        h, kvh = cfg.n_heads, cfg.n_kv_heads
+        qw, kvw = h * dh, kvh * dh
+
+        def cols(t, width):
+            return None if t is None else tp_block(t, width // m, mesh)
+        q, k, v = x @ cols(self.wq, qw), x @ cols(self.wk, kvw), \
+            x @ cols(self.wv, kvw)
+        if self.bq is not None:
+            q, k, v = q + cols(self.bq, qw), k + cols(self.bk, kvw), \
+                v + cols(self.bv, kvw)
+        q = _rotated_heads(q, h, positions, cfg, mesh)
+        k = _rotated_heads(k, kvh, positions, cfg, mesh)
+        v = tp_gather(v, kvw, mesh).reshape(b, s, kvh, dh)
+
+        ln = 0 if cache is None else _append(cache, k, v, m)
+        if cache is not None and s == 1:
+            out = self._decode_blocks(q[:, 0], cache, ln + 1, use_kernel,
+                                      mesh).reshape(b, 1, qw)
+            out = tp_block(out, qw // m, mesh)
+        else:
+            if cache is None:
+                kk, vv = k, v
+            elif ln == 0:               # the rows just written, as cached
+                kk, vv = (t.to(cache["k"].dtype) for t in (k, v))
+            elif "t0" in cache:         # the blocks of every rank, for now
+                kk, vv = (meshops.all_gather(cache[c], mesh, "model", axis=1)
+                          [:, :ln + s] for c in ("k", "v"))
+            else:
+                kk, vv = cache["k"][:, :ln + s], cache["v"][:, :ln + s]
+            out = self._rows_to_columns(
+                self._attend_rows(q, kk, vv, ln, use_kernel, mesh), s, mesh)
+        out = (out @ tp_block(self.wo, qw // m, mesh, 0)).to(x.dtype)
+        return tp_sum(out, mesh), cache
+
+    def _attend_rows(self, q, kk, vv, ln: int, use_kernel: bool, mesh):
+        """``[B, S_r, h dh]``: the attention of this rank's query rows of
+        ``q [B, S, h, dh]`` (positions ``ln ..``) over the key rows ``kk,
+        vv [B, ln + S, kvh, dh]``."""
+        b, s, h, dh = q.shape
+        outs = []
+        for a, e in _query_blocks(s, mesh):
+            if e == a:
+                continue
+            if use_kernel:
+                o = _flash(q[:, a:e], kk[:, :ln + e], vv[:, :ln + e],
+                           window=self.window, use_kernel=True)
+            else:
+                o = _attend(q[:, a:e], kk, vv, window=self.window,
+                            q_offset=ln + a)
+            outs.append(o)
+        if not outs:
+            return q.new_zeros((b, 0, h * dh))
+        return torch.cat(outs, dim=1).reshape(b, -1, h * dh)
+
+    def _rows_to_columns(self, o: torch.Tensor, s: int, mesh):
+        """``[B, S, h dh / m]``: every row's ``1/m`` of the columns of this
+        rank, from each rank's ``[B, S_r, h dh]`` rows (``o`` this rank's):
+        one all-to-all over ``model`` of the rows padded to the longest
+        rank's, then the rows in position order."""
+        blocks = shardings.position_blocks(s, mesh.shape["model"])
+        rows = [[p for a, e in bl for p in range(a, e)] for bl in blocks]
+        n = max(map(len, rows))
+        o = F.pad(o, (0, 0, 0, n - o.shape[1]))
+        o = meshops.all_to_all_axis(o, mesh, "model", split_axis=2,
+                                    concat_axis=1)
+        where = [0] * s
+        for j, rj in enumerate(rows):
+            for i, p in enumerate(rj):
+                where[p] = j * n + i
+        return o.index_select(1, torch.tensor(where, device=o.device))
+
+    def _decode_blocks(self, q1, cache, valid: int, use_kernel: bool, mesh):
+        """``[B, h, dh]`` in q's dtype: the decode of ``q1 [B, h, dh]`` over
+        the cache's ``valid`` positions, this rank's block merged with every
+        other rank's by their log-sum-exps."""
+        kc, vc = cache["k"], cache["v"]
+        q1 = q1.contiguous()
+        if "t0" not in cache:           # the whole cache on every rank
+            return kops.decode_attention(q1, kc, vc, valid,
+                                         window=self.window,
+                                         use_kernel=use_kernel)
+        rows, win = block_window(valid, cache["t0"], kc.shape[1],
+                                 self.window)
+        o, lse = kops.decode_attention(q1, kc, vc, rows, window=win,
+                                       use_kernel=use_kernel,
+                                       return_lse=True)
+        both = meshops.all_gather(torch.cat([o, lse[..., None]], dim=-1)[None],
+                                  mesh, "model", axis=0)
+        return merge_blocks(both[..., :-1], both[..., -1]).to(q1.dtype)
+
 
 def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                          device, dtype=torch.bfloat16,
-                         kv_heads: int | None = None) -> dict:
-    """``kv_heads`` (default all) the heads a rank's split layer holds."""
-    shape = (batch, max_len, kv_heads or cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device), "len": 0}
+                         kv_heads: int | None = None,
+                         rows: tuple[int, int] | None = None) -> dict:
+    """``kv_heads`` (default all) the heads a rank's split layer holds;
+    ``rows`` ``(t0, n)`` the block of positions ``[t0, t0 + n)`` of the
+    ``max_len`` that a rank holds under the ``"positions"`` split (the
+    cache then holds ``t0``), default all of them."""
+    t = max_len if rows is None else rows[1]
+    shape = (batch, t, kv_heads or cfg.n_kv_heads, cfg.d_head)
+    out = {"k": torch.zeros(shape, dtype=dtype, device=device),
+           "v": torch.zeros(shape, dtype=dtype, device=device), "len": 0}
+    if rows is not None:
+        out["t0"] = rows[0]
+    return out
 
 
 # ---------------------------------------------------------------------------

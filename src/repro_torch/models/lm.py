@@ -45,7 +45,9 @@ axes, the dispatch bringing the tokens to it, and is gathered over
 split the dense work as the reference's specs do (tensor parallelism):
 an MLP on its ``f / m`` columns, GQA attention on its ``h / m`` heads
 (where ``model`` divides them; its kv heads too, or the one they read;
-a hybrid's attention as well), MLA on its ``h / m`` heads and its ``1 /
+a hybrid's attention as well) or, where it does not, by positions (its
+``1 / m`` of the projections' columns, its query rows, its block of the
+cache's ``T``), MLA on its ``h / m`` heads and its ``1 /
 m`` of the two down-projections (their outputs all-gathered; the latent
 cache whole on every rank), Hymba's Mamba head on its ``di / m``
 channels (where ``model`` divides them; its state too), the xLSTM
@@ -489,13 +491,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     split over ``model`` keeps this rank's kv heads
     (``shardings.local_kv_heads``, by ``specs``, the model's, where
     given: a model placed with other specs than the rules' keeps its
-    own); an MLA layer's latent and rope key are whole on every rank,
+    own); a GQA layer that splits by positions (``"positions"``: its heads
+    do not divide ``model``) keeps every kv head of this rank's block of
+    ``T`` (``shardings.local_cache_rows``: ``max_len / m`` rows from
+    ``t0``, held as the layer's ``t0``), as the reference's ``cache_spec``
+    splits ``T``; an MLA layer's latent and rope key are whole on every rank,
     whose heads all read them (the reference's specs split the latent's
     ``r`` over ``model``).  A hybrid layer's attention cache keeps its
     rank's kv heads alike, and its Mamba state (``conv``, ``ssm``) the
     rank's channels where the head splits them
     (``shardings.local_channels``), as the reference's ``cache_spec``
-    splits them.  The xLSTM states are whole on every rank, whose cores
+    splits them; its attention cache keeps its block of ``T`` where it
+    splits by positions.  The xLSTM states are whole on every rank, whose cores
     run whole (the reference's split ``C``'s key dimension and the sLSTM
     state's ``d`` over ``model``)."""
     check_supported(cfg)
@@ -510,7 +517,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             return init_mla_cache(cfg, batch, max_len, device=dev)
         attn = init_attention_cache(
             cfg, batch, max_len, device=dev, kv_heads=None if mesh is None
-            else shardings.local_kv_heads(cfg, mesh, layer, specs))
+            else shardings.local_kv_heads(cfg, mesh, layer, specs),
+            rows=None if mesh is None else shardings.local_cache_rows(
+                cfg, mesh, layer, max_len, specs))
         if cfg.family == "hybrid":
             return {"attn": attn, "ssm": init_ssm_cache(
                 cfg, batch, device=dev, channels=None if mesh is None

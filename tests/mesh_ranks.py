@@ -265,10 +265,12 @@ def reference_moe(inputs: str, out: str, cases: list, serve_kw: dict,
 
 
 def _reference_serve(arch: str, params: dict, mesh, *, batch: int,
-                     prompt_len: int, gen_len: int, max_len: int, seed: int):
+                     prompt_len: int, gen_len: int, max_len: int, seed: int,
+                     cfg=None):
     """``repro.launch.serve.serve``'s loop over ``mesh`` with its EP axes,
     the parameters left unsharded: ``(tokens, last-position logits of
-    the prefill and of each step)``.  ``serve`` itself places the stacked
+    the prefill and of each step)``; ``cfg`` (default ``arch``'s SMOKE
+    config) a config of the reference's.  ``serve`` itself places the stacked
     blocks by ``param_specs``, and on a ``(2, 2, 2)`` mesh its logits for
     the rows of the (pod, data) groups (0, 1) and (1, 0) then differ from
     its own unsharded forward, with or without the EP dispatch; each leaf
@@ -279,7 +281,7 @@ def _reference_serve(arch: str, params: dict, mesh, *, batch: int,
     from repro.configs import get_config
     from repro.launch.shardings import ep_axes_for
     from repro.models import lm
-    cfg = get_config(arch, smoke=True)
+    cfg = cfg or get_config(arch, smoke=True)
     ep = ep_axes_for(mesh)
     prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab, (batch, prompt_len)).astype(np.int32)

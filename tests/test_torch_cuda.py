@@ -708,6 +708,75 @@ def test_decode_back_to_back_launches_reset_the_counters(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("qdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,h,kvh,t,d,valid,window", [
+    (4, 40, 8, 2048, 128, 1056, 0), (4, 25, 5, 4160, 64, 4128, 1024),
+    (3, 48, 1, 300, 128, 1, 0), (2, 24, 1, 1000, 64, 999, 37),
+    (33, 20, 4, 4096, 128, 3900, 0), (4, 64, 4, 2048, 128, 130, 70)])
+def test_decode_lse_route_matches_plain(cuda, b, h, kvh, t, d, valid, window,
+                                        qdt):
+    """``return_lse=True`` on both kernels (bf16 q: ``decode_tma``, one or
+    several splits; float32 q: ``decode_split``): one launch, the float32
+    output within ``1e-5 (1 + |plain|)`` of the plain version's and the
+    log-sum-exp within ``ref.lse_tolerance``; the cache's NaN tail is not
+    read."""
+    import math
+    rng = np.random.default_rng(b + h + valid + window)
+    q = _randn(rng, (b, h, d), TORCH[qdt], cuda)
+    k, v = (_randn(rng, (b, t, kvh, d), torch.bfloat16, cuda)
+            for _ in range(2))
+    k[:, valid:] = float("nan")
+    v[:, valid:] = float("nan")
+    before = decode_attention.launches
+    out, lse = decode_attention(q, k, v, valid, window=window,
+                                return_lse=True)
+    assert decode_attention.launches == before + 1
+    kv = (k[:, :valid], v[:, :valid])
+    p_out, p_lse = ref.decode_attention_ref(q, *kv, valid, window=window,
+                                            return_lse=True)
+    torch.cuda.synchronize()
+    assert out.dtype == lse.dtype == torch.float32 and lse.shape == (b, h)
+    _attn_close(out, p_out, ref.decode_attention_tolerance(
+        q, *kv, valid, p_out, window=window))
+    tol = ref.lse_tolerance(p_lse, min(valid, window) if window else valid, d)
+    assert bool(((lse - p_lse).abs() <= tol).all())
+    assert not bool(((lse / math.log(2) - p_lse).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 300])
+def test_decode_blocks_merged_match_one_launch(cuda, window):
+    """A cache cut into the 16 blocks of ``T`` that model 16 gives its
+    ranks: each block on the log-sum-exp route (``block_window``; the
+    blocks past ``valid_len`` or left of the window return zeros and
+    ``-inf`` with no launch), merged by ``merge_blocks``, within
+    ``ref.attention_tolerance`` of one whole launch."""
+    from repro_torch.kernels.decode_attention import (block_window,
+                                                      merge_blocks)
+    rng = np.random.default_rng(53 + window)
+    b, h, kvh, t, d, valid = 4, 40, 8, 2048, 128, 1056
+    q = _randn(rng, (b, h, d), torch.bfloat16, cuda)
+    k, v = (_randn(rng, (b, t, kvh, d), torch.bfloat16, cuda)
+            for _ in range(2))
+    n = t // 16
+    outs, lses, before = [], [], decode_attention.launches
+    plan = [block_window(valid, i * n, n, window) for i in range(16)]
+    for i, (v_r, w_r) in enumerate(plan):
+        o, lse = decode_attention(q, k[:, i * n:(i + 1) * n].contiguous(),
+                                  v[:, i * n:(i + 1) * n].contiguous(), v_r,
+                                  window=w_r, return_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    assert decode_attention.launches - before == sum(r > 0 for r, _ in plan)
+    got = merge_blocks(torch.stack(outs), torch.stack(lses))
+    whole = decode_attention(q, k, v, valid, window=window)
+    a = ref.decode_attention_ref(q.float(), k, v.abs(), valid, window=window)
+    share = ((got - whole.float()).abs()
+             / ref.attention_tolerance(whole, a)).max()
+    assert float(share) <= 1.0, f"{float(share)} of the bound"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bad", [0, -3, 2049])
 def test_decode_valid_len_outside_the_cache_gives_nan(cuda, bad):
     """A device valid_len outside [1, T] is not clamped: every row is NaN,

@@ -62,15 +62,28 @@ FAMILIES = {"dense": "qwen2.5-14b", "moe": "qwen3-moe-235b-a22b",
             "ssm": "xlstm-350m"}
 KINDS = ("train", "prefill", "decode")
 FLOP_TOL = 0.02
+# SMOKE variants whose GQA attention splits over model by positions (the
+# heads do not divide model 2, or the kv heads neither divide it nor are
+# divided by it): tp_ranks.VARIANTS's, counted on TP_MESH in both packages
+POSITION_VARIANTS = {
+    "qwen2.5-14b-h5kv1": ("qwen2.5-14b", {"n_heads": 5, "n_kv_heads": 1}),
+    "hymba-1.5b-h6kv3": ("hymba-1.5b", {"n_heads": 6, "n_kv_heads": 3})}
 
 _REF_SCRIPT = textwrap.dedent("""
-    import json, os, sys
+    import dataclasses, json, os, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     os.environ["JAX_PLATFORMS"] = "cpu"
+    from repro.launch import steps
     from repro.launch.hlo_analysis import analyze_hlo
     from repro.launch.mesh import make_mesh
     from repro.launch.steps import build_cell
     from repro.models.config import ShapeConfig
+    base_config, base_recipe = steps.get_config, steps.recipe_for
+    steps.get_config = lambda name, smoke=False: dataclasses.replace(
+        base_config(VARIANTS.get(name, (name,))[0], smoke=smoke),
+        **VARIANTS.get(name, (name, {}))[1])
+    steps.recipe_for = lambda name, shape: base_recipe(
+        VARIANTS.get(name, (name,))[0], shape)
     out_path, archs = sys.argv[1], sys.argv[2:]
     mesh = make_mesh(tuple(MESH), AXES)
     out = {}
@@ -90,7 +103,8 @@ _REF_SCRIPT = textwrap.dedent("""
 @pytest.fixture(scope="module", autouse=True)
 def reference_flops(tmp_path_factory):
     """The reference's per-chip FLOPs of every family's SMOKE cells on
-    ``MESH`` and on ``TP_MESH``, from one subprocess a mesh started before
+    ``MESH`` and on ``TP_MESH`` (there also :data:`POSITION_VARIANTS`'s),
+    from one subprocess a mesh started before
     the file's first test (the tests that read them wait for them):
     ``result(mesh)``."""
     tmp = tmp_path_factory.mktemp("ref")
@@ -99,9 +113,11 @@ def reference_flops(tmp_path_factory):
     for mesh in (MESH, TP_MESH):
         out = tmp / f"flops_{'x'.join(map(str, mesh))}.json"
         script = f"MESH, AXES, SEQ, BATCH = {mesh}, {AXES}, {SEQ}, " \
-            f"{BATCH}\n" + _REF_SCRIPT
+            f"{BATCH}\nVARIANTS = {POSITION_VARIANTS!r}\n" + _REF_SCRIPT
+        archs = list(FAMILIES.values()) + (
+            list(POSITION_VARIANTS) if mesh == TP_MESH else [])
         procs[mesh] = out, subprocess.Popen(
-            [sys.executable, "-c", script, str(out), *FAMILIES.values()],
+            [sys.executable, "-c", script, str(out), *archs],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)
 
@@ -656,6 +672,150 @@ def test_flops_split_over_model_match_the_reference(reference_flops,
     assert all(np.isfinite(v) and v > 0 for v in ratios.values())
 
 
+@pytest.fixture()
+def position_variants(monkeypatch):
+    """The port's ``steps`` building :data:`POSITION_VARIANTS`'s cells as
+    the reference's subprocess does (config and recipe of the arch, the
+    fields replaced)."""
+    import dataclasses
+
+    from repro_torch.launch import steps
+    config, recipe = steps.get_config, steps.recipe_for
+    monkeypatch.setattr(steps, "get_config", lambda name, smoke=False: (
+        dataclasses.replace(config(POSITION_VARIANTS.get(name, (name,))[0],
+                                   smoke=smoke),
+                            **POSITION_VARIANTS.get(name, (name, {}))[1])))
+    monkeypatch.setattr(steps, "recipe_for", lambda name, shape: recipe(
+        POSITION_VARIANTS.get(name, (name,))[0], shape))
+    return steps.get_config
+
+
+def _xla_repeated_core(cfg, rows: int, m: int) -> float:
+    """The attention core's FLOPs that the reference's XLA repeats on every
+    ``model`` rank in the Hymba variant's train cell (6 heads, 3 kv heads,
+    window 8): its per-chip count there is 69,828,608 on ``(2, 4, 1)`` (1
+    row a chip, ``model`` 1), 79,265,792 on ``(2, 2, 2)`` and 98,140,160 on
+    ``(1, 2, 4)`` (2 and 4 rows a chip; ``dev/reference_flops.py``), exactly ``(1 - 1/m)`` of the core
+    (the fused ``[S, S]`` scores and their product with v, ``4 S^2 h dh``
+    a row and layer, and twice that in the backward) on the chip's rows
+    over the ``(2, 4, 1)`` count; its prefill and the Qwen2.5-14B
+    variant's cells split the core evenly.  The port splits it by
+    positions in every cell."""
+    s, h, dh = SEQ, cfg.n_heads, cfg.d_head
+    return (1 - 1 / m) * rows * cfg.n_layers * 3 * 4 * s * s * h * dh
+
+
+@pytest.mark.parametrize("variant", list(POSITION_VARIANTS))
+def test_flops_split_by_positions_match_the_reference(
+        reference_flops, position_variants, variant):
+    """On ``TP_MESH`` a variant whose attention splits by positions
+    (``shardings.attention_split``): its projections' ``1/m`` of the
+    columns, each rank's query rows (blocks ``r`` and ``2m - 1 - r``) over
+    every key row on the plain route, its block of the cache's ``T`` in a
+    decode step, ``wo``'s ``1/m`` of the rows: train and prefill within 2%
+    of the reference's ``analyze_hlo``; decode at most the reference's and
+    short of it by the attention over the blocks the rank does not read (a
+    block wholly left of a sliding window: rank 0's 32 rows in the Hymba
+    variant's windowed layer, whose window of 8 lies in rank 1's block;
+    the merge's elementwise work counts no FLOP).  In the Hymba variant's
+    train cell the reference's XLA repeats
+    the attention core on both ``model`` ranks; that repeated work
+    (:func:`_xla_repeated_core`) is taken off its count first."""
+    cfg = position_variants(variant, smoke=True)
+    with dryrun.fake_world(8):
+        mesh = make_mesh(TP_MESH, AXES, device_type="meta")
+        from repro_torch.launch import shardings
+        assert shardings.attention_split(cfg, mesh) == "positions"
+        ref = reference_flops(TP_MESH)
+        ratios = {}
+        rows = BATCH // (TP_MESH[0] * TP_MESH[1])
+        for kind in KINDS:
+            want = ref[f"{variant}|{kind}"]
+            if cfg.family == "hybrid" and kind == "train":
+                want -= _xla_repeated_core(cfg, rows, TP_MESH[-1])
+            got = _port_flops(mesh, variant, kind)
+            ratios[kind] = got / want
+            if kind == "decode":
+                from repro_torch.kernels.decode_attention import block_window
+                n = SEQ // TP_MESH[-1]          # rank 0's block: [0, n)
+                skipped = sum(block_window(SEQ, 0, n, lm.layer_window(
+                    cfg, i))[0] == 0 for i in range(cfg.n_layers))
+                gap = 4 * rows * cfg.n_heads * cfg.d_head * n * skipped
+                assert want - gap <= got <= want * (1 + 1e-9), \
+                    (kind, got, want, gap)
+            else:
+                assert abs(got - want) <= FLOP_TOL * want, (kind, got, want)
+    print(f"{variant} on {TP_MESH}: port / reference FLOPs "
+          + " ".join(f"{k} {v:.4f}" for k, v in ratios.items()))
+
+
+def _attn_cache_bytes(cache: dict) -> int:
+    """The bytes of a port cache's attention keys and values."""
+    n = 0
+    for layer in cache["layers"]:
+        sub = layer.get("attn", layer)
+        n += sum(sub[k].numel() * sub[k].element_size() for k in ("k", "v"))
+    return n
+
+
+def _ref_attn_cache_bytes(cfg, mesh, batch: int, seq: int) -> int:
+    """The bytes a device holds of the reference's attention keys and
+    values by its ``cache_spec`` (per layer, ``layers/i/k``; bf16)."""
+    from repro.launch.shardings import cache_spec
+    from repro_torch.launch import shardings
+    whole = (batch, seq, cfg.n_kv_heads, cfg.d_head)
+    per = 0
+    for i in range(cfg.n_layers):
+        spec = tuple(cache_spec(f"layers/{i}/k", whole, mesh, cfg))
+        per += 2 * 2 * int(np.prod(shardings.local_shape(spec, whole, mesh)))
+    return per
+
+
+@pytest.mark.parametrize("variant", list(POSITION_VARIANTS))
+def test_cache_bytes_split_by_positions_equal_the_reference(
+        position_variants, variant):
+    """A decode cell's cache on ``TP_MESH`` (the dry run's own layout,
+    ``dryrun.local_args``): each rank holds its batch rows and every kv
+    head of its ``model`` block of ``T``, the reference's ``cache_spec``
+    bytes exactly, half the bytes of the mesh's whole-``T`` cache."""
+    cfg = position_variants(variant, smoke=True)
+    with dryrun.fake_world(8):
+        mesh = make_mesh(TP_MESH, AXES, device_type="meta")
+        cell = build_cell(variant, ShapeConfig("d", SEQ, BATCH, "decode"),
+                          mesh, smoke=True)
+        _, cache, _ = dryrun.local_args(cell)
+        got = _attn_cache_bytes(cache)
+        rows = BATCH // (TP_MESH[0] * TP_MESH[1])
+        whole = _attn_cache_bytes(lm.init_cache(cfg, rows, SEQ,
+                                                device="meta"))
+    assert got == _ref_attn_cache_bytes(cfg, mesh, BATCH, SEQ)
+    assert got * TP_MESH[-1] == whole
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "hymba-1.5b"])
+def test_decode_32k_cache_a_rank_is_the_reference_spec(arch):
+    """At full width on ``(16, 16)``, ``decode_32k`` (128 sequences, 8 a
+    rank, 32,768 positions): Qwen2.5-14B's 40 heads and Hymba's 25 do not
+    divide 16, so each rank's cache holds every kv head of its 2,048 rows
+    of ``T``: the reference's ``cache_spec`` bytes, 1/16 of every row's
+    (no step is run: the caches are meta tensors)."""
+    cfg = get_config(arch)
+    shape = ShapeConfig("decode_32k", 32768, 128, "decode")
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh(device_type="meta")
+        rows = shape.global_batch // mesh.shape["data"]
+        cache = lm.init_cache(cfg, rows, shape.seq_len, device="meta",
+                              mesh=mesh)
+        got = _attn_cache_bytes(cache)
+        whole = _attn_cache_bytes(lm.init_cache(cfg, rows, shape.seq_len,
+                                                device="meta"))
+    assert got == _ref_attn_cache_bytes(cfg, mesh, shape.global_batch,
+                                        shape.seq_len)
+    assert got * 16 == whole
+    print(f"{arch} decode_32k on (16, 16): {got / 1e9:.4f} GB of keys and "
+          f"values a rank (every kv head of all T: {whole / 1e9:.4f} GB)")
+
+
 @pytest.mark.parametrize("family", ["hybrid", "ssm"])
 def test_mixer_kernels_take_the_split_mesh_inputs(family):
     """Hymba's and xLSTM's SMOKE prefill and decode cells on ``TP_MESH``
@@ -785,8 +945,9 @@ def test_perf_and_dryrun_main_on_smoke(tmp_path, capsys):
 def test_full_width_cell_argument_bytes():
     """One full-width cell on ``(16, 16)`` under a fake world of 256: the
     counted argument bytes are its stand-ins' local bytes (the model's
-    shards and the batch's rows), the flash kernel reported once a
-    layer."""
+    shards and the batch's rows), the flash kernel reported twice a
+    layer: Qwen2.5-14B's 40 heads do not divide 16, so each rank attends
+    for its two blocks of query rows (``shardings.position_blocks``)."""
     from torch.distributed.tensor import DTensor
     with dryrun.fake_world(256):
         mesh = make_production_mesh(device_type="meta")
@@ -797,4 +958,4 @@ def test_full_width_cell_argument_bytes():
                      for t in cell.args[1].values() if isinstance(t, DTensor))
         counts = dryrun.count_cell(cell, dryrun.local_args(cell))
     assert counts.argument_bytes == local
-    assert counts.kernel_calls == {"flash_attention": cell.cfg.n_layers}
+    assert counts.kernel_calls == {"flash_attention": 2 * cell.cfg.n_layers}

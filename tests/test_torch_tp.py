@@ -15,9 +15,16 @@ all-gathered, the rank's own of ``x`` and ``z`` taken; ``w_bcdt``'s
 partial product summed; ``w_out`` row-parallel; its state the rank's
 channels) beside its attention split by heads; the xLSTM mixers their
 in-projections' columns, all-gathered, the cores and states whole, and
-``w_down``'s rows.  Six SMOKE models (Qwen2.5-14B, Granite-34B's MQA,
-Qwen3-MoE's GQA beside ``teshu2``, DeepSeek-V2's MLA, shared experts and
-layer 0, Hymba-1.5B, xLSTM-350M) run on 8 gloo ranks as ``(2, 2, 2)`` and
+``w_down``'s rows; a GQA layer whose heads do not divide ``model`` its
+``1/m`` of the columns of ``wq`` / ``wk`` / ``wv`` (all-gathered, then
+rotated) and of the rows of ``wo``, attending for its query rows (blocks
+``r`` and ``2m - 1 - r`` of ``2m``, their outputs exchanged by an
+all-to-all) or, in a decode step, over its block of the cache's ``T``,
+the blocks merged by their log-sum-exps.  Eight SMOKE models (Qwen2.5-14B,
+Granite-34B's MQA, Qwen3-MoE's GQA beside ``teshu2``, DeepSeek-V2's MLA,
+shared experts and layer 0, Hymba-1.5B, xLSTM-350M, and the variants split
+by positions: Qwen2.5-14B with 5 heads and 1 kv head, Hymba with 6 and 3,
+``tp_ranks.VARIANTS``) run on 8 gloo ranks as ``(2, 2, 2)`` and
 ``(1, 2, 4)`` ``("pod", "data", "model")`` meshes (``tp_ranks.py``), and
 the reference in one subprocess over 8 forced host devices, on the same
 weights (``init_lm`` jittered from numpy) and batch (two labels masked).
@@ -26,10 +33,11 @@ Tolerances: the forward's logits within ``LAYER`` of
 ``test_torch_moe_ep.py`` (float32 matmuls summing in other orders: a
 row-parallel product is summed over ``model`` in another order than one
 matmul); served tokens equal and the last positions' logits within
-``CACHED`` (through the bf16 cache), as are DeepSeek-V2's, Hymba's and
-xLSTM's logits of a prefill in two chunks on one cache; the loss to rtol
+``CACHED`` (through the bf16 cache), as are DeepSeek-V2's, Hymba's,
+xLSTM's and the variants' logits of a prefill in two chunks on one cache;
+the loss to rtol
 ``F32_LOSS`` and each summed gradient within ``F32_GRAD`` of its leaf's
-largest reference element (``test_torch_train_mesh.py``'s bound).  Twelve
+largest reference element (``test_torch_train_mesh.py``'s bound).  Sixteen
 planted faults must miss by 10x: the row-parallel sum skipped, the
 replicated kv head taken as ``r % n_kv_heads``, the gold logit taken from
 every rank, the column-split leaves' gradients summed over ``model``; in
@@ -38,7 +46,9 @@ rank's ``wkv_b`` heads taken at the next rank's offset and ``wo``'s sum
 skipped; in Hymba ``w_in``'s contiguous block taken as the rank's ``x``
 and ``z``, ``w_bcdt``'s and ``w_out``'s sums skipped; in xLSTM the mLSTM
 output normed over the rank's columns and the sLSTM ``w_down`` sum
-skipped.
+skipped; split by positions, RoPE applied to a rank's columns before the
+gather, a rank's query rows swapped with the next rank's, the decode's
+blocks merged by a plain mean and each block given the layer's window.
 """
 from types import SimpleNamespace
 
@@ -54,7 +64,7 @@ from repro.configs import get_config as ref_config  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from test_torch_moe_ep import CACHED, LAYER  # noqa: E402
 from test_torch_train_loss import F32_GRAD, F32_LOSS, jittered  # noqa: E402
-from test_torch_train_mesh import _block, _ref_named  # noqa: E402
+from test_torch_train_mesh import _block  # noqa: E402
 
 from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.launch import shardings  # noqa: E402
@@ -69,7 +79,7 @@ IDS = [f"{a}-{tp_ranks.mesh_name(s)}" for a, s in CASES]
 def _inputs() -> dict:
     data = {}
     for i, arch in enumerate(tp_ranks.ARCHS):
-        cfg = ref_config(arch, smoke=True)
+        cfg = tp_ranks.config(arch, ref_config)
         p = jittered(jax.tree.map(np.asarray, jlm.init_lm(
             jax.random.key(50 + i), cfg)), 60 + i)
         data.update(tp_ranks.flat_tree(p, f"p-{arch}"))
@@ -128,8 +138,8 @@ def _miss(got: dict, want: dict) -> float:
                for n, w in want.items())
 
 
-def _logit_miss(got, want) -> float:
-    return float((np.abs(got - want) / (LAYER["atol"] + LAYER["rtol"]
+def _logit_miss(got, want, tol=LAYER) -> float:
+    return float((np.abs(got - want) / (tol["atol"] + tol["rtol"]
                                         * np.abs(want))).max())
 
 
@@ -138,8 +148,11 @@ def _grads(res, key: str, names) -> dict:
 
 
 def _ref_grads(runs, arch: str, shape) -> dict:
-    return _ref_named(arch, tp_ranks.unflat_tree(
-        runs["ref"], f"{tp_ranks.ref_key(arch, shape)}|g"))
+    from repro_torch.models.convert import named_from_reference
+    model = lm.LM(tp_ranks.config(arch, get_config), device="cpu")
+    return {n: t.numpy() for n, t in named_from_reference(
+        model, tp_ranks.unflat_tree(
+            runs["ref"], f"{tp_ranks.ref_key(arch, shape)}|g")).items()}
 
 
 _MIXER_TP = {".mamba.": ("w_in", "conv", "log_a", "w_out"),
@@ -163,8 +176,10 @@ def test_kept_axes_rule(arch, shape):
     ``mixer_split`` splits its channels (``model`` divides ``di``: 3,200
     on 16, 2 and 4) and by the xLSTM mixers' projections (``w_up``, ``wq``,
     ``wk``, ``wv``, ``w_ifo``, ``w_in``, ``w_down``) on every mesh; Hymba's
-    attention splits as GQA does (its 25 heads not on 16, so it is whole
-    on the first two meshes); nothing else keeps an axis (sLSTM's
+    attention splits as GQA does; where the heads do not divide ``model``
+    (Qwen2.5-14B's 40 and Hymba's 25 on 16) the ``"positions"`` split
+    keeps ``model`` for ``wq``, ``wk``, ``wv`` and ``wo`` alike (every
+    width divides 16); nothing else keeps an axis (sLSTM's
     ``w_rec``, Mamba's ``w_bcdt`` and ``d_skip`` are gathered whole), and a
     leaf whose spec does not name ``model`` keeps none of it (xLSTM's
     ``w_ifo``, 12 columns, on 16)."""
@@ -178,9 +193,9 @@ def test_kept_axes_rule(arch, shape):
     assert mixer == (cfg.family == "ssm" or (
         cfg.family == "hybrid" and cfg.d_model * cfg.ssm.expand % m == 0))
     if cfg.family in ("dense", "moe", "hybrid") and cfg.mla is None:
-        want = None if cfg.n_heads % m else "heads" \
+        want = "positions" if cfg.n_heads % m else "heads" \
             if cfg.n_kv_heads % m == 0 else "replicate" \
-            if m % cfg.n_kv_heads == 0 else None
+            if m % cfg.n_kv_heads == 0 else "positions"
         assert split == want
     else:
         assert split is None
@@ -199,13 +214,36 @@ def test_kept_axes_rule(arch, shape):
         tp = n in ("embed", "unembed") or ".mlp." in n or \
             ".moe.shared." in n or (
                 ".attn." in n and leaf in ("wq", "wo") and split) or (
-                ".attn." in n and leaf in ("wk", "wv") and split == "heads") \
+                ".attn." in n and leaf in ("wk", "wv")
+            and split in ("heads", "positions")) \
             or (".attn." in n and mla and leaf in ("wq_a", "wq_b", "wkv_a",
                                                    "wkv_b", "wo")) \
             or (mixer and any(mod in n and leaf in names
                               for mod, names in _MIXER_TP.items()))
         assert kept == (("model",) if tp and "model" in named else ()), \
             (n, spec, kept)
+
+
+@pytest.mark.parametrize("s,m", [(12, 2), (12, 4), (7, 2), (7, 4), (5, 4),
+                                 (1, 2), (64, 2), (32768, 16), (4096, 16),
+                                 (1000, 16)])
+def test_position_blocks_cover_every_row_once(s, m):
+    """``shardings.position_blocks``: rank ``r``'s blocks ``r`` and ``2m -
+    1 - r`` of the ``2m`` cut at ``floor(i s / 2m)``; every row of ``s``
+    falls to exactly one rank (none dropped where ``2m`` does not divide
+    ``s``; ranks may hold none of a short sequence), and each rank attends
+    for the same causal pairs where it does (within one block's rows
+    elsewhere)."""
+    blocks = shardings.position_blocks(s, m)
+    assert len(blocks) == m
+    rows = sorted(p for bl in blocks for a, e in bl for p in range(a, e))
+    assert rows == list(range(s))
+    pairs = [sum((e * (e + 1) - a * (a + 1)) // 2 for a, e in bl)
+             for bl in blocks]
+    if s % (2 * m) == 0:
+        assert len(set(pairs)) == 1, pairs
+    else:
+        assert max(pairs) - min(pairs) <= 2 * (s // (2 * m) + 1) * s, pairs
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
@@ -215,13 +253,15 @@ def test_local_shapes(runs, case):
     heads in ``wq_b`` / ``wkv_b`` (columns) and ``wo`` (rows) and
     ``q_lora/m`` and ``(r + dr)/m`` columns of ``wq_a`` / ``wkv_a``), and
     its cache the kv heads of the stated layout: ``kvh/m`` where ``model``
-    divides them, the one kv head of KV replication; an MLA layer's
+    divides them, the one kv head of KV replication, every kv head of its
+    ``T / m`` rows where the layer splits by positions (the reference's
+    ``cache_spec`` local shape); an MLA layer's
     ``latent`` and ``k_rope`` whole; a Hymba layer's Mamba ``conv`` and
     ``ssm`` its ``di/m`` channels, the reference's ``cache_spec`` local
     shapes; an xLSTM layer's state whole."""
     from repro.launch.shardings import cache_spec as ref_cache_spec
     arch, shape = case
-    cfg = get_config(arch, smoke=True)
+    cfg = tp_ranks.config(arch, get_config)
     mesh, m = _standin(shape), shape[-1]
     key = f"{arch}|{tp_ranks.mesh_name(shape)}"
     whole = dict(lm.LM(cfg, device="meta").named_parameters())
@@ -235,7 +275,7 @@ def test_local_shapes(runs, case):
                 assert res[f"{key}|local|{n}"][-1] == p.shape[-1] // m, n
             if n.endswith(".attn.wq") and split:
                 assert res[f"{key}|local|{n}"][-1] == \
-                    cfg.n_heads // m * cfg.d_head
+                    cfg.n_heads * cfg.d_head // m
             if cfg.mla is not None and ".attn." in n:
                 _assert_mla_local(cfg, m, n, res[f"{key}|local|{n}"])
             if cfg.family == "hybrid" and n.endswith(".mamba.conv"):
@@ -251,6 +291,12 @@ def test_local_shapes(runs, case):
             for k in ("k", "attn|k", "attn|v", "v"):
                 if k in want:
                     want[k][2] = kvh
+                    if split == "positions":   # T by the reference's spec
+                        spec = tuple(ref_cache_spec(f"layers/{i}/k", (
+                            shape[0] * shape[1], *want[k][1:]), mesh, cfg))
+                        assert spec[1] == "model", spec
+                        want[k] = list(shardings.local_shape(
+                            (None,) + spec[1:], want[k], mesh))
             for k in ("ssm|conv", "ssm|ssm"):
                 if k in want:
                     want[k] = list(shardings.local_shape(tuple(ref_cache_spec(
@@ -337,14 +383,38 @@ def test_two_chunk_prefill_matches_reference(runs, case):
     mesh: DeepSeek-V2's second chunk runs the materialised form on the
     rank's heads over the whole cached latent from position 7; Hymba's
     carries the rank's Mamba channels and its kv heads; xLSTM's the whole
-    mLSTM and sLSTM states.  Every position's logits within ``CACHED`` of
-    the reference's same two chunks."""
+    mLSTM and sLSTM states; the variants split by positions write each
+    new row into the rank that holds it and read the cache's blocks
+    all-gathered.  Every position's logits within ``CACHED`` of the
+    reference's same two chunks."""
     arch, shape = case
     key = f"{arch}|{tp_ranks.mesh_name(shape)}"
     want = runs["ref"][f"{tp_ranks.ref_key(arch, shape)}|chunked"]
     for r, res in enumerate(runs["ranks"]):
         np.testing.assert_allclose(res[f"{key}|chunked"],
                                    want[_rows(r, shape)], **CACHED)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES
+                                  if c[0] in tp_ranks.POSITIONS],
+                         ids=[i for c, i in zip(CASES, IDS)
+                              if c[0] in tp_ranks.POSITIONS])
+def test_cache_whole_where_model_does_not_divide_t(runs, case):
+    """A layer split by positions over a cache of ``2 S + 1`` positions,
+    which neither ``model`` 2 nor 4 divides: the rank holds all of ``T``
+    (as the reference's ``cache_spec`` keeps it whole there) and decodes
+    it whole.  Two chunks and three decode steps within ``CACHED`` of the
+    same on a cache of ``2 S`` (``T`` split over ``model``, the blocks
+    merged by their log-sum-exps), the chunks also of the reference's."""
+    arch, shape = case
+    key = f"{arch}|{tp_ranks.mesh_name(shape)}"
+    want = runs["ref"][f"{tp_ranks.ref_key(arch, shape)}|chunked"]
+    for r, res in enumerate(runs["ranks"]):
+        odd, even = res[f"{key}|odd_t"], res[f"{key}|even_t"]
+        assert odd.shape == even.shape and odd.shape[1] == tp_ranks.S + 3
+        np.testing.assert_allclose(odd, even, **CACHED)
+        np.testing.assert_allclose(odd[:, :tp_ranks.S], want[_rows(r, shape)],
+                                   **CACHED)
 
 
 @pytest.mark.parametrize("fault", tp_ranks.FAULTS)
@@ -355,8 +425,12 @@ def test_planted_faults_miss(runs, fault):
     ``wkv_b`` heads at the next rank's offset and its ``wo`` sum skipped,
     Hymba's ``w_in`` block taken as the rank's ``x`` and ``z`` and its
     ``w_bcdt`` and ``w_out`` sums skipped, the mLSTM output normed over
-    the rank's columns and the sLSTM ``w_down`` sum skipped (the forward's
-    logits), the gold logit taken from every rank (the loss) and the
+    the rank's columns and the sLSTM ``w_down`` sum skipped, RoPE on a
+    rank's columns before the gather and a rank's query rows swapped with
+    the next's (the forward's logits), the decode's blocks merged by a
+    plain mean and each block given the layer's window (the served
+    logits, within ``CACHED``), the gold logit taken from every rank (the
+    loss) and the
     column-split leaves' gradients summed over ``model`` (the
     gradients)."""
     arch, shape = tp_ranks.FAULT_CASE[fault]
@@ -364,7 +438,11 @@ def test_planted_faults_miss(runs, fault):
     ref = runs["ref"]
     misses = []
     for r, res in enumerate(runs["ranks"]):
-        if fault in tp_ranks.LOGIT_FAULTS:
+        if fault in tp_ranks.SERVE_FAULTS:
+            misses.append(_logit_miss(
+                res[f"{fault}|serve_logits"],
+                ref[f"{rk}|serve_logits"][:, _rows(r, shape)], CACHED))
+        elif fault in tp_ranks.LOGIT_FAULTS:
             misses.append(_logit_miss(res[f"{fault}|logits"],
                                       ref[f"{rk}|logits"][_rows(r, shape)]))
         elif fault == "gold_everywhere":
@@ -500,3 +578,52 @@ def test_converted_cache_keeps_the_rank_channels(runs, case):
             assert set(got) == set(want), (i, sorted(got))
             for k, w in want.items():
                 np.testing.assert_array_equal(got[k], w)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES
+                                  if c[0] in tp_ranks.POSITIONS],
+                         ids=[i for c, i in zip(CASES, IDS)
+                              if c[0] in tp_ranks.POSITIONS])
+def test_converted_cache_keeps_the_rank_rows(runs, case):
+    """``convert.cache_from_reference(..., mesh=)`` of a layer split by
+    positions: each rank's ``k`` and ``v`` are the reference cache's every
+    kv head at the rows of its ``model`` block of ``T`` (8 positions: 4 a
+    rank on model 2, 2 on 4), as the reference's ``cache_spec`` splits
+    ``T``; the Hymba variant's ``conv`` and ``ssm`` its ``model`` block of
+    the ``di`` channels.  Back: the blocks of one ``(pod, data)`` group's
+    ``model`` ranks, in ``model`` order, are the reference's whole ``k``
+    and ``v``."""
+    arch, shape = case
+    cfg = tp_ranks.config(arch, get_config)
+    m = shape[-1]
+    key = f"{arch}|{tp_ranks.mesh_name(shape)}"
+    layers = tp_ranks.unflat_tree(runs["data"], f"cache-{arch}")
+    layers = layers["layers"] if "layers" in layers else [
+        {k: v[i] for k, v in layers["blocks"].items()}
+        for i in range(cfg.n_layers)]
+    for r, res in enumerate(runs["ranks"]):
+        c = _coord(r, shape)["model"]
+        for i, layer in enumerate(layers):
+            got = {k.rsplit(f"|converted|{i}|", 1)[1]: v
+                   for k, v in res.items()
+                   if k.startswith(f"{key}|converted|{i}|")}
+            attn = layer.get("attn", layer)
+            n = attn["k"].shape[1] // m
+            want = {f"{'attn|' if 'attn' in layer else ''}{k}":
+                    attn[k][:, c * n:(c + 1) * n] for k in ("k", "v")}
+            if "ssm" in layer:
+                di = cfg.d_model * cfg.ssm.expand // m
+                want["ssm|conv"] = layer["ssm"]["conv"][:, :, c * di:
+                                                        (c + 1) * di]
+                want["ssm|ssm"] = layer["ssm"]["ssm"][:, c * di:(c + 1) * di]
+            assert set(got) == set(want), (i, sorted(got))
+            for k, w in want.items():
+                np.testing.assert_array_equal(got[k], w)
+    pre = "attn|" if cfg.family == "hybrid" else ""
+    for first in range(0, len(runs["ranks"]), m):
+        for i, layer in enumerate(layers):
+            attn = layer.get("attn", layer)
+            for k in ("k", "v"):
+                np.testing.assert_array_equal(np.concatenate(
+                    [runs["ranks"][first + j][f"{key}|converted|{i}|{pre}{k}"]
+                     for j in range(m)], axis=1), attn[k])

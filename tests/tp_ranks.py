@@ -10,6 +10,7 @@ neither jax nor torch at its top.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import shutil
@@ -24,21 +25,32 @@ import numpy as np
 from mesh_ranks import AXES, REPO, _reference_serve, unflatten
 from mesh_train_ranks import _mesh_grads
 
+# SMOKE variants (the same change of config on both sides) whose GQA
+# attention splits over model by positions: Qwen2.5-14B with 5 heads and one
+# kv head (80 q columns: 2.5 heads a rank on model 2, as 40 heads are on
+# 16), Hymba with 6 heads and 3 kv heads (the heads divide 2, the kv heads
+# neither divide it nor are divided by it; on 4 neither divides)
+VARIANTS = {"qwen2.5-14b-h5kv1": ("qwen2.5-14b", dict(n_heads=5,
+                                                      n_kv_heads=1)),
+            "hymba-1.5b-h6kv3": ("hymba-1.5b", dict(n_heads=6,
+                                                    n_kv_heads=3))}
 # the dense family (GQA with 2 kv heads of 4; Granite's MQA: its one kv head
 # replicated), the MoE family's GQA beside teshu2, DeepSeek-V2 (its shared
 # experts, layer 0 and MLA split: 4 heads, q_lora 48, r + dr 48), Hymba
-# (the Mamba head's 128 channels split, its attention's 4 / 2 heads) and
-# xLSTM (an mLSTM and an sLSTM layer, their projections split)
+# (the Mamba head's 128 channels split, its attention's 4 / 2 heads),
+# xLSTM (an mLSTM and an sLSTM layer, their projections split) and the two
+# variants split by positions
 ARCHS = ("qwen2.5-14b", "granite-34b", "qwen3-moe-235b-a22b",
-         "deepseek-v2-236b", "hymba-1.5b", "xlstm-350m")
+         "deepseek-v2-236b", "hymba-1.5b", "xlstm-350m", *VARIANTS)
 DENSE = ARCHS[:2]
 MLA = ARCHS[3:4]
 HYBRID = ARCHS[4:5]
-XLSTM = ARCHS[5:]
+XLSTM = ARCHS[5:6]
+POSITIONS = tuple(VARIANTS)
 # the archs whose reference runs once (no EP axes), and those prefilled in
 # two chunks
-ONCE = DENSE + HYBRID + XLSTM
-CHUNKED = MLA + HYBRID + XLSTM
+ONCE = DENSE + HYBRID + XLSTM + POSITIONS
+CHUNKED = MLA + HYBRID + XLSTM + POSITIONS
 # model 2 (each rank 2 q heads, one kv head of its own) and model 4 (one q
 # head; Qwen2.5-14B's 2 kv heads each shared by 2 ranks)
 MESHES = ((2, 2, 2), (1, 2, 4))
@@ -47,7 +59,9 @@ CHUNK = 7                 # an MLA model's two-chunk prefill: 7, then 5
 SERVE = dict(batch=8, prompt_len=12, gen_len=5, max_len=32, seed=0)
 FAULTS = ("no_psum", "kv_head_mod", "gold_everywhere", "column_model_sum",
           "q_norm_local", "wkv_b_offset", "mla_no_sum", "mamba_xz_block",
-          "bcdt_no_sum", "mamba_no_sum", "mlstm_norm_local", "slstm_no_sum")
+          "bcdt_no_sum", "mamba_no_sum", "mlstm_norm_local", "slstm_no_sum",
+          "rope_before_gather", "rows_swapped", "merge_mean",
+          "block_window")
 # the planted faults, each on the mesh and arch where it bites
 FAULT_CASE = {"no_psum": ("qwen2.5-14b", (2, 2, 2)),
               "kv_head_mod": ("qwen2.5-14b", (1, 2, 4)),
@@ -60,12 +74,19 @@ FAULT_CASE = {"no_psum": ("qwen2.5-14b", (2, 2, 2)),
               "bcdt_no_sum": ("hymba-1.5b", (2, 2, 2)),
               "mamba_no_sum": ("hymba-1.5b", (1, 2, 4)),
               "mlstm_norm_local": ("xlstm-350m", (1, 2, 4)),
-              "slstm_no_sum": ("xlstm-350m", (2, 2, 2))}
-# the faults read off the forward's logits (the others off the loss or the
-# gradients)
+              "slstm_no_sum": ("xlstm-350m", (2, 2, 2)),
+              "rope_before_gather": ("qwen2.5-14b-h5kv1", (2, 2, 2)),
+              "rows_swapped": ("qwen2.5-14b-h5kv1", (1, 2, 4)),
+              "merge_mean": ("qwen2.5-14b-h5kv1", (2, 2, 2)),
+              # a window's start inside a block of 8 rows (model 4)
+              "block_window": ("hymba-1.5b-h6kv3", (1, 2, 4))}
+# the faults read off the forward's logits, and those off the served
+# logits of the decode steps (the others off the loss or the gradients)
 LOGIT_FAULTS = ("no_psum", "kv_head_mod", "q_norm_local", "wkv_b_offset",
                 "mla_no_sum", "mamba_xz_block", "bcdt_no_sum", "mamba_no_sum",
-                "mlstm_norm_local", "slstm_no_sum")
+                "mlstm_norm_local", "slstm_no_sum", "rope_before_gather",
+                "rows_swapped")
+SERVE_FAULTS = ("merge_mean", "block_window")
 # train(mesh=...) on (2, 2, 2) with a checkpoint every 3 steps; steps 3-5
 # resumed from it on a mesh of another model size, for each arch of
 # CKPT_ARCHS (DeepSeek-V2's MoE layers route one row a group on all three
@@ -78,6 +99,18 @@ RESTORE_MESHES = ((1, 2, 4), (2, 4, 1))
 
 def mesh_name(shape) -> str:
     return "x".join(map(str, shape))
+
+
+def base(key: str) -> str:
+    """The arch of ``key`` (an arch, or a key of :data:`VARIANTS`)."""
+    return VARIANTS.get(key, (key, None))[0]
+
+
+def config(key: str, get_config):
+    """``key``'s SMOKE config from ``get_config`` (either package's): the
+    arch's, a variant's with its fields replaced."""
+    arch, changes = VARIANTS.get(key, (key, {}))
+    return dataclasses.replace(get_config(arch, smoke=True), **changes)
 
 
 def flat_tree(tree, prefix: str) -> dict:
@@ -140,7 +173,7 @@ def reference_tp(inputs: str, out: str) -> None:
     data = dict(np.load(inputs))
     res = {}
     for arch in ARCHS:
-        cfg = get_config(arch, smoke=True)
+        cfg = config(arch, get_config)
         p = jax.tree.map(jnp.asarray, unflat_tree(data, f"p-{arch}"))
         batch = {k: jnp.asarray(data[f"batch-{arch}|{k}"])
                  for k in ("tokens", "labels")}
@@ -157,7 +190,8 @@ def reference_tp(inputs: str, out: str) -> None:
             res[f"{key}|logits"] = np.asarray(logits, np.float32)
             res[f"{key}|loss"] = np.asarray(loss)
             res.update(flat_tree(jax.tree.map(np.asarray, g), f"{key}|g"))
-            gen, last = _reference_serve(arch, p, mesh, **SERVE)
+            gen, last = _reference_serve(base(arch), p, mesh, cfg=cfg,
+                                         **SERVE)
             res[f"{key}|tokens"], res[f"{key}|serve_logits"] = gen, last
             if arch in CHUNKED:
                 with mesh:
@@ -239,7 +273,7 @@ def _tp_rank(inputs: str) -> dict:
     meshes = {s: make_mesh(s, AXES, device_type="cpu") for s in MESHES}
 
     def model_of(arch, mesh):
-        return lm_params_from_reference(get_config(arch, smoke=True),
+        return lm_params_from_reference(config(arch, get_config),
                                         unflat_tree(data, f"p-{arch}"),
                                         device="cpu", mesh=mesh)
 
@@ -255,13 +289,18 @@ def _tp_rank(inputs: str) -> dict:
         model.requires_grad_(True)
         return _mesh_grads(model, model.cfg, mesh, batch_of(arch), 1)
 
-    def two_chunks(model, arch, mesh):
+    def two_chunks(model, arch, mesh, max_len=S, steps=0):
+        """The logits of the rows' tokens prefilled in two chunks into a
+        cache of ``max_len``, then of ``steps`` decode steps fed the first
+        tokens again."""
         tokens = _rows(batch_of(arch)["tokens"], mesh)
-        cache = lm.init_cache(model.cfg, tokens.shape[0], S, device="cpu",
-                              mesh=mesh, specs=model.specs)
+        cache = lm.init_cache(model.cfg, tokens.shape[0], max_len,
+                              device="cpu", mesh=mesh, specs=model.specs)
         with torch.no_grad():
             out = [lm.forward(model, tokens=t, cache=cache, mesh=mesh)[0]
                    for t in (tokens[:, :CHUNK], tokens[:, CHUNK:])]
+            out += [lm.serve_step(model, cache, tokens=tokens[:, i:i + 1],
+                                  mesh=mesh)[0] for i in range(steps)]
         return torch.cat(out, dim=1).numpy()
 
     for shape, mesh in meshes.items():
@@ -275,7 +314,7 @@ def _tp_rank(inputs: str) -> dict:
             for i, layer in enumerate(cache["layers"]):
                 res.update({f"{key}|cache|{i}|{k}": np.array(v.shape)
                             for k, v in _leaves(layer).items()})
-            if arch in DENSE + MLA + HYBRID + XLSTM:
+            if arch in DENSE + MLA + HYBRID + XLSTM + POSITIONS:
                 conv = cache_from_reference(
                     model.cfg, unflat_tree(data, f"cache-{arch}"),
                     device="cpu", mesh=mesh, specs=model.specs)
@@ -285,8 +324,11 @@ def _tp_rank(inputs: str) -> dict:
             res[f"{key}|logits"] = forward(model, arch, mesh)
             if arch in CHUNKED:
                 res[f"{key}|chunked"] = two_chunks(model, arch, mesh)
-            gen, stats = serve(arch, device="cpu", params=model, mesh=mesh,
-                               **SERVE)
+            if arch in POSITIONS:   # T split over model, and T whole (odd)
+                for tag, t in (("even_t", 2 * S), ("odd_t", 2 * S + 1)):
+                    res[f"{key}|{tag}"] = two_chunks(model, arch, mesh, t, 3)
+            gen, stats = serve(base(arch), device="cpu", params=model,
+                               mesh=mesh, **SERVE)
             res[f"{key}|tokens"] = gen
             res[f"{key}|serve_logits"] = torch.stack(stats.logits).numpy()
             loss, g, _ = grads(model, arch, mesh)
@@ -301,8 +343,12 @@ def _tp_rank(inputs: str) -> dict:
         real = (layers.tp_sum, shardings.kv_head_of, lm._gold_logit,
                 shardings.split_leaves, layers.MLA._q_a, hybrid._x_and_z,
                 hybrid.tp_sum, ssm._mlstm_out, ssm._down)
+        at_positions = (layers._rotated_heads, layers._query_blocks,
+                        layers.merge_blocks, layers.block_window)
         if fault in _MIXER_FAULTS:
             _plant_mixer_fault(fault, model.cfg, real)
+        elif fault in _POSITION_FAULTS:
+            _plant_position_fault(fault)
         elif fault == "no_psum":
             layers.tp_sum = lambda x, mesh_: x
         elif fault == "kv_head_mod":
@@ -338,7 +384,12 @@ def _tp_rank(inputs: str) -> dict:
             layers.tp_sum = no_mla_sum
         try:
             res[f"{fault}|logits"] = forward(model, arch, mesh)
-            if fault not in LOGIT_FAULTS:
+            if fault in SERVE_FAULTS:
+                _, stats = serve(base(arch), device="cpu", params=model,
+                                 mesh=mesh, **SERVE)
+                res[f"{fault}|serve_logits"] = torch.stack(
+                    stats.logits).numpy()
+            elif fault not in LOGIT_FAULTS:
                 loss, g, _ = grads(model, arch, mesh)
                 res[f"{fault}|loss"] = np.array(loss)
                 res.update({f"{fault}|g|{n}": v for n, v in g.items()})
@@ -346,6 +397,8 @@ def _tp_rank(inputs: str) -> dict:
             (layers.tp_sum, shardings.kv_head_of, lm._gold_logit,
              shardings.split_leaves, layers.MLA._q_a, hybrid._x_and_z,
              hybrid.tp_sum, ssm._mlstm_out, ssm._down) = real
+            (layers._rotated_heads, layers._query_blocks,
+             layers.merge_blocks, layers.block_window) = at_positions
 
     # a checkpoint of train(mesh=...) on (2, 2, 2) restored onto meshes of
     # another model size
@@ -394,14 +447,50 @@ def _tp_rank(inputs: str) -> dict:
 
 def _leaves(layer: dict, pre: str = "") -> dict:
     """``{"k": tensor, "ssm|conv": tensor, ...}`` of a port cache layer's
-    tensors (its ``len`` left out)."""
+    tensors (its integers, ``len`` and a block's ``t0``, left out)."""
     out = {}
     for k, v in layer.items():
         if isinstance(v, dict):
             out.update(_leaves(v, f"{pre}{k}|"))
-        elif k != "len":
+        elif not isinstance(v, int):
             out[pre + k] = v
     return out
+
+
+_POSITION_FAULTS = ("rope_before_gather", "rows_swapped", "merge_mean",
+                    "block_window")
+
+
+def _plant_position_fault(fault: str) -> None:
+    """One of the ``"positions"`` split's planted faults, patched into
+    ``layers`` (restored by the caller): ``rope_before_gather`` rotates
+    each rank's block of columns as if it were one head, before the
+    gather; ``rows_swapped`` gives rank ``r`` the query rows of rank ``r +
+    1`` (the rows still put back as rank ``r``'s); ``merge_mean`` merges
+    the decode's blocks by a plain mean; ``block_window`` passes each
+    block the layer's window, not the window from its own first attended
+    row."""
+    from repro_torch.launch import shardings
+    from repro_torch.models import layers
+    if fault == "rope_before_gather":
+        def rope_first(y, heads, positions, cfg, mesh):
+            b, s = y.shape[:2]
+            y = layers.apply_rope(y[:, :, None], positions,
+                                  cfg.rope_theta)[:, :, 0]
+            return layers.tp_gather(y, heads * cfg.d_head, mesh).reshape(
+                b, s, heads, cfg.d_head)
+        layers._rotated_heads = rope_first
+    elif fault == "rows_swapped":
+        def next_rows(s, mesh):
+            m = mesh.shape["model"]
+            return shardings.position_blocks(s, m)[
+                (mesh.coord("model") + 1) % m]
+        layers._query_blocks = next_rows
+    elif fault == "merge_mean":
+        layers.merge_blocks = lambda outs, lses: outs.mean(0)
+    else:
+        layers.block_window = lambda valid, offset, rows, window: (
+            min(max(valid - offset, 0), rows), window)
 
 
 _MIXER_FAULTS = ("mamba_xz_block", "bcdt_no_sum", "mamba_no_sum",
