@@ -64,7 +64,15 @@ exits non-zero and prints no result.  In order it
    that must fail, and timed beside it; and the dense prefill's query rows
    cut as ``shardings.position_blocks`` cuts them over 16 ranks, each
    block through flash over the key rows up to its end, held to the whole
-   launch and timed beside it.  The ordered fold is held bit for bit (NaN = NaN) to its plain
+   launch and timed beside it.  The KV-replication layers' caches split
+   ``T`` alike (their kv heads are fewer than ``model``'s ranks): the LSE
+   route and the 16-block split at the Qwen3-MoE decode shape (64 q / 4
+   kv heads, a group of 16) and Granite's MQA (48 q heads over one, a
+   group of 48, ``decode_tma``'s limit); and MLA's latent cache split by
+   ``T``: the plain block decode (``layers.mla_block_decode``) over 16
+   blocks of DeepSeek-V2's width, merged by their LSE, held to one whole
+   ``mla_absorbed_decode``, with a plain mean of the blocks as the control
+   that must fail.  The ordered fold is held bit for bit (NaN = NaN) to its plain
    version for sum, min and max on segments of 1..64 rows, and for sum on
    the global stage's own Zipf layout (one segment of 263,532 rows; the
    plain version runs on a CPU copy); two adjacent rows of that segment
@@ -461,14 +469,30 @@ LSE_CASES = [  # name, B, H, KVH, T, d, valid_len, q dtype (cache: bf16), window
     ("Hymba step, window 1,024, LSE", 4, 25, 5, 4160, 64, 4128, "bfloat16",
      1024),
     ("Hymba step, window 1,024, LSE, decode_split (float32 q)", 4, 25, 5,
-     4160, 64, 4128, "float32", 1024)]
+     4160, 64, 4128, "float32", 1024),
+    # KV replication: Qwen3-MoE's group of 16 and Granite's MQA, 48 q
+    # heads over one kv head (decode_tma's largest group)
+    ("MoE decode, LSE", 4, 64, 4, 2048, 128, 1056, "bfloat16", 0),
+    ("MoE decode, LSE, decode_split (float32 q)", 4, 64, 4, 2048, 128, 1056,
+     "float32", 0),
+    ("Granite MQA decode, LSE", 4, 48, 1, 2048, 128, 1056, "bfloat16", 0),
+    ("Granite MQA decode, LSE, decode_split (float32 q)", 4, 48, 1, 2048,
+     128, 1056, "float32", 0)]
 # ... one card's cache cut into the blocks of T that model 16 gives its
 # ranks, each block decoded on the LSE route and the blocks merged, against
 # one whole launch (the row of the kernels line that each one fills) ...
 SPLIT_MODEL = 16
 SPLIT_CASES = {"serving decode, LSE": "decode_attention_lse",
-               "Hymba step, window 1,024, LSE": "decode_attention_lse_hymba"}
+               "Hymba step, window 1,024, LSE": "decode_attention_lse_hymba",
+               "MoE decode, LSE": "decode_attention_lse_moe",
+               "Granite MQA decode, LSE": "decode_attention_lse_mqa"}
 SPLIT_CONTROL = "the blocks' log-sum-exps taken in base 2 (lse / ln 2)"
+# ... MLA's latent cache cut alike: the plain block decode at DeepSeek-V2's
+# width (batch 4, 128 heads, r 512, dr 64, 1,056 valid of 2,048), the 16
+# blocks merged against one whole absorbed decode within MLA_BLOCK_RTOL of
+# its largest element ...
+MLA_BLOCK_CASE = dict(batch=4, t=2048, valid=1056)
+MLA_BLOCK_RTOL = 1e-5
 # ... and the dense prefill's query rows cut as model 16's ranks take them
 # (blocks r and 31 - r of 32), each block through flash over the key rows
 # up to its end, against the whole launch
@@ -1219,10 +1243,12 @@ ZIGZAG_TOL = ("against the whole launch: ref.attention_tolerance with "
 
 
 def split_phase(dev, paths: dict) -> dict:
-    """The kernels of a GQA layer split over ``model`` by positions, on
-    one card (``shardings.attention_split``: ``"positions"``; on the
-    card's one rank every layer splits by heads, so the split itself is
-    held on the CPU over gloo ranks): the decode kernel's log-sum-exp
+    """The kernels of the layers whose caches split ``T`` over ``model``
+    (a GQA layer split by positions or under KV replication, and MLA), on
+    one card (``shardings.attention_split``: ``"positions"`` or
+    ``"replicate"``; on the card's one rank every layer splits by heads,
+    so the split itself is held on the CPU over gloo ranks): the decode
+    kernel's log-sum-exp
     route on both kernels against the plain version, one card's cache cut
     into the ``SPLIT_MODEL`` blocks of ``T`` that model 16 gives its ranks
     (each decoded on that route by ``block_window``'s rows and window, the
@@ -1230,8 +1256,10 @@ def split_phase(dev, paths: dict) -> dict:
     by ``merge_blocks``) against one whole launch, with a planted base-2
     LSE that must fail, and the dense prefill's query rows cut as
     ``shardings.position_blocks`` cuts them over 16, each block through
-    flash, against the whole launch.  Returns the rows of the kernels
-    line's ``lse`` and ``zigzag`` entries."""
+    flash, against the whole launch; MLA's block decode
+    (:func:`mla_block_check`).  Returns the rows of the kernels line's
+    ``lse`` and ``zigzag`` entries (``mla_blocks`` logged only: no kernel
+    runs in MLA)."""
     import math
 
     import torch
@@ -1335,6 +1363,7 @@ def split_phase(dev, paths: dict) -> dict:
             f"rows: {json.dumps(row)}")
         del blocks, got, whole, a, tol
     del inputs
+    rows["mla_blocks"] = mla_block_check(dev, flush)
 
     # the dense prefill's rows as model 16's ranks take them
     _, bhq, bhkv, sq, skv, d, causal, qdt, win = next(
@@ -1371,6 +1400,84 @@ def split_phase(dev, paths: dict) -> dict:
     del q, k, v, whole, parts, got, a, scratch
     torch.cuda.empty_cache()
     return rows
+
+
+def mla_block_check(dev, flush) -> dict:
+    """MLA's decode over its latent cache cut into the ``SPLIT_MODEL``
+    blocks of ``T`` that model 16 gives its ranks, at DeepSeek-V2's width
+    (``MLA_BLOCK_CASE``): each block through ``layers.mla_block_decode``
+    over its valid rows (``block_window``; the blocks past the valid
+    length give zeros and ``-inf``), the blocks merged by their
+    log-sum-exps (``merge_blocks``) and ``wkv_b``'s value half applied,
+    against one whole ``mla_absorbed_decode`` on the same bf16 cache
+    within ``MLA_BLOCK_RTOL`` of its largest element; a plain mean of the
+    blocks' contexts must miss by 10x.  No kernel runs (plain float32
+    einsums, as in the layer); both are timed."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (block_window,
+                                                      merge_blocks)
+    from repro_torch.models import layers
+
+    cfg = get_config(DEEPSEEK_ARCH)
+    a, h = cfg.mla, cfg.n_heads
+    b, t, valid = (MLA_BLOCK_CASE[k] for k in ("batch", "t", "valid"))
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=gen)
+                * scale).to(torch.bfloat16)
+    p = SimpleNamespace(cfg=cfg, wkv_b=randn(
+        a.kv_lora_rank, h * (a.nope_head_dim + a.v_head_dim),
+        scale=a.kv_lora_rank ** -0.5))
+    q_nope, q_rope = randn(b, 1, h, a.nope_head_dim), randn(
+        b, 1, h, a.rope_head_dim)
+    latent, k_rope = randn(b, t, a.kv_lora_rank), randn(b, t, a.rope_head_dim)
+    n = t // SPLIT_MODEL
+    scale = layers._mla_scale(a)
+
+    def whole():
+        return layers.mla_absorbed_decode(p, q_nope, q_rope, latent, k_rope,
+                                          valid_len=valid)
+
+    def split(merge=merge_blocks):
+        wk_abs, wv_abs = layers._absorbed(p)
+        q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), wk_abs)
+        ctxs, lses = [], []
+        for i in range(SPLIT_MODEL):
+            r, _ = block_window(valid, i * n, n)
+            ctx, lse = layers.mla_block_decode(
+                q_lat, q_rope[:, 0].float(), latent[:, i * n:i * n + r],
+                k_rope[:, i * n:i * n + r], scale=scale)
+            ctxs.append(ctx)
+            lses.append(lse)
+        ctx = merge(torch.stack(ctxs), torch.stack(lses))
+        return torch.einsum("bhr,rhd->bhd", ctx, wv_abs).reshape(b, 1, -1)
+
+    with torch.no_grad():
+        want, got = whole(), split()
+        control = split(lambda ctx, lse: ctx.mean(0))
+        bound = MLA_BLOCK_RTOL * float(want.abs().max())
+        err = float((got - want).abs().max())
+        share = err / bound
+        cshare = float((control - want).abs().max()) / bound
+        assert got.shape == want.shape == (b, 1, h * a.v_head_dim)
+        assert bool(torch.isfinite(got).all())
+        assert share <= 1.0, f"MLA block decode: {share} of the bound"
+        assert cshare >= 10.0, f"the mean-merged blocks pass: {cshare}"
+        row = dict(blocks=SPLIT_MODEL, rows_a_block=n, valid_len=valid,
+                   heads=h, r=a.kv_lora_rank, dr=a.rope_head_dim, batch=b,
+                   max_abs_err=err, tolerance=f"{MLA_BLOCK_RTOL} max|whole|",
+                   bound_share=share, control="the blocks' contexts "
+                   "averaged", control_share=cshare,
+                   ms=time_ms(split, flush=flush, spin=True),
+                   whole_ms=time_ms(whole, flush=flush, spin=True))
+    log(f"mla block decode over {SPLIT_MODEL} blocks of {n} rows: "
+        f"{json.dumps(row)}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -5032,17 +5139,19 @@ def main() -> int:
                 "launches": dv["launches"]["gmm"] + dv["ep"]["launches"]["gmm"],
                 **{x: d[x] for x in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")}}
-        split = {x: krows[f"{k.__name__}_{x}"] for x in
-                 ("lse", "lse_hymba", "zigzag")
-                 if f"{k.__name__}_{x}" in krows}
-        if split:             # the pieces of the split by positions
-            line[-1]["positions_split"] = {x: {
-                y: r[y] for y in ("blocks", "launches", "max_abs_err",
-                                  "bound_share", "ms", "whole_ms",
-                                  "route_ms", "off_route_ms",
-                                  "lse_max_abs_err", "control_share",
-                                  "bit_for_bit") if y in r}
-                for x, r in split.items()}
+        for entry, keys in (("positions_split", ("lse", "lse_hymba",
+                                                 "zigzag")),
+                            ("replicate_split", ("lse_moe", "lse_mqa"))):
+            split = {x: krows[f"{k.__name__}_{x}"] for x in keys
+                     if f"{k.__name__}_{x}" in krows}
+            if split:         # the pieces of the splits of T
+                line[-1][entry] = {x: {
+                    y: r[y] for y in ("blocks", "launches", "max_abs_err",
+                                      "bound_share", "ms", "whole_ms",
+                                      "route_ms", "off_route_ms",
+                                      "lse_max_abs_err", "control_share",
+                                      "bit_for_bit") if y in r}
+                    for x, r in split.items()}
         w = krows.get(f"{k.__name__}_hymba")
         if w is not None:     # flash and decode with Hymba's window
             line[-1]["window"] = {

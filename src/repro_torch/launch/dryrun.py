@@ -24,14 +24,14 @@ tensors do not hold; the moments laid out as their parameters, as
 ``init_opt_state`` lays them out); a decode cell's cache is made in the
 port's own layout (its batch split over ``("pod", "data")``, and the
 rank's kv heads where its attention splits them over ``model``: ``kvh /
-m``, or the one kv head of KV replication, where the reference's
-stand-ins split ``T`` over ``model``; every kv head of the rank's block of
-``T`` where the layer splits by positions, as the reference's do; all of
-them where the layer runs whole; an MLA layer's latent and rope key whole,
-which every head reads,
-where the reference's split the latent's ``r`` over ``model``), filled to
-``seq_len - 1`` positions so that the step attends over ``seq_len``.  A
-cell whose step raises is a failed cell.
+m``; every kv head of the rank's block of ``T`` under KV replication and
+where the layer splits by positions, as the reference's stand-ins split
+``T``; all of them where the layer runs whole; an MLA layer's latent and
+rope key of the rank's block of ``T``, where the reference's split the
+latent's ``r`` over ``model``: the same bytes), filled to ``seq_len - 1``
+positions so that the step attends over ``seq_len`` (the decode's
+gathers of ``q`` and its merges of the blocks are counted with the other
+collectives).  A cell whose step raises is a failed cell.
 
 Usage::
 

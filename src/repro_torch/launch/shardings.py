@@ -440,7 +440,8 @@ def attention_split(cfg, mesh) -> str | None:
       counts (each rank its ``h/m`` q and ``kvh/m`` kv heads);
     * ``"replicate"`` where ``m`` divides ``n_heads`` and ``n_kv_heads``
       divides ``m`` (each rank its ``h/m`` q heads and the one kv head they
-      read, Megatron's KV replication);
+      read, Megatron's KV replication; its cache every kv head of its
+      block of ``T``, :func:`local_cache_rows`);
     * ``"positions"`` on any other ``m > 1`` where ``m`` divides the
       projections' widths ``h dh`` and ``kvh dh`` (Qwen2.5-14B's 40 heads
       and Hymba's 25 on 16): each rank computes its ``1/m`` of the columns
@@ -486,7 +487,8 @@ def mla_split(cfg, mesh) -> bool:
     Each rank then computes its ``h/m`` heads from its columns of ``wq_b``
     and ``wkv_b`` and its rows of ``wo``, and its ``1/m`` of the two
     down-projections ``wq_a`` and ``wkv_a``, whose outputs it all-gathers
-    (``layers.MLA``); the latent cache stays whole on each rank."""
+    (``layers.MLA``); its latent cache holds the rank's block of ``T``
+    (:func:`local_cache_rows`)."""
     m = mesh.shape.get("model")
     return cfg.mla is not None and m is not None and cfg.n_heads % m == 0
 
@@ -592,48 +594,75 @@ def _attn_kept(cfg, mesh, layer: int, specs: dict | None) -> bool:
     return spec is not None and "model" in kept_axes(name, spec, mesh, cfg)
 
 
-def local_kv_heads(cfg, mesh, layer: int, specs: dict | None = None) -> int:
-    """The kv heads a rank's cache of attention layer ``layer`` holds under
-    ``mesh``: ``n_kv_heads / m`` where the layer splits its kv heads, 1
-    under KV replication, all of them where it runs whole or splits by
-    positions (by ``specs``, the model's, else by the rules; reads only
-    ``mesh.shape``).  Under KV replication the reference splits the cache's
-    ``T`` over ``model`` where the port holds the rank's kv head whole; by
-    positions both hold a block of ``T`` (:func:`local_cache_rows`).  A
-    hybrid block's attention is its mixer's
+def local_kv_heads(cfg, mesh, layer: int, max_len: int,
+                   specs: dict | None = None) -> int:
+    """The kv heads a rank's cache of attention layer ``layer`` (of
+    ``max_len`` positions) holds under ``mesh``: ``n_kv_heads / m`` where
+    the layer splits its kv heads; under KV replication every kv head of
+    the rank's block of ``T`` (:func:`local_cache_rows`), or where ``m``
+    does not divide ``max_len`` the one kv head its q heads read, for all
+    of ``T``; all of them where it runs whole or splits by positions (by
+    ``specs``, the model's, else by the rules; reads only ``mesh.shape``).
+    A hybrid block's attention is its mixer's
     (``blocks.{layer}.mixer.attn.wq``)."""
     if not _attn_kept(cfg, mesh, layer, specs) \
             or attention_split(cfg, mesh) == "positions":
         return cfg.n_kv_heads
     m = mesh.shape["model"]
-    return cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else 1
+    if cfg.n_kv_heads % m == 0:
+        return cfg.n_kv_heads // m
+    return cfg.n_kv_heads if local_cache_rows(
+        cfg, mesh, layer, max_len, specs) is not None else 1
+
+
+def _mla_kept(cfg, mesh, layer: int, specs: dict | None) -> bool:
+    """Whether MLA layer ``layer``'s ``wkv_b`` is kept as its ``model``
+    shard (by ``specs``, the model's, else by the rules)."""
+    m = cfg.mla
+    name = f"blocks.{layer}.attn.wkv_b"
+    spec = specs.get(name) if specs is not None else leaf_spec(
+        name, (m.kv_lora_rank, cfg.n_heads * (m.nope_head_dim
+                                              + m.v_head_dim)), mesh, cfg)
+    return spec is not None and "model" in kept_axes(name, spec, mesh, cfg)
 
 
 def local_cache_rows(cfg, mesh, layer: int, max_len: int,
                      specs: dict | None = None) -> tuple[int, int] | None:
     """``(t0, rows)``: the positions ``[t0, t0 + rows)`` of a ``max_len``
-    cache that this rank's cache of attention layer ``layer`` holds where
-    the layer splits by positions, or None for all of them (every other
-    mode, or a layer that runs whole).  Read off :func:`cache_spec`'s entry
-    on ``T`` for the layer's ``k``, whose kv heads do not divide ``model``
-    there: ``T`` over ``model`` (``t0`` the rank's ``model`` coordinate
-    times ``max_len / m``), or whole where ``m`` does not divide
-    ``max_len``.  The batch is taken as split over ``("pod", "data")``:
-    where the reference's batch does not divide them its spec names
-    ``("data", "model")`` on ``T``, and the port keeps the ``data`` part
-    as it holds the rows, on every rank, and splits ``T`` over ``model``
-    alone (by ``specs``, the model's, else by the rules)."""
-    if attention_split(cfg, mesh) != "positions" \
-            or not _attn_kept(cfg, mesh, layer, specs):
+    cache that this rank's cache of layer ``layer`` holds, or None for all
+    of them.  A block where ``model`` (of more than one rank) splits the
+    layer and :func:`cache_spec` puts ``T`` on it: a GQA layer split by
+    positions or under KV replication, whose kv heads do not divide
+    ``model`` (the entry on ``T`` of the layer's ``k``), and an MLA layer
+    whose heads split (:func:`mla_split`; the entry on ``T`` of its
+    ``k_rope``, the latent's rows laid out alike: the reference splits the
+    latent's ``r``, the same bytes).  ``t0`` is the rank's ``model``
+    coordinate times ``max_len / m``; all of ``T`` where ``m`` does not
+    divide ``max_len``.  The batch is taken as split over ``("pod",
+    "data")``: where the reference's batch does not divide them its spec
+    names ``data`` on ``T``, and the port keeps the ``data`` part as it
+    holds the rows, on every rank, and splits ``T`` over ``model`` alone
+    (by ``specs``, the model's, else by the rules)."""
+    m = mesh.shape.get("model", 1)
+    if m == 1:
         return None
     dp = 1
     for a in ("pod", "data"):
         dp *= mesh.shape.get(a, 1)
-    spec = cache_spec(f"layers/{layer}/k", (dp, max_len, cfg.n_kv_heads,
-                                            cfg.d_head), mesh, cfg)
+    if cfg.mla is not None:
+        if not mla_split(cfg, mesh) or not _mla_kept(cfg, mesh, layer, specs):
+            return None
+        spec = cache_spec(f"layers/{layer}/k_rope",
+                          (dp, max_len, cfg.mla.rope_head_dim), mesh, cfg)
+    else:
+        if attention_split(cfg, mesh) not in ("positions", "replicate") \
+                or not _attn_kept(cfg, mesh, layer, specs):
+            return None
+        spec = cache_spec(f"layers/{layer}/k", (dp, max_len, cfg.n_kv_heads,
+                                                cfg.d_head), mesh, cfg)
     if "model" not in _axes(spec[1]):
         return None
-    rows = max_len // mesh.shape["model"]
+    rows = max_len // m
     return mesh.coord("model") * rows, rows
 
 

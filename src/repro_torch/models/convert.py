@@ -197,11 +197,14 @@ def opt_state_from_reference(model: LM, opt_state: dict, *,
     return out
 
 
-def _rank_heads(cfg: ModelConfig, mesh, layer: int, specs) -> slice:
-    """The kv heads of attention layer ``layer`` that this rank's cache
-    holds under ``mesh`` (``shardings.local_kv_heads``): its ``model``
-    block of them, or under KV replication the one its q heads read."""
-    n = shardings.local_kv_heads(cfg, mesh, layer, specs)
+def _rank_heads(cfg: ModelConfig, mesh, layer: int, max_len: int,
+                specs) -> slice:
+    """The kv heads of attention layer ``layer`` (of ``max_len``
+    positions) that this rank's cache holds under ``mesh``
+    (``shardings.local_kv_heads``): its ``model`` block of them, under KV
+    replication every one of its block of ``T``, or (``T`` whole) the one
+    its q heads read."""
+    n = shardings.local_kv_heads(cfg, mesh, layer, max_len, specs)
     if n == cfg.n_kv_heads:
         return slice(None)
     m, r = mesh.shape["model"], mesh.coord("model")
@@ -221,11 +224,12 @@ def cache_from_reference(cfg: ModelConfig, cache: dict, *,
     Under ``mesh`` a GQA layer whose heads split over ``model`` keeps this
     rank's kv heads (``lm.init_cache``'s layout; ``specs`` the model's, as
     there; a hybrid layer's attention too), a GQA layer that splits by
-    positions every kv head of the rank's block of ``T`` (and its ``t0``:
-    ``shardings.local_cache_rows``), a hybrid layer's Mamba state
-    the rank's channels where its head splits them, and an MLA layer the
-    whole latent and rope key, an xLSTM layer the whole state; the rows
-    of the batch stay the caller's."""
+    positions or under KV replication every kv head of the rank's block of
+    ``T`` (and its ``t0``: ``shardings.local_cache_rows``), a hybrid
+    layer's Mamba state the rank's channels where its head splits them, an
+    MLA layer whose heads split the latent and rope key of its block of
+    ``T``, an xLSTM layer the whole state; the rows of the batch stay the
+    caller's."""
     dev = check_device(device)
 
     def ssm(t, i):
@@ -238,29 +242,28 @@ def cache_from_reference(cfg: ModelConfig, cache: dict, *,
         return {"conv": to_tensor(np.asarray(t["conv"])[:, :, c], dev),
                 "ssm": to_tensor(np.asarray(t["ssm"])[:, c], dev)}
 
-    def kv(i):
-        return slice(None) if mesh is None else _rank_heads(cfg, mesh, i,
-                                                            specs)
-
-    def attn(t, i):
-        heads, rows = kv(i), None
-        if mesh is not None:
-            rows = shardings.local_cache_rows(cfg, mesh, i,
-                                              np.shape(t["k"])[1], specs)
+    def block(t, i, names, heads=()):
+        """The leaves ``names`` of layer ``i``'s cache ``t``, each
+        ``[B, T, ...]``, at the rank's rows of ``T`` (and ``heads``)."""
+        rows = None if mesh is None else shardings.local_cache_rows(
+            cfg, mesh, i, np.shape(t[names[0]])[1], specs)
         pos = slice(None) if rows is None else slice(rows[0],
                                                      rows[0] + rows[1])
-        out = {"k": to_tensor(np.asarray(t["k"])[:, pos, heads], dev),
-               "v": to_tensor(np.asarray(t["v"])[:, pos, heads], dev),
-               "len": int(np.asarray(t["len"]))}
+        out = {k: to_tensor(np.asarray(t[k])[(slice(None), pos, *heads)],
+                            dev) for k in names}
+        out["len"] = int(np.asarray(t["len"]))
         if rows is not None:
             out["t0"] = rows[0]
         return out
 
+    def attn(t, i):
+        heads = slice(None) if mesh is None else _rank_heads(
+            cfg, mesh, i, np.shape(t["k"])[1], specs)
+        return block(t, i, ("k", "v"), (heads,))
+
     def layer(t, i):
         if "latent" in t:                    # MLA: the latent and rope key
-            return {"latent": to_tensor(t["latent"], dev),
-                    "k_rope": to_tensor(t["k_rope"], dev),
-                    "len": int(np.asarray(t["len"]))}
+            return block(t, i, ("latent", "k_rope"))
         if "state" in t:                     # xLSTM: mLSTM or sLSTM state
             return {"state": {k: to_tensor(v, dev)
                               for k, v in t["state"].items()}}

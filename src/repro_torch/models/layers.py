@@ -31,6 +31,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
@@ -234,27 +235,58 @@ def _query_blocks(s: int, mesh) -> tuple[tuple[int, int], ...]:
         mesh.coord("model")]
 
 
+def _block_slots(cache: dict, t: int, s: int, blocks: int = 1
+                 ) -> tuple[slice, slice]:
+    """``(rows, slots)``: the rows of a call's ``s`` new positions ``[len,
+    len + s)`` that fall in the cache's block and the block's rows they go
+    to (empty where none does).  The block is the cache's ``t`` rows from
+    its ``t0``, one of ``blocks`` blocks of ``T`` (the ``"positions"`` and
+    KV replication splits, MLA's), or all of ``T`` where the cache holds no
+    ``t0``.  A call past the whole cache's end raises."""
+    ln, t0 = cache["len"], cache.get("t0", 0)
+    t_all = t * (blocks if "t0" in cache else 1)
+    if ln + s > t_all:
+        raise ValueError(f"KV cache full: {ln} + {s} positions > {t_all}")
+    lo = max(ln, t0)
+    hi = max(lo, min(ln + s, t0 + t))
+    return slice(lo - ln, hi - ln), slice(lo - t0, hi - t0)
+
+
 def _append(cache: dict, k: torch.Tensor, v: torch.Tensor, blocks: int = 1
             ) -> int:
     """Write ``k, v [B, S, kvh, dh]`` at the cache's positions ``[len, len +
     S)`` (cast to its dtype) and advance ``len``; returns the old ``len``.
-    A cache holding one of ``blocks`` blocks of ``T`` (its ``t0``, the
-    ``"positions"`` split) takes the rows that fall in its block."""
+    A cache holding one of ``blocks`` blocks of ``T`` (its ``t0``) takes
+    the rows that fall in its block (:func:`_block_slots`)."""
     kc, vc, ln = cache["k"], cache["v"], cache["len"]
-    s, t0 = k.shape[1], cache.get("t0", 0)
-    t_all = kc.shape[1] * (blocks if "t0" in cache else 1)
-    if ln + s > t_all:
-        raise ValueError(f"KV cache full: {ln} + {s} positions > {t_all}")
+    rows, slots = _block_slots(cache, kc.shape[1], k.shape[1], blocks)
     if kc.shape[2] != k.shape[2]:
         raise ValueError(f"the cache holds {kc.shape[2]} kv heads, the layer "
                          f"computes {k.shape[2]}: make it with the model's "
                          f"mesh")
-    lo, hi = max(ln, t0), min(ln + s, t0 + kc.shape[1])
-    if lo < hi:
-        kc[:, lo - t0:hi - t0] = k[:, lo - ln:hi - ln]
-        vc[:, lo - t0:hi - t0] = v[:, lo - ln:hi - ln]
-    cache["len"] = ln + s
+    kc[:, slots] = k[:, rows]
+    vc[:, slots] = v[:, rows]
+    cache["len"] = ln + k.shape[1]
     return ln
+
+
+def _kv_rows(p: Attention, x: torch.Tensor, positions: torch.Tensor,
+             k: torch.Tensor, v: torch.Tensor):
+    """``(k, v) [B, n, n_kv_heads, dh]``: every kv head of the rows ``x [B,
+    n, D]`` at ``positions``, from the whole ``wk`` and ``wv`` (and
+    biases), rotated, under KV replication, whose cache block holds every
+    kv head of its rows; ``k, v [B, n, 1, dh]`` are the rank's own head of
+    them, which is every head where there is one."""
+    cfg = p.cfg
+    if cfg.n_kv_heads == 1:
+        return k, v
+    b, n, _ = x.shape
+    kk, vv = x @ p.wk, x @ p.wv
+    if p.bk is not None:
+        kk, vv = kk + p.bk, vv + p.bv
+    kk = apply_rope(kk.reshape(b, n, cfg.n_kv_heads, cfg.d_head), positions,
+                    cfg.rope_theta)
+    return kk, vv.reshape(b, n, cfg.n_kv_heads, cfg.d_head)
 
 
 class Attention(nn.Module):
@@ -268,8 +300,10 @@ class Attention(nn.Module):
     as their own ``model`` shard (``kvh/m`` kv heads) or whole, of which it
     takes the columns of the one kv head its q heads read
     (``shardings.kv_head_of``); the replicated biases are sliced alike.
-    It attends over those heads (its cache holds its kv heads) and ends in
-    one sum over ``model`` (:func:`tp_sum`).
+    It attends over those heads and ends in one sum over ``model``
+    (:func:`tp_sum`).  Its cache holds its kv heads, or under KV
+    replication every kv head of its block of ``T`` (:meth:`_replicated`;
+    all of ``T`` and its one kv head where ``m`` does not divide it).
 
     Where ``model`` divides neither (the ``"positions"`` split: ``h`` not
     a multiple of ``m``, or ``kvh`` neither dividing nor divided by it)
@@ -353,6 +387,9 @@ class Attention(nn.Module):
         if cache is None:
             out = _flash(q, k, v, window=self.window, use_kernel=True) \
                 if use_kernel else _attend(q, k, v, window=self.window)
+        elif "t0" in cache:                 # KV replication, a block of T
+            out = self._replicated(x, positions, q, k, v, cache, use_kernel,
+                                   mesh)
         else:
             ln = _append(cache, k, v)
             kc, vc = cache["k"], cache["v"]
@@ -367,6 +404,46 @@ class Attention(nn.Module):
         out = out.reshape(b, s, h * cfg.d_head)
         out = (out @ self.wo).to(x.dtype)
         return (out if h == cfg.n_heads else tp_sum(out, mesh)), cache
+
+    def _replicated(self, x, positions, q, k, v, cache, use_kernel, mesh):
+        """KV replication (``shardings.attention_split``: ``"replicate"``)
+        over a cache that holds every kv head of the rank's block of
+        ``T`` (its ``t0``), on ``model`` rank ``r`` of ``m``; ``q [B, S,
+        h/m, dh]`` and ``k, v [B, S, 1, dh]`` the rank's heads.  Returns
+        ``[B, S, h/m, dh]``.
+
+        * The new rows that fall in the rank's block are written with every
+          kv head (:func:`_kv_rows`: computed from the whole ``wk`` /
+          ``wv``, ``1/m`` of the k/v projection's rows).
+        * A fresh prefill attends the rank's q heads over its own kv head's
+          rows of this call, cast to the cache's dtype as cached; a prefill
+          over a filled cache all-gathers the cache's blocks over ``model``
+          for the call and takes its kv head.
+        * A decode step all-gathers ``q`` over ``model`` (every rank then
+          holds all ``h`` heads), decodes over its block through the decode
+          slot's log-sum-exp route and merges the blocks
+          (:meth:`_decode_blocks`), and takes its ``h/m`` heads."""
+        _, s, h, _ = q.shape
+        m = mesh.shape["model"]
+        kc, vc, ln = cache["k"], cache["v"], cache["len"]
+        rows, slots = _block_slots(cache, kc.shape[1], s, m)
+        if rows.stop > rows.start:
+            kb, vb = _kv_rows(self, x[:, rows], positions[..., rows],
+                              k[:, rows], v[:, rows])
+            kc[:, slots], vc[:, slots] = kb, vb
+        cache["len"] = ln + s
+        if s == 1:
+            q1 = meshops.all_gather(q[:, 0], mesh, "model", axis=1)
+            out = self._decode_blocks(q1, cache, ln + 1, use_kernel, mesh)
+            return tp_block(out, h, mesh, dim=1).contiguous()[:, None]
+        if ln == 0:                     # the rows just written, as cached
+            kk, vv = k.to(kc.dtype), v.to(vc.dtype)
+        else:                           # the blocks of every rank, for now
+            head = shardings.kv_head_of(mesh.coord("model"), m,
+                                        self.cfg.n_kv_heads)
+            kk, vv = (meshops.all_gather(c, mesh, "model", axis=1)
+                      [:, :ln + s, head:head + 1] for c in (kc, vc))
+        return _flash(q, kk, vv, window=self.window, use_kernel=use_kernel)
 
     def _by_positions(self, x, positions, cache, use_kernel, mesh):
         """The ``"positions"`` split (``shardings.attention_split``) on
@@ -541,9 +618,14 @@ class MLA(nn.Module):
     of the columns of the down-projections ``wq_a`` and ``wkv_a``.  It
     all-gathers those two products over ``model`` (:func:`tp_gather`), so
     that ``q_a_norm`` sees the whole ``q_lora`` row and the latent and rope
-    key are split apart, normalised and cached whole on every rank (each
-    head reads all of them); it attends over its heads and ends in one sum
-    over ``model`` (:func:`tp_sum`).  Whole leaves run the layer whole."""
+    key are split apart and normalised whole on every rank; its cache holds
+    them for its block of ``T`` (``shardings.local_cache_rows``: the
+    reference's bytes, whose specs split the latent's ``r``).  A prefill
+    attends its heads over this call's rows (a fresh cache) or over every
+    rank's block all-gathered; a decode step attends all heads over its
+    block and merges the blocks (:meth:`_decode_blocks`).  It ends in one
+    sum over ``model`` (:func:`tp_sum`).  Whole leaves run the layer
+    whole."""
 
     def __init__(self, cfg: ModelConfig, *, device, gen=None):
         super().__init__()
@@ -608,8 +690,9 @@ class MLA(nn.Module):
                 mesh=None):
         """x: ``[B, S, D]``.  Returns ``(out, cache)``; a given cache is
         updated in place (its ``latent`` / ``k_rope`` rows ``[len, len +
-        S)`` are written and ``len`` advances).  Both forms read the cache's
-        rows ``[0, len + S)`` only.  ``use_kernel`` is taken for the
+        S)`` are written, those of its block where it holds one of ``T``,
+        and ``len`` advances).  Both forms read the cache's rows ``[0, len
+        + S)`` only.  ``use_kernel`` is taken for the
         interface's sake: no kernel runs here.  ``mesh`` is needed only
         where the leaves arrive as this rank's shards."""
         b, s, _ = x.shape
@@ -619,24 +702,59 @@ class MLA(nn.Module):
                 out = mla_materialized(self, q_nope, q_rope, latent, k_rope)
         else:
             lc, rc, ln = cache["latent"], cache["k_rope"], cache["len"]
-            if ln + s > lc.shape[1]:
-                raise ValueError(f"KV cache full: {ln} + {s} positions > "
-                                 f"{lc.shape[1]}")
-            lc[:, ln:ln + s] = latent       # cast to the cache's dtype
-            rc[:, ln:ln + s] = k_rope
+            split = "t0" in cache
+            rows, slots = _block_slots(cache, lc.shape[1], s,
+                                       mesh.shape["model"] if split else 1)
+            lc[:, slots] = latent[:, rows]  # cast to the cache's dtype
+            rc[:, slots] = k_rope[:, rows]
             cache["len"] = ln + s
-            rows = lc[:, :ln + s], rc[:, :ln + s]
-            if s == 1:
+            if not split:
+                kv = lc[:, :ln + s], rc[:, :ln + s]
+            elif ln == 0:                   # the rows just written, as cached
+                kv = latent.to(lc.dtype), k_rope.to(rc.dtype)
+            else:                           # every rank's block, for now
+                kv = None if s == 1 else tuple(
+                    meshops.all_gather(c, mesh, "model", axis=1)[:, :ln + s]
+                    for c in (lc, rc))
+            if s == 1 and split:
                 with record_function("mla.decode"):
-                    out = mla_absorbed_decode(self, q_nope, q_rope, *rows,
+                    out = self._decode_blocks(q_nope, q_rope, cache, ln + 1,
+                                              mesh)
+            elif s == 1:
+                with record_function("mla.decode"):
+                    out = mla_absorbed_decode(self, q_nope, q_rope, *kv,
                                               valid_len=ln + 1)
             else:     # prefill, fresh or appended: queries end-aligned
                 with record_function("mla.prefill"):
-                    out = mla_materialized(self, q_nope, q_rope, *rows,
+                    out = mla_materialized(self, q_nope, q_rope, *kv,
                                            q_offset=ln, valid_len=ln + s)
         out = out.to(x.dtype) @ self.wo
         return (out if q_nope.shape[2] == self.cfg.n_heads
                 else tp_sum(out, mesh)), cache
+
+    def _decode_blocks(self, q_nope, q_rope, cache, valid: int, mesh):
+        """The absorbed decode step over a cache that holds the rank's block
+        of ``T`` (its ``t0``): ``[B, 1, h dv]`` float32 for this rank's
+        ``h/m`` heads.  The rank folds ``wkv_b``'s key half into its heads'
+        queries (``q_lat``, float32) and all-gathers them with ``q_rope``
+        over ``model``, attends all ``h`` heads over the valid rows of its
+        block (:func:`mla_block_decode`), merges the blocks by their
+        log-sum-exps into its own heads (:func:`_merge_heads`) and applies
+        their ``wv_abs``."""
+        m = self.cfg.mla
+        b, _, h, _ = q_nope.shape
+        wk_abs, wv_abs = _absorbed(self)
+        q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), wk_abs)
+        q_all = meshops.all_gather(torch.cat([q_lat, q_rope[:, 0].float()],
+                                             dim=-1), mesh, "model", axis=1)
+        lc = cache["latent"]
+        n, _ = block_window(valid, cache["t0"], lc.shape[1])
+        ctx, lse = mla_block_decode(
+            *q_all.split([m.kv_lora_rank, m.rope_head_dim], dim=-1),
+            lc[:, :n], cache["k_rope"][:, :n], scale=_mla_scale(m))
+        out = torch.einsum("bhr,rhd->bhd", _merge_heads(ctx, lse, mesh),
+                           wv_abs)
+        return out.reshape(b, 1, h * m.v_head_dim)
 
 
 def _mla_scale(m) -> float:
@@ -677,9 +795,7 @@ def mla_absorbed_decode(p: MLA, q_nope, q_rope, latent, k_rope, *,
     m, h = p.cfg.mla, _mla_heads(p)
     b, s = q_nope.shape[:2]
     t = latent.shape[1]
-    w_abs = p.wkv_b.float().reshape(m.kv_lora_rank, h,
-                                    m.nope_head_dim + m.v_head_dim)
-    wk_abs, wv_abs = w_abs.split([m.nope_head_dim, m.v_head_dim], dim=-1)
+    wk_abs, wv_abs = _absorbed(p)
     lat = latent.float()
     q_lat = torch.einsum("bshd,rhd->bshr", q_nope.float(), wk_abs)
     scores = (torch.einsum("bshr,btr->bhst", q_lat, lat)
@@ -693,14 +809,71 @@ def mla_absorbed_decode(p: MLA, q_nope, q_rope, latent, k_rope, *,
     return out.reshape(b, s, h * m.v_head_dim)
 
 
+def _absorbed(p: MLA) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(wk_abs [r, h, dn], wv_abs [r, h, dv])``: ``wkv_b``'s key and
+    value halves in float32, ``h`` its heads."""
+    m = p.cfg.mla
+    w_abs = p.wkv_b.float().reshape(m.kv_lora_rank, _mla_heads(p),
+                                    m.nope_head_dim + m.v_head_dim)
+    return w_abs.split([m.nope_head_dim, m.v_head_dim], dim=-1)
+
+
+def mla_block_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                     latent: torch.Tensor, k_rope: torch.Tensor, *,
+                     scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The absorbed decode of one query a sequence over one block of the
+    latent cache: ``q_lat [B, h, r]`` and ``q_rope [B, h, dr]`` (float32)
+    over the block's valid rows ``latent [B, n, r]`` and ``k_rope [B, n,
+    dr]``.  ``(ctx [B, h, r], lse [B, h])`` float32: the softmax-weighted
+    latent rows and the log-sum-exp of the scaled scores; a block with no
+    row gives zeros and ``-inf``.  Blocks merge by their log-sum-exps
+    (``merge_blocks``) into :func:`mla_absorbed_decode`'s context over
+    their rows."""
+    b, h, r = q_lat.shape
+    if latent.shape[1] == 0:
+        return (q_lat.new_zeros((b, h, r)),
+                q_lat.new_full((b, h), float("-inf")))
+    lat = latent.float()
+    scores = (torch.einsum("bhr,btr->bht", q_lat, lat)
+              + torch.einsum("bhd,btd->bht", q_rope, k_rope.float())) * scale
+    lse = torch.logsumexp(scores, dim=-1)
+    ctx = torch.einsum("bht,btr->bhr", torch.exp(scores - lse[..., None]),
+                       lat)
+    return ctx, lse
+
+
+def _merge_heads(ctx: torch.Tensor, lse: torch.Tensor, mesh) -> torch.Tensor:
+    """``[B, h/m, r]``: this ``model`` rank's heads of the blocks' contexts
+    ``ctx [B, h, r]`` merged by their log-sum-exps ``lse [B, h]`` (each
+    rank's over its block): an all-reduce max of ``lse`` over ``model``,
+    then one reduce-scatter over the heads of the rescaled contexts and
+    their weights ``exp(lse - max)``, ``[B, h, r + 1]``."""
+    b, h, r = ctx.shape
+    n = mesh.shape["model"]
+    w = torch.exp(lse - meshops.psum(lse, mesh, ("model",),
+                                     op=dist.ReduceOp.MAX))
+    part = torch.cat([ctx * w[..., None], w[..., None]], dim=-1)
+    part = meshops.psum_scatter(part.transpose(0, 1).reshape(-1), mesh,
+                                ("model",)).view(h // n, b, r + 1)
+    return (part[..., :r] / part[..., r:]).transpose(0, 1)
+
+
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-                   device) -> dict:
+                   device, rows: tuple[int, int] | None = None) -> dict:
+    """The latent and rope key, bfloat16; ``rows`` ``(t0, n)`` the block of
+    positions ``[t0, t0 + n)`` of the ``max_len`` that a rank holds where
+    the layer's heads split over ``model`` (the cache then holds ``t0``),
+    default all of them."""
     m = cfg.mla
-    return {"latent": torch.zeros((batch, max_len, m.kv_lora_rank),
-                                  dtype=torch.bfloat16, device=device),
-            "k_rope": torch.zeros((batch, max_len, m.rope_head_dim),
-                                  dtype=torch.bfloat16, device=device),
-            "len": 0}
+    t = max_len if rows is None else rows[1]
+    out = {"latent": torch.zeros((batch, t, m.kv_lora_rank),
+                                 dtype=torch.bfloat16, device=device),
+           "k_rope": torch.zeros((batch, t, m.rope_head_dim),
+                                 dtype=torch.bfloat16, device=device),
+           "len": 0}
+    if rows is not None:
+        out["t0"] = rows[0]
+    return out
 
 
 # ---------------------------------------------------------------------------

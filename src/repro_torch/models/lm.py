@@ -44,12 +44,13 @@ axes, the dispatch bringing the tokens to it, and is gathered over
 ``data`` only (on the gspmd dispatch, whole); the ranks along ``model``
 split the dense work as the reference's specs do (tensor parallelism):
 an MLP on its ``f / m`` columns, GQA attention on its ``h / m`` heads
-(where ``model`` divides them; its kv heads too, or the one they read;
-a hybrid's attention as well) or, where it does not, by positions (its
-``1 / m`` of the projections' columns, its query rows, its block of the
-cache's ``T``), MLA on its ``h / m`` heads and its ``1 /
-m`` of the two down-projections (their outputs all-gathered; the latent
-cache whole on every rank), Hymba's Mamba head on its ``di / m``
+(where ``model`` divides them; its kv heads too, or the one they read
+with every kv head of its block of the cache's ``T``; a hybrid's
+attention as well) or, where it does not, by positions (its ``1 / m`` of
+the projections' columns, its query rows, its block of the cache's
+``T``), MLA on its ``h / m`` heads and its ``1 / m`` of the two
+down-projections (their outputs all-gathered; the latent cache the
+rank's block of ``T``), Hymba's Mamba head on its ``di / m``
 channels (where ``model`` divides them; its state too), the xLSTM
 mixers' projections on their ``model`` columns (the outputs gathered,
 the cores and states whole) and rows (``w_down``), each ending in one
@@ -492,12 +493,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     (``shardings.local_kv_heads``, by ``specs``, the model's, where
     given: a model placed with other specs than the rules' keeps its
     own); a GQA layer that splits by positions (``"positions"``: its heads
-    do not divide ``model``) keeps every kv head of this rank's block of
+    do not divide ``model``) or under KV replication (its kv heads fewer
+    than ``model``'s ranks) keeps every kv head of this rank's block of
     ``T`` (``shardings.local_cache_rows``: ``max_len / m`` rows from
     ``t0``, held as the layer's ``t0``), as the reference's ``cache_spec``
-    splits ``T``; an MLA layer's latent and rope key are whole on every rank,
-    whose heads all read them (the reference's specs split the latent's
-    ``r`` over ``model``).  A hybrid layer's attention cache keeps its
+    splits ``T``; an MLA layer whose heads split keeps its latent and rope
+    key for the rank's block of ``T`` alike (the reference's specs split the
+    latent's ``r`` over ``model``: the same bytes).  A hybrid layer's attention cache keeps its
     rank's kv heads alike, and its Mamba state (``conv``, ``ssm``) the
     rank's channels where the head splits them
     (``shardings.local_channels``), as the reference's ``cache_spec``
@@ -513,13 +515,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             init = init_slstm_state if is_slstm(cfg, layer) \
                 else init_mlstm_state
             return {"state": init(cfg, batch, device=dev)}
+        rows = None if mesh is None else shardings.local_cache_rows(
+            cfg, mesh, layer, max_len, specs)
         if cfg.mla is not None:
-            return init_mla_cache(cfg, batch, max_len, device=dev)
+            return init_mla_cache(cfg, batch, max_len, device=dev, rows=rows)
         attn = init_attention_cache(
             cfg, batch, max_len, device=dev, kv_heads=None if mesh is None
-            else shardings.local_kv_heads(cfg, mesh, layer, specs),
-            rows=None if mesh is None else shardings.local_cache_rows(
-                cfg, mesh, layer, max_len, specs))
+            else shardings.local_kv_heads(cfg, mesh, layer, max_len, specs),
+            rows=rows)
         if cfg.family == "hybrid":
             return {"attn": attn, "ssm": init_ssm_cache(
                 cfg, batch, device=dev, channels=None if mesh is None

@@ -55,11 +55,14 @@ MESH = (2, 4, 1)
 # XLA does, but the xLSTM cores, which each model rank repeats whole (taken
 # off by _xlstm_repeated_flops)
 TP_MESH = (2, 2, 2)
-TP_HELD = ("dense", "moe", "mla", "hybrid", "ssm")
+TP_HELD = ("dense", "moe", "mla", "hybrid", "ssm", "mqa")
 SEQ, BATCH = 64, 8
+# "mqa": Granite-34B's one kv head, replicated over model (KV replication,
+# its cache every kv head of a rank's block of T)
 FAMILIES = {"dense": "qwen2.5-14b", "moe": "qwen3-moe-235b-a22b",
             "mla": "deepseek-v2-236b", "hybrid": "hymba-1.5b",
-            "ssm": "xlstm-350m"}
+            "ssm": "xlstm-350m",
+            "mqa": "granite-34b"}
 KINDS = ("train", "prefill", "decode")
 FLOP_TOL = 0.02
 # SMOKE variants whose GQA attention splits over model by positions (the
@@ -595,6 +598,24 @@ def _xlstm_repeated_flops(cfg, rows: int, kind: str, m: int) -> float:
     return float((1 - 1 / m) * (n_m * mlstm + n_s * slstm))
 
 
+def _kv_repeated_flops(cfg, mesh, tokens: int, kind: str) -> float:
+    """The dot FLOPs of the k and v projections that a rank repeats under
+    KV replication (``shardings.attention_split``: ``"replicate"``), where
+    each ``model`` rank computes the kv head its q heads read from the
+    whole ``wk`` / ``wv`` (gathered whole, not kept) while the reference's
+    XLA splits their columns ``m`` ways: ``(1 - 1/m)`` of ``2 tokens d (2
+    kvh dh)`` a layer, three times that in a train cell (the input's and
+    the weights' gradients).  Granite's one kv head is every kv head, so
+    its cache write adds none; 0 under any other split."""
+    from repro_torch.launch import shardings
+    if shardings.attention_split(cfg, mesh) != "replicate":
+        return 0.0
+    m = mesh.shape["model"]
+    one = 2 * tokens * cfg.d_model * 2 * cfg.n_kv_heads * cfg.d_head
+    return float((1 - 1 / m) * cfg.n_layers * one
+                 * (3 if kind == "train" else 1))
+
+
 def _port_flops(mesh, arch, kind, **kw) -> float:
     return dryrun.run_cell(arch, ShapeConfig(f"{kind}_s", SEQ, BATCH, kind),
                            mesh, verbose=False, smoke=True, use_kernel=False,
@@ -603,9 +624,11 @@ def _port_flops(mesh, arch, kind, **kw) -> float:
 
 def _hold_flops(ref: dict, mesh, family: str, held: bool = True) -> dict:
     """Each kind's ``port / reference`` FLOPs a rank of ``family``'s SMOKE
-    cells on ``mesh``, the MoE padding, the sLSTM weight gradients and the
-    xLSTM cores' repeated work (:func:`_xlstm_repeated_flops`, also
-    returned under ``repeated``) taken off: where ``held``, train and
+    cells on ``mesh``, the MoE padding, the sLSTM weight gradients, the
+    xLSTM cores' repeated work (:func:`_xlstm_repeated_flops`) and the
+    k / v projections repeated under KV replication
+    (:func:`_kv_repeated_flops`; both returned under ``repeated``) taken
+    off: where ``held``, train and
     prefill within 2%; decode at most the reference's, short of it by no
     more than the attention over the cache rows the port does not read
     (none: the cache holds ``seq_len - 1`` positions and the step reads
@@ -629,6 +652,10 @@ def _hold_flops(ref: dict, mesh, family: str, held: bool = True) -> dict:
         if cfg.family == "ssm":
             repeated[kind] = _xlstm_repeated_flops(cfg, rows, kind, m)
             pad += repeated[kind]
+        kv = _kv_repeated_flops(cfg, mesh, tokens, kind)
+        if kv:
+            repeated[kind] = kv
+            pad += kv
         got = _port_flops(mesh, arch, kind) - pad
         ratios[kind] = got / want
         if not held:
@@ -653,12 +680,15 @@ def test_flops_split_over_model_match_the_reference(reference_flops,
     channels, the xLSTM projections, the embedding and vocabulary split
     over ``model`` as the reference's XLA splits them), the xLSTM cores'
     repeated work taken off and printed beside the ratios (prefill and
-    decode then equal the reference's to the FLOP).  MLA
+    decode then equal the reference's to the FLOP), and Granite's (``mqa``:
+    KV replication, its one kv head read by both ranks' q heads) k / v
+    projections, which each rank computes whole, taken off alike.  MLA
     leaves no difference: dot for dot, XLA's per-device products of the
     absorbed decode (``wq_a`` / ``wkv_a`` on 24 of 48 columns, ``wq_b`` and
     ``wo`` on 2 of 4 heads, the scores and context over the whole latent
     for 2 heads, or over half of ``T`` or of ``r`` for all 4, the same
-    FLOPs) are the port's, and the prefill's and training's as well.  The
+    FLOPs) are the port's (now all 4 heads over the rank's half of ``T``
+    in a decode step), and the prefill's and training's as well.  The
     shared experts' padded rows are worked out at their ``f / m``
     columns (DeepSeek-V2's decode: ``2 x 14`` rows of ``16``)."""
     with dryrun.fake_world(8):
@@ -750,24 +780,33 @@ def test_flops_split_by_positions_match_the_reference(
 
 
 def _attn_cache_bytes(cache: dict) -> int:
-    """The bytes of a port cache's attention keys and values."""
+    """The bytes of a port cache's attention keys and values (an MLA
+    layer's latent and rope key)."""
     n = 0
     for layer in cache["layers"]:
         sub = layer.get("attn", layer)
-        n += sum(sub[k].numel() * sub[k].element_size() for k in ("k", "v"))
+        n += sum(t.numel() * t.element_size() for k, t in sub.items()
+                 if k in ("k", "v", "latent", "k_rope"))
     return n
 
 
 def _ref_attn_cache_bytes(cfg, mesh, batch: int, seq: int) -> int:
     """The bytes a device holds of the reference's attention keys and
-    values by its ``cache_spec`` (per layer, ``layers/i/k``; bf16)."""
+    values (an MLA layer's latent and rope key) by its ``cache_spec`` (per
+    layer, ``layers/i/k``; bf16)."""
     from repro.launch.shardings import cache_spec
     from repro_torch.launch import shardings
-    whole = (batch, seq, cfg.n_kv_heads, cfg.d_head)
+    if cfg.mla is not None:
+        leaves = {"latent": (batch, seq, cfg.mla.kv_lora_rank),
+                  "k_rope": (batch, seq, cfg.mla.rope_head_dim)}
+    else:
+        whole = (batch, seq, cfg.n_kv_heads, cfg.d_head)
+        leaves = {"k": whole, "v": whole}
     per = 0
     for i in range(cfg.n_layers):
-        spec = tuple(cache_spec(f"layers/{i}/k", whole, mesh, cfg))
-        per += 2 * 2 * int(np.prod(shardings.local_shape(spec, whole, mesh)))
+        for name, whole in leaves.items():
+            spec = tuple(cache_spec(f"layers/{i}/{name}", whole, mesh, cfg))
+            per += 2 * int(np.prod(shardings.local_shape(spec, whole, mesh)))
     return per
 
 
@@ -792,13 +831,25 @@ def test_cache_bytes_split_by_positions_equal_the_reference(
     assert got * TP_MESH[-1] == whole
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-14b", "hymba-1.5b"])
+# the configs whose caches split T over model on (16, 16): heads that do not
+# divide 16 (the split by positions), kv heads fewer than 16 (KV
+# replication: Pixtral 32 / 8, Llama-3 128 / 8, Qwen1.5 64 / 8, Qwen3-MoE
+# 64 / 4, Granite 48 / 1) and MLA (DeepSeek-V2's latent and rope key)
+DECODE_32K_SPLIT = ("qwen2.5-14b", "hymba-1.5b", "pixtral-12b", "llama3-405b",
+                    "qwen1.5-110b", "qwen3-moe-235b-a22b", "granite-34b",
+                    "deepseek-v2-236b")
+
+
+@pytest.mark.parametrize("arch", DECODE_32K_SPLIT)
 def test_decode_32k_cache_a_rank_is_the_reference_spec(arch):
     """At full width on ``(16, 16)``, ``decode_32k`` (128 sequences, 8 a
     rank, 32,768 positions): Qwen2.5-14B's 40 heads and Hymba's 25 do not
-    divide 16, so each rank's cache holds every kv head of its 2,048 rows
-    of ``T``: the reference's ``cache_spec`` bytes, 1/16 of every row's
-    (no step is run: the caches are meta tensors)."""
+    divide 16, the other GQA configs' kv heads are fewer than 16 (KV
+    replication), and DeepSeek-V2's MLA splits its heads, so each rank's
+    cache holds every kv head (the whole latent and rope key) of its
+    2,048 rows of ``T``: the reference's ``cache_spec`` bytes (for MLA, the
+    latent's ``r`` split and the rope key's ``T``: the same bytes), 1/16 of
+    every row's (no step is run: the caches are meta tensors)."""
     cfg = get_config(arch)
     shape = ShapeConfig("decode_32k", 32768, 128, "decode")
     with dryrun.fake_world(256):

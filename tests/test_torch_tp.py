@@ -5,11 +5,14 @@ The port's ranks along ``model`` split the dense work as the reference's
 sharding rules do (``shardings.kept_axes``): an MLP's ``w_gate`` / ``w_up``
 column-parallel and ``w_down`` row-parallel, a GQA layer's heads (its kv
 heads too where ``model`` divides them, else each rank the one kv head its
-q heads read), the embedding's ``d`` slice and the unembedding's vocabulary
+q heads read, its cache every kv head of the rank's block of ``T``), the
+embedding's ``d`` slice and the unembedding's vocabulary
 slice, each row-parallel product ending in one sum over ``model``; an
 MLA layer its ``h/m`` heads of ``wq_b`` / ``wkv_b`` (columns) and ``wo``
 (rows) and its ``1/m`` of the down-projections ``wq_a`` / ``wkv_a``, whose
-outputs it all-gathers, the latent cache whole on every rank; Hymba's
+outputs it all-gathers, the latent cache the rank's block of ``T`` (a
+decode step attends all heads over it and merges the blocks into the
+rank's heads by their log-sum-exps); Hymba's
 Mamba head its ``di/m`` channels (``w_in``'s columns computed and
 all-gathered, the rank's own of ``x`` and ``z`` taken; ``w_bcdt``'s
 partial product summed; ``w_out`` row-parallel; its state the rank's
@@ -37,7 +40,7 @@ matmul); served tokens equal and the last positions' logits within
 xLSTM's and the variants' logits of a prefill in two chunks on one cache;
 the loss to rtol
 ``F32_LOSS`` and each summed gradient within ``F32_GRAD`` of its leaf's
-largest reference element (``test_torch_train_mesh.py``'s bound).  Sixteen
+largest reference element (``test_torch_train_mesh.py``'s bound).  Nineteen
 planted faults must miss by 10x: the row-parallel sum skipped, the
 replicated kv head taken as ``r % n_kv_heads``, the gold logit taken from
 every rank, the column-split leaves' gradients summed over ``model``; in
@@ -48,7 +51,10 @@ and ``z``, ``w_bcdt``'s and ``w_out``'s sums skipped; in xLSTM the mLSTM
 output normed over the rank's columns and the sLSTM ``w_down`` sum
 skipped; split by positions, RoPE applied to a rank's columns before the
 gather, a rank's query rows swapped with the next rank's, the decode's
-blocks merged by a plain mean and each block given the layer's window.
+blocks merged by a plain mean and each block given the layer's window;
+with the caches split by ``T``, a KV-replication block written with the
+rank's own kv head in every head, MLA's blocks merged by a plain mean and
+rank ``r`` writing the rows of rank ``r + 1``'s block.
 """
 from types import SimpleNamespace
 
@@ -253,12 +259,14 @@ def test_local_shapes(runs, case):
     heads in ``wq_b`` / ``wkv_b`` (columns) and ``wo`` (rows) and
     ``q_lora/m`` and ``(r + dr)/m`` columns of ``wq_a`` / ``wkv_a``), and
     its cache the kv heads of the stated layout: ``kvh/m`` where ``model``
-    divides them, the one kv head of KV replication, every kv head of its
-    ``T / m`` rows where the layer splits by positions (the reference's
-    ``cache_spec`` local shape); an MLA layer's
-    ``latent`` and ``k_rope`` whole; a Hymba layer's Mamba ``conv`` and
-    ``ssm`` its ``di/m`` channels, the reference's ``cache_spec`` local
-    shapes; an xLSTM layer's state whole."""
+    divides them, every kv head of its ``T / m`` rows under KV replication
+    and where the layer splits by positions (the reference's
+    ``cache_spec`` local shape); an MLA layer's ``latent`` and ``k_rope``
+    their ``T / m`` rows (``k_rope``'s ``cache_spec`` local shape; the
+    reference's spec splits the latent's ``r``, the same bytes); a Hymba
+    layer's Mamba ``conv`` and ``ssm`` its ``di/m`` channels, the
+    reference's ``cache_spec`` local shapes; an xLSTM layer's state
+    whole."""
     from repro.launch.shardings import cache_spec as ref_cache_spec
     arch, shape = case
     cfg = tp_ranks.config(arch, get_config)
@@ -280,8 +288,7 @@ def test_local_shapes(runs, case):
                 _assert_mla_local(cfg, m, n, res[f"{key}|local|{n}"])
             if cfg.family == "hybrid" and n.endswith(".mamba.conv"):
                 assert res[f"{key}|local|{n}"][-1] == p.shape[-1] // m, n
-        kvh = cfg.n_kv_heads // m if split == "heads" else 1 \
-            if split == "replicate" else cfg.n_kv_heads
+        kvh = cfg.n_kv_heads // m if split == "heads" else cfg.n_kv_heads
         fresh = lm.init_cache(cfg, 1, 4, device="cpu")["layers"]
         for i in range(cfg.n_layers):
             got = {k.rsplit(f"|cache|{i}|", 1)[1]: v for k, v in res.items()
@@ -291,12 +298,20 @@ def test_local_shapes(runs, case):
             for k in ("k", "attn|k", "attn|v", "v"):
                 if k in want:
                     want[k][2] = kvh
-                    if split == "positions":   # T by the reference's spec
-                        spec = tuple(ref_cache_spec(f"layers/{i}/k", (
-                            shape[0] * shape[1], *want[k][1:]), mesh, cfg))
+                    if split in ("positions", "replicate"):   # T by the
+                        spec = tuple(ref_cache_spec(      # reference's spec
+                            f"layers/{i}/k", (shape[0] * shape[1],
+                                              *want[k][1:]), mesh, cfg))
                         assert spec[1] == "model", spec
                         want[k] = list(shardings.local_shape(
                             (None,) + spec[1:], want[k], mesh))
+            for k in ("latent", "k_rope"):
+                if k in want:                  # T by k_rope's spec
+                    spec = tuple(ref_cache_spec(f"layers/{i}/k_rope", (
+                        shape[0] * shape[1], want[k][1],
+                        cfg.mla.rope_head_dim), mesh, cfg))
+                    assert spec[1] == "model", spec
+                    want[k][1] //= m
             for k in ("ssm|conv", "ssm|ssm"):
                 if k in want:
                     want[k] = list(shardings.local_shape(tuple(ref_cache_spec(
@@ -380,8 +395,11 @@ def test_loss_and_gradients_match_reference(runs, case):
                               if c[0] in tp_ranks.CHUNKED])
 def test_two_chunk_prefill_matches_reference(runs, case):
     """A prompt prefilled in two chunks (7, then 5) on one cache under the
-    mesh: DeepSeek-V2's second chunk runs the materialised form on the
-    rank's heads over the whole cached latent from position 7; Hymba's
+    mesh: the KV-replication layers (Granite on both meshes, Qwen2.5-14B
+    on ``(1, 2, 4)``) write every kv head of the rows that fall in the
+    rank's block of ``T`` and read the blocks all-gathered in the second;
+    DeepSeek-V2's second chunk runs the materialised form on the rank's
+    heads over the cached latent's blocks all-gathered; Hymba's
     carries the rank's Mamba channels and its kv heads; xLSTM's the whole
     mLSTM and sLSTM states; the variants split by positions write each
     new row into the rank that holds it and read the cache's blocks
@@ -396,14 +414,15 @@ def test_two_chunk_prefill_matches_reference(runs, case):
 
 
 @pytest.mark.parametrize("case", [c for c in CASES
-                                  if c[0] in tp_ranks.POSITIONS],
+                                  if c[0] in tp_ranks.ODD_T],
                          ids=[i for c, i in zip(CASES, IDS)
-                              if c[0] in tp_ranks.POSITIONS])
+                              if c[0] in tp_ranks.ODD_T])
 def test_cache_whole_where_model_does_not_divide_t(runs, case):
-    """A layer split by positions over a cache of ``2 S + 1`` positions,
-    which neither ``model`` 2 nor 4 divides: the rank holds all of ``T``
-    (as the reference's ``cache_spec`` keeps it whole there) and decodes
-    it whole.  Two chunks and three decode steps within ``CACHED`` of the
+    """A layer split by positions, under KV replication (Granite) or MLA's
+    (DeepSeek-V2) over a cache of ``2 S + 1`` positions, which neither
+    ``model`` 2 nor 4 divides: the rank holds all of ``T`` (as the
+    reference's ``cache_spec`` keeps it whole there; under KV replication
+    its one kv head) and decodes it whole.  Two chunks and three decode steps within ``CACHED`` of the
     same on a cache of ``2 S`` (``T`` split over ``model``, the blocks
     merged by their log-sum-exps), the chunks also of the reference's."""
     arch, shape = case
@@ -428,8 +447,10 @@ def test_planted_faults_miss(runs, fault):
     the rank's columns and the sLSTM ``w_down`` sum skipped, RoPE on a
     rank's columns before the gather and a rank's query rows swapped with
     the next's (the forward's logits), the decode's blocks merged by a
-    plain mean and each block given the layer's window (the served
-    logits, within ``CACHED``), the gold logit taken from every rank (the
+    plain mean and each block given the layer's window, a KV-replication
+    block written with the rank's own kv head in every head, MLA's blocks
+    merged by a plain mean and rank ``r`` writing rank ``r + 1``'s rows
+    (the served logits, within ``CACHED``), the gold logit taken from every rank (the
     loss) and the
     column-split leaves' gradients summed over ``model`` (the
     gradients)."""
@@ -505,18 +526,42 @@ def test_checkpoint_restores_onto_another_model_size(runs, case):
 def test_converted_cache_keeps_the_whole_latent(runs, case):
     """``convert.cache_from_reference(..., mesh=)`` of an MLA model: every
     rank's ``latent`` and ``k_rope`` of every layer are the reference
-    cache's whole (each head reads all of the latent; the reference's own
-    specs split ``r`` over ``model``)."""
+    cache's whole width (all of ``r`` and ``dr``) at the rows of its
+    ``model`` block of ``T`` (8 positions: 4 a rank on model 2, 2 on 4),
+    the bytes of the reference's own specs (which split ``r`` over
+    ``model``); the blocks of one ``(pod, data)`` group's ``model`` ranks,
+    in ``model`` order, are the reference's whole."""
     arch, shape = case
     cfg = get_config(arch, smoke=True)
+    m = shape[-1]
     key = f"{arch}|{tp_ranks.mesh_name(shape)}"
-    for res in runs["ranks"]:
+    for r, res in enumerate(runs["ranks"]):
+        c = _coord(r, shape)["model"]
         for i in range(cfg.n_layers):
             for k in ("latent", "k_rope"):
                 whole = runs["data"][f"cache-{arch}|block0|{k}"] if i == 0 \
                     else runs["data"][f"cache-{arch}|blocks|{k}"][i - 1]
+                n = whole.shape[1] // m
                 np.testing.assert_array_equal(
-                    res[f"{key}|converted|{i}|{k}"], whole)
+                    res[f"{key}|converted|{i}|{k}"],
+                    whole[:, c * n:(c + 1) * n])
+                if c == 0:
+                    np.testing.assert_array_equal(np.concatenate(
+                        [runs["ranks"][r + j][f"{key}|converted|{i}|{k}"]
+                         for j in range(m)], axis=1), whole)
+
+
+def _rank_kv(attn: dict, shape, c: int, kvh: int) -> dict:
+    """The reference cache ``attn``'s ``k`` and ``v`` as ``model`` rank
+    ``c`` of ``shape`` holds them: its ``model`` block of the kv heads
+    where ``model`` divides them, else (KV replication) every kv head of
+    its block of ``T``."""
+    m = shape[-1]
+    if kvh % m == 0:
+        heads = slice(c * kvh // m, (c + 1) * kvh // m)
+        return {k: attn[k][:, :, heads] for k in ("k", "v")}
+    n = attn["k"].shape[1] // m
+    return {k: attn[k][:, c * n:(c + 1) * n] for k in ("k", "v")}
 
 
 @pytest.mark.parametrize("case", [c for c in CASES if c[0] in tp_ranks.DENSE],
@@ -526,20 +571,20 @@ def test_converted_cache_keeps_the_rank_heads(runs, case):
     """``convert.cache_from_reference(..., mesh=)``: each rank's ``k`` and
     ``v`` of every layer are the reference cache's kv heads of the stated
     layout: its ``model`` block of ``kvh / m`` heads, or under KV
-    replication the head ``r // (m / kvh)`` its q heads read."""
+    replication every kv head of its ``model`` block of ``T`` (8
+    positions: 4 a rank on model 2, 2 on 4), as the reference's
+    ``cache_spec`` splits ``T``."""
     arch, shape = case
     cfg = get_config(arch, smoke=True)
-    m, kvh = shape[-1], cfg.n_kv_heads
     key = f"{arch}|{tp_ranks.mesh_name(shape)}"
     for r, res in enumerate(runs["ranks"]):
         c = _coord(r, shape)["model"]
-        heads = slice(c * kvh // m, (c + 1) * kvh // m) if kvh % m == 0 \
-            else slice(c // (m // kvh), c // (m // kvh) + 1)
         for i in range(cfg.n_layers):
+            want = _rank_kv({k: runs["data"][f"cache-{arch}|blocks|{k}"][i]
+                             for k in ("k", "v")}, shape, c, cfg.n_kv_heads)
             for k in ("k", "v"):
-                whole = runs["data"][f"cache-{arch}|blocks|{k}"][i]
                 np.testing.assert_array_equal(
-                    res[f"{key}|converted|{i}|{k}"], whole[:, :, heads])
+                    res[f"{key}|converted|{i}|{k}"], want[k])
 
 
 @pytest.mark.parametrize("case", [c for c in CASES if c[0] in
@@ -549,19 +594,18 @@ def test_converted_cache_keeps_the_rank_heads(runs, case):
 def test_converted_cache_keeps_the_rank_channels(runs, case):
     """``convert.cache_from_reference(..., mesh=)`` of a Hymba or xLSTM
     model: a Hymba layer's ``k`` and ``v`` are the reference cache's kv
-    heads of the stated layout (the ``model`` block on ``(2, 2, 2)``, the
-    head ``r // 2`` on ``(1, 2, 4)``) and its ``conv`` and ``ssm`` the
-    rank's ``model`` block of the ``di`` channels; an xLSTM layer's state is
-    the reference's whole."""
+    heads of the stated layout (the ``model`` block on ``(2, 2, 2)``,
+    every kv head of the rank's block of ``T`` under KV replication on
+    ``(1, 2, 4)``) and its ``conv`` and ``ssm`` the rank's ``model`` block
+    of the ``di`` channels; an xLSTM layer's state is the reference's
+    whole."""
     arch, shape = case
     cfg = get_config(arch, smoke=True)
-    m, kvh = shape[-1], cfg.n_kv_heads
+    m = shape[-1]
     key = f"{arch}|{tp_ranks.mesh_name(shape)}"
     layers = tp_ranks.unflat_tree(runs["data"], f"cache-{arch}")["layers"]
     for r, res in enumerate(runs["ranks"]):
         c = _coord(r, shape)["model"]
-        heads = slice(c * kvh // m, (c + 1) * kvh // m) if kvh % m == 0 \
-            else slice(c // (m // kvh), c // (m // kvh) + 1)
         for i, layer in enumerate(layers):
             got = {k.rsplit(f"|converted|{i}|", 1)[1]: v
                    for k, v in res.items()
@@ -571,10 +615,10 @@ def test_converted_cache_keeps_the_rank_channels(runs, case):
             else:
                 n = cfg.d_model * cfg.ssm.expand // m
                 ch = slice(c * n, (c + 1) * n)
-                want = {"attn|k": layer["attn"]["k"][:, :, heads],
-                        "attn|v": layer["attn"]["v"][:, :, heads],
-                        "ssm|conv": layer["ssm"]["conv"][:, :, ch],
-                        "ssm|ssm": layer["ssm"]["ssm"][:, ch]}
+                want = {f"attn|{k}": v for k, v in _rank_kv(
+                    layer["attn"], shape, c, cfg.n_kv_heads).items()}
+                want.update({"ssm|conv": layer["ssm"]["conv"][:, :, ch],
+                             "ssm|ssm": layer["ssm"]["ssm"][:, ch]})
             assert set(got) == set(want), (i, sorted(got))
             for k, w in want.items():
                 np.testing.assert_array_equal(got[k], w)

@@ -35,8 +35,9 @@ VARIANTS = {"qwen2.5-14b-h5kv1": ("qwen2.5-14b", dict(n_heads=5,
             "hymba-1.5b-h6kv3": ("hymba-1.5b", dict(n_heads=6,
                                                     n_kv_heads=3))}
 # the dense family (GQA with 2 kv heads of 4; Granite's MQA: its one kv head
-# replicated), the MoE family's GQA beside teshu2, DeepSeek-V2 (its shared
-# experts, layer 0 and MLA split: 4 heads, q_lora 48, r + dr 48), Hymba
+# replicated, its cache every kv head of a block of T), the MoE family's
+# GQA beside teshu2, DeepSeek-V2 (its shared experts, layer 0 and MLA split:
+# 4 heads, q_lora 48, r + dr 48, the latent cache a block of T), Hymba
 # (the Mamba head's 128 channels split, its attention's 4 / 2 heads),
 # xLSTM (an mLSTM and an sLSTM layer, their projections split) and the two
 # variants split by positions
@@ -50,7 +51,10 @@ POSITIONS = tuple(VARIANTS)
 # the archs whose reference runs once (no EP axes), and those prefilled in
 # two chunks
 ONCE = DENSE + HYBRID + XLSTM + POSITIONS
-CHUNKED = MLA + HYBRID + XLSTM + POSITIONS
+CHUNKED = DENSE + MLA + HYBRID + XLSTM + POSITIONS
+# the archs whose caches split T over model on both meshes, served again on
+# a cache of a T that model does not divide (the rank then holds all of it)
+ODD_T = ("granite-34b",) + MLA + POSITIONS
 # model 2 (each rank 2 q heads, one kv head of its own) and model 4 (one q
 # head; Qwen2.5-14B's 2 kv heads each shared by 2 ranks)
 MESHES = ((2, 2, 2), (1, 2, 4))
@@ -61,7 +65,8 @@ FAULTS = ("no_psum", "kv_head_mod", "gold_everywhere", "column_model_sum",
           "q_norm_local", "wkv_b_offset", "mla_no_sum", "mamba_xz_block",
           "bcdt_no_sum", "mamba_no_sum", "mlstm_norm_local", "slstm_no_sum",
           "rope_before_gather", "rows_swapped", "merge_mean",
-          "block_window")
+          "block_window", "replicate_own_head", "mla_merge_mean",
+          "rows_next_rank")
 # the planted faults, each on the mesh and arch where it bites
 FAULT_CASE = {"no_psum": ("qwen2.5-14b", (2, 2, 2)),
               "kv_head_mod": ("qwen2.5-14b", (1, 2, 4)),
@@ -79,14 +84,19 @@ FAULT_CASE = {"no_psum": ("qwen2.5-14b", (2, 2, 2)),
               "rows_swapped": ("qwen2.5-14b-h5kv1", (1, 2, 4)),
               "merge_mean": ("qwen2.5-14b-h5kv1", (2, 2, 2)),
               # a window's start inside a block of 8 rows (model 4)
-              "block_window": ("hymba-1.5b-h6kv3", (1, 2, 4))}
+              "block_window": ("hymba-1.5b-h6kv3", (1, 2, 4)),
+              # KV replication with 2 kv heads over 4 ranks (T in blocks)
+              "replicate_own_head": ("qwen2.5-14b", (1, 2, 4)),
+              "mla_merge_mean": ("deepseek-v2-236b", (2, 2, 2)),
+              "rows_next_rank": ("granite-34b", (2, 2, 2))}
 # the faults read off the forward's logits, and those off the served
 # logits of the decode steps (the others off the loss or the gradients)
 LOGIT_FAULTS = ("no_psum", "kv_head_mod", "q_norm_local", "wkv_b_offset",
                 "mla_no_sum", "mamba_xz_block", "bcdt_no_sum", "mamba_no_sum",
                 "mlstm_norm_local", "slstm_no_sum", "rope_before_gather",
                 "rows_swapped")
-SERVE_FAULTS = ("merge_mean", "block_window")
+SERVE_FAULTS = ("merge_mean", "block_window", "replicate_own_head",
+                "mla_merge_mean", "rows_next_rank")
 # train(mesh=...) on (2, 2, 2) with a checkpoint every 3 steps; steps 3-5
 # resumed from it on a mesh of another model size, for each arch of
 # CKPT_ARCHS (DeepSeek-V2's MoE layers route one row a group on all three
@@ -324,7 +334,7 @@ def _tp_rank(inputs: str) -> dict:
             res[f"{key}|logits"] = forward(model, arch, mesh)
             if arch in CHUNKED:
                 res[f"{key}|chunked"] = two_chunks(model, arch, mesh)
-            if arch in POSITIONS:   # T split over model, and T whole (odd)
+            if arch in ODD_T:       # T split over model, and T whole (odd)
                 for tag, t in (("even_t", 2 * S), ("odd_t", 2 * S + 1)):
                     res[f"{key}|{tag}"] = two_chunks(model, arch, mesh, t, 3)
             gen, stats = serve(base(arch), device="cpu", params=model,
@@ -345,10 +355,14 @@ def _tp_rank(inputs: str) -> dict:
                 hybrid.tp_sum, ssm._mlstm_out, ssm._down)
         at_positions = (layers._rotated_heads, layers._query_blocks,
                         layers.merge_blocks, layers.block_window)
+        at_blocks = (layers._kv_rows, layers._merge_heads,
+                     layers._block_slots)
         if fault in _MIXER_FAULTS:
             _plant_mixer_fault(fault, model.cfg, real)
         elif fault in _POSITION_FAULTS:
             _plant_position_fault(fault)
+        elif fault in _BLOCK_FAULTS:
+            _plant_block_fault(fault, at_blocks)
         elif fault == "no_psum":
             layers.tp_sum = lambda x, mesh_: x
         elif fault == "kv_head_mod":
@@ -399,6 +413,8 @@ def _tp_rank(inputs: str) -> dict:
              hybrid.tp_sum, ssm._mlstm_out, ssm._down) = real
             (layers._rotated_heads, layers._query_blocks,
              layers.merge_blocks, layers.block_window) = at_positions
+            (layers._kv_rows, layers._merge_heads,
+             layers._block_slots) = at_blocks
 
     # a checkpoint of train(mesh=...) on (2, 2, 2) restored onto meshes of
     # another model size
@@ -491,6 +507,41 @@ def _plant_position_fault(fault: str) -> None:
     else:
         layers.block_window = lambda valid, offset, rows, window: (
             min(max(valid - offset, 0), rows), window)
+
+
+_BLOCK_FAULTS = ("replicate_own_head", "mla_merge_mean", "rows_next_rank")
+
+
+def _plant_block_fault(fault: str, real: tuple) -> None:
+    """One of the faults of the caches split by ``T``, patched into
+    ``layers`` (``real``: ``_kv_rows``, ``_merge_heads``,
+    ``_block_slots``, restored by the caller): ``replicate_own_head``
+    writes a KV-replication block with the rank's own kv head in every
+    head; ``mla_merge_mean`` merges MLA's blocks by a plain mean of their
+    contexts; ``rows_next_rank`` has rank ``r`` write into its block the
+    rows of rank ``r + 1``'s."""
+    from repro_torch.core import meshops
+    from repro_torch.models import layers
+    if fault == "replicate_own_head":
+        def own_head(p, x, positions, k, v):
+            n = p.cfg.n_kv_heads
+            return (k.expand(-1, -1, n, -1), v.expand(-1, -1, n, -1))
+        layers._kv_rows = own_head
+    elif fault == "mla_merge_mean":
+        def mean(ctx, lse, mesh):
+            b, h, r = ctx.shape
+            n = mesh.shape["model"]
+            part = meshops.psum_scatter(ctx.transpose(0, 1).reshape(-1),
+                                        mesh, ("model",))
+            return (part.view(h // n, b, r) / n).transpose(0, 1)
+        layers._merge_heads = mean
+    else:
+        def next_rank(cache, t, s, blocks=1):
+            if "t0" not in cache:
+                return real[2](cache, t, s, blocks)
+            return real[2](dict(cache, t0=(cache["t0"] + t) % (t * blocks)),
+                           t, s, blocks)
+        layers._block_slots = next_rank
 
 
 _MIXER_FAULTS = ("mamba_xz_block", "bcdt_no_sum", "mamba_no_sum",
