@@ -9,7 +9,8 @@
                                              # steps of each served model
                                              # (Hymba's Mamba heads,
                                              # xLSTM's mixers and MLA's
-                                             # two forms apart)
+                                             # two forms apart), and one
+                                             # step of each trained model
 
 Run from the root of a checkout.  It needs a CUDA device: without one it
 exits non-zero and prints no result.  In order it
@@ -287,7 +288,36 @@ exits non-zero and prints no result.  In order it
    mesh step's gradients traced, the NCCL device ms).  (d) The SMOKE
    restart under the mesh (6 steps, a checkpoint every 3, a run resumed
    from step 3) within ``RESTART_BOUND``.  About 85 s.  The group is
-   destroyed after 7c;
+   destroyed after 7c, and after 7d's DeepSeek-V2;
+7d. trains the other families at full width (``family_train_phase``,
+   ``FAMILY_TRAIN``): DeepSeek-V2 with 2 of 60 layers (the dense layer 0
+   and one MoE layer, 2 shared and 160 routed experts) on its own recipe
+   (``steps.recipe_for``: bf16 moments and accumulation, ``n_micro`` 2)
+   through ``steps.make_train_step`` without a mesh (the gspmd branch),
+   global batch 8 x 1,024, right after 7c on its mesh; after 7b,
+   Hymba-1.5B with all 32 layers (4 x 4,096, ``n_micro`` 2) and
+   xLSTM-350M with all 24 (21 mLSTM, 3 sLSTM; 4 x 4,096, ``n_micro`` 1)
+   through ``train()`` (float32 moments and accumulation); 3 steps each,
+   lr 3e-4, seed 0, remat.  (a) The gradient check (``_grad_check``,
+   ``FAMILY_CHECK``): DeepSeek-V2's bf16 model against its float32 copy
+   on 2 layers and 1 x 512 tokens, both routing the bf16 model's choices,
+   within ``FAMILY_BOUNDS`` (the float32 gradients wait on the host);
+   Hymba's (2 layers, 1 x 2,048: global layer 0, windowed layer 1) and
+   xLSTM's (8 layers, 1 x 1,024: the sLSTM block at 7) float32 copies
+   against float64 copies within ``GRAD_BOUND``, their bf16 spread logged
+   against ``FAMILY_BOUNDS``; the labels shifted and the family's mixer
+   detached (``hybrid.mamba_forward``, ``lm.slstm_forward``,
+   ``layers.MLA.forward``) must miss by 10x; DeepSeek-V2 also one
+   microbatch's gradients over the one-rank mesh on ``teshu2`` against
+   gspmd's, bit for bit or within ``GRAD_BOUND``, the experts rolled
+   missing by 10x.  (b) The steps, every kernel counter zeroed just before
+   and read just after (all 0), losses and gradient norms finite, every
+   moment finite and nonzero, every tensor moved (or the bf16 rule of
+   7b), one more microbatch's gradients finite and nonzero.  (c) The
+   ``family train phase`` line: step seconds (median of steps 2-3),
+   tokens/s, peak memory, the share of 989 TFLOP/s by ``_family_flops``'s
+   formula; with ``--profile`` one step's gradients and update traced
+   apart (xLSTM's on the device alone);
 7b. trains (the training slice): (a) the gradient check at Qwen2.5-14B's
    full width with 2 of 48 layers: the bf16 model and its float32 copy
    (the same weights, cast) each take one microbatch of 2 x 512 Markov
@@ -3787,84 +3817,173 @@ def _dot64(a, b) -> float:
 
 def _grad_errors(lg, gg, lf, gf) -> dict:
     """The worst of every parameter's ``1 - cos`` and ``|norm ratio - 1|``
-    of gradients ``gg`` against ``gf``, and the losses' relative
-    difference; each with its parameter."""
+    of gradients ``gg`` against ``gf`` (the one-element leaves' norm ratio
+    apart, as ``norm_one``), and the losses' relative difference; each
+    with its parameter.  A gradient of ``gf`` on the host is compared on
+    its counterpart's device, one leaf at a time."""
     out = {"loss": (abs(lg - lf) / abs(lf), "")}
-    cos, norm = (0.0, ""), (0.0, "")
+    cos, norm = (0.0, ""), {"norm": (0.0, ""), "norm_one": (0.0, "")}
     for n, b in gf.items():
         a = gg[n]
+        b = b.to(a.device)
         na, nb = _dot64(a, a) ** 0.5, _dot64(b, b) ** 0.5
         c = 1.0 if na == 0 or nb == 0 else 1 - _dot64(a, b) / (na * nb)
         r = abs(na / nb - 1) if nb else (0.0 if na == 0 else float("inf"))
-        cos, norm = max(cos, (c, n)), max(norm, (r, n))
-    out.update(cos=cos, norm=norm)
+        key = "norm_one" if b.numel() == 1 else "norm"
+        cos, norm[key] = max(cos, (c, n)), max(norm[key], (r, n))
+    out.update(cos=cos, **norm)
     return out
 
 
-def _miss(err: dict) -> float:
-    """How many times the worst quantity of ``err`` exceeds its bound."""
-    return max(err[k][0] / GRAD_BOUND[k] for k in GRAD_BOUND)
+def _miss(err: dict, bound: dict = GRAD_BOUND) -> float:
+    """How many times the worst quantity of ``err`` exceeds its bound (the
+    one-element leaves' norm ratio: ``bound["norm"]`` unless the bound
+    sets ``norm_one``)."""
+    lim = dict(bound)
+    lim.setdefault("norm_one", lim["norm"])
+    return max(err[k][0] / lim[k] for k in lim)
 
 
-def _grad_check(dev) -> dict:
-    """(a): the bf16 model's gradients against its float32 copy's at full
-    width, 2 layers, with the two controls."""
+@contextlib.contextmanager
+def _routing_held(calls: list):
+    """The port's router (``moe._route``) made to choose the experts of
+    ``calls`` (the ``eids`` one MoE layer's router chose in a recorded
+    run, returned at every call: its forward and remat's recompute), each
+    token's weights its own probabilities at them, renormalised, and the
+    aux loss by the same top-1 shares: the router's own arithmetic, bit
+    for bit where its own choice is the recorded one."""
+    import torch
+
+    from repro_torch.models import moe
+
+    assert len(calls) == 1, len(calls)
+    real = moe._route
+
+    def route(router_w, x_flat, m):
+        probs = torch.softmax((x_flat @ router_w).float(), dim=-1)
+        eids = calls[0]
+        weights = probs.gather(1, eids.long())
+        weights = weights / (weights.sum(-1, keepdim=True) + 1e-9)
+        top1 = torch.arange(m.num_experts, device=eids.device)
+        f = (eids[:, :1] == top1).float().mean(0)
+        return eids, weights, m.num_experts * (f * probs.mean(0)).sum()
+    moe._route = route
+    try:
+        yield
+    finally:
+        moe._route = real
+
+
+def _grad_check(dev, arch: str, shape: dict, bound: dict, mixer,
+                seed: int = 0, host: bool = False,
+                dtypes: tuple = ("bfloat16", "float32"),
+                spread_bound: dict | None = None) -> dict:
+    """(a): the gradients of the model in ``dtypes[0]`` against a copy's
+    in ``dtypes[1]`` (the same bf16 weights, cast) at full width,
+    ``shape["layers"]`` layers, one batch of ``shape["batch"] x
+    shape["seq_len"]`` tokens, within ``bound``; the controls (the labels
+    shifted one position; ``mixer()``'s ``(owner, name)``, the family's
+    mixer, its output detached) must miss it by 10x.  A MoE model's copies
+    take the bf16 model's expert choices (:func:`_routing_held`), so that
+    only the arithmetic differs.  ``host``: the second copy's gradients
+    wait on the host while the first's are taken.  ``spread_bound``: the
+    bf16 model's gradients are also measured against the float32 copy's
+    (``dtypes`` float32 and float64), logged against it, not held."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMDataset, make_global_batch
-    from repro_torch.models import layers, lm
+    from repro_torch.models import lm, moe
     from repro_torch.optim import microbatch_grads
 
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
-                              n_layers=GRAD_CHECK["layers"])
-    bf = lm.init_lm(cfg, seed=TRAIN["seed"], device=dev)
-    f32 = lm.LM(dataclasses.replace(cfg, dtype="float32"), device=dev)
-    with torch.no_grad():
-        for (_, p), (_, q) in zip(bf.named_parameters(),
-                                  f32.named_parameters()):
-            q.copy_(p)
+    cfg = dataclasses.replace(get_config(arch), n_layers=shape["layers"])
+    bf = lm.init_lm(cfg, seed=seed, device=dev)
+
+    def copy(dtype):
+        if dtype == cfg.dtype:
+            return bf
+        out = lm.LM(dataclasses.replace(cfg, dtype=dtype), device=dev)
+        with torch.no_grad():
+            for (_, p), (_, q) in zip(bf.named_parameters(),
+                                      out.named_parameters()):
+                q.copy_(p)
+        return out
+
     ds = SyntheticLMDataset(DataConfig(
-        vocab=cfg.vocab, seq_len=GRAD_CHECK["seq_len"],
-        global_batch=GRAD_CHECK["batch"], seed=TRAIN["seed"]))
+        vocab=cfg.vocab, seq_len=shape["seq_len"],
+        global_batch=shape["batch"], seed=seed))
     batch = make_global_batch(ds.batch_at(0), dev)
+    calls: list = []
+    if cfg.moe is not None:               # the bf16 model's choices
+        real = moe._route
+
+        def record(router_w, x_flat, m):
+            out = real(router_w, x_flat, m)
+            calls.append(out[0])
+            return out
+        moe._route = record
+        try:
+            with torch.no_grad():
+                lm.forward(bf, tokens=batch["tokens"], train=True)
+        finally:
+            moe._route = real
 
     def grads(model, b):
         model.requires_grad_(True)
-        loss, g = microbatch_grads(lambda p, mb: lm.train_loss(model, mb),
-                                   dict(model.named_parameters()), b, 1)
+        with _routing_held(calls) if calls else contextlib.nullcontext():
+            loss, g = microbatch_grads(
+                lambda p, mb: lm.train_loss(model, mb),
+                dict(model.named_parameters()), b, 1)
         return float(loss), g
 
     t0 = time.perf_counter()
-    lf, gf = grads(f32, batch)
-    del f32
-    held = _grad_errors(*grads(bf, batch), lf, gf)
-    shifted = _grad_errors(*grads(bf, dict(
+    high = copy(dtypes[1])
+    lf, gf = grads(high, batch)
+    del high
+    if host:
+        gf = {n: g.to("cpu") for n, g in gf.items()}
+        torch.cuda.empty_cache()
+    low = copy(dtypes[0])
+    lg, gg = grads(low, batch)
+    held = _grad_errors(lg, gg, lf, gf)
+    res = {"dtypes": list(dtypes), "held": held}
+    if spread_bound is not None:          # bf16 against this float32 copy
+        res["bf16_spread"] = _grad_errors(*grads(bf, batch), lg, gg)
+        res["bf16_spread_misses"] = _miss(res["bf16_spread"], spread_bound)
+    del gg
+    shifted = _grad_errors(*grads(low, dict(
         batch, labels=torch.roll(batch["labels"], 1, dims=1))), lf, gf)
-    orig = layers.Attention.forward
+    owner, name = mixer()
+    orig = getattr(owner, name)
 
-    def detached(self, *a, **k):
-        out, cache = orig(self, *a, **k)
-        return out.detach(), cache
-    layers.Attention.forward = detached
+    def detached(*a, **k):
+        out, rest = orig(*a, **k)
+        return out.detach(), rest
+    setattr(owner, name, detached)
     try:
-        dropped = _grad_errors(*grads(bf, batch), lf, gf)
+        dropped = _grad_errors(*grads(low, batch), lf, gf)
     finally:
-        layers.Attention.forward = orig
+        setattr(owner, name, orig)
+    del bf, low, gf
     torch.cuda.synchronize()
-    res = {"held": held, "labels_shifted": shifted,
-           "attention_detached": dropped, "bound": GRAD_BOUND,
-           "seconds": time.perf_counter() - t0}
-    log(f"train grad check: {TRAIN_ARCH} full width, {cfg.n_layers} layers, "
-        f"{GRAD_CHECK['batch']} x {GRAD_CHECK['seq_len']}, bf16 against "
-        f"float32: {json.dumps(res)}")
-    assert _miss(held) <= 1.0, held
-    for name, err in (("labels shifted", shifted),
-                      ("attention detached", dropped)):
-        assert _miss(err) >= 10.0, (name, err)
-        log(f"train grad check control {name}: misses by {_miss(err):.1f}x")
+    torch.cuda.empty_cache()
+    res.update({"labels_shifted": shifted, "mixer_detached": dropped,
+                "mixer": f"{getattr(owner, '__name__', owner)}.{name}",
+                "bound": bound, "misses": {
+                    "held": _miss(held, bound),
+                    "labels_shifted": _miss(shifted, bound),
+                    "mixer_detached": _miss(dropped, bound)},
+                "seconds": time.perf_counter() - t0})
+    log(f"train grad check: {arch} full width, {cfg.n_layers} layers, "
+        f"{shape['batch']} x {shape['seq_len']}, {dtypes[0]} against "
+        f"{dtypes[1]}: {json.dumps(res)}")
+    assert _miss(held, bound) <= 1.0, held
+    for c in ("labels_shifted", "mixer_detached"):
+        assert res["misses"][c] >= 10.0, (arch, c, res[c])
+        log(f"train grad check {arch} control {c}: misses by "
+            f"{res['misses'][c]:.1f}x")
     return res
 
 
@@ -3948,11 +4067,15 @@ def _matmul_rates(prof) -> tuple[dict, list[str]]:
     return by_op, [r for _, r in sorted(rows, reverse=True)]
 
 
-def _profile_train(model, opt_state, batch, ocfg, recipe, profile_dir: Path):
-    """One training step of the 8-layer model traced, its gradients and its
-    AdamW update in two sessions: device time by kernel class (bf16
-    matmuls, float32 matmuls, the rest), every kernel by name with its
-    class, and the matmul ops' FLOP rates from their recorded shapes."""
+def _profile_train(model, opt_state, batch, ocfg, recipe, profile_dir: Path,
+                   tag: str = "", ops: bool = True):
+    """One training step of ``model`` traced, its gradients and its AdamW
+    update in two sessions: device time by kernel class (bf16 matmuls,
+    float32 matmuls, the rest), every kernel by name with its class, and
+    (``ops``) the matmul ops' FLOP rates from their recorded shapes.
+    Without ``ops`` only the device is traced (xLSTM's step, whose ops on
+    the host are the most); the files are ``profile_train_{tag}
+    {grads,update}.txt``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3966,8 +4089,8 @@ def _profile_train(model, opt_state, batch, ocfg, recipe, profile_dir: Path):
     def traced(name, fn):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     record_shapes=True) as prof:
+                                 ProfilerActivity.CUDA] if ops else
+                     [ProfilerActivity.CUDA], record_shapes=ops) as prof:
             time.sleep(0.05)
             t0 = time.perf_counter()
             res = fn()
@@ -3978,7 +4101,8 @@ def _profile_train(model, opt_state, batch, ocfg, recipe, profile_dir: Path):
         names: dict[str, float] = {}
         for e in prof.events():
             if e.device_type != DeviceType.CUDA or e.name in (
-                    "Activity Buffer Request", "Command Buffer Full"):
+                    "Activity Buffer Request", "Command Buffer Full") \
+                    or e.name.startswith(RANGES):  # a range, not a kernel
                 continue
             c = _kernel_class(e.name)
             if c == "matmul":
@@ -3992,15 +4116,15 @@ def _profile_train(model, opt_state, batch, ocfg, recipe, profile_dir: Path):
             names[f"{c}: {e.name[:90]}"] = names.get(
                 f"{c}: {e.name[:90]}", 0.0) + ms
         every = sorted(names.items(), key=lambda kv: -kv[1])
-        rates, shape_rows = _matmul_rates(prof)
-        (profile_dir / f"profile_train_{name}.txt").write_text(
+        rates, shape_rows = _matmul_rates(prof) if ops else ({}, [])
+        (profile_dir / f"profile_train_{tag}{name}.txt").write_text(
             prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
             + "\n\nevery kernel, by class:\n"
             + "\n".join(f"{ms:10.3f} ms  {k}" for k, ms in every)
             + "\n\nmatmul ops by input shape:\n" + "\n".join(shape_rows))
         out[name] = {"wall_ms": wall * 1e3, "device_ms_by_class": busy,
                      "matmul_ops": rates}
-        log(f"profile train {name}: wall_ms={wall * 1e3!r} device_ms_by_class="
+        log(f"profile train {tag}{name}: wall_ms={wall * 1e3!r} device_ms_by_class="
             f"{json.dumps(busy)} idle_share="
             f"{1 - sum(busy.values()) / (wall * 1e3)!r} matmul_ops="
             f"{json.dumps(rates)}")
@@ -4019,7 +4143,6 @@ def train_phase(dev, profile_dir: Path | None) -> dict:
     8-layer full-width model, the SMOKE restart, and with ``--profile`` one
     step traced."""
     import dataclasses
-    import math
 
     import torch
 
@@ -4028,12 +4151,13 @@ def train_phase(dev, profile_dir: Path | None) -> dict:
     from repro_torch.kernels import KERNELS
     from repro_torch.launch.steps import _with_recipe, recipe_for
     from repro_torch.launch.train import train
-    from repro_torch.models import lm
+    from repro_torch.models import layers, lm
     from repro_torch.models.config import SHAPES
-    from repro_torch.optim import AdamWConfig, adamw_update, microbatch_grads
+    from repro_torch.optim import AdamWConfig, adamw_update
 
-    res = {"grad_check": _grad_check(dev)}
-    torch.cuda.empty_cache()
+    res = {"grad_check": _grad_check(dev, TRAIN_ARCH, GRAD_CHECK, GRAD_BOUND,
+                                     lambda: (layers.Attention, "forward"),
+                                     seed=TRAIN["seed"])}
 
     recipe = recipe_for(TRAIN_ARCH, SHAPES["train_4k"])
     # train() keeps float32 moments and accumulation, as the reference's
@@ -4068,23 +4192,10 @@ def train_phase(dev, profile_dir: Path | None) -> dict:
     hist = out["history"]
     assert len(hist) == TRAIN["steps"]
     for h in hist:
-        assert math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]), h
         log(f"train step: loss={h['loss']!r} grad_norm={h['grad_norm']!r} "
             f"lr={h['lr']!r} seconds={h['seconds']!r}")
     opt_state = out["opt_state"]
-    bad = [n for n in opt_state["m"] if not all(
-        bool(torch.isfinite(opt_state[k][n]).all())
-        and float(opt_state[k][n].abs().max()) > 0 for k in ("m", "v"))]
-    assert not bad, f"moments zero or not finite: {bad}"
-    # every parameter moved, or is a bf16 weight whose every step fell
-    # under half its bf16 step (|p| 2^-9 above the sum of the steps' lr:
-    # no master weights, as in the reference)
-    lr_sum = sum(h["lr"] for h in hist)
-    still = []
-    for n, p in model.named_parameters():
-        if torch.equal(p.detach().cpu(), snap[n]):
-            assert float(snap[n].float().abs().min()) * 2.0 ** -9 > lr_sum, n
-            still.append(n)
+    still = _trained(model, snap, opt_state, hist)
     del snap
     log(f"train moved: {n_params} parameters in "
         f"{len(dict(model.named_parameters())) - len(still)} of "
@@ -4092,18 +4203,8 @@ def train_phase(dev, profile_dir: Path | None) -> dict:
         f"under half a bf16 step, moments nonzero): {still}")
 
     # one more microbatch's gradients: finite and nonzero for every tensor
-    ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab,
-                                       seq_len=TRAIN["seq_len"],
-                                       global_batch=TRAIN["global_batch"]
-                                       // recipe.n_micro,
-                                       seed=TRAIN["seed"]))
-    batch = make_global_batch(ds.batch_at(TRAIN["steps"]), dev)
     params = dict(model.named_parameters())
-    _, grads = microbatch_grads(lambda p, b: lm.train_loss(model, b), params,
-                                batch, 1)
-    zero = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())
-            or float(g.abs().max()) == 0]
-    assert not zero, f"no finite nonzero gradient: {zero}"
+    grads = _next_grads(model, cfg, TRAIN, recipe.n_micro, dev)
     # the AdamW update timed apart, on float32 gradients (the accumulated
     # ones' dtype) over the trained state
     g32 = {n: g.float() for n, g in grads.items()}
@@ -4244,7 +4345,7 @@ def ep_train_phase(dev, profile_dir: Path | None, mesh) -> dict:
     from repro_torch.kernels import KERNELS
     from repro_torch.launch.shardings import ep_axes_for
     from repro_torch.launch.train import train
-    from repro_torch.models import lm, moe
+    from repro_torch.models import lm
     from repro_torch.models.layers import dense_init
 
     cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=EP_TRAIN_LAYERS)
@@ -4290,17 +4391,8 @@ def ep_train_phase(dev, profile_dir: Path | None, mesh) -> dict:
         zeroed = _grad_errors(*_ep_grads(model, batch, mesh), lf, gf)
     finally:
         meshops._AllToAll.backward = staticmethod(back)
-    real = moe._expert_ffn
-
-    def rolled(w, x, **k):                # the routed stack: E experts here
-        if x.shape[0] == cfg.moe.num_experts == w.w_gate.shape[0]:
-            x = x.roll(1, 0)
-        return real(w, x, **k)
-    moe._expert_ffn = rolled
-    try:
+    with _experts_rolled(cfg):
         roll = _grad_errors(*_ep_grads(model, batch, mesh), lf, gf)
-    finally:
-        moe._expert_ffn = real
     del gf
     res["grad_check"] = {
         "bit_for_bit": bitwise, "held": held, "exchange_backward_zero":
@@ -4356,18 +4448,7 @@ def ep_train_phase(dev, profile_dir: Path | None, mesh) -> dict:
             grad_norms=[h["grad_norm"] for h in hist])
         if branch == "ep":
             opt_state = out["opt_state"]
-            bad = [n for n in opt_state["m"] if not all(
-                bool(torch.isfinite(opt_state[k][n]).all())
-                and float(opt_state[k][n].abs().max()) > 0
-                for k in ("m", "v"))]
-            assert not bad, f"moments zero or not finite: {bad}"
-            lr_sum = sum(h["lr"] for h in hist)
-            still = []
-            for n, p in model.named_parameters():
-                if torch.equal(p.detach().cpu(), snap[n]):
-                    assert float(snap[n].float().abs().min()) * 2.0 ** -9 \
-                        > lr_sum, n
-                    still.append(n)
+            still = _trained(model, snap, opt_state, hist)
             runs[branch]["layout"] = _ep_layout(
                 cfg, model, mesh, calls, wire, EP_TRAIN["steps"],
                 EP_TRAIN_MICRO, tokens)
@@ -4411,6 +4492,359 @@ def ep_train_phase(dev, profile_dir: Path | None, mesh) -> dict:
         f"{json.dumps(res['restart'])}")
     assert len(got) == 3 and loss_rel <= RESTART_BOUND["loss_rel"], res
     assert max(diffs) <= RESTART_BOUND["param_abs"], res
+    return res
+
+
+# the families' training phases (7d): full width, seed 0, depth cut where
+# the card holds no more; "n_micro" of train()'s Recipe (float32 moments and
+# accumulation) but for DeepSeek-V2, which trains on its own recipe
+# (steps.recipe_for, bf16 moments and accumulation) with this n_micro.  3
+# steps each: with 4 the whole run took 1,143 s on an H100 (700 W), past
+# 1,000
+FAMILY_TRAIN = {
+    HYMBA_ARCH: dict(layers=32, steps=3, global_batch=4, seq_len=4096,
+                     n_micro=2, lr=3e-4, seed=0),
+    XLSTM_ARCH: dict(layers=24, steps=3, global_batch=4, seq_len=4096,
+                     n_micro=1, lr=3e-4, seed=0),
+    DEEPSEEK_ARCH: dict(layers=2, steps=3, global_batch=8, seq_len=1024,
+                        n_micro=2, lr=3e-4, seed=0),
+}
+# (a) of each: layers (Hymba: global layer 0 and windowed layer 1; xLSTM:
+# the sLSTM block at index 7), one batch of batch x seq_len tokens, and the
+# two dtypes compared.  Hymba and xLSTM hold float32 against float64 within
+# GRAD_BOUND: their bf16 gradients sit from float32's by more than any bound
+# a detached mixer misses by 10x at full width (xLSTM 1 - cos 1-6e-2 a leaf,
+# as the JAX package's own bf16 gradients do; Hymba's one-element dt_bias
+# 10.2 and 13.9 on the card), so that spread is logged against
+# FAMILY_BOUNDS, not held
+FAMILY_CHECK = {
+    HYMBA_ARCH: dict(layers=2, batch=1, seq_len=2048,
+                     dtypes=("float32", "float64")),
+    XLSTM_ARCH: dict(layers=8, batch=1, seq_len=1024,
+                     dtypes=("float32", "float64")),
+    DEEPSEEK_ARCH: dict(layers=2, batch=1, seq_len=512,
+                        dtypes=("bfloat16", "float32")),
+}
+# each family's bf16 bound, set before the card ran it from the same check
+# on the CPU at SMOKE width over seeds 0-2 (tests/test_torch_train_loss.py
+# holds each under a third of it): GRAD_BOUND, but Hymba's one-element
+# leaves' norm ratio (its dt_bias, a gradient summed over every position
+# and channel: 2.9 at seed 1) and DeepSeek-V2's cosine (its routed experts,
+# tokens routed otherwise in bf16: 5.9e-3)
+FAMILY_BOUNDS = {
+    HYMBA_ARCH: dict(GRAD_BOUND, norm_one=9.0),
+    XLSTM_ARCH: GRAD_BOUND,
+    DEEPSEEK_ARCH: dict(GRAD_BOUND, cos=2e-2),
+}
+
+
+def _family_mixer(arch: str):
+    """``(owner, name)`` of the family's own mixer, whose output the
+    second control of (a) detaches."""
+    from repro_torch.models import hybrid, layers, lm
+    return {HYMBA_ARCH: (hybrid, "mamba_forward"),
+            XLSTM_ARCH: (lm, "slstm_forward"),
+            DEEPSEEK_ARCH: (layers.MLA, "forward")}[arch]
+
+
+@contextlib.contextmanager
+def _experts_rolled(cfg):
+    """``EP_CONTROL``: the routed stack's local expert axis rolled by one
+    before the expert products (the shared experts left as they are)."""
+    from repro_torch.models import moe
+
+    real = moe._expert_ffn
+
+    def rolled(w, x, **k):
+        if x.shape[0] == cfg.moe.num_experts == w.w_gate.shape[0]:
+            x = x.roll(1, 0)
+        return real(w, x, **k)
+    moe._expert_ffn = rolled
+    try:
+        yield
+    finally:
+        moe._expert_ffn = real
+
+
+def _trained(model, snap: dict, opt_state: dict, hist: list) -> list:
+    """(b)'s checks after the steps: every loss and gradient norm finite,
+    every moment finite and nonzero, every parameter moved or a bf16
+    weight whose every step fell under half its bf16 step (``|p| 2^-9``
+    above the sum of the steps' lr: no master weights, as in the
+    reference).  Returns the unmoved parameters' names."""
+    import math
+
+    import torch
+
+    for h in hist:
+        assert math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]), h
+    bad = [n for n in opt_state["m"] if not all(
+        bool(torch.isfinite(opt_state[k][n]).all())
+        and float(opt_state[k][n].abs().max()) > 0 for k in ("m", "v"))]
+    assert not bad, f"moments zero or not finite: {bad}"
+    lr_sum = sum(h["lr"] for h in hist)
+    still = []
+    for n, p in model.named_parameters():
+        if torch.equal(p.detach().cpu(), snap[n]):
+            assert float(snap[n].float().abs().min()) * 2.0 ** -9 > lr_sum, n
+            still.append(n)
+    return still
+
+
+def _next_grads(model, cfg, traffic: dict, n_micro: int, dev) -> dict:
+    """One more microbatch's gradients (the batch after the steps'):
+    finite and nonzero for every parameter."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLMDataset, make_global_batch
+    from repro_torch.models import lm
+    from repro_torch.optim import microbatch_grads
+
+    ds = SyntheticLMDataset(DataConfig(
+        vocab=cfg.vocab, seq_len=traffic["seq_len"],
+        global_batch=traffic["global_batch"] // n_micro,
+        seed=traffic["seed"]))
+    batch = make_global_batch(ds.batch_at(traffic["steps"]), dev)
+    _, grads = microbatch_grads(lambda p, b: lm.train_loss(model, b),
+                                dict(model.named_parameters()), batch, 1)
+    zero = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())
+            or float(g.abs().max()) == 0]
+    assert not zero, f"no finite nonzero gradient: {zero}"
+    return grads
+
+
+def _family_flops(model, cfg, batch: int, seq: int) -> dict:
+    """A step's model FLOP: ``6 x matmul parameters x tokens`` (every
+    leaf that multiplies a token's activations: the >= 2-D leaves but the
+    token table where an unembedding of its own exists, the Mamba head's
+    depthwise ``conv`` and its ``log_a``; a routed expert stack counted at
+    ``top_k / E`` of its size; sLSTM's ``w_rec`` once a token), plus the
+    family's core from the shapes, forward and backward (3 x the
+    forward): causal attention ``12 B H dh K`` over its ``K`` (query, key)
+    pairs (a window of w: ``w (w + 1) / 2 + (S - w) w``; none: ``S (S + 1)
+    / 2``); the Mamba scan ``18 B S di n`` (the decay and input products,
+    the recurrence's multiply-add and C's contraction: 6 FLOP an element
+    forward); mLSTM's chunks ``3 B S (4 L di + 4 dh di)`` (the L x L
+    scores and their values, the carried state's product and update); MLA
+    ``6 B H (dqk + dv) K``."""
+    from repro_torch.models.lm import layer_window
+
+    tokens = batch * seq
+    n_mm = 0
+    for n, p in model.named_parameters():
+        if p.dim() < 2 or n.endswith((".conv", ".log_a")) or (
+                n == "embed" and model.unembed is not None):
+            continue
+        share = (cfg.moe.top_k / cfg.moe.num_experts
+                 if ".moe.experts." in n else 1.0)
+        n_mm += p.numel() * share
+
+    def pairs(w: int) -> int:
+        return seq * (seq + 1) // 2 if not w or w >= seq else \
+            w * (w + 1) // 2 + (seq - w) * w
+
+    core = 0
+    for i, b in enumerate(model.blocks):
+        if cfg.family == "hybrid":
+            di, n = cfg.d_model * cfg.ssm.expand, cfg.ssm.state_dim
+            core += 12 * batch * cfg.n_heads * cfg.d_head * pairs(
+                layer_window(cfg, i)) + 18 * tokens * di * n
+        elif cfg.family == "ssm" and hasattr(b, "mlstm"):
+            di = 2 * cfg.d_model
+            L, dh = min(256, seq), di // cfg.n_heads
+            core += 3 * tokens * (4 * L * di + 4 * dh * di)
+        elif cfg.mla is not None:
+            m = cfg.mla
+            core += 6 * batch * cfg.n_heads * (
+                m.nope_head_dim + m.rope_head_dim + m.v_head_dim) * pairs(0)
+    flops = 6 * n_mm * tokens + core
+    return {"matmul_params": n_mm, "core_flops": core, "model_flops": flops}
+
+
+def _recipe_steps(model, cfg, recipe, ocfg, traffic: dict, dev) -> tuple:
+    """``traffic["steps"]`` steps of ``steps.make_train_step`` on
+    ``recipe`` without a mesh, on the synthetic batches ``train()`` reads:
+    ``(history, opt_state)``, each step's ``seconds`` its wall time, the
+    device synchronised."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLMDataset, make_global_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import init_opt_state
+
+    model.requires_grad_(True)
+    opt_state = init_opt_state(dict(model.named_parameters()),
+                               recipe.moment_dtype)
+    ds = SyntheticLMDataset(DataConfig(
+        vocab=cfg.vocab, seq_len=traffic["seq_len"],
+        global_batch=traffic["global_batch"], seed=traffic["seed"]))
+    step_fn = make_train_step(cfg, ocfg, recipe)
+    hist = []
+    for i in range(traffic["steps"]):
+        batch = make_global_batch(ds.batch_at(i), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, opt_state, metrics = step_fn(model, opt_state, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        metrics["seconds"] = time.perf_counter() - t0
+        hist.append(metrics)
+    return hist, opt_state
+
+
+def _ep_check(model, cfg, dev, mesh, traffic: dict) -> dict:
+    """One microbatch's gradients over ``mesh`` on the config's own
+    dispatch against the gspmd branch's on the same weights: bit for bit,
+    else within ``GRAD_BOUND``; the local expert axis rolled by one must
+    miss it by 10x."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLMDataset, make_global_batch
+
+    model.requires_grad_(True)
+    ds = SyntheticLMDataset(DataConfig(
+        vocab=cfg.vocab, seq_len=traffic["seq_len"],
+        global_batch=traffic["global_batch"] // traffic["n_micro"],
+        seed=traffic["seed"]))
+    batch = make_global_batch(ds.batch_at(0), dev)
+    t0 = time.perf_counter()
+    lf, gf = _ep_grads(model, batch)
+    le, ge = _ep_grads(model, batch, mesh)
+    bitwise = le == lf and all(torch.equal(ge[n], g) for n, g in gf.items())
+    held = _grad_errors(le, ge, lf, gf)
+    del ge
+    with _experts_rolled(cfg):
+        roll = _grad_errors(*_ep_grads(model, batch, mesh), lf, gf)
+    del gf
+    torch.cuda.empty_cache()
+    res = {"dispatch": cfg.moe.dispatch, "bit_for_bit": bitwise,
+           "held": held, "experts_rolled": roll, "bound": GRAD_BOUND,
+           "misses": {"held": _miss(held), EP_CONTROL: _miss(roll)},
+           "seconds": time.perf_counter() - t0}
+    log(f"family train ep check: {cfg.name} {cfg.n_layers} layers, "
+        f"{batch['tokens'].shape[0]} x {traffic['seq_len']}, "
+        f"{cfg.moe.dispatch} over {mesh.shape} against gspmd: "
+        f"{json.dumps(res)}")
+    assert bitwise or _miss(held) <= 1.0, held
+    assert _miss(roll) >= 10.0, (EP_CONTROL, roll)
+    return res
+
+
+def family_train_phase(dev, profile_dir: Path | None, arch: str,
+                       mesh=None) -> dict:
+    """Phase 7d, one family: (a) the gradient check (``FAMILY_CHECK``,
+    within ``FAMILY_BOUNDS``); DeepSeek-V2 also one microbatch's gradients
+    over ``mesh`` on its ``teshu2`` dispatch against gspmd's; (b) the
+    steps of ``FAMILY_TRAIN`` at full width, the kernel counters zeroed
+    just before and read just after (all 0), then ``_trained``'s checks and
+    one more microbatch's gradients; (c) the log line: step seconds
+    (median of steps 2 on), tokens/s, peak memory and the share of the
+    bf16 dense peak by ``_family_flops``; with ``--profile`` one step's
+    gradients and its update traced apart."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset, make_global_batch
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.steps import Recipe, _with_recipe, recipe_for
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+    from repro_torch.models.config import SHAPES
+    from repro_torch.optim import AdamWConfig
+
+    t = FAMILY_TRAIN[arch]
+    torch.cuda.reset_peak_memory_stats()
+    check = FAMILY_CHECK[arch]
+    bf16 = check["dtypes"][0] == "bfloat16"
+    res: dict = {"grad_check": _grad_check(
+        dev, arch, check, FAMILY_BOUNDS[arch] if bf16 else GRAD_BOUND,
+        lambda: _family_mixer(arch), seed=t["seed"],
+        host=arch == DEEPSEEK_ARCH, dtypes=check["dtypes"],
+        spread_bound=None if bf16 else FAMILY_BOUNDS[arch])}
+    res["grad_check_peak_bytes"] = torch.cuda.max_memory_allocated()
+    if arch == DEEPSEEK_ARCH:             # its own recipe, our n_micro
+        recipe = dataclasses.replace(
+            recipe_for(arch, SHAPES["train_4k"]), n_micro=t["n_micro"],
+            lr=t["lr"])
+        assert (recipe.moment_dtype, recipe.accum_dtype) == ("bfloat16",
+                                                             "bfloat16")
+    else:                                 # train()'s
+        recipe = Recipe(n_micro=t["n_micro"], lr=t["lr"])
+    cfg = _with_recipe(dataclasses.replace(get_config(arch),
+                                           n_layers=t["layers"]), recipe)
+    assert cfg.remat, cfg
+    t0 = time.perf_counter()
+    model = lm.init_lm(cfg, seed=t["seed"], device=dev, mesh=mesh)
+    n_params = sum(p.numel() for p in model.parameters())
+    snap = {n: p.detach().to("cpu", copy=True)
+            for n, p in model.named_parameters()}
+    log(f"family train weights: {arch} {cfg.n_layers} of "
+        f"{get_config(arch).n_layers} layers, {n_params} parameters, made "
+        f"on the card and copied to the host in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if mesh is not None:
+        res["ep_check"] = _ep_check(model, cfg, dev, mesh, t)
+    ocfg = AdamWConfig(lr=t["lr"], total_steps=max(t["steps"], 2),
+                       warmup_steps=max(1, t["steps"] // 10),
+                       moment_dtype=recipe.moment_dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:                     # the training path, alone
+        k.launches = 0
+    t0 = time.perf_counter()
+    if arch == DEEPSEEK_ARCH:
+        hist, opt_state = _recipe_steps(model, cfg, recipe, ocfg, t, dev)
+    else:
+        out = train(arch, smoke=False, device=dev, params=model,
+                    log_every=1, n_micro=t["n_micro"], steps=t["steps"],
+                    global_batch=t["global_batch"], seq_len=t["seq_len"],
+                    lr=t["lr"], seed=t["seed"])
+        hist, opt_state = out["history"], out["opt_state"]
+        del out
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k.__name__: k.launches for k in KERNELS}
+    log(f"family train {arch} launches: {json.dumps(launches)}")
+    assert not any(launches.values()), launches
+    assert len(hist) == t["steps"]
+    for h in hist:
+        log(f"family train {arch} step: loss={h['loss']!r} "
+            f"grad_norm={h['grad_norm']!r} lr={h['lr']!r} "
+            f"seconds={h['seconds']!r}")
+    still = _trained(model, snap, opt_state, hist)
+    del snap
+    log(f"family train {arch} moved: {n_params} parameters in "
+        f"{len(dict(model.named_parameters())) - len(still)} of "
+        f"{len(dict(model.named_parameters()))} tensors; unmoved (each step "
+        f"under half a bf16 step, moments nonzero): {still}")
+    _next_grads(model, cfg, t, t["n_micro"], dev)
+    step_s = statistics.median(h["seconds"] for h in hist[1:])
+    tokens = t["global_batch"] * t["seq_len"]
+    flops = _family_flops(model, cfg, t["global_batch"], t["seq_len"])
+    res.update(
+        arch=arch, layers=cfg.n_layers, parameters=n_params,
+        traffic=t, moment_dtype=recipe.moment_dtype,
+        accum_dtype=recipe.accum_dtype,
+        steps=[{k: h[k] for k in ("loss", "grad_norm", "lr", "seconds")}
+               for h in hist],
+        step_s=step_s, tokens_per_s=tokens / step_s, peak_bytes=peak,
+        **flops, bf16_peak_share=flops["model_flops"] / step_s / BF16_PEAK,
+        wall_s=wall, launches=launches, unmoved=still,
+        card=nvidia_smi_line())
+    log(f"family train phase: {json.dumps({k: v for k, v in res.items() if k not in ('grad_check', 'ep_check', 'steps')})}")
+    if profile_dir is not None:
+        full = make_global_batch(SyntheticLMDataset(DataConfig(
+            vocab=cfg.vocab, seq_len=t["seq_len"],
+            global_batch=t["global_batch"], seed=t["seed"])).batch_at(
+                t["steps"] + 1), dev)
+        res["profile"] = _profile_train(
+            model, opt_state, full, ocfg, recipe, profile_dir,
+            tag=f"{arch}_", ops=arch != XLSTM_ARCH)
+    del model, opt_state
+    torch.cuda.empty_cache()
     return res
 
 
@@ -5076,12 +5510,21 @@ def main() -> int:
         t0 = time.perf_counter()
         et = ep_train_phase(dev, args.profile, mesh)
         log(f"ep train phase: {time.perf_counter() - t0:.2f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        family_train_phase(dev, args.profile, DEEPSEEK_ARCH, mesh)
+        log(f"family train phase {DEEPSEEK_ARCH}: "
+            f"{time.perf_counter() - t0:.2f} s")
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()              # the training state wants the card
     t0 = time.perf_counter()
     train_phase(dev, args.profile)
     log(f"train phase: {time.perf_counter() - t0:.2f} s")
+    for arch in (HYMBA_ARCH, XLSTM_ARCH):
+        t0 = time.perf_counter()
+        family_train_phase(dev, args.profile, arch)
+        log(f"family train phase {arch}: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     try:
         dry = dryrun_phase(procs)

@@ -316,14 +316,15 @@ def slstm_cell(pre: torch.Tensor, st: dict) -> dict:
     from ``pre [B, 4d]`` in float32 (tanh, the two log-sigmoids, sigmoid),
     the stabiliser ``m``, ``n`` floored at 1e-6; returns the new state
     ``{"c", "n", "h", "m"}`` (``h`` is the step's output)."""
-    z, i, f, o = pre.chunk(4, dim=-1)
-    z = torch.tanh(z)
-    o = torch.sigmoid(o)
-    log_i = -softplus(-i)
-    log_f = -softplus(-f)
-    m_new = torch.maximum(log_f + st["m"], log_i)
+    d = pre.shape[-1] // 4
+    z = torch.tanh(pre[..., :d])
+    o = torch.sigmoid(pre[..., 3 * d:])
+    log_if = -softplus(-pre[..., d:3 * d])     # both log-sigmoids at once
+    log_i, log_f = log_if[..., :d], log_if[..., d:]
+    f_m = log_f + st["m"]
+    m_new = torch.maximum(f_m, log_i)
     i_s = torch.exp(log_i - m_new)
-    f_s = torch.exp(log_f + st["m"] - m_new)
+    f_s = torch.exp(f_m - m_new)
     c = f_s * st["c"] + i_s * z
     n = torch.clamp(f_s * st["n"] + i_s, min=1e-6)
     return {"c": c, "n": n, "h": o * (c / n), "m": m_new}
@@ -350,9 +351,18 @@ def slstm_scan_ref(xw: torch.Tensor, w_rec: torch.Tensor, b: torch.Tensor,
     in that dtype, from ``state`` (``c, n, h, m [B, d]`` float32): a loop
     of :func:`slstm_pre` and :func:`slstm_cell` over ``t``.  Returns ``(hs
     [B, S, d] float32, the final state)``; ``state`` is not modified.
-    Two planted faults for the checks: ``drop_rec_at`` leaves the recurrent
-    product out of that one step; ``bf16_sum`` sums it in bfloat16
-    (:func:`_bf16_sum`; ``d`` a multiple of 8) instead of float32."""
+    When autograd records, the same loop runs as one ``autograd.Function``
+    (:class:`_SLSTMScan`) whose backward is the recurrence's reverse loop.
+    Two planted faults for the checks (never under autograd):
+    ``drop_rec_at`` leaves the recurrent product out of that one step;
+    ``bf16_sum`` sums it in bfloat16 (:func:`_bf16_sum`; ``d`` a multiple
+    of 8) instead of float32."""
+    if drop_rec_at is None and not bf16_sum and torch.is_grad_enabled() \
+            and any(t.requires_grad for t in (xw, w_rec, b, *(
+                state[k] for k in SLSTM_STATE))):
+        hs, *last = _SLSTMScan.apply(xw, w_rec, b,
+                                     *(state[k] for k in SLSTM_STATE))
+        return hs, dict(zip(SLSTM_STATE, last))
     w = w_rec.float()
     st = {k: state[k].float() for k in SLSTM_STATE}
     hs = []
@@ -367,6 +377,208 @@ def slstm_scan_ref(xw: torch.Tensor, w_rec: torch.Tensor, b: torch.Tensor,
         st = slstm_cell(pre, st)
         hs.append(st["h"])
     return torch.stack(hs, dim=1), st
+
+
+SLSTM_BLOCK = 128       # steps of the training loop one CUDA graph holds
+_SIDE_STREAMS: dict = {}
+
+
+def _blocks(fn, statics: list, n: int, load, store) -> None:
+    """``n`` calls of ``fn()``, which reads only the tensors of ``statics``
+    and returns new ones: ``load(i)`` copies block ``i``'s inputs into
+    ``statics`` before its call, ``store(i, out)`` takes its outputs (and
+    copies a carried state back into ``statics``).  On the card the first
+    call runs on a side stream (the lazy set-up, such as cuBLAS's
+    workspace for that stream, made outside a capture) and is then
+    captured there as one CUDA graph, which the other calls replay: the
+    same kernels on the same inputs, so the same bits, with one launch a
+    block where the loop issues a few dozen a step."""
+    if not statics[0].is_cuda:
+        for i in range(n):
+            load(i)
+            store(i, fn())
+        return
+    dev = statics[0].device
+    if dev not in _SIDE_STREAMS:
+        _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
+    side = _SIDE_STREAMS[dev]
+    cur = torch.cuda.current_stream(dev)
+    load(0)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        out = fn()
+    cur.wait_stream(side)
+    store(0, out)
+    if n == 1:
+        return
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            out = fn()
+        finally:
+            graph.capture_end()
+    for i in range(1, n):
+        load(i)
+        graph.replay()
+        store(i, out)
+
+
+def _forward_steps(xw: torch.Tensor, st: list, w: torch.Tensor,
+                   b: torch.Tensor) -> tuple:
+    """:func:`slstm_scan_ref`'s loop over the ``T`` steps of ``xw [B, T,
+    4d]`` from the state ``st`` (``c, n, h, m``): ``(pre [B, T, 4d], c, n,
+    h, m [B, T, d] after each step)``."""
+    state = dict(zip(SLSTM_STATE, st))
+    pres, seq = [], {k: [] for k in SLSTM_STATE}
+    for x_t in xw.unbind(1):
+        pre = slstm_pre(x_t, state["h"], w, b)
+        state = slstm_cell(pre, state)
+        pres.append(pre)
+        for k in SLSTM_STATE:
+            seq[k].append(state[k])
+    return (torch.stack(pres, dim=1),
+            *(torch.stack(seq[k], dim=1) for k in SLSTM_STATE))
+
+
+def _backward_steps(pre: torch.Tensor, cs: torch.Tensor, ns: torch.Tensor,
+                    ms: torch.Tensor, g_hs: torch.Tensor, carry: list,
+                    wt: torch.Tensor, dt: torch.dtype) -> tuple:
+    """The reverse loop over ``T`` steps: the pre-activations ``pre [B, T,
+    4d]``, the states ``cs, ns, ms [B, T + 1, d]`` (before the first step,
+    then after each), the outputs' gradient ``g_hs [B, T, d]`` and the
+    gradient ``carry`` (``dh, dc, dn, dm``) from the steps after; returns
+    ``(d pre [B, T, 4d], dh, dc, dn, dm)`` before the first step.  The
+    cell's gates are recomputed from ``pre`` at once over the steps; the
+    derivatives are the operations' own: ``softplus'`` is the sigmoid,
+    ``maximum`` splits a tie in half, the clamp of ``n`` passes where ``n
+    >= 1e-6``, each cast's adjoint is the cast back."""
+    z_, i_, f_, o_ = pre.chunk(4, dim=-1)              # [B, T, d] each
+    z, o = torch.tanh(z_), torch.sigmoid(o_)
+    log_i, log_f = -softplus(-i_), -softplus(-f_)
+    m0, m = ms[:, :-1], ms[:, 1:]
+    a = log_f + m0
+    i_s, f_s = torch.exp(log_i - m), torch.exp(log_f + m0 - m)
+    keep = (f_s * ns[:, :-1] + i_s >= 1e-6).float()
+    q = cs[:, 1:] / ns[:, 1:]
+    o_n = o / ns[:, 1:]                     # d c / d h through h = o c / n
+    oqn = o_n * q * keep                    # -d n / d h, the clamp's mask
+    w_a = torch.where(a > log_i, 1.0, torch.where(a == log_i, 0.5, 0.0))
+    sig_i, sig_f = torch.sigmoid(-i_), torch.sigmoid(-f_)
+    i_tz = i_s * (1 - z * z)                # d z_ / d c
+    q_so = q * o * (1 - o)                  # d o_ / d h
+    dh, dc, dn, dm = carry
+    dpre = torch.empty_like(pre)
+    d = cs.shape[-1]
+    for t in range(pre.shape[1] - 1, -1, -1):
+        dh = dh + g_hs[:, t]
+        dc = dc + dh * o_n[:, t]
+        dn = dn * keep[:, t] - dh * oqn[:, t]
+        de_f = (dn * ns[:, t] + dc * cs[:, t]) * f_s[:, t]
+        de_i = (dn + dc * z[:, t]) * i_s[:, t]
+        dm = dm - de_f - de_i
+        d_a = dm * w_a[:, t]
+        row = dpre[:, t]
+        torch.mul(dc, i_tz[:, t], out=row[:, :d])
+        torch.mul(de_i + dm - d_a, sig_i[:, t], out=row[:, d:2 * d])
+        torch.mul(de_f + d_a, sig_f[:, t], out=row[:, 2 * d:3 * d])
+        torch.mul(dh, q_so[:, t], out=row[:, 3 * d:])
+        dc, dn, dm = dc * f_s[:, t], dn * f_s[:, t], de_f + d_a
+        # pre = ((xw + rec) + b).float(), rec = (h.to(dt).float() @ w)
+        # .to(dt): each cast's adjoint the cast back
+        dh = (row.to(dt).float() @ wt).to(dt).float()
+    return dpre, dh, dc, dn, dm
+
+
+class _SLSTMScan(torch.autograd.Function):
+    """:func:`slstm_scan_ref`'s loop under autograd.  The forward runs the
+    loop as it is (the same bits) and keeps each step's pre-activation
+    and state; the backward recomputes the cell's gates from them and runs
+    the recurrence backwards, one step's carried ``(dh, dc, dn, dm)`` at a
+    time (:func:`_backward_steps`), so that a step costs a few dozen
+    operations with no autograd graph (the loop under autograd records
+    one node an operation).  Both run in blocks of ``SLSTM_BLOCK`` steps
+    (:func:`_blocks`: on the card one CUDA graph replayed a block; the
+    steps before the last whole block, or after it going forward, run as
+    they are).  ``w_rec``'s and ``b``'s gradients are summed over the
+    steps in float32 and rounded once to their dtype."""
+
+    @staticmethod
+    def forward(ctx, xw, w_rec, b, c, n, h, m):
+        w = w_rec.float()
+        bsz, s, _ = xw.shape
+        t_blk = min(SLSTM_BLOCK, s)
+        whole = s // t_blk
+        pres = torch.empty(xw.shape, dtype=torch.float32, device=xw.device)
+        # [B, S + 1, d]: the state before step 0, then after each step
+        seq = [torch.empty((bsz, s + 1, x.shape[-1]), dtype=torch.float32,
+                           device=xw.device) for x in (c, n, h, m)]
+        for y, x in zip(seq, (c, n, h, m)):
+            y[:, 0] = x
+        xs = torch.empty((bsz, t_blk, xw.shape[-1]), dtype=xw.dtype,
+                         device=xw.device)
+        st = [x.float().clone() for x in (c, n, h, m)]
+
+        def store(t0, out):
+            pres[:, t0:t0 + out[0].shape[1]] = out[0]
+            for y, x, o in zip(seq, st, out[1:]):
+                y[:, t0 + 1:t0 + 1 + o.shape[1]] = o
+                x.copy_(o[:, -1])
+        _blocks(lambda: _forward_steps(xs, st, w, b), [xs, *st], whole,
+                lambda i: xs.copy_(xw[:, i * t_blk:(i + 1) * t_blk]),
+                lambda i, out: store(i * t_blk, out))
+        if whole * t_blk < s:
+            store(whole * t_blk, _forward_steps(xw[:, whole * t_blk:], st,
+                                                w, b))
+        ctx.save_for_backward(pres, w_rec, *seq)
+        ctx.dt, ctx.b_dtype = xw.dtype, b.dtype
+        return (seq[2][:, 1:],) + tuple(x[:, -1] for x in seq)
+
+    @staticmethod
+    def backward(ctx, g_hs, g_c, g_n, g_h, g_m):
+        pre, w_rec, cs, ns, hs, ms = ctx.saved_tensors
+        dt = ctx.dt
+        wt = w_rec.float().t()
+        bsz, s, _ = pre.shape
+        zero = torch.zeros_like(cs[:, 0])
+        carry = [zero.clone() if g is None else g.float().clone()
+                 for g in (g_h, g_c, g_n, g_m)]
+        g_hs = torch.zeros_like(hs[:, 1:]) if g_hs is None else g_hs.float()
+        t_blk = min(SLSTM_BLOCK, s)
+        whole = s // t_blk
+        head = s - whole * t_blk              # the steps before the blocks
+        dpre = torch.empty_like(pre)
+        ins = [torch.empty((bsz, t_blk) + x.shape[2:], dtype=x.dtype,
+                           device=x.device) for x in (pre, g_hs)]
+        ins += [torch.empty((bsz, t_blk + 1, x.shape[-1]), dtype=x.dtype,
+                            device=x.device) for x in (cs, ns, ms)]
+        src = (pre, g_hs, cs, ns, ms)
+
+        def load(i):
+            t0 = s - (i + 1) * t_blk
+            for x, y in zip(ins, src):
+                x.copy_(y[:, t0:t0 + x.shape[1]])
+
+        def store(i, out):
+            t0 = s - (i + 1) * t_blk
+            dpre[:, t0:t0 + t_blk] = out[0]
+            for x, o in zip(carry, out[1:]):
+                x.copy_(o)
+        p_, g_, c_, n_, m_ = ins
+        _blocks(lambda: _backward_steps(p_, c_, n_, m_, g_, carry, wt, dt),
+                [*ins, *carry], whole, load, store)
+        if head:
+            out = _backward_steps(pre[:, :head], cs[:, :head + 1],
+                                  ns[:, :head + 1], ms[:, :head + 1],
+                                  g_hs[:, :head], carry, wt, dt)
+            dpre[:, :head] = out[0]
+            carry = list(out[1:])
+        dh, dc, dn, dm = carry
+        ds = dpre.to(dt)                       # the adjoint of xw and of b
+        dw = torch.einsum("bsk,bsn->kn", hs[:, :-1].to(dt).float(),
+                          ds.float())
+        db = ds.float().sum(dim=(0, 1))
+        return (ds, dw.to(w_rec.dtype), db.to(ctx.b_dtype), dc, dn, dh, dm)
 
 
 def _dtype_step(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -12,7 +12,9 @@ carries the ``[B, di, n]`` float32 state exactly, and within a chunk an
 inclusive scan over its ``L`` positions, written as a log-depth
 (Hillis-Steele) scan in place of ``lax.associative_scan``, gives the states
 from a zero start, to which the carried state decayed by the cumulative
-product is added.  A single decoded token with a state takes the
+product is added.  Under autograd the scan is one ``autograd.Function``
+whose backward is the reverse recurrence, so that a chunk keeps its decays
+and states, not every step of the log-depth scan.  A single decoded token with a state takes the
 reference's fast path (one update of the state).
 
 Under a mesh whose ``model`` axis splits the Mamba head
@@ -85,28 +87,54 @@ def recording(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _scan_in_place(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The inclusive scan of ``h_t = a_t h_{t-1} + b_t`` from ``h = 0``
     along axis 1: log2(L) Hillis-Steele steps of the reference's operator
     ``(a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2)``, in place: returns the
-    ``h`` in ``b``, and ``a`` is overwritten.  When autograd records, the
-    same steps out of place (each step's rows joined to the untouched
-    head), which give the same bits."""
+    ``h`` in ``b``, and ``a`` is overwritten."""
     off, n = 1, a.shape[1]
-    if recording(a, b):
-        while off < n:
-            b = torch.cat([b[:, :off], b[:, off:] + b[:, :-off] * a[:, off:]],
-                          dim=1)
-            if 2 * off < n:
-                a = torch.cat([a[:, :off], a[:, :-off] * a[:, off:]], dim=1)
-            off *= 2
-        return b
     while off < n:
         b[:, off:] += b[:, :-off] * a[:, off:]     # the product made first
         if 2 * off < n:                            # a's last step unused
             a[:, off:] = a[:, :-off] * a[:, off:]
         off *= 2
     return b
+
+
+class _Scan(torch.autograd.Function):
+    """:func:`_scan_in_place` on copies of ``a`` and ``b`` under autograd.
+    It saves ``a`` and the states ``h`` (``a`` is the caller's ``exp``
+    output, which autograd keeps anyway) where autograd of the log-depth
+    steps would keep every step's operands.  The backward is the reverse
+    recurrence: ``lam_t = g_t + a_{t+1} lam_{t+1}`` (the same scan over the
+    flipped rows), then ``db = lam`` and ``da_t = lam_t h_{t-1}`` (0 at
+    ``t = 0``, whose ``h_{-1}`` is 0)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _scan_in_place(a.clone(), b.clone())
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h = ctx.saved_tensors
+        shifted = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+        lam = _scan_in_place(shifted.flip(1), g.flip(1)).flip(1)
+        da = torch.cat([torch.zeros_like(lam[:, :1]), lam[:, 1:] * h[:, :-1]],
+                       dim=1)
+        return da, lam
+
+
+def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The inclusive scan of ``h_t = a_t h_{t-1} + b_t`` from ``h = 0``
+    along axis 1 (:func:`_scan_in_place`: ``a`` and ``b`` are overwritten
+    and ``h`` returned in ``b``); when autograd records, the same steps on
+    copies with the reverse recurrence as their backward (:class:`_Scan`),
+    which give the same bits."""
+    if recording(a, b):
+        return _Scan.apply(a, b)
+    return _scan_in_place(a, b)
 
 
 def _channels(p: Mamba, cfg: ModelConfig, mesh) -> int:

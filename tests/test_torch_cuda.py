@@ -1343,6 +1343,52 @@ def test_slstm_kernel_matches_plain_at_units(cuda, s, units):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slstm_training_loop_graphed_is_the_loop(cuda, dtype, monkeypatch):
+    """The sLSTM recurrence under autograd (``ref._SLSTMScan``) at the
+    served width (B 4, d 1,024) over 600 steps, its blocks of 128 captured
+    and replayed as CUDA graphs (``ref._blocks``), against the same blocks
+    run as they are on the card: ``hs``, the final state and every
+    gradient bit for bit; each call replays its graph for the blocks after
+    the first (three forward, three backward; a tail of 88 steps run as
+    it is)."""
+    xw, w, bias, st = _slstm_inputs(4, 600, 1024, dtype, cuda, seed=7)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    weights = [torch.randn((4, 600, 1024), generator=gen, device=cuda)] + [
+        torch.randn((4, 1024), generator=gen, device=cuda)
+        for _ in ref.SLSTM_STATE]
+    replays = []
+    real_replay = torch.cuda.CUDAGraph.replay
+
+    def counted(self):
+        replays.append(1)
+        return real_replay(self)
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", counted)
+
+    def run():
+        ins = [x.clone().requires_grad_(True) for x in (xw, w, bias)] + [
+            st[k].clone().requires_grad_(True) for k in ref.SLSTM_STATE]
+        hs, fin = ref.slstm_scan_ref(*ins[:3], dict(zip(ref.SLSTM_STATE,
+                                                         ins[3:])))
+        loss = (hs * weights[0]).sum() + sum(
+            (fin[k] * x).sum() for k, x in zip(ref.SLSTM_STATE, weights[1:]))
+        return [hs, *fin.values(), *torch.autograd.grad(loss, ins)]
+    graphed = run()
+    assert len(replays) == 6, len(replays)
+
+    def eager(fn, statics, n, load, store):
+        for i in range(n):
+            load(i)
+            store(i, fn())
+    monkeypatch.setattr(ref, "_blocks", eager)
+    plain = run()
+    torch.cuda.synchronize()
+    assert len(replays) == 6
+    for got, want in zip(graphed, plain):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_slstm_kernel_two_calls_are_bit_identical(cuda, dtype):
     """The sum's order is fixed (each warp's k-steps in order, then the
     warps' partial sums in order), so two calls on the same inputs give

@@ -57,9 +57,10 @@ from repro_torch.optim import AdamWConfig  # noqa: E402
 ARCH = "qwen2.5-14b"
 
 
-def _ref_params(seed: int = 0, jitter: bool = True) -> dict:
+def _ref_params(seed: int = 0, jitter: bool = True, arch: str = ARCH
+                ) -> dict:
     p = jax.tree.map(np.asarray, jlm.init_lm(jax.random.key(seed),
-                                             ref_config(ARCH, smoke=True)))
+                                             ref_config(arch, smoke=True)))
     return jittered(p, seed + 1) if jitter else p
 
 
@@ -85,20 +86,45 @@ def _spacing(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(x.abs().clamp(min=1e-30))) - 23)
 
 
-@pytest.mark.parametrize("n_micro", [1, 2])
-def test_make_train_step_two_steps_match_reference(n_micro):
-    rcfg, pcfg = ref_config(ARCH, smoke=True), get_config(ARCH, smoke=True)
-    params = _ref_params()
-    ocfg = dict(lr=1e-3, warmup_steps=1, total_steps=4)
+# the families' steps: the dense arch at n_micro 1 and 2, Hymba, xLSTM and
+# DeepSeek-V2, the last on its recipe's bf16 moments and accumulation
+STEP_CASES = [(ARCH, 1, "float32"), (ARCH, 2, "float32"),
+              ("hymba-1.5b", 2, "float32"), ("xlstm-350m", 1, "float32"),
+              ("deepseek-v2-236b", 2, "bfloat16")]
+
+
+@pytest.mark.parametrize("arch, n_micro, state_dtype", STEP_CASES,
+                         ids=[f"{a}-{n}" for a, n, _ in STEP_CASES])
+def test_make_train_step_two_steps_match_reference(arch, n_micro,
+                                                   state_dtype):
+    """Two steps of ``make_train_step`` against the reference's jitted
+    step.  With bf16 moments and accumulation each side rounds its
+    accumulated gradient and both moments to bf16, so that on top of the
+    float32 bound a gradient may sit one rounding of each of its two
+    accumulated pieces and of their sum apart (``2^-7 |g|``, 3 x 2^-8
+    rounded up), and the update ``m^ / (sqrt(v^) + eps)``, whose size
+    Adam holds near 1 in these first steps, one rounding of ``m`` and of
+    ``v`` (``(2^-8 + 2^-9) |update|``, bounded by ``2^-7 x 2``)."""
+    rcfg, pcfg = ref_config(arch, smoke=True), get_config(arch, smoke=True)
+    params = _ref_params(arch=arch)
+    ocfg = dict(lr=1e-3, warmup_steps=1, total_steps=4,
+                moment_dtype=state_dtype)
     jstep = jax.jit(jsteps.make_train_step(rcfg, RefAdamW(**ocfg), (),
-                                           jsteps.Recipe(n_micro=n_micro)))
-    pstep = steps.make_train_step(pcfg, AdamWConfig(**ocfg),
-                                  steps.Recipe(n_micro=n_micro))
+                                           jsteps.Recipe(
+                                               n_micro=n_micro,
+                                               moment_dtype=state_dtype,
+                                               accum_dtype=state_dtype)))
+    pstep = steps.make_train_step(pcfg, AdamWConfig(**ocfg), steps.Recipe(
+        n_micro=n_micro, moment_dtype=state_dtype, accum_dtype=state_dtype))
     model = lm_params_from_reference(pcfg, params, device="cpu")
     model.requires_grad_(True)
-    jp, jo = jax.tree.map(jnp.asarray, params), ref_init_opt_state(params)
+    jp = jax.tree.map(jnp.asarray, params)
+    jo = ref_init_opt_state(params, state_dtype)
     ost = opt_state_from_reference(model, jax.tree.map(np.asarray, jo))
     assert ost["m"]["unembed"].stride() == model.unembed.stride()
+    assert all(t.dtype == getattr(torch, state_dtype)
+               for k in ("m", "v") for t in ost[k].values())
+    bf16 = state_dtype == "bfloat16"
     bound = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
     capped = total = 0
     for i in range(2):
@@ -116,13 +142,17 @@ def test_make_train_step_two_steps_match_reference(n_micro):
         lr = float(jm["lr"])
         scale = min(1.0, 1.0 / float(jm["grad_norm"]))   # the clip's
         v_hat = named_from_reference(model, jax.tree.map(
-            np.asarray, jo["v"]))
+            lambda a: np.asarray(a, np.float32), jo["v"]))
         want = named_from_reference(model, jax.tree.map(np.asarray, jp))
         for n, p in model.named_parameters():
             e = F32_GRAD * float(g[n].abs().max()) * scale
+            if bf16:
+                e = e + 2.0 ** -7 * g[n].abs() * scale
             root = (v_hat[n] / (1 - 0.95 ** (i + 1))).sqrt()
             move = (2 * e / (root - e).clamp(min=1e-30)).clamp(max=2.0)
             move = torch.where(v_hat[n] == 0, 0.0, move)   # no gradient yet
+            if bf16:
+                move = torch.where(move == 2.0, move, move + 2.0 ** -6)
             bound[n] += lr * move
             diff = (p.detach() - want[n]).abs()
             assert bool((diff <= bound[n] + 2 * _spacing(want[n])).all()), n

@@ -21,6 +21,7 @@ the loss to rtol 2e-4 and each gradient to a relative norm error of 6e-2
 is small: a bias added to every key shifts each query's logits by nearly
 one constant).
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -36,7 +37,7 @@ from repro.models import lm as jlm
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.models import frontends, hybrid, lm  # noqa: E402
+from repro_torch.models import frontends, hybrid, layers, lm  # noqa: E402
 from repro_torch.models.convert import (lm_params_from_reference,  # noqa: E402
                                         named_from_reference, to_tensor)
 
@@ -69,16 +70,18 @@ def batch_for(cfg, seed: int, b: int = 2, s: int = 24) -> dict:
     return out
 
 
-def reference_and_port(arch: str, dtype: str | None = None, seed: int = 0):
+def reference_and_port(arch: str, dtype: str | None = None, seed: int = 0,
+                       s: int = 24, **changes):
     """``(ref loss, ref grads keyed as the port's, port loss, port grads,
-    model)`` for one batch."""
-    rcfg, pcfg = ref_config(arch, smoke=True), get_config(arch, smoke=True)
+    model)`` for one batch of 2 x ``s`` tokens; ``changes`` replace fields
+    of both SMOKE configs (``dtype`` too)."""
     if dtype:
-        rcfg = dataclasses.replace(rcfg, dtype=dtype)
-        pcfg = dataclasses.replace(pcfg, dtype=dtype)
+        changes["dtype"] = dtype
+    rcfg = dataclasses.replace(ref_config(arch, smoke=True), **changes)
+    pcfg = dataclasses.replace(get_config(arch, smoke=True), **changes)
     params = jittered(jax.tree.map(np.asarray, jlm.init_lm(
         jax.random.key(seed), rcfg)), seed + 1)
-    batch = batch_for(rcfg, seed + 2)
+    batch = batch_for(rcfg, seed + 2, s=s)
     jl, jg = jax.value_and_grad(lambda p: jlm.train_loss(
         p, rcfg, {k: jnp.asarray(v) for k, v in batch.items()}))(
         jax.tree.map(jnp.asarray, params))
@@ -93,9 +96,10 @@ def reference_and_port(arch: str, dtype: str | None = None, seed: int = 0):
             loss.detach(), dict(zip(named, grads)), model)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_train_loss_and_every_gradient_match_reference(arch):
-    jl, want, loss, got, model = reference_and_port(arch)
+def held_to_reference(jl, want, loss, got) -> None:
+    """The loss to ``F32_LOSS``, every gradient element within
+    ``F32_GRAD`` of its parameter's largest reference element, and a
+    gradient wherever the reference's reaches."""
     assert loss.dtype == torch.float32 and torch.isfinite(loss)
     assert float(loss) == pytest.approx(jl, rel=F32_LOSS)
     assert list(got) == list(want)
@@ -106,9 +110,50 @@ def test_train_loss_and_every_gradient_match_reference(arch):
         if scale > 0:                   # the reference's gradient reaches it
             assert float(g.abs().max()) > 0, f"{name} got no gradient"
         assert float((g.float() - w).abs().max()) <= F32_GRAD * scale, name
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_loss_and_every_gradient_match_reference(arch):
+    jl, want, loss, got, model = reference_and_port(arch)
+    held_to_reference(jl, want, loss, got)
     # only the token table of an embeddings-fed model goes without
     zero = [n for n, g in got.items() if float(g.abs().max()) == 0]
     assert zero == (["embed"] if model.cfg.modality != "text" else [])
+
+
+@pytest.mark.parametrize("arch, s, changes", [
+    # three Mamba chunks of 128 carried, a ragged tail of 44; the window
+    # of 8 crossed in the windowed layer
+    ("hymba-1.5b", 300, {}),
+    # three mLSTM chunks of 256, a ragged tail of 88; 600 sLSTM steps
+    ("xlstm-350m", 600, {}),
+    # capacity factor 0.5: 128 tokens, 256 assignments over 8 experts of
+    # 24 slots, so that tokens are dropped
+    ("deepseek-v2-236b", 64, {"capacity": 0.5}),
+], ids=["hymba-1.5b-S300", "xlstm-350m-S600", "deepseek-v2-236b-drops"])
+def test_train_loss_and_gradients_across_the_mixers_chunks(arch, s, changes,
+                                                           monkeypatch):
+    """The training loss and every gradient against the reference's at
+    lengths that cross the mixers' chunks (and, for DeepSeek-V2, with
+    capacity drops, counted through the port's buffer builder)."""
+    from repro_torch.models import moe
+    kw = {}
+    if "capacity" in changes:
+        kw["moe"] = dataclasses.replace(
+            get_config(arch, smoke=True).moe,
+            capacity_factor=changes["capacity"])
+    dropped = []
+    real = moe._build_buffers
+
+    def counted(*a, **k):
+        out = real(*a, **k)
+        dropped.append(int((~out[2][1]).sum()))
+        return out
+    monkeypatch.setattr(moe, "_build_buffers", counted)
+    jl, want, loss, got, _ = reference_and_port(arch, s=s, **kw)
+    held_to_reference(jl, want, loss, got)
+    if kw:
+        assert dropped and all(n > 0 for n in dropped), dropped
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-14b", "granite-34b"])
@@ -226,17 +271,41 @@ def test_moe_training_forward_is_the_plain_forward(arch):
     assert experts and all(bool(g.abs().max() > 0) for g in experts)
 
 
+def _scan_out_of_place(a, b):
+    """The Mamba training scan before ``hybrid._Scan``: the log-depth steps
+    out of place, differentiated by autograd step by step."""
+    off, n = 1, a.shape[1]
+    while off < n:
+        b = torch.cat([b[:, :off], b[:, off:] + b[:, :-off] * a[:, off:]],
+                      dim=1)
+        if 2 * off < n:
+            a = torch.cat([a[:, :off], a[:, :-off] * a[:, off:]], dim=1)
+        off *= 2
+    return b
+
+
 @pytest.mark.parametrize("chunk", [8, 16, 128])
 def test_hymba_scan_out_of_place_is_the_in_place_scan(chunk):
-    """The Mamba scan under autograd (out of place) against the serving
-    form (in place): the same operator in the same order, bit for bit, for
-    the scan alone and the whole mixer's output."""
+    """The Mamba scan under autograd (``hybrid._Scan``) against the serving
+    form (in place) and the out-of-place steps it replaced: the same
+    operator in the same order, bit for bit, for the scan alone and the
+    whole mixer's output; its gradients (the reverse recurrence) against
+    autograd of the out-of-place steps within float32's rounding."""
     g = torch.Generator().manual_seed(chunk)
     a = torch.rand((2, chunk, 6, 4), generator=g)
     b = torch.randn((2, chunk, 6, 4), generator=g)
     want = hybrid._scan(a.clone(), b.clone())
-    got = hybrid._scan(a.clone().requires_grad_(True), b.clone())
+    ag, bg = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    got = hybrid._scan(ag, bg)
+    old = _scan_out_of_place(ag, bg)
     assert got.grad_fn is not None and torch.equal(got, want)
+    assert torch.equal(old, want)
+    w = torch.randn(got.shape, generator=g)
+    new_g = torch.autograd.grad((got * w).sum(), [ag, bg])
+    old_g = torch.autograd.grad((old * w).sum(), [ag, bg])
+    for x, y in zip(new_g, old_g):
+        assert float((x - y).abs().max()) <= F32_GRAD * float(y.abs().max())
+    assert float(new_g[0][:, 0].abs().max()) == 0.0     # h_{-1} is 0
 
     cfg = get_config("hymba-1.5b", smoke=True)
     model = lm.init_lm(cfg, seed=2, device="cpu")
@@ -247,6 +316,58 @@ def test_hymba_scan_out_of_place_is_the_in_place_scan(chunk):
     got, st2 = hybrid.mamba_forward(mamba, cfg, x, chunk=chunk)
     assert got.grad_fn is not None
     assert torch.equal(got, want) and torch.equal(st["ssm"], st2["ssm"])
+
+
+@pytest.mark.parametrize("block", [8, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slstm_scan_under_autograd_is_the_loop(dtype, block, monkeypatch):
+    """The sLSTM recurrence under autograd (``ref._SLSTMScan``) against
+    the plain loop of ``slstm_pre`` and ``slstm_cell``: its outputs and
+    final state bit for bit; in float32 its gradients (the reverse loop)
+    against autograd of the loop for every input, the state included,
+    within float32's rounding.  (In bf16 each backward step rounds ``dh``
+    to bf16 on both sides, and the two orders of float32 work before it
+    round some elements apart: the forward alone is held.)  Over 37
+    steps in blocks of 8 (four blocks carried and a tail of 5, the loops'
+    block structure on the card) and of 128 (one block of all 37)."""
+    from repro_torch.kernels import ref
+    monkeypatch.setattr(ref, "SLSTM_BLOCK", block)
+    g = torch.Generator().manual_seed(5)
+    dt = getattr(torch, dtype)
+    b_, s, d = 3, 37, 16
+    xw = torch.randn((b_, s, 4 * d), generator=g).to(dt).requires_grad_(True)
+    w = (0.3 * torch.randn((d, 4 * d), generator=g)).to(dt).requires_grad_(
+        True)
+    bias = (0.5 * torch.randn(4 * d, generator=g)).to(dt).requires_grad_(True)
+    st = {"c": torch.randn((b_, d), generator=g),
+          "n": 1 + torch.rand((b_, d), generator=g),
+          "h": torch.randn((b_, d), generator=g),
+          "m": torch.randn((b_, d), generator=g)}
+    st = {k: v.requires_grad_(True) for k, v in st.items()}
+    hs, fin = ref.slstm_scan_ref(xw, w, bias, st)
+    assert hs.grad_fn is not None
+
+    loop, h = dict(st), []
+    for t in range(s):
+        loop = ref.slstm_cell(ref.slstm_pre(xw[:, t], loop["h"], w.float(),
+                                            bias), loop)
+        h.append(loop["h"])
+    want = torch.stack(h, dim=1)
+    assert torch.equal(hs, want)
+    assert all(torch.equal(fin[k], loop[k]) for k in ref.SLSTM_STATE)
+    if dtype == "bfloat16":
+        return
+    weights = [torch.randn(want.shape, generator=g)] + [
+        torch.randn((b_, d), generator=g) for _ in ref.SLSTM_STATE]
+    inputs = [xw, w, bias] + [st[k] for k in ref.SLSTM_STATE]
+
+    def loss(out, last):
+        return (out * weights[0]).sum() + sum(
+            (last[k] * x).sum() for k, x in zip(ref.SLSTM_STATE, weights[1:]))
+    got = torch.autograd.grad(loss(hs, fin), inputs)
+    ref_g = torch.autograd.grad(loss(want, loop), inputs)
+    for x, y in zip(got, ref_g):
+        assert float((x - y).abs().max()) <= 2e-6 * float(y.abs().max())
 
 
 def test_hymba_mamba_gradients_match_reference():
@@ -309,53 +430,185 @@ def test_frontends_match_reference():
     assert abs(float(tables[0].std()) - 0.02) < 2e-3
 
 
-# chip_smoke.py's GRAD_BOUND: the card's check of bf16 gradients against
-# their float32 copy's at full width
+# chip_smoke.py's GRAD_BOUND and FAMILY_BOUNDS: the card's check of bf16
+# gradients against their float32 copy's at full width, by family.
+# "norm_one" bounds the one-element leaves' norm ratio (the norm's bound
+# where a family sets none)
 CARD_GRAD_BOUND = {"cos": 3e-3, "norm": 5e-2, "loss": 2e-4}
+CARD_BOUNDS = {"qwen2.5-14b": CARD_GRAD_BOUND,
+               "hymba-1.5b": dict(CARD_GRAD_BOUND, norm_one=9.0),
+               "xlstm-350m": CARD_GRAD_BOUND,
+               "deepseek-v2-236b": dict(CARD_GRAD_BOUND, cos=2e-2)}
+# each family's own mixer, whose output the second control detaches: an
+# attribute (a method or a module-level function) returning (out, state)
+MIXERS = {"qwen2.5-14b": (layers.Attention, "forward"),
+          "hymba-1.5b": (hybrid, "mamba_forward"),
+          "xlstm-350m": (lm, "slstm_forward"),
+          "deepseek-v2-236b": (layers.MLA, "forward")}
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_bf16_gradients_against_float32_sit_well_inside_the_card_bound(seed):
-    """The basis of the card's gradient check, on the CPU at SMOKE width:
-    the bf16 model's loss and gradients against its float32 copy's (the
-    same weights, norms and biases jittered), by the card check's
-    measures (1 - cosine and |norm ratio - 1| per parameter, the loss's
-    relative difference) over 2 x 512 Markov tokens.  The card's bound is
-    4.5-22x the worst seen here (4.4e-4, 1.1e-2, 8.9e-6 over seeds 0-2);
-    this holds each under a third of it.  The control (labels shifted one
-    position) must miss it by 10x."""
-    import copy
+def _detached(owner, name: str):
+    """``(owner.name, a stand-in for it whose first output is
+    detached)``."""
+    orig = getattr(owner, name)
+
+    def detached(*a, **k):
+        out, rest = orig(*a, **k)
+        return out.detach(), rest
+    return orig, detached
+
+
+@contextlib.contextmanager
+def routing_held(model, tokens):
+    """The port's router made to choose, at every call, the experts the
+    bf16 ``model``'s one MoE layer chooses for ``tokens`` (a recorded
+    forward); each token's weights its own probabilities at them, as
+    ``chip_smoke.py``'s check holds them.  No-op for a model without
+    experts."""
+    from repro_torch.models import moe
+    if model.cfg.moe is None:
+        yield
+        return
+    calls, real = [], moe._route
+
+    def record(router_w, x_flat, m):
+        out = real(router_w, x_flat, m)
+        calls.append(out[0])
+        return out
+    moe._route = record
+    try:
+        with torch.no_grad():
+            lm.forward(model, tokens=tokens, train=True)
+    finally:
+        moe._route = real
+    assert len(calls) == 1, len(calls)
+
+    def route(router_w, x_flat, m):
+        probs = torch.softmax((x_flat @ router_w).float(), dim=-1)
+        eids = calls[0]
+        weights = probs.gather(1, eids.long())
+        weights = weights / (weights.sum(-1, keepdim=True) + 1e-9)
+        f = (eids[:, :1] == torch.arange(m.num_experts)).float().mean(0)
+        return eids, weights, m.num_experts * (f * probs.mean(0)).sum()
+    moe._route = route
+    try:
+        yield
+    finally:
+        moe._route = real
+
+
+def card_check(arch: str, seed: int, dtypes: tuple, bound: dict) -> None:
+    """The card's gradient check at SMOKE width on the CPU: a bf16 model
+    (norms and biases jittered) copied into ``dtypes[0]`` and
+    ``dtypes[1]``, one batch of 2 x 512 Markov tokens, a MoE model's
+    routing held to the bf16 model's; the loss and every gradient of the
+    first against the second's by ``1 - cos`` and ``|norm ratio - 1|``
+    per parameter (one-element leaves apart, as ``norm_one``) and the
+    loss's relative difference, each under a third of ``bound``; the
+    labels shifted one position and the family's mixer detached must
+    each miss it by 10x."""
     from repro_torch.data import DataConfig, SyntheticLMDataset
 
-    cfg = dataclasses.replace(get_config("qwen2.5-14b", smoke=True),
-                              dtype="bfloat16")
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="bfloat16")
     bf = lm.init_lm(cfg, seed=seed, device="cpu")
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for n, p in bf.named_parameters():
             if p.dim() == 1:                    # norms and biases
-                p.add_((0.1 * torch.randn(p.shape, generator=g)).bfloat16())
-    f32 = copy.deepcopy(bf).float()
-    f32.cfg = dataclasses.replace(cfg, dtype="float32")
+                p.add_((0.1 * torch.randn(p.shape, generator=g)).to(p.dtype))
+
+    def copy(dtype):
+        out = lm.LM(dataclasses.replace(cfg, dtype=dtype), device="cpu")
+        with torch.no_grad():
+            for (_, p), (_, q) in zip(bf.named_parameters(),
+                                      out.named_parameters()):
+                q.copy_(p)
+        return out
+    low, high = copy(dtypes[0]), copy(dtypes[1])
     batch = {k: torch.from_numpy(v) for k, v in SyntheticLMDataset(DataConfig(
         vocab=cfg.vocab, seq_len=512, global_batch=2, seed=seed)).batch_at(
             0).items()}
+    held_routing = routing_held(bf, batch["tokens"])
+    with held_routing:
+        def grads(model, b):
+            model.requires_grad_(True)
+            loss = lm.train_loss(model, b)
+            return float(loss), torch.autograd.grad(
+                loss, list(model.parameters()), allow_unused=True,
+                materialize_grads=True)
 
-    def grads(model, b):
-        model.requires_grad_(True)
-        loss = lm.train_loss(model, b)
-        return float(loss), torch.autograd.grad(loss, list(model.parameters()))
+        lf, gf = grads(high, batch)
 
-    def errors(b):
-        (lb, gb), (lf, gf) = grads(bf, b), grads(f32, batch)
-        cos = norm = 0.0
-        for x, y in zip(gb, gf):
-            x, y = x.double().flatten(), y.double().flatten()
-            cos = max(cos, 1 - float(x @ y / (x.norm() * y.norm())))
-            norm = max(norm, abs(float(x.norm() / y.norm()) - 1))
-        return {"cos": cos, "norm": norm, "loss": abs(lb - lf) / abs(lf)}
+        def errors(b):
+            lb, gb = grads(low, b)
+            err = {"cos": 0.0, "norm": 0.0, "norm_one": 0.0,
+                   "loss": abs(lb - lf) / abs(lf)}
+            for x, y in zip(gb, gf):
+                key = "norm_one" if y.numel() == 1 else "norm"
+                x, y = x.double().flatten(), y.double().flatten()
+                nx, ny = float(x.norm()), float(y.norm())
+                err["cos"] = max(err["cos"], 1.0 if nx == 0 or ny == 0
+                                 else 1 - float(x @ y) / (nx * ny))
+                err[key] = max(err[key], abs(nx / ny - 1) if ny
+                               else float(nx > 0))
+            return err
 
-    held = errors(batch)
-    assert all(held[k] <= CARD_GRAD_BOUND[k] / 3 for k in held), held
-    shifted = errors(dict(batch, labels=torch.roll(batch["labels"], 1, 1)))
-    assert max(shifted[k] / CARD_GRAD_BOUND[k] for k in shifted) >= 10, shifted
+        lim = dict(bound)
+        lim.setdefault("norm_one", lim["norm"])
+
+        def miss(err):
+            return max(err[k] / lim[k] for k in err)
+
+        held = errors(batch)
+        assert all(held[k] <= lim[k] / 3 for k in held), held
+        shifted = errors(dict(batch, labels=torch.roll(batch["labels"], 1,
+                                                       1)))
+        assert miss(shifted) >= 10, shifted
+        owner, name = MIXERS[arch]
+        orig, detached = _detached(owner, name)
+        setattr(owner, name, detached)
+        try:
+            dropped = errors(batch)
+        finally:
+            setattr(owner, name, orig)
+        assert miss(dropped) >= 10, dropped
+
+
+@pytest.mark.parametrize("arch", list(MIXERS))
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bf16_gradients_against_float32_sit_well_inside_the_card_bound(
+        seed, arch):
+    """The basis of the card's bf16 gradient check (``card_check``): the
+    bf16 model's gradients against its float32 copy's over 2 x 512 Markov
+    tokens: for Hymba two Mamba chunks of 128 carried and the window of 8
+    crossed, for xLSTM two mLSTM chunks of 256 and 512 sLSTM steps, for
+    DeepSeek-V2 MLA, the dense layer 0 and a routed layer with shared
+    experts.  The worst seen over seeds 0-2 (1 - cos, norm, loss):
+    Qwen2.5-14B 4.4e-4, 1.1e-2, 8.9e-6; Hymba 3.7e-4, 4.7e-3, 1.7e-5, and
+    2.9 for its one-element ``dt_bias`` (a gradient of 6.0e-8 summed over
+    every position and channel, against 2.3e-7 in bf16); xLSTM 7.2e-4,
+    6.3e-3, 1.3e-5; DeepSeek-V2 5.9e-3 with each copy routing its own
+    tokens (its routed experts), 1.2e-2, 1.8e-5, and with the routing held
+    (as here) 4.3e-4, 6.8e-3, 1.7e-5.  Each family's bf16
+    bound (``CARD_BOUNDS``: GRAD_BOUND but Hymba's one-element leaves and
+    DeepSeek-V2's cosine) was set from these before the card ran.  The
+    card holds DeepSeek-V2's (routing held, as here) and Qwen2.5-14B's;
+    at full width Hymba's and xLSTM's bf16 spreads pass theirs (on the
+    CPU too: xLSTM 1 - cos 1-6e-2 a leaf, as the JAX package's own bf16
+    gradients), so the card logs them and holds float32 against float64
+    instead (the next test)."""
+    card_check(arch, seed, ("bfloat16", "float32"), CARD_BOUNDS[arch])
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_float32_gradients_against_float64_sit_well_inside_the_card_bound(
+        seed, arch):
+    """The basis of the card's check of Hymba and xLSTM: the float32
+    copy's gradients against a float64 copy's (the same bf16 weights)
+    within GRAD_BOUND, the controls missing it by 10x.  On the CPU at
+    full width (Hymba 2 layers, 1 x 2,048; xLSTM 8 layers, 1 x 1,024;
+    seeds 0-2) the worst spreads sit 480x and more under it: 1 - cos
+    1.1e-8, norm 1.0e-4 (xLSTM's ``b_ifo``), one-element 4.9e-6 (Hymba's
+    ``dt_bias``), loss 1.7e-7."""
+    card_check(arch, seed, ("float32", "float64"), CARD_GRAD_BOUND)
