@@ -33,10 +33,11 @@ exits non-zero and prints no result.  In order it
    hold ``HGMMA`` and ``UTMALDG`` instructions, and each flash case logs
    which of the library's three kernels it ran (read from a torch.profiler
    trace of the call; bf16 at head width 64 or 128 must run
-   ``flash_wgmma``); the Qwen2.5-14B and the Qwen3-MoE prefill shapes are
-   timed beside SDPA.  Sliding windows (Hymba-1.5B's 1,024 at its prefill
-   of 4,096 tokens, an appended prefill of 2,048 on 2,048, windows of 1 and
-   off the tiles, ``flash_mma`` at D 32) are held the same way; a window of
+   ``flash_wgmma``); the Qwen2.5-14B and the Qwen3-MoE prefill shapes, and
+   those of the five dense models of 6c, are timed beside SDPA.  Sliding
+   windows (Hymba-1.5B's 1,024 at its prefill of 4,096 tokens, an appended
+   prefill of 2,048 on 2,048, windows of 1 and off the tiles,
+   ``flash_mma`` at D 32) are held the same way; a window of
    Skv or more must give the unwindowed output bit for bit, and the kernel
    run with its window one 128-row tile wider must fail the check; the
    Hymba prefill is timed windowed, unwindowed on the same inputs, and
@@ -45,12 +46,12 @@ exits non-zero and prints no result.  In order it
    each decode case logs the device kernels one call launched (bf16 at
    head width 64 or 128 must launch ``decode_tma`` alone), a ``valid_len``
    passed as a device tensor must give the int's output bit for bit, and
-   the Qwen2.5-14B and Qwen3-MoE decode steps and one ``decode_32k`` layer
-   are timed (beside SDPA where it fits), with the host's microseconds per
-   call.  Hymba's decode step (25 q / 5 kv heads of 64, 4,128 valid
-   positions, window 1,024) is held on ``decode_tma`` (with ``valid_len``
-   on the device too), with a window past ``valid_len``, and on
-   ``decode_split``; the window one 64-position tile wider must fail, and
+   the Qwen2.5-14B and Qwen3-MoE decode steps, those of 6c's models and
+   one ``decode_32k`` layer are timed (beside SDPA where it fits), with the
+   host's microseconds per call.  Hymba's decode step (25 q / 5 kv heads of
+   64, 4,128 valid positions, window 1,024) is held on ``decode_tma``
+   (with ``valid_len`` on the device too), with a window past
+   ``valid_len``, and on ``decode_split``; the window one 64-position tile wider must fail, and
    the step is timed windowed, unwindowed and beside SDPA on the window's
    slice of the cache.  The pieces of a GQA layer split over ``model`` by
    positions (its heads do not divide ``model``; the card's one rank never
@@ -171,10 +172,26 @@ exits non-zero and prints no result.  In order it
    and read just after: the prefill must launch the flash kernel once per
    layer and every decode step the decode kernel once per layer.  The same
    run with the plain versions, teacher-forced on the kernel run's tokens,
-   is the yardstick for its logits, and two control runs with faulty plain
-   attention (S and P rounded to bf16; the decode dropping its newest 32
-   positions, which must fail the logit check) show how far a wrong
-   attention moves them;
+   is the yardstick for its logits, and three control runs with faulty
+   plain attention (S and P rounded to bf16; the decode dropping its newest
+   32 positions, which must fail the logit check; the prefill's causal
+   diagonal one column late, which must fail it at step 0) show how far a
+   wrong attention moves them;
+6c. (right after 6) drives ``serve`` the same way (``dense_serve_phase``:
+   the same traffic, counts, yardstick, checks and the last two controls)
+   on the five other dense models at full width (``DENSE_SERVE``):
+   Granite-34B whole (88 layers, 48 q heads over one kv head, the GELU
+   MLP; 67.92 GB), Pixtral-12B whole (40, RoPE at 1e9), MusicGen-large
+   whole (48, 32 heads of 64), Llama-3-405B at 8 of 126 layers and
+   Qwen1.5-110B at 20 of 80 (QKV biases), each made on the card from the
+   seed and freed before the next.  Pixtral and MusicGen are then served
+   from their stub frontends' embeddings of the prompts (1,024 patches of
+   16 x 16 x 3, or 4 codebooks over 1,024 frames, drawn on the card): a
+   prefill from the embeddings into a fresh cache, then 32 greedy steps
+   from tokens, held to their plain run with the same counts, check and
+   decode control.  Each logs its weights, prefill s, decode step ms,
+   tokens/s, peaks, launches, the logit differences a step, the bound and
+   each control's factor over it;
 6a. drives ``serve`` on Hymba-1.5B at full width and depth (32 layers, 29
    with a sliding window of 1,024, every layer's attention beside a Mamba
    head whose scan runs as torch ops): batch 4, 4,096-token prompts, 32
@@ -443,7 +460,19 @@ FLASH_CASES = [  # name, BHq, BHkv, Sq, Skv, D, causal, q dtype (k, v: bf16), wi
      "bfloat16", 1000),
     ("window >= Skv", 100, 20, 1000, 1000, 64, True, "bfloat16", 1000),
     ("flash_mma at D 32, window 100", 40, 8, 1024, 1024, 32, True,
-     "bfloat16", 100)]
+     "bfloat16", 100),
+    # the prefills of the five dense models the dense serve phases serve
+    # (batch 4 x 1,024 tokens)
+    ("Granite-34B prefill (48 q / 1 kv head, MQA)", 192, 4, 1024, 1024, 128,
+     True, "bfloat16", 0),
+    ("Pixtral-12B prefill (32 q / 8 kv heads)", 128, 32, 1024, 1024, 128,
+     True, "bfloat16", 0),
+    ("MusicGen-large prefill (32 / 32 heads of 64, MHA)", 128, 128, 1024,
+     1024, 64, True, "bfloat16", 0),
+    ("Llama-3-405B prefill (128 q / 8 kv heads)", 512, 32, 1024, 1024, 128,
+     True, "bfloat16", 0),
+    ("Qwen1.5-110B prefill (64 q / 8 kv heads)", 256, 32, 1024, 1024, 128,
+     True, "bfloat16", 0)]
 # the flash cases timed beside SDPA, and the key of each one's row
 FLASH_TIMED = {"serving prefill": "flash_attention",
                "MoE prefill (Qwen3-MoE: 64 q / 4 kv heads)":
@@ -479,13 +508,44 @@ DECODE_CASES = [  # name, B, H, KVH, T, d, valid_len, q dtype (cache: bf16), win
     ("Hymba step, window > valid_len", 4, 25, 5, 4160, 64, 1000, "bfloat16",
      2000),
     ("Hymba step, window 1,024, decode_split (float32 q)", 4, 25, 5, 4160,
-     64, 4128, "float32", 1024)]
+     64, 4128, "float32", 1024),
+    # the dense models' steps not above (Granite's is the MQA case,
+    # MusicGen-large's the MHA one)
+    ("Llama-3-405B step (128 q / 8 kv heads)", 4, 128, 8, 2048, 128, 1056,
+     "bfloat16", 0),
+    ("Qwen1.5-110B step (64 q / 8 kv heads)", 4, 64, 8, 2048, 128, 1056,
+     "bfloat16", 0),
+    ("Pixtral-12B step (32 q / 8 kv heads)", 4, 32, 8, 2048, 128, 1056,
+     "bfloat16", 0)]
 # the decode cases timed, and the key of each one's row
 DECODE_TIMED = {"serving decode": "decode_attention",
                 "MoE decode (Qwen3-MoE: 64 q / 4 kv heads)":
                 "decode_attention_moe",
                 "decode_32k layer": "decode_attention_32k",
                 "Hymba step, window 1,024": "decode_attention_hymba"}
+# the five dense models served after Qwen2.5-14B (dense_serve_phase), in the
+# order they run, with the layers served: Granite-34B first and whole, while
+# nothing else holds the card (67.92 GB of weights); Llama-3 and Qwen1.5 cut
+# to about the 60 GB the training cell holds (59.41 and 59.34 GB)
+DENSE_SERVE = {"granite-34b": 88, "pixtral-12b": 40, "musicgen-large": 48,
+               "llama3-405b": 8, "qwen1.5-110b": 20}
+# each one's prefill and decode step among the cases above, timed beside
+# SDPA (the kernels line's dense_models entries)
+DENSE_CASES = {  # arch: (flash case, decode case)
+    "granite-34b": ("Granite-34B prefill (48 q / 1 kv head, MQA)",
+                    "MQA (group = H)"),
+    "pixtral-12b": ("Pixtral-12B prefill (32 q / 8 kv heads)",
+                    "Pixtral-12B step (32 q / 8 kv heads)"),
+    "musicgen-large": ("MusicGen-large prefill (32 / 32 heads of 64, MHA)",
+                       "d 64, MHA (MusicGen-large: 32 / 32 heads)"),
+    "llama3-405b": ("Llama-3-405B prefill (128 q / 8 kv heads)",
+                    "Llama-3-405B step (128 q / 8 kv heads)"),
+    "qwen1.5-110b": ("Qwen1.5-110B prefill (64 q / 8 kv heads)",
+                     "Qwen1.5-110B step (64 q / 8 kv heads)")}
+FLASH_TIMED.update({f: f"flash_attention_{a}"
+                    for a, (f, _) in DENSE_CASES.items()})
+DECODE_TIMED.update({d: f"decode_attention_{a}"
+                     for a, (_, d) in DENSE_CASES.items()})
 DECODE_WINDOW_FAULT = "Hymba step, window 1,024"   # one 64-position tile wider
 SHARP = 4.0
 # the pieces of a GQA layer split over model by positions (its heads do not
@@ -1849,6 +1909,44 @@ def slstm_phase(dev) -> dict:
 # correct kernel, so the kernel phase's sharp-score cases must.
 LOGIT_TOL_STEPS = 10
 MUST_FAIL_CONTROL = "decode drops its newest 32 positions"
+# The prefill's control (set before any card run; at step 0 it must miss
+# the same check): the plain flash with its causal diagonal one column
+# late, each end-aligned row also seeing the position after it, the
+# end-alignment fault a flash kernel is most likely to have.  A CPU
+# emulation at d_model 512-2,048 over 1,024 positions
+# (dev/prefill_control_probe.py) read 14-35 bf16 steps at 8 layers, 62 at
+# 20, 113 at 48 and 25 at 88 (GELU), the bf16 S and P control 2.0-5.3; on
+# the H100 it read 24.9-94.3 steps (2.49x the bound at Llama-3's 8 layers,
+# 9.43x at Qwen2.5-14B's 48)
+PREFILL_CONTROL = "prefill's causal diagonal one column late"
+
+
+def _late_diagonal_flash(q, k, v, *, causal=True, scale=None, window=0):
+    """A faulty plain flash for the prefill control: row ``r`` (end-aligned,
+    ``i + Skv - Sq``) attends columns ``c <= r + 1``, and with a window
+    ``r - c < window``; float32 math in the plain flash's blocks of query
+    rows."""
+    import torch
+
+    from repro_torch.kernels.ref import FLASH_REF_LOGITS, MASKED
+    bhq, sq, d = q.shape
+    skv = k.shape[1]
+    g = bhq // k.shape[0]
+    k, v = (x.repeat_interleave(g, dim=0).float() for x in (k, v))
+    block = max(1, min(sq, FLASH_REF_LOGITS // (bhq * skv)))
+    cols = torch.arange(skv, device=q.device)[None]
+    out = []
+    for i0 in range(0, sq, block):
+        qb = q[:, i0:i0 + block]
+        s = torch.einsum("bqd,bkd->bqk", qb.float(), k) * (scale or d ** -0.5)
+        rows = torch.arange(i0, i0 + qb.shape[1],
+                            device=q.device)[:, None] + (skv - sq)
+        mask = cols <= rows + 1
+        if window:
+            mask &= rows - cols < window
+        p = torch.softmax(torch.where(mask[None], s, MASKED), dim=-1)
+        out.append(torch.einsum("bqk,bkd->bqd", p, v).to(q.dtype))
+    return torch.cat(out, dim=1)
 
 
 def _bf16_flash(q, k, v, *, causal=True, scale=None, window=0):
@@ -1880,17 +1978,19 @@ def _bf16_decode(q, k, v, valid_len, *, scale=None, window=0):
     return out.reshape(b, h, d).to(q.dtype)
 
 
-def _control_diffs(serve, kw, gen, plain_logits, flash, decode) -> list:
-    """Largest logit difference per step of a teacher-forced run on faulty
-    plain attention (``flash``, ``decode`` stand in for the plain versions)
-    against the plain run's logits."""
+def _control_diffs(serve, arch, kw, gen, plain_logits, flash, decode
+                   ) -> list:
+    """Largest logit difference per step of a teacher-forced run of
+    ``arch`` on faulty plain attention (``flash``, ``decode`` stand in for
+    the plain versions) against the plain run's logits; ``serve`` is
+    ``serve`` or :func:`_embeds_serve`."""
     import torch
 
     from repro_torch.kernels import ref
     saved = ref.flash_attention_ref, ref.decode_attention_ref
     ref.flash_attention_ref, ref.decode_attention_ref = flash, decode
     try:
-        _, run = serve(SERVE_ARCH, use_kernel=False, forced=gen, **kw)
+        _, run = serve(arch, use_kernel=False, forced=gen, **kw)
     finally:
         ref.flash_attention_ref, ref.decode_attention_ref = saved
     logits = torch.stack(run.logits).float()
@@ -1938,50 +2038,111 @@ def _check_first_tokens(first_agree, margins, step: float) -> None:
             f"prefers its own by {margin} (tie: 0)")
 
 
-def serve_phase(dev, profile_dir: Path | None) -> dict:
+# Pixtral-12B and MusicGen-large take embeddings in the reference's step
+# cells: each is also served from its stub frontend's embeddings of the
+# prompts (a prefill into a fresh cache, then greedy steps from tokens),
+# drawn on the card from a generator seeded from the traffic's seed
+EMBEDS = {"pixtral-12b": "patches", "musicgen-large": "frames"}
+PATCH_DIM = 768                      # 16 x 16 x 3: 1,024 patches of 512 x 512
+CODEBOOKS = 4
+
+
+def _frontend_embeds(cfg, traffic: dict, dev):
+    """``[B, S, d_model]`` embeddings of ``traffic``'s prompts from the
+    port's stub frontend of ``cfg``'s modality: Pixtral's patch projection
+    of random 16 x 16 x 3 patches, MusicGen's summed tables of 4 random
+    codebooks."""
+    import torch
+
+    from repro_torch.models import frontends
+    gen = torch.Generator(device=dev).manual_seed(traffic["seed"])
+    b, s = traffic["batch"], traffic["prompt_len"]
+    if cfg.modality == "vlm":
+        front = frontends.init_patch_frontend(gen, cfg, PATCH_DIM)
+        patches = torch.randn((b, s, PATCH_DIM), generator=gen, device=dev)
+        return frontends.patch_embed(front, patches.to(front["proj"].dtype))
+    front = frontends.init_frame_frontend(gen, cfg, CODEBOOKS)
+    codes = torch.randint(0, cfg.vocab, (b, s, CODEBOOKS), generator=gen,
+                          device=dev)
+    return frontends.frame_embed(front, codes)
+
+
+def _embeds_serve(arch: str, *, params, embeds, max_len: int, gen_len: int,
+                  use_kernel: bool = True, forced=None, **_):
+    """What ``serve`` does, from ``embeds [B, S, D]`` in place of the
+    prompts' tokens: the prefill into a fresh cache
+    (``lm.forward(embeds=...)``), then ``gen_len`` greedy steps from tokens
+    (``lm.serve_step``), ``forced`` feeding its tokens instead.  Returns
+    ``(tokens [B, gen_len], ServeStats)``; takes ``serve``'s other keywords
+    and ignores them."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import KERNELS, ref
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import ServeStats
     from repro_torch.models import lm
+    assert params.cfg.name == arch
+    b, dev = embeds.shape[0], embeds.device
+    stats = ServeStats(0.0, 0.0, b * gen_len)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = lm.init_cache(params.cfg, b, max_len, device=dev)
+        logits, cache, _ = lm.forward(params, embeds=embeds, cache=cache,
+                                      use_kernel=use_kernel)
+        stats.logits.append(logits[:, -1].clone())
+        del logits
+        torch.cuda.synchronize()
+        stats.prefill_s = time.perf_counter() - t0
+        out = []
+        tok = stats.logits[-1].argmax(-1).to(torch.int32)[:, None]
+        t0 = time.perf_counter()
+        for i in range(gen_len):
+            out.append(tok)
+            step_in = tok if forced is None else torch.from_numpy(
+                np.asarray(forced[:, i:i + 1], np.int32)).to(dev)
+            logits, cache = lm.serve_step(params, cache, tokens=step_in,
+                                          use_kernel=use_kernel)
+            stats.logits.append(logits[:, -1].clone())
+            tok = stats.logits[-1].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        stats.decode_s = time.perf_counter() - t0
+    return torch.cat(out, dim=1).cpu().numpy(), stats
 
-    cfg = get_config(SERVE_ARCH)
-    t0 = time.perf_counter()
-    params = lm.init_lm(cfg, seed=SERVE["seed"], device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params.parameters())
-    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    log(f"serve weights: {SERVE_ARCH} {cfg.n_layers} layers, {n_params} "
-        f"parameters ({cfg.num_params()} in its matrices; {w_bytes / 1e9:.2f} "
-        f"GB {cfg.dtype}), made on the card in "
-        f"{time.perf_counter() - t0:.2f} s")
-    kw = dict(smoke=False, device=dev, params=params, **SERVE)
-    # warm cuBLAS and the kernels at the run's shapes (not counted)
-    serve(SERVE_ARCH, **dict(kw, gen_len=2))
-    torch.cuda.synchronize()
 
+def _held_to_plain(serve, arch: str, kw: dict, cfg, controls: dict) -> dict:
+    """One kernel run of ``serve(arch, **kw)`` (``serve`` or
+    :func:`_embeds_serve`), every launch counter zeroed just before and
+    read just after (flash once a layer in the prefill, decode once a layer
+    a step, nothing else), against the plain versions' run teacher-forced
+    on its tokens, and each of ``controls`` (``{name: (flash, decode)}``,
+    faulty plain versions) on the same tokens: the logged numbers and the
+    checks' inputs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import KERNELS
+    gen_len = kw["gen_len"]
     torch.cuda.reset_peak_memory_stats()
-    for k in KERNELS:                     # the serving path, counted alone
+    for k in KERNELS:
         k.launches = 0
-    gen, stats = serve(SERVE_ARCH, **kw)
+    gen, stats = serve(arch, **kw)
     counts = {k.__name__: k.launches for k in KERNELS}
     peak = torch.cuda.max_memory_allocated()
     want = {k.__name__: 0 for k in KERNELS}
     want["flash_attention"] = cfg.n_layers                      # the prefill
-    want["decode_attention"] = cfg.n_layers * SERVE["gen_len"]   # the steps
+    want["decode_attention"] = cfg.n_layers * gen_len           # the steps
     assert counts == want, counts
     logits = torch.stack(stats.logits).float()
-    assert gen.shape == (SERVE["batch"], SERVE["gen_len"])
-    assert logits.shape == (SERVE["gen_len"] + 1, SERVE["batch"], cfg.vocab)
+    assert gen.shape == (kw["batch"], gen_len)
+    assert logits.shape == (gen_len + 1, kw["batch"], cfg.vocab)
     assert bool(torch.isfinite(logits).all())
     assert ((gen >= 0) & (gen < cfg.vocab)).all()
 
     # the yardstick: the plain versions, fed the kernel run's tokens
     for k in KERNELS:
         k.launches = 0
-    plain_gen, plain = serve(SERVE_ARCH, use_kernel=False, forced=gen, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    plain_gen, plain = serve(arch, use_kernel=False, forced=gen, **kw)
     assert all(k.launches == 0 for k in KERNELS)
     plain_logits = torch.stack(plain.logits).float()
     diffs = (logits - plain_logits).abs().amax(dim=(1, 2)).tolist()
@@ -1992,36 +2153,118 @@ def serve_phase(dev, profile_dir: Path | None) -> dict:
     margins = _first_token_margins(plain_logits[0], logits[0],
                                    plain_gen[:, 0], gen[:, 0])
     # the controls: how far a wrong attention moves the same logits
-    plain_decode = ref.decode_attention_ref
-    controls = {
-        "S and P in bf16": _control_diffs(serve, kw, gen, plain_logits,
-                                          _bf16_flash, _bf16_decode),
-        MUST_FAIL_CONTROL: _control_diffs(
-            serve, kw, gen, plain_logits, ref.flash_attention_ref,
-            lambda q, k, v, n, scale=None, window=0: plain_decode(
-                q, k, v, n - 32, window=window))}
-    out = dict(
+    diffs_c = {c: _control_diffs(serve, arch, kw, gen, plain_logits, *fns)
+               for c, fns in controls.items()}
+    plain_peak = torch.cuda.max_memory_allocated()     # plain and controls
+    return dict(
         prefill_s=stats.prefill_s, decode_s=stats.decode_s,
         decode_tokens_per_s=stats.tokens_per_s,
-        decode_step_ms=stats.decode_s / SERVE["gen_len"] * 1e3,
+        decode_step_ms=stats.decode_s / gen_len * 1e3,
         plain_prefill_s=plain.prefill_s,
         plain_decode_tokens_per_s=plain.tokens_per_s,
-        peak_device_bytes=peak, launches=counts,
-        max_logit_diff_per_step=diffs, max_abs_logit=top,
+        peak_device_bytes=peak, plain_peak_device_bytes=plain_peak,
+        launches=counts,
+        max_logit_diff_per_step=diffs, max_abs_logit=top, bf16_step=step,
         logit_tol=tol, first_token_agrees=first_agree,
         first_tokens=gen[:, 0].tolist(), first_token_margins=margins,
-        control_max_logit_diff={c: max(d) for c, d in controls.items()},
-        control_diff_per_step=controls)
-    log(f"serve {SERVE_ARCH} batch={SERVE['batch']} prompt={SERVE['prompt_len']} "
-        f"gen={SERVE['gen_len']}: {json.dumps(out)}")
-    _check_first_tokens(first_agree, margins, step)
-    assert max(diffs) <= tol, f"logits differ from plain by {max(diffs)} > {tol}"
-    assert max(controls[MUST_FAIL_CONTROL]) > tol, \
-        f"control {MUST_FAIL_CONTROL!r} passes the logit check"
-    _dense_serve_counts(params, cfg, dev)      # the dry run's check (8)
+        control_max_logit_diff={c: max(d) for c, d in diffs_c.items()},
+        control_over_bound={c: max(d) / tol for c, d in diffs_c.items()},
+        control_step0_over_bound={c: d[0] / tol for c, d in diffs_c.items()},
+        control_diff_per_step=diffs_c)
+
+
+def _check_held(out: dict, tag: str) -> None:
+    """The checks of a :func:`_held_to_plain` run: the first tokens (the
+    tie rule), every step's logits within ``LOGIT_TOL_STEPS`` of the plain
+    run's, the decode control missing that at some step and the prefill
+    control (where it ran) at step 0."""
+    _check_first_tokens(out["first_token_agrees"], out["first_token_margins"],
+                        out["bf16_step"])
+    diffs, tol = out["max_logit_diff_per_step"], out["logit_tol"]
+    assert max(diffs) <= tol, \
+        f"{tag}: logits differ from plain by {max(diffs)} > {tol}"
+    assert out["control_max_logit_diff"][MUST_FAIL_CONTROL] > tol, \
+        f"{tag}: control {MUST_FAIL_CONTROL!r} passes the logit check"
+    steps = out["control_diff_per_step"]
+    if PREFILL_CONTROL in steps:
+        assert steps[PREFILL_CONTROL][0] > tol, \
+            f"{tag}: control {PREFILL_CONTROL!r} passes the check at step 0"
+
+
+def dense_serve_phase(dev, profile_dir: Path | None, arch: str = SERVE_ARCH,
+                      layers: int | None = None, traffic: dict = SERVE
+                      ) -> dict:
+    """``serve`` on dense model ``arch`` at full width (its first
+    ``layers`` layers; all by default) on ``traffic``: weights made on the
+    card from the seed, one warm-up serve of 2 tokens, then the kernel run
+    held to the plain run (:func:`_held_to_plain`) with the decode control
+    and the prefill control, which must each miss the logit check (and,
+    for Qwen2.5-14B, the informational bf16 S and P control); a model fed
+    embeddings in the reference's step cells (``EMBEDS``) is then served
+    from its frontend's embeddings alike (the decode control).  Qwen2.5-14B
+    is also counted for the dry run; ``profile_dir`` traces the prefill and
+    4 steps."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+
+    whole = get_config(arch)
+    cfg = whole if layers in (None, whole.n_layers) else \
+        dataclasses.replace(whole, n_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=traffic["seed"], device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    depth = f"{cfg.n_layers}" + ("" if cfg is whole else
+                                 f" of {whole.n_layers}")
+    log(f"serve weights: {arch} {depth} layers, {n_params} parameters "
+        f"({cfg.num_params()} in its matrices; {w_bytes / 1e9:.2f} GB "
+        f"{cfg.dtype}), made on the card in {init_s:.2f} s")
+    kw = dict(smoke=False, device=dev, params=params, **traffic)
+    # warm cuBLAS and the kernels at the run's shapes (not counted)
+    serve(arch, **dict(kw, gen_len=2))
+    torch.cuda.synchronize()
+
+    plain_decode = ref.decode_attention_ref
+
+    def dropping(q, k, v, n, scale=None, window=0):   # MUST_FAIL_CONTROL
+        return plain_decode(q, k, v, n - 32, window=window)
+    controls = {MUST_FAIL_CONTROL: (ref.flash_attention_ref, dropping),
+                PREFILL_CONTROL: (_late_diagonal_flash, plain_decode)}
+    if arch == SERVE_ARCH:
+        controls["S and P in bf16"] = (_bf16_flash, _bf16_decode)
+    out = dict(layers=cfg.n_layers, parameters=n_params, weight_bytes=w_bytes,
+               init_s=init_s, init_peak_device_bytes=init_peak,
+               **_held_to_plain(serve, arch, kw, cfg, controls))
+    log(f"serve {arch} batch={traffic['batch']} "
+        f"prompt={traffic['prompt_len']} gen={traffic['gen_len']}: "
+        f"{json.dumps(out)}")
+    _check_held(out, f"serve {arch}")
+    if arch == SERVE_ARCH:
+        _dense_serve_counts(params, cfg, dev)  # the dry run's check (8)
+    if arch in EMBEDS:
+        ekw = dict(kw, embeds=_frontend_embeds(cfg, traffic, dev))
+        out["embeds"] = dict(frontend=EMBEDS[arch], **_held_to_plain(
+            _embeds_serve, arch, ekw, cfg,
+            {MUST_FAIL_CONTROL: controls[MUST_FAIL_CONTROL]}))
+        log(f"serve {arch} from {EMBEDS[arch]} batch={traffic['batch']} "
+            f"prompt={traffic['prompt_len']} gen={traffic['gen_len']}: "
+            f"{json.dumps(out['embeds'])}")
+        _check_held(out["embeds"], f"serve {arch} from {EMBEDS[arch]}")
+        del ekw
     if profile_dir is not None:
-        _profile_serve(params, cfg, dev, profile_dir)
-    del params, stats, plain, logits, plain_logits
+        _profile_serve(params, cfg, dev, profile_dir,
+                       tag="" if arch == SERVE_ARCH else f"{arch}_")
+    del params, kw
     torch.cuda.empty_cache()
     return out
 
@@ -5482,8 +5725,13 @@ def main() -> int:
     log(f"graph phase: {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()              # the served models want the card
     t0 = time.perf_counter()
-    sv = serve_phase(dev, args.profile)
+    sv = dense_serve_phase(dev, args.profile)
     log(f"serve phase: {time.perf_counter() - t0:.2f} s")
+    dense = {}                            # the other dense models, Granite
+    for arch, layers in DENSE_SERVE.items():        # first
+        t0 = time.perf_counter()
+        dense[arch] = dense_serve_phase(dev, args.profile, arch, layers)
+        log(f"dense serve phase {arch}: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     hv = hymba_serve_phase(dev, args.profile)
     log(f"hymba serve phase: {time.perf_counter() - t0:.2f} s")
@@ -5534,10 +5782,16 @@ def main() -> int:
     # each path's launches, counted from zero just before it ran
     launches = {k: sum(p["launches"][k] for p in (sl, sk, bt, gr))
                 for k in sl["launches"]}
+    # the dense models' launches by model, from tokens and from embeddings
+    dense_launches = {k: {a: d["launches"][k] + d.get("embeds", {}).get(
+        "launches", {}).get(k, 0) for a, d in dense.items()}
+        for k in ("flash_attention", "decode_attention")}
     launches.update(
-        flash_attention=sum(p["launches"]["flash_attention"] for p in (sv, hv)),
+        flash_attention=sum(p["launches"]["flash_attention"] for p in (sv, hv))
+        + sum(dense_launches["flash_attention"].values()),
         decode_attention=sum(p["launches"]["decode_attention"]
-                             for p in (sv, hv)),
+                             for p in (sv, hv))
+        + sum(dense_launches["decode_attention"].values()),
         gmm=sum(p["launches"]["gmm"] + p["ep"]["launches"]["gmm"]
                 for p in (mv, dv)),
         slstm_scan=xv["launches"]["slstm_scan"])
@@ -5595,6 +5849,13 @@ def main() -> int:
                                       "lse_max_abs_err", "control_share",
                                       "bit_for_bit") if y in r}
                     for x, r in split.items()}
+        if k.__name__ in dense_launches:   # the dense models' shapes
+            line[-1]["dense_models"] = {a: {
+                "launches": n,
+                **{x: krows[f"{k.__name__}_{a}"][x] for x in (
+                    "path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")}}
+                for a, n in dense_launches[k.__name__].items()}
         w = krows.get(f"{k.__name__}_hymba")
         if w is not None:     # flash and decode with Hymba's window
             line[-1]["window"] = {

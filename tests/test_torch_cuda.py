@@ -1053,6 +1053,82 @@ def test_card_smoke_serve_matches_plain(cuda):
                                    rtol=1e-4, atol=1e-4)
 
 
+def _embeds_run(params, embeds, gen_len, max_len, use_kernel, forced=None):
+    """A prefill of ``embeds`` into a fresh cache, then ``gen_len`` greedy
+    steps from tokens (``forced [B, gen_len]``'s where given): the tokens
+    (numpy) and every step's last-position logits."""
+    from repro_torch.models import lm
+    dev = embeds.device
+    cache = lm.init_cache(params.cfg, embeds.shape[0], max_len, device=dev)
+    logits, cache, _ = lm.forward(params, embeds=embeds, cache=cache,
+                                  use_kernel=use_kernel)
+    out, toks = [logits[:, -1]], []
+    for i in range(gen_len):
+        toks.append(out[-1].argmax(-1)[:, None].to(torch.int32))
+        step = toks[-1] if forced is None else \
+            torch.from_numpy(forced[:, i:i + 1]).to(dev)
+        logits, cache = lm.serve_step(params, cache, tokens=step,
+                                      use_kernel=use_kernel)
+        out.append(logits[:, -1])
+    return torch.cat(toks, dim=1).cpu().numpy(), out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-34b", "pixtral-12b",
+                                  "musicgen-large", "llama3-405b",
+                                  "qwen1.5-110b"])
+def test_card_smoke_dense_serve_matches_plain(cuda, arch):
+    """The other dense smoke configs (Granite's MQA and GELU MLP, Qwen1.5's
+    biases) served on the card as qwen2.5-14b is above; Pixtral and
+    MusicGen also from their stub frontends' embeddings (a prefill into a
+    fresh cache, then greedy steps from tokens), with the same counts and
+    bounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import frontends, lm
+
+    cfg = get_config(arch, smoke=True)
+    params = lm.init_lm(cfg, seed=0, device=cuda)
+    kw = dict(batch=3, prompt_len=70, gen_len=6, max_len=128, device=cuda,
+              params=params)
+
+    def served(use_kernel, forced=None):
+        gen, stats = serve(arch, use_kernel=use_kernel, forced=forced, **kw)
+        return gen, stats.logits
+    runs = [served]
+    if cfg.modality != "text":
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        if cfg.modality == "vlm":
+            front = frontends.init_patch_frontend(gen, cfg, 48)
+            embeds = frontends.patch_embed(front, torch.randn(
+                (3, 70, 48), generator=gen, device=cuda))
+        else:
+            front = frontends.init_frame_frontend(gen, cfg, 4)
+            embeds = frontends.frame_embed(front, torch.randint(
+                0, cfg.vocab, (3, 70, 4), generator=gen, device=cuda))
+        runs.append(lambda use_kernel, forced=None: _embeds_run(
+            params, embeds, 6, 128, use_kernel, forced))
+    for run in runs:
+        for k in KERNELS:
+            k.launches = 0
+        with torch.no_grad():
+            gen_tok, logits = run(True)
+        counts = {k.__name__: k.launches for k in KERNELS}
+        assert counts == {"partition_permute": 0, "segment_combine": 0,
+                          "segmented_fold": 0,
+                          "flash_attention": cfg.n_layers,
+                          "decode_attention": cfg.n_layers * 6, "gmm": 0,
+                          "slstm_scan": 0}
+        with torch.no_grad():
+            plain_tok, plain = run(False, gen_tok)
+        assert all(k.launches == counts[k.__name__] for k in KERNELS)
+        np.testing.assert_array_equal(plain_tok[:, 0], gen_tok[:, 0])
+        for a, b in zip(logits, plain):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       rtol=1e-4, atol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # the grouped matmul
 # ---------------------------------------------------------------------------

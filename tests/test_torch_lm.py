@@ -350,8 +350,7 @@ def test_init_lm_is_seeded():
 # serve() end to end
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen2.5-14b", "granite-34b",
-                                  "pixtral-12b", "musicgen-large"])
+@pytest.mark.parametrize("arch", DENSE)
 def test_serve_emits_the_reference_tokens(arch):
     rcfg, pcfg, params, model = _pair(arch)
     kw = dict(batch=2, prompt_len=8, gen_len=5, max_len=32, seed=0)
